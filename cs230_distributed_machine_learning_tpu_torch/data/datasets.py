@@ -1,0 +1,249 @@
+"""Dataset staging, metadata, and the host-side columnar cache.
+
+Port of the JAX package's ``data/datasets.py`` for the ported path. Layout:
+``<root>/datasets/<id>/*.csv`` with a ``preprocessed/`` subdirectory; the
+last column is the label. A per-process ``DatasetCache`` parses each CSV
+once and keeps float32 numpy arrays that every trial reuses; the trial
+engine moves them to the device.
+
+The builtins stage byte-identical CSVs to the JAX package's without
+scikit-learn: iris is read from the package's copy of scikit-learn's
+``iris.csv`` as ``load_iris`` reads it, and the synthetic generators call
+the port's draw-for-draw copy of ``make_classification``
+(utils/sklearn_compat.py). CSVs are parsed with pandas (the JAX package's
+native C++ loader is not ported yet); the parsed arrays go to the same
+``<csv>.npz`` sidecar, same format and version.
+"""
+
+from __future__ import annotations
+
+import csv
+import glob
+import os
+import threading
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+from ..models.base import TrialData
+from ..utils.config import get_config
+from ..utils.sklearn_compat import make_classification
+
+# parsed-columnar sidecar format, shared with the JAX package's loader
+_SIDECAR_VERSION = 2
+
+
+def dataset_dir(dataset_id: str, root: Optional[str] = None) -> str:
+    root = root or get_config().storage.datasets_dir
+    return os.path.join(root, dataset_id)
+
+
+def find_csv(dataset_id: str, *, preprocessed: bool = False, root: Optional[str] = None):
+    base = dataset_dir(dataset_id, root)
+    if preprocessed:
+        base = os.path.join(base, "preprocessed")
+    hits = sorted(glob.glob(os.path.join(base, "*.csv")))
+    return hits[0] if hits else None
+
+
+def collect_csv_metadata(path: str) -> Dict[str, Any]:
+    """n_rows / n_cols / size_mb of a staged CSV."""
+    import pandas as pd
+
+    size_mb = round(os.path.getsize(path) / (1024 * 1024), 2)
+    n_cols = pd.read_csv(path, nrows=1).shape[1]
+    with open(path, "rb") as f:
+        n_rows = sum(1 for _ in f) - 1
+    return {"n_rows": int(n_rows), "n_cols": int(n_cols), "size_mb": size_mb}
+
+
+def load_table(path: str) -> Tuple[np.ndarray, np.ndarray, list]:
+    """Load a staged CSV: features = all but last column, target = last.
+    Non-numeric feature columns are label-encoded; returns (X, y_raw,
+    columns). A fresh ``<csv>.npz`` sidecar is reused instead of re-parsing."""
+    import pandas as pd
+
+    sidecar = path + ".npz"
+    if os.path.exists(sidecar) and os.path.getmtime(sidecar) >= os.path.getmtime(path):
+        try:
+            z = np.load(sidecar, allow_pickle=True)
+            if int(z["version"]) >= _SIDECAR_VERSION:
+                return z["X"], z["y"], list(z["columns"])
+        except (OSError, KeyError, ValueError):
+            pass  # unreadable or foreign sidecar: re-parse
+
+    df = pd.read_csv(path)
+    X_df = df.iloc[:, :-1]
+    y = df.iloc[:, -1].to_numpy()
+    X_cols = []
+    for col in X_df.columns:
+        series = X_df[col]
+        if pd.api.types.is_numeric_dtype(series):
+            X_cols.append(series.to_numpy(dtype=np.float32))
+        else:  # object / category / string: label-encode
+            _, codes = np.unique(series.astype(str).to_numpy(), return_inverse=True)
+            X_cols.append(codes.astype(np.float32))
+    X = np.stack(X_cols, axis=1) if X_cols else np.zeros((len(df), 0), np.float32)
+    try:
+        np.savez(
+            sidecar,
+            X=X,
+            y=y,
+            columns=np.asarray(list(df.columns), object),
+            version=_SIDECAR_VERSION,
+        )
+    except OSError:
+        pass
+    return X, y, list(df.columns)
+
+
+# ---------------------------------------------------------------------------
+# builtin datasets (no-egress benchmark data)
+# ---------------------------------------------------------------------------
+
+
+def materialize_builtin(name: str, root: Optional[str] = None) -> Optional[str]:
+    """Write a builtin dataset as a staged CSV (both raw and preprocessed
+    locations, since builtins are already clean). Returns the csv path, or
+    None when ``name`` is not a builtin."""
+    name_l = name.lower()
+    if name_l == "iris":
+        df = _iris_frame()
+    elif name_l in ("covertype", "covtype"):
+        df = _synthetic_covertype()
+    elif name_l.startswith("synthetic"):
+        df = _synthetic_classification(name_l)
+    else:
+        return None
+
+    base = dataset_dir(name, root)
+    pre = os.path.join(base, "preprocessed")
+    os.makedirs(pre, exist_ok=True)
+    raw_path = os.path.join(base, f"{name}.csv")
+    pre_path = os.path.join(pre, f"{name}_preprocessed.csv")
+    if not os.path.exists(raw_path):
+        df.to_csv(raw_path, index=False)
+    if not os.path.exists(pre_path):
+        df.to_csv(pre_path, index=False)
+    return pre_path
+
+
+_IRIS_FEATURES = [
+    "sepal length (cm)", "sepal width (cm)", "petal length (cm)", "petal width (cm)",
+]
+
+
+def _iris_frame() -> "Any":
+    """``load_iris(as_frame=True).frame``: the four f64 features and the
+    int ``target`` column, from the package's ``iris.csv`` (scikit-learn's
+    file: a header row ``n_samples,n_features,class names``, then rows of
+    features and class id)."""
+    import pandas as pd
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "iris.csv")
+    with open(path, encoding="utf-8") as f:
+        rows = csv.reader(f)
+        header = next(rows)
+        data = np.empty((int(header[0]), int(header[1])))
+        target = np.empty(int(header[0]), dtype=int)
+        for i, row in enumerate(rows):
+            data[i] = np.asarray(row[:-1], dtype=np.float64)
+            target[i] = int(row[-1])
+    df = pd.DataFrame(data, columns=_IRIS_FEATURES)
+    df["target"] = target
+    return df
+
+
+def _synthetic_covertype(n: int = 116_202) -> "Any":
+    """Covertype-shaped synthetic data (54 features, 7 classes, 20% of the
+    real 581k rows)."""
+    import pandas as pd
+
+    X, y = make_classification(
+        n_samples=n,
+        n_features=54,
+        n_informative=30,
+        n_redundant=10,
+        n_classes=7,
+        n_clusters_per_class=2,
+        random_state=0,
+    )
+    df = pd.DataFrame(X.astype(np.float32), columns=[f"f{i}" for i in range(54)])
+    df["Cover_Type"] = y + 1
+    return df
+
+
+def _synthetic_classification(spec: str) -> "Any":
+    """`synthetic[_<n>x<d>x<c>]` generator for tests/benchmarks."""
+    import pandas as pd
+
+    n, d, c = 10_000, 20, 2
+    parts = spec.split("_")
+    if len(parts) > 1:
+        try:
+            dims = parts[1].split("x")
+            n, d = int(dims[0]), int(dims[1])
+            c = int(dims[2]) if len(dims) > 2 else 2
+        except (ValueError, IndexError):
+            pass
+    X, y = make_classification(
+        n_samples=n,
+        n_features=d,
+        n_informative=max(2, d // 2),
+        n_classes=c,
+        random_state=0,
+    )
+    df = pd.DataFrame(X.astype(np.float32), columns=[f"f{i}" for i in range(d)])
+    df["target"] = y
+    return df
+
+
+# ---------------------------------------------------------------------------
+# columnar cache
+# ---------------------------------------------------------------------------
+
+
+class DatasetCache:
+    """Parse-once cache of staged datasets as TrialData, keyed by dataset id
+    and task kind. Classification labels are encoded by np.unique order —
+    identical to sklearn's LabelEncoder ordering."""
+
+    def __init__(self, root: Optional[str] = None):
+        self._root = root
+        self._lock = threading.Lock()
+        self._cache: Dict[Tuple[str, str], TrialData] = {}
+        self._meta: Dict[str, Dict[str, Any]] = {}
+
+    def resolve_csv(self, dataset_id: str) -> str:
+        path = find_csv(dataset_id, preprocessed=True, root=self._root) or find_csv(
+            dataset_id, root=self._root
+        )
+        if path is None:
+            path = materialize_builtin(dataset_id, root=self._root)
+        if path is None:
+            raise FileNotFoundError(
+                f"Dataset {dataset_id!r} not staged (and not a builtin). "
+                f"Call download_data/preprocess first."
+            )
+        return path
+
+    def metadata(self, dataset_id: str) -> Dict[str, Any]:
+        with self._lock:
+            if dataset_id not in self._meta:
+                self._meta[dataset_id] = collect_csv_metadata(self.resolve_csv(dataset_id))
+            return dict(self._meta[dataset_id])
+
+    def get(self, dataset_id: str, task: str) -> TrialData:
+        key = (dataset_id, task)
+        with self._lock:
+            if key in self._cache:
+                return self._cache[key]
+        X, y_raw, _ = load_table(self.resolve_csv(dataset_id))
+        if task == "classification":
+            classes, y = np.unique(y_raw, return_inverse=True)
+            data = TrialData(X=X, y=y.astype(np.int32), n_classes=len(classes))
+        else:
+            data = TrialData(X=X, y=y_raw.astype(np.float32), n_classes=0)
+        with self._lock:
+            self._cache[key] = data
+        return data

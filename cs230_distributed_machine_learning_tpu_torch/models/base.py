@@ -1,0 +1,133 @@
+"""Model-kernel protocol: sklearn-estimator semantics as batched torch fits.
+
+Port of the JAX package's ``models/base.py``. Every supported model family
+is a *kernel* that fits a whole bucket of trials at once. Hyperparameters
+split in two groups:
+
+- **traced hypers** — numeric values that vary across the trials of one
+  batch (``C``, ``tol``, ``max_iter``); they arrive as ``[T]`` tensors;
+- **static config** — anything that changes shapes or control flow
+  (``penalty``, ``fit_intercept``); trials are bucketed by it.
+
+Where the JAX package vmaps a single-trial ``fit`` over trials and splits,
+the port writes the lane batch out: ``batched_scores`` takes ``[T]``
+hypers and ``[S, n]`` split masks and returns ``[T, S]`` scores.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialData:
+    """One dataset staged for trial execution (host numpy arrays). ``y`` is
+    int32 class ids for classification (with ``n_classes`` > 0) or float32
+    targets for regression (``n_classes`` == 0)."""
+
+    X: Any  # [n, d] float32
+    y: Any  # [n]
+    n_classes: int = 0
+
+
+class ModelKernel(abc.ABC):
+    """Base class for all model kernels."""
+
+    #: sklearn class name this kernel stands in for (e.g. "LogisticRegression")
+    name: str = ""
+    #: "classification" | "regression" | "transform"
+    task: str = ""
+    #: traced hyperparameter defaults, name -> float
+    hyper_defaults: Dict[str, float] = {}
+    #: static config defaults, name -> value
+    static_defaults: Dict[str, Any] = {}
+    #: sklearn get_params() noise with no bearing on the fitted function
+    #: (execution knobs, deprecated placeholders) — dropped in canonicalize
+    ignored_params: frozenset = frozenset(
+        {
+            "n_jobs",
+            "verbose",
+            "warm_start",
+            "copy_X",
+            "random_state",
+            "solver",
+            "multi_class",
+            "dual",
+            "intercept_scaling",
+            "l1_ratio",
+            "class_weight",
+            "max_fun",
+            "break_ties",
+            "cache_size",
+            "decision_function_shape",
+            "store_cv_results",
+            "copy",
+            "algorithm",
+            "leaf_size",
+            "metric_params",
+            "svd_solver",
+            "iterated_power",
+            "power_iteration_normalizer",
+            "n_oversamples",
+        }
+    )
+
+    def canonicalize(self, params: Dict[str, Any]) -> Tuple[Tuple, Dict[str, float]]:
+        """Split a user parameter dict into (static_key, traced_hyper_dict).
+
+        static_key is hashable and is the bucket key. Unknown parameters land
+        in the static key so they still form distinct buckets instead of
+        being silently dropped.
+        """
+        hyper = dict(self.hyper_defaults)
+        static = dict(self.static_defaults)
+        for k, v in params.items():
+            if k in self.hyper_defaults:
+                hyper[k] = float(v)
+            elif k in self.ignored_params or v == "deprecated" or (
+                v is None and k not in self.static_defaults
+            ):
+                continue
+            else:
+                static[k] = v
+        static_key = tuple(sorted((k, _hashable(v)) for k, v in static.items()))
+        return static_key, hyper
+
+    def static_from_key(self, static_key: Tuple) -> Dict[str, Any]:
+        return {k: v for k, v in static_key}
+
+    @abc.abstractmethod
+    def batched_scores(
+        self, X, y, TW, EW, hyper: Dict[str, torch.Tensor], static: Dict[str, Any]
+    ) -> Dict[str, torch.Tensor]:
+        """Fit every (trial, split) lane and score it.
+
+        X [n, d] f32, y [n] i32, TW/EW [S, n] f32 {0,1} fit / eval masks,
+        hyper: name -> [T] f32. Returns {"score": [T, S]} plus optional
+        ``curve_*`` leaves, all on X's device."""
+
+    def memory_estimate_mb(self, n: int, d: int, static: Dict[str, Any]) -> float:
+        """Rough per-(trial, split) working set in MB; the trial engine
+        sizes its generic-path chunks from it."""
+        return max(1.0, 4.0 * n * max(d, 1) * 3 / 1e6)
+
+
+def add_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:
+    """[X | 1] design matrix when fitting an intercept."""
+    X = X.to(torch.float32)
+    if not fit_intercept:
+        return X
+    return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
+
+
+def _hashable(v: Any):
+    if isinstance(v, (list, np.ndarray)):
+        return tuple(np.asarray(v).ravel().tolist())
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    return v

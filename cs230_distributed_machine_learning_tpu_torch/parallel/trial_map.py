@@ -1,0 +1,168 @@
+"""Trial execution engine: batched fits of whole trial buckets on one device.
+
+Port of the main-path subset of the JAX package's ``parallel/trial_map.py``
+(``run_trials`` / ``_run_trials_impl`` / ``_postprocess``). One dispatch
+runs a whole bucket chunk of trials:
+
+    every (trial, split) lane at once — holdout fit + K CV folds
+      x T trials with their hyperparameters as [T] tensors
+
+Trials are bucketed by static config. A bucket whose kernel offers a packed
+path (``build_batched_fn``: the LogReg CUDA-kernel fit) runs in chunks
+rounded up to the kernel's trial block and capped at its chunk cap; every
+other bucket runs the kernel's generic ``batched_scores`` in chunks bounded
+by device memory. Results stay on the device until every chunk has been
+dispatched, then come back to the host once per output leaf.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..models.base import ModelKernel, TrialData
+from ..ops.folds import SplitPlan
+from ..ops.metrics import validate_scoring
+from .mesh import pad_to_multiple
+
+
+@dataclasses.dataclass
+class TrialRunResult:
+    """Per-trial metrics in submission order, plus batch-level timing."""
+
+    trial_metrics: List[Dict[str, Any]]
+    #: wall seconds from the first dispatch to the last result on the host
+    run_time_s: float
+
+
+def _device_memory_mb(device: torch.device) -> float:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory / 1e6
+    return 8_000.0
+
+
+def _memory_chunk_cap(kernel, n, d, static, n_splits, device) -> int:
+    """Trials per generic dispatch bounded by device memory: each trial
+    holds ~memory_estimate_mb per split at once."""
+    per_trial_mb = max(kernel.memory_estimate_mb(n, d, static), 0.5) * max(n_splits, 1)
+    return max(1, int(0.5 * _device_memory_mb(device) / per_trial_mb))
+
+
+def run_trials(
+    kernel: ModelKernel,
+    data: TrialData,
+    plan: SplitPlan,
+    param_dicts: Sequence[Dict[str, Any]],
+    *,
+    device: torch.device,
+    max_trials_per_batch: int = 256,
+    scoring: Optional[str] = None,
+) -> TrialRunResult:
+    """Run all trials (one per param dict) on ``device``, bucketing by
+    static config. ``scoring`` None keeps the default metric (accuracy)."""
+    validate_scoring(scoring, kernel.task)
+    n, d = data.X.shape
+    results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
+
+    buckets: Dict[Any, List[int]] = {}
+    hypers: List[Dict[str, float]] = []
+    for i, params in enumerate(param_dicts):
+        static_key, hyper = kernel.canonicalize(params)
+        hypers.append(hyper)
+        buckets.setdefault(static_key, []).append(i)
+
+    X = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
+    y = torch.as_tensor(np.asarray(data.y), device=device)
+    TW = torch.as_tensor(plan.train_w, device=device)
+    EW = torch.as_tensor(plan.eval_w, device=device)
+
+    pending: List[Any] = []
+    t0 = time.perf_counter()
+    for static_key, idxs in buckets.items():
+        static = kernel.static_from_key(static_key)
+        if hasattr(kernel, "resolve_static"):
+            static = kernel.resolve_static(static, n, d, data.n_classes)
+        static["_n_classes"] = data.n_classes
+        if hasattr(kernel, "bucket_static"):
+            static = kernel.bucket_static(static, [hypers[i] for i in idxs])
+        hyper_names = sorted(hypers[idxs[0]].keys())
+
+        # kernels with a packed path (the LogReg kernel fit) take over the
+        # whole chunk, with their own (larger) chunk geometry
+        fn = None
+        if hasattr(kernel, "build_batched_fn"):
+            Tw = kernel.batched_trial_multiple
+            chunk = max(Tw, min(kernel.batched_chunk_cap, pad_to_multiple(len(idxs), Tw)))
+            fn = kernel.build_batched_fn(
+                static=static, n=n, d=d, n_classes=data.n_classes,
+                n_splits=plan.n_splits, chunk=chunk, device=device,
+            )
+        if fn is None:
+            mem_cap = _memory_chunk_cap(kernel, n, d, static, plan.n_splits, device)
+            chunk = max(1, min(max_trials_per_batch, mem_cap, len(idxs)))
+
+            def fn(X, y, TW, EW, hyper, static=static):
+                return kernel.batched_scores(X, y, TW, EW, hyper, static)
+
+        for start in range(0, len(idxs), chunk):
+            batch_idx = idxs[start : start + chunk]
+            # pad the chunk with the last trial's values; padded lanes are
+            # computed and dropped
+            hyper_batch = {
+                k: np.full((chunk,), hypers[batch_idx[-1]][k], np.float32)
+                for k in hyper_names
+            }
+            for j, gi in enumerate(batch_idx):
+                for k in hyper_names:
+                    hyper_batch[k][j] = hypers[gi][k]
+            hyper_arg = {k: torch.as_tensor(v, device=device) for k, v in hyper_batch.items()}
+            pending.append((fn(X, y, TW, EW, hyper_arg), batch_idx))
+
+    for out, batch_idx in pending:
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        for j, gi in enumerate(batch_idx):
+            results[gi] = _postprocess(host, j, plan, kernel.task)
+    return TrialRunResult(
+        trial_metrics=[r for r in results if r is not None],
+        run_time_s=time.perf_counter() - t0,
+    )
+
+
+def _postprocess(out: Dict[str, np.ndarray], j: int, plan: SplitPlan,
+                 task: str) -> Dict[str, Any]:
+    """Split 0 = holdout test metrics; splits 1..K = CV fold scores.
+    mean_cv_score is the trial-ranking key."""
+    metrics: Dict[str, Any] = {}
+    score = float(out["score"][j, 0])
+    if task == "classification":
+        metrics["accuracy"] = score
+    else:
+        metrics["r2_score"] = score
+    if plan.n_folds >= 2:
+        cv = out["score"][j, 1:]
+        metrics["cv_scores"] = [float(v) for v in cv]
+        metrics["mean_cv_score"] = float(np.mean(cv))
+    else:
+        metrics["mean_cv_score"] = score
+    # a diverged trial (NaN/inf score) must rank last, not poison the sort
+    if not np.isfinite(metrics["mean_cv_score"]):
+        metrics["mean_cv_score"] = float("-inf")
+        metrics["diverged"] = True
+    channels = {
+        k[len("curve_"):]: out[k][j]
+        for k in out
+        if k.startswith("curve_") and k not in ("curve_stride", "curve_steps")
+    }
+    if channels:
+        from ..obs.curves import build_curve_record
+
+        stride = int(np.asarray(out["curve_stride"])[j].flat[0])
+        steps = int(np.asarray(out["curve_steps"])[j].flat[0])
+        metrics["curve"] = build_curve_record(
+            channels, stride, steps, tail=np.asarray(out["score"][j]).reshape(-1)
+        )
+    return metrics

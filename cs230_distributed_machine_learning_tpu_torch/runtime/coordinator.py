@@ -1,0 +1,148 @@
+"""Coordinator: sessions, job fan-out, result collection, aggregation.
+
+Port of the direct mode of the JAX package's ``runtime/coordinator.py``:
+one process owns the job store and one in-process executor on the card.
+The job lifecycle mirrors the reference: create a session, expand a train
+job into per-trial subtasks, run them, aggregate by ``mean_cv_score``
+(best first, ties to the earlier trial).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import uuid
+from typing import Any, Dict, List, Optional
+
+from ..data.datasets import DatasetCache
+from ..parallel.collectives import best_trial
+from ..utils.config import FrameworkConfig, get_config
+from ..utils.logging import get_logger
+from ..utils.torch_setup import DeviceLike, resolve_device
+from .executor import LocalExecutor
+from .store import JobStore
+from .subtasks import create_subtasks
+
+logger = get_logger("tpuml.coordinator")
+
+
+class Coordinator:
+    def __init__(
+        self,
+        config: Optional[FrameworkConfig] = None,
+        *,
+        device: DeviceLike = None,
+        executor: Optional[LocalExecutor] = None,
+        journal: bool = False,
+    ):
+        """``device`` defaults to the CUDA card and raises when there is
+        none; ``device="cpu"`` runs on the host. ``journal=True`` keeps the
+        job store's JSONL journal under the storage root and reads back the
+        jobs of an earlier run (finished ones; in-flight jobs are not
+        resumed)."""
+        self.config = config or get_config()
+        self.device = resolve_device(device)
+        self.store = JobStore(journal_dir=self.config.storage.journal_dir if journal else None)
+        self.cache = DatasetCache(root=self.config.storage.datasets_dir)
+        self.executor = executor or LocalExecutor(self.device, cache=self.cache)
+        self._job_threads: Dict[str, threading.Thread] = {}
+
+    def create_session(self, session_id: Optional[str] = None) -> str:
+        return self.store.create_session(session_id)
+
+    # ------------- training -------------
+
+    def submit_train(self, sid: str, payload: Dict[str, Any]) -> Dict[str, Any]:
+        """Expand a train job into subtasks, persist, and run it on a
+        background thread. Payload: {job_id?, dataset_id, model_details,
+        train_params}."""
+        self._require_session(sid)
+        job_id = payload.get("job_id") or str(uuid.uuid4())
+        if self.store.has_job(sid, job_id):
+            # idempotent resubmit of a client-minted job id
+            return {
+                "status": "submitted",
+                "job_id": job_id,
+                "total_subtasks": self.store.job_progress(sid, job_id)["total_subtasks"],
+                "duplicate": True,
+            }
+        dataset_id = payload["dataset_id"]
+        model_details = payload["model_details"]
+        train_params = dict(payload.get("train_params") or {})
+        cv_params = model_details.get("cv_params") or {}
+        if "cv" in cv_params and "cv" not in train_params:
+            train_params["cv"] = cv_params["cv"]
+        subtasks = create_subtasks(job_id, sid, dataset_id, model_details, train_params)
+        try:
+            metadata = self.cache.metadata(dataset_id)
+        except FileNotFoundError:
+            metadata = {}
+        self.store.create_job(sid, job_id, payload, subtasks, metadata)
+        t = threading.Thread(target=self._run_job, args=(sid, job_id, subtasks), daemon=True)
+        self._job_threads[job_id] = t
+        t.start()
+        return {"status": "submitted", "job_id": job_id, "total_subtasks": len(subtasks)}
+
+    def _run_job(self, sid: str, job_id: str, subtasks: List[Dict[str, Any]]) -> None:
+        """Execute a job's subtasks and aggregate; any error fails the job."""
+
+        def on_result(subtask_id: str, status: str, result: Optional[Dict[str, Any]]):
+            self.store.update_subtask(sid, job_id, subtask_id, status, result)
+
+        try:
+            results = self.executor.run_subtasks(subtasks, on_result=on_result)
+            self._aggregate(sid, job_id, results)
+        except Exception as e:  # noqa: BLE001 — the job thread's boundary
+            logger.exception("Job %s failed", job_id)
+            self.store.finalize_job(sid, job_id, {"status": "failed", "error": str(e)})
+
+    def _aggregate(self, sid, job_id, results) -> None:
+        """Completed trials sorted by mean_cv_score, best first; the
+        winner is the first trial with the highest score."""
+        completed = [r for r in results if r and r.get("status") == "completed"]
+        failed = [r for r in results if r and r.get("status") == "failed"]
+
+        def score_key(r):
+            v = r.get("mean_cv_score")
+            return v if isinstance(v, (int, float)) else float("-inf")
+
+        best = None
+        if completed:
+            idx, _ = best_trial([score_key(r) for r in completed])
+            best = dict(completed[idx])
+        final = {
+            "results": sorted(completed, key=score_key, reverse=True),
+            "failed": failed,
+            "best_result": best,
+            "completion_time": time.time(),
+        }
+        self.store.finalize_job(sid, job_id, final)
+
+    # ------------- status / metrics -------------
+
+    def check_status(self, sid: str, job_id: str) -> Dict[str, Any]:
+        self._require_session(sid)
+        progress = self.store.job_progress(sid, job_id)
+        if progress["job_status"] == "completed" and progress["job_result"]:
+            result = progress["job_result"]
+            out = {"job_status": "completed", "job_result": result}
+            if result.get("results") and len(result["results"]) > 1:
+                out["best_result"] = result.get("best_result")
+            return out
+        return progress
+
+    def job_metrics(self, sid: str, job_id: str) -> List[Dict[str, Any]]:
+        """Per-subtask results array."""
+        self._require_session(sid)
+        return self.store.subtask_results(sid, job_id)
+
+    def wait_for_completion(self, sid: str, job_id: str,
+                            timeout_s: Optional[float] = None) -> Dict[str, Any]:
+        timeout = timeout_s or self.config.service.client_timeout_s
+        if not self.store.wait_job(sid, job_id, timeout):
+            raise TimeoutError(f"Job {job_id} did not complete in time")
+        return self.store.job_progress(sid, job_id)
+
+    def _require_session(self, sid: str) -> None:
+        if not self.store.has_session(sid):
+            raise KeyError(f"Invalid session id: {sid}")

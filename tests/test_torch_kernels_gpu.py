@@ -1,0 +1,113 @@
+"""The port's CUDA kernels (csrc/logreg.cu) against their plain PyTorch
+versions on the card.
+
+Every test here needs an NVIDIA GPU with CUDA and is marked ``gpu``; it
+skips where CUDA is absent. The file imports neither JAX nor the JAX
+package, so it runs on a machine that has only PyTorch and the CUDA
+toolkit:
+
+    python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
+
+Tolerance: 5e-3 of the max, as for the Pallas kernels against their
+references (the kernels round the residual to bf16, the plain versions
+keep it in f32). The fused step's frozen columns must be exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
+
+TOL = 5e-3
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _rel(got, ref):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return float((got - ref).abs().max() / (ref.abs().max() + 1e-9))
+
+
+def _fused_step_inputs(dev, c, S, n_wb, n_pad, dpp, seed=0):
+    rng = np.random.RandomState(seed)
+    B = S * tk.TRIAL_BLOCK
+    NB = c * B
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(dev)
+
+    Ab = f32(rng.randn(n_pad, dpp)).to(torch.bfloat16)
+    W = f32(rng.randn(n_wb, dpp, NB) * 0.2)
+    Wp = f32(rng.randn(n_wb, dpp, NB) * 0.2)
+    y2 = torch.as_tensor(rng.randint(0, c, (n_pad, 1)).astype(np.int32)).to(dev)
+    WSP = f32(rng.rand(n_pad, S) > 0.3)
+    done = f32(rng.rand(n_wb, B) > 0.7)
+    step = f32(0.01 + rng.rand(n_wb, B) * 0.1)
+    Cb = f32(0.1 + rng.rand(n_wb, B))
+    maxit = f32(np.where(rng.rand(n_wb, B) > 0.5, 100.0, 2.0))
+    pen = np.ones((dpp, 1), np.float32)
+    pen[-10:] = 0.0
+    return Ab, W, Wp, y2, WSP, done, step, Cb, maxit, f32(pen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,S,n_wb", [(7, 6, 2), (2, 3, 1)])
+def test_packed_kernels_match_plain_on_card(cuda, c, S, n_wb):
+    Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = _fused_step_inputs(
+        cuda, c, S, n_wb, n_pad=1024, dpp=64)
+    tk.reset_launches()
+    Wb = W.to(torch.bfloat16)
+    G = tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+    ref = tk.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+    assert _rel(G, ref) < TOL
+
+    W0, Wp0 = W.clone(), Wp.clone()
+    want = tk.packed_nesterov_step_reference(
+        Ab, W, Wp, y2, WSP, 3.0, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0)
+    got = tk.packed_nesterov_step(
+        Ab, W, Wp, y2, WSP, 3.0, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0)
+    torch.cuda.synchronize()
+    assert got[0] is W and got[1] is Wp  # updated in place
+    for g, r in zip(got, want):
+        assert _rel(g, r) < TOL
+    frozen = ~(((3.0 < maxit) & (done == 0)).repeat(1, c))[:, None, :].expand_as(W0)
+    assert torch.equal(got[0][frozen], W0[frozen])
+    assert torch.equal(got[1][frozen], Wp0[frozen])
+    assert tk.LAUNCHES["packed_softmax_grad"] == 1
+    assert tk.LAUNCHES["packed_nesterov_step"] == 1
+
+
+@pytest.mark.gpu
+def test_masked_kernel_matches_plain_on_card(cuda):
+    rng = np.random.RandomState(1)
+    n_pad, dpp, cp, c, lanes = 2048, 896, 16, 10, 4
+    Ab = torch.as_tensor(rng.randn(n_pad, dpp).astype(np.float32)).to(cuda, torch.bfloat16)
+    W = torch.as_tensor((rng.randn(lanes, dpp, cp) * 0.05).astype(np.float32))
+    W[:, :, c:] = 0
+    W = W.to(cuda, torch.bfloat16)
+    y2 = torch.as_tensor(rng.randint(0, c, (n_pad, 1)).astype(np.int32)).to(cuda)
+    wm = torch.as_tensor((rng.rand(n_pad, lanes) > 0.3).astype(np.float32)).to(cuda)
+    got = tk.masked_softmax_grad(Ab, W, y2, wm, c=c)
+    ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < TOL
+    assert float(got[:, :, c:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_card_wrappers_raise_instead_of_falling_back(cuda):
+    """A CUDA tensor the kernel cannot take is an error, never a silent
+    plain-version computation."""
+    Ab, W, _, y2, WSP, *_ = _fused_step_inputs(cuda, 4, 3, 1, n_pad=256, dpp=64)
+    tk.reset_launches()
+    with pytest.raises(TypeError):
+        tk.packed_softmax_grad(Ab.float(), W.to(torch.bfloat16), y2, WSP, c=4, S=3)
+    with pytest.raises(ValueError):
+        tk.packed_softmax_grad(Ab, W.to(torch.bfloat16), y2, WSP.cpu(), c=4, S=3)
+    assert tk.LAUNCHES == {k: 0 for k in tk.LAUNCHES}

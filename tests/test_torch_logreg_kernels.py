@@ -1,0 +1,205 @@
+"""The PyTorch port's LogReg kernels (ops/cuda_logreg.py) against the JAX
+package's Pallas kernels.
+
+On the CPU the wrappers compute their plain PyTorch versions; those are
+held against the Pallas kernels in interpret mode and against the JAX
+``*_reference`` functions on the same numpy inputs, at the JAX tests'
+shapes. Tolerance: 5e-3 of the max, the bf16 Gram tolerance of
+tests/test_pallas_logreg.py (the kernels round the residual to bf16, the
+plain versions keep it in f32). Frozen columns of the fused step must be
+exact.
+
+The kernels themselves are held against the plain versions on the card by
+tests/test_torch_kernels_gpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from cs230_distributed_machine_learning_tpu.ops import pallas_logreg as jx
+from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
+
+TOL = 5e-3
+
+# The tensors here are small: one intra-op thread each, so that parallel
+# test workers do not oversubscribe the host's cores with idle spinning.
+torch.set_num_threads(1)
+
+# the JAX references, compiled whole (op by op they take most of the run)
+_packed_grad_ref = jax.jit(jx.packed_softmax_grad_reference, static_argnames=("c", "S"))
+_step_ref = jax.jit(jx.packed_nesterov_step_reference, static_argnames=("c", "S", "lam"))
+_masked_ref = jax.jit(jx.masked_softmax_grad_reference, static_argnames=("c",))
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    return np.abs(got - ref).max() / (np.abs(ref).max() + 1e-9)
+
+
+def _bf16(rng_arr):
+    """numpy f32 -> (jax bf16, torch bf16) holding the same values."""
+    j = jnp.asarray(rng_arr).astype(jnp.bfloat16)
+    return j, torch.as_tensor(np.array(j.astype(jnp.float32))).to(torch.bfloat16)
+
+
+def _packed_grad_inputs(c=4, S=3, n_pad=512, dpp=64, n_wb=2, seed=0):
+    rng = np.random.RandomState(seed)
+    NB = c * S * 128
+    Ab_j, Ab_t = _bf16(rng.randn(n_pad, dpp).astype(np.float32))
+    W_j, W_t = _bf16((rng.randn(n_wb, dpp, NB) * 0.2).astype(np.float32))
+    y2 = rng.randint(0, c, (n_pad, 1)).astype(np.int32)
+    WSP = (rng.rand(n_pad, S) > 0.3).astype(np.float32)
+    return (Ab_j, W_j, jnp.asarray(y2), jnp.asarray(WSP)), (
+        Ab_t, W_t, torch.as_tensor(y2), torch.as_tensor(WSP)
+    )
+
+
+def test_packed_softmax_grad_plain_matches_pallas():
+    c, S = 4, 3
+    j_in, t_in = _packed_grad_inputs(c, S)
+    got = tk.packed_softmax_grad(*t_in, c=c, S=S).numpy()
+    kern = jx.packed_softmax_grad(*j_in, c=c, S=S, bm=256, interpret=True)
+    ref = _packed_grad_ref(*j_in, c=c, S=S)
+    assert _rel(got, kern) < TOL
+    assert _rel(got, ref) < 1e-4  # same f32 algebra as the JAX reference
+
+
+def _fused_step_inputs(c, S, n_wb=2, n_pad=512, dpp=64, seed=0):
+    """The JAX test's inputs (tests/test_pallas_logreg.py), as numpy."""
+    rng = np.random.RandomState(seed)
+    B = S * 128
+    NB = c * B
+    Ab = rng.randn(n_pad, dpp).astype(np.float32)
+    W = (rng.randn(n_wb, dpp, NB) * 0.2).astype(np.float32)
+    Wp = (rng.randn(n_wb, dpp, NB) * 0.2).astype(np.float32)
+    y2 = rng.randint(0, c, (n_pad, 1)).astype(np.int32)
+    WSP = (rng.rand(n_pad, S) > 0.3).astype(np.float32)
+    done = (rng.rand(n_wb, B) > 0.7).astype(np.float32)
+    step = (0.01 + rng.rand(n_wb, B) * 0.1).astype(np.float32)
+    Cb = (0.1 + rng.rand(n_wb, B)).astype(np.float32)
+    maxit = np.where(rng.rand(n_wb, B) > 0.5, 100.0, 2.0).astype(np.float32)
+    pen = np.ones((dpp, 1), np.float32)
+    pen[-10:] = 0.0
+    return [Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen]
+
+
+def _split_args(arrs):
+    """numpy args -> (jax args, torch args) with Ab as matching bf16."""
+    Ab_j, Ab_t = _bf16(arrs[0])
+    j = [Ab_j] + [jnp.asarray(a) for a in arrs[1:]]
+    t = [Ab_t] + [torch.as_tensor(a.copy()) for a in arrs[1:]]
+    return j, t
+
+
+@pytest.mark.parametrize("c,S,lam", [(2, 3, 2.0), (7, 3, 1.0), (3, 2, 0.0)])
+def test_packed_nesterov_step_plain_matches_pallas(c, S, lam):
+    arrs = _fused_step_inputs(c, S)
+    j, t = _split_args(arrs)
+    jargs = j[:5] + [3.0] + j[5:]
+    targs = t[:5] + [3.0] + t[5:]
+    kern = jx.packed_nesterov_step(*jargs, c=c, S=S, bm=256, lam=lam, interpret=True)
+    ref = _step_ref(*jargs, c=c, S=S, lam=lam)
+    got = tk.packed_nesterov_step(*targs, c=c, S=S, lam=lam)
+    for name, g, k, r in zip(("W_new", "Wp_new", "gmax"), got, kern, ref):
+        assert _rel(g.numpy(), k) < TOL, name
+        assert _rel(g.numpy(), r) < 1e-4, name
+    # the update lands in the caller's W / Wp tensors, as on the card
+    assert got[0] is targs[1] and got[1] is targs[2]
+
+
+def test_packed_nesterov_step_freezes_done_and_past_max_iter_columns():
+    c, S = 3, 2
+    arrs = _fused_step_inputs(c, S)
+    B = S * 128
+    done = np.zeros((2, B), np.float32)
+    done[:, ::3] = 1.0
+    maxit = np.full((2, B), 100.0, np.float32)
+    maxit[:, 1::3] = 5.0
+    arrs[5], arrs[8] = done, maxit
+    _, t = _split_args(arrs)
+    W0, Wp0 = arrs[1], arrs[2]
+    W_new, Wp_new, _ = tk.packed_nesterov_step(
+        *t[:5], 5.0, *t[5:], c=c, S=S, lam=1.0
+    )
+    frozen = np.zeros(B, bool)
+    frozen[::3] = True
+    frozen[1::3] = True
+    cols = np.tile(frozen, c)
+    np.testing.assert_array_equal(W_new.numpy()[:, :, cols], W0[:, :, cols])
+    np.testing.assert_array_equal(Wp_new.numpy()[:, :, cols], Wp0[:, :, cols])
+    assert np.abs(W_new.numpy()[:, :, ~cols] - W0[:, :, ~cols]).max() > 0
+
+
+# (n_pad, dpp, c, cp, bm): two of the JAX test's shapes, 7-class and binary
+_MASKED_SHAPES = [
+    (512, 128, 7, 128, 256),
+    (256, 128, 2, 128, 128),
+]
+
+
+@pytest.mark.parametrize("shape", _MASKED_SHAPES, ids=[str(s) for s in _MASKED_SHAPES])
+def test_masked_softmax_grad_plain_matches_pallas(shape):
+    """A lane batch of 3 through the port vs the JAX lane kernel lane by
+    lane, each lane with its own fold mask over the shared A."""
+    n_pad, dpp, c, cp, bm = shape
+    lanes = 3
+    rng = np.random.RandomState(0)
+    Ab_j, Ab_t = _bf16(rng.randn(n_pad, dpp).astype(np.float32))
+    W = (rng.randn(lanes, dpp, cp) * 0.3).astype(np.float32)
+    W[:, :, c:] = 0.0
+    W_j, W_t = _bf16(W)
+    y2 = rng.randint(0, c, (n_pad, 1)).astype(np.int32)
+    wm = (rng.rand(n_pad, lanes) > 0.3).astype(np.float32)
+    got = tk.masked_softmax_grad(Ab_t, W_t, torch.as_tensor(y2), torch.as_tensor(wm), c=c)
+    assert got.shape == (lanes, dpp, cp)
+    for lane in range(lanes):
+        args = (Ab_j, W_j[lane], jnp.asarray(y2), jnp.asarray(wm[:, lane : lane + 1]))
+        kern = jx.masked_softmax_grad(*args, c=c, bm=bm, interpret=True)
+        ref = _masked_ref(*args, c=c)
+        assert _rel(got[lane].numpy(), kern) < TOL
+        assert _rel(got[lane].numpy(), ref) < 1e-4
+    np.testing.assert_array_equal(got[:, :, c:].numpy(), 0.0)
+
+
+def test_pack_unpack_weights_round_trip_and_jax_layout():
+    """pack_weights puts lane (trial t, split s) weight [k, a] at packed
+    column (a*S + s)*Tw + t of block t // Tw — the JAX packed layout."""
+    rng = np.random.RandomState(4)
+    chunk, S, dp, c, dpp = 256, 3, 6, 4, 64
+    W = torch.as_tensor(rng.randn(chunk, S, dp, c).astype(np.float32))
+    W3 = tk.pack_weights(W, dpp)
+    assert W3.shape == (2, dpp, c * S * 128)
+    t, s, k, a = 130, 2, 5, 3
+    assert W3[1, k, (a * S + s) * 128 + (t - 128)] == W[t, s, k, a]
+    assert float(W3[:, dp:].abs().max()) == 0.0
+    torch.testing.assert_close(tk.unpack_weights(W3, S, dp, c), W, rtol=0, atol=0)
+    params = rng.randn(dp, c).astype(np.float32)
+    np.testing.assert_array_equal(tk.weights_from_jax(params).numpy(), params)
+
+
+def test_gates_and_shared_memory_plan():
+    # covertype: dpp = 64, c = 7 -> the 16-lane tile at any chunk
+    assert tk.fused_step_applicable(64, 7)
+    assert tk.packed_lane_tile(64, 7, n_wb=8, S=6) == 16
+    # a grid wide enough for two CTAs per SM keeps the 32-lane tile
+    assert tk.packed_lane_tile(64, 2, n_wb=8, S=11) == 32
+    assert tk.packed_smem_bytes(64, 7, 16) <= tk.SMEM_LIMIT
+    # too many gradient tiles for a CTA's registers -> generic drivers
+    assert not tk.fused_step_applicable(512, 7)
+    # 784-feature LogReg lane kernel: dpp 896, 10 classes padded to 16
+    assert tk.masked_grad_applicable(896, 16)
+    assert not tk.masked_grad_applicable(2048, 16)
+
+
+def test_wrappers_route_cpu_tensors_to_the_plain_versions():
+    c, S = 4, 3
+    _, t_in = _packed_grad_inputs(c, S, n_wb=1)
+    tk.reset_launches()
+    G = tk.packed_softmax_grad(*t_in, c=c, S=S)
+    ref = tk.packed_softmax_grad_reference(*t_in, c=c, S=S)
+    torch.testing.assert_close(G, ref, rtol=0, atol=0)
+    assert tk.LAUNCHES == {k: 0 for k in tk.LAUNCHES}  # no kernel launched
