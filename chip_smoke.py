@@ -27,6 +27,27 @@ non-zero exit and no result line:
             generic nesterov driver: the masked lane kernel must launch.
 7. reference  a small search (5,000 rows) on the card and on the CPU
             (plain versions): every mean_cv_score within 2e-3.
+8. rf_main  MLTaskManager() on the card trains the repo's scaling-curve
+            job, RandomForestClassifier(n_estimators=100, random_state=42)
+            as a plain estimator, on the 10 % covertype fraction (11,620
+            rows, drawn and staged as benchmarks/scaling_curve.py does):
+            deep arena, 4 chunks of 25 trees; kernel B4 must launch
+            22 levels x 100 trees = 2,200 times.
+9. rf_full  the same estimator on the uncut covertype table (116,202
+            rows): 100 chunks of 1 tree, 2,400 launches of B4.
+   rf_profile after each: one tree of the job under torch.profiler (wall,
+            device-busy share, device time by kernel).
+10. rf_reference  two small RF searches, on the card and on the CPU (plain
+            versions): iris (complete builder) and a 3,000-row synthetic
+            through the chunked deep arena; best_params_ equal and every
+            mean_cv_score within 1e-6.
+
+The kernels phase also holds B4 (the tree level histogram) against its
+plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
+nodes, 24 and 48 bins, 7 classes) and at rf_full's widest level (116,202
+rows, 1536 nodes, 16 bins): integer stats bit-exact, float stats within
+1e-5 of the max, with the kernel's, the plain version's and one
+``index_add_``'s median ms and the bound.
 
 Then the kernels line, the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
@@ -46,8 +67,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "cs230_distributed_machine_learning_tpu_torch"
-SOURCE = f"{PKG}/csrc/logreg.cu"
+SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu"}
 TOL = 5e-3
+HIST_FLOAT_TOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -121,17 +143,25 @@ def phase_env() -> dict:
 
 
 def phase_build() -> None:
-    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_build, cuda_logreg
+    from cs230_distributed_machine_learning_tpu_torch.ops import (
+        cuda_build,
+        cuda_hist,
+        cuda_logreg,
+    )
 
     t0 = time.perf_counter()
-    compiled = cuda_build.build()
+    compiled = cuda_build.build()  # every csrc/*.cu, one nvcc each, in parallel
+    assert all(cuda_build.library_path(name).exists() for name in SOURCES), compiled
     lib = cuda_logreg._lib()
     # the Python shared-memory gate must mirror the kernel's own layout
     for dpp, c, L in ((64, 7, 16), (64, 7, 32), (128, 7, 16), (64, 2, 32)):
         assert lib.logreg_packed_smem_bytes(dpp, c, L) == cuda_logreg.packed_smem_bytes(dpp, c, L)
     for dpp, cp in ((896, 16), (128, 128)):
         assert lib.logreg_masked_smem_bytes(dpp, cp) == cuda_logreg.masked_smem_bytes(dpp, cp)
-    ptxas = [ln.strip() for ln in cuda_build.build_log("logreg").splitlines()
+    for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
+        assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
+    ptxas = [ln.strip() for name in sorted(SOURCES)
+             for ln in cuda_build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(compiled), "arch": "sm_90a", "ptxas": ptxas})
@@ -236,6 +266,86 @@ def phase_kernels(dev) -> dict:
         bound_ms=b3, bound_by=by3)
     emit({"phase": "kernels", "tolerance": TOL,
           "rows": [{"kernel": k, "n_wb_or_lanes": n, **v} for (k, n), v in rows.items()]})
+    rows.update(hist_kernel_rows(gen, dev))
+    return rows
+
+
+#: B4 shapes: (L lanes, rows, features, bins, nodes, stat columns)
+HIST_SHAPES = {
+    "rf_main_deep": (6, 11_620, 54, 24, 128, 7),
+    "rf_main_fine": (6, 11_620, 54, 48, 128, 7),
+    "rf_full_widest": (6, 116_202, 54, 16, 1536, 7),
+}
+
+
+def _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, float_stats):
+    """Node ids with dead rows (-1 and n_nodes), shared codes, and stats:
+    one-hot classes times small bootstrap counts (many zero rows), or
+    normal floats."""
+    local = torch.randint(-1, n_nodes + 1, (L, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    xb = torch.randint(0, n_bins, (n, d), generator=gen, device=dev, dtype=torch.int32)
+    if float_stats:
+        return local, xb, torch.randn(L, n, kk, generator=gen, device=dev)
+    y = torch.randint(0, kk, (L, n), generator=gen, device=dev)
+    counts = torch.poisson(torch.full((L, n), 0.9, device=dev), generator=gen)
+    return local, xb, torch.nn.functional.one_hot(y, kk).float() * counts[..., None]
+
+
+def hist_kernel_rows(gen, dev) -> dict:
+    """B4 against its plain version: integer stats bit-exact, float stats
+    within HIST_FLOAT_TOL of the max. Times: the kernel, the plain version,
+    and one index_add_ over precomputed flat indices (the PyTorch call
+    that computes the same function: ``library_ms``; the port never calls
+    it). Bound: the bytes the function must move, or its adds at the f32
+    rate, whichever is larger."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    rows = {}
+    for tag, (L, n, d, n_bins, n_nodes, kk) in HIST_SHAPES.items():
+        local, xb, SC = _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False)
+        got = H.level_histogram(local, xb, SC, n_nodes, n_bins, integer_stats=True)
+        ref = H.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        iabs, irel = errors(got, ref)
+        exact = torch.equal(got, ref)
+        assert exact, f"level_histogram {tag}: integer stats not bit-exact ({iabs})"
+        del got, ref
+        ms = time_ms(lambda: H.level_histogram(local, xb, SC, n_nodes, n_bins,
+                                               integer_stats=True))
+        plain = time_ms(lambda: H.level_histogram_reference(local, xb, SC, n_nodes, n_bins),
+                        reps=3)
+        # the same function as one index_add_: flat (lane, node, feature,
+        # bin) cell per (row, feature) with its stats, built beforehand
+        ok = (local >= 0) & (local < n_nodes)
+        lanes, rws = ok.nonzero(as_tuple=True)
+        cells = (((lanes * n_nodes + local[lanes, rws].long())[:, None] * d
+                  + torch.arange(d, device=dev)) * n_bins + xb[rws].long()).reshape(-1)
+        src = SC[lanes, rws].repeat_interleave(d, dim=0)
+        out = torch.zeros((L * n_nodes * d * n_bins, kk), device=dev)
+        lib_ms = time_ms(lambda: out.index_add_(0, cells, src), reps=5)
+        adds = int((SC[lanes, rws] != 0).sum()) * d  # this run's data: nonzero stats
+        del cells, src, out
+        nbytes = H.hist_bytes(L, n, d, kk, n_nodes, n_bins)
+        t_bytes, t_ops = nbytes / PEAK_BYTES, adds / PEAK_F32
+        bound = 1e3 * max(t_bytes, t_ops)
+
+        fl, fx, fS = _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, True)
+        fgot = H.level_histogram(fl, fx, fS, n_nodes, n_bins)
+        fref = H.level_histogram_reference(fl, fx, fS, n_nodes, n_bins)
+        fabs, frel = errors(fgot, fref)
+        assert frel < HIST_FLOAT_TOL, f"level_histogram {tag}: float stats {frel}"
+        del fgot, fref, fl, fx, fS, local, xb, SC
+        torch.cuda.empty_cache()
+        rows[("level_histogram", tag)] = dict(
+            shape=dict(lanes=L, rows=n, features=d, bins=n_bins, nodes=n_nodes, stats=kk),
+            ctas=H.grid_ctas(n_nodes, d, n_bins, kk, L), integer_bit_exact=exact,
+            max_abs_err=iabs, max_rel_err=irel, float_max_abs_err=fabs,
+            float_max_rel_err=frel,
+            ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "kernels_hist", "float_tolerance": HIST_FLOAT_TOL,
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
     return rows
 
 
@@ -348,6 +458,186 @@ def phase_reference(manager) -> None:
           == cpu["job_result"]["best_result"]["search_params"]})
 
 
+def _forest(n_estimators: int, random_state: int = 42) -> dict:
+    """``RandomForestClassifier(n_estimators=..., random_state=...)`` as a
+    plain-estimator model_details payload (no search wrapper)."""
+    return {"model_type": "RandomForestClassifier", "search_type": None,
+            "base_estimator_params": {"n_estimators": n_estimators,
+                                      "random_state": random_state}}
+
+
+def stage_fraction(cfg, frac: float) -> tuple:
+    """Stage a covertype fraction as its own CSV dataset, drawn and written
+    as benchmarks/scaling_curve.py does (RandomState(0) permutation of the
+    uncut table, encoded labels last, ``%.6g``)."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import (
+        DatasetCache,
+        dataset_dir,
+    )
+
+    full = DatasetCache(root=cfg.storage.datasets_dir).get("covertype", "classification")
+    X_full, y_full = np.asarray(full.X), np.asarray(full.y)
+    n = max(64, int(X_full.shape[0] * frac))
+    idx = np.random.RandomState(0).permutation(X_full.shape[0])[:n]
+    did = f"covertype_frac_{int(frac * 100)}"
+    ddir = os.path.join(dataset_dir(did), "preprocessed")
+    os.makedirs(ddir, exist_ok=True)
+    csv = os.path.join(ddir, f"{did}_preprocessed.csv")
+    if not os.path.exists(csv):
+        header = ",".join([f"f{i}" for i in range(X_full.shape[1])] + ["target"])
+        np.savetxt(csv, np.column_stack([X_full[idx], y_full[idx]]), delimiter=",",
+                   header=header, comments="", fmt="%.6g")
+    return did, n
+
+
+def _forest_bucket(manager, dataset: str, n_estimators: int) -> tuple:
+    """(kernel, cached TrialData, resolved static) of ``_forest``'s bucket on
+    a staged dataset, as the trial engine resolves it."""
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+
+    kernel = get_kernel("RandomForestClassifier")
+    data = manager._coordinator.cache.get(dataset, "classification")
+    n, d = data.X.shape
+    static_key, _ = kernel.canonicalize(_forest(n_estimators)["base_estimator_params"])
+    static = kernel.resolve_static(kernel.static_from_key(static_key), n, d, data.n_classes)
+    static["_n_classes"] = data.n_classes
+    return kernel, data, static
+
+
+def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
+    """One forest through the manager with B4's launch count zeroed just
+    before and read just after; the count must be the arena's levels x
+    trees x feature groups. Returns (launches, chunk plan)."""
+    import math
+
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    H.reset_launches()
+    t0 = time.perf_counter()
+    status = manager.train(_forest(n_estimators), dataset, {"random_state": 42}, timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = H.LAUNCHES["level_histogram"]
+    assert status["job_status"] == "completed", status
+    res = status["job_result"]
+    assert not res["failed"] and len(res["results"]) == 1, res
+    best = res["best_result"]
+    assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in best["cv_scores"]), best
+
+    kernel, data, static = _forest_bucket(manager, dataset, n_estimators)
+    n, d = data.X.shape
+    prepared = data._prepared_cache[(kernel.name, kernel.prepared_key(static))]
+    plan = kernel.chunked_plan(static, n, d, data.n_classes, 6, prepared=prepared)
+    groups = 2 if "xb_coarse" in prepared else 1
+    expected = static["_levels"] * n_estimators * groups
+    emit({"phase": phase, "dataset": dataset, "rows": n, "n_estimators": n_estimators,
+          "wall_s": wall, "launches": launches, "expected_launches": expected,
+          "chunks": plan and plan["n_chunks"], "levels": static["_levels"],
+          "width": static["_W"], "n_bins": static["_n_bins"],
+          "nb_sched": static.get("_nb_sched"), "wsched": static.get("_wsched"),
+          "mean_cv_score": best["mean_cv_score"], "accuracy": best["accuracy"]})
+    assert launches == expected, f"{phase}: {launches} B4 launches, expected {expected}"
+    return launches, plan
+
+
+def phase_rf_main(manager, cfg) -> int:
+    """The scaling curve's RF job on the 10 % covertype fraction."""
+    did, _ = stage_fraction(cfg, 0.1)
+    launches, plan = _rf_train(manager, "rf_main", did, 100)
+    assert plan and plan["n_chunks"] == 4, plan
+    return launches
+
+
+def phase_rf_profile(manager, dataset: str) -> None:
+    """One tree of a job's forest (all 6 split lanes, one chunk step) under
+    torch.profiler: its wall, the device's busy share of it, the kernels
+    launched, and the device time by kernel, B4 among them."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+
+    kernel, data, static = _forest_bucket(manager, dataset, 100)
+    dev = manager.device
+    X = {k: torch.as_tensor(v, device=dev)
+         for k, v in kernel.prepare_data(np.asarray(data.X), static).items()}
+    y = torch.as_tensor(np.asarray(data.y), device=dev)
+    plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=5,
+                            random_state=42)
+    TW = torch.as_tensor(plan.train_w, device=dev)
+    state = kernel.chunk_init(X, y, TW, {}, static)
+    one_tree = {"n_chunks": 100, "trees_per_chunk": 1}
+    kernel.chunk_step(X, y, TW, {}, static, 0, state, one_tree)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kernel.chunk_step(X, y, TW, {}, static, 1, state, one_tree)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    emit({"phase": "rf_profile", "dataset": dataset, "lanes": int(TW.shape[0]),
+          "levels": static["_levels"], "tree_wall_ms": 1e3 * wall,
+          "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / wall,
+          "device_ops": sum(e.count for e in kernels),
+          "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3, "count": e.count}
+                  for e in top]})
+
+
+def phase_rf_full(manager) -> None:
+    """The same job on the uncut covertype table."""
+    _, plan = _rf_train(manager, "rf_full", "covertype", 100)
+    assert plan and plan["n_chunks"] == 100, plan
+
+
+def phase_rf_reference(manager) -> None:
+    """Two small RF searches on the card and on the CPU (plain versions):
+    the complete builder on iris and the chunked deep arena on 3,000
+    synthetic rows. best_params_ equal, every mean_cv_score within 1e-6."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    def grid(n_estimators, random_state):
+        return {"model_type": "RandomForestClassifier", "search_type": "GridSearchCV",
+                "base_estimator_params": {"random_state": random_state},
+                "param_grid": {"n_estimators": n_estimators}, "cv_params": {"cv": 5}}
+
+    cases = (("iris", grid([10, 20], 0), None),
+             ("synthetic_3000x20x3", grid([3, 5], 1), "5e10"))
+    for dataset, search, chunk_macs in cases:
+        if chunk_macs:
+            os.environ["CS230_TREE_CHUNK_MACS"] = chunk_macs
+        try:
+            H.reset_launches()
+            t0 = time.perf_counter()
+            gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+            t_gpu = time.perf_counter() - t0
+            launches = H.LAUNCHES["level_histogram"]
+            cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                    timeout=900)
+        finally:
+            os.environ.pop("CS230_TREE_CHUNK_MACS", None)
+        g, c = _scores(gpu), _scores(cpu)
+        assert g.keys() == c.keys() and len(g) == 2, (g, c)
+        worst = max(abs(g[k] - c[k]) for k in g)
+        same = (gpu["job_result"]["best_result"]["search_params"]
+                == cpu["job_result"]["best_result"]["search_params"])
+        # one launch per tree level (all lanes at once), one feature group here
+        trees = sum(search["param_grid"]["n_estimators"])
+        _, _, static = _forest_bucket(manager, dataset, trees)
+        per_tree = static["_levels"] if static.get("_deep") else static["_depth"]
+        emit({"phase": "rf_reference", "dataset": dataset, "trials": len(g),
+              "card_wall_s": t_gpu, "launches": launches, "launches_per_tree": launches / trees,
+              "levels_per_tree": per_tree, "max_mean_cv_diff": worst,
+              "best_params_equal": same, "scores": g})
+        assert worst <= 1e-6 and same, f"rf_reference {dataset}: card vs CPU {worst}"
+        assert launches == per_tree * trees, f"rf_reference {dataset}: {launches} launches"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
@@ -373,24 +663,33 @@ def main() -> int:
     launches = phase_main(manager)
     launches["masked_softmax_grad"] = phase_wide(manager)
     phase_reference(manager)
+    launches["level_histogram"] = phase_rf_main(manager, cfg)
+    phase_rf_profile(manager, "covertype_frac_10")
+    phase_rf_full(manager)
+    phase_rf_profile(manager, "covertype")
+    phase_rf_reference(manager)
 
-    replaces = {
-        "packed_softmax_grad": "cs230_distributed_machine_learning_tpu/ops/pallas_logreg.py:109",
-        "packed_nesterov_step": "cs230_distributed_machine_learning_tpu/ops/pallas_logreg.py:228",
-        "masked_softmax_grad": "cs230_distributed_machine_learning_tpu/ops/pallas_logreg.py:372",
+    jax_ops = "cs230_distributed_machine_learning_tpu/ops"
+    table = {  # name: (row key, source, TPU kernel, shape note)
+        "packed_softmax_grad": (8, "logreg", f"{jax_ops}/pallas_logreg.py:109",
+                                "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"),
+        "packed_nesterov_step": (8, "logreg", f"{jax_ops}/pallas_logreg.py:228",
+                                 "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"),
+        "masked_softmax_grad": (16, "logreg", f"{jax_ops}/pallas_logreg.py:372",
+                                "n_pad 4096, dpp 896, cp 16, 16 lanes"),
+        "level_histogram": ("rf_main_deep", "hist", f"{jax_ops}/pallas_hist.py:106",
+                            "6 lanes, 11620 rows, 54 features, 24 bins, 128 nodes, 7 classes"),
     }
-    shapes = {"packed_softmax_grad": 8, "packed_nesterov_step": 8, "masked_softmax_grad": 16}
     kernels = []
-    for name, key in shapes.items():
+    for name, (key, src, replaces, shape) in table.items():
         r = rows[(name, key)]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces[name],
+            "name": name, "route": "cuda", "source": SOURCES[src], "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "max_rel_err": r["max_rel_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
-            "shape": ("n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"
-                      if key == 8 else "n_pad 4096, dpp 896, cp 16, 16 lanes"),
+            "library_ms": r.get("library_ms"), "shape": shape,
+            **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err") if k in r},
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})

@@ -19,7 +19,7 @@ _NOT_YET_PORTED = frozenset(
     {
         "LinearRegression", "Ridge", "KNeighborsClassifier",
         "KNeighborsRegressor", "SVC", "SVR", "DecisionTreeClassifier",
-        "DecisionTreeRegressor", "RandomForestClassifier",
+        "DecisionTreeRegressor",
         "RandomForestRegressor", "GradientBoostingClassifier",
         "GradientBoostingRegressor", "MLPClassifier", "MLPRegressor",
         "GaussianNB", "PCA", "StandardScaler", "MinMaxScaler",
@@ -47,6 +47,7 @@ def _ensure_populated() -> None:
     if _REGISTRY:
         return
     from .logistic import LogisticRegressionKernel
+    from .trees import RandomForestClassifierKernel
 
-    kernel = LogisticRegressionKernel()
-    _REGISTRY[kernel.name] = kernel
+    for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel()):
+        _REGISTRY[kernel.name] = kernel

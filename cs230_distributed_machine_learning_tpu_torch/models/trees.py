@@ -1,0 +1,450 @@
+"""Tree-ensemble kernels: RandomForestClassifier.
+
+Port of the RandomForestClassifier part of the JAX package's
+``models/trees.py``, on the histogram tree builders of ops/trees.py. The
+semantics are the reference's:
+
+- structural hyperparameters (n_estimators, max_depth, max_features,
+  n_bins) are static, so every combination is its own bucket;
+- ``max_depth=None`` (grow to purity) takes the deep arena builder above
+  ``CS230_TREE_DEEP_N`` rows, the complete builder to ~log2(n) levels
+  below; the arena's width, bins and schedules come from the same bands;
+- the bootstrap is the exact multinomial resample through the same
+  threefry draws as the reference, and every tree's key is
+  ``fold_in(PRNGKey(random_state), t)``, so trees can be fitted one at a
+  time, in any grouping, and still be the reference's trees;
+- forest prediction averages the trees' leaf class distributions and
+  takes the first-index argmax (sklearn's soft vote).
+
+Every function works on an explicit lane axis L = trials x splits (the
+JAX package vmaps instead): weights ``[L, n]``, stats ``[L, n, k]``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from ..ops.metrics import weighted_accuracy
+from ..ops.trees import (
+    COARSE_BINS,
+    bin_data,
+    build_tree,
+    build_tree_deep,
+    predict_tree,
+    predict_tree_deep,
+    quantile_bins,
+)
+from ..utils import prng
+from ..utils.logging import get_logger
+from .base import ModelKernel
+
+# Complete-tree caps and the deep arena's bands: the reference's values and
+# env knobs (``models/trees.py:59-106`` there, where the sweeps behind them
+# are recorded).
+_DEPTH_CAP = 10
+_DEPTH_HARD_CAP = 14
+_DEEP_LEVELS = int(os.environ.get("CS230_DEEP_LEVELS", "24"))
+#: levels past log2(n) the arena may grow
+_DEEP_LEVEL_MARGIN = int(os.environ.get("CS230_DEEP_LEVEL_MARGIN", "8"))
+_DEEP_LEVELS_EXPLICIT = 32
+_DEEP_W = int(os.environ.get("CS230_DEEP_W", "1536"))
+_DEEP_BINS_CAP = int(os.environ.get("CS230_DEEP_BINS", "48"))
+_DEEP_BINS_WIDE = int(os.environ.get("CS230_DEEP_BINS_WIDE", "24"))
+_DEEP_BINS_WIDEST = int(os.environ.get("CS230_DEEP_BINS_WIDEST", "16"))
+#: adaptive bin resolution: fine bins while the candidate frontier has
+#: fewer than this many nodes, _DEEP_BINS_DEEP beyond (0 disables)
+_DEEP_BINS_OCC = int(os.environ.get("CS230_DEEP_BINS_OCC", "256"))
+_DEEP_BINS_DEEP = int(os.environ.get("CS230_DEEP_BINS_DEEP", "24"))
+
+_warned: set = set()
+
+
+def _warn_once(key, msg: str, *args) -> None:
+    if key in _warned:
+        return
+    _warned.add(key)
+    get_logger().warning(msg, *args)
+
+
+def _deep_n_threshold() -> int:
+    """Rows above which grow-to-purity kernels use the deep builder."""
+    return int(os.environ.get("CS230_TREE_DEEP_N", "1024"))
+
+
+def _resolve_max_features(spec, d: int, default) -> int:
+    if spec is None:
+        spec = default
+    if spec in ("sqrt", "auto"):
+        return max(1, int(np.sqrt(d)))
+    if spec == "log2":
+        return max(1, int(np.log2(max(d, 2))))
+    if isinstance(spec, float) and 0 < spec <= 1:
+        return max(1, int(spec * d))
+    if spec in (1.0, "all"):
+        return d
+    return max(1, min(int(spec), d))
+
+
+def _stat_cols(static) -> int:
+    """Histogram stat columns (classes + count) of a classification fit."""
+    return max(int(static.get("_n_classes", 2)), 2) + 1
+
+
+class _TreeBase(ModelKernel):
+    #: default for max_features resolution (overridden per family)
+    _mf_default: Any = 1.0
+    #: sklearn grows this family to purity: eligible for the deep arena
+    _supports_deep = False
+    # random_state seeds the forest's draws: keep it
+    ignored_params = ModelKernel.ignored_params - {"random_state"}
+
+    def resolve_static(self, static: Dict[str, Any], n: int, d: int, n_classes: int):
+        """The reference's resolution (``models/trees.py:209``): depth or
+        arena levels, width bands, bins and their adaptive schedule, the
+        resolved max_features, min_samples_leaf and seed."""
+        n_bins = int(static.get("n_bins", 128))
+        n_bins = min(n_bins, max(8, n))
+        depth = static.get("max_depth")
+        complete_cap = _DEPTH_HARD_CAP if hasattr(self, "chunked_plan") else _DEPTH_CAP
+        deep = (self._supports_deep and n > _deep_n_threshold()
+                and (depth is None or int(depth) > complete_cap))
+        force_w = None
+        if deep:
+            grow_to_purity = depth is None
+            if grow_to_purity:
+                levels = min(_DEEP_LEVELS,
+                             int(np.ceil(np.log2(max(n, 8)))) + _DEEP_LEVEL_MARGIN)
+            else:
+                levels = min(int(depth), _DEEP_LEVELS_EXPLICIT)
+            bins_cap = _DEEP_BINS_CAP
+            force_w = os.environ.get("CS230_DEEP_W_FORCE")
+            if force_w:
+                try:
+                    width = int(force_w)
+                    if width < 64:
+                        raise ValueError(force_w)
+                except ValueError:
+                    raise ValueError(
+                        f"CS230_DEEP_W_FORCE={force_w!r}: expected an "
+                        "integer arena width >= 64") from None
+                _warn_once(("w_force", width),
+                           "CS230_DEEP_W_FORCE=%d overrides the deep-arena width "
+                           "bands for EVERY grow-to-purity fit in this process", width)
+            else:
+                if n <= 5000:
+                    width = 64
+                elif n <= 24576:
+                    width = 128
+                elif n <= 49152:
+                    width = 256
+                elif n <= 80_000:
+                    width = 1024
+                else:
+                    width = 1536
+                width = min(_DEEP_W, width)
+                if width >= 1024:
+                    bins_cap = min(bins_cap, _DEEP_BINS_WIDEST if width >= 1536
+                                   else _DEEP_BINS_WIDE)
+            depth = levels
+            fine_cap = max(_DEEP_BINS_CAP, bins_cap)
+            eff_fine = min(n_bins, fine_cap)
+            deep_nb = min(eff_fine, min(bins_cap, _DEEP_BINS_DEEP))
+            nb_occ = _DEEP_BINS_OCC
+            if os.environ.get("CS230_DEEP_BINS_OCC") is None and width == 256:
+                nb_occ = 384
+            sched_ok = nb_occ > 0 and deep_nb < eff_fine and eff_fine % deep_nb == 0
+            cap_used = fine_cap if sched_ok else bins_cap
+            if "n_bins" in static and n_bins > cap_used:
+                _warn_once(("bins", n_bins, cap_used),
+                           "deep-tree arena clamps requested n_bins=%d to %d "
+                           "(CS230_DEEP_BINS / CS230_DEEP_BINS_WIDE; large-n "
+                           "grow-to-purity path only)", n_bins, cap_used)
+            n_bins = min(n_bins, cap_used)
+            nb_sched = (nb_occ, deep_nb) if sched_ok else None
+        elif depth is None:
+            depth = min(_DEPTH_CAP, max(3, int(np.ceil(np.log2(max(n, 8)))) - 2))
+        else:
+            depth = min(int(depth), complete_cap)
+        mf = _resolve_max_features(static.get("max_features"), d, self._mf_default)
+        msl = static.get("min_samples_leaf", 1)
+        if isinstance(msl, float) and msl < 1:
+            msl = max(1, int(msl * n))
+        out = {
+            **static,
+            "_depth": depth,
+            "_n_bins": n_bins,
+            "_mf": mf,
+            "_msl": float(msl),
+            "_seed": int(static.get("random_state") or 0),
+        }
+        if deep:
+            out["_deep"] = True
+            out["_levels"] = levels
+            out["_W"] = width
+            if nb_sched is not None:
+                out["_nb_sched"] = nb_sched
+            if width >= 1536 and n > 80_000 and grow_to_purity and not force_w:
+                out["_wsched"] = (width, 17, 512)
+            elif width >= 1024 and n > 80_000 and grow_to_purity and not force_w:
+                out["_wsched"] = (width, 16, width // 2)
+        return out
+
+    def memory_estimate_mb(self, n: int, d: int, static: Dict[str, Any]) -> float:
+        """Per-lane working set: ~4 histogram-sized buffers of the arena's
+        W nodes (deep) or ~3 of the deepest complete level, plus the codes.
+        Trees are fitted one at a time, so no tree-group factor."""
+        n_bins = int(static.get("_n_bins", 128))
+        kk = _stat_cols(static)
+        if static.get("_deep"):
+            hist = 4.0 * int(static["_W"]) * d * n_bins * kk * 4
+        else:
+            depth = int(static.get("_depth", 8))
+            hist = 3.0 * (2 ** max(depth - 1, 0)) * d * n_bins * kk * 4
+        return max(1.0, (hist + 4.0 * n * d * 2) / 1e6)
+
+    @staticmethod
+    def _hist_cols(static, d, prepared=None):
+        """Bin-column total of a level histogram: d * n_bins, or the
+        grouped d_cont * n_bins + d_coarse * COARSE_BINS; the adaptive
+        schedule prices at its deep resolution."""
+        n_bins = int(static.get("_n_bins", 128))
+        sched = static.get("_nb_sched")
+        if sched:
+            n_bins = int(sched[1])
+        if isinstance(prepared, dict) and "xb_coarse" in prepared:
+            d_b = prepared["xb_coarse"].shape[1]
+            return (d - d_b) * n_bins + d_b * COARSE_BINS
+        return d * n_bins
+
+    def macs_estimate(self, n, d, static, prepared=None):
+        """Histogram-contraction MACs of one (trial, split) fit in the
+        reference's one-hot form: what ``chunked_plan`` divides into
+        chunks, so the port chunks a forest exactly as the reference."""
+        kk = _stat_cols(static) if self.task == "classification" else 2
+        cols = self._hist_cols(static, d, prepared)
+        trees = int(static.get("n_estimators", 1))
+        if static.get("_deep"):
+            W = int(static["_W"])
+            levels = int(static["_levels"])
+            ramp = int(np.log2(W))
+            sched = static.get("_wsched")
+            if sched:
+                hi, split, lo = (int(x) for x in sched)
+                w_sum = (max(min(split, levels) - ramp + 2, 2) * hi
+                         + max(levels - split, 0) * lo)
+            else:
+                w_sum = max(levels - ramp + 2, 2) * W
+            per_tree = float(n) * kk * cols * w_sum
+        else:
+            depth = int(static.get("_depth", 8))
+            per_tree = float(n) * (2 ** max(depth - 1, 0)) * kk * cols
+        return trees * per_tree
+
+    def _fit_one_tree(self, X, S, C, static, key):
+        """One tree per lane through the complete or the deep builder."""
+        xb = X["xb"]
+        common = dict(
+            n_bins=static["_n_bins"],
+            min_samples_leaf=static["_msl"],
+            max_features=static["_mf"] if static["_mf"] < xb.shape[1] else None,
+            key=key,
+            # classification stats are one_hot(y) * w, summing to the count
+            count_from_stats=self.task == "classification",
+        )
+        if static.get("_deep"):
+            groups = None
+            if "xb_coarse" in X:
+                groups = {g: X[g] for g in ("xb_cont", "xb_coarse", "fid_cont", "fid_coarse")}
+            return build_tree_deep(xb, S, C, levels=static["_levels"], width=static["_W"],
+                                   groups=groups, w_schedule=static.get("_wsched"),
+                                   nb_schedule=static.get("_nb_sched"), **common)
+        return build_tree(xb, S, C, depth=static["_depth"], **common)
+
+    def _tree_predict(self, xq, tree, static):
+        if static.get("_deep"):
+            return predict_tree_deep(xq, tree, static["_levels"], static["_n_bins"])
+        return predict_tree(xq, tree, static["_depth"], static["_n_bins"])
+
+    def prepare_data(self, X: np.ndarray, static: Dict[str, Any]):
+        """Bin once per bucket (host numpy): codes, edges and, for the deep
+        arena, the low-cardinality feature group (<= COARSE_BINS codes)."""
+        edges = quantile_bins(np.asarray(X), static["_n_bins"])
+        xb = bin_data(X, edges).numpy()
+        out = {"xb": xb, "edges": edges}
+        if static.get("_deep"):
+            n_codes = 1 + np.isfinite(edges).sum(axis=1)
+            coarse = n_codes <= COARSE_BINS
+            if coarse.sum() >= 8 and (~coarse).sum() >= 1:
+                fid_cont = np.where(~coarse)[0].astype(np.int32)
+                fid_coarse = np.where(coarse)[0].astype(np.int32)
+                out.update(
+                    xb_cont=np.ascontiguousarray(xb[:, fid_cont]),
+                    xb_coarse=np.ascontiguousarray(xb[:, fid_coarse]),
+                    fid_cont=fid_cont,
+                    fid_coarse=fid_coarse,
+                )
+        return out
+
+    @staticmethod
+    def prepared_key(static: Dict[str, Any]):
+        """What ``prepare_data`` reads of the resolved static: the trial
+        engine's cache key for the prepared forms."""
+        return (int(static["_n_bins"]), bool(static.get("_deep")))
+
+    @staticmethod
+    def _query_bins(params, X, static):
+        """The prepared data's precomputed codes (the search path scores the
+        rows it was fitted on; the artifact path's raw-matrix branch is not
+        ported)."""
+        return X["xb"]
+
+
+def _bootstrap_counts(key, w, n: int):
+    """Exact bootstrap per lane: n draws with replacement from the rows
+    where w > 0, by inverse-CDF search over the active-row count, capped at
+    127 (the integer-stat histogram contract). w [L, n] -> counts [L, n].
+    All lanes share ``key``; each lane draws below its own active count."""
+    active = (w > 0).long()
+    caw = torch.cumsum(active, dim=-1)
+    n_active = caw[:, -1:]
+    targets = prng.randint(key, (n,), 1, torch.clamp(n_active, min=1) + 1)
+    rows = torch.searchsorted(caw, targets.long())  # side="left"
+    # rows == n (no active row) is out of range and dropped, as segment_sum drops it
+    counts = torch.zeros((w.shape[0], n + 1), dtype=torch.float32, device=w.device)
+    counts.scatter_add_(1, rows, torch.ones_like(rows, dtype=torch.float32))
+    return torch.clamp(counts[:, :n], max=127.0)
+
+
+class _RandomForestBase(_TreeBase):
+    _supports_deep = True  # sklearn RF grows each tree to purity
+    static_defaults = {
+        "n_estimators": 100,
+        "max_depth": None,
+        "min_samples_leaf": 1,
+        "min_samples_split": 2,
+        "max_features": None,
+        "bootstrap": True,
+        "random_state": 0,
+        "n_bins": 128,
+        "criterion": "default",
+        "min_weight_fraction_leaf": 0.0,
+        "max_leaf_nodes": None,
+        "min_impurity_decrease": 0.0,
+        "oob_score": False,
+        "ccp_alpha": 0.0,
+        "max_samples": None,
+        "monotonic_cst": None,
+    }
+
+    def _one_tree(self, X, S, C, static, key):
+        """Bootstrap from the tree key's first half, features from its
+        second, then fit the tree on every lane."""
+        boot_key, feat_key = prng.split(key).unbind(-2)
+        if static.get("bootstrap", True):
+            counts = _bootstrap_counts(boot_key, C, S.shape[1])
+        else:
+            counts = (C > 0).to(torch.float32)
+        return self._fit_one_tree(X, S * counts[..., None], C * counts, static, feat_key)
+
+    def _tree_keys(self, static, ids, device):
+        base = prng.PRNGKey(static["_seed"], device=device)
+        return [prng.fold_in(base, int(t)) for t in ids]
+
+    def _fit_forest(self, X, S, C, static) -> List[Dict[str, torch.Tensor]]:
+        """Every tree of the forest, one after another, tree t keyed by
+        ``fold_in(base, t)`` (the reference's stream for any grouping)."""
+        n_trees = int(static.get("n_estimators", 100))
+        keys = self._tree_keys(static, range(n_trees), S.device)
+        return [self._one_tree(X, S, C, static, key) for key in keys]
+
+    # ---- chunked-fit protocol (parallel/trial_map.py::_run_chunked) ----
+    # The trees of a forest are split across several steps; the state
+    # between steps is the running sum of per-tree leaf predictions for
+    # every row and lane, and eval finalizes the soft-vote mean.
+
+    def chunked_plan(self, static, n, d, n_classes, n_splits, prepared=None):
+        chunk_macs = float(os.environ.get("CS230_TREE_CHUNK_MACS", 4e13))
+        trees = int(static.get("n_estimators", 100))
+        macs = float(max(n_splits, 1)) * self.macs_estimate(n, d, static, prepared)
+        n_chunks = int(np.ceil(macs / chunk_macs))
+        if n_chunks <= 1:
+            return None
+        trees_per_chunk = int(np.ceil(trees / n_chunks))
+        return {"n_chunks": int(np.ceil(trees / trees_per_chunk)),
+                "trees_per_chunk": trees_per_chunk}
+
+    def _stat_matrix(self, y, w, static):
+        """One-hot class stats times the lane weights: ``[L, n, c]``."""
+        c = max(int(static["_n_classes"]), 2)
+        onehot = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
+        return onehot[None] * w[..., None], c
+
+    def chunk_init(self, X, y, w, hyper, static):
+        _, k = self._stat_matrix(y, w, static)
+        return torch.zeros((w.shape[0], X["xb"].shape[0], k), dtype=torch.float32,
+                           device=w.device)
+
+    def chunk_step(self, X, y, w, hyper, static, chunk_idx, state, plan):
+        """Fit the chunk's trees (ids ``chunk_idx * g + i``, those past
+        n_estimators skipped) and add their predictions to the state."""
+        w = w.to(torch.float32)
+        S, _ = self._stat_matrix(y, w, static)
+        n_trees = int(static.get("n_estimators", 100))
+        g = plan["trees_per_chunk"]
+        ids = [t for t in range(chunk_idx * g, (chunk_idx + 1) * g) if t < n_trees]
+        for key in self._tree_keys(static, ids, w.device):
+            tree = self._one_tree(X, S, w, static, key)
+            state = state + self._tree_predict(X["xb"], tree, static)
+        return state
+
+    def chunk_eval(self, X, y, w_eval, hyper, static, state):
+        n_trees = int(static.get("n_estimators", 100))
+        return {"score": self._score(y, _vote_mean(state, n_trees), w_eval)}
+
+    def _score(self, y, mean, w_eval):
+        pred = torch.argmax(mean, dim=-1)
+        return weighted_accuracy(y.long()[None], pred, w_eval)
+
+
+def _vote_mean(total, n_trees: int):
+    """Soft-vote mean: the f32 sum times f32(1 / n_trees), the reference's
+    arithmetic (XLA rewrites the division by a constant to this product)."""
+    return total * float(np.float32(1.0) / np.float32(n_trees))
+
+
+class RandomForestClassifierKernel(_RandomForestBase):
+    name = "RandomForestClassifier"
+    task = "classification"
+    _mf_default = "sqrt"
+
+    def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
+        """Forests of every lane: w [L, n] fit weights."""
+        w = w.to(torch.float32)
+        S, _ = self._stat_matrix(y, w, static)
+        return {"trees": self._fit_forest(X, S, w, static)}
+
+    def _forest_leaf_mean(self, params, xq, static):
+        """Mean of the trees' leaf class distributions, summed tree by tree."""
+        total = None
+        for tree in params["trees"]:
+            vals = self._tree_predict(xq, tree, static)
+            total = vals if total is None else total + vals
+        return _vote_mean(total, len(params["trees"]))
+
+    def evaluate(self, params, X, y, w, static: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Weighted accuracy of every lane on the rows selected by w [L, n]."""
+        xq = self._query_bins(params, X, static)
+        return {"score": self._score(y, self._forest_leaf_mean(params, xq, static), w)}
+
+    def batched_scores(self, X, y, TW, EW, hyper, static):
+        """``[T, S]`` scores: every (trial, split) pair is one lane (lane =
+        trial * S + split) of one ``fit`` and one ``evaluate``. The forest
+        has no traced hypers; ``hyper`` carries only the trial count."""
+        T, S = next(iter(hyper.values())).shape[0], TW.shape[0]
+        fitted = self.fit(X, y, TW.repeat(T, 1), {}, static)
+        out = self.evaluate(fitted, X, y, EW.repeat(T, 1), static)
+        return {k: v.reshape(T, S) for k, v in out.items()}

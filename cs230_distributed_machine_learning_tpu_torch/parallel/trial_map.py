@@ -7,12 +7,21 @@ runs a whole bucket chunk of trials:
     every (trial, split) lane at once — holdout fit + K CV folds
       x T trials with their hyperparameters as [T] tensors
 
-Trials are bucketed by static config. A bucket whose kernel offers a packed
-path (``build_batched_fn``: the LogReg CUDA-kernel fit) runs in chunks
-rounded up to the kernel's trial block and capped at its chunk cap; every
-other bucket runs the kernel's generic ``batched_scores`` in chunks bounded
-by device memory. Results stay on the device until every chunk has been
-dispatched, then come back to the host once per output leaf.
+Trials are bucketed by static config. Per bucket, the first that applies:
+
+- a kernel with a chunked-fit protocol (``chunked_plan``: tree ensembles)
+  whose plan splits the fit runs ``_run_chunked``: init, then n_chunks
+  steps carrying an accumulator state, then eval;
+- a packed path (``build_batched_fn``: the LogReg CUDA-kernel fit) runs in
+  chunks rounded up to the kernel's trial block and capped at its chunk
+  cap;
+- any other bucket runs the kernel's ``batched_scores``.
+
+The first and the last run in trial chunks bounded by device memory. A
+kernel with ``prepare_data`` (tree binning) stages its prepared forms once
+per bucket configuration, cached on the dataset. Results stay on the device
+until every chunk has been dispatched, then come back to the host once per
+output leaf.
 """
 
 from __future__ import annotations
@@ -75,10 +84,11 @@ def run_trials(
         hypers.append(hyper)
         buckets.setdefault(static_key, []).append(i)
 
-    X = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
     y = torch.as_tensor(np.asarray(data.y), device=device)
     TW = torch.as_tensor(plan.train_w, device=device)
     EW = torch.as_tensor(plan.eval_w, device=device)
+    X_raw = None
+    staged: Dict[int, Dict[str, torch.Tensor]] = {}  # prepared forms on the device
 
     pending: List[Any] = []
     t0 = time.perf_counter()
@@ -90,6 +100,27 @@ def run_trials(
         if hasattr(kernel, "bucket_static"):
             static = kernel.bucket_static(static, [hypers[i] for i in idxs])
         hyper_names = sorted(hypers[idxs[0]].keys())
+
+        prepared = None
+        if hasattr(kernel, "prepare_data"):
+            prepared = _prepared_data(kernel, data, static)
+            if id(prepared) not in staged:
+                staged[id(prepared)] = {k: torch.as_tensor(v, device=device)
+                                        for k, v in prepared.items()}
+            X = staged[id(prepared)]
+        else:
+            if X_raw is None:
+                X_raw = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
+            X = X_raw
+
+        chunk_plan = None
+        if hasattr(kernel, "chunked_plan"):
+            chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes,
+                                             plan.n_splits, prepared=prepared)
+        if chunk_plan:
+            pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
+                                        hyper_names, plan, chunk_plan, device))
+            continue
 
         # kernels with a packed path (the LogReg kernel fit) take over the
         # whole chunk, with their own (larger) chunk geometry
@@ -110,16 +141,7 @@ def run_trials(
 
         for start in range(0, len(idxs), chunk):
             batch_idx = idxs[start : start + chunk]
-            # pad the chunk with the last trial's values; padded lanes are
-            # computed and dropped
-            hyper_batch = {
-                k: np.full((chunk,), hypers[batch_idx[-1]][k], np.float32)
-                for k in hyper_names
-            }
-            for j, gi in enumerate(batch_idx):
-                for k in hyper_names:
-                    hyper_batch[k][j] = hypers[gi][k]
-            hyper_arg = {k: torch.as_tensor(v, device=device) for k, v in hyper_batch.items()}
+            hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
             pending.append((fn(X, y, TW, EW, hyper_arg), batch_idx))
 
     for out, batch_idx in pending:
@@ -130,6 +152,68 @@ def run_trials(
         trial_metrics=[r for r in results if r is not None],
         run_time_s=time.perf_counter() - t0,
     )
+
+
+def _hyper_batch(hypers, batch_idx, hyper_names, chunk, device) -> Dict[str, torch.Tensor]:
+    """``[chunk]`` tensors of the chunk's hypers, padded with the last
+    trial's values (padded lanes are computed and dropped). A kernel with
+    no traced hypers gets a ``_pad`` of zeros, which carries the chunk's
+    trial count."""
+    if not hyper_names:
+        return {"_pad": torch.zeros((chunk,), dtype=torch.float32, device=device)}
+    hyper_batch = {
+        k: np.full((chunk,), hypers[batch_idx[-1]][k], np.float32) for k in hyper_names
+    }
+    for j, gi in enumerate(batch_idx):
+        for k in hyper_names:
+            hyper_batch[k][j] = hypers[gi][k]
+    return {k: torch.as_tensor(v, device=device) for k, v in hyper_batch.items()}
+
+
+def _prepared_data(kernel, data: TrialData, static: Dict[str, Any]):
+    """Bucket-level ``prepare_data`` (tree binning), cached on the TrialData
+    so that every bucket and every job over a cached dataset reuses it.
+    Keyed by the kernel and the resolved static entries prepare_data reads
+    (``kernel.prepared_key``)."""
+    cache = data.__dict__.get("_prepared_cache")
+    if cache is None:
+        cache = {}
+        object.__setattr__(data, "_prepared_cache", cache)
+    key = (kernel.name, kernel.prepared_key(static))
+    if key not in cache:
+        cache[key] = kernel.prepare_data(np.asarray(data.X), static)
+    return cache[key]
+
+
+def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
+                 chunk_plan, device) -> List[Any]:
+    """One bucket through the kernel's chunked-fit protocol, on one device:
+    per trial chunk, ``chunk_init`` -> n_chunks x ``chunk_step`` ->
+    ``chunk_eval`` over all (trial, split) lanes; the state between steps
+    (a forest's summed leaf predictions) never leaves the device. The trial
+    chunk is bounded by the state's memory, the kernel's working set and
+    64 trials (``trial_map.py:1707`` there). Returns the pending
+    (outputs, trial indices) pairs."""
+    n, n_splits = y.shape[0], int(plan.n_splits)
+    n_classes = int(static.get("_n_classes", 0))
+    state_mb = 4.0 * n * max(n_classes, 1) * n_splits / 1e6
+    mem_cap = _memory_chunk_cap(kernel, n, int(X["xb"].shape[1]), static, n_splits, device)
+    chunk = max(1, min(len(idxs), mem_cap,
+                       int(0.25 * _device_memory_mb(device) / max(state_mb, 1.0)), 64))
+    out = []
+    for start in range(0, len(idxs), chunk):
+        batch_idx = idxs[start : start + chunk]
+        hyper = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
+        # lane = trial * S + split: the fold masks repeated per trial
+        TWl = TW.repeat(chunk, 1)
+        hyper_l = {k: v.repeat_interleave(n_splits) for k, v in hyper.items()}
+        state = kernel.chunk_init(X, y, TWl, hyper_l, static)
+        for ci in range(int(chunk_plan["n_chunks"])):
+            state = kernel.chunk_step(X, y, TWl, hyper_l, static, ci, state, chunk_plan)
+        res = kernel.chunk_eval(X, y, EW.repeat(chunk, 1), hyper_l, static, state)
+        out.append(({k: v.reshape(chunk, n_splits, *v.shape[1:]) for k, v in res.items()},
+                    batch_idx))
+    return out
 
 
 def _postprocess(out: Dict[str, np.ndarray], j: int, plan: SplitPlan,

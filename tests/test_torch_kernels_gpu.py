@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/logreg.cu) against their plain PyTorch
-versions on the card.
+"""The port's CUDA kernels (csrc/logreg.cu, csrc/hist.cu) against their
+plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with CUDA and is marked ``gpu``; it
 skips where CUDA is absent. The file imports neither JAX nor the JAX
@@ -8,15 +8,19 @@ toolkit:
 
     python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
 
-Tolerance: 5e-3 of the max, as for the Pallas kernels against their
-references (the kernels round the residual to bf16, the plain versions
-keep it in f32). The fused step's frozen columns must be exact.
+Tolerance: 5e-3 of the max for the LogReg kernels, as for the Pallas
+kernels against their references (the kernels round the residual to bf16,
+the plain versions keep it in f32); the fused step's frozen columns must be
+exact. The level histogram (B4) must be bit-exact for integer stats (int32
+accumulation) and within 1e-5 of the max for float stats (f32 atomics in
+no fixed order).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as th
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
 
 TOL = 5e-3
@@ -111,3 +115,64 @@ def test_card_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         tk.packed_softmax_grad(Ab, W.to(torch.bfloat16), y2, WSP.cpu(), c=4, S=3)
     assert tk.LAUNCHES == {k: 0 for k in tk.LAUNCHES}
+
+
+def _hist_inputs(dev, L, n, d, n_bins, n_nodes, kk, float_stats, seed=0):
+    rng = np.random.RandomState(seed)
+    local = torch.as_tensor(rng.randint(-1, n_nodes + 1, (L, n)).astype(np.int32)).to(dev)
+    xb = torch.as_tensor(rng.randint(0, n_bins, (n, d)).astype(np.int32)).to(dev)
+    if float_stats:
+        SC = rng.randn(L, n, kk).astype(np.float32)
+    else:  # one-hot classes times small bootstrap counts, many zero rows
+        SC = (np.eye(kk, dtype=np.float32)[rng.randint(0, kk, (L, n))]
+              * rng.poisson(0.8, (L, n, 1)).astype(np.float32))
+    return local, xb, torch.as_tensor(SC).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,n,d,n_bins,n_nodes,kk", [
+    (6, 11_620, 54, 24, 128, 7),    # the 10 % covertype job's deep levels
+    (6, 11_620, 54, 48, 1, 7),      # its root
+    (3, 4097, 12, 24, 70, 8),       # a node block straddled
+    (2, 513, 5, 256, 130, 16),      # the widest bins and stats
+])
+def test_level_histogram_matches_plain_on_card(cuda, L, n, d, n_bins, n_nodes, kk):
+    th.reset_launches()
+    local, xb, SC = _hist_inputs(cuda, L, n, d, n_bins, n_nodes, kk, float_stats=False)
+    got = th.level_histogram(local, xb, SC, n_nodes, n_bins, integer_stats=True)
+    want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    local, xb, SC = _hist_inputs(cuda, L, n, d, n_bins, n_nodes, kk, float_stats=True)
+    got = th.level_histogram(local, xb, SC, n_nodes, n_bins)
+    want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5
+    assert th.LAUNCHES["level_histogram"] == 2
+
+
+@pytest.mark.gpu
+def test_level_histogram_raises_instead_of_falling_back(cuda):
+    local, xb, SC = _hist_inputs(cuda, 2, 300, 4, 8, 5, 3, float_stats=False)
+    th.reset_launches()
+    with pytest.raises(TypeError):
+        th.level_histogram(local.long(), xb, SC, 5, 8, integer_stats=True)
+    with pytest.raises(ValueError):
+        th.level_histogram(local, xb, SC, 5, 512, integer_stats=True)  # bins past 256
+    with pytest.raises(ValueError):
+        th.level_histogram(local, xb.cpu(), SC, 5, 8, integer_stats=True)
+    assert th.LAUNCHES["level_histogram"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["scatter", "matmul"])
+def test_plain_hist_valve_raises_on_card(cuda, mode, monkeypatch):
+    """The reference's plain-form names do not move card tensors off B4."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import trees as tt
+
+    local, xb, SC = _hist_inputs(cuda, 2, 300, 4, 8, 5, 3, float_stats=False)
+    th.reset_launches()
+    monkeypatch.setenv("CS230_HIST_KERNEL", mode)
+    with pytest.raises(ValueError):
+        tt._level_histogram_multi(local, (xb,), SC, 5, (8,), integer_stats=True)
+    assert th.LAUNCHES["level_histogram"] == 0

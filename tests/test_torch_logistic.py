@@ -9,10 +9,13 @@ the JAX package's, on the CPU, fed the same numpy inputs.
   mode, ``_newton`` on iris) through both trial engines.
 
 Score tolerance: atol 2e-3. Against the Pallas kernels in interpret mode
-the packed path allows one eval row per lane instead (mean still under
-2e-3): the Pallas kernel rounds the gradient residual to bf16 and the
-plain version keeps it in f32 (the JAX reference's choice), so a few
-borderline eval rows flip between the two (ROADMAP queue C).
+the packed path is held by a count of eval rows instead: the Pallas kernel
+rounds the gradient residual to bf16 and the plain version keeps it in f32
+(the JAX reference's choice), so a few borderline eval rows flip between
+the two. A lane's score times its eval-row count is its count of correct
+rows; per lane the two may differ by at most 2 rows, and over all lanes by
+at most 1 row in 1,000 lane-eval rows (measured: 32 rows over 384 lanes at
+7 classes, 42 at 3 classes, of ~134,000).
 """
 
 import numpy as np
@@ -65,18 +68,24 @@ def _plain_pallas(monkeypatch):
     monkeypatch.setattr(jpl, "packed_softmax_grad", plain(jpl.packed_softmax_grad_reference))
 
 
+#: eval rows whose correctness may differ from the Pallas interpret run:
+#: in one lane, and per 1,000 lane-eval rows over all lanes
+MAX_ROWS_PER_LANE = 2
+MAX_ROWS_PER_1000 = 1
+
+
 @pytest.mark.parametrize("mode,c,fit_intercept,jax_route", [
     ("pallas", 7, True, "interpret"),
+    ("pallas", 3, True, "interpret"),
     ("legacy", 3, False, "reference"),
 ])
 def test_packed_fn_matches_jax(monkeypatch, mode, c, fit_intercept, jax_route):
     """Port packed fn vs JAX packed fn at n=700, d=5, S=3, chunk=128, 12
     steps, per-trial max_iter below the step cap: the fused body against
-    the Pallas fused step in interpret mode, the legacy body against the
-    JAX kernels' plain references. Against the references every score is
-    within atol 2e-3; against the Pallas kernels, which round the residual
-    to bf16, a lane may differ by one eval row and the mean stays under
-    2e-3."""
+    the Pallas fused step in interpret mode (7 and 3 classes), the legacy
+    body against the JAX kernels' plain references. Against the references
+    every score is within atol 2e-3; against the Pallas kernels, which round
+    the residual to bf16, by the count of eval rows (module docstring)."""
     n, d, S, chunk, steps = 700, 5, 3, 128, 12
     monkeypatch.setenv("CS230_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("CS230_FORCE_PACKED", "1")
@@ -103,9 +112,12 @@ def test_packed_fn_matches_jax(monkeypatch, mode, c, fit_intercept, jax_route):
     if jax_route == "reference":
         assert diff.max() <= 2e-3
     else:
-        one_row = 1.0 / EW.sum(axis=1)  # [S] score of a single eval row
-        assert (diff <= one_row[None, :] + 1e-6).all()
-        assert diff.mean() < 2e-3
+        n_eval = EW.sum(axis=1)[None, :]  # [1, S] eval rows of each lane
+        rows = diff * n_eval
+        assert np.abs(rows - np.rint(rows)).max() < 1e-3  # whole rows
+        rows = np.rint(rows)
+        assert rows.max() <= MAX_ROWS_PER_LANE
+        assert rows.sum() <= MAX_ROWS_PER_1000 * (chunk * n_eval.sum()) / 1000
     jc, tc = np.asarray(jout["curve_gmax"]), tout["curve_gmax"].numpy()
     assert tc.shape == jc.shape == (chunk, S, steps)
     assert np.abs(tc - jc).max() / np.abs(jc).max() < 1e-2

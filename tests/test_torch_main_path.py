@@ -136,8 +136,9 @@ def test_csv_parse_matches_jax_loader(tmp_path, name):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter with scikit-learn made unimportable, the port
-    runs a small search from a model_details payload (the form a user
-    without scikit-learn passes) and never loads JAX or the JAX package."""
+    runs a small LogReg search and a small forest from model_details
+    payloads (the form a user without scikit-learn passes) and never loads
+    JAX or the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['sklearn'] = None  # any import of it now fails\n"
@@ -151,6 +152,11 @@ def test_port_imports_no_jax(tmp_path):
         "s = MLTaskManager(device='cpu').train(details, 'synthetic_300x6x3')\n"
         "assert s['job_status'] == 'completed', s\n"
         "assert len(s['job_result']['results']) == 3, s\n"
+        "import cs230_distributed_machine_learning_tpu_torch.ops.cuda_hist\n"
+        "rf = {'model_type': 'RandomForestClassifier', 'search_type': None,\n"
+        "      'base_estimator_params': {'n_estimators': 2, 'random_state': 0}}\n"
+        "s = MLTaskManager(device='cpu').train(rf, 'synthetic_300x6x3')\n"
+        "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('jaxlib.') or m == 'cs230_distributed_machine_learning_tpu'\n"
         "       or m.startswith('cs230_distributed_machine_learning_tpu.')]\n"
@@ -194,10 +200,10 @@ def test_default_device_is_the_card():
 
 
 def test_not_yet_ported_model_fails_its_subtasks():
-    from sklearn.ensemble import RandomForestClassifier
+    from sklearn.ensemble import GradientBoostingClassifier
 
     ts = TorchManager(device="cpu").train(
-        GridSearchCV(RandomForestClassifier(), {"n_estimators": [5, 10]}, cv=3), "iris"
+        GridSearchCV(GradientBoostingClassifier(), {"n_estimators": [5, 10]}, cv=3), "iris"
     )
     assert ts["job_status"] == "completed"
     result = ts["job_result"]
