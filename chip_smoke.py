@@ -42,6 +42,22 @@ non-zero exit and no result line:
             through the chunked deep arena; best_params_ equal and every
             mean_cv_score within 1e-6.
 
+11. kernels_mlp  B5 (the MLP epoch kernel) against its plain version with
+            bf16 operands, on 72 lanes (one config-5 dispatch: 12 trials x
+            6 splits) at 784-512-10 with batch 256 and 784-256-128-10 with
+            batch 128: one step and an 8-step epoch from the Glorot init
+            under Adam and SGD, held to MLP_LIMITS (its comment says why
+            they are what they are), then a full Adam epoch (234 / 468
+            steps) timed beside the plain version and the bound.
+12. mlp_main  MLTaskManager() on the card trains BASELINE config 5, uncut:
+            RandomizedSearchCV(MLPClassifier(max_iter=30, random_state=0),
+            hidden_layer_sizes x learning_rate_init x alpha x batch_size,
+            n_iter=100, cv=5, random_state=0) on synthetic_60000x784x10;
+            every trial finite, B5 launched 30 times per bucket chunk.
+13. mlp_reference  a small MLP search (4,096 rows) on the card and on the
+            CPU (the plain version in f32): every mean_cv_score within 0.02,
+            best_params_ equality reported.
+
 The kernels phase also holds B4 (the tree level histogram) against its
 plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
 nodes, 24 and 48 bins, 7 classes) and at rf_full's widest level (116,202
@@ -67,9 +83,33 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "cs230_distributed_machine_learning_tpu_torch"
-SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu"}
+SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
+           "mlp": f"{PKG}/csrc/mlp.cu"}
 TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
+# B5 vs its plain version, from the same state. Both round the same
+# operands to bf16 but sum in other orders, so a relu input or a bf16
+# rounding (2^-8 relative) within f32 noise of its edge can go either way,
+# and Adam turns a gradient within rounding of zero into a step of up to
+# the learning rate either way; at config 5's larger learning rates the
+# two fits then drift apart within a few steps, as any two summation
+# orders would. So the kernel is held after one step at the lanes' own
+# learning rates and after an 8-step epoch at config 5's smallest (1e-4),
+# by the largest param error over the largest |param| ("param_rel"), the
+# share of params more than 1e-3 of the largest |param| apart ("far") and
+# every state tensor's mean error over its mean change ("mean"). Measured
+# on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) at both shapes: SGD rel
+# <= 1.6e-5 and mean <= 4.2e-3; Adam far <= 1.5e-6 and mean <= 1.6e-2
+# after the epoch, mean <= 4.3e-6 after one step (where a flipped sign
+# still moves a param by 2 lr: rel up to 0.17).
+MLP_LIMITS = {
+    ("step", "sgd"): {"param_rel": TOL, "mean_rel": 2e-2},
+    ("step", "adam"): {"param_far_share": 1e-3, "mean_rel": 2e-2},
+    ("epoch", "sgd"): {"param_rel": TOL, "mean_rel": 2e-2},
+    ("epoch", "adam"): {"param_far_share": 1e-2, "mean_rel": 1e-1},
+}
+MLP_EPOCH_LR = 1e-4
+MLP_SEARCH_TOL = 0.02
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -147,6 +187,7 @@ def phase_build() -> None:
         cuda_build,
         cuda_hist,
         cuda_logreg,
+        cuda_mlp,
     )
 
     t0 = time.perf_counter()
@@ -160,6 +201,9 @@ def phase_build() -> None:
         assert lib.logreg_masked_smem_bytes(dpp, cp) == cuda_logreg.masked_smem_bytes(dpp, cp)
     for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
+    for dims, bs in (((784, 512, 10), 256), ((784, 256, 128, 10), 128), ((5, 3, 7, 1), 40)):
+        got = cuda_mlp._lib().mlp_scratch_floats(cuda_mlp._dims_array(dims), len(dims) - 1, bs)
+        assert got == cuda_mlp.scratch_floats(dims, bs), (dims, got)
     ptxas = [ln.strip() for name in sorted(SOURCES)
              for ln in cuda_build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -638,6 +682,228 @@ def phase_rf_reference(manager) -> None:
         assert launches == per_tree * trees, f"rf_reference {dataset}: {launches} launches"
 
 
+#: B5 shapes: (dims, batch size, steps of a full epoch at 60,000 rows)
+MLP_SHAPES = {
+    "784-512-10": ((784, 512, 10), 256, 234),
+    "784-256-128-10": ((784, 256, 128, 10), 128, 468),
+}
+#: lanes of one config-5 dispatch: 12 trials x 6 splits
+MLP_LANES = 72
+MLP_CHECK_STEPS = 8
+
+
+def _mlp_inputs(gen, dev, dims, bs, steps, L, S=6):
+    """An epoch's inputs as the fused path builds them: bf16 rows, one-hot
+    targets, the 6 split masks spread over the lanes (lane = trial * 6 +
+    split), config-5 learning rates and penalties, and the Glorot params."""
+    R = steps * bs
+    X = torch.randn(R, dims[0], generator=gen, device=dev).to(torch.bfloat16)
+    Y = torch.nn.functional.one_hot(
+        torch.randint(0, dims[-1], (R,), generator=gen, device=dev), dims[-1]).float()
+    splits = (torch.rand(R, S, generator=gen, device=dev) > 0.2).float()
+    Wl = splits[:, torch.arange(L, device=dev) % S].contiguous()
+    grid = torch.tensor([1e-4, 3e-4, 1e-3, 3e-3, 1e-2], device=dev)
+    lr = grid[torch.randint(0, 5, (L,), generator=gen, device=dev)].contiguous()
+    alpha = torch.tensor([1e-5, 1e-4, 1e-3], device=dev)[
+        torch.randint(0, 3, (L,), generator=gen, device=dev)].contiguous()
+    params = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        bound = (6.0 / (din + dout)) ** 0.5
+        params.append({"W": (torch.rand(din, dout, generator=gen, device=dev) * 2 - 1) * bound,
+                       "b": torch.zeros(dout, device=dev)})
+    return X, Y, Wl, lr, alpha, params
+
+
+def _mlp_check(M, part, params, L, solver, kw) -> dict:
+    """One short epoch of B5 against its plain version from the same state.
+    Params (every W and b): the largest error over the largest |param|
+    ("param_rel") and the share of params more than 1e-3 of the largest
+    |param| apart ("param_far_share"); every state tensor: its mean error
+    over its mean change ("mean_rel")."""
+    state = M.epoch_state(params, L, solver)
+    k = M.per_layer(solver)
+    ref = M.epoch_reference(*part, 0, [t.clone() for t in state], solver=solver, **kw)
+    got = M.epoch(*part, 0, [t.clone() for t in state], solver=solver, **kw)
+    torch.cuda.synchronize()
+    pidx = [i for i in range(len(got)) if i % k < 2]  # params: W, b
+    scale = max(float(ref[i].abs().max()) for i in pidx)
+    out = dict(param_abs=0.0, mean_rel=0.0)
+    far = total = 0
+    for i, (g, r, a) in enumerate(zip(got, ref, state)):
+        assert bool(torch.isfinite(g).all()), f"B5 {solver}: non-finite state {i}"
+        if i in pidx:
+            out["param_abs"] = max(out["param_abs"], float((g - r).abs().max()))
+            far += int(((g - r).abs() > 1e-3 * scale).sum())
+            total += g.numel()
+        moved = float((r - a).abs().mean())
+        if moved > 0:
+            out["mean_rel"] = max(out["mean_rel"], float((g - r).abs().mean()) / moved)
+    out["param_rel"] = out["param_abs"] / scale
+    out["param_far_share"] = far / total
+    return out
+
+
+def phase_kernels_mlp(dev) -> dict:
+    """B5 against its plain version (bf16 operands) on the card, under Adam
+    (the main path) and SGD: one step and an 8-step epoch checked
+    (MLP_LIMITS), a full Adam epoch timed beside the plain version and the
+    bound. No single PyTorch call computes an Adam epoch: library_ms is
+    null."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rows = {}
+    for tag, (dims, bs, steps) in MLP_SHAPES.items():
+        L = MLP_LANES
+        kw = dict(dims=dims, act="relu", bs=bs, classification=True)
+        X, Y, Wl, lr, alpha, params = _mlp_inputs(gen, dev, dims, bs, steps, L)
+        checks = {}
+        for check, nb, lr_c in (("step", 1, lr),
+                                ("epoch", MLP_CHECK_STEPS, torch.full_like(lr, MLP_EPOCH_LR))):
+            part = (X[:nb * bs], Y[:nb * bs], Wl[:nb * bs].contiguous(), lr_c, alpha)
+            for solver in ("adam", "sgd"):
+                checks[(check, solver)] = _mlp_check(M, part, params, L, solver,
+                                                     dict(kw, n_batches=nb))
+        emit({"phase": "kernels_mlp_check", "tag": tag,
+              "checks": {f"{c}_{s}": v for (c, s), v in checks.items()}})
+        for key, limits in MLP_LIMITS.items():
+            for metric, limit in limits.items():
+                got = checks[key][metric]
+                assert got < limit, f"B5 {tag} {key}: {metric} {got} (limit {limit})"
+        adam = checks[("epoch", "adam")]
+        state = M.epoch_state(params, L, "adam")
+
+        full = (X, Y, Wl, lr, alpha)
+        ms = time_ms(lambda: M.epoch(*full, 0, state, n_batches=steps, **kw), reps=3, warmup=1)
+        plain = time_ms(lambda: M.epoch_reference(*full, 0, state, n_batches=steps, **kw),
+                        reps=3, warmup=1)
+        flops = M.epoch_flops(dims, bs, steps, L)
+        nbytes = M.epoch_bytes(dims, bs, steps, L)
+        t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+        rows[("mlp_epoch", tag)] = dict(
+            shape=dict(dims=list(dims), batch=bs, steps=steps, lanes=L),
+            max_abs_err=adam["param_abs"], max_rel_err=adam["param_rel"],
+            checks={f"{c}_{s}": v for (c, s), v in checks.items()},
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            design_floor_ms=1e3 * M.epoch_bytes(dims, bs, steps, L, every_step=True) / PEAK_BYTES,
+            tflops=flops / (ms * 1e-3) / 1e12)
+        del X, Y, Wl, state
+        torch.cuda.empty_cache()
+    emit({"phase": "kernels_mlp",
+          "limits": {f"{c}_{s}": v for (c, s), v in MLP_LIMITS.items()},
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
+    return rows
+
+
+#: BASELINE config 5's search space (benchmarks/measure_baseline.py)
+CONFIG5_SPACE = {
+    "hidden_layer_sizes": [[128], [256], [512], [256, 128]],
+    "learning_rate_init": [1e-4, 3e-4, 1e-3, 3e-3, 1e-2],
+    "alpha": [1e-5, 1e-4, 1e-3],
+    "batch_size": [128, 256],
+}
+
+
+def _mlp_search(space, n_iter, max_iter, cv=5):
+    """``RandomizedSearchCV(MLPClassifier(max_iter=..., random_state=0),
+    space, n_iter, cv, random_state=0)`` as the model_details payload,
+    hidden_layer_sizes as lists."""
+    return {
+        "model_type": "MLPClassifier",
+        "search_type": "RandomizedSearchCV",
+        "base_estimator_params": {"max_iter": max_iter, "random_state": 0},
+        "param_distributions": space,
+        "n_iter": n_iter,
+        "random_state": 0,
+        "cv_params": {"cv": cv},
+    }
+
+
+def _mlp_expected_launches(space, n_iter, epochs) -> tuple:
+    """B5 launches the job must make: one an epoch for every chunk of at
+    most 64 trials of every (architecture, batch size) bucket."""
+    from cs230_distributed_machine_learning_tpu_torch.utils.sklearn_compat import (
+        parameter_sampler,
+    )
+
+    buckets = {}
+    for p in parameter_sampler(space, n_iter, random_state=0):
+        key = (tuple(p["hidden_layer_sizes"]), p["batch_size"])
+        buckets[key] = buckets.get(key, 0) + 1
+    chunks = sum(-(-n // 64) for n in buckets.values())
+    return epochs * chunks, {f"{k[0]}/{k[1]}": v for k, v in sorted(buckets.items())}
+
+
+def phase_mlp_main(manager) -> int:
+    """BASELINE config 5 through the manager, uncut: 100 trials, B5's
+    launches zeroed before and read after."""
+    import math
+
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
+
+    dataset = "synthetic_60000x784x10"
+    t0 = time.perf_counter()
+    data = manager._coordinator.cache.get(dataset, "classification")
+    assert data.X.shape == (60_000, 784) and data.n_classes == 10, data.X.shape
+    emit({"phase": "mlp_data", "dataset": dataset, "seconds": time.perf_counter() - t0})
+    expected, buckets = _mlp_expected_launches(CONFIG5_SPACE, 100, 30)
+    M.reset_launches()
+    t0 = time.perf_counter()
+    status = manager.train(_mlp_search(CONFIG5_SPACE, 100, 30), dataset,
+                           {"random_state": 42}, timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = M.LAUNCHES["mlp_epoch"]
+    assert status["job_status"] == "completed", status
+    res = status["job_result"]
+    assert not res["failed"], res["failed"][:1]
+    assert len(res["results"]) == 100, len(res["results"])
+    scores = [r["mean_cv_score"] for r in res["results"]]
+    assert all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores), scores[:5]
+    best = res["best_result"]
+    emit({"phase": "mlp_main", "wall_s": wall, "trials": len(scores), "launches": launches,
+          "expected_launches": expected, "buckets": buckets,
+          "best_params": best["search_params"], "best_mean_cv_score": best["mean_cv_score"],
+          "min_mean_cv_score": min(scores)})
+    assert launches == expected, f"mlp_main: {launches} B5 launches, expected {expected}"
+    return launches
+
+
+def phase_mlp_reference(manager) -> None:
+    """A small MLP search on the card (B5, bf16) and on the CPU (the plain
+    version, f32, forced onto the fused path): every mean_cv_score within
+    MLP_SEARCH_TOL."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
+
+    space = {"hidden_layer_sizes": [[32], [64, 32]], "learning_rate_init": [1e-3, 1e-2],
+             "alpha": [1e-4], "batch_size": [128]}
+    search = _mlp_search(space, 4, 3)
+    dataset = "synthetic_4096x64x5"
+    M.reset_launches()
+    t0 = time.perf_counter()
+    gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+    t_gpu = time.perf_counter() - t0
+    launches = M.LAUNCHES["mlp_epoch"]
+    os.environ["CS230_FORCE_PACKED"] = "1"
+    try:
+        cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                timeout=900)
+    finally:
+        del os.environ["CS230_FORCE_PACKED"]
+    g, c = _scores(gpu), _scores(cpu)
+    assert g.keys() == c.keys() and len(g) == 4, (g, c)
+    worst = max(abs(g[k] - c[k]) for k in g)
+    same = (gpu["job_result"]["best_result"]["search_params"]
+            == cpu["job_result"]["best_result"]["search_params"])
+    emit({"phase": "mlp_reference", "dataset": dataset, "trials": len(g),
+          "card_wall_s": t_gpu, "launches": launches, "max_mean_cv_diff": worst,
+          "best_params_equal": same, "scores": g, "cpu_scores": c})
+    assert launches == 2 * 3, f"mlp_reference: {launches} B5 launches, expected 6"
+    assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
@@ -668,6 +934,9 @@ def main() -> int:
     phase_rf_full(manager)
     phase_rf_profile(manager, "covertype")
     phase_rf_reference(manager)
+    rows.update(phase_kernels_mlp(dev))
+    launches["mlp_epoch"] = phase_mlp_main(manager)
+    phase_mlp_reference(manager)
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -679,6 +948,8 @@ def main() -> int:
                                 "n_pad 4096, dpp 896, cp 16, 16 lanes"),
         "level_histogram": ("rf_main_deep", "hist", f"{jax_ops}/pallas_hist.py:106",
                             "6 lanes, 11620 rows, 54 features, 24 bins, 128 nodes, 7 classes"),
+        "mlp_epoch": ("784-512-10", "mlp", f"{jax_ops}/pallas_mlp.py:239",
+                      "one epoch: 784-512-10, batch 256, 234 steps, 72 lanes, adam"),
     }
     kernels = []
     for name, (key, src, replaces, shape) in table.items():

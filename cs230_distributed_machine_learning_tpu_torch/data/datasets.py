@@ -20,6 +20,7 @@ from __future__ import annotations
 import csv
 import glob
 import os
+import shutil
 import threading
 from typing import Any, Dict, Optional, Tuple
 
@@ -124,7 +125,8 @@ def materialize_builtin(name: str, root: Optional[str] = None) -> Optional[str]:
     if not os.path.exists(raw_path):
         df.to_csv(raw_path, index=False)
     if not os.path.exists(pre_path):
-        df.to_csv(pre_path, index=False)
+        # the same bytes: copy rather than format the table a second time
+        shutil.copyfile(raw_path, pre_path)
     return pre_path
 
 

@@ -21,8 +21,7 @@ _NOT_YET_PORTED = frozenset(
         "KNeighborsRegressor", "SVC", "SVR", "DecisionTreeClassifier",
         "DecisionTreeRegressor",
         "RandomForestRegressor", "GradientBoostingClassifier",
-        "GradientBoostingRegressor", "MLPClassifier", "MLPRegressor",
-        "GaussianNB", "PCA", "StandardScaler", "MinMaxScaler",
+        "GradientBoostingRegressor", "GaussianNB", "PCA", "StandardScaler", "MinMaxScaler",
         "OneHotEncoder", "SimpleImputer",
     }
 )
@@ -47,7 +46,9 @@ def _ensure_populated() -> None:
     if _REGISTRY:
         return
     from .logistic import LogisticRegressionKernel
+    from .mlp import MLPClassifierKernel, MLPRegressorKernel
     from .trees import RandomForestClassifierKernel
 
-    for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel()):
+    for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel(),
+                   MLPClassifierKernel(), MLPRegressorKernel()):
         _REGISTRY[kernel.name] = kernel

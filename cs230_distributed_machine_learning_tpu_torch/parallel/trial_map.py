@@ -226,6 +226,8 @@ def _postprocess(out: Dict[str, np.ndarray], j: int, plan: SplitPlan,
         metrics["accuracy"] = score
     else:
         metrics["r2_score"] = score
+    if task == "regression" and "mse" in out:
+        metrics["mse"] = float(out["mse"][j, 0])
     if plan.n_folds >= 2:
         cv = out["score"][j, 1:]
         metrics["cv_scores"] = [float(v) for v in cv]

@@ -1,15 +1,18 @@
 """Counter-based random numbers, bit-equal to the JAX package's streams.
 
-The tree path draws its bootstrap and its feature subsets through
-``jax.random`` (threefry2x32 with ``jax_threefry_partitionable`` on, the
-default of the JAX the reference runs). ``torch.Generator`` cannot give
-those streams, and the same trees need the same draws, so this module is
-the port's explicit key-passing counterpart of the calls the path makes:
+The tree path draws its bootstrap and its feature subsets, and the MLP
+path its Glorot init, its epoch shuffles and its stochastic rounding,
+through ``jax.random`` (threefry2x32 with ``jax_threefry_partitionable``
+on, the default of the JAX the reference runs). ``torch.Generator`` cannot
+give those streams, and the same fits need the same draws, so this module
+is the port's explicit key-passing counterpart of the calls the paths make:
 
 - ``PRNGKey(seed)``, ``fold_in(key, data)``, ``split(key, num)``;
-- ``uniform(key, shape)`` (f32 in [0, 1));
+- ``bits(key, shape)`` (the uint32 words of ``jax.random.bits``);
+- ``uniform(key, shape, minval, maxval)`` (f32 in [minval, maxval));
 - ``randint(key, shape, minval, maxval)`` (int32, ``maxval`` may be a
-  tensor, e.g. one bound per lane).
+  tensor, e.g. one bound per lane);
+- ``permutation(key, n)`` (a shuffled ``arange(n)``).
 
 A key is an int64 tensor of shape ``[..., 2]`` holding two 32-bit words;
 leading dimensions batch independent keys. torch has few uint32
@@ -19,6 +22,7 @@ after each add and shift. Everything runs on the device of its inputs.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Union
 
 import torch
@@ -99,11 +103,45 @@ def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: Key, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32: the top 23 bits as
-    the mantissa of a float in [1, 2), minus one."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+def bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)``: the words of
+    ``random_bits``, as int64 in [0, 2^32)."""
+    return random_bits(key, shape)
+
+
+def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top
+    23 bits as the mantissa of a float in [1, 2), minus one, then JAX's
+    affine map ``f * (maxval - minval) + minval`` floored at ``minval``.
+    ``minval`` / ``maxval`` are rounded to f32 first, as JAX does. XLA fuses
+    the map into one multiply-add rounded once; the product of two f32
+    values and the sum are exact in f64, so one rounding of the f64 result
+    to f32 gives the same bits."""
+    word = (random_bits(key, shape) >> 9) | 0x3F800000
+    floats = word.to(torch.int32).view(torch.float32) - 1.0
+    if float(minval) == 0.0 and float(maxval) == 1.0:
+        return floats  # the map is the identity on [0, 1)
+    lo = torch.tensor(float(minval), dtype=torch.float32, device=floats.device)
+    span = torch.tensor(float(maxval), dtype=torch.float32, device=floats.device) - lo
+    mapped = (floats.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, mapped)
+
+
+def permutation(key: Key, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: JAX's ``_shuffle`` of
+    ``arange(n)`` (int64 here). ``ceil(3 ln n / ln(2^32 - 1))`` rounds,
+    each a ``split``, 32-bit sort keys from ``random_bits`` and a stable
+    sort by key (``lax.sort_key_val`` is stable): 1 round up to n = 1,625,
+    2 up to n = 2,642,245."""
+    n = int(n)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    for _ in range(rounds):
+        key, sub = split(key).unbind(-2)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
 
 
 def randint(key: Key, shape: Sequence[int], minval: IntLike, maxval: IntLike) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/logreg.cu, csrc/hist.cu) against their
-plain PyTorch versions on the card.
+"""The port's CUDA kernels (csrc/logreg.cu, csrc/hist.cu, csrc/mlp.cu)
+against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with CUDA and is marked ``gpu``; it
 skips where CUDA is absent. The file imports neither JAX nor the JAX
@@ -13,7 +13,14 @@ kernels against their references (the kernels round the residual to bf16,
 the plain versions keep it in f32); the fused step's frozen columns must be
 exact. The level histogram (B4) must be bit-exact for integer stats (int32
 accumulation) and within 1e-5 of the max for float stats (f32 atomics in
-no fixed order).
+no fixed order). The MLP epoch (B5) and its plain version round the same
+operands to bf16 and sum in different orders. Under SGD every state tensor
+stays within 5e-3 of its max. Adam divides by the gradient's root mean
+square, so a gradient within f32 rounding of zero can take either sign and
+move its parameter by up to the learning rate either way, and the next
+steps' relu masks follow: Adam's state is held on average (mean |kernel -
+plain| within 1e-2 of the mean change of the tensor over the epoch) and
+every parameter within 5e-2 of the largest.
 """
 
 import numpy as np
@@ -22,6 +29,7 @@ import torch
 
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as th
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
+from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as tm
 
 TOL = 5e-3
 
@@ -176,3 +184,77 @@ def test_plain_hist_valve_raises_on_card(cuda, mode, monkeypatch):
     with pytest.raises(ValueError):
         tt._level_histogram_multi(local, (xb,), SC, 5, (8,), integer_stats=True)
     assert th.LAUNCHES["level_histogram"] == 0
+
+
+def _epoch_inputs(dev, dims, bs, nb, L, classification, solver, track, seed=0, ragged=0):
+    """Glorot-scale params, small moments, shuffled rows and split weights
+    (``ragged`` trailing slots of every batch at zero weight)."""
+    rng = np.random.RandomState(seed)
+    R = nb * bs
+    X = torch.as_tensor(rng.randn(R, dims[0]).astype(np.float32)).to(dev).to(torch.bfloat16)
+    if classification:
+        Y = np.eye(dims[-1], dtype=np.float32)[rng.randint(0, dims[-1], R)]
+    else:
+        Y = rng.randn(R, 1).astype(np.float32)
+    Wl = (rng.rand(nb, bs, L) > 0.3).astype(np.float32)
+    if ragged:
+        Wl[:, bs - ragged:, :] = 0.0
+    lr = np.full(L, 1e-3, np.float32)
+    alpha = (10 ** rng.uniform(-5, -3, L)).astype(np.float32)
+    state = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        bound = np.sqrt(6.0 / (din + dout))
+        state += [rng.uniform(-bound, bound, (L, din, dout)), np.zeros((L, dout))]
+        for _ in range(tm.per_layer(solver) // 2 - 1):
+            state += [np.abs(rng.randn(L, din, dout)) * 1e-4, np.abs(rng.randn(L, dout)) * 1e-4]
+    if track:
+        state.append(np.zeros(L))
+    t = [torch.as_tensor(np.asarray(a, np.float32)).to(dev) for a in state]
+    return (X, torch.as_tensor(Y).to(dev), torch.as_tensor(Wl.reshape(R, L)).to(dev),
+            torch.as_tensor(lr).to(dev), torch.as_tensor(alpha).to(dev), t)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims,act,bs,nb,L,cls,solver,nest,track,ragged", [
+    ((784, 512, 10), "relu", 256, 4, 6, True, "adam", True, False, 0),    # config 5
+    ((784, 256, 128, 10), "relu", 128, 4, 6, True, "adam", True, False, 0),
+    ((20, 32, 16, 8, 5), "tanh", 64, 3, 5, True, "adam", True, True, 7),
+    ((20, 32, 1), "logistic", 40, 3, 4, False, "sgd", False, True, 0),
+    ((33, 24, 24, 3), "identity", 50, 3, 3, True, "sgd", True, True, 3),
+])
+def test_mlp_epoch_matches_plain_on_card(cuda, dims, act, bs, nb, L, cls, solver, nest,
+                                          track, ragged):
+    X, Y, Wl, lr, alpha, state = _epoch_inputs(cuda, dims, bs, nb, L, cls, solver, track,
+                                               ragged=ragged)
+    kw = dict(dims=dims, act=act, bs=bs, n_batches=nb, classification=cls, solver=solver,
+              nesterov=nest, track_loss=track)
+    p0 = [s.clone() for s in state]
+    ref = tm.epoch_reference(X, Y, Wl, lr, alpha, 7, [s.clone() for s in state], **kw)
+    tm.reset_launches()
+    got = tm.epoch(X, Y, Wl, lr, alpha, 7, state, **kw)
+    torch.cuda.synchronize()
+    assert tm.LAUNCHES["mlp_epoch"] == 1
+    k = tm.per_layer(solver)
+    for i, (g, r, a) in enumerate(zip(got, ref, p0)):
+        if solver == "sgd" or i == len(got) - 1 and track:
+            assert _rel(g, r) < 5e-3, i
+            continue
+        if i % k < 2:  # params
+            assert _rel(g, r) < 5e-2, i
+        moved = float((r - a).abs().mean())
+        assert float((g - r).abs().mean()) <= 1e-2 * moved, i
+
+
+@pytest.mark.gpu
+def test_mlp_epoch_raises_instead_of_falling_back(cuda):
+    dims = (8, 16, 3)
+    X, Y, Wl, lr, alpha, state = _epoch_inputs(cuda, dims, 32, 2, 2, True, "adam", False)
+    kw = dict(dims=dims, act="relu", bs=32, n_batches=2, classification=True)
+    tm.reset_launches()
+    with pytest.raises(TypeError):  # f32 rows: the kernel takes bf16 only
+        tm.epoch(X.float(), Y, Wl, lr, alpha, 0, state, **kw)
+    with pytest.raises(ValueError):
+        tm.epoch(X, Y, Wl.cpu(), lr, alpha, 0, state, **kw)
+    with pytest.raises(ValueError):
+        tm.epoch(X, Y, Wl, lr, alpha, 0, state, **{**kw, "act": "softplus"})
+    assert tm.LAUNCHES["mlp_epoch"] == 0

@@ -136,8 +136,8 @@ def test_csv_parse_matches_jax_loader(tmp_path, name):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter with scikit-learn made unimportable, the port
-    runs a small LogReg search and a small forest from model_details
-    payloads (the form a user without scikit-learn passes) and never loads
+    runs a small LogReg search, a small forest and a small MLP search from
+    model_details payloads (the form a user without scikit-learn passes) and never loads
     JAX or the JAX package."""
     code = (
         "import sys\n"
@@ -156,6 +156,12 @@ def test_port_imports_no_jax(tmp_path):
         "rf = {'model_type': 'RandomForestClassifier', 'search_type': None,\n"
         "      'base_estimator_params': {'n_estimators': 2, 'random_state': 0}}\n"
         "s = MLTaskManager(device='cpu').train(rf, 'synthetic_300x6x3')\n"
+        "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
+        "import cs230_distributed_machine_learning_tpu_torch.ops.cuda_mlp\n"
+        "mlp = {'model_type': 'MLPClassifier', 'search_type': 'GridSearchCV',\n"
+        "       'base_estimator_params': {'max_iter': 2, 'hidden_layer_sizes': [4]},\n"
+        "       'param_grid': {'alpha': [1e-4, 1e-3]}, 'cv_params': {'cv': 3}}\n"
+        "s = MLTaskManager(device='cpu').train(mlp, 'synthetic_300x6x3')\n"
         "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('jaxlib.') or m == 'cs230_distributed_machine_learning_tpu'\n"

@@ -1,8 +1,10 @@
 """The port's threefry generator (utils/prng.py) against ``jax.random``, bit
-for bit, for every call and shape the tree path makes: PRNGKey, fold_in
-(scalar and batched over arena node ids), split, uniform (the feature
-subsets of both builders) and randint with a shared and a per-lane
-``maxval`` (the bootstrap)."""
+for bit, for every call and shape the tree and MLP paths make: PRNGKey,
+fold_in (scalar and batched over arena node ids), split, uniform (the
+feature subsets of both builders, and the MLP's bounded Glorot init),
+randint with a shared and a per-lane ``maxval`` (the bootstrap), bits (the
+MLP's stochastic rounding) and permutation (its epoch shuffles, 1 sort
+round at small n and 2 at 60,000)."""
 
 import numpy as np
 import pytest
@@ -85,3 +87,35 @@ def test_randint_per_lane_bound():
     got = prng.randint(tk, (500,), 1,
                        torch.clamp(torch.as_tensor(n_active, dtype=torch.int64), min=1)[:, None] + 1)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+@pytest.mark.parametrize("n", [7, 1000, 60_000])
+@pytest.mark.parametrize("seed", [0, 42])
+def test_permutation(n, seed):
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    for e, (je, te) in enumerate(zip(jax.random.split(jk, 2), prng.split(tk, 2))):
+        want = np.asarray(jax.random.permutation(je, n))
+        np.testing.assert_array_equal(want, prng.permutation(te, n).numpy(), err_msg=str(e))
+
+
+@pytest.mark.parametrize("shape", [(7,), (20, 32), (784, 128)])
+def test_bits(shape):
+    jk, tk = jax.random.PRNGKey(3), prng.PRNGKey(3)
+    for k in range(3):  # the stochastic-rounding stream's per-step leaf keys
+        jkk = jax.random.split(jax.random.fold_in(jk, k + 1), 3)[k]
+        tkk = prng.split(prng.fold_in(tk, k + 1), 3)[k]
+        want = np.asarray(jax.random.bits(jkk, shape, jnp.uint32)).astype(np.int64)
+        np.testing.assert_array_equal(want, prng.bits(tkk, shape).numpy())
+
+
+@pytest.mark.parametrize("fan_in,fan_out", [(784, 512), (512, 10), (20, 32)])
+@pytest.mark.parametrize("seed", [0, 1000])
+def test_uniform_bounded(fan_in, fan_out, seed):
+    """The Glorot draw: bounds +-f32(sqrt(6 / (fan_in + fan_out))). XLA
+    fuses the affine map into a multiply-add; the port matches its bits."""
+    jk, tk = jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    bound = jnp.sqrt(6.0 / (fan_in + fan_out))
+    want = np.asarray(jax.random.uniform(jk, (fan_in, fan_out), jnp.float32, -bound, bound))
+    got = prng.uniform(tk, (fan_in, fan_out), -float(bound), float(bound)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(want.view(np.int32), got.view(np.int32))
