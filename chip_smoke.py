@@ -57,6 +57,24 @@ non-zero exit and no result line:
 13. mlp_reference  a small MLP search (4,096 rows) on the card and on the
             CPU (the plain version in f32): every mean_cv_score within 0.02,
             best_params_ equality reported.
+14. kernels_knn  stages synthetic_200000x54x7 and holds B6 (the KNN top-k)
+            against its plain version at knn_main's launch shape (rows
+            0-4,095 of the table as queries, the job's 6 split masks, k 5
+            and 25): distances within KNN_D2_TOL of max(qsq + tsq), the
+            same neighbour sets wherever the plain k-th and (k+1)-th
+            distances are further apart; then integer data (exact ties,
+            a lane with fewer rows than k, k up to 256) equal to the bit,
+            and shapes off the tile grid. Times beside the bound and
+            torch.cdist + a masked topk.
+15. knn_main  MLTaskManager() on the card trains GridSearchCV(
+            KNeighborsClassifier(), {n_neighbors: [5, 25], weights:
+            [uniform, distance]}, cv=5) on that table: 4 buckets, each
+            49 query chunks of 4,096 rows; B6 must launch chunked_plan's
+            count (196), all 4 trials finite.
+16. knn_reference  5,000-row classifier and regressor KNN grids on the
+            card and on the CPU, with CS230_FORCE_PACKED=1 (B6 on the
+            card, its plain version on the CPU) and without (the generic
+            path on both): mean_cv_score within 2e-3 (r2: 1e-4).
 
 The kernels phase also holds B4 (the tree level histogram) against its
 plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
@@ -84,7 +102,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "cs230_distributed_machine_learning_tpu_torch"
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
-           "mlp": f"{PKG}/csrc/mlp.cu"}
+           "mlp": f"{PKG}/csrc/mlp.cu", "knn": f"{PKG}/csrc/knn.cu"}
 TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
 # B5 vs its plain version, from the same state. Both round the same
@@ -186,6 +204,7 @@ def phase_build() -> None:
     from cs230_distributed_machine_learning_tpu_torch.ops import (
         cuda_build,
         cuda_hist,
+        cuda_knn,
         cuda_logreg,
         cuda_mlp,
     )
@@ -204,6 +223,9 @@ def phase_build() -> None:
     for dims, bs in (((784, 512, 10), 256), ((784, 256, 128, 10), 128), ((5, 3, 7, 1), 40)):
         got = cuda_mlp._lib().mlp_scratch_floats(cuda_mlp._dims_array(dims), len(dims) - 1, bs)
         assert got == cuda_mlp.scratch_floats(dims, bs), (dims, got)
+    assert cuda_knn._lib().knn_max_k() == cuda_knn.MAX_K
+    for k in (1, 5, 25, cuda_knn.MAX_K):
+        assert cuda_knn._lib().knn_smem_bytes(k) == cuda_knn.smem_bytes(k), k
     ptxas = [ln.strip() for name in sorted(SOURCES)
              for ln in cuda_build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -903,6 +925,251 @@ def phase_mlp_reference(manager) -> None:
     assert launches == 2 * 3, f"mlp_reference: {launches} B5 launches, expected 6"
     assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
 
+#: the KNN slice's table: covertype's width and classes at the first round
+#: size above both B6 gates (n >= 150,000 and (S-1)/S n >= 150,000 at S = 6)
+KNN_DATASET = "synthetic_200000x54x7"
+KNN_GRID = {"n_neighbors": [5, 25], "weights": ["uniform", "distance"]}
+#: B6 against its plain version: distances within this share of
+#: max(qsq + tsq) (the expansion's f32 rounding grows with the norms)
+KNN_D2_TOL = 1e-5
+KNN_SEARCH_TOL = {"classification": 2e-3, "regression": 1e-4}
+
+
+def _knn_search(model_type: str, grid: dict, cv: int = 5) -> dict:
+    """``GridSearchCV(<model_type>(), grid, cv=cv)`` as the model_details
+    payload."""
+    return {"model_type": model_type, "search_type": "GridSearchCV",
+            "base_estimator_params": {}, "param_grid": grid, "cv_params": {"cv": cv}}
+
+
+def knn_table(manager) -> tuple:
+    """The KNN table on the card: (TrialData, X, the job's 6 split masks,
+    staging seconds)."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+
+    t0 = time.perf_counter()
+    data = manager._coordinator.cache.get(KNN_DATASET, "classification")
+    staged = time.perf_counter() - t0
+    assert data.X.shape == (200_000, 54) and data.n_classes == 7, data.X.shape
+    plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=5,
+                            random_state=42)
+    X = torch.as_tensor(np.asarray(data.X, np.float32), device=manager.device)
+    W = torch.as_tensor(plan.train_w, device=manager.device).float().contiguous()
+    return data, X, W, staged
+
+
+def _knn_compare(K, Q, X, W, k, exact: bool) -> dict:
+    """B6 against its plain version asked for k + 1 neighbours. Distances
+    within KNN_D2_TOL of max(qsq + tsq); index sets equal wherever the
+    plain k-th and (k+1)-th distances are more than that apart (the others
+    are counted); with ``exact`` (integer data: every distance exact)
+    both outputs equal to the bit, order included."""
+    got_d, got_i = K.knn_topk(Q, X, W, k)
+    ref_d, ref_i = K.knn_topk_reference(Q, X, W, k + 1)
+    torch.cuda.synchronize()
+    scale = float((Q * Q).sum(1).max() + (X * X).sum(1).max())
+    tol = KNN_D2_TOL * scale
+    err = float((got_d - ref_d[..., :k]).abs().max())
+    gap = ref_d[..., k] - ref_d[..., k - 1]
+    clear = gap > tol
+    same = (torch.sort(got_i, dim=-1).values == torch.sort(ref_i[..., :k], dim=-1).values).all(-1)
+    out = dict(max_abs_err=err, max_rel_err=err / scale, d2_tol=tol,
+               sets_checked=int(clear.sum()), sets_unresolved=int((~clear).sum()),
+               sets_differ=int((clear & ~same).sum()))
+    if exact:
+        out["exact"] = bool(torch.equal(got_d, ref_d[..., :k])
+                            and torch.equal(got_i, ref_i[..., :k]))
+        assert out["exact"], f"knn_topk k={k}: integer case not exact {out}"
+    assert err <= tol, f"knn_topk k={k}: d2 error {err} > {tol}"
+    assert out["sets_differ"] == 0, f"knn_topk k={k}: neighbour sets differ {out}"
+    return out
+
+
+def _knn_small_cases(K, gen, dev) -> list:
+    """Duplicated training rows (exact ties: the lowest index must win), a
+    lane with fewer than k masked-in rows (empty slots (3.4e38, -1)), the
+    largest k, shapes off the tile grid and features over several staged
+    chunks. Integer data makes every distance exact."""
+    def ints(*shape):
+        return torch.randint(-3, 4, shape, generator=gen, device=dev).float()
+
+    rows = []
+    Xd = ints(700, 7)
+    Xd[350:] = Xd[:350]  # every row twice
+    Wd = (torch.rand(3, 700, generator=gen, device=dev) > 0.3).float()
+    Wd[1] = 0.0
+    Wd[1, torch.tensor([5, 400, 699], device=dev)] = 1.0  # 3 rows for k > 3
+    Qd = ints(300, 7)
+    for k in (5, 25, K.MAX_K):
+        rows.append(dict(case="ties_and_empty_slots", k=k,
+                         **_knn_compare(K, Qd, Xd, Wd, k, exact=True)))
+    d2, idx = K.knn_topk(Qd, Xd, Wd, 5)
+    assert bool((idx[1, :, 3:] == -1).all()) and bool((d2[1, :, 3:] == K.INF).all())
+    for nq, n, d, k in ((257, 2049, 6, 3), (130, 1000, 130, 7), (1, 129, 54, 25)):
+        Q = torch.randn(nq, d, generator=gen, device=dev)
+        X = torch.randn(n, d, generator=gen, device=dev)
+        W = (torch.rand(2, n, generator=gen, device=dev) > 0.2).float()
+        rows.append(dict(case=f"nq{nq}_n{n}_d{d}", k=k,
+                         **_knn_compare(K, Q, X, W, k, exact=False)))
+    return rows
+
+
+def phase_kernels_knn(manager) -> dict:
+    """B6 against its plain version on the card: at the launch shape of
+    knn_main (queries: rows 0-4,095 of the staged table; the job's 6 split
+    masks; k 5 and 25), then small cases. Times (median ms, CUDA events)
+    of the kernel, the plain version, and the library: torch.cdist plus a
+    masked torch.topk(largest=False), since no single PyTorch call
+    computes the function."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+
+    dev = manager.device
+    data, X, W, staged = knn_table(manager)
+    emit({"phase": "knn_data", "dataset": KNN_DATASET, "shape": list(data.X.shape),
+          "seconds": staged})
+    Q = X[:4096].contiguous()
+    L, n = W.shape
+    nq, d = Q.shape
+    rows = {}
+    for k in KNN_GRID["n_neighbors"]:
+        check = _knn_compare(K, Q, X, W, k, exact=False)
+        ms = time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
+        plain = time_ms(lambda: K.knn_topk_reference(Q, X, W, k), reps=3, warmup=1)
+
+        def library():
+            dist = torch.cdist(Q, X)
+            return torch.topk(dist.masked_fill(W[:, None, :] <= 0, float("inf")), k,
+                              dim=-1, largest=False)
+
+        lib_ms = time_ms(library, reps=3, warmup=1)
+        t_ops = K.knn_operations(L, nq, n, d) / PEAK_F32
+        t_bytes = K.knn_bytes(L, nq, n, d, k) / PEAK_BYTES
+        rows[("knn_topk", f"launch_k{k}")] = dict(
+            shape=dict(lanes=L, queries=nq, rows=n, features=d, k=k), **check,
+            ms=ms, plain_ms=plain, library_ms=lib_ms,
+            library_note="torch.cdist + masked torch.topk: no single call computes it",
+            bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            design_floor_ms=1e3 * L * 2.0 * nq * n * d / PEAK_F32,
+            tflops=2.0 * nq * n * d * L / (ms * 1e-3) / 1e12)
+        torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(7)
+    small = _knn_small_cases(K, gen, dev)
+    emit({"phase": "kernels_knn", "d2_tolerance": KNN_D2_TOL,
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()],
+          "small": small})
+    del X, W, Q
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _knn_bucket_plans(manager, model_type, dataset, grid) -> dict:
+    """``chunked_plan`` of every (n_neighbors, weights) bucket of a grid, as
+    the trial engine resolves it; None where the bucket runs whole."""
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+
+    kernel = get_kernel(model_type)
+    data = manager._coordinator.cache.get(dataset, kernel.task)
+    n, d = data.X.shape
+    plans = {}
+    for k in grid["n_neighbors"]:
+        for w in grid["weights"]:
+            static_key, _ = kernel.canonicalize({"n_neighbors": k, "weights": w})
+            static = kernel.resolve_static(kernel.static_from_key(static_key), n, d,
+                                           data.n_classes)
+            plans[f"{k}/{w}"] = kernel.chunked_plan(static, n, d, data.n_classes, 6,
+                                                    device=manager.device)
+    return plans
+
+
+def phase_knn_main(manager) -> int:
+    """The slice's main path: GridSearchCV(KNeighborsClassifier(), KNN_GRID,
+    cv=5) on the 200,000-row table through the manager, B6's launches
+    zeroed before and read after; they must be chunked_plan's count (one a
+    query chunk of every bucket: each bucket is one trial)."""
+    import math
+
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+
+    plans = _knn_bucket_plans(manager, "KNeighborsClassifier", KNN_DATASET, KNN_GRID)
+    assert all(plans.values()), plans
+    expected = sum(p["n_chunks"] for p in plans.values())
+    K.reset_launches()
+    t0 = time.perf_counter()
+    status = manager.train(_knn_search("KNeighborsClassifier", KNN_GRID), KNN_DATASET,
+                           {"random_state": 42}, timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.LAUNCHES["knn_topk"]
+    assert status["job_status"] == "completed", status
+    res = status["job_result"]
+    assert not res["failed"], res["failed"][:1]
+    assert len(res["results"]) == 4, len(res["results"])
+    scores = [r["mean_cv_score"] for r in res["results"]]
+    assert all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores), scores
+    best = res["best_result"]
+    emit({"phase": "knn_main", "dataset": KNN_DATASET, "wall_s": wall, "trials": len(scores),
+          "launches": launches, "expected_launches": expected, "plans": plans,
+          "best_params": best["search_params"], "best_mean_cv_score": best["mean_cv_score"],
+          "scores": _scores(status)})
+    assert launches == expected, f"knn_main: {launches} B6 launches, expected {expected}"
+    return launches
+
+
+def phase_knn_reference(manager) -> None:
+    """Small KNN searches (5,000 rows) on the card and on the CPU: a
+    classifier grid (k 1, 5, 25 x both weights) and a regressor grid, once
+    under CS230_FORCE_PACKED=1 (the card launches B6, the CPU runs its
+    plain version) and once without (both take the generic path). Every
+    mean_cv_score within KNN_SEARCH_TOL; best_params_ equal unless the
+    CPU's top two trials are within the tolerance (then reported)."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+
+    dataset = "synthetic_5000x54x7"
+    cases = (("KNeighborsClassifier", "classification",
+              {"n_neighbors": [1, 5, 25], "weights": ["uniform", "distance"]}),
+             ("KNeighborsRegressor", "regression",
+              {"n_neighbors": [5, 25], "weights": ["uniform", "distance"]}))
+    for forced in (True, False):
+        for model_type, task, grid in cases:
+            search = _knn_search(model_type, grid)
+            if forced:
+                os.environ["CS230_FORCE_PACKED"] = "1"
+            try:
+                K.reset_launches()
+                t0 = time.perf_counter()
+                gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+                t_gpu = time.perf_counter() - t0
+                launches = K.LAUNCHES["knn_topk"]
+                t0 = time.perf_counter()
+                cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                        timeout=900)
+                t_cpu = time.perf_counter() - t0
+            finally:
+                os.environ.pop("CS230_FORCE_PACKED", None)
+            assert not gpu["job_result"]["failed"] and not cpu["job_result"]["failed"]
+            g, c = _scores(gpu), _scores(cpu)
+            n_trials = len(grid["n_neighbors"]) * len(grid["weights"])
+            assert g.keys() == c.keys() and len(g) == n_trials, (g, c)
+            worst = max(abs(g[k] - c[k]) for k in g)
+            tol = KNN_SEARCH_TOL[task]
+            same = (gpu["job_result"]["best_result"]["search_params"]
+                    == cpu["job_result"]["best_result"]["search_params"])
+            top = sorted(c.values(), reverse=True)[:2]
+            emit({"phase": "knn_reference", "model": model_type, "forced_kernel": forced,
+                  "dataset": dataset, "trials": len(g), "card_wall_s": t_gpu,
+                  "cpu_wall_s": t_cpu, "launches": launches, "max_mean_cv_diff": worst,
+                  "tolerance": tol, "best_params_equal": same,
+                  "cpu_top_two_within_tolerance": top[0] - top[1] <= tol, "scores": g,
+                  "cpu_scores": c})
+            assert worst <= tol, f"knn_reference {model_type}: card vs CPU {worst}"
+            assert same or top[0] - top[1] <= tol, f"knn_reference {model_type}: best differs"
+            # one launch a bucket when forced (no bucket is chunked at this size)
+            assert launches == (n_trials if forced else 0), f"knn_reference: {launches}"
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -937,6 +1204,9 @@ def main() -> int:
     rows.update(phase_kernels_mlp(dev))
     launches["mlp_epoch"] = phase_mlp_main(manager)
     phase_mlp_reference(manager)
+    rows.update(phase_kernels_knn(manager))
+    launches["knn_topk"] = phase_knn_main(manager)
+    phase_knn_reference(manager)
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -950,6 +1220,8 @@ def main() -> int:
                             "6 lanes, 11620 rows, 54 features, 24 bins, 128 nodes, 7 classes"),
         "mlp_epoch": ("784-512-10", "mlp", f"{jax_ops}/pallas_mlp.py:239",
                       "one epoch: 784-512-10, batch 256, 234 steps, 72 lanes, adam"),
+        "knn_topk": ("launch_k5", "knn", f"{jax_ops}/pallas_knn.py:111",
+                     "6 lanes, 4096 queries, 200000 rows, 54 features, k 5"),
     }
     kernels = []
     for name, (key, src, replaces, shape) in table.items():

@@ -17,8 +17,7 @@ _REGISTRY: Dict[str, ModelKernel] = {}
 #: families the JAX package runs that later slices of the port bring over
 _NOT_YET_PORTED = frozenset(
     {
-        "LinearRegression", "Ridge", "KNeighborsClassifier",
-        "KNeighborsRegressor", "SVC", "SVR", "DecisionTreeClassifier",
+        "LinearRegression", "Ridge", "SVC", "SVR", "DecisionTreeClassifier",
         "DecisionTreeRegressor",
         "RandomForestRegressor", "GradientBoostingClassifier",
         "GradientBoostingRegressor", "GaussianNB", "PCA", "StandardScaler", "MinMaxScaler",
@@ -45,10 +44,12 @@ def get_kernel(model_type: str) -> ModelKernel:
 def _ensure_populated() -> None:
     if _REGISTRY:
         return
+    from .knn import KNNClassifierKernel, KNNRegressorKernel
     from .logistic import LogisticRegressionKernel
     from .mlp import MLPClassifierKernel, MLPRegressorKernel
     from .trees import RandomForestClassifierKernel
 
     for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel(),
-                   MLPClassifierKernel(), MLPRegressorKernel()):
+                   MLPClassifierKernel(), MLPRegressorKernel(),
+                   KNNClassifierKernel(), KNNRegressorKernel()):
         _REGISTRY[kernel.name] = kernel

@@ -366,7 +366,9 @@ class _RandomForestBase(_TreeBase):
     # between steps is the running sum of per-tree leaf predictions for
     # every row and lane, and eval finalizes the soft-vote mean.
 
-    def chunked_plan(self, static, n, d, n_classes, n_splits, prepared=None):
+    def chunked_plan(self, static, n, d, n_classes, n_splits, prepared=None, device=None):
+        """Trees per dispatch from the MAC budget (``device`` is not read:
+        the forest's plan is the same on every device)."""
         chunk_macs = float(os.environ.get("CS230_TREE_CHUNK_MACS", 4e13))
         trees = int(static.get("n_estimators", 100))
         macs = float(max(n_splits, 1)) * self.macs_estimate(n, d, static, prepared)

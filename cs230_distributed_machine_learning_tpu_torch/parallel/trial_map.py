@@ -9,8 +9,8 @@ runs a whole bucket chunk of trials:
 
 Trials are bucketed by static config. Per bucket, the first that applies:
 
-- a kernel with a chunked-fit protocol (``chunked_plan``: tree ensembles)
-  whose plan splits the fit runs ``_run_chunked``: init, then n_chunks
+- a kernel with a chunked-fit protocol (``chunked_plan``: tree ensembles,
+  KNN) whose plan splits the fit runs ``_run_chunked``: init, then n_chunks
   steps carrying an accumulator state, then eval;
 - a packed path (``build_batched_fn``: the LogReg CUDA-kernel fit) runs in
   chunks rounded up to the kernel's trial block and capped at its chunk
@@ -115,11 +115,11 @@ def run_trials(
 
         chunk_plan = None
         if hasattr(kernel, "chunked_plan"):
-            chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes,
-                                             plan.n_splits, prepared=prepared)
+            chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
+                                             prepared=prepared, device=device)
         if chunk_plan:
             pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
-                                        hyper_names, plan, chunk_plan, device))
+                                        hyper_names, plan, chunk_plan, d, device))
             continue
 
         # kernels with a packed path (the LogReg kernel fit) take over the
@@ -186,18 +186,19 @@ def _prepared_data(kernel, data: TrialData, static: Dict[str, Any]):
 
 
 def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
-                 chunk_plan, device) -> List[Any]:
+                 chunk_plan, d, device) -> List[Any]:
     """One bucket through the kernel's chunked-fit protocol, on one device:
     per trial chunk, ``chunk_init`` -> n_chunks x ``chunk_step`` ->
     ``chunk_eval`` over all (trial, split) lanes; the state between steps
-    (a forest's summed leaf predictions) never leaves the device. The trial
+    (a forest's summed leaf predictions, a KNN's predicted query rows)
+    never leaves the device. ``d`` is the table's feature count. The trial
     chunk is bounded by the state's memory, the kernel's working set and
     64 trials (``trial_map.py:1707`` there). Returns the pending
     (outputs, trial indices) pairs."""
     n, n_splits = y.shape[0], int(plan.n_splits)
     n_classes = int(static.get("_n_classes", 0))
     state_mb = 4.0 * n * max(n_classes, 1) * n_splits / 1e6
-    mem_cap = _memory_chunk_cap(kernel, n, int(X["xb"].shape[1]), static, n_splits, device)
+    mem_cap = _memory_chunk_cap(kernel, n, d, static, n_splits, device)
     chunk = max(1, min(len(idxs), mem_cap,
                        int(0.25 * _device_memory_mb(device) / max(state_mb, 1.0)), 64))
     out = []

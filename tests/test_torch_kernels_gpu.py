@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (csrc/logreg.cu, csrc/hist.cu, csrc/mlp.cu)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels (csrc/logreg.cu, csrc/hist.cu, csrc/mlp.cu,
+csrc/knn.cu) against their plain PyTorch versions on the card.
 
 Every test here needs an NVIDIA GPU with CUDA and is marked ``gpu``; it
 skips where CUDA is absent. The file imports neither JAX nor the JAX
@@ -20,7 +20,12 @@ square, so a gradient within f32 rounding of zero can take either sign and
 move its parameter by up to the learning rate either way, and the next
 steps' relu masks follow: Adam's state is held on average (mean |kernel -
 plain| within 1e-2 of the mean change of the tensor over the epoch) and
-every parameter within 5e-2 of the largest.
+every parameter within 5e-2 of the largest. The KNN top-k (B6) must keep
+every distance within 1e-5 of max(qsq + tsq) (the expansion's f32
+rounding) and the same neighbour sets wherever the plain k-th and (k+1)-th
+distances are further apart than that; on integer data every distance is
+exact and the outputs must be equal, ties (lowest index first) and empty
+slots (3.4e38, -1) included.
 """
 
 import numpy as np
@@ -28,6 +33,7 @@ import pytest
 import torch
 
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as th
+from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as tn
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as tm
 
@@ -258,3 +264,70 @@ def test_mlp_epoch_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         tm.epoch(X, Y, Wl, lr, alpha, 0, state, **{**kw, "act": "softplus"})
     assert tm.LAUNCHES["mlp_epoch"] == 0
+
+
+def _knn_check(Q, X, W, k):
+    """B6 against its plain version asked for k + 1 neighbours: (distance
+    error, tolerance, rows whose k-th and (k+1)-th neighbours are closer
+    than the tolerance)."""
+    got_d, got_i = tn.knn_topk(Q, X, W, k)
+    ref_d, ref_i = tn.knn_topk_reference(Q, X, W, k + 1)
+    torch.cuda.synchronize()
+    tol = 1e-5 * float((Q * Q).sum(1).max() + (X * X).sum(1).max())
+    clear = (ref_d[..., k] - ref_d[..., k - 1]) > tol
+    same = (torch.sort(got_i, -1).values == torch.sort(ref_i[..., :k], -1).values).all(-1)
+    assert bool(same[clear].all())
+    return float((got_d - ref_d[..., :k]).abs().max()), tol, int((~clear).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,n,d,L,k", [
+    (257, 2049, 6, 3, 3),     # off the tile grid
+    (130, 1000, 130, 2, 7),   # features over three staged chunks
+    (4096, 20000, 54, 6, 25),  # the search path's query chunk and width
+    (64, 500, 54, 1, 256),    # the largest k
+])
+def test_knn_topk_matches_plain_on_card(cuda, nq, n, d, L, k):
+    rng = np.random.RandomState(nq + k)
+    Q = torch.as_tensor(rng.randn(nq, d).astype(np.float32)).to(cuda)
+    X = torch.as_tensor(rng.randn(n, d).astype(np.float32)).to(cuda)
+    W = torch.as_tensor((rng.rand(L, n) > 0.3).astype(np.float32)).to(cuda)
+    tn.reset_launches()
+    err, tol, _ = _knn_check(Q, X, W, k)
+    assert err <= tol
+    assert tn.LAUNCHES["knn_topk"] == 1
+
+
+@pytest.mark.gpu
+def test_knn_topk_exact_ties_and_empty_slots_on_card(cuda):
+    rng = np.random.RandomState(11)
+    half = rng.randint(-3, 4, (300, 7)).astype(np.float32)
+    X = torch.as_tensor(np.concatenate([half, half])).to(cuda)  # every row twice
+    Q = torch.as_tensor(rng.randint(-3, 4, (200, 7)).astype(np.float32)).to(cuda)
+    W = torch.as_tensor((rng.rand(3, 600) > 0.3).astype(np.float32)).to(cuda)
+    W[1] = 0.0
+    W[1, [5, 400, 599]] = 1.0  # fewer masked-in rows than k
+    for k in (5, 25, tn.MAX_K):
+        got = tn.knn_topk(Q, X, W, k)
+        ref = tn.knn_topk_reference(Q, X, W, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), k
+        assert bool((got[1][1, :, 3:] == -1).all())
+        assert bool((got[0][1, :, 3:] == np.float32(tn.INF)).all())
+
+
+@pytest.mark.gpu
+def test_knn_topk_raises_instead_of_falling_back(cuda):
+    Q = torch.randn(16, 5, device=cuda)
+    X = torch.randn(100, 5, device=cuda)
+    W = torch.ones(2, 100, device=cuda)
+    tn.reset_launches()
+    with pytest.raises(ValueError, match=str(tn.MAX_K)):  # above the kernel's k limit
+        tn.knn_topk(Q, X, W, tn.MAX_K + 1)
+    with pytest.raises(TypeError):
+        tn.knn_topk(Q.double(), X, W, 5)
+    with pytest.raises(ValueError):
+        tn.knn_topk(Q, X.t().contiguous().t(), W, 5)  # not contiguous
+    with pytest.raises(ValueError):
+        tn.knn_topk(Q, X, W.cpu(), 5)
+    assert tn.LAUNCHES["knn_topk"] == 0

@@ -136,9 +136,9 @@ def test_csv_parse_matches_jax_loader(tmp_path, name):
 
 def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter with scikit-learn made unimportable, the port
-    runs a small LogReg search, a small forest and a small MLP search from
-    model_details payloads (the form a user without scikit-learn passes) and never loads
-    JAX or the JAX package."""
+    runs a small LogReg search, a small forest, a small MLP search and a
+    small KNN search from model_details payloads (the form a user without
+    scikit-learn passes) and never loads JAX or the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['sklearn'] = None  # any import of it now fails\n"
@@ -163,6 +163,14 @@ def test_port_imports_no_jax(tmp_path):
         "       'param_grid': {'alpha': [1e-4, 1e-3]}, 'cv_params': {'cv': 3}}\n"
         "s = MLTaskManager(device='cpu').train(mlp, 'synthetic_300x6x3')\n"
         "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
+        "import cs230_distributed_machine_learning_tpu_torch.ops.cuda_knn\n"
+        "knn = {'model_type': 'KNeighborsClassifier', 'search_type': 'GridSearchCV',\n"
+        "       'base_estimator_params': {},\n"
+        "       'param_grid': {'n_neighbors': [3, 20], 'weights': ['uniform', 'distance']},\n"
+        "       'cv_params': {'cv': 3}}\n"
+        "s = MLTaskManager(device='cpu').train(knn, 'synthetic_300x6x3')\n"
+        "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
+        "assert len(s['job_result']['results']) == 4, s\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('jaxlib.') or m == 'cs230_distributed_machine_learning_tpu'\n"
         "       or m.startswith('cs230_distributed_machine_learning_tpu.')]\n"
