@@ -60,12 +60,13 @@ non-zero exit and no result line:
 14. kernels_knn  stages synthetic_200000x54x7 and holds B6 (the KNN top-k)
             against its plain version at knn_main's launch shape (rows
             0-4,095 of the table as queries, the job's 6 split masks, k 5
-            and 25): distances within KNN_D2_TOL of max(qsq + tsq), the
-            same neighbour sets wherever the plain k-th and (k+1)-th
-            distances are further apart; then integer data (exact ties,
-            a lane with fewer rows than k, k up to 256) equal to the bit,
-            and shapes off the tile grid. Times beside the bound and
-            torch.cdist + a masked topk.
+            and 25, and k 300, whose lists live in device memory):
+            distances within KNN_D2_TOL of max(qsq + tsq), the same
+            neighbour sets wherever the plain k-th and (k+1)-th distances
+            are further apart; then integer data (exact ties, a lane with
+            fewer rows than k, k 256 and 300) equal to the bit, and shapes
+            off the tile grid. Times beside the bound and torch.cdist + a
+            masked topk.
 15. knn_main  MLTaskManager() on the card trains GridSearchCV(
             KNeighborsClassifier(), {n_neighbors: [5, 25], weights:
             [uniform, distance]}, cv=5) on that table: 4 buckets, each
@@ -79,11 +80,15 @@ non-zero exit and no result line:
 The kernels phase also holds B4 (the tree level histogram) against its
 plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
 nodes, 24 and 48 bins, 7 classes) and at rf_full's widest level (116,202
-rows, 1536 nodes, 16 bins): integer stats bit-exact, float stats within
-1e-5 of the max, with the kernel's, the plain version's and one
-``index_add_``'s median ms and the bound.
+rows, 1536 nodes, 16 bins), once with uniform and once with geometric
+node sizes: integer stats bit-exact, float stats within 1e-5 of the max,
+with the kernel's, the plain version's and one ``index_add_``'s median ms
+and the bound.
 
-Then the kernels line, the nvidia-smi line, and the result line
+Then a line of each kernel's ``earlier_ms`` (the figure PERF.md's kernel
+table held for its earlier design, not measured in this run), the
+kernels line (every number measured in this run, but the bound, which it
+computes from this run's inputs), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
 """
@@ -91,8 +96,8 @@ when CUDA is unavailable. Needs one card.
 from __future__ import annotations
 
 import json
+import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -101,33 +106,28 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "cs230_distributed_machine_learning_tpu_torch"
+sys.path.insert(0, ROOT)
+# the kernels' check and timing shapes, input builders and timer
+from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
+    HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_QUERIES,
+    MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_SHAPES, hist_inputs,
+    mlp_check, mlp_inputs, time_ms)
+from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
+    knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
            "mlp": f"{PKG}/csrc/mlp.cu", "knn": f"{PKG}/csrc/knn.cu"}
 TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
-# B5 vs its plain version, from the same state. Both round the same
-# operands to bf16 but sum in other orders, so a relu input or a bf16
-# rounding (2^-8 relative) within f32 noise of its edge can go either way,
-# and Adam turns a gradient within rounding of zero into a step of up to
-# the learning rate either way; at config 5's larger learning rates the
-# two fits then drift apart within a few steps, as any two summation
-# orders would. So the kernel is held after one step at the lanes' own
-# learning rates and after an 8-step epoch at config 5's smallest (1e-4),
-# by the largest param error over the largest |param| ("param_rel"), the
-# share of params more than 1e-3 of the largest |param| apart ("far") and
-# every state tensor's mean error over its mean change ("mean"). Measured
-# on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) at both shapes: SGD rel
-# <= 1.6e-5 and mean <= 4.2e-3; Adam far <= 1.5e-6 and mean <= 1.6e-2
-# after the epoch, mean <= 4.3e-6 after one step (where a flipped sign
-# still moves a param by 2 lr: rel up to 0.17).
-MLP_LIMITS = {
-    ("step", "sgd"): {"param_rel": TOL, "mean_rel": 2e-2},
-    ("step", "adam"): {"param_far_share": 1e-3, "mean_rel": 2e-2},
-    ("epoch", "sgd"): {"param_rel": TOL, "mean_rel": 2e-2},
-    ("epoch", "adam"): {"param_far_share": 1e-2, "mean_rel": 1e-1},
-}
-MLP_EPOCH_LR = 1e-4
 MLP_SEARCH_TOL = 0.02
+#: each kernel's ms at the kernels line's shapes as PERF.md's kernel table
+#: stood before the current B4, B5 and B6 designs; printed on a line of
+#: its own, apart from the kernels line, whose numbers this run measures
+EARLIER_MS = {"packed_softmax_grad": 18.46, "packed_nesterov_step": 18.51,
+              "masked_softmax_grad": 1.02, "level_histogram": 0.105,
+              "mlp_epoch": 913.5, "knn_topk": 28.41}
+EARLIER_MS_SOURCE = ("PERF.md's kernel table before the current B4, B5 and B6 designs "
+                     "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W); not measured "
+                     "in this run")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -147,23 +147,6 @@ def errors(got, ref):
     got, ref = got.float(), ref.float()
     err = float((got - ref).abs().max())
     return err, err / (float(ref.abs().max()) + 1e-12)
-
-
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, after warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, mm_flops: float, f32_ops: float):
@@ -220,11 +203,13 @@ def phase_build() -> None:
         assert lib.logreg_masked_smem_bytes(dpp, cp) == cuda_logreg.masked_smem_bytes(dpp, cp)
     for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
+    for args in ((6, 116_202, 1536, 767), (6, 11_620, 128, 127), (1, 5, 1, 1)):
+        assert cuda_hist._lib().hist_scratch_ints(*args) == cuda_hist.scratch_ints(*args)
     for dims, bs in (((784, 512, 10), 256), ((784, 256, 128, 10), 128), ((5, 3, 7, 1), 40)):
         got = cuda_mlp._lib().mlp_scratch_floats(cuda_mlp._dims_array(dims), len(dims) - 1, bs)
         assert got == cuda_mlp.scratch_floats(dims, bs), (dims, got)
-    assert cuda_knn._lib().knn_max_k() == cuda_knn.MAX_K
-    for k in (1, 5, 25, cuda_knn.MAX_K):
+    assert cuda_knn._lib().knn_max_shared_k() == cuda_knn.SHARED_LISTS_MAX_K
+    for k in (1, 5, 25, cuda_knn.SHARED_LISTS_MAX_K, 300):
         assert cuda_knn._lib().knn_smem_bytes(k) == cuda_knn.smem_bytes(k), k
     ptxas = [ln.strip() for name in sorted(SOURCES)
              for ln in cuda_build.build_log(name).splitlines()
@@ -336,28 +321,6 @@ def phase_kernels(dev) -> dict:
     return rows
 
 
-#: B4 shapes: (L lanes, rows, features, bins, nodes, stat columns)
-HIST_SHAPES = {
-    "rf_main_deep": (6, 11_620, 54, 24, 128, 7),
-    "rf_main_fine": (6, 11_620, 54, 48, 128, 7),
-    "rf_full_widest": (6, 116_202, 54, 16, 1536, 7),
-}
-
-
-def _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, float_stats):
-    """Node ids with dead rows (-1 and n_nodes), shared codes, and stats:
-    one-hot classes times small bootstrap counts (many zero rows), or
-    normal floats."""
-    local = torch.randint(-1, n_nodes + 1, (L, n), generator=gen, device=dev,
-                          dtype=torch.int32)
-    xb = torch.randint(0, n_bins, (n, d), generator=gen, device=dev, dtype=torch.int32)
-    if float_stats:
-        return local, xb, torch.randn(L, n, kk, generator=gen, device=dev)
-    y = torch.randint(0, kk, (L, n), generator=gen, device=dev)
-    counts = torch.poisson(torch.full((L, n), 0.9, device=dev), generator=gen)
-    return local, xb, torch.nn.functional.one_hot(y, kk).float() * counts[..., None]
-
-
 def hist_kernel_rows(gen, dev) -> dict:
     """B4 against its plain version: integer stats bit-exact, float stats
     within HIST_FLOAT_TOL of the max. Times: the kernel, the plain version,
@@ -369,7 +332,8 @@ def hist_kernel_rows(gen, dev) -> dict:
 
     rows = {}
     for tag, (L, n, d, n_bins, n_nodes, kk) in HIST_SHAPES.items():
-        local, xb, SC = _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False)
+        skewed = tag in HIST_SKEWED
+        local, xb, SC = hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False, skewed)
         got = H.level_histogram(local, xb, SC, n_nodes, n_bins, integer_stats=True)
         ref = H.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
         torch.cuda.synchronize()
@@ -396,16 +360,19 @@ def hist_kernel_rows(gen, dev) -> dict:
         t_bytes, t_ops = nbytes / PEAK_BYTES, adds / PEAK_F32
         bound = 1e3 * max(t_bytes, t_ops)
 
-        fl, fx, fS = _hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, True)
+        fl, fx, fS = hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, True, skewed)
         fgot = H.level_histogram(fl, fx, fS, n_nodes, n_bins)
         fref = H.level_histogram_reference(fl, fx, fS, n_nodes, n_bins)
         fabs, frel = errors(fgot, fref)
         assert frel < HIST_FLOAT_TOL, f"level_histogram {tag}: float stats {frel}"
+        largest = int(torch.bincount(local[0][(local[0] >= 0) & (local[0] < n_nodes)].long(),
+                                     minlength=n_nodes).max())
         del fgot, fref, fl, fx, fS, local, xb, SC
         torch.cuda.empty_cache()
         rows[("level_histogram", tag)] = dict(
-            shape=dict(lanes=L, rows=n, features=d, bins=n_bins, nodes=n_nodes, stats=kk),
-            ctas=H.grid_ctas(n_nodes, d, n_bins, kk, L), integer_bit_exact=exact,
+            shape=dict(lanes=L, rows=n, features=d, bins=n_bins, nodes=n_nodes, stats=kk,
+                       skewed=skewed, largest_node_rows=largest),
+            ctas=H.grid_ctas(n, n_nodes, d, n_bins, kk, L), integer_bit_exact=exact,
             max_abs_err=iabs, max_rel_err=irel, float_max_abs_err=fabs,
             float_max_rel_err=frel,
             ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=bound,
@@ -576,8 +543,6 @@ def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
     """One forest through the manager with B4's launch count zeroed just
     before and read just after; the count must be the arena's levels x
     trees x feature groups. Returns (launches, chunk plan)."""
-    import math
-
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     H.reset_launches()
@@ -704,67 +669,6 @@ def phase_rf_reference(manager) -> None:
         assert launches == per_tree * trees, f"rf_reference {dataset}: {launches} launches"
 
 
-#: B5 shapes: (dims, batch size, steps of a full epoch at 60,000 rows)
-MLP_SHAPES = {
-    "784-512-10": ((784, 512, 10), 256, 234),
-    "784-256-128-10": ((784, 256, 128, 10), 128, 468),
-}
-#: lanes of one config-5 dispatch: 12 trials x 6 splits
-MLP_LANES = 72
-MLP_CHECK_STEPS = 8
-
-
-def _mlp_inputs(gen, dev, dims, bs, steps, L, S=6):
-    """An epoch's inputs as the fused path builds them: bf16 rows, one-hot
-    targets, the 6 split masks spread over the lanes (lane = trial * 6 +
-    split), config-5 learning rates and penalties, and the Glorot params."""
-    R = steps * bs
-    X = torch.randn(R, dims[0], generator=gen, device=dev).to(torch.bfloat16)
-    Y = torch.nn.functional.one_hot(
-        torch.randint(0, dims[-1], (R,), generator=gen, device=dev), dims[-1]).float()
-    splits = (torch.rand(R, S, generator=gen, device=dev) > 0.2).float()
-    Wl = splits[:, torch.arange(L, device=dev) % S].contiguous()
-    grid = torch.tensor([1e-4, 3e-4, 1e-3, 3e-3, 1e-2], device=dev)
-    lr = grid[torch.randint(0, 5, (L,), generator=gen, device=dev)].contiguous()
-    alpha = torch.tensor([1e-5, 1e-4, 1e-3], device=dev)[
-        torch.randint(0, 3, (L,), generator=gen, device=dev)].contiguous()
-    params = []
-    for din, dout in zip(dims[:-1], dims[1:]):
-        bound = (6.0 / (din + dout)) ** 0.5
-        params.append({"W": (torch.rand(din, dout, generator=gen, device=dev) * 2 - 1) * bound,
-                       "b": torch.zeros(dout, device=dev)})
-    return X, Y, Wl, lr, alpha, params
-
-
-def _mlp_check(M, part, params, L, solver, kw) -> dict:
-    """One short epoch of B5 against its plain version from the same state.
-    Params (every W and b): the largest error over the largest |param|
-    ("param_rel") and the share of params more than 1e-3 of the largest
-    |param| apart ("param_far_share"); every state tensor: its mean error
-    over its mean change ("mean_rel")."""
-    state = M.epoch_state(params, L, solver)
-    k = M.per_layer(solver)
-    ref = M.epoch_reference(*part, 0, [t.clone() for t in state], solver=solver, **kw)
-    got = M.epoch(*part, 0, [t.clone() for t in state], solver=solver, **kw)
-    torch.cuda.synchronize()
-    pidx = [i for i in range(len(got)) if i % k < 2]  # params: W, b
-    scale = max(float(ref[i].abs().max()) for i in pidx)
-    out = dict(param_abs=0.0, mean_rel=0.0)
-    far = total = 0
-    for i, (g, r, a) in enumerate(zip(got, ref, state)):
-        assert bool(torch.isfinite(g).all()), f"B5 {solver}: non-finite state {i}"
-        if i in pidx:
-            out["param_abs"] = max(out["param_abs"], float((g - r).abs().max()))
-            far += int(((g - r).abs() > 1e-3 * scale).sum())
-            total += g.numel()
-        moved = float((r - a).abs().mean())
-        if moved > 0:
-            out["mean_rel"] = max(out["mean_rel"], float((g - r).abs().mean()) / moved)
-    out["param_rel"] = out["param_abs"] / scale
-    out["param_far_share"] = far / total
-    return out
-
-
 def phase_kernels_mlp(dev) -> dict:
     """B5 against its plain version (bf16 operands) on the card, under Adam
     (the main path) and SGD: one step and an 8-step epoch checked
@@ -778,13 +682,13 @@ def phase_kernels_mlp(dev) -> dict:
     for tag, (dims, bs, steps) in MLP_SHAPES.items():
         L = MLP_LANES
         kw = dict(dims=dims, act="relu", bs=bs, classification=True)
-        X, Y, Wl, lr, alpha, params = _mlp_inputs(gen, dev, dims, bs, steps, L)
+        X, Y, Wl, lr, alpha, params = mlp_inputs(gen, dev, dims, bs, steps, L)
         checks = {}
         for check, nb, lr_c in (("step", 1, lr),
                                 ("epoch", MLP_CHECK_STEPS, torch.full_like(lr, MLP_EPOCH_LR))):
             part = (X[:nb * bs], Y[:nb * bs], Wl[:nb * bs].contiguous(), lr_c, alpha)
             for solver in ("adam", "sgd"):
-                checks[(check, solver)] = _mlp_check(M, part, params, L, solver,
+                checks[(check, solver)] = mlp_check(M, part, params, L, solver,
                                                      dict(kw, n_batches=nb))
         emit({"phase": "kernels_mlp_check", "tag": tag,
               "checks": {f"{c}_{s}": v for (c, s), v in checks.items()}})
@@ -860,8 +764,6 @@ def _mlp_expected_launches(space, n_iter, epochs) -> tuple:
 def phase_mlp_main(manager) -> int:
     """BASELINE config 5 through the manager, uncut: 100 trials, B5's
     launches zeroed before and read after."""
-    import math
-
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     dataset = "synthetic_60000x784x10"
@@ -925,10 +827,7 @@ def phase_mlp_reference(manager) -> None:
     assert launches == 2 * 3, f"mlp_reference: {launches} B5 launches, expected 6"
     assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
 
-#: the KNN slice's table: covertype's width and classes at the first round
-#: size above both B6 gates (n >= 150,000 and (S-1)/S n >= 150,000 at S = 6)
-KNN_DATASET = "synthetic_200000x54x7"
-KNN_GRID = {"n_neighbors": [5, 25], "weights": ["uniform", "distance"]}
+KNN_GRID = {"n_neighbors": KNN_GRID_KS, "weights": ["uniform", "distance"]}
 #: B6 against its plain version: distances within this share of
 #: max(qsq + tsq) (the expansion's f32 rounding grows with the norms)
 KNN_D2_TOL = 1e-5
@@ -943,21 +842,9 @@ def _knn_search(model_type: str, grid: dict, cv: int = 5) -> dict:
 
 
 def knn_table(manager) -> tuple:
-    """The KNN table on the card: (TrialData, X, the job's 6 split masks,
-    staging seconds)."""
-    import numpy as np
-
-    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
-
-    t0 = time.perf_counter()
-    data = manager._coordinator.cache.get(KNN_DATASET, "classification")
-    staged = time.perf_counter() - t0
-    assert data.X.shape == (200_000, 54) and data.n_classes == 7, data.X.shape
-    plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=5,
-                            random_state=42)
-    X = torch.as_tensor(np.asarray(data.X, np.float32), device=manager.device)
-    W = torch.as_tensor(plan.train_w, device=manager.device).float().contiguous()
-    return data, X, W, staged
+    """The KNN table on the card, staged through the manager's dataset
+    cache: (TrialData, X, the job's 6 split masks, staging seconds)."""
+    return _knn_table(manager._coordinator.cache, manager.device)
 
 
 def _knn_compare(K, Q, X, W, k, exact: bool) -> dict:
@@ -1002,7 +889,7 @@ def _knn_small_cases(K, gen, dev) -> list:
     Wd[1] = 0.0
     Wd[1, torch.tensor([5, 400, 699], device=dev)] = 1.0  # 3 rows for k > 3
     Qd = ints(300, 7)
-    for k in (5, 25, K.MAX_K):
+    for k in (5, 25, K.SHARED_LISTS_MAX_K, 300):
         rows.append(dict(case="ties_and_empty_slots", k=k,
                          **_knn_compare(K, Qd, Xd, Wd, k, exact=True)))
     d2, idx = K.knn_topk(Qd, Xd, Wd, 5)
@@ -1029,12 +916,17 @@ def phase_kernels_knn(manager) -> dict:
     data, X, W, staged = knn_table(manager)
     emit({"phase": "knn_data", "dataset": KNN_DATASET, "shape": list(data.X.shape),
           "seconds": staged})
-    Q = X[:4096].contiguous()
+    Q = X[:KNN_QUERIES].contiguous()
     L, n = W.shape
     nq, d = Q.shape
     rows = {}
-    for k in KNN_GRID["n_neighbors"]:
+    # the grid's k, then k 300: its lists live in device memory
+    for k in KNN_GRID_KS + [KNN_DEVICE_LISTS_K]:
         check = _knn_compare(K, Q, X, W, k, exact=False)
+        got, ref = K.knn_topk(Q, X, W, k), K.knn_topk_reference(Q, X, W, k)
+        check["bit_equal"] = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+        check["list_mode"] = K.knn_list_mode(k)
+        del got, ref
         ms = time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
         plain = time_ms(lambda: K.knn_topk_reference(Q, X, W, k), reps=3, warmup=1)
 
@@ -1089,8 +981,6 @@ def phase_knn_main(manager) -> int:
     cv=5) on the 200,000-row table through the manager, B6's launches
     zeroed before and read after; they must be chunked_plan's count (one a
     query chunk of every bucket: each bucket is one trial)."""
-    import math
-
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
 
     plans = _knn_bucket_plans(manager, "KNeighborsClassifier", KNN_DATASET, KNN_GRID)
@@ -1176,7 +1066,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
 
@@ -1235,6 +1124,9 @@ def main() -> int:
             **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err") if k in r},
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+    # not measured here: each kernel's ms as PERF.md stood before the
+    # current kernels, at the same shapes, for reading beside the line below
+    emit({"earlier_ms": EARLIER_MS, "source": EARLIER_MS_SOURCE})
     emit({"kernels": kernels})
     print(env["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,9 +36,20 @@
 // while the other warps store the next tile, which every thread fetched
 // into registers before computing the current one (so the global loads
 // overlap the FMAs). A 4-wide minimum against the worst slot skips most of
-// the scan once the lists have filled. Lists take 8 bytes a (query, slot):
-// at k = 5 a CTA holds ~88 KB of shared memory and two fit on an SM; the
-// largest k, 256, takes ~217 KB.
+// the scan once the lists have filled.
+//
+// Where the lists live (knn_list_mode in ops/cuda_knn.py). Up to k = 256
+// they live in shared memory, slot-major, 8 bytes a (query, slot): at
+// k = 5 a CTA holds ~88 KB and two fit on an SM; k = 256 takes ~217 KB.
+// Above 256 a CTA could not hold them, so the same kernel keeps them in
+// device memory instead: the output tensors themselves ([L, nq, k] of d2
+// and of idx, allocated by the wrapper) are the lists, set to (3.4e38,
+// -1) first and updated in place by the same owner threads under the
+// same rule (insert only strictly below the worst slot, tiles in index
+// order), so ties and empty slots come out exactly as in shared memory.
+// There each list is a max-heap on (d2, index), which an insertion walks
+// in log k accesses through L2 instead of shifting up to k entries, and
+// the owner sorts it once at the end.
 //
 // Bound. At the port's main path shape (4,096 queries, 200,000 training
 // rows, d 54, 6 lanes) the function's work is the distance product, once
@@ -63,7 +74,7 @@ constexpr int kDC = 64;       // features a staged chunk holds
 constexpr int kQS = kBQ + 4;  // row strides (floats) of the transposed
 constexpr int kXS = kBT + 4;  // query chunk, tile chunk and distance tile;
 constexpr int kDS = kBT + 4;  // +4 keeps float4 alignment, spreads banks
-constexpr int kMaxK = 256;
+constexpr int kMaxSharedK = 256;  // largest k with the lists in shared memory
 constexpr int kSmemLimit = 232448;
 constexpr float kInf = 3.4e38f;
 // staged elements each thread fetches: a tile chunk and a query chunk
@@ -72,11 +83,28 @@ constexpr int kQLoads = kBQ * kDC / kThreads;
 static_assert(kThreads == 256 && kBQ == 64 && kBT == 128 && kDC == 64,
               "the thread maps below assume these sizes");
 
-size_t smem_bytes(int k) {
+// One CTA's shared memory: the staged chunks, the distance tile, the
+// tile's norms and weights, and (shared-memory lists only) the lists.
+size_t smem_bytes(int k, bool device_lists) {
   return sizeof(float) * ((size_t)kDC * kQS + (size_t)kDC * kXS +
                           (size_t)kBQ * kDS + kBQ + 2 * kBT) +
-         (size_t)kBQ * k * (sizeof(float) + sizeof(int));
+         (device_lists ? 0 : (size_t)kBQ * k * (sizeof(float) + sizeof(int)));
 }
+
+// The CTA's k-slot lists: slot-major in shared memory, or query-major in
+// the [L, nq, k] outputs (base at the CTA's first query) in device memory.
+template <bool kDevice>
+struct Lists {
+  float* d;
+  int* i;
+  int k;
+  __device__ __forceinline__ auto at(int q, int p) const {
+    if constexpr (kDevice)
+      return (size_t)q * k + p;
+    else
+      return p * kBQ + q;
+  }
+};
 
 // Staging map: within a warp, 8 consecutive features of 4 consecutive rows
 // (32-byte runs in global memory; 32 distinct banks in the transposed
@@ -121,41 +149,101 @@ __device__ __forceinline__ void load_queries(float* Qs, const float* __restrict_
   }
 }
 
-// Insert v (training row j) into the ascending list of query q: entries
-// strictly greater than v move up one slot, the worst drops out. The caller
-// has checked v < worst.
-__device__ __forceinline__ void insert(float* Ld, int* Li, int q, int k, float v,
-                                       int j, float& worst) {
-  int p = k - 1;
-  while (p > 0) {
-    const float u = Ld[(p - 1) * kBQ + q];
-    if (!(u > v)) break;
-    Ld[p * kBQ + q] = u;
-    Li[p * kBQ + q] = Li[(p - 1) * kBQ + q];
-    --p;
+// Insert v (training row j) into the list of query q; the caller has
+// checked v < worst, the list's largest distance. Shared-memory lists are
+// kept ascending: entries strictly greater than v move up one slot and the
+// worst drops out. Device-memory lists (k above 256) are kept as a max-heap
+// on (d2, index), so an insertion costs log k accesses instead of up to k;
+// `finish_heap` sorts them at the end. Both keep the k smallest candidates
+// by (d2, index), the same set in the same final order: candidates arrive
+// in index order and enter only below the worst, so among equal distances
+// the lowest index stays.
+template <bool kDevice>
+__device__ __forceinline__ void insert(const Lists<kDevice>& l, int q, float v, int j,
+                                       float& worst) {
+  if constexpr (kDevice) {
+    int p = 0;  // the root (the worst entry) is replaced, then sifted down
+    for (;;) {
+      int c = 2 * p + 1;
+      if (c >= l.k) break;
+      const float dc = l.d[l.at(q, c)];
+      if (c + 1 < l.k) {
+        const float dr = l.d[l.at(q, c + 1)];
+        if (dr > dc || (dr == dc && l.i[l.at(q, c + 1)] > l.i[l.at(q, c)])) ++c;
+      }
+      const float dm = l.d[l.at(q, c)];
+      if (!(dm > v)) break;  // the larger child is below v: v settles here
+      l.d[l.at(q, p)] = dm;
+      l.i[l.at(q, p)] = l.i[l.at(q, c)];
+      p = c;
+    }
+    l.d[l.at(q, p)] = v;
+    l.i[l.at(q, p)] = j;
+    worst = l.d[l.at(q, 0)];
+  } else {
+    int p = l.k - 1;
+    while (p > 0) {
+      const float u = l.d[l.at(q, p - 1)];
+      if (!(u > v)) break;
+      l.d[l.at(q, p)] = u;
+      l.i[l.at(q, p)] = l.i[l.at(q, p - 1)];
+      --p;
+    }
+    l.d[l.at(q, p)] = v;
+    l.i[l.at(q, p)] = j;
+    worst = l.d[l.at(q, l.k - 1)];
   }
-  Ld[p * kBQ + q] = v;
-  Li[p * kBQ + q] = j;
-  worst = Ld[(k - 1) * kBQ + q];
+}
+
+// Sort a device-memory list's max-heap into ascending (d2, index) order.
+__device__ __forceinline__ void finish_heap(const Lists<true>& l, int q) {
+  auto greater = [&](int a, int b) {
+    const float da = l.d[l.at(q, a)], db = l.d[l.at(q, b)];
+    return da > db || (da == db && l.i[l.at(q, a)] > l.i[l.at(q, b)]);
+  };
+  for (int end = l.k - 1; end > 0; --end) {
+    const float d0 = l.d[l.at(q, 0)];
+    const int i0 = l.i[l.at(q, 0)];
+    l.d[l.at(q, 0)] = l.d[l.at(q, end)];
+    l.i[l.at(q, 0)] = l.i[l.at(q, end)];
+    l.d[l.at(q, end)] = d0;
+    l.i[l.at(q, end)] = i0;
+    int p = 0;
+    for (;;) {
+      int c = 2 * p + 1;
+      if (c >= end) break;
+      if (c + 1 < end && greater(c + 1, c)) ++c;
+      if (!greater(c, p)) break;
+      const float dp = l.d[l.at(q, p)];
+      const int ip = l.i[l.at(q, p)];
+      l.d[l.at(q, p)] = l.d[l.at(q, c)];
+      l.i[l.at(q, p)] = l.i[l.at(q, c)];
+      l.d[l.at(q, c)] = dp;
+      l.i[l.at(q, c)] = ip;
+      p = c;
+    }
+  }
 }
 
 // One list owner's pass over its row of the distance tile, in index order.
-__device__ __forceinline__ void scan_tile(const float* Ds, float* Ld, int* Li,
-                                          int q, int k, int j0, float& worst) {
+template <bool kDevice>
+__device__ __forceinline__ void scan_tile(const float* Ds, const Lists<kDevice>& l, int q,
+                                          int j0, float& worst) {
   const float* row = Ds + q * kDS;
 #pragma unroll 4
   for (int c = 0; c < kBT; c += 4) {
     const float4 v = *reinterpret_cast<const float4*>(row + c);
     // fminf drops a NaN; a NaN distance never passes `< worst` below
     if (fminf(fminf(v.x, v.y), fminf(v.z, v.w)) < worst) {
-      if (v.x < worst) insert(Ld, Li, q, k, v.x, j0 + c, worst);
-      if (v.y < worst) insert(Ld, Li, q, k, v.y, j0 + c + 1, worst);
-      if (v.z < worst) insert(Ld, Li, q, k, v.z, j0 + c + 2, worst);
-      if (v.w < worst) insert(Ld, Li, q, k, v.w, j0 + c + 3, worst);
+      if (v.x < worst) insert(l, q, v.x, j0 + c, worst);
+      if (v.y < worst) insert(l, q, v.y, j0 + c + 1, worst);
+      if (v.z < worst) insert(l, q, v.z, j0 + c + 2, worst);
+      if (v.w < worst) insert(l, q, v.w, j0 + c + 3, worst);
     }
   }
 }
 
+template <bool kDevice>
 __global__ void __launch_bounds__(kThreads, 2)
     knn_topk_kernel(const float* __restrict__ Q, const float* __restrict__ Xt,
                     const float* __restrict__ qsq, const float* __restrict__ tsq,
@@ -168,8 +256,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* qsq_s = Ds + kBQ * kDS;               // [kBQ]
   float* tsq_s = qsq_s + kBQ;                  // [kBT] the tile's
   float* w_s = tsq_s + kBT;                    // [kBT] the tile's lane weights
-  float* Ld = w_s + kBT;                       // [k][kBQ] list distances
-  int* Li = reinterpret_cast<int*>(Ld + kBQ * k);  // [k][kBQ] list rows
+  // the lists: [k][kBQ] after the tile weights, or the outputs themselves
+  Lists<kDevice> lists;
+  if constexpr (kDevice) {
+    const size_t out0 = ((size_t)blockIdx.y * nq + blockIdx.x * kBQ) * k;
+    lists = {out_d + out0, out_i + out0, k};
+  } else {
+    lists = {w_s + kBT, reinterpret_cast<int*>(w_s + kBT + kBQ * k), k};
+  }
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -185,8 +279,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int tq = (lane >> 2) + 8 * (warp >> 2);
 
   for (int i = tid; i < kBQ * k; i += kThreads) {
-    Ld[i] = kInf;
-    Li[i] = -1;
+    if (!kDevice || q0 + i / k < nq) {  // device lists: this CTA's rows only
+      lists.d[i] = kInf;
+      lists.i[i] = -1;
+    }
   }
   if (tid < kBQ) qsq_s[tid] = (q0 + tid < nq) ? qsq[q0 + tid] : 0.f;
   load_queries(Qs, Q, nq, d, q0, 0, warp, lane);
@@ -268,57 +364,76 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     if (last_chunk && tid < kBQ && q0 + tid < nq)
-      scan_tile(Ds, Ld, Li, tid, k, t * kBT, worst);
+      scan_tile(Ds, lists, tid, t * kBT, worst);
     __syncthreads();
   }
 
+  if constexpr (kDevice) {  // the lists are the outputs, once sorted
+    if (tid < kBQ && q0 + tid < nq) finish_heap(lists, tid);
+    return;
+  }
   const size_t base = (size_t)blockIdx.y * nq;
   for (int i = tid; i < kBQ * k; i += kThreads) {
     const int q = i / k;
     const int slot = i - q * k;
     if (q0 + q < nq) {
       const size_t o = (base + q0 + q) * k + slot;
-      out_d[o] = Ld[slot * kBQ + q];
-      out_i[o] = Li[slot * kBQ + q];
+      out_d[o] = lists.d[lists.at(q, slot)];
+      out_i[o] = lists.i[lists.at(q, slot)];
     }
   }
+}
+
+template <bool kDevice>
+cudaError_t configure() {
+  static bool configured = false;
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(knn_topk_kernel<kDevice>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem_bytes(kMaxSharedK, kDevice));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(knn_topk_kernel<kDevice>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest k the kernel takes, and one CTA's shared memory at k; the
-// Python wrapper mirrors both.
-int knn_max_k() { return kMaxK; }
-long long knn_smem_bytes(int k) { return (long long)smem_bytes(k); }
+// The largest k whose lists live in shared memory, and one CTA's shared
+// memory at k; the Python wrapper mirrors both.
+int knn_max_shared_k() { return kMaxSharedK; }
+long long knn_smem_bytes(int k) { return (long long)smem_bytes(k, k > kMaxSharedK); }
 
 // Q [nq, d], Xt [n, d], qsq [nq], tsq [n], W [L, n] f32 -> out_d [L, nq, k]
-// f32 ascending, out_i [L, nq, k] i32.
+// f32 ascending, out_i [L, nq, k] i32. Above kMaxSharedK the lists live in
+// out_d / out_i instead of shared memory.
 int knn_topk(const void* Q, const void* Xt, const void* qsq, const void* tsq,
              const void* W, void* out_d, void* out_i, int nq, int n, int d,
              int L, int k, void* stream) {
-  if (nq <= 0 || n <= 0 || d <= 0 || L <= 0 || L > 65535 || k <= 0 || k > kMaxK ||
-      smem_bytes(k) > (size_t)kSmemLimit)
+  const bool device_lists = k > kMaxSharedK;
+  if (nq <= 0 || n <= 0 || d <= 0 || L <= 0 || L > 65535 || k <= 0 ||
+      smem_bytes(k, device_lists) > (size_t)kSmemLimit)
     return (int)cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(knn_topk_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)smem_bytes(kMaxK));
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(knn_topk_kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  const cudaError_t err = device_lists ? configure<true>() : configure<false>();
+  if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((nq + kBQ - 1) / kBQ), (unsigned)L);
-  knn_topk_kernel<<<grid, kThreads, smem_bytes(k), (cudaStream_t)stream>>>(
-      static_cast<const float*>(Q), static_cast<const float*>(Xt),
-      static_cast<const float*>(qsq), static_cast<const float*>(tsq),
-      static_cast<const float*>(W), static_cast<float*>(out_d),
-      static_cast<int*>(out_i), nq, n, d, k);
+  const size_t smem = smem_bytes(k, device_lists);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float* q = static_cast<const float*>(Q);
+  const float* x = static_cast<const float*>(Xt);
+  const float* a = static_cast<const float*>(qsq);
+  const float* b = static_cast<const float*>(tsq);
+  const float* w = static_cast<const float*>(W);
+  float* od = static_cast<float*>(out_d);
+  int* oi = static_cast<int*>(out_i);
+  if (device_lists)
+    knn_topk_kernel<true><<<grid, kThreads, smem, s>>>(q, x, a, b, w, od, oi, nq, n, d, k);
+  else
+    knn_topk_kernel<false><<<grid, kThreads, smem, s>>>(q, x, a, b, w, od, oi, nq, n, d, k);
   return (int)cudaGetLastError();
 }
 

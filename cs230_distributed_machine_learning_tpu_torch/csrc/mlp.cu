@@ -23,27 +23,61 @@
 // and an SM has 228 KB of shared memory. So the state lives in device
 // memory and every step reads and writes it in the weight-gradient
 // product's epilogue; the step's activations and gradients go through a
-// per-lane f32 scratch (1.6 MB at that shape), which stays in L2.
+// per-lane scratch, which stays in L2.
 //
 // Design. One CTA per lane walks the epoch's steps in order, as the TPU
 // grid's step-minor axis does; nothing is shared between CTAs, so there
 // are no atomics and every sum has a fixed order. Each layer's product is
-// a CTA-wide tiled GEMM: 128 x 64 output tiles, 32-deep K slabs staged in
-// shared memory as bf16 (rounded from f32 on the way in, with 16-byte
-// loads along the operand's contiguous dimension where its shape and
-// alignment allow), 8 warps of 32 x 32 warp tiles. The epilogues are fused: bias and activation into
-// the forward product, act' into the activation-gradient product, and the
-// L2 term plus the Adam/SGD update into the weight-gradient product. The
-// activation gradient is computed before the weight update, so both read
-// the step's old weights, as the TPU kernel does.
+// a CTA-wide tiled GEMM (8 warps, mma.sync) whose epilogue is fused: bias
+// and activation into the forward product, act' into the activation-
+// gradient product, and the L2 term plus the Adam/SGD update into the
+// weight-gradient product. The activation gradient is computed before the
+// weight update, so both read the step's old weights, as the TPU kernel
+// does.
+//
+// What the design does to keep the products fed and the state off their
+// critical path:
+//   (a) keeps every product operand in bf16 in memory: a bf16 shadow of
+//       each W (written from W in the launch's prologue and by the update
+//       epilogue after every step), each hidden activation in bf16 beside
+//       the f32 value that act' reads, and the output gradients dz in bf16
+//       only (every use of dz rounds it to bf16 first), so the products
+//       read the same bf16 values as rounding on every load would. Every
+//       bf16 buffer's rows are padded to a multiple of 8 with zeros, so
+//       every operand but the batch rows (when d % 8 != 0) moves in 16-byte
+//       pieces;
+//   (b) feeds the tensor cores from a 4-stage ring of K slabs in shared
+//       memory, filled by cp.async (zero-filled past the edges) over the
+//       flattened (output tile, K slab) sequence, so the loads of the next
+//       tile overlap the current tile's products and epilogue; transposed
+//       orientations come from row-major tiles through ldmatrix(.trans);
+//   (c) moves each weight-gradient output tile's W, m and v between device
+//       and shared memory with the Tensor Memory Accelerator: bulk copies,
+//       a row each, started when the tile's first K slab is computed and
+//       counted on an mbarrier, so the state loads overlap the tile's K
+//       loop and never queue behind the operand loads. The epilogue parks
+//       the tile's products in shared memory; the update then runs on
+//       16-byte pieces (4 parameters a thread at a time, independent), and
+//       bulk copies write W, m, v and the bf16 shadow back, a row each.
+//       Layers whose width is not a multiple of 8 (the 10 classes) update
+//       in place in device memory instead;
+//   (d) takes a narrow 128 x 16 output tile for outputs of width <= 16
+//       (the 10 classes), instead of padding a 64-wide tile.
+// The f32 moments and the update order are the TPU kernel's. The state
+// still moves at every step: the design's floor is that traffic (plus the
+// shadow's writes), 49 ms an epoch at the config-5 shape on 72 lanes.
+// What bounds it: one lane alone takes nearly the time of 72 side by
+// side (PERF.md), so neither the memory system nor the tensor cores
+// set the pace; one CTA of 8 warps runs a lane's chain of dependent
+// phases (loads started, products, epilogues, barriers) at a low
+// instruction rate, with too few warps on the SM to hide their latencies.
+// More SMs a lane (a cluster splitting the output tiles) or a
+// warp-specialised producer/consumer loop is the next step.
 //
 // Bound at the config-5 shape (784-512-10, bs 256, 234 steps, 75 lanes):
 // the products are 7.35 TFLOP an epoch, 7.4 ms at 989 TFLOP/s bf16; the
 // state read and written once plus the batch rows read once are ~0.8 GB,
-// 0.25 ms at 3.35 TB/s. This design moves the state at every step (171 GB
-// an epoch, 51 ms), so its own floor is the state traffic; the staging
-// here is synchronous, so its products run well below the tensor cores'
-// rate.
+// 0.25 ms at 3.35 TB/s.
 //
 // mlp_epoch returns cudaGetLastError() after its launch.
 
@@ -58,15 +92,29 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxLayers = 4;
-// CTA output tile and K slab; leading dimensions of the shared tiles are
-// padded so that ldmatrix's 8 row addresses fall in distinct banks
+// output tile rows, K slab depth, ring depth; the output tile is 64 wide,
+// or 16 for outputs of width <= 16
 constexpr int BM = 128;
-constexpr int BN = 64;
 constexpr int BK = 32;
-constexpr int LDA = BK + 8;
-constexpr int LDB = BN + 8;
+constexpr int kStages = 4;
+constexpr int kWide = 64;
+constexpr int kNarrow = 16;
+// one ring stage: the A tile ([BM][BK + 8] or [BK][BM + 8]) and the B tile
+// ([BK][BN + 8] or [BN][BK + 8]), bf16; leading dimensions are padded so
+// that ldmatrix's 8 row addresses fall in distinct banks
+constexpr int kAStage = BM * (BK + 8);
+constexpr int kBStage = kWide * (BK + 8);
+static_assert(kAStage >= BK * (BM + 8) && kBStage >= BK * (kWide + 8), "stage sizes");
+// the weight-gradient tile's state: up to 3 f32 arrays of [BM][BN + 8],
+// the updated weights' bf16 shadow [BM][BN + 8], and the tile's products
+// [BM][BN + 8] f32
+constexpr int kStateFloats = 3 * BM * (kWide + 8);
+constexpr int kShadowFloats = BM * (kWide + 8) / 2;
+constexpr int kProductFloats = BM * (kWide + 8);
 constexpr size_t kSmemBytes =
-    (size_t)(BM * LDA + BK * LDB) * sizeof(__nv_bfloat16) + kWarps * sizeof(float);
+    (size_t)kStages * (kAStage + kBStage) * sizeof(__nv_bfloat16) +
+    (size_t)(kStateFloats + kShadowFloats + kProductFloats) * sizeof(float) +
+    kWarps * sizeof(float);
 
 enum Act { kRelu = 0, kTanh = 1, kLogistic = 2, kIdentity = 3 };
 
@@ -90,13 +138,42 @@ struct EpochArgs {
   float momentum;
 };
 
-__host__ __device__ inline long long scratch_floats(const int* dims, int n_layers, int bs) {
-  long long widths = 0, widest = 0;
-  for (int l = 1; l <= n_layers; ++l) {
-    widths += dims[l];
-    if (dims[l] > widest) widest = dims[l];
+__host__ __device__ inline int pad8(int x) { return (x + 7) & ~7; }
+__host__ __device__ inline long long pad4(long long x) { return (x + 3) & ~3LL; }
+
+// One lane's scratch, in floats (every piece starts 16-byte aligned): per
+// layer the bf16 shadow of W [din][pad8(dout)]; per hidden layer its f32
+// activations [bs][dout] and their bf16 copy [bs][pad8(dout)]; the f32
+// logits [bs][c]; per layer the bf16 output gradient dz [bs][pad8(dout)].
+struct Layout {
+  long long wsh[kMaxLayers], actf[kMaxLayers], actb[kMaxLayers], logits, dzb[kMaxLayers];
+  long long bf16_begin, total;  // actb .. dzb: zeroed by the prologue
+};
+
+__host__ __device__ inline Layout scratch_layout(const int* dims, int n_layers, int bs) {
+  Layout s{};
+  long long o = 0;
+  for (int l = 0; l < n_layers; ++l) {
+    s.wsh[l] = o;
+    o += pad4((long long)dims[l] * pad8(dims[l + 1]) / 2);
   }
-  return (long long)bs * (widths + 2 * widest);
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    s.actf[l] = o;
+    o += pad4((long long)bs * dims[l + 1]);
+  }
+  s.logits = o;
+  o += pad4((long long)bs * dims[n_layers]);
+  s.bf16_begin = o;
+  for (int l = 0; l + 1 < n_layers; ++l) {
+    s.actb[l] = o;
+    o += pad4((long long)bs * pad8(dims[l + 1]) / 2);
+  }
+  for (int l = 0; l < n_layers; ++l) {
+    s.dzb[l] = o;
+    o += pad4((long long)bs * pad8(dims[l + 1]) / 2);
+  }
+  s.total = o;
+  return s;
 }
 
 __device__ __forceinline__ float bf16r(float x) {
@@ -122,121 +199,150 @@ __device__ __forceinline__ float act_grad(int act, float a) {
   }
 }
 
-// One GEMM operand, element (i, j) at p[i * s0 + j * s1], zero outside
-// [0, n0) x [0, n1); bf16 or f32 in memory. `vec` says whether 16-byte
-// loads may take it (vec_width consecutive elements along its contiguous
-// dimension: 8 bf16 or 4 f32), set by `make_operand`.
-struct Operand {
-  const void* p;
-  int s0, s1, n0, n1;
-  bool is_bf16;
-  bool vec;
-  __device__ __forceinline__ __nv_bfloat16 load(int i, int j) const {
-    if (i >= n0 || j >= n1) return __float2bfloat16_rn(0.0f);
-    const size_t off = (size_t)i * s0 + (size_t)j * s1;
-    if (is_bf16) return static_cast<const __nv_bfloat16*>(p)[off];
-    return __float2bfloat16_rn(static_cast<const float*>(p)[off]);
-  }
-  __device__ __forceinline__ int vec_width() const { return is_bf16 ? 8 : 4; }
-  // vec_width() elements from (i, j) along the contiguous dimension, as
-  // bf16 (zero past the edge: the extents are multiples of the width)
-  __device__ __forceinline__ void load_vec(int i, int j, __nv_bfloat16* out) const {
-    if (i >= n0 || j >= n1) {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) out[e] = __float2bfloat16_rn(0.0f);
-      return;
-    }
-    const size_t off = (size_t)i * s0 + (size_t)j * s1;
-    if (is_bf16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p) + off);
-      const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        out[2 * e] = b[e].x;
-        out[2 * e + 1] = b[e].y;
-      }
-    } else {
-      const float4 v = *reinterpret_cast<const float4*>(static_cast<const float*>(p) + off);
-      out[0] = __float2bfloat16_rn(v.x);
-      out[1] = __float2bfloat16_rn(v.y);
-      out[2] = __float2bfloat16_rn(v.z);
-      out[3] = __float2bfloat16_rn(v.w);
-    }
-  }
-};
-
-__device__ __forceinline__ Operand make_operand(const void* p, int s0, int s1, int n0, int n1,
-                                                bool is_bf16) {
-  Operand o{p, s0, s1, n0, n1, is_bf16, false};
-  const int w = is_bf16 ? 8 : 4;
-  const bool aligned = (reinterpret_cast<uintptr_t>(p) % 16) == 0;
-  if (aligned && s1 == 1) o.vec = s0 % w == 0 && n1 % w == 0;
-  if (aligned && s0 == 1) o.vec = s1 % w == 0 && n0 % w == 0;
-  return o;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Stage the R x C block at (r0, c0) of `o` into dst[r][c] (leading
-// dimension ld), rounded to bf16. Consecutive threads take consecutive
-// elements (or 16-byte vectors) along the operand's contiguous dimension.
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The Tensor Memory Accelerator's 1-D bulk copies and their mbarrier.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the barrier's phase `parity` to complete; traps (a launch error,
+// not a hang) if it has not after ~10 s of SM clocks.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// The bulk stores have read their shared-memory sources / are complete.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// Orders this thread's generic-proxy memory accesses with the bulk copies'.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
+// A row-major bf16 matrix: element (r, c) at p[r * ld + c], zero outside
+// [0, nr) x [0, nc). `vec`: 16-byte pieces may carry it (aligned, ld and
+// nc multiples of 8, so a piece lies wholly inside or outside).
+struct Mat {
+  const __nv_bfloat16* p;
+  int ld, nr, nc;
+  bool vec;
+};
+
+__device__ __forceinline__ Mat make_mat(const __nv_bfloat16* p, int ld, int nr, int nc) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(p) % 16) == 0;
+  return Mat{p, ld, nr, nc, aligned && ld % 8 == 0 && nc % 8 == 0};
+}
+
+// Stage the R x C block at (r0, c0) of `a` into dst[r][c] (leading
+// dimension ldd): cp.async pieces where `a` allows, else element by element
+// (stores the next barrier publishes).
 template <int R, int C>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, int ld, const Operand& o,
-                                      int r0, int c0) {
-  __nv_bfloat16 v[8];
-  if (o.vec && o.s1 == 1) {
-    const int w = o.vec_width(), per_row = C / w;
-    for (int idx = threadIdx.x; idx < R * per_row; idx += kThreads) {
-      const int r = idx / per_row, c = (idx % per_row) * w;
-      o.load_vec(r0 + r, c0 + c, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (e < w) dst[r * ld + c + e] = v[e];
-    }
-  } else if (o.vec) {
-    const int w = o.vec_width(), per_col = R / w;
-    for (int idx = threadIdx.x; idx < C * per_col; idx += kThreads) {
-      const int c = idx / per_col, r = (idx % per_col) * w;
-      o.load_vec(r0 + r, c0 + c, v);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        if (e < w) dst[(r + e) * ld + c] = v[e];
-    }
-  } else if (o.s1 == 1) {
-    for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-      const int r = idx / C, c = idx % C;
-      dst[r * ld + c] = o.load(r0 + r, c0 + c);
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, int ldd, const Mat& a, int r0,
+                                          int c0) {
+  if (a.vec) {
+    constexpr int kPer = C / 8;
+    for (int idx = threadIdx.x; idx < R * kPer; idx += kThreads) {
+      const int r = idx / kPer, c = (idx % kPer) * 8;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool ok = gr < a.nr && gc < a.nc;
+      cp_async16(dst + r * ldd + c, ok ? a.p + (size_t)gr * a.ld + gc : a.p, ok ? 16 : 0);
     }
   } else {
     for (int idx = threadIdx.x; idx < R * C; idx += kThreads) {
-      const int c = idx / R, r = idx % R;
-      dst[r * ld + c] = o.load(r0 + r, c0 + c);
+      const int r = idx / C, c = idx % C;
+      const int gr = r0 + r, gc = c0 + c;
+      dst[r * ldd + c] = (gr < a.nr && gc < a.nc) ? a.p[(size_t)gr * a.ld + gc]
+                                                  : __float2bfloat16_rn(0.0f);
     }
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // mma.sync m16n8k16 fragments (PTX ISA), g = lane / 4, q = lane % 4:
 //   A 16 x 16 row-major: a0 (g, 2q..2q+1)  a1 (g+8, 2q..)  a2 (g, 8+2q..)  a3 (g+8, 8+2q..)
 //   B 16 x 8 (k x n):    b0 (k 2q..2q+1, n g)  b1 (k 8+2q.., n g)
 //   C 16 x 8 f32:        c0 c1 (g, 2q..2q+1)  c2 c3 (g+8, 2q..2q+1)
-// A fragment of the 16 x 16 block at p (row-major, leading dimension ld).
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
+// A fragment of the 16 x 16 block at p, stored [m][k] (leading dimension ld).
+__device__ __forceinline__ void load_a_mk(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
   const int lane = threadIdx.x % 32;
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p + (lane % 16) * ld + 8 * (lane / 16)))
-               : "memory");
+               : "r"(smem_u32(p + (lane % 16) * ld + 8 * (lane / 16))));
 }
 
-// B fragment of the 16 (k) x 8 (n) block stored k-major at p ([k][n]).
+// A fragment of the 16 x 16 block at p, stored [k][m]: matrix i of the x4
+// load is (m block i % 2, k block i / 2), each stored k rows by 8 m.
+__device__ __forceinline__ void load_a_km(uint32_t (&r)[4], const __nv_bfloat16* p, int ld) {
+  const int lane = threadIdx.x % 32, mat = lane / 8;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p + (lane % 8 + 8 * (mat / 2)) * ld + 8 * (mat % 2))));
+}
+
+// B fragment of the 16 (k) x 8 (n) block at p, stored [k][n].
 __device__ __forceinline__ void load_b_kn(uint32_t (&r)[2], const __nv_bfloat16* p, int ld) {
   const int lane = threadIdx.x % 32;
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_u32(p + (lane % 16) * ld))
-               : "memory");
+               : "r"(smem_u32(p + (lane % 16) * ld)));
+}
+
+// B fragment of the 16 (k) x 8 (n) block at p, stored [n][k].
+__device__ __forceinline__ void load_b_nk(uint32_t (&r)[2], const __nv_bfloat16* p, int ld) {
+  const int lane = threadIdx.x % 32;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p + (lane % 8) * ld + 8 * ((lane / 8) % 2))));
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -248,65 +354,210 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// C[M][N] = A[M][K] B[K][N] over the whole CTA, bf16 operands and f32
-// sums; epi(m, n, value) takes every output element once. The warps tile
-// each 128 x 64 output block 4 (m) x 2 (n). Starts and ends with a
-// barrier, so the caller's writes before it and the epilogue's writes are
-// visible to the whole CTA.
-template <class Epi>
-__device__ void cta_gemm(const Operand& A, const Operand& Bop, int M, int N, int K,
-                         __nv_bfloat16* As, __nv_bfloat16* Bs, Epi epi) {
+// The weight-gradient tile's state in device memory: n f32 arrays
+// [nr][ld] (W, then m, then v), moved tile by tile between device and
+// shared memory by bulk copies (rows of 16-byte multiples), completion of
+// the loads counted on `bar` (whose current phase parity is `phase`).
+struct StateSrc {
+  float* p[3];
+  int n, ld, nr;
+  uint64_t* bar;
+  int phase;
+};
+
+// Shape of a CTA product with BN-wide output tiles; A stored [m][k] or
+// (kAKM) [k][m], B stored [k][n] or (kBNK) [n][k].
+template <int BN, bool kAKM, bool kBNK>
+struct Geo {
+  static constexpr int WM = BN == kWide ? 4 : 8;  // warps along m
+  static constexpr int WN = kWarps / WM;
+  static constexpr int MI = BM / (16 * WM);  // 16-row blocks a warp
+  static constexpr int NI = BN / (8 * WN);   // 8-column blocks a warp
+  static constexpr int LDA = kAKM ? BM + 8 : BK + 8;
+  static constexpr int LDB = kBNK ? BK + 8 : BN + 8;
+  static constexpr int LDS = BN + 8;  // the state tile's rows (floats)
+  static_assert(MI * 16 * WM == BM && NI * 8 * WN == BN, "warp tiling");
+};
+
+// C[M][N] = A[M][K] B[K][N] over the whole CTA, bf16 operands and f32 sums
+// in K order. epi(m, n, tile_m, tile_n, v0, v1, two) takes every output
+// element once, in pairs along n: (m, n) and, if `two`, (m, n + 1), with n
+// even. The (output tile, K slab) pairs run as one sequence through the
+// ring, so the next tile's slabs load during this tile's products and
+// epilogue. With `state`, each output tile's state is loaded into
+// `sstate` by bulk copies started when its first slab is computed; after
+// the epilogue, the wait for those copies and a barrier, flush(m0, n0)
+// updates the tile and writes it back. Starts and ends with a barrier, so
+// the caller's writes before it and the epilogue's writes are visible to
+// the whole CTA.
+template <int BN, bool kAKM, bool kBNK, class Epi, class Flush>
+__device__ __forceinline__ void cta_gemm(const Mat& A, const Mat& B, int M, int N, int K,
+                                         __nv_bfloat16* ring, StateSrc* state, float* sstate,
+                                         Epi epi, Flush flush) {
+  using G = Geo<BN, kAKM, kBNK>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp % 4, wn = warp / 4;
+  const int wm = warp % G::WM, wn = warp / G::WM;
   const int g = lane / 4, q = lane % 4;
-  for (int m0 = 0; m0 < M; m0 += BM) {
-    for (int n0 = 0; n0 < N; n0 += BN) {
-      float acc[2][4][4];
+  const int tn = (N + BN - 1) / BN, nk = (K + BK - 1) / BK;
+  const int total = ((M + BM - 1) / BM) * tn * nk;
+
+  // the next slab to load: its sequence index, stage, tile (row, column)
+  // and K slab, counted forward instead of divided out
+  int lj = 0, ls = 0, lm = 0, ln = 0, lk = 0;
+  auto load_next = [&]() {
+    if (lj < total) {
+      __nv_bfloat16* As = ring + ls * (kAStage + kBStage);
+      __nv_bfloat16* Bs = As + kAStage;
+      const int m0 = lm * BM, n0 = ln * BN, k0 = lk * BK;
+      if (kAKM)
+        load_tile<BK, BM>(As, G::LDA, A, k0, m0);
+      else
+        load_tile<BM, BK>(As, G::LDA, A, m0, k0);
+      if (kBNK)
+        load_tile<BN, BK>(Bs, G::LDB, B, n0, k0);
+      else
+        load_tile<BK, BN>(Bs, G::LDB, B, k0, n0);
+    }
+    ++lj;
+    if (++ls == kStages) ls = 0;
+    if (++lk == nk) {
+      lk = 0;
+      if (++ln == tn) {
+        ln = 0;
+        ++lm;
+      }
+    }
+  };
+
+  __syncthreads();  // the ring and the state tile are free
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+  for (int j = 0; j < kStages - 1; ++j) {
+    load_next();
+    cp_async_commit();
+  }
+  float acc[G::MI][G::NI][4];
+  int cs = 0, cm = 0, cn = 0, kt = 0;  // the slab computed: stage, tile, K slab
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slab `it` is in; every warp is done with slab it - 1
+    const int m0 = cm * BM, n0 = cn * BN;
+    load_next();
+    cp_async_commit();
+    if (state != nullptr && kt == 0) {  // the tile's state rows, by bulk copies
+      const int rows = min(BM, state->nr - m0), cols = min(BN, state->ld - n0);
+      if (threadIdx.x == 0)
+        mbar_expect_tx(state->bar, (uint32_t)(rows * cols * 4 * state->n));
+      __syncthreads();  // the expected bytes are set before any copy lands
+      for (int idx = threadIdx.x; idx < rows * state->n; idx += kThreads) {
+        const int a = idx / rows, r = idx - a * rows;
+        const float* src = a == 0 ? state->p[0] : a == 1 ? state->p[1] : state->p[2];
+        bulk_load(sstate + (a * BM + r) * G::LDS, src + (size_t)(m0 + r) * state->ld + n0,
+                  (uint32_t)cols * 4, state->bar);
+      }
+    }
+    if (kt == 0) {
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+      for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < G::NI; ++ni)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        __syncthreads();  // every warp is done with the previous slab
-        stage<BM, BK>(As, LDA, A, m0, k0);
-        stage<BK, BN>(Bs, LDB, Bop, k0, n0);
-        __syncthreads();
+    }
+    const __nv_bfloat16* As = ring + cs * (kAStage + kBStage);
+    const __nv_bfloat16* Bs = As + kAStage;
 #pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          uint32_t af[2][4], bfr[4][2];
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t af[G::MI][4], bfr[G::NI][2];
 #pragma unroll
-          for (int mi = 0; mi < 2; ++mi) load_a(af[mi], As + (wm * 32 + mi * 16) * LDA + kk, LDA);
-#pragma unroll
-          for (int ni = 0; ni < 4; ++ni) load_b_kn(bfr[ni], Bs + kk * LDB + wn * 32 + ni * 8, LDB);
-#pragma unroll
-          for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-            for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
-        }
+      for (int mi = 0; mi < G::MI; ++mi) {
+        const int r0 = wm * G::MI * 16 + mi * 16;
+        if (kAKM)
+          load_a_km(af[mi], As + kk * G::LDA + r0, G::LDA);
+        else
+          load_a_mk(af[mi], As + r0 * G::LDA + kk, G::LDA);
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int ni = 0; ni < G::NI; ++ni) {
+        const int c0 = wn * G::NI * 8 + ni * 8;
+        if (kBNK)
+          load_b_nk(bfr[ni], Bs + c0 * G::LDB + kk, G::LDB);
+        else
+          load_b_kn(bfr[ni], Bs + kk * G::LDB + c0, G::LDB);
+      }
 #pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
+      for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < G::NI; ++ni) mma_bf16(acc[mi][ni], af[mi], bfr[ni]);
+    }
+    if (kt == nk - 1) {
+#pragma unroll
+      for (int mi = 0; mi < G::MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < G::NI; ++ni)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int m = m0 + wm * 32 + mi * 16 + g + 8 * h;
-            const int n = n0 + wn * 32 + ni * 8 + 2 * q;
-            if (m < M) {
-              if (n < N) epi(m, n, acc[mi][ni][2 * h]);
-              if (n + 1 < N) epi(m, n + 1, acc[mi][ni][2 * h + 1]);
-            }
+            const int lr = wm * G::MI * 16 + mi * 16 + g + 8 * h;
+            const int lc = wn * G::NI * 8 + ni * 8 + 2 * q;
+            if (m0 + lr < M && n0 + lc < N)
+              epi(m0 + lr, n0 + lc, lr, lc, acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1],
+                  n0 + lc + 1 < N);
           }
+      if (state != nullptr) {
+        mbar_wait(state->bar, state->phase);  // this tile's state is in
+        state->phase ^= 1;
+        __syncthreads();  // and so are its products
+        flush(m0, n0);
+      }
     }
+    if (++cs == kStages) cs = 0;
+    if (++kt == nk) {
+      kt = 0;
+      if (++cn == tn) {
+        cn = 0;
+        ++cm;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (state != nullptr) {  // the bulk stores are complete and ordered before later reads
+    bulk_wait();
+    fence_proxy_async();
   }
   __syncthreads();
 }
 
+// cta_gemm with the narrow tile for outputs of width <= 16.
+template <bool kAKM, bool kBNK, class Epi, class Flush>
+__device__ __forceinline__ void gemm(const Mat& A, const Mat& B, int M, int N, int K,
+                                     __nv_bfloat16* ring, StateSrc* state, float* sstate,
+                                     Epi epi, Flush flush) {
+  if (N <= kNarrow)
+    cta_gemm<kNarrow, kAKM, kBNK>(A, B, M, N, K, ring, state, sstate, epi, flush);
+  else
+    cta_gemm<kWide, kAKM, kBNK>(A, B, M, N, K, ring, state, sstate, epi, flush);
+}
+
+// Two consecutive floats at p (8-byte aligned) when `pair`, else one.
+__device__ __forceinline__ void store2(float* p, float a, float b, bool pair) {
+  if (pair)
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  else
+    *p = a;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b, bool pair) {
+  if (pair)
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  else
+    *p = __float2bfloat16_rn(a);
+}
+
+struct NoFlush {
+  __device__ void operator()(int, int) const {}
+};
+
 // Sum of one value a thread over the CTA; every thread gets the same
 // result, summed in the same order.
-__device__ float block_sum(float v, float* red) {
+__device__ __forceinline__ float block_sum(float v, float* red) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   __syncthreads();  // red is free
@@ -325,46 +576,69 @@ struct Step {
 };
 
 // Adam with f32 moments, or SGD velocity momentum (Nesterov or plain), of
-// one parameter at index i: the TPU kernel's update, pallas_mlp.py:188-209.
-__device__ __forceinline__ void update(const Step& s, float* p, float* s1, float* s2,
-                                       size_t i, float g) {
+// one parameter p with state s1 (m or velocity) and s2 (v) and gradient g:
+// the TPU kernel's update, pallas_mlp.py:188-209.
+__device__ __forceinline__ void update(const Step& s, float& p, float& s1, float& s2, float g) {
   if (!s.sgd) {
     const float b1 = 0.9f, b2 = 0.999f;
     const float omb1 = (float)(1.0 - 0.9), omb2 = (float)(1.0 - 0.999);
-    const float m = b1 * s1[i] + omb1 * g;
-    const float v = b2 * s2[i] + omb2 * g * g;
-    s1[i] = m;
-    s2[i] = v;
-    p[i] = p[i] - s.lr * (m / s.bc1) / (sqrtf(v / s.bc2) + 1e-8f);
+    const float m = b1 * s1 + omb1 * g;
+    const float v = b2 * s2 + omb2 * g * g;
+    s1 = m;
+    s2 = v;
+    p = p - s.lr * (m / s.bc1) / (sqrtf(v / s.bc2) + 1e-8f);
   } else {
-    const float vel = s.momentum * s1[i] - s.lr * g;
-    s1[i] = vel;
-    p[i] = s.nesterov ? p[i] + s.momentum * vel - s.lr * g : p[i] + vel;
+    const float vel = s.momentum * s1 - s.lr * g;
+    s1 = vel;
+    p = s.nesterov ? p + s.momentum * vel - s.lr * g : p + vel;
   }
 }
 
-__global__ void __launch_bounds__(kThreads) mlp_epoch_kernel(const EpochArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) mlp_epoch_kernel(const EpochArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDA;
-  float* red = reinterpret_cast<float*>(Bs + BK * LDB);
+  __shared__ __align__(8) uint64_t state_bar;
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  float* sstate = reinterpret_cast<float*>(ring + kStages * (kAStage + kBStage));
+  float* red = sstate + kStateFloats + kShadowFloats + kProductFloats;
 
   const int lane = blockIdx.x;
   const int nl = a.n_layers, bs = a.bs, L = a.L;
   const int d = a.dims[0], c = a.dims[nl];
   const int tid = threadIdx.x;
 
-  // this lane's scratch: hidden activations, logits, two output gradients
+  // this lane's scratch (Layout); the per-layer pointers sit in shared
+  // memory, where a runtime layer index reads them at shared-memory speed
+  const Layout lay = scratch_layout(a.dims, nl, bs);
   float* base = a.scratch + (size_t)lane * a.scratch_per_lane;
-  float* acts[kMaxLayers];
-  float* off = base;
-  int widest = 0;
-  for (int l = 0; l < nl; ++l) {
-    acts[l] = off;  // acts[nl - 1] holds the logits
-    off += (size_t)bs * a.dims[l + 1];
-    if (a.dims[l + 1] > widest) widest = a.dims[l + 1];
+  __shared__ __nv_bfloat16* wsh[kMaxLayers];
+  __shared__ __nv_bfloat16* actb[kMaxLayers];
+  __shared__ __nv_bfloat16* dzb[kMaxLayers];
+  __shared__ float* actf[kMaxLayers];
+  if (tid == 0) {
+    for (int l = 0; l < nl; ++l) {
+      wsh[l] = reinterpret_cast<__nv_bfloat16*>(base + lay.wsh[l]);
+      dzb[l] = reinterpret_cast<__nv_bfloat16*>(base + lay.dzb[l]);
+      actf[l] = l + 1 < nl ? base + lay.actf[l] : base + lay.logits;
+      actb[l] = l + 1 < nl ? reinterpret_cast<__nv_bfloat16*>(base + lay.actb[l]) : nullptr;
+    }
   }
-  float* dzbuf[2] = {off, off + (size_t)bs * widest};
+  __syncthreads();
+
+  // prologue: the bf16 shadows of W (padding columns zero), and zeros in
+  // the bf16 activation and gradient buffers, whose padding stays zero
+  for (int l = 0; l < nl; ++l) {
+    const int din = a.dims[l], dout = a.dims[l + 1], ldo = pad8(dout);
+    const float* __restrict__ W = a.W[l] + (size_t)lane * din * dout;
+    for (int e = tid; e < din * ldo; e += kThreads) {
+      const int i = e / ldo, j = e - i * ldo;
+      wsh[l][e] = __float2bfloat16_rn(j < dout ? W[(size_t)i * dout + j] : 0.0f);
+    }
+  }
+  for (long long e = lay.bf16_begin + tid; e < lay.total; e += kThreads) base[e] = 0.0f;
+  if (tid == 0) mbar_init(&state_bar);
+  fence_proxy_async();  // the shadows' generic writes, before any bulk store
+  __syncthreads();
+  int state_phase = 0;
 
   const float lr = a.lr[lane];
   const float alpha = a.alpha[lane];
@@ -375,6 +649,7 @@ __global__ void __launch_bounds__(kThreads) mlp_epoch_kernel(const EpochArgs a) 
     const __nv_bfloat16* xb = a.X + row0 * d;
     const float* yb = a.Y + row0 * c;
     const float* wb = a.Wl + row0 * L + lane;  // wb[r * L]
+    const Mat Xm = make_mat(xb, d, bs, d);
 
     float wsum = 0.0f;
     for (int r = tid; r < bs; r += kThreads) wsum += wb[(size_t)r * L];
@@ -385,95 +660,185 @@ __global__ void __launch_bounds__(kThreads) mlp_epoch_kernel(const EpochArgs a) 
 
     // ---- forward: z = h W + bf16(b), hidden a = act(z) ----
     for (int l = 0; l < nl; ++l) {
-      const int din = a.dims[l], dout = a.dims[l + 1];
-      const float* W = a.W[l] + (size_t)lane * din * dout;
-      const float* b = a.B[l] + (size_t)lane * dout;
-      float* out = acts[l];
-      const bool hidden = l < nl - 1;
-      const Operand H = l == 0 ? make_operand(xb, din, 1, bs, din, true)
-                               : make_operand(acts[l - 1], din, 1, bs, din, false);
-      const Operand Wop = make_operand(W, dout, 1, din, dout, false);
+      const int din = a.dims[l], dout = a.dims[l + 1], ldo = pad8(dout);
+      const float* __restrict__ b = a.B[l] + (size_t)lane * dout;
+      const Mat H = l == 0 ? Xm : make_mat(actb[l - 1], pad8(din), bs, pad8(din));
+      const Mat Wm = make_mat(wsh[l], ldo, din, ldo);
+      float* __restrict__ of = actf[l];
+      __nv_bfloat16* __restrict__ ob = actb[l];
       const int act = a.act;
-      cta_gemm(H, Wop, bs, dout, din, As, Bs, [&](int m, int n, float v) {
-        const float z = v + bf16r(b[n]);
-        out[(size_t)m * dout + n] = hidden ? act_fn(act, z) : z;
-      });
+      const bool hidden = l < nl - 1;
+      gemm<false, false>(
+          H, Wm, bs, dout, din, ring, nullptr, sstate,
+          [&](int m, int n, int, int, float v0, float v1, bool two) {
+            const float z0 = v0 + bf16r(b[n]);
+            const float z1 = two ? v1 + bf16r(b[n + 1]) : 0.0f;
+            const bool pair = two && dout % 2 == 0;
+            if (hidden) {
+              const float h0 = act_fn(act, z0), h1 = act_fn(act, z1);
+              store2(of + (size_t)m * dout + n, h0, h1, pair);
+              if (two && !pair) of[(size_t)m * dout + n + 1] = h1;
+              store2(ob + (size_t)m * ldo + n, h0, h1, two);
+            } else {
+              store2(of + (size_t)m * dout + n, z0, z1, pair);
+              if (two && !pair) of[(size_t)m * dout + n + 1] = z1;
+            }
+          },
+          NoFlush{});
     }
 
-    // ---- output gradient of the mean weighted loss, and the data loss ----
-    const float* logits = acts[nl - 1];
-    float* dz = dzbuf[0];
-    float lpart = 0.0f;
-    for (int r = tid; r < bs; r += kThreads) {
-      const float wr = wb[(size_t)r * L];
-      const float scale = wr / bw;
-      const float* z = logits + (size_t)r * c;
-      const float* y = yb + (size_t)r * c;
-      float* g = dz + (size_t)r * c;
-      if (a.classification) {
-        float mx = -INFINITY;
-        for (int j = 0; j < c; ++j) mx = fmaxf(mx, z[j]);
-        float se = 0.0f;
-        for (int j = 0; j < c; ++j) se += expf(z[j] - mx);
-        for (int j = 0; j < c; ++j) {
-          const float p = expf(z[j] - mx) / se;
-          g[j] = (p - y[j]) * scale;
-          if (a.track_loss) lpart += y[j] * logf(fmaxf(p, 1e-12f)) * wr;
-        }
-      } else {
-        for (int j = 0; j < c; ++j) {
-          const float e = z[j] - y[j];
-          g[j] = e * scale;
-          lpart += e * e * wr;
+    // ---- output gradient of the mean weighted loss (bf16), and the data loss ----
+    const float* logits = actf[nl - 1];
+    {
+      __nv_bfloat16* dz = dzb[nl - 1];
+      const int ldc = pad8(c);
+      float lpart = 0.0f;
+      for (int r = tid; r < bs; r += kThreads) {
+        const float wr = wb[(size_t)r * L];
+        const float scale = wr / bw;
+        const float* z = logits + (size_t)r * c;
+        const float* y = yb + (size_t)r * c;
+        __nv_bfloat16* g = dz + (size_t)r * ldc;
+        if (a.classification) {
+          float mx = -INFINITY;
+          for (int j = 0; j < c; ++j) mx = fmaxf(mx, z[j]);
+          float se = 0.0f;
+          for (int j = 0; j < c; ++j) se += expf(z[j] - mx);
+          for (int j = 0; j < c; ++j) {
+            const float p = expf(z[j] - mx) / se;
+            g[j] = __float2bfloat16_rn((p - y[j]) * scale);
+            if (a.track_loss) lpart += y[j] * logf(fmaxf(p, 1e-12f)) * wr;
+          }
+        } else {
+          for (int j = 0; j < c; ++j) {
+            const float e = z[j] - y[j];
+            g[j] = __float2bfloat16_rn(e * scale);
+            lpart += e * e * wr;
+          }
         }
       }
-    }
-    if (a.track_loss) {
-      const float tot = block_sum(lpart, red);
-      if (tid == 0) a.loss[lane] += a.classification ? -tot / bw : 0.5f * tot / bw;
+      if (a.track_loss) {
+        const float tot = block_sum(lpart, red);
+        if (tid == 0) a.loss[lane] += a.classification ? -tot / bw : 0.5f * tot / bw;
+      }
     }
     __syncthreads();
 
     // ---- backward and in-place update, last layer first ----
     const float coef = alpha / bw;
-    int cur = 0;
     for (int l = nl - 1; l >= 0; --l) {
-      const int din = a.dims[l], dout = a.dims[l + 1];
+      const int din = a.dims[l], dout = a.dims[l + 1], ldo = pad8(dout);
       const size_t wofs = (size_t)lane * din * dout, bofs = (size_t)lane * dout;
-      float* W = a.W[l] + wofs;
-      const float* g = dzbuf[cur];
+      const Mat Gm = make_mat(dzb[l], ldo, bs, ldo);
+      const Mat Wm = make_mat(wsh[l], ldo, din, ldo);
       if (l > 0) {
         // dz_prev = (dz W^T) * act'(a_prev), from the step's old weights
-        const float* aprev = acts[l - 1];
-        float* nxt = dzbuf[cur ^ 1];
-        const Operand G = make_operand(g, dout, 1, bs, dout, false);
-        const Operand Wt = make_operand(W, 1, dout, dout, din, false);
+        const float* __restrict__ aprev = actf[l - 1];
+        __nv_bfloat16* __restrict__ nxt = dzb[l - 1];
+        const int ldp = pad8(din);
         const int act = a.act;
-        cta_gemm(G, Wt, bs, din, dout, As, Bs, [&](int m, int n, float v) {
-          const size_t i = (size_t)m * din + n;
-          nxt[i] = v * act_grad(act, aprev[i]);
-        });
+        gemm<false, true>(
+            Gm, Wm, bs, din, dout, ring, nullptr, sstate,
+            [&](int m, int n, int, int, float v0, float v1, bool two) {
+              const float* ap = aprev + (size_t)m * din + n;
+              const float g0 = v0 * act_grad(act, ap[0]);
+              const float g1 = two ? v1 * act_grad(act, ap[1]) : 0.0f;
+              store2(nxt + (size_t)m * ldp + n, g0, g1, two);
+            },
+            NoFlush{});
       }
       // gB = sum over rows of bf16(dz), and the bias update
-      float* B = a.B[l] + bofs;
-      float* s1B = a.s1B[l] + bofs;
-      float* s2B = a.sgd ? nullptr : a.s2B[l] + bofs;
-      for (int n = tid; n < dout; n += kThreads) {
-        float s = 0.0f;
-        for (int m = 0; m < bs; ++m) s += bf16r(g[(size_t)m * dout + n]);
-        update(st, B, s1B, s2B, n, s);
+      {
+        float* __restrict__ B = a.B[l] + bofs;
+        float* __restrict__ s1B = a.s1B[l] + bofs;
+        float* __restrict__ s2B = a.sgd ? nullptr : a.s2B[l] + bofs;
+        const __nv_bfloat16* __restrict__ g = dzb[l];
+        for (int n = tid; n < dout; n += kThreads) {
+          float s = 0.0f;
+#pragma unroll 8
+          for (int m = 0; m < bs; ++m) s += __bfloat162float(g[(size_t)m * ldo + n]);
+          float p = B[n], m1 = s1B[n], v2 = s2B ? s2B[n] : 0.0f;
+          update(st, p, m1, v2, s);
+          B[n] = p;
+          s1B[n] = m1;
+          if (s2B) s2B[n] = v2;
+        }
       }
-      // gW = a_prev^T dz + (alpha / bw) W, and the weight update
-      const Operand Ht = l == 0 ? make_operand(xb, 1, din, din, bs, true)
-                                : make_operand(acts[l - 1], 1, din, din, bs, false);
-      const Operand G = make_operand(g, dout, 1, bs, dout, false);
-      float* s1W = a.s1W[l] + wofs;
-      float* s2W = a.sgd ? nullptr : a.s2W[l] + wofs;
-      cta_gemm(Ht, G, din, dout, bs, As, Bs, [&](int m, int n, float v) {
-        const size_t i = (size_t)m * dout + n;
-        update(st, W, s1W, s2W, i, v + coef * W[i]);
-      });
-      cur ^= 1;
+      // gW = a_prev^T dz + (alpha / bw) W, the weight update and its shadow
+      {
+        const Mat Ht = l == 0 ? Xm : make_mat(actb[l - 1], pad8(din), bs, pad8(din));
+        float* __restrict__ W = a.W[l] + wofs;
+        float* __restrict__ s1W = a.s1W[l] + wofs;
+        float* __restrict__ s2W = a.sgd ? nullptr : a.s2W[l] + wofs;
+        __nv_bfloat16* __restrict__ sh = wsh[l];
+        StateSrc src{{W, s1W, s2W}, a.sgd ? 2 : 3, dout, din, &state_bar, state_phase};
+        // bulk copies where every state and shadow row is a 16-byte multiple
+        const bool pre = dout % 8 == 0 && (reinterpret_cast<uintptr_t>(W) % 16) == 0 &&
+                         (reinterpret_cast<uintptr_t>(s1W) % 16) == 0 &&
+                         (s2W == nullptr || (reinterpret_cast<uintptr_t>(s2W) % 16) == 0);
+        const int lds = dout <= kNarrow ? kNarrow + 8 : kWide + 8;
+        float* sW = sstate;
+        float* s1s = sstate + BM * lds;
+        float* s2s = sstate + 2 * BM * lds;
+        __nv_bfloat16* shs = reinterpret_cast<__nv_bfloat16*>(sstate + kStateFloats);
+        float* pt = sstate + kStateFloats + kShadowFloats;  // the tile's products
+        gemm<true, false>(
+            Ht, Gm, din, dout, bs, ring, pre ? &src : nullptr, sstate,
+            [&](int m, int n, int tm, int tn, float v0, float v1, bool two) {
+              if (pre) {  // the products wait in shared memory for the state
+                store2(pt + tm * lds + tn, v0, v1, two);
+                return;
+              }
+              for (int e = 0; e < (two ? 2 : 1); ++e) {
+                const size_t i = (size_t)m * dout + n + e;
+                float p = W[i], m1 = s1W[i], v2 = s2W ? s2W[i] : 0.0f;
+                update(st, p, m1, v2, (e ? v1 : v0) + coef * p);
+                W[i] = p;
+                s1W[i] = m1;
+                if (s2W) s2W[i] = v2;
+                sh[(size_t)m * ldo + n + e] = __float2bfloat16_rn(p);
+              }
+            },
+            [&](int m0, int n0) {
+              const int rows = min(BM, din - m0), cols = min(lds - 8, dout - n0);
+              // the update, 4 parameters a thread at a time, in shared memory
+              const int per = cols / 4;
+              for (int idx = threadIdx.x; idx < rows * per; idx += kThreads) {
+                const int si = (idx / per) * lds + (idx % per) * 4;
+                float4 w = *reinterpret_cast<const float4*>(sW + si);
+                float4 m1 = *reinterpret_cast<const float4*>(s1s + si);
+                float4 v2 = s2W ? *reinterpret_cast<const float4*>(s2s + si) : make_float4(0, 0, 0, 0);
+                const float4 g = *reinterpret_cast<const float4*>(pt + si);
+                update(st, w.x, m1.x, v2.x, g.x + coef * w.x);
+                update(st, w.y, m1.y, v2.y, g.y + coef * w.y);
+                update(st, w.z, m1.z, v2.z, g.z + coef * w.z);
+                update(st, w.w, m1.w, v2.w, g.w + coef * w.w);
+                *reinterpret_cast<float4*>(sW + si) = w;
+                *reinterpret_cast<float4*>(s1s + si) = m1;
+                if (s2W) *reinterpret_cast<float4*>(s2s + si) = v2;
+                const __nv_bfloat162 lo = __floats2bfloat162_rn(w.x, w.y);
+                const __nv_bfloat162 hi = __floats2bfloat162_rn(w.z, w.w);
+                uint2 packed;
+                packed.x = *reinterpret_cast<const uint32_t*>(&lo);
+                packed.y = *reinterpret_cast<const uint32_t*>(&hi);
+                *reinterpret_cast<uint2*>(shs + si) = packed;
+              }
+              fence_proxy_async();  // the updated tile, before the bulk copies read it
+              __syncthreads();
+              // the tile back, a bulk copy a row
+              for (int idx = threadIdx.x; idx < rows * (src.n + 1); idx += kThreads) {
+                const int k = idx / rows, r = idx - k * rows;
+                if (k < src.n)
+                  bulk_store((k == 0 ? W : k == 1 ? s1W : s2W) + (size_t)(m0 + r) * dout + n0,
+                             sstate + (k * BM + r) * lds, (uint32_t)cols * 4);
+                else
+                  bulk_store(sh + (size_t)(m0 + r) * ldo + n0, shs + r * lds, (uint32_t)cols * 2);
+              }
+              bulk_commit();
+              bulk_wait_read();  // the tile's shared memory is free again
+            });
+        state_phase = src.phase;  // the barrier's phase after this product's tiles
+      }
     }
   }
 }
@@ -484,7 +849,7 @@ extern "C" {
 
 // f32 scratch floats one lane needs; the Python wrapper mirrors it.
 long long mlp_scratch_floats(const int* dims, int n_layers, int bs) {
-  return scratch_floats(dims, n_layers, bs);
+  return scratch_layout(dims, n_layers, bs).total;
 }
 
 int mlp_epoch(const void* X, const void* Y, const void* Wl, const void* lr,
@@ -519,7 +884,7 @@ int mlp_epoch(const void* X, const void* Y, const void* Wl, const void* lr,
   }
   a.loss = static_cast<float*>(loss);
   a.scratch = static_cast<float*>(scratch);
-  a.scratch_per_lane = scratch_floats(dims, n_layers, bs);
+  a.scratch_per_lane = scratch_layout(dims, n_layers, bs).total;
   a.n_layers = n_layers;
   a.bs = bs;
   a.n_batches = n_batches;
@@ -531,6 +896,13 @@ int mlp_epoch(const void* X, const void* Y, const void* Wl, const void* lr,
   a.nesterov = nesterov;
   a.track_loss = track_loss;
   a.momentum = momentum;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mlp_epoch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
   mlp_epoch_kernel<<<L, kThreads, kSmemBytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,18 @@ stats once and writes the histogram once; its adds are a few per (row,
 feature). At the deep arena's widest covertype level (6 lanes, 116,202
 rows, 1536 nodes, 54 features, 16 bins, 7 classes) that is ~0.27 GB,
 ~81 us: bytes bound it.
+
+Design (csrc/hist.cu). One C call first buckets each lane's live rows
+(node id in range, a nonzero stat) by node: counts, their exclusive scan
+``off [L, n_nodes + 1]`` and a node-sorted row list ``[L, n]``
+(``bucket_rows_reference`` is its plain mirror). Each CTA then owns a
+page, a run of at most ``Mb`` consecutive nodes by ``Fb`` features, and
+reads only its nodes' contiguous segment of the list. Pages also start
+where a lane's live rows cross a multiple of ``T`` (``hist_pages``), so
+their rows, not their node counts, stay balanced on uneven levels; the
+device cuts them (``page_starts_reference`` mirrors it), and the grid is
+sized for the most pages that can come out. The scratch is one int32
+tensor from ``torch.empty`` (``scratch_ints``).
 """
 
 from __future__ import annotations
@@ -35,10 +47,8 @@ import torch
 MAX_STATS = 16
 MAX_BINS = 256
 SMEM_LIMIT = 232_448
-#: shared-memory page a CTA aims at, beside its row list (two CTAs resident
-#: on each SM); the list holds a 2,048-row tile's row (i32) and node (u16)
+#: shared-memory page a CTA aims at (two CTAs resident on each SM)
 PAGE_BYTES = 96 * 1024
-LIST_BYTES = 2048 * 6
 #: CTAs that keep two resident on each of an H100's 132 SMs
 _FILL_CTAS = 264
 
@@ -83,9 +93,67 @@ def hist_tile(n_nodes: int, d: int, n_bins: int, kk: int, L: int) -> Tuple[int, 
     return 1, fb
 
 
+def hist_pages(n: int, n_nodes: int, Mb: int) -> Tuple[int, int]:
+    """(T, max_pages) of a lane's page cut: a page starts at every Mb-th
+    node and where the live rows cross a multiple of T, with T the rows of
+    an average node block, so a page carries about T rows beside its
+    largest node (with one node a page
+    there is nothing to cut). max_pages bounds the pages that rule can give: one a
+    node block plus one a crossing (``hist_level_histogram`` checks it)."""
+    node_pages = -(-n_nodes // Mb)
+    if Mb == 1:  # one node a page already: no row cut (T above any count)
+        return n + 1, node_pages
+    T = max(1, -(-n // node_pages))
+    return T, node_pages + n // T
+
+
+def scratch_ints(L: int, n: int, n_nodes: int, max_pages: int) -> int:
+    """int32 scratch of one call (``hist_scratch_ints`` in csrc/hist.cu):
+    cursors, offsets, the row list, page starts and page counts."""
+    return L * (n_nodes + (n_nodes + 1) + n + (max_pages + 1) + 1)
+
+
 # ---------------------------------------------------------------------------
-# plain PyTorch version
+# plain PyTorch versions
 # ---------------------------------------------------------------------------
+
+
+def bucket_rows_reference(local, n_nodes: int, SC=None):
+    """Plain mirror of the kernel's bucketing pass: ``(off [L, n_nodes + 1],
+    rows [L, n])`` int32, where lane l's rows of node m are ``rows[l,
+    off[l, m]:off[l, m + 1]]`` (ascending here; the kernel's atomics leave
+    them in any order) and ``off[l, -1]`` is the lane's live row count;
+    the rest of ``rows[l]`` is -1. Dead rows (node id < 0 or >= n_nodes)
+    drop out, and with ``SC`` so do rows whose stats are all zero (they add
+    nothing), as in the kernel."""
+    L, n = local.shape
+    local = local.long()
+    live = (local >= 0) & (local < n_nodes)
+    if SC is not None:
+        live &= (SC != 0).any(dim=-1)
+    key = torch.where(live, local, torch.full_like(local, n_nodes))
+    counts = torch.zeros((L, n_nodes + 1), dtype=torch.long, device=local.device)
+    counts.scatter_add_(1, key, torch.ones_like(key))
+    off = torch.zeros((L, n_nodes + 1), dtype=torch.long, device=local.device)
+    off[:, 1:] = torch.cumsum(counts[:, :n_nodes], dim=1)
+    order = torch.sort(key, dim=1, stable=True).indices
+    rows = torch.where(torch.arange(n, device=local.device)[None] < off[:, -1:],
+                       order, torch.full_like(order, -1))
+    return off.int(), rows.int()
+
+
+def page_starts_reference(off, Mb: int, T: int):
+    """Plain mirror of the kernel's page cut for one lane's offsets
+    ``off [n_nodes + 1]``: the first node of every page, then n_nodes. A
+    node m starts a page if m % Mb == 0 or the rows before it cross a
+    multiple of T (``off[m] // T > off[m - 1] // T``)."""
+    off = off.long()
+    n_nodes = off.shape[0] - 1
+    m = torch.arange(n_nodes, device=off.device)
+    crossed = torch.zeros(n_nodes, dtype=torch.bool, device=off.device)
+    crossed[1:] = off[1:n_nodes] // T > off[:n_nodes - 1] // T
+    starts = m[(m % Mb == 0) | crossed]
+    return torch.cat([starts, torch.tensor([n_nodes], device=off.device)]).int()
 
 
 def level_histogram_reference(local, xb, SC, n_nodes: int, n_bins: int):
@@ -126,10 +194,12 @@ def _lib() -> ctypes.CDLL:
 
         lib = load("hist")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.hist_level_histogram.argtypes = [P] * 4 + [I] * 9 + [P]
+        lib.hist_level_histogram.argtypes = [P] * 5 + [I] * 11 + [P]
         lib.hist_level_histogram.restype = I
         lib.hist_page_bytes.argtypes = [I] * 4
         lib.hist_page_bytes.restype = ctypes.c_longlong
+        lib.hist_scratch_ints.argtypes = [I] * 4
+        lib.hist_scratch_ints.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
 
@@ -171,13 +241,15 @@ def level_histogram(local, xb, SC, n_nodes: int, n_bins: int, *,
         raise ValueError(
             f"level_histogram: no kernel geometry for n_bins={n_bins}, kk={kk}, n={n}")
     Mb, Fb = hist_tile(n_nodes, d, n_bins, kk, L)
+    T, max_pages = hist_pages(n, n_nodes, Mb)
     out = torch.empty((L, n_nodes, d, n_bins, kk), dtype=torch.float32, device=dev)
+    scratch = torch.empty(scratch_ints(L, n, n_nodes, max_pages), dtype=torch.int32,
+                          device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().hist_level_histogram(
-            ctypes.c_void_p(xb.data_ptr()), ctypes.c_void_p(local.data_ptr()),
-            ctypes.c_void_p(SC.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n, d, kk, L, n_nodes, n_bins, Mb, Fb, int(bool(integer_stats)),
+            *(ctypes.c_void_p(t.data_ptr()) for t in (xb, local, SC, out, scratch)),
+            n, d, kk, L, n_nodes, n_bins, Mb, Fb, T, max_pages, int(bool(integer_stats)),
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"hist_level_histogram failed: CUDA error {err}")
@@ -191,6 +263,8 @@ def hist_bytes(L: int, n: int, d: int, kk: int, n_nodes: int, n_bins: int) -> in
     return 4 * (n * d + L * n + L * n * kk + L * n_nodes * d * n_bins * kk)
 
 
-def grid_ctas(n_nodes: int, d: int, n_bins: int, kk: int, L: int) -> int:
+def grid_ctas(n: int, n_nodes: int, d: int, n_bins: int, kk: int, L: int) -> int:
+    """CTAs of the histogram launch: every page a lane could have, by
+    feature block (those past a lane's page count return at once)."""
     Mb, Fb = hist_tile(n_nodes, d, n_bins, kk, L)
-    return L * math.ceil(n_nodes / Mb) * math.ceil(d / Fb)
+    return L * hist_pages(n, n_nodes, Mb)[1] * math.ceil(d / Fb)

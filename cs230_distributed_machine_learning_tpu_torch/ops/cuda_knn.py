@@ -27,8 +27,10 @@ in ROADMAP.md, C; it needs a lane with fewer than k masked-in rows).
 Dispatch. Given CPU tensors the wrapper computes the plain version; given
 CUDA tensors it launches the kernel or raises. Nothing falls back from the
 card to the plain version. ``LAUNCHES`` counts kernel launches. The kernel
-takes k up to ``MAX_K`` (its lists live in shared memory); above that a
-CUDA call raises ``ValueError``.
+takes any k: up to ``SHARED_LISTS_MAX_K`` its per-query lists live in
+shared memory, above it in device memory (the output tensors themselves,
+kept as max-heaps and sorted at the end), by the same insertion rule and
+with the same result; ``knn_list_mode`` says which.
 
 Bounds (H100 SXM: 67 TFLOP/s f32, 3.35 TB/s): at the search path's launch
 shape (4,096 queries, 200,000 training rows, d 54, 6 lanes) the distance
@@ -43,8 +45,9 @@ from typing import Optional, Tuple
 
 import torch
 
-#: the largest k the kernel takes (csrc/knn.cu: its lists live in shared memory)
-MAX_K = 256
+#: the largest k whose lists the kernel keeps in shared memory (csrc/knn.cu);
+#: above it they live in device memory
+SHARED_LISTS_MAX_K = 256
 #: the distance value of a masked row and of an empty slot
 INF = 3.4e38
 #: training rows per merge in the plain version
@@ -59,11 +62,21 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def knn_list_mode(k: int) -> str:
+    """Where the kernel keeps its per-query lists at ``k``: ``"shared"``
+    (shared memory, k <= ``SHARED_LISTS_MAX_K``) or ``"device"`` (device
+    memory: the ``[L, nq, k]`` outputs, updated in place)."""
+    if k < 1:
+        raise ValueError(f"knn_list_mode: k={k} must be at least 1")
+    return "shared" if k <= SHARED_LISTS_MAX_K else "device"
+
+
 def smem_bytes(k: int) -> int:
     """Shared memory of one CTA at ``k`` (``smem_bytes`` in csrc/knn.cu):
     the transposed query and tile chunks, the distance tile, the tile's
-    norms and weights, and the lists."""
-    return 4 * (64 * 68 + 64 * 132 + 64 * 132 + 64 + 2 * 128) + 64 * k * 8
+    norms and weights, and the lists when they live in shared memory."""
+    lists = 64 * k * 8 if knn_list_mode(k) == "shared" else 0
+    return 4 * (64 * 68 + 64 * 132 + 64 * 132 + 64 + 2 * 128) + lists
 
 
 def _sq_norms(Q: torch.Tensor, Xt: torch.Tensor):
@@ -120,8 +133,8 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.knn_topk.argtypes = [P] * 7 + [I] * 5 + [P]
         lib.knn_topk.restype = I
-        lib.knn_max_k.argtypes = []
-        lib.knn_max_k.restype = I
+        lib.knn_max_shared_k.argtypes = []
+        lib.knn_max_shared_k.restype = I
         lib.knn_smem_bytes.argtypes = [I]
         lib.knn_smem_bytes.restype = ctypes.c_longlong
         _lib_handle = lib
@@ -160,9 +173,8 @@ def knn_topk(Q, Xt, W, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("Q", Q, torch.float32, (nq, d))
     _check("Xt", Xt, torch.float32, (n, d))
     _check("W", W, torch.float32, (L, n))
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_topk: k={k} is outside the kernel's range 1..{MAX_K} "
-                         f"(MAX_K: its per-query lists live in shared memory)")
+    if k < 1:
+        raise ValueError(f"knn_topk: k={k} must be at least 1")
     if nq == 0 or n == 0 or d == 0 or L == 0:
         raise ValueError(f"knn_topk: empty input (nq={nq}, n={n}, d={d}, L={L})")
     qsq, tsq = _sq_norms(Q, Xt)

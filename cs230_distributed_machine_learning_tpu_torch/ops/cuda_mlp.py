@@ -46,8 +46,9 @@ kernel keeps each lane's params and moments in VMEM for the whole epoch.
 One lane of the widest config-5 net, 784-512-10, has 406,528 parameters,
 4.9 MB of f32 p + m + v: no SM's 228 KB of shared memory holds it. So the
 state lives in device memory and every step reads and writes it (24 bytes
-a parameter for adam), and the activations of the step go through a
-per-lane scratch that stays in L2. The card's bound for one epoch is the
+a parameter for adam, plus a 2-byte bf16 shadow of every weight that the
+products read), and the activations of the step go through a per-lane
+scratch that stays in L2. The card's bound for one epoch is the
 larger of its products over the bf16 rate and, in bytes, the state read
 and written once plus the batch rows read once; this design's own floor
 adds the state traffic of every step (``epoch_bytes``).
@@ -91,12 +92,23 @@ def per_layer(solver: str) -> int:
     return 6 if solver == "adam" else 4
 
 
+def _pad(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
 def scratch_floats(dims: Sequence[int], bs: int) -> int:
-    """f32 scratch one lane needs (``mlp_scratch_floats`` in csrc/mlp.cu):
-    the hidden activations and the logits of the step, and two output
-    gradients of the widest layer."""
-    widths = list(dims[1:])
-    return bs * (sum(widths) + 2 * max(widths))
+    """Scratch one lane needs, in f32 units (``mlp_scratch_floats`` in
+    csrc/mlp.cu; every piece starts 16-byte aligned): per layer a bf16
+    shadow of W, ``[din][pad8(dout)]``; per hidden layer its f32
+    activations ``[bs][dout]`` and their bf16 copy ``[bs][pad8(dout)]``;
+    the f32 logits ``[bs][c]``; per layer the bf16 output gradient
+    ``[bs][pad8(dout)]``. Two bf16 values take one f32 unit."""
+    outs = list(dims[1:])
+    shadows = sum(_pad(din * _pad(dout, 8) // 2, 4) for din, dout in zip(dims[:-1], outs))
+    hidden = sum(_pad(bs * w, 4) + _pad(bs * _pad(w, 8) // 2, 4) for w in outs[:-1])
+    logits = _pad(bs * outs[-1], 4)
+    grads = sum(_pad(bs * _pad(w, 8) // 2, 4) for w in outs)
+    return shadows + hidden + logits + grads
 
 
 def epoch_flops(dims: Sequence[int], bs: int, n_batches: int, L: int) -> float:
@@ -109,12 +121,16 @@ def epoch_flops(dims: Sequence[int], bs: int, n_batches: int, L: int) -> float:
 def epoch_bytes(dims: Sequence[int], bs: int, n_batches: int, L: int,
                 solver: str = "adam", every_step: bool = False) -> float:
     """Device-memory bytes of one epoch: the state read and written once
-    (``every_step``: at every step, as this design moves it) plus the
-    batch rows (bf16 features, f32 targets, f32 lane weights) read once."""
+    plus the batch rows (bf16 features, f32 targets, f32 lane weights)
+    read once. ``every_step``: as this design moves it, the state at every
+    step and the bf16 shadow of every weight written at every step."""
     params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    weights = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
     state = 2 * 4 * (per_layer(solver) // 2) * params * L
     rows = n_batches * bs * (2 * dims[0] + 4 * dims[-1] + 4 * L)
-    return state * (n_batches if every_step else 1) + rows
+    if every_step:
+        return (state + 2 * weights * L) * n_batches + rows
+    return state + rows
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,209 @@
+"""The shapes and inputs at which the port's kernels are checked and timed.
+
+``chip_smoke.py`` holds kernels B4, B5 and B6 against their plain versions
+at these shapes, ``kernel_ab.py`` times two checkouts' kernels on inputs
+from the same builders, and the GPU tests reuse them. The module imports
+only the standard library, numpy and torch at import time, so that
+``kernel_ab.py`` can load it from one checkout while it times the package
+of another.
+"""
+
+from __future__ import annotations
+
+import math
+import statistics
+import time
+
+import numpy as np
+import torch
+
+
+def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of one call, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+# --------------------------------------------------------------- B4 (hist)
+
+#: B4 shapes: (L lanes, rows, features, bins, nodes, stat columns)
+HIST_SHAPES = {
+    "rf_main_deep": (6, 11_620, 54, 24, 128, 7),
+    "rf_main_fine": (6, 11_620, 54, 48, 128, 7),
+    "rf_full_widest": (6, 116_202, 54, 16, 1536, 7),
+    # rf_full's widest level with node sizes from a geometric law (a few
+    # nodes hold most rows), as the uneven levels of a real tree do
+    "rf_full_skewed": (6, 116_202, 54, 16, 1536, 7),
+}
+HIST_SKEWED = {"rf_full_skewed"}
+#: the geometric law's success probability: the largest node of a level
+#: holds a few % of its rows, the smallest one row or none
+HIST_SKEW_P = 0.05
+
+
+def hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, float_stats, skewed=False):
+    """Node ids with dead rows (-1 and n_nodes; with ``skewed``, live ids
+    drawn with probabilities proportional to geometric node sizes), shared
+    codes, and stats: one-hot classes times small bootstrap counts (many
+    zero rows), or normal floats."""
+    local = torch.randint(-1, n_nodes + 1, (L, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    if skewed:
+        u = torch.rand(n_nodes, generator=gen, device=dev).clamp_min(1e-12)
+        sizes = torch.floor(torch.log(u) / math.log1p(-HIST_SKEW_P)) + 1
+        live = torch.multinomial(sizes / sizes.sum(), L * n, replacement=True, generator=gen)
+        dead = (local < 0) | (local >= n_nodes)
+        local = torch.where(dead, local, live.view(L, n).int())
+    xb = torch.randint(0, n_bins, (n, d), generator=gen, device=dev, dtype=torch.int32)
+    if float_stats:
+        return local, xb, torch.randn(L, n, kk, generator=gen, device=dev)
+    y = torch.randint(0, kk, (L, n), generator=gen, device=dev)
+    counts = torch.poisson(torch.full((L, n), 0.9, device=dev), generator=gen)
+    return local, xb, torch.nn.functional.one_hot(y, kk).float() * counts[..., None]
+
+
+#: levels whose nodes hold very uneven row counts
+SKEWED_LEVELS = ("uniform", "one_node_all_rows", "empty_nodes", "all_dead", "geometric")
+
+
+def skewed_node_ids(kind: str, L: int, n: int, n_nodes: int, rng) -> np.ndarray:
+    """Node ids [L, n] of one of ``SKEWED_LEVELS`` (dead rows are -1 or
+    n_nodes), from a numpy ``RandomState``."""
+    if kind == "uniform":
+        return rng.randint(-1, n_nodes + 1, (L, n))
+    if kind == "one_node_all_rows":
+        return np.full((L, n), n_nodes // 2)
+    if kind == "empty_nodes":  # only every fifth node holds rows
+        return rng.randint(0, -(-n_nodes // 5), (L, n)) * 5
+    if kind == "all_dead":
+        return np.where(rng.rand(L, n) < 0.5, -1, n_nodes)
+    if kind != "geometric":
+        raise ValueError(f"unknown level kind {kind!r}")
+    p = rng.geometric(HIST_SKEW_P, n_nodes).astype(np.float64)  # a few nodes hold most rows
+    return np.stack([rng.choice(n_nodes, n, p=p / p.sum()) for _ in range(L)])
+
+
+# ---------------------------------------------------------------- B5 (mlp)
+
+#: B5 shapes: (dims, batch size, steps of a full epoch at 60,000 rows)
+MLP_SHAPES = {
+    "784-512-10": ((784, 512, 10), 256, 234),
+    "784-256-128-10": ((784, 256, 128, 10), 128, 468),
+}
+#: lanes of one config-5 dispatch: 12 trials x 6 splits
+MLP_LANES = 72
+MLP_CHECK_STEPS = 8
+#: the learning rate of the 8-step check: config 5's smallest
+MLP_EPOCH_LR = 1e-4
+# B5 vs its plain version, from the same state. Both round the same
+# operands to bf16 but sum in other orders, so a relu input or a bf16
+# rounding (2^-8 relative) within f32 noise of its edge can go either way,
+# and Adam turns a gradient within rounding of zero into a step of up to
+# the learning rate either way; at config 5's larger learning rates the
+# two fits then drift apart within a few steps, as any two summation
+# orders would. So the kernel is held after one step at the lanes' own
+# learning rates and after an 8-step epoch at MLP_EPOCH_LR, by the largest
+# param error over the largest |param| ("param_rel"), the share of params
+# more than 1e-3 of the largest |param| apart ("far") and every state
+# tensor's mean error over its mean change ("mean"). Measured on the H100
+# (NVIDIA H100 80GB HBM3, 700.00 W) at both shapes: SGD rel <= 1.6e-5 and
+# mean <= 4.2e-3; Adam far <= 1.5e-6 and mean <= 1.6e-2 after the epoch,
+# mean <= 4.3e-6 after one step (where a flipped sign still moves a param
+# by 2 lr: rel up to 0.17).
+MLP_LIMITS = {
+    ("step", "sgd"): {"param_rel": 5e-3, "mean_rel": 2e-2},
+    ("step", "adam"): {"param_far_share": 1e-3, "mean_rel": 2e-2},
+    ("epoch", "sgd"): {"param_rel": 5e-3, "mean_rel": 2e-2},
+    ("epoch", "adam"): {"param_far_share": 1e-2, "mean_rel": 1e-1},
+}
+
+
+def mlp_inputs(gen, dev, dims, bs, steps, L, S=6):
+    """An epoch's inputs as the fused path builds them: bf16 rows, one-hot
+    targets, the 6 split masks spread over the lanes (lane = trial * 6 +
+    split), config-5 learning rates and penalties, and the Glorot params."""
+    R = steps * bs
+    X = torch.randn(R, dims[0], generator=gen, device=dev).to(torch.bfloat16)
+    Y = torch.nn.functional.one_hot(
+        torch.randint(0, dims[-1], (R,), generator=gen, device=dev), dims[-1]).float()
+    splits = (torch.rand(R, S, generator=gen, device=dev) > 0.2).float()
+    Wl = splits[:, torch.arange(L, device=dev) % S].contiguous()
+    grid = torch.tensor([1e-4, 3e-4, 1e-3, 3e-3, 1e-2], device=dev)
+    lr = grid[torch.randint(0, 5, (L,), generator=gen, device=dev)].contiguous()
+    alpha = torch.tensor([1e-5, 1e-4, 1e-3], device=dev)[
+        torch.randint(0, 3, (L,), generator=gen, device=dev)].contiguous()
+    params = []
+    for din, dout in zip(dims[:-1], dims[1:]):
+        bound = (6.0 / (din + dout)) ** 0.5
+        params.append({"W": (torch.rand(din, dout, generator=gen, device=dev) * 2 - 1) * bound,
+                       "b": torch.zeros(dout, device=dev)})
+    return X, Y, Wl, lr, alpha, params
+
+
+def mlp_check(M, part, params, L, solver, kw) -> dict:
+    """One short epoch of B5 (module ``M``: ``ops/cuda_mlp.py``) against its
+    plain version from the same state. Params (every W and b): the largest
+    error over the largest |param| ("param_rel") and the share of params
+    more than 1e-3 of the largest |param| apart ("param_far_share"); every
+    state tensor: its mean error over its mean change ("mean_rel")."""
+    state = M.epoch_state(params, L, solver)
+    k = M.per_layer(solver)
+    ref = M.epoch_reference(*part, 0, [t.clone() for t in state], solver=solver, **kw)
+    got = M.epoch(*part, 0, [t.clone() for t in state], solver=solver, **kw)
+    if got[0].is_cuda:
+        torch.cuda.synchronize()
+    pidx = [i for i in range(len(got)) if i % k < 2]  # params: W, b
+    scale = max(float(ref[i].abs().max()) for i in pidx)
+    out = dict(param_abs=0.0, mean_rel=0.0)
+    far = total = 0
+    for i, (g, r, a) in enumerate(zip(got, ref, state)):
+        assert bool(torch.isfinite(g).all()), f"B5 {solver}: non-finite state {i}"
+        if i in pidx:
+            out["param_abs"] = max(out["param_abs"], float((g - r).abs().max()))
+            far += int(((g - r).abs() > 1e-3 * scale).sum())
+            total += g.numel()
+        moved = float((r - a).abs().mean())
+        if moved > 0:
+            out["mean_rel"] = max(out["mean_rel"], float((g - r).abs().mean()) / moved)
+    out["param_rel"] = out["param_abs"] / scale
+    out["param_far_share"] = far / total
+    return out
+
+
+# ---------------------------------------------------------------- B6 (knn)
+
+#: the KNN slice's table: covertype's width and classes at the first round
+#: size above both B6 gates (n >= 150,000 and (S-1)/S n >= 150,000 at S = 6)
+KNN_DATASET = "synthetic_200000x54x7"
+#: queries of one launch on the search path: a chunk of the table's rows
+KNN_QUERIES = 4096
+#: the search grid's k, and a k above the shared-memory lists' limit
+KNN_GRID_KS = [5, 25]
+KNN_DEVICE_LISTS_K = 300
+
+
+def knn_table(cache, dev) -> tuple:
+    """The KNN table on the card from a ``DatasetCache``: (TrialData, X,
+    the job's 6 split masks W [6, n], staging seconds)."""
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+
+    t0 = time.perf_counter()
+    data = cache.get(KNN_DATASET, "classification")
+    staged = time.perf_counter() - t0
+    assert data.X.shape == (200_000, 54) and data.n_classes == 7, data.X.shape
+    plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=5,
+                            random_state=42)
+    X = torch.as_tensor(np.asarray(data.X, np.float32), device=dev)
+    W = torch.as_tensor(plan.train_w, device=dev).float().contiguous()
+    return data, X, W, staged

@@ -1,0 +1,134 @@
+"""Time kernels B4, B5 and B6 of two checkouts of the port on one card, in turns.
+
+    python3 kernel_ab.py --trees OLD NEW NEW OLD [--out FILE]
+
+Each entry of ``--trees`` is the root of a checkout (for example the
+parent commit unpacked with ``git archive`` into a directory that
+``.gitignore`` lists, and ``.``). For each entry in order, a fresh process
+imports that checkout's package, builds its ``csrc/hist.cu``,
+``csrc/mlp.cu`` and ``csrc/knn.cu`` and times the kernels through their
+wrappers, whose signatures every checkout shares. The shapes, the input
+builders and the timer are this checkout's ``ops/kernel_cases.py``, the
+ones ``chip_smoke.py`` uses, loaded by path so that every tree is timed
+on the same inputs from the same seeds:
+
+- B4 ``level_histogram`` with integer stats at every ``HIST_SHAPES`` entry;
+- B6 ``knn_topk`` at knn_main's launch shape (the staged KNN table, the
+  job's 6 split masks, its first 4,096 rows as queries) at the grid's k
+  and at k 300 (null for a checkout whose kernel refuses it);
+- B5 ``epoch``, one full Adam epoch at every ``MLP_SHAPES`` entry on its
+  72 lanes, and the widest shape again on one lane (a lane is one CTA, so
+  the two times apart say how far the lanes contend for the card).
+
+Prints one JSON line per entry and, last, the card's name and power limit.
+The KNN table is staged once under ``.smoke_storage/`` beside this script.
+Needs one CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CASES = os.path.join(HERE, "cs230_distributed_machine_learning_tpu_torch", "ops",
+                     "kernel_cases.py")
+DATASETS = os.path.join(HERE, ".smoke_storage", "ab_datasets")
+
+
+def _load_cases():
+    spec = importlib.util.spec_from_file_location("kernel_ab_cases", CASES)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def worker() -> dict:
+    """Time the kernels of the checkout in the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import DatasetCache
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_build
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
+
+    C = _load_cases()
+    cuda_build.build(["hist", "mlp", "knn"])
+    dev = torch.device("cuda", 0)
+    out = {"tree": os.getcwd(), "hist_ms": {}, "knn_ms": {}, "mlp_ms": {}}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for tag, (L, n, d, n_bins, n_nodes, kk) in C.HIST_SHAPES.items():
+        local, xb, SC = C.hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False,
+                                      tag in C.HIST_SKEWED)
+        out["hist_ms"][tag] = C.time_ms(lambda: H.level_histogram(
+            local, xb, SC, n_nodes, n_bins, integer_stats=True))
+        del local, xb, SC
+    _, X, W, _ = C.knn_table(DatasetCache(root=DATASETS), dev)
+    Q = X[:C.KNN_QUERIES].contiguous()
+    for k in C.KNN_GRID_KS + [C.KNN_DEVICE_LISTS_K]:
+        try:
+            K.knn_topk(Q, X, W, k)
+        except ValueError:  # a kernel that keeps its lists in shared memory only
+            if k <= 256:
+                raise
+            out["knn_ms"][f"k{k}"] = None
+            continue
+        out["knn_ms"][f"k{k}"] = C.time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
+    del X, Q, W
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    runs = [(tag, C.MLP_LANES, shape) for tag, shape in C.MLP_SHAPES.items()]
+    runs.append(("784-512-10_one_lane", 1, C.MLP_SHAPES["784-512-10"]))
+    for tag, L, (dims, bs, steps) in runs:
+        Xs, Ys, Wl, lr, alpha, params = C.mlp_inputs(gen, dev, dims, bs, steps, L)
+        state = M.epoch_state(params, L, "adam")
+        out["mlp_ms"][tag] = C.time_ms(lambda: M.epoch(
+            Xs, Ys, Wl, lr, alpha, 0, state, dims=dims, act="relu", bs=bs,
+            n_batches=steps, classification=True), reps=3, warmup=1)
+        del Xs, Ys, Wl, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--trees", nargs="+", help="checkout roots, timed in this order")
+    ap.add_argument("--out", help="also write the JSON lines here")
+    ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker()), flush=True)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: needs a CUDA card", file=sys.stderr)
+        return 1
+    here = os.path.abspath(__file__)
+    lines = []
+    for tree in args.trees:
+        proc = subprocess.run([sys.executable, here, "--worker"], cwd=os.path.abspath(tree),
+                              capture_output=True, text=True, check=False)
+        if proc.returncode != 0:
+            print(proc.stdout, proc.stderr, file=sys.stderr)
+            return proc.returncode
+        lines.append(proc.stdout.strip().splitlines()[-1])
+        print(lines[-1], flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines + [smi]) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,8 @@ every distance within 1e-5 of max(qsq + tsq) (the expansion's f32
 rounding) and the same neighbour sets wherever the plain k-th and (k+1)-th
 distances are further apart than that; on integer data every distance is
 exact and the outputs must be equal, ties (lowest index first) and empty
-slots (3.4e38, -1) included.
+slots (3.4e38, -1) included, with the lists in shared memory (k <= 256)
+and in device memory (k 300).
 """
 
 import numpy as np
@@ -36,6 +37,7 @@ from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as th
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as tn
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as tk
 from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as tm
+from cs230_distributed_machine_learning_tpu_torch.ops import kernel_cases as kc
 
 TOL = 5e-3
 
@@ -166,6 +168,29 @@ def test_level_histogram_matches_plain_on_card(cuda, L, n, d, n_bins, n_nodes, k
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", [k for k in kc.SKEWED_LEVELS if k != "uniform"])
+@pytest.mark.parametrize("L,n,d,n_bins,n_nodes,kk", [
+    (6, 11_620, 54, 24, 128, 7),    # rf_main's deep levels
+    (6, 116_202, 54, 16, 1536, 7),  # rf_full's widest level
+])
+def test_level_histogram_skewed_levels_bit_exact_on_card(cuda, kind, L, n, d, n_bins,
+                                                         n_nodes, kk):
+    """Nodes of very uneven size (every row in one node, empty nodes, no
+    live row, geometric sizes): the bucketed pages still give the plain
+    version's histogram to the bit."""
+    rng = np.random.RandomState(n_nodes)
+    _, xb, SC = _hist_inputs(cuda, L, n, d, n_bins, n_nodes, kk, float_stats=False)
+    local = kc.skewed_node_ids(kind, L, n, n_nodes, rng).astype(np.int32)
+    local = torch.as_tensor(local).to(cuda)
+    th.reset_launches()
+    got = th.level_histogram(local, xb, SC, n_nodes, n_bins, integer_stats=True)
+    want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert th.LAUNCHES["level_histogram"] == 1
+
+
+@pytest.mark.gpu
 def test_level_histogram_raises_instead_of_falling_back(cuda):
     local, xb, SC = _hist_inputs(cuda, 2, 300, 4, 8, 5, 3, float_stats=False)
     th.reset_launches()
@@ -252,6 +277,24 @@ def test_mlp_epoch_matches_plain_on_card(cuda, dims, act, bs, nb, L, cls, solver
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("tag", ["784-512-10", "784-256-128-10"])
+def test_mlp_one_step_within_smoke_limits_on_card(cuda, tag):
+    """One step of B5 at the smoke test's MLP_SHAPES on its 72 lanes, from
+    the Glorot init at the lanes' own learning rates, held to its
+    MLP_LIMITS for a step under Adam and SGD (ops/kernel_cases.py)."""
+    dims, bs, _ = kc.MLP_SHAPES[tag]
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    X, Y, Wl, lr, alpha, params = kc.mlp_inputs(gen, cuda, dims, bs, 1, kc.MLP_LANES)
+    kw = dict(dims=dims, act="relu", bs=bs, classification=True, n_batches=1)
+    tm.reset_launches()
+    for solver in ("adam", "sgd"):
+        got = kc.mlp_check(tm, (X, Y, Wl, lr, alpha), params, kc.MLP_LANES, solver, kw)
+        for metric, limit in kc.MLP_LIMITS[("step", solver)].items():
+            assert got[metric] < limit, (solver, metric, got[metric])
+    assert tm.LAUNCHES["mlp_epoch"] == 2
+
+
+@pytest.mark.gpu
 def test_mlp_epoch_raises_instead_of_falling_back(cuda):
     dims = (8, 16, 3)
     X, Y, Wl, lr, alpha, state = _epoch_inputs(cuda, dims, 32, 2, 2, True, "adam", False)
@@ -285,7 +328,8 @@ def _knn_check(Q, X, W, k):
     (257, 2049, 6, 3, 3),     # off the tile grid
     (130, 1000, 130, 2, 7),   # features over three staged chunks
     (4096, 20000, 54, 6, 25),  # the search path's query chunk and width
-    (64, 500, 54, 1, 256),    # the largest k
+    (64, 500, 54, 1, 256),    # the largest k with lists in shared memory
+    (300, 5000, 54, 3, 300),  # lists in device memory
 ])
 def test_knn_topk_matches_plain_on_card(cuda, nq, n, d, L, k):
     rng = np.random.RandomState(nq + k)
@@ -307,7 +351,7 @@ def test_knn_topk_exact_ties_and_empty_slots_on_card(cuda):
     W = torch.as_tensor((rng.rand(3, 600) > 0.3).astype(np.float32)).to(cuda)
     W[1] = 0.0
     W[1, [5, 400, 599]] = 1.0  # fewer masked-in rows than k
-    for k in (5, 25, tn.MAX_K):
+    for k in (5, 25, tn.SHARED_LISTS_MAX_K, 300, 590):
         got = tn.knn_topk(Q, X, W, k)
         ref = tn.knn_topk_reference(Q, X, W, k)
         torch.cuda.synchronize()
@@ -322,8 +366,8 @@ def test_knn_topk_raises_instead_of_falling_back(cuda):
     X = torch.randn(100, 5, device=cuda)
     W = torch.ones(2, 100, device=cuda)
     tn.reset_launches()
-    with pytest.raises(ValueError, match=str(tn.MAX_K)):  # above the kernel's k limit
-        tn.knn_topk(Q, X, W, tn.MAX_K + 1)
+    with pytest.raises(ValueError):  # no k below one
+        tn.knn_topk(Q, X, W, 0)
     with pytest.raises(TypeError):
         tn.knn_topk(Q.double(), X, W, 5)
     with pytest.raises(ValueError):
@@ -331,3 +375,20 @@ def test_knn_topk_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError):
         tn.knn_topk(Q, X, W.cpu(), 5)
     assert tn.LAUNCHES["knn_topk"] == 0
+
+
+@pytest.mark.gpu
+def test_knn_topk_above_256_launches_on_card(cuda):
+    """A k above the shared-memory lists' limit no longer raises: the lists
+    move to device memory and the result equals the plain version's."""
+    rng = np.random.RandomState(13)
+    X = torch.as_tensor(rng.randint(-4, 5, (3000, 9)).astype(np.float32)).to(cuda)
+    Q = torch.as_tensor(rng.randint(-4, 5, (150, 9)).astype(np.float32)).to(cuda)
+    W = torch.as_tensor((rng.rand(2, 3000) > 0.2).astype(np.float32)).to(cuda)
+    tn.reset_launches()
+    got = tn.knn_topk(Q, X, W, 300)
+    ref = tn.knn_topk_reference(Q, X, W, 300)
+    torch.cuda.synchronize()
+    assert tn.knn_list_mode(300) == "device"
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert tn.LAUNCHES["knn_topk"] == 1

@@ -87,6 +87,7 @@ CASES = {
     "seven_valid_rows": (10, 100, 4, 5, "seven"),
     "across_tile_edges": (257, 2049, 6, 3, "all"),
     "k25": (40, 700, 5, 25, "third"),
+    "k300_device_lists": (20, 700, 5, 300, "third"),  # above SHARED_LISTS_MAX_K
 }
 
 
@@ -194,9 +195,25 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
     assert cuda_knn.LAUNCHES["knn_topk"] == 0
 
 
+@pytest.mark.parametrize("k,mode", [(1, "shared"), (256, "shared"), (257, "device"),
+                                    (1000, "device")])
+def test_knn_list_mode(k, mode):
+    """Where the kernel keeps its lists: shared memory up to 256, device
+    memory above, so no k is refused."""
+    assert cuda_knn.knn_list_mode(k) == mode
+    assert cuda_knn.smem_bytes(k) <= 232_448
+
+
+def test_knn_list_mode_refuses_k_below_one():
+    with pytest.raises(ValueError):
+        cuda_knn.knn_list_mode(0)
+
+
 def test_kernel_geometry_mirrors_the_source():
     """The shared-memory size the wrapper documents equals the CUDA
-    source's layout, and the largest k fits an H100 CTA."""
+    source's layout, the largest k with shared-memory lists fits an H100
+    CTA, and lists in device memory take no shared memory."""
     assert cuda_knn.smem_bytes(5) == 88_832
-    assert cuda_knn.smem_bytes(cuda_knn.MAX_K) <= 232_448
+    assert cuda_knn.smem_bytes(cuda_knn.SHARED_LISTS_MAX_K) <= 232_448
+    assert cuda_knn.smem_bytes(300) == cuda_knn.smem_bytes(1000) == 88_832 - 64 * 5 * 8
     assert cuda_knn.knn_operations(6, 4096, 200_000, 54) == pytest.approx(9.338e10, rel=1e-3)

@@ -164,6 +164,7 @@ def test_port_imports_no_jax(tmp_path):
         "s = MLTaskManager(device='cpu').train(mlp, 'synthetic_300x6x3')\n"
         "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
         "import cs230_distributed_machine_learning_tpu_torch.ops.cuda_knn\n"
+        "import cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases\n"
         "knn = {'model_type': 'KNeighborsClassifier', 'search_type': 'GridSearchCV',\n"
         "       'base_estimator_params': {},\n"
         "       'param_grid': {'n_neighbors': [3, 20], 'weights': ['uniform', 'distance']},\n"

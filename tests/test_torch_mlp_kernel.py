@@ -122,12 +122,64 @@ def test_epoch_state_layout():
 def test_epoch_cost_model():
     """The bound's inputs at the config-5 shape (784-512-10, bs 256, 234
     steps, 75 lanes): 7.35 TFLOP of products; the state once plus the
-    batch rows, and the state at every step."""
+    batch rows, and the state plus the bf16 weight shadow at every step."""
     dims = (784, 512, 10)
     assert cuda_mlp.epoch_flops(dims, 256, 234, 75) == pytest.approx(7.35e12, rel=1e-2)
     once = cuda_mlp.epoch_bytes(dims, 256, 234, 75)
     every = cuda_mlp.epoch_bytes(dims, 256, 234, 75, every_step=True)
     params = 784 * 512 + 512 + 512 * 10 + 10
+    weights = 784 * 512 + 512 * 10
     assert once == 24 * params * 75 + 234 * 256 * (2 * 784 + 4 * 10 + 4 * 75)
-    assert every - once == 24 * params * 75 * 233
-    assert cuda_mlp.scratch_floats(dims, 256) == 256 * (522 + 1024)
+    assert every - once == 24 * params * 75 * 233 + 2 * weights * 75 * 234
+    # bf16 shadows [din][pad8(dout)], hidden f32 + bf16 activations, f32
+    # logits, bf16 output gradients, in f32 units
+    assert cuda_mlp.scratch_floats(dims, 256) == (
+        (784 * 512 + 512 * 16) // 2 + 256 * 512 + 256 * 512 // 2 + 256 * 10
+        + 256 * 512 // 2 + 256 * 16 // 2)
+
+
+@pytest.mark.parametrize("dims,bs", [
+    ((784, 512, 10), 256), ((784, 256, 128, 10), 128), ((20, 32, 16, 8, 5), 64),
+    ((33, 24, 24, 3), 50), ((5, 3, 7, 1), 40),
+])
+def test_scratch_holds_the_weight_shadows_epoch_bytes_counts(dims, bs):
+    """The scratch holds one bf16 shadow of every weight, rows padded to 8
+    columns, and each of its pieces starts 16-byte aligned: the shadow
+    bytes written at every step (``epoch_bytes(every_step=True)`` less
+    the state's) are what the scratch's shadows take, before the padding."""
+    L, steps = 3, 4
+    floats = cuda_mlp.scratch_floats(dims, bs)
+    assert floats % 4 == 0
+    weights = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+    params = sum(a * b + b for a, b in zip(dims[:-1], dims[1:]))
+    every = cuda_mlp.epoch_bytes(dims, bs, steps, L, every_step=True)
+    rows = cuda_mlp.epoch_bytes(dims, bs, steps, L) - 24 * params * L
+    shadow_bytes = (every - rows - 24 * params * L * steps) // (L * steps)
+    assert shadow_bytes == 2 * weights
+    padded = sum(a * -(-b // 8) * 8 for a, b in zip(dims[:-1], dims[1:]))
+    assert 4 * floats >= 2 * padded + 4 * bs * sum(dims[1:])
+
+
+def test_kernel_cases_load_by_path_and_hold_b5_on_cpu():
+    """``ops/kernel_cases.py`` loads from its file alone (as the A/B timer
+    loads it beside another checkout's package), and its B5 check, on CPU
+    tensors where the wrapper runs the plain version, finds no error at a
+    small shape: 6 lanes of the 6 splits, one step and two."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(cuda_mlp.__file__), "kernel_cases.py")
+    spec = importlib.util.spec_from_file_location("kernel_cases_alone", path)
+    kc = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kc)
+    gen = torch.Generator().manual_seed(5)
+    dims, bs, L = (12, 16, 3), 8, 6
+    X, Y, Wl, lr, alpha, params = kc.mlp_inputs(gen, torch.device("cpu"), dims, bs, 2, L)
+    assert X.dtype == torch.bfloat16 and Wl.shape == (2 * bs, L)
+    kw = dict(dims=dims, act="relu", bs=bs, classification=True)
+    for nb in (1, 2):
+        part = (X[:nb * bs], Y[:nb * bs], Wl[:nb * bs].contiguous(), lr, alpha)
+        for solver in ("adam", "sgd"):
+            got = kc.mlp_check(cuda_mlp, part, params, L, solver, dict(kw, n_batches=nb))
+            assert got["param_abs"] == 0.0 and got["mean_rel"] == 0.0, (solver, nb, got)
+    assert set(kc.MLP_LIMITS) == {(c, s) for c in ("step", "epoch") for s in ("adam", "sgd")}
