@@ -11,8 +11,12 @@ non-zero exit and no result line:
             card at the main path's shapes (covertype: n_pad 116,736,
             dpp 64, 7 classes, 6 splits, 1 and 8 trial blocks; the
             784-feature lane kernel at dpp 896): max|err| / max|ref| <
-            5e-3, the fused step's frozen columns exact, median ms by CUDA
-            events beside the plain version's ms and the card's bound.
+            5e-3, the fused step's frozen columns exact, two launches of it
+            equal to the bit and equal to the bit to B1's gradient through
+            its epilogue, median ms by CUDA events beside the
+            plain version's ms and the card's bound (bytes, bf16 products,
+            f32 operations and the softmax's exponentials on the SFUs at
+            16 a clock an SM, whichever takes longest).
 4. data     stages the builtin covertype dataset (116,202 x 54, 7 classes).
 5. main     MLTaskManager() on the card trains bench.py's job, uncut
             (RandomizedSearchCV(LogisticRegression(max_iter=200), C ~
@@ -23,6 +27,10 @@ non-zero exit and no result line:
             are zeroed before and read after each run. Both must complete
             all 1000 trials with finite scores, launch their kernel, agree
             on best_params_ and on every mean_cv_score within 2e-3.
+   main_profile  the same job cut to max_iter 10: four runs in turns
+            (legacy, auto, auto, legacy) for the walls, then one of each
+            traced by torch.profiler: device busy share, device time by
+            kernel, host time by operation.
 6. wide     a 784-feature, 10-class LogReg search (n = 4096) through the
             generic nesterov driver: the masked lane kernel must launch.
 7. reference  a small search (5,000 rows) on the card and on the CPU
@@ -110,8 +118,9 @@ sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_QUERIES,
-    MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_SHAPES, hist_inputs,
-    mlp_check, mlp_inputs, time_ms)
+    LOGREG_SHAPE, LOGREG_STEP_T, MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS,
+    MLP_SHAPES, digest, hist_inputs, logreg_inputs, mlp_check, mlp_inputs,
+    step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
@@ -120,12 +129,12 @@ TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
 MLP_SEARCH_TOL = 0.02
 #: each kernel's ms at the kernels line's shapes as PERF.md's kernel table
-#: stood before the current B4, B5 and B6 designs; printed on a line of
+#: stood before the current B2, B4, B5 and B6 designs; printed on a line of
 #: its own, apart from the kernels line, whose numbers this run measures
 EARLIER_MS = {"packed_softmax_grad": 18.46, "packed_nesterov_step": 18.51,
               "masked_softmax_grad": 1.02, "level_histogram": 0.105,
               "mlp_epoch": 913.5, "knn_topk": 28.41}
-EARLIER_MS_SOURCE = ("PERF.md's kernel table before the current B4, B5 and B6 designs "
+EARLIER_MS_SOURCE = ("PERF.md's kernel table before the current B2, B4, B5 and B6 designs "
                      "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W); not measured "
                      "in this run")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
@@ -134,8 +143,15 @@ PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # f32 operations per packed (row, column) element of the grouped softmax and
-# residual: max, subtract, exp, sum, scale, subtract one-hot, weight
-SOFTMAX_OPS = 7
+# residual outside the exponential: max, subtract, sum, scale, subtract
+# one-hot, weight; the exponential runs on the SFUs
+SOFTMAX_OPS = 6
+# the SFUs' exponentials a clock an SM (H100: 16), and its SMs
+SFU_PER_CLOCK = 16
+SMS = 132
+#: SM clock (Hz) of the exponential term: the card's maximum, as nvidia-smi
+#: reports it (set in phase_env), else the H100 SXM's 1.98 GHz
+SM_CLOCK_HZ = [1.98e9]
 
 
 def emit(obj) -> None:
@@ -149,14 +165,22 @@ def errors(got, ref):
     return err, err / (float(ref.abs().max()) + 1e-12)
 
 
-def bound_ms(nbytes: float, mm_flops: float, f32_ops: float):
-    """Least time for the work on this card: the largest of the bytes over
-    HBM bandwidth, the bf16 products over the tensor cores' peak and the
-    f32 operations over the f32 peak (the units run side by side, so
-    their times overlap). Returns (ms, bound_by)."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(mm_flops / PEAK_BF16, f32_ops / PEAK_F32)
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+def bound_terms(nbytes: float, mm_flops: float, f32_ops: float, exps: float = 0.0) -> dict:
+    """Each unit's least time (ms) for the work: the bytes over HBM
+    bandwidth, the bf16 products over the tensor cores' peak, the f32
+    operations over the f32 peak, the exponentials over the SFUs' rate."""
+    return {"bytes": 1e3 * nbytes / PEAK_BYTES, "bf16": 1e3 * mm_flops / PEAK_BF16,
+            "f32": 1e3 * f32_ops / PEAK_F32,
+            "sfu": 1e3 * exps / (SFU_PER_CLOCK * SMS * SM_CLOCK_HZ[0])}
+
+
+def bound_ms(nbytes: float, mm_flops: float, f32_ops: float, exps: float = 0.0):
+    """Least time for the work on this card: the largest of the units'
+    times (they run side by side, so their times overlap). Returns (ms,
+    bound_by: "bytes" or "operations", the binding unit)."""
+    terms = bound_terms(nbytes, mm_flops, f32_ops, exps)
+    unit = max(terms, key=terms.get)
+    return terms[unit], ("bytes" if unit == "bytes" else "operations"), unit
 
 
 def nvidia_smi() -> str:
@@ -179,6 +203,12 @@ def phase_env() -> dict:
         "device_count": torch.cuda.device_count(),
         "nvidia_smi": nvidia_smi(),
     }
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=False).stdout.strip().splitlines()
+    if clock and clock[0].strip().isdigit():
+        SM_CLOCK_HZ[0] = float(clock[0]) * 1e6
+    info["sm_clock_max_hz"] = SM_CLOCK_HZ[0]
     emit(info)
     return info
 
@@ -201,6 +231,13 @@ def phase_build() -> None:
         assert lib.logreg_packed_smem_bytes(dpp, c, L) == cuda_logreg.packed_smem_bytes(dpp, c, L)
     for dpp, cp in ((896, 16), (128, 128)):
         assert lib.logreg_masked_smem_bytes(dpp, cp) == cuda_logreg.masked_smem_bytes(dpp, cp)
+    # B2: every instantiated geometry exists in the library, its layout as mirrored
+    for n1, L, mt in sorted(cuda_logreg.STEP_GEOMETRIES):
+        assert lib.logreg_step_geometry_ok(n1, L, mt), (n1, L, mt)
+        lay = cuda_logreg.step_layout(64 * mt, n1)
+        assert lib.logreg_step_smem_bytes(64 * mt, n1) == lay["total"], (n1, mt)
+        assert lib.logreg_step_stages(64 * mt, n1) == lay["stages"], (n1, mt)
+    assert not lib.logreg_step_geometry_ok(112, 16, 1)
     for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
     for args in ((6, 116_202, 1536, 767), (6, 11_620, 128, 127), (1, 5, 1, 1)):
@@ -209,8 +246,13 @@ def phase_build() -> None:
         got = cuda_mlp._lib().mlp_scratch_floats(cuda_mlp._dims_array(dims), len(dims) - 1, bs)
         assert got == cuda_mlp.scratch_floats(dims, bs), (dims, got)
     assert cuda_knn._lib().knn_max_shared_k() == cuda_knn.SHARED_LISTS_MAX_K
-    for k in (1, 5, 25, cuda_knn.SHARED_LISTS_MAX_K, 300):
-        assert cuda_knn._lib().knn_smem_bytes(k) == cuda_knn.smem_bytes(k), k
+    assert cuda_knn._lib().knn_max_group() == cuda_knn.MAX_GROUP
+    assert cuda_knn._lib().knn_max_ranges() == cuda_knn.MAX_RANGES
+    for k in (1, 5, 25, 45, cuda_knn.SHARED_LISTS_MAX_K, 300):
+        for G in (1, 6, 16):
+            for bq in cuda_knn.QUERY_BLOCKS:
+                assert (cuda_knn._lib().knn_smem_bytes(k, G, bq)
+                        == cuda_knn.smem_bytes(k, G, bq)), (k, G, bq)
     ptxas = [ln.strip() for name in sorted(SOURCES)
              for ln in cuda_build.build_log(name).splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
@@ -218,35 +260,21 @@ def phase_build() -> None:
           "compiled": sorted(compiled), "arch": "sm_90a", "ptxas": ptxas})
 
 
-def _packed_inputs(gen, dev, n_pad, dpp, c, S, n_wb):
-    Tw = 128
-    B = S * Tw
-    NB = c * B
-    Ab = torch.randn(n_pad, dpp, generator=gen, device=dev).to(torch.bfloat16)
-    y2 = torch.randint(0, c, (n_pad, 1), generator=gen, device=dev, dtype=torch.int32)
-    WSP = (torch.rand(n_pad, S, generator=gen, device=dev) > 0.3).float()
-    W = torch.randn(n_wb, dpp, NB, generator=gen, device=dev) * 0.05
-    Wp = torch.randn(n_wb, dpp, NB, generator=gen, device=dev) * 0.05
-    done = (torch.rand(n_wb, B, generator=gen, device=dev) > 0.7).float()
-    step = 0.01 + torch.rand(n_wb, B, generator=gen, device=dev) * 0.1
-    Cb = 0.1 + torch.rand(n_wb, B, generator=gen, device=dev)
-    maxit = torch.where(torch.rand(n_wb, B, generator=gen, device=dev) > 0.5, 100.0, 2.0)
-    pen = torch.ones(dpp, 1, device=dev)
-    pen[-10:] = 0.0
-    return Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen
-
-
 def phase_kernels(dev) -> dict:
     """Every kernel vs its plain version at the main path's shapes."""
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    n_pad, dpp, c, S, t = 116_736, 64, 7, 6, 3.0
+    n_pad, dpp, c, S, _ = LOGREG_SHAPE
+    t = LOGREG_STEP_T
     rows = {}
-    for n_wb in (1, 8):
-        Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = _packed_inputs(
+    for n_wb in (1, LOGREG_SHAPE[4]):
+        Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(
             gen, dev, n_pad, dpp, c, S, n_wb)
         NB = W.shape[2]
+        mm = 4.0 * n_pad * dpp * NB * n_wb
+        exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
+        f32_ops = SOFTMAX_OPS * exps
         # B1: packed softmax-Gram gradient
         Wb = W.to(torch.bfloat16)
         got = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
@@ -256,40 +284,54 @@ def phase_kernels(dev) -> dict:
         del got, ref
         ms1 = time_ms(lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
         plain1 = time_ms(lambda: K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S), reps=3)
-        mm = 4.0 * n_pad * dpp * NB * n_wb
-        f32_ops = SOFTMAX_OPS * n_pad * NB * n_wb
         nbytes1 = Ab.numel() * 2 + Wb.numel() * 2 + y2.numel() * 4 + WSP.numel() * 4 + W.numel() * 4
-        b1, by1 = bound_ms(nbytes1, mm, f32_ops)
+        b1, by1, unit1 = bound_ms(nbytes1, mm, f32_ops, exps)
         rows[("packed_softmax_grad", n_wb)] = dict(
             max_abs_err=abs1, max_rel_err=err1, ms=ms1, plain_ms=plain1,
-            bound_ms=b1, bound_by=by1)
+            bound_ms=b1, bound_by=by1, bound_unit=unit1,
+            bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps))
 
-        # B2: fused Nesterov step, in place
+        # B2: fused Nesterov step, in place; two launches on the same inputs
+        # must agree to the bit
         W_ref, Wp_ref, g_ref = K.packed_nesterov_step_reference(
             Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0)
-        Wk, Wpk = W.clone(), Wp.clone()
-        K.packed_nesterov_step(Ab, Wk, Wpk, y2, WSP, t, done, step, Cb, maxit, pen,
-                               c=c, S=S, lam=1.0)
-        _, _, gk = K.packed_nesterov_step(Ab, W.clone(), Wp.clone(), y2, WSP, t, done,
-                                          step, Cb, maxit, pen, c=c, S=S, lam=1.0)
+        runs = []
+        for _ in range(2):
+            Wk, Wpk = W.clone(), Wp.clone()
+            runs.append(K.packed_nesterov_step(Ab, Wk, Wpk, y2, WSP, t, done, step, Cb,
+                                               maxit, pen, c=c, S=S, lam=1.0))
         torch.cuda.synchronize()
+        Wk, Wpk, gk = runs[0]
         errs = [errors(Wk, W_ref), errors(Wpk, Wp_ref), errors(gk, g_ref)]
         abs2, err2 = max(e[0] for e in errs), max(e[1] for e in errs)
         assert err2 < TOL, f"packed_nesterov_step n_wb={n_wb}: {err2}"
         active = ((t < maxit) & (done == 0)).repeat(1, c)[:, None, :].expand_as(W)
         assert torch.equal(Wk[~active], W[~active]), "frozen W columns moved"
         assert torch.equal(Wpk[~active], Wp[~active]), "frozen Wp columns moved"
-        del W_ref, Wp_ref
+        repeat_equal = all(torch.equal(a, b) for a, b in zip(*runs))
+        step_digest = digest(*runs[0])
+        # B2 computes B1's gradient to the bit (one chain over the rows, the
+        # same softmax): its update equals B1's gradient through its epilogue
+        via_b1 = step_via_gradient(K, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen,
+                                   c=c, S=S, lam=1.0)
+        b1_equal = all(torch.equal(a, b) for a, b in zip(runs[0], via_b1))
+        del via_b1
+        assert repeat_equal, f"packed_nesterov_step n_wb={n_wb}: two launches differ"
+        assert b1_equal, f"packed_nesterov_step n_wb={n_wb}: differs from B1's gradient"
+        del W_ref, Wp_ref, runs
         ms2 = time_ms(lambda: K.packed_nesterov_step(
             Ab, Wk, Wpk, y2, WSP, t, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0))
         plain2 = time_ms(lambda: K.packed_nesterov_step_reference(
             Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0), reps=3)
         nbytes2 = (Ab.numel() * 2 + 4 * W.numel() * 4 + y2.numel() * 4 + WSP.numel() * 4
                    + 5 * done.numel() * 4 + pen.numel() * 4)
-        b2, by2 = bound_ms(nbytes2, mm, f32_ops + 8 * W.numel())
+        b2, by2, unit2 = bound_ms(nbytes2, mm, f32_ops + 8 * W.numel(), exps)
         rows[("packed_nesterov_step", n_wb)] = dict(
             max_abs_err=abs2, max_rel_err=err2, ms=ms2, plain_ms=plain2,
-            bound_ms=b2, bound_by=by2)
+            bound_ms=b2, bound_by=by2, bound_unit=unit2,
+            bound_terms_ms=bound_terms(nbytes2, mm, f32_ops + 8 * W.numel(), exps),
+            repeat_bit_equal=repeat_equal, b1_bit_equal=b1_equal, digest=step_digest,
+            geometry=K.step_geometry(dpp, c))
         del Ab, W, Wp, Wk, Wpk, Wb
         torch.cuda.empty_cache()
 
@@ -311,11 +353,12 @@ def phase_kernels(dev) -> dict:
     nbytes3 = Ab.numel() * 2 + Wl.numel() * 2 + y2.numel() * 4 + wm.numel() * 4 + got.numel() * 4
     # the products and the softmax over the c real classes; the padded
     # ones are the kernel's layout, not the function's work
-    b3, by3 = bound_ms(nbytes3, 4.0 * n3 * dpp3 * c3 * lanes, SOFTMAX_OPS * n3 * c3 * lanes)
+    exps3 = float(n3) * c3 * lanes
+    b3, by3, unit3 = bound_ms(nbytes3, 4.0 * n3 * dpp3 * c3 * lanes, SOFTMAX_OPS * exps3, exps3)
     rows[("masked_softmax_grad", lanes)] = dict(
         max_abs_err=abs3, max_rel_err=err3, ms=ms3, plain_ms=plain3,
-        bound_ms=b3, bound_by=by3)
-    emit({"phase": "kernels", "tolerance": TOL,
+        bound_ms=b3, bound_by=by3, bound_unit=unit3)
+    emit({"phase": "kernels", "tolerance": TOL, "sm_clock_hz": SM_CLOCK_HZ[0],
           "rows": [{"kernel": k, "n_wb_or_lanes": n, **v} for (k, n), v in rows.items()]})
     rows.update(hist_kernel_rows(gen, dev))
     return rows
@@ -459,6 +502,50 @@ def phase_main(manager) -> dict:
     emit({"phase": "main_parity", "max_mean_cv_diff": worst, "best_params_equal": True})
     return {"packed_nesterov_step": runs["auto"][1]["packed_nesterov_step"],
             "packed_softmax_grad": runs["legacy"][1]["packed_softmax_grad"]}
+
+
+def phase_main_profile(manager) -> dict:
+    """bench.py's job cut to a few solver steps (max_iter 10), after phase
+    main has warmed both CS230_FUSED_STEP modes: four untraced runs in
+    turns (legacy, auto, auto, legacy) for the walls, then one run of each
+    traced by torch.profiler: the device's busy share, device time by
+    kernel (B2 under auto, B1 and the update's elementwise kernels under
+    legacy) and the host's time by operation. Read beside main_auto /
+    main_legacy, which ran in that order, auto from a cold start."""
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel_of = {"legacy": "packed_softmax_grad", "auto": "packed_nesterov_step"}
+
+    def run(mode):
+        os.environ["CS230_FUSED_STEP"] = mode
+        try:
+            return _train(manager, _search(1000, 10, 5), "covertype", kernel_of[mode], 1000)
+        finally:
+            os.environ["CS230_FUSED_STEP"] = "auto"
+
+    walls = {"legacy": [], "auto": []}
+    for mode in ("legacy", "auto", "auto", "legacy"):
+        walls[mode].append(run(mode)[1])
+    out = {"walls_in_turns_s": walls}
+    for mode in ("legacy", "auto"):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall, launches = run(mode)
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+        busy_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        top_host = sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]
+        out[mode] = {"traced_wall_s": wall, "device_busy_ms": busy_us / 1e3,
+                     "device_busy_share": busy_us / 1e6 / wall,
+                     "device_ops": sum(e.count for e in kernels),
+                     "launches": launches[kernel_of[mode]],
+                     "top": [{"name": e.key[:80], "ms": e.self_device_time_total / 1e3,
+                              "count": e.count} for e in top],
+                     "top_host": [{"name": e.key[:80], "ms": e.self_cpu_time_total / 1e3,
+                                   "count": e.count} for e in top_host]}
+    emit({"phase": "main_profile", "max_iter": 10, **out})
+    return out
 
 
 def phase_wide(manager) -> int:
@@ -926,6 +1013,7 @@ def phase_kernels_knn(manager) -> dict:
         got, ref = K.knn_topk(Q, X, W, k), K.knn_topk_reference(Q, X, W, k)
         check["bit_equal"] = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
         check["list_mode"] = K.knn_list_mode(k)
+        check["digest"] = digest(*got)  # kernel_ab.py prints the same for its inputs
         del got, ref
         ms = time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
         plain = time_ms(lambda: K.knn_topk_reference(Q, X, W, k), reps=3, warmup=1)
@@ -944,7 +1032,8 @@ def phase_kernels_knn(manager) -> dict:
             library_note="torch.cdist + masked torch.topk: no single call computes it",
             bound_ms=1e3 * max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
-            design_floor_ms=1e3 * L * 2.0 * nq * n * d / PEAK_F32,
+            plan=K.knn_plan(nq, n, L, k),
+            design_floor_ms=1e3 * K.knn_design_operations(L, nq, n, d, k) / PEAK_F32,
             tflops=2.0 * nq * n * d * L / (ms * 1e-3) / 1e12)
         torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -1083,6 +1172,7 @@ def main() -> int:
     manager = MLTaskManager()
     assert manager.device.type == "cuda"
     launches = phase_main(manager)
+    phase_main_profile(manager)
     launches["masked_softmax_grad"] = phase_wide(manager)
     phase_reference(manager)
     launches["level_histogram"] = phase_rf_main(manager, cfg)
@@ -1121,7 +1211,8 @@ def main() -> int:
             "max_rel_err": r["max_rel_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r.get("library_ms"), "shape": shape,
-            **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err") if k in r},
+            **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err", "bound_unit")
+               if k in r},
         })
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # not measured here: each kernel's ms as PERF.md stood before the

@@ -46,18 +46,35 @@ class MLTaskManager:
         train_params: Optional[Dict[str, Any]] = None,
         wait_for_completion: bool = True,
         timeout: Optional[float] = None,
+        show_progress: bool = True,
         *,
         dataset_name: Optional[str] = None,
+        stream: bool = False,
+        search_params: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         """Submit a training / hyperparameter-search job.
 
+        The signature is the JAX package's, in its order.
         estimator: a sklearn estimator or search wrapper, or a
         ``model_details`` dict ({model_type, search_type,
         base_estimator_params, param_grid | param_distributions + n_iter +
         random_state, cv_params}).
         train_params: {test_size=0.2, random_state=42, cv=5}.
+        ``show_progress`` is accepted; local mode draws no progress bar
+        (the JAX package's behaviour with it off).
         ``dataset_name=`` is accepted as an alias for ``dataset_id``.
+        ``stream=True`` (following the job's event stream) and
+        ``search_params`` (adaptive search) are not yet ported and raise.
         """
+        if stream:
+            raise ValueError(
+                "train(stream=True) is not yet ported to the PyTorch package"
+            )
+        if search_params is not None:
+            raise ValueError(
+                "train(search_params=...) (adaptive search) is not yet ported "
+                "to the PyTorch package"
+            )
         if dataset_name is not None:
             if dataset_id is not None and dataset_id != dataset_name:
                 raise TypeError(

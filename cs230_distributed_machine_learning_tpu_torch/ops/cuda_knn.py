@@ -26,11 +26,21 @@ in ROADMAP.md, C; it needs a lane with fewer than k masked-in rows).
 
 Dispatch. Given CPU tensors the wrapper computes the plain version; given
 CUDA tensors it launches the kernel or raises. Nothing falls back from the
-card to the plain version. ``LAUNCHES`` counts kernel launches. The kernel
-takes any k: up to ``SHARED_LISTS_MAX_K`` its per-query lists live in
-shared memory, above it in device memory (the output tensors themselves,
-kept as max-heaps and sorted at the end), by the same insertion rule and
-with the same result; ``knn_list_mode`` says which.
+card to the plain version. ``LAUNCHES`` counts wrapper calls that launched
+the kernel (one a call, whether or not the call also ran the merge). The
+kernel takes any k: up to ``SHARED_LISTS_MAX_K`` its per-query lists live
+in shared memory, above it in device memory (kept as max-heaps and sorted
+at the end), by the same insertion rule and with the same result;
+``knn_list_mode`` says which.
+
+Launch plan (``knn_plan``, pure shape arithmetic that the C entry checks):
+a CTA serves a block of 64 or 32 queries and a group of lanes that share
+each distance tile, the largest group (at most ``MAX_GROUP``) whose lists
+fit in shared memory, and the training rows are cut into P contiguous
+ranges of whole tiles so that the grid fills the card; the P partial lists of each (lane, query) are merged
+by (d2, j) in a second kernel of the same call. Since a range's list is the
+k smallest of its rows by (d2, j), the merged lists equal the unsplit ones
+to the bit; ``knn_topk_ranges_reference`` is the plain counterpart.
 
 Bounds (H100 SXM: 67 TFLOP/s f32, 3.35 TB/s): at the search path's launch
 shape (4,096 queries, 200,000 training rows, d 54, 6 lanes) the distance
@@ -48,6 +58,21 @@ import torch
 #: the largest k whose lists the kernel keeps in shared memory (csrc/knn.cu);
 #: above it they live in device memory
 SHARED_LISTS_MAX_K = 256
+#: the most lanes one CTA serves, and the most row ranges of a launch
+MAX_GROUP = 16
+MAX_RANGES = 32
+#: dynamic shared memory a CTA may use, and an SM's shared memory (H100);
+#: the system reserves 1 KB of the SM's a resident CTA
+SMEM_LIMIT = 232_448
+SM_SMEM = 233_472
+_CTA_RESERVED = 1024
+#: an H100's SMs; a range keeps at least this many 128-row tiles
+SMS = 132
+MIN_RANGE_TILES = 4
+#: the kernel's tile sizes (csrc/knn.cu): queries a CTA owns (64, or 32
+#: where that lets more CTAs share an SM), rows a tile
+QUERY_BLOCKS = (64, 32)
+BT = 128
 #: the distance value of a masked row and of an empty slot
 INF = 3.4e38
 #: training rows per merge in the plain version
@@ -71,12 +96,75 @@ def knn_list_mode(k: int) -> str:
     return "shared" if k <= SHARED_LISTS_MAX_K else "device"
 
 
-def smem_bytes(k: int) -> int:
-    """Shared memory of one CTA at ``k`` (``smem_bytes`` in csrc/knn.cu):
-    the transposed query and tile chunks, the distance tile, the tile's
-    norms and weights, and the lists when they live in shared memory."""
-    lists = 64 * k * 8 if knn_list_mode(k) == "shared" else 0
-    return 4 * (64 * 68 + 64 * 132 + 64 * 132 + 64 + 2 * 128) + lists
+def smem_bytes(k: int, lanes: int = 1, bq: int = 64) -> int:
+    """Shared memory of one CTA serving ``lanes`` lanes and ``bq`` queries
+    at ``k`` (``smem_bytes`` in csrc/knn.cu): the transposed query and tile
+    chunks, the distance tile, the norms, two tiles' row masks a lane, and
+    the lanes' lists when they live in shared memory."""
+    lists = lanes * bq * k * 8 if knn_list_mode(k) == "shared" else 0
+    return (4 * (64 * (bq + 4) + 64 * (BT + 4) + bq * (BT + 4) + bq + BT)
+            + 2 * 4 * lanes * BT + lists)
+
+
+def lane_group(L: int, k: int, bq: int = 64) -> int:
+    """Lanes a CTA of ``bq`` queries serves: the most, up to
+    ``MAX_GROUP`` and L, whose lists fit in a CTA's shared memory (one
+    lane at k = 256), spread evenly over the fewest groups that cover L.
+    With the lists in device memory (k above 256) one lane: there the
+    heaps' insertions, not the distance product, set the time, and sharing
+    a tile saves only the product."""
+    if L < 1:
+        raise ValueError(f"lane_group: L={L} must be at least 1")
+    if knn_list_mode(k) == "device":
+        return 1
+    G = min(L, MAX_GROUP)
+    while G > 1 and smem_bytes(k, G, bq) > SMEM_LIMIT:
+        G -= 1
+    n_groups = -(-L // G)
+    return -(-L // n_groups)
+
+
+def _resident(smem: int) -> int:
+    """CTAs an SM holds at this shared memory (at most two: the kernel's
+    launch bounds)."""
+    return max(1, min(2, SM_SMEM // (smem + _CTA_RESERVED)))
+
+
+def knn_plan(nq: int, n: int, L: int, k: int) -> dict:
+    """The kernel's launch plan: the query block (64, or 32 where that
+    takes fewer lane groups or lets more CTAs share an SM; 64 with the
+    lists in device memory), lane group G and its count, and P row ranges
+    of ``tiles_per_range`` 128-row tiles (every range non-empty). P is the
+    CTAs the SMs hold at this shared memory over the CTAs the queries and
+    lane groups give, at most ``MAX_RANGES``, each range
+    ``MIN_RANGE_TILES`` tiles or more; so a grid that fills the card
+    already is not split (each range's lists fill anew, which above k 256
+    costs more insertions than it saves)."""
+    def cost(bq):  # fewer lane groups first (each redoes the product), then occupancy
+        G = lane_group(L, k, bq)
+        return -(-L // G), -_resident(smem_bytes(k, G, bq))
+
+    bq = 64 if knn_list_mode(k) == "device" else min(QUERY_BLOCKS, key=cost)
+    G = lane_group(L, k, bq)
+    n_groups = -(-L // G)
+    blocks = -(-nq // bq) * n_groups
+    smem = smem_bytes(k, G, bq)
+    resident = _resident(smem)
+    n_tiles = -(-n // BT)
+    P = max(1, min(MAX_RANGES, resident * SMS // blocks, n_tiles // MIN_RANGE_TILES))
+    tiles_per_range = -(-n_tiles // P)
+    P = -(-n_tiles // tiles_per_range)
+    return {"query_block": bq, "lane_group": G, "lane_groups": n_groups, "ranges": P,
+            "tiles_per_range": tiles_per_range, "smem_bytes": smem,
+            "ctas": blocks * P}
+
+
+def row_ranges(n: int, ranges: int):
+    """The P contiguous row ranges [j0, j1) of whole 128-row tiles that
+    the kernel splits n training rows into (as ``knn_plan`` sizes them)."""
+    n_tiles = -(-n // BT)
+    tpr = -(-n_tiles // ranges)
+    return [(t * BT, min(n, (t + tpr) * BT)) for t in range(0, n_tiles, tpr)]
 
 
 def _sq_norms(Q: torch.Tensor, Xt: torch.Tensor):
@@ -116,6 +204,24 @@ def knn_topk_reference(Q, Xt, W, k: int, *, tile: int = _PLAIN_TILE):
     return best_d, best_i
 
 
+def knn_topk_ranges_reference(Q, Xt, W, k: int, ranges):
+    """Plain counterpart of the kernel's row split: the plain version's
+    lists over each row range [j0, j1) (indices shifted to the table's),
+    merged by (d2, j) with a stable sort of the ranges' lists in range
+    order (a tie keeps the earlier range, whose rows come first; empty
+    slots sort last). Equal to ``knn_topk_reference`` over the whole table,
+    bit for bit."""
+    parts_d, parts_i = [], []
+    for j0, j1 in ranges:
+        d2, idx = knn_topk_reference(Q, Xt[j0:j1], W[:, j0:j1].contiguous(), k)
+        parts_d.append(d2)
+        parts_i.append(torch.where(idx >= 0, idx + j0, idx))
+    cat_d = torch.cat(parts_d, dim=2)
+    cat_i = torch.cat(parts_i, dim=2)
+    sd, order = torch.sort(cat_d, dim=2, stable=True)
+    return sd[..., :k].contiguous(), torch.gather(cat_i, 2, order[..., :k])
+
+
 # ---------------------------------------------------------------------------
 # the kernel
 # ---------------------------------------------------------------------------
@@ -131,11 +237,12 @@ def _lib() -> ctypes.CDLL:
 
         lib = load("knn")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.knn_topk.argtypes = [P] * 7 + [I] * 5 + [P]
+        lib.knn_topk.argtypes = [P] * 9 + [I] * 8 + [P]
         lib.knn_topk.restype = I
-        lib.knn_max_shared_k.argtypes = []
-        lib.knn_max_shared_k.restype = I
-        lib.knn_smem_bytes.argtypes = [I]
+        for name in ("knn_max_shared_k", "knn_max_group", "knn_max_ranges"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = I
+        lib.knn_smem_bytes.argtypes = [I, I, I]
         lib.knn_smem_bytes.restype = ctypes.c_longlong
         _lib_handle = lib
     return _lib_handle
@@ -177,14 +284,20 @@ def knn_topk(Q, Xt, W, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"knn_topk: k={k} must be at least 1")
     if nq == 0 or n == 0 or d == 0 or L == 0:
         raise ValueError(f"knn_topk: empty input (nq={nq}, n={n}, d={d}, L={L})")
+    plan = knn_plan(nq, n, L, k)
+    P = plan["ranges"]
     qsq, tsq = _sq_norms(Q, Xt)
     out_d = torch.empty((L, nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((L, nq, k), dtype=torch.int32, device=dev)
+    # the ranges' partial lists, merged into out_d / out_i in the same call
+    scratch = (torch.empty(P * L * nq * k, dtype=torch.float32, device=dev),
+               torch.empty(P * L * nq * k, dtype=torch.int32, device=dev)) if P > 1 else ()
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in (Q, Xt, qsq, tsq, W, out_d, out_i)]
+    ptrs += [ctypes.c_void_p(t.data_ptr()) for t in scratch] or [None, None]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().knn_topk(
-            *(ctypes.c_void_p(t.data_ptr()) for t in (Q, Xt, qsq, tsq, W, out_d, out_i)),
-            nq, n, d, L, k, ctypes.c_void_p(stream))
+        err = _lib().knn_topk(*ptrs, nq, n, d, L, k, plan["lane_group"], P,
+                              plan["query_block"], ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"knn_topk failed: CUDA error {err}")
     LAUNCHES["knn_topk"] += 1
@@ -196,6 +309,14 @@ def knn_operations(L: int, nq: int, n: int, d: int) -> float:
     lanes (a multiply and an add a feature) and one compare a (lane,
     query, row) to merge."""
     return 2.0 * nq * n * d + float(L) * nq * n
+
+
+def knn_design_operations(L: int, nq: int, n: int, d: int, k: int) -> float:
+    """f32 operations the kernel's plan does: the distance product once a
+    lane group, and one compare a (lane, query, row). With one lane group
+    (all lanes share each tile) it equals ``knn_operations``."""
+    groups = knn_plan(nq, n, L, k)["lane_groups"]  # each group redoes the product
+    return 2.0 * nq * n * d * groups + float(L) * nq * n
 
 
 def knn_bytes(L: int, nq: int, n: int, d: int, k: int) -> int:

@@ -141,10 +141,71 @@ def packed_lane_tile(dpp: int, c: int, n_wb: int = 1, S: int = 1,
     return fits[-1]
 
 
+# B2 (the fused step) on Hopper: rows of A per tile (64 a consumer
+# warpgroup), features per 128-byte swizzle atom, the ring's most stages,
+# and a bound on the accumulator floats a consumer thread holds (the logits
+# and a whole gradient: the 168 registers a thread has at 288 threads hold
+# the main path's without spills)
+STEP_ROWS = 128
+_STEP_ATOM = 64
+_STEP_MAX_STAGES = 4
+_STEP_MAX_ACC = 192
+#: B2's lane tiles, largest first
+STEP_LANE_TILES = (16, 8)
+#: the (N1, L, MT) instantiations of B2 (``LOGREG_STEP_GEOMETRIES`` in
+#: csrc/logreg.cu): N1 = L * (c rounded up to a power of two) columns,
+#: MT = ceil(dpp / 64) feature atoms
+STEP_GEOMETRIES = frozenset([
+    (32, 16, 1), (32, 16, 2), (32, 16, 3), (32, 16, 4), (32, 16, 5), (32, 16, 6),
+    (32, 16, 7), (32, 16, 8), (32, 8, 6), (64, 16, 1), (64, 16, 2), (64, 16, 3),
+    (64, 16, 4), (64, 16, 5), (64, 8, 3), (128, 16, 1), (128, 16, 2), (128, 8, 1),
+    (128, 8, 2),
+])
+
+
+def step_layout(dpp: int, n1: int) -> dict:
+    """B2's shared memory (``step_layout`` in csrc/logreg.cu, byte for byte):
+    V^T, two residual buffers of a tile's two halves, the ring of row-tile
+    stages (as many as fit, up to 4), the mbarriers and the max|G|
+    partials, the gradient staged over the first three at the end, and 1 KB
+    to align the base."""
+    mt = -(-dpp // _STEP_ATOM)
+    off = mt * n1 * 128 + 4 * n1 * 128
+    stage = _align(mt * STEP_ROWS * 128 + STEP_ROWS * 4, 1024)
+    tail = 2 * _STEP_MAX_STAGES * 8 + _THREADS * 4 + 1024
+    stages = min(_STEP_MAX_STAGES, max(0, SMEM_LIMIT - off - tail) // stage)
+    off = max(off + stages * stage, _align(dpp * _ld_f32(n1) * 4))
+    off = _align(off + 2 * _STEP_MAX_STAGES * 8) + _THREADS * 4
+    return {"stages": stages, "stage_bytes": stage, "total": off + 1024}
+
+
+def step_geometry(dpp: int, c: int) -> Optional[dict]:
+    """B2's geometry at (dpp, c), or None: the lane tile L (16, else 8),
+    N1 = L * (c rounded up to a power of two) columns (at most 128: one
+    wgmma N), MT feature atoms, so that the logits and a whole gradient
+    (N1 / 2 * (MT + 1) floats a thread) would fit the registers and a ring
+    stage fits shared memory."""
+    if dpp <= 0 or dpp % 16 or not 2 <= c <= _MAX_PACKED_CLASSES:
+        return None
+    maxc = 1 << (c - 1).bit_length()
+    mt = -(-dpp // _STEP_ATOM)
+    for L in STEP_LANE_TILES:
+        n1 = L * maxc
+        if n1 > 128 or n1 // 2 * (mt + 1) > _STEP_MAX_ACC:
+            continue
+        if (n1, L, mt) not in STEP_GEOMETRIES:
+            continue
+        lay = step_layout(dpp, n1)
+        if lay["stages"] >= 1 and lay["total"] <= SMEM_LIMIT:
+            return {"L": L, "n1": n1, "mt": mt, **lay}
+    return None
+
+
 def fused_step_applicable(dpp: int, c: int) -> bool:
     """Gate of the packed kernels (the TPU's VMEM gate,
-    ``pallas_logreg.py:151``, has no meaning here): a lane tile fits."""
-    return packed_lane_tile(dpp, c) is not None
+    ``pallas_logreg.py:151``, has no meaning here): a B1 lane tile fits,
+    and B2 has a geometry."""
+    return packed_lane_tile(dpp, c) is not None and step_geometry(dpp, c) is not None
 
 
 def masked_grad_applicable(dpp: int, cp: int) -> bool:
@@ -242,8 +303,14 @@ def _lib() -> ctypes.CDLL:
         lib.logreg_packed_softmax_grad.argtypes = [P] * 5 + [I] * 7 + [P]
         lib.logreg_packed_softmax_grad.restype = I
         lib.logreg_packed_nesterov_step.argtypes = (
-            [P] * 5 + [F] + [P] * 6 + [F] + [I] * 7 + [P]
+            [P] * 5 + [F] + [P] * 6 + [F] + [I] * 8 + [P]
         )
+        lib.logreg_step_smem_bytes.argtypes = [I, I]
+        lib.logreg_step_smem_bytes.restype = ctypes.c_longlong
+        lib.logreg_step_stages.argtypes = [I, I]
+        lib.logreg_step_stages.restype = I
+        lib.logreg_step_geometry_ok.argtypes = [I, I, I]
+        lib.logreg_step_geometry_ok.restype = I
         lib.logreg_packed_nesterov_step.restype = I
         lib.logreg_masked_softmax_grad.argtypes = [P] * 5 + [I] * 5 + [P]
         lib.logreg_masked_softmax_grad.restype = I
@@ -355,8 +422,8 @@ def packed_nesterov_step(Ab, W3, Wp3, y2, WSP, t, done, step_b, Cb, maxit_b,
                     ("maxit_b", maxit_b)):
         _check(name, x, torch.float32, (n_wb, B))
     _check("pen_col", pen_col, torch.float32, (dpp, 1))
-    L = packed_lane_tile(dpp, c, n_wb, S, Tw)
-    if L is None or n_pad % PACKED_ROWS:
+    geo = step_geometry(dpp, c)
+    if geo is None or n_pad % PACKED_ROWS or Tw % geo["L"]:
         raise ValueError(
             f"packed_nesterov_step: no kernel geometry for n_pad={n_pad}, "
             f"dpp={dpp}, c={c}"
@@ -366,8 +433,8 @@ def packed_nesterov_step(Ab, W3, Wp3, y2, WSP, t, done, step_b, Cb, maxit_b,
         _launch(_lib().logreg_packed_nesterov_step, _ptr(Ab), _ptr(W3),
                 _ptr(Wp3), _ptr(y2), _ptr(WSP), float(t), _ptr(done),
                 _ptr(step_b), _ptr(Cb), _ptr(maxit_b), _ptr(pen_col),
-                _ptr(gmax), float(lam), n_pad, dpp, n_wb, S, Tw, c, L,
-                device=Ab.device)
+                _ptr(gmax), float(lam), n_pad, dpp, n_wb, S, Tw, c, geo["L"],
+                geo["n1"], device=Ab.device)
     LAUNCHES["packed_nesterov_step"] += 1
     return W3, Wp3, gmax
 

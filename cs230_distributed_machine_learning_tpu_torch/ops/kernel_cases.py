@@ -1,8 +1,8 @@
 """The shapes and inputs at which the port's kernels are checked and timed.
 
-``chip_smoke.py`` holds kernels B4, B5 and B6 against their plain versions
-at these shapes, ``kernel_ab.py`` times two checkouts' kernels on inputs
-from the same builders, and the GPU tests reuse them. The module imports
+``chip_smoke.py`` holds kernels B1, B2 and B4-B6 against their plain
+versions at these shapes, ``kernel_ab.py`` times two checkouts' kernels on
+inputs from the same builders, and the GPU tests reuse them. The module imports
 only the standard library, numpy and torch at import time, so that
 ``kernel_ab.py`` can load it from one checkout while it times the package
 of another.
@@ -10,6 +10,7 @@ of another.
 
 from __future__ import annotations
 
+import hashlib
 import math
 import statistics
 import time
@@ -33,6 +34,65 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order (on the host): equal digests
+    mean equal outputs to the bit."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# ------------------------------------------------------------ B1, B2 (logreg)
+
+#: bench.py's 1000-trial covertype job: (n_pad, dpp, classes, splits,
+#: 128-trial weight blocks of one 1024-trial dispatch)
+LOGREG_SHAPE = (116_736, 64, 7, 6, 8)
+#: the solver step at which the kernels are held and timed
+LOGREG_STEP_T = 3.0
+
+
+def logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb):
+    """The packed kernels' inputs: bf16 rows, labels, split weights (70 %
+    in), small f32 W / Wp, a done flag on ~30 % of the lanes, max_iter 2
+    (frozen at step 3) on ~half, and a penalty column with the last 10
+    features unpenalized."""
+    Tw = 128
+    B = S * Tw
+    NB = c * B
+    Ab = torch.randn(n_pad, dpp, generator=gen, device=dev).to(torch.bfloat16)
+    y2 = torch.randint(0, c, (n_pad, 1), generator=gen, device=dev, dtype=torch.int32)
+    WSP = (torch.rand(n_pad, S, generator=gen, device=dev) > 0.3).float()
+    W = torch.randn(n_wb, dpp, NB, generator=gen, device=dev) * 0.05
+    Wp = torch.randn(n_wb, dpp, NB, generator=gen, device=dev) * 0.05
+    done = (torch.rand(n_wb, B, generator=gen, device=dev) > 0.7).float()
+    step = 0.01 + torch.rand(n_wb, B, generator=gen, device=dev) * 0.1
+    Cb = 0.1 + torch.rand(n_wb, B, generator=gen, device=dev)
+    maxit = torch.where(torch.rand(n_wb, B, generator=gen, device=dev) > 0.5, 100.0, 2.0)
+    pen = torch.ones(dpp, 1, device=dev)
+    pen[-10:] = 0.0
+    return Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen
+
+
+def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c, S,
+                      lam, Tw=128):
+    """The fused step (B2) built from B1 (module ``R``: ``ops/cuda_logreg.py``):
+    B1's gradient at the bf16 look-ahead, then B2's epilogue in PyTorch op
+    for op (one rounding an operation, as the kernel's ``__f*_rn``).
+    Returns new ``(W, Wp, gmax)``; B2 must equal it to the bit."""
+    B = S * Tw
+    dpp = W.shape[1]
+    tt = torch.tensor(t, dtype=torch.float32, device=W.device)
+    mom = tt / (tt + 3.0)
+    V = W + mom * (W - Wp)
+    G = R.packed_softmax_grad(Ab, V.to(torch.bfloat16), y2, WSP, c=c, S=S, Tw=Tw)
+    G = Cb.repeat(1, c)[:, None, :] * G + lam * (pen.reshape(1, dpp, 1) * V)
+    gmax = G.abs().reshape(W.shape[0], dpp, c, B).amax(dim=(1, 2))
+    act = ((tt < maxit) & (done == 0.0)).repeat(1, c)[:, None, :]
+    return (torch.where(act, V - step.repeat(1, c)[:, None, :] * G, W),
+            torch.where(act, W, Wp), gmax)
 
 
 # --------------------------------------------------------------- B4 (hist)

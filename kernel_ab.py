@@ -1,13 +1,13 @@
-"""Time kernels B4, B5 and B6 of two checkouts of the port on one card, in turns.
+"""Time kernels B1, B2 and B4-B6 of two checkouts of the port on one card, in turns.
 
     python3 kernel_ab.py --trees OLD NEW NEW OLD [--out FILE]
 
 Each entry of ``--trees`` is the root of a checkout (for example the
 parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists, and ``.``). For each entry in order, a fresh process
-imports that checkout's package, builds its ``csrc/hist.cu``,
-``csrc/mlp.cu`` and ``csrc/knn.cu`` and times the kernels through their
-wrappers, whose signatures every checkout shares. The shapes, the input
+imports that checkout's package, builds its ``csrc/logreg.cu``,
+``csrc/hist.cu``, ``csrc/mlp.cu`` and ``csrc/knn.cu`` and times the kernels
+through their wrappers, whose signatures every checkout shares. The shapes, the input
 builders and the timer are this checkout's ``ops/kernel_cases.py``, the
 ones ``chip_smoke.py`` uses, loaded by path so that every tree is timed
 on the same inputs from the same seeds:
@@ -18,9 +18,14 @@ on the same inputs from the same seeds:
   and at k 300 (null for a checkout whose kernel refuses it);
 - B5 ``epoch``, one full Adam epoch at every ``MLP_SHAPES`` entry on its
   72 lanes, and the widest shape again on one lane (a lane is one CTA, so
-  the two times apart say how far the lanes contend for the card).
+  the two times apart say how far the lanes contend for the card);
+- B2 ``packed_nesterov_step`` and B1 ``packed_softmax_grad`` at
+  ``LOGREG_SHAPE`` (bench.py's 1,024-trial dispatch on covertype).
 
-Prints one JSON line per entry and, last, the card's name and power limit.
+Beside each time, a SHA-256 digest of the kernel's output on fresh inputs
+(``*_digest``): equal digests across checkouts mean outputs equal to the
+bit. Prints one JSON line per entry and, last, the card's name and power
+limit.
 The KNN table is staged once under ``.smoke_storage/`` beside this script.
 Needs one CUDA card.
 """
@@ -56,16 +61,20 @@ def worker() -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_build
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as R
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     C = _load_cases()
-    cuda_build.build(["hist", "mlp", "knn"])
+    cuda_build.build(["logreg", "hist", "mlp", "knn"])
     dev = torch.device("cuda", 0)
-    out = {"tree": os.getcwd(), "hist_ms": {}, "knn_ms": {}, "mlp_ms": {}}
+    out = {"tree": os.getcwd(), "hist_ms": {}, "knn_ms": {}, "mlp_ms": {}, "logreg_ms": {},
+           "hist_digest": {}, "knn_digest": {}, "mlp_digest": {}, "logreg_digest": {}}
     gen = torch.Generator(device=dev).manual_seed(0)
     for tag, (L, n, d, n_bins, n_nodes, kk) in C.HIST_SHAPES.items():
         local, xb, SC = C.hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False,
                                       tag in C.HIST_SKEWED)
+        out["hist_digest"][tag] = C.digest(H.level_histogram(
+            local, xb, SC, n_nodes, n_bins, integer_stats=True))
         out["hist_ms"][tag] = C.time_ms(lambda: H.level_histogram(
             local, xb, SC, n_nodes, n_bins, integer_stats=True))
         del local, xb, SC
@@ -73,11 +82,11 @@ def worker() -> dict:
     Q = X[:C.KNN_QUERIES].contiguous()
     for k in C.KNN_GRID_KS + [C.KNN_DEVICE_LISTS_K]:
         try:
-            K.knn_topk(Q, X, W, k)
+            out["knn_digest"][f"k{k}"] = C.digest(*K.knn_topk(Q, X, W, k))
         except ValueError:  # a kernel that keeps its lists in shared memory only
             if k <= 256:
                 raise
-            out["knn_ms"][f"k{k}"] = None
+            out["knn_ms"][f"k{k}"] = out["knn_digest"][f"k{k}"] = None
             continue
         out["knn_ms"][f"k{k}"] = C.time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
     del X, Q, W
@@ -88,11 +97,30 @@ def worker() -> dict:
     for tag, L, (dims, bs, steps) in runs:
         Xs, Ys, Wl, lr, alpha, params = C.mlp_inputs(gen, dev, dims, bs, steps, L)
         state = M.epoch_state(params, L, "adam")
+        kw = dict(dims=dims, act="relu", bs=bs, n_batches=steps, classification=True)
+        out["mlp_digest"][tag] = C.digest(*M.epoch(
+            Xs, Ys, Wl, lr, alpha, 0, [t.clone() for t in state], **kw))
         out["mlp_ms"][tag] = C.time_ms(lambda: M.epoch(
-            Xs, Ys, Wl, lr, alpha, 0, state, dims=dims, act="relu", bs=bs,
-            n_batches=steps, classification=True), reps=3, warmup=1)
+            Xs, Ys, Wl, lr, alpha, 0, state, **kw), reps=3, warmup=1)
         del Xs, Ys, Wl, state
         torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_pad, dpp, c, S, n_wb = C.LOGREG_SHAPE
+    t = C.LOGREG_STEP_T
+    Ab, Wt, Wp, y2, WSP, done, step, Cb, maxit, pen = C.logreg_inputs(
+        gen, dev, n_pad, dpp, c, S, n_wb)
+    rest = (y2, WSP, t, done, step, Cb, maxit, pen)
+    out["logreg_digest"]["packed_nesterov_step"] = C.digest(*R.packed_nesterov_step(
+        Ab, Wt.clone(), Wp.clone(), *rest, c=c, S=S, lam=1.0))
+    Wk, Wpk = Wt.clone(), Wp.clone()  # the step updates these in place
+    out["logreg_ms"]["packed_nesterov_step"] = C.time_ms(lambda: R.packed_nesterov_step(
+        Ab, Wk, Wpk, *rest, c=c, S=S, lam=1.0))
+    del Wk, Wpk
+    Wb = Wt.to(torch.bfloat16)
+    out["logreg_digest"]["packed_softmax_grad"] = C.digest(
+        R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
+    out["logreg_ms"]["packed_softmax_grad"] = C.time_ms(
+        lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
     return out
 
 

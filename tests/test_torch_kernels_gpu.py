@@ -26,7 +26,8 @@ rounding) and the same neighbour sets wherever the plain k-th and (k+1)-th
 distances are further apart than that; on integer data every distance is
 exact and the outputs must be equal, ties (lowest index first) and empty
 slots (3.4e38, -1) included, with the lists in shared memory (k <= 256)
-and in device memory (k 300).
+and in device memory (k 300), at lane groups of 1, 6 and 9 lanes and with
+the rows split into ranges whose partial lists are merged.
 """
 
 import numpy as np
@@ -101,6 +102,43 @@ def test_packed_kernels_match_plain_on_card(cuda, c, S, n_wb):
     assert torch.equal(got[1][frozen], Wp0[frozen])
     assert tk.LAUNCHES["packed_softmax_grad"] == 1
     assert tk.LAUNCHES["packed_nesterov_step"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,dpp,S,n_wb", [
+    (2, 64, 3, 1), (3, 64, 6, 2), (7, 64, 6, 2), (16, 64, 2, 1),  # 16 classes: L 8
+    (2, 512, 2, 1),   # eight feature atoms, one ring stage
+    (5, 144, 3, 1),   # features past the last atom's 64, L 8
+])
+def test_fused_step_matches_plain_and_repeats_bit_for_bit_on_card(cuda, c, dpp, S, n_wb):
+    """B2 (wgmma, TMA ring) within TOL of its plain version, frozen columns
+    (done / past max_iter) unmoved, two launches on the same inputs equal
+    to the bit, and equal to the bit to B1's gradient run through B2's
+    epilogue (the same chain over the rows and the same softmax). The
+    match also checks the kernel's claim that, in wgmma's accumulator
+    layout, a thread holds every class of its lanes: a wrong grouping would
+    give a wrong softmax. 1,216 rows: nine 128-row tiles and a half one."""
+    Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = _fused_step_inputs(
+        cuda, c, S, n_wb, n_pad=19 * 64, dpp=dpp, seed=c + dpp)
+    geo = tk.step_geometry(dpp, c)
+    assert geo is not None and geo["stages"] >= 1
+    args = (y2, WSP, 3.0, done, step, Cb, maxit, pen)
+    want = tk.packed_nesterov_step_reference(Ab, W, Wp, *args, c=c, S=S, lam=1.0)
+    runs = []
+    for _ in range(2):
+        Wk, Wpk = W.clone(), Wp.clone()
+        runs.append(tk.packed_nesterov_step(Ab, Wk, Wpk, *args, c=c, S=S, lam=1.0))
+    torch.cuda.synchronize()
+    for g, r in zip(runs[0], want):
+        assert _rel(g, r) < TOL
+    frozen = ~(((3.0 < maxit) & (done == 0)).repeat(1, c))[:, None, :].expand_as(W)
+    assert torch.equal(runs[0][0][frozen], W[frozen])
+    assert torch.equal(runs[0][1][frozen], Wp[frozen])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    via_b1 = kc.step_via_gradient(tk, Ab, W, Wp, *args, c=c, S=S, lam=1.0)
+    for a, b in zip(runs[0], via_b1):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
@@ -339,6 +377,33 @@ def test_knn_topk_matches_plain_on_card(cuda, nq, n, d, L, k):
     tn.reset_launches()
     err, tol, _ = _knn_check(Q, X, W, k)
     assert err <= tol
+    assert tn.LAUNCHES["knn_topk"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 6, 9])
+@pytest.mark.parametrize("k", [5, 25, 256, 300])
+def test_knn_topk_lane_groups_and_row_ranges_bit_equal_on_card(cuda, L, k):
+    """Lanes sharing each distance tile (the plan's lane group) and the
+    rows split into ranges (n = 9,001 is not a multiple of the range split
+    or of the tile) give the plain version's output to the bit on integer
+    data: exact distances, exact ties (every row twice, lowest index
+    first) and a lane with fewer masked-in rows than k (empty slots)."""
+    rng = np.random.RandomState(L * 1000 + k)
+    half = rng.randint(-3, 4, (4500, 8)).astype(np.float32)
+    X = torch.as_tensor(np.concatenate([half, half, half[:1]])).to(cuda)
+    Q = torch.as_tensor(rng.randint(-3, 4, (200, 8)).astype(np.float32)).to(cuda)
+    W = torch.as_tensor((rng.rand(L, X.shape[0]) > 0.3).astype(np.float32)).to(cuda)
+    W[L - 1] = 0.0
+    W[L - 1, [5, 4600, 9000]] = 1.0
+    plan = tn.knn_plan(Q.shape[0], X.shape[0], L, k)
+    assert plan["ranges"] > 1 and X.shape[0] % plan["ranges"]
+    tn.reset_launches()
+    got = tn.knn_topk(Q, X, W, k)
+    ref = tn.knn_topk_reference(Q, X, W, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), plan
+    assert bool((got[1][L - 1, :, 3:] == -1).all())
     assert tn.LAUNCHES["knn_topk"] == 1
 
 

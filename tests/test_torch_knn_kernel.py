@@ -211,9 +211,131 @@ def test_knn_list_mode_refuses_k_below_one():
 
 def test_kernel_geometry_mirrors_the_source():
     """The shared-memory size the wrapper documents equals the CUDA
-    source's layout, the largest k with shared-memory lists fits an H100
-    CTA, and lists in device memory take no shared memory."""
-    assert cuda_knn.smem_bytes(5) == 88_832
+    source's layout (85,760 bytes of tiles, 1,024 of row masks a lane, 8
+    bytes a lane, query and slot of lists), the largest k with
+    shared-memory lists fits an H100 CTA at one lane, and lists in device
+    memory take no shared memory."""
+    assert cuda_knn.smem_bytes(5) == 89_344
+    assert cuda_knn.smem_bytes(5, 6) == 107_264
+    assert cuda_knn.smem_bytes(25, 6) == 168_704
+    # a 32-query block: half the query chunk, distance tile and lists
+    assert cuda_knn.smem_bytes(25, 6, 32) == 105_088
     assert cuda_knn.smem_bytes(cuda_knn.SHARED_LISTS_MAX_K) <= 232_448
-    assert cuda_knn.smem_bytes(300) == cuda_knn.smem_bytes(1000) == 88_832 - 64 * 5 * 8
+    assert cuda_knn.smem_bytes(300, 6) == cuda_knn.smem_bytes(1000, 6) == 85_760 + 6 * 1024
     assert cuda_knn.knn_operations(6, 4096, 200_000, 54) == pytest.approx(9.338e10, rel=1e-3)
+    # one lane group: the kernel's own work is the function's
+    assert cuda_knn.knn_design_operations(6, 4096, 200_000, 54, 5) == \
+        cuda_knn.knn_operations(6, 4096, 200_000, 54)
+
+
+def test_knn_plan_at_the_search_launch():
+    """knn_main's launch (6 lanes, 4,096 queries, 200,000 rows): all six
+    lanes share each distance tile at k 5 and 25, and the rows are split
+    so the grid fills the card with two CTAs an SM: 64-query blocks at
+    k 5, 32-query blocks at k 25 (six lanes' lists of a 64-query block
+    would leave room for one CTA an SM); at k 256 two lanes of a 32-query
+    block fit (three groups, against six of one lane at 64); k 300 (lists
+    in device memory, where the heaps set the time) takes one lane and 64
+    queries a CTA: 384 CTAs, no split."""
+    plan = {k: cuda_knn.knn_plan(4096, 200_000, 6, k) for k in (5, 25, 256, 300)}
+    key = ("query_block", "lane_group", "lane_groups", "ranges", "ctas")
+    assert tuple(plan[5][x] for x in key) == (64, 6, 1, 4, 256)
+    assert tuple(plan[25][x] for x in key) == (32, 6, 1, 2, 256)
+    assert tuple(plan[256][x] for x in key) == (32, 2, 3, 1, 384)
+    assert tuple(plan[300][x] for x in key) == (64, 1, 6, 1, 384)
+
+
+@pytest.mark.parametrize("L", [1, 2, 6, 9, 16, 17, 40])
+def test_lane_group_fits_shared_memory_for_every_k(L):
+    """For every k (both list modes) the plan's lane group fits a CTA's
+    232,448 bytes; it is the largest up to 16 lanes that fits its query
+    block (one lane with the lists in device memory), spread evenly over
+    the fewest groups covering L, and the query block is the one needing
+    fewer groups (64 with device-memory lists); the row ranges are
+    non-empty, contiguous and cover the table."""
+    for k in list(range(1, 301)) + [511, 2000]:
+        plan = cuda_knn.knn_plan(4096, 200_000, L, k)
+        G, groups, bq = plan["lane_group"], plan["lane_groups"], plan["query_block"]
+        assert cuda_knn.smem_bytes(k, G, bq) == plan["smem_bytes"] <= 232_448, (L, k)
+        assert G * groups >= L and (G - 1) * groups < L, (L, k, G, groups)
+        device = cuda_knn.knn_list_mode(k) == "device"
+
+        def fewest_groups(b):
+            widest = max(g for g in range(1, min(L, cuda_knn.MAX_GROUP) + 1)
+                         if g == 1 or cuda_knn.smem_bytes(k, g, b) <= 232_448)
+            return -(-L // (1 if device else widest))  # the heaps set the time there
+
+        assert bq in cuda_knn.QUERY_BLOCKS and (bq == 64 or not device)
+        assert groups == (fewest_groups(64) if device
+                          else min(map(fewest_groups, cuda_knn.QUERY_BLOCKS))), (L, k)
+        assert 1 <= plan["ranges"] <= cuda_knn.MAX_RANGES
+    for nq, n, k in ((4096, 200_000, 5), (257, 2049, 3), (1, 129, 25), (300, 5000, 300)):
+        plan = cuda_knn.knn_plan(nq, n, L, k)
+        ranges = cuda_knn.row_ranges(n, plan["ranges"])
+        assert len(ranges) == plan["ranges"]
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(j1 > j0 and j0 % 128 == 0 for j0, j1 in ranges)
+
+
+def _split_case(name):
+    """(Q, Xt, W, k, P) for the range-split cases; integer data, so every
+    distance is exact and ties are exact."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    if name == "duplicated_rows":  # every row twice, in different ranges
+        half = rng.randint(-3, 4, (500, 5)).astype(np.float32)
+        Xt = np.concatenate([half, half])
+        W = (rng.rand(3, 1000) > 0.3).astype(np.float32)
+        k, P = 9, 4
+    elif name == "lane_with_fewer_rows_than_k":
+        Xt = rng.randint(-3, 4, (700, 4)).astype(np.float32)
+        W = (rng.rand(2, 700) > 0.5).astype(np.float32)
+        W[1] = 0.0
+        W[1, [3, 390, 699]] = 1.0  # 3 rows, in two of the ranges
+        k, P = 8, 3
+    elif name == "ranges_not_dividing_n":  # 2,049 rows: 17 tiles over 4 ranges
+        Xt = rng.randint(-4, 5, (2049, 6)).astype(np.float32)
+        W = (rng.rand(2, 2049) > 0.2).astype(np.float32)
+        k, P = 5, 4
+    elif name in ("k45_widest_group", "k46_past_the_group"):  # L 6: 6 lanes to k 45
+        Xt = rng.randint(-3, 4, (900, 5)).astype(np.float32)
+        W = (rng.rand(6, 900) > 0.3).astype(np.float32)
+        k, P = (45 if name.startswith("k45") else 46), 3
+    else:  # device-memory lists
+        Xt = rng.randint(-3, 4, (1300, 5)).astype(np.float32)
+        W = (rng.rand(2, 1300) > 0.3).astype(np.float32)
+        k, P = 300, 4
+    Q = rng.randint(-3, 4, (40, Xt.shape[1])).astype(np.float32)
+    return Q, Xt, W, k, P
+
+
+SPLIT_CASES = ["duplicated_rows", "lane_with_fewer_rows_than_k", "ranges_not_dividing_n",
+               "k45_widest_group", "k46_past_the_group", "k300_device_lists"]
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_range_split_merge_equals_the_whole_table(name):
+    """The kernel's row split in plain PyTorch: partial lists over P
+    contiguous tile-aligned ranges, merged by (d2, j), equal the plain
+    version over the whole table to the bit, ties (lowest index first) and
+    empty slots (3.4e38, -1) included."""
+    Q, Xt, W, k, P = (torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+                      for a in _split_case(name))
+    ranges = cuda_knn.row_ranges(Xt.shape[0], P)
+    assert len(ranges) == P
+    got = cuda_knn.knn_topk_ranges_reference(Q, Xt, W, k, ranges)
+    want = cuda_knn.knn_topk_reference(Q, Xt, W, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if name == "lane_with_fewer_rows_than_k":
+        assert bool((got[1][1, :, 3:] == -1).all())
+        assert bool((got[0][1, :, 3:] == np.float32(cuda_knn.INF)).all())
+    if name == "duplicated_rows":  # a tie across ranges keeps the lower index
+        tied = got[0][..., 1:] == got[0][..., :-1]
+        assert bool((got[1][..., 1:][tied] > got[1][..., :-1][tied]).all())
+    L = W.shape[0]
+    group = cuda_knn.lane_group(L, k)
+    if name == "k45_widest_group":
+        assert group == 6
+    if name == "k46_past_the_group":  # five lanes of 64 queries fit: 2 groups of 3
+        assert group == 3 and cuda_knn.lane_group(L, k, 32) == 6
+        assert cuda_knn.knn_plan(40, 900, L, k)["query_block"] == 32  # one group

@@ -195,6 +195,61 @@ def test_gates_and_shared_memory_plan():
     assert not tk.masked_grad_applicable(2048, 16)
 
 
+def _mma_sync_gate(dpp, c):
+    """The packed gate as it stood before B2's wgmma design (a 16- or
+    32-lane tile of the mma.sync kernels, B1 and the first B2, fits),
+    restated from its rule."""
+    return any(
+        dpp % 16 == 0 and c <= 16 and (dpp // 8) * (c * L // 16) <= 128
+        and tk.packed_smem_bytes(dpp, c, L) <= tk.SMEM_LIMIT
+        for L in (32, 16))
+
+
+def test_packed_gate_still_accepts_every_shape_it_accepted():
+    """No search leaves the packed path: every (dpp, c) the mma.sync kernels
+    took still passes fused_step_applicable (B1's lane tile and a B2
+    geometry both exist), and nothing else does."""
+    grid = [(dpp, c) for dpp in range(16, 1025, 16) for c in range(2, 40)]
+    before = [sh for sh in grid if _mma_sync_gate(*sh)]
+    assert len(before) == 147 and (64, 7) in before and (512, 2) in before
+    assert [sh for sh in grid if tk.fused_step_applicable(*sh)] == before
+    for dpp, c in before:
+        assert tk.packed_lane_tile(dpp, c) is not None
+        assert tk.step_geometry(dpp, c) is not None, (dpp, c)
+
+
+def test_fused_step_geometry_fits_registers_and_shared_memory():
+    """B2's geometry at every accepted shape: an instantiated (N1, L, MT),
+    N1 = L x (c rounded up to a power of two) <= 128 with L a multiple of
+    8 (a thread then holds every class of its lanes), the logits and a
+    whole gradient within 192 floats a thread, at least one ring stage, and
+    the layout within a CTA's shared memory; every instantiation is used.
+    At covertype's shape: 16 lanes, 128 columns, one feature atom, four
+    stages of 128 rows."""
+    used = set()
+    for dpp in range(16, 1025, 16):
+        for c in range(2, 40):
+            if not tk.fused_step_applicable(dpp, c):
+                continue
+            geo = tk.step_geometry(dpp, c)
+            key = (geo["n1"], geo["L"], geo["mt"])
+            used.add(key)
+            assert key in tk.STEP_GEOMETRIES
+            assert geo["L"] % 8 == 0 and geo["n1"] % geo["L"] == 0
+            maxc = geo["n1"] // geo["L"]
+            assert maxc >= c and maxc & (maxc - 1) == 0 and geo["n1"] <= 128
+            assert geo["mt"] * 64 >= dpp > (geo["mt"] - 1) * 64
+            assert geo["n1"] // 2 * (geo["mt"] + 1) <= 192
+            assert 1 <= geo["stages"] <= 4 and geo["total"] <= tk.SMEM_LIMIT
+    assert used == set(tk.STEP_GEOMETRIES)
+    geo = tk.step_geometry(64, 7)
+    assert (geo["L"], geo["n1"], geo["mt"], geo["stages"]) == (16, 128, 1, 4)
+    assert geo["total"] == 153_728 == tk.step_layout(64, 128)["total"]
+    assert tk.step_geometry(512, 2)["stages"] == 1  # eight atoms: one 132 KB stage
+    assert tk.step_geometry(64, 16)["L"] == 8  # 16 classes: 8 lanes, 128 columns
+    assert tk.step_geometry(64, 17) is None and tk.step_geometry(72, 7) is None
+
+
 def test_wrappers_route_cpu_tensors_to_the_plain_versions():
     c, S = 4, 3
     _, t_in = _packed_grad_inputs(c, S, n_wb=1)

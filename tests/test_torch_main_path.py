@@ -98,6 +98,27 @@ def test_iris_grid_search_newton_matches_jax():
     _assert_same_search(js, ts)
 
 
+def test_train_takes_bench_keywords_like_jax():
+    """Both managers called with the keywords bench.py passes
+    (``train_params``, ``show_progress=False``, ``timeout``), positionally
+    where bench.py is: the same winner. ``stream=True`` and
+    ``search_params`` are refused by name on the port."""
+    search = GridSearchCV(LogisticRegression(max_iter=100), {"C": [0.1, 1.0]}, cv=3)
+    kw = dict(show_progress=False, timeout=600)
+    js = JaxManager().train(search, "iris", {"random_state": 42}, **kw)
+    tm = TorchManager(device="cpu")
+    ts = tm.train(search, "iris", {"random_state": 42}, **kw)
+    _assert_same_search(js, ts)
+    # the JAX signature's positional order: wait_for_completion, timeout, show_progress
+    ts2 = tm.train(search, "iris", {"random_state": 42}, True, 600, False)
+    assert ts2["job_result"]["best_result"]["search_params"] == \
+        ts["job_result"]["best_result"]["search_params"]
+    with pytest.raises(ValueError, match="stream=True.*not yet ported"):
+        tm.train(search, "iris", stream=True, **kw)
+    with pytest.raises(ValueError, match="search_params.*not yet ported"):
+        tm.train(search, "iris", search_params={"type": "asha", "eta": 3}, **kw)
+
+
 def test_synthetic_covertype_and_fold_plans_are_identical():
     jdf = jds._synthetic_covertype(n=2000)
     tdf = tds._synthetic_covertype(n=2000)
