@@ -10,10 +10,13 @@ non-zero exit and no result line:
 3. kernels  each CUDA kernel against its plain PyTorch version on the
             card at the main path's shapes (covertype: n_pad 116,736,
             dpp 64, 7 classes, 6 splits, 1 and 8 trial blocks; the
-            784-feature lane kernel at dpp 896): max|err| / max|ref| <
-            5e-3, the fused step's frozen columns exact, two launches of it
-            equal to the bit and equal to the bit to B1's gradient through
-            its epilogue, median ms by CUDA events beside the
+            784-feature lane kernel B3 at dpp 896 on the wide phase's 16
+            lanes and 4,096 rows and on wide_full's 192 lanes and 60,160
+            rows, and at dpp 1,152): max|err| / max|ref| < 5e-3, the fused
+            step's frozen columns exact, two launches of B1, B2 and B3
+            each equal to the bit, B2 equal to the bit to B1's gradient
+            through its epilogue, B3's padded classes exactly 0, median ms
+            by CUDA events beside the
             plain version's ms and the card's bound (bytes, bf16 products,
             f32 operations and the softmax's exponentials on the SFUs at
             16 a clock an SM, whichever takes longest).
@@ -65,6 +68,13 @@ non-zero exit and no result line:
 13. mlp_reference  a small MLP search (4,096 rows) on the card and on the
             CPU (the plain version in f32): every mean_cv_score within 0.02,
             best_params_ equality reported.
+    wide_full  RandomizedSearchCV(LogisticRegression(max_iter=100), C ~
+            loguniform(1e-3, 1e2), n_iter=32, cv=5, random_state=0) on the
+            synthetic_60000x784x10 table mlp_main staged (no staging of its
+            own): one generic nesterov dispatch of 192 lanes, B3 launched
+            100 times; then the same job under CS230_MASKED_GRAD=xla (torch
+            ops on the card, no kernel): every mean_cv_score within 2e-3,
+            best_params_ equal unless the top two scores are that close.
 14. kernels_knn  stages synthetic_200000x54x7 and holds B6 (the KNN top-k)
             against its plain version at knn_main's launch shape (rows
             0-4,095 of the table as queries, the job's 6 split masks, k 5
@@ -118,9 +128,9 @@ sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_QUERIES,
-    LOGREG_SHAPE, LOGREG_STEP_T, MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS,
-    MLP_SHAPES, digest, hist_inputs, logreg_inputs, mlp_check, mlp_inputs,
-    step_via_gradient, time_ms)
+    LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SHAPES, MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES,
+    MLP_LIMITS, MLP_SHAPES, digest, hist_inputs, logreg_inputs, masked_inputs, mlp_check,
+    mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
@@ -129,14 +139,14 @@ TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
 MLP_SEARCH_TOL = 0.02
 #: each kernel's ms at the kernels line's shapes as PERF.md's kernel table
-#: stood before the current B2, B4, B5 and B6 designs; printed on a line of
-#: its own, apart from the kernels line, whose numbers this run measures
-EARLIER_MS = {"packed_softmax_grad": 18.46, "packed_nesterov_step": 18.51,
-              "masked_softmax_grad": 1.02, "level_histogram": 0.105,
+#: stood before its current design; printed on a line of its own, apart
+#: from the kernels line, whose numbers this run measures
+EARLIER_MS = {"packed_softmax_grad": 18.35, "packed_nesterov_step": 18.51,
+              "masked_softmax_grad": 27.74, "level_histogram": 0.105,
               "mlp_epoch": 913.5, "knn_topk": 28.41}
-EARLIER_MS_SOURCE = ("PERF.md's kernel table before the current B2, B4, B5 and B6 designs "
-                     "(chip_smoke.py on an NVIDIA H100 80GB HBM3, 700.00 W); not measured "
-                     "in this run")
+EARLIER_MS_SOURCE = ("PERF.md's kernel table before each kernel's current design (B1 and B3: "
+                     "their first designs, B1 by chip_smoke.py, B3 at wide_full's shape by "
+                     "kernel_ab.py; NVIDIA H100 80GB HBM3, 700.00 W); not measured in this run")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -226,12 +236,16 @@ def phase_build() -> None:
     compiled = cuda_build.build()  # every csrc/*.cu, one nvcc each, in parallel
     assert all(cuda_build.library_path(name).exists() for name in SOURCES), compiled
     lib = cuda_logreg._lib()
-    # the Python shared-memory gate must mirror the kernel's own layout
-    for dpp, c, L in ((64, 7, 16), (64, 7, 32), (128, 7, 16), (64, 2, 32)):
-        assert lib.logreg_packed_smem_bytes(dpp, c, L) == cuda_logreg.packed_smem_bytes(dpp, c, L)
-    for dpp, cp in ((896, 16), (128, 128)):
-        assert lib.logreg_masked_smem_bytes(dpp, cp) == cuda_logreg.masked_smem_bytes(dpp, cp)
-    # B2: every instantiated geometry exists in the library, its layout as mirrored
+    # B3: the Python plan mirrors the library's, field for field
+    import ctypes
+
+    plan = (ctypes.c_longlong * len(cuda_logreg.MASKED_PLAN_FIELDS))()
+    for shape in ((4096, 896, 16, 16), (60_160, 896, 16, 192), (4096, 1152, 16, 16),
+                  (512, 128, 128, 3), (4096, 896, 160, 16)):
+        assert lib.logreg_masked_plan(*shape, plan) == 1, shape
+        mirror = cuda_logreg.masked_plan(*shape)
+        assert list(plan) == [mirror[k] for k in cuda_logreg.MASKED_PLAN_FIELDS], shape
+    # B1 / B2: every instantiated geometry exists in the library, its layout as mirrored
     for n1, L, mt in sorted(cuda_logreg.STEP_GEOMETRIES):
         assert lib.logreg_step_geometry_ok(n1, L, mt), (n1, L, mt)
         lay = cuda_logreg.step_layout(64 * mt, n1)
@@ -275,13 +289,17 @@ def phase_kernels(dev) -> dict:
         mm = 4.0 * n_pad * dpp * NB * n_wb
         exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
         f32_ops = SOFTMAX_OPS * exps
-        # B1: packed softmax-Gram gradient
+        # B1: packed softmax-Gram gradient; two launches equal to the bit
         Wb = W.to(torch.bfloat16)
         got = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+        again = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
         ref = K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
         abs1, err1 = errors(got, ref)
+        repeat1 = bool(torch.equal(got, again))
+        digest1 = digest(got)  # kernel_ab.py prints the same for its inputs
         assert err1 < TOL, f"packed_softmax_grad n_wb={n_wb}: {err1}"
-        del got, ref
+        assert repeat1, f"packed_softmax_grad n_wb={n_wb}: two launches differ"
+        del got, again, ref
         ms1 = time_ms(lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
         plain1 = time_ms(lambda: K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S), reps=3)
         nbytes1 = Ab.numel() * 2 + Wb.numel() * 2 + y2.numel() * 4 + WSP.numel() * 4 + W.numel() * 4
@@ -289,7 +307,8 @@ def phase_kernels(dev) -> dict:
         rows[("packed_softmax_grad", n_wb)] = dict(
             max_abs_err=abs1, max_rel_err=err1, ms=ms1, plain_ms=plain1,
             bound_ms=b1, bound_by=by1, bound_unit=unit1,
-            bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps))
+            bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps),
+            repeat_bit_equal=repeat1, digest=digest1)
 
         # B2: fused Nesterov step, in place; two launches on the same inputs
         # must agree to the bit
@@ -335,33 +354,70 @@ def phase_kernels(dev) -> dict:
         del Ab, W, Wp, Wk, Wpk, Wb
         torch.cuda.empty_cache()
 
-    # B3: masked lane kernel at the wide phase's shape (4 trials x 4 splits)
-    n3, dpp3, cp, c3, lanes = 4096, 896, 16, 10, 16
-    Ab = torch.randn(n3, dpp3, generator=gen, device=dev).to(torch.bfloat16)
-    Wl = torch.randn(lanes, dpp3, cp, generator=gen, device=dev) * 0.02
-    Wl[:, :, c3:] = 0
-    Wl = Wl.to(torch.bfloat16)
-    y2 = torch.randint(0, c3, (n3, 1), generator=gen, device=dev, dtype=torch.int32)
-    wm = (torch.rand(n3, lanes, generator=gen, device=dev) > 0.3).float()
-    got = K.masked_softmax_grad(Ab, Wl, y2, wm, c=c3)
-    ref = K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c3)
-    abs3, err3 = errors(got, ref)
-    assert err3 < TOL, f"masked_softmax_grad: {err3}"
-    assert float(got[:, :, c3:].abs().max()) == 0.0, "padded classes not zero"
-    ms3 = time_ms(lambda: K.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
-    plain3 = time_ms(lambda: K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c3))
-    nbytes3 = Ab.numel() * 2 + Wl.numel() * 2 + y2.numel() * 4 + wm.numel() * 4 + got.numel() * 4
-    # the products and the softmax over the c real classes; the padded
-    # ones are the kernel's layout, not the function's work
-    exps3 = float(n3) * c3 * lanes
-    b3, by3, unit3 = bound_ms(nbytes3, 4.0 * n3 * dpp3 * c3 * lanes, SOFTMAX_OPS * exps3, exps3)
-    rows[("masked_softmax_grad", lanes)] = dict(
-        max_abs_err=abs3, max_rel_err=err3, ms=ms3, plain_ms=plain3,
-        bound_ms=b3, bound_by=by3, bound_unit=unit3)
+    # B3: the masked lane kernel at the wide phase's and wide_full's shapes,
+    # then at dpp 1,152 (above the first design's cap)
+    for tag in MASKED_SHAPES:
+        rows[("masked_softmax_grad", tag)] = masked_kernel_row(K, gen, dev, tag,
+                                                                *MASKED_SHAPES[tag])
+    rows[("masked_softmax_grad", "dpp1152")] = masked_kernel_row(
+        K, gen, dev, "dpp1152", 16, 4096, 1152, 16, 10)
     emit({"phase": "kernels", "tolerance": TOL, "sm_clock_hz": SM_CLOCK_HZ[0],
-          "rows": [{"kernel": k, "n_wb_or_lanes": n, **v} for (k, n), v in rows.items()]})
+          "rows": [{"kernel": k, "tag": n, **v} for (k, n), v in rows.items()]})
     rows.update(hist_kernel_rows(gen, dev))
     return rows
+
+
+def device_ms_by_kernel(fn, calls: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel (torch.profiler over
+    ``calls`` calls after one warm-up); their sum beside the call's CUDA-
+    event time shows how long the card waited on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c) -> dict:
+    """B3 against its plain version at one shape: within TOL, two launches
+    equal to the bit, padded classes exactly 0; the kernel's and the plain
+    version's median ms, the device ms of each of the call's kernels, and
+    the bound (its products and exponentials over the c real classes: the
+    padded ones are the kernel's layout, not the function's work)."""
+    Ab, Wl, y2, wm = masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c)
+    got = K.masked_softmax_grad(Ab, Wl, y2, wm, c=c)
+    again = K.masked_softmax_grad(Ab, Wl, y2, wm, c=c)
+    ref = K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c)
+    abs3, err3 = errors(got, ref)
+    repeat = bool(torch.equal(got, again))
+    padded_zero = float(got[:, :, c:].abs().max()) == 0.0
+    out_digest = digest(got)  # kernel_ab.py prints the same for its inputs
+    del again, ref
+    torch.cuda.empty_cache()
+    assert err3 < TOL, f"masked_softmax_grad {tag}: {err3}"
+    assert repeat, f"masked_softmax_grad {tag}: two launches differ"
+    assert padded_zero, f"masked_softmax_grad {tag}: padded classes not zero"
+    ms = time_ms(lambda: K.masked_softmax_grad(Ab, Wl, y2, wm, c=c))
+    plain = time_ms(lambda: K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c), reps=3)
+    by_kernel = device_ms_by_kernel(lambda: K.masked_softmax_grad(Ab, Wl, y2, wm, c=c))
+    nbytes = Ab.numel() * 2 + Wl.numel() * 2 + y2.numel() * 4 + wm.numel() * 4 + got.numel() * 4
+    exps = float(n_pad) * c * lanes
+    mm = 4.0 * n_pad * dpp * c * lanes
+    bound, by, unit = bound_ms(nbytes, mm, SOFTMAX_OPS * exps, exps)
+    del Ab, Wl, y2, wm, got
+    torch.cuda.empty_cache()
+    return dict(shape=dict(lanes=lanes, n_pad=n_pad, dpp=dpp, cp=cp, c=c),
+                plan=K.masked_plan(n_pad, dpp, cp, lanes), max_abs_err=abs3,
+                max_rel_err=err3, repeat_bit_equal=repeat, padded_zero=padded_zero,
+                digest=out_digest, ms=ms, plain_ms=plain, device_ms_by_kernel=by_kernel,
+                library_ms=None, bound_ms=bound,
+                bound_by=by, bound_unit=unit,
+                bound_terms_ms=bound_terms(nbytes, mm, SOFTMAX_OPS * exps, exps))
 
 
 def hist_kernel_rows(gen, dev) -> dict:
@@ -548,13 +604,14 @@ def phase_main_profile(manager) -> dict:
     return out
 
 
-def phase_wide(manager) -> int:
+def phase_wide(manager) -> None:
     status, wall, launches = _train(
         manager, _search(4, 30, 3, C=(1e-3, 1e1), tol=(1e-4,)),
         "synthetic_4096x784x10", "masked_softmax_grad", 4)
     emit({"phase": "wide", "wall_s": wall, "launches": launches,
           "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
-    return launches["masked_softmax_grad"]
+    # one launch a solver step: 30 steps of one 16-lane dispatch
+    assert launches["masked_softmax_grad"] == 30, launches
 
 
 def phase_reference(manager) -> None:
@@ -914,6 +971,77 @@ def phase_mlp_reference(manager) -> None:
     assert launches == 2 * 3, f"mlp_reference: {launches} B5 launches, expected 6"
     assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
 
+#: wide_full: a full-size 784-feature LogReg search on config 5's table
+WIDE_FULL_DATASET = "synthetic_60000x784x10"
+WIDE_FULL_STEPS = 100
+WIDE_FULL_TRIALS = 32
+WIDE_FULL_TOL = 2e-3
+
+
+def phase_wide_full(manager) -> int:
+    """RandomizedSearchCV(LogisticRegression(max_iter=100), C ~
+    loguniform(1e-3, 1e2), n_iter=32, cv=5) on the table mlp_main staged:
+    dp * c = 7,850 picks the nesterov solver and dpp 896 the generic
+    driver, whose one dispatch holds 32 x 6 lanes and launches B3 once a
+    solver step (100). Then the same job under CS230_MASKED_GRAD=xla (the
+    gradient as torch ops on the card, no kernel) as the check: every
+    mean_cv_score within WIDE_FULL_TOL, best_params_ equal unless the top
+    two scores are that close (then both are printed)."""
+    from scipy.stats import loguniform
+
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
+
+    search = {"model_type": "LogisticRegression", "search_type": "RandomizedSearchCV",
+              "base_estimator_params": {"max_iter": WIDE_FULL_STEPS},
+              "param_distributions": {"C": loguniform(1e-3, 1e2)},
+              "n_iter": WIDE_FULL_TRIALS, "random_state": 0, "cv_params": {"cv": 5}}
+    t0 = time.perf_counter()
+    data = manager._coordinator.cache.get(WIDE_FULL_DATASET, "classification")
+    staged = time.perf_counter() - t0  # a cache hit: mlp_main staged the table
+    assert data.X.shape == (60_000, 784) and data.n_classes == 10, data.X.shape
+    runs = {}
+    for mode in ("auto", "xla"):
+        os.environ["CS230_MASKED_GRAD"] = mode
+        try:
+            K.reset_launches()
+            t0 = time.perf_counter()
+            status = manager.train(search, WIDE_FULL_DATASET, {"random_state": 42},
+                                   timeout=1200)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+        finally:
+            os.environ.pop("CS230_MASKED_GRAD", None)
+        assert status["job_status"] == "completed", status
+        res = status["job_result"]
+        assert not res["failed"], res["failed"][:1]
+        assert len(res["results"]) == WIDE_FULL_TRIALS, len(res["results"])
+        scores = [r["mean_cv_score"] for r in res["results"]]
+        assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in scores), scores[:5]
+        runs[mode] = (status, wall, launches)
+    a, b = _scores(runs["auto"][0]), _scores(runs["xla"][0])
+    assert a.keys() == b.keys()
+    worst = max(abs(a[k] - b[k]) for k in a)
+    best = {m: runs[m][0]["job_result"]["best_result"] for m in runs}
+    same = best["auto"]["search_params"] == best["xla"]["search_params"]
+    top = sorted(b.values(), reverse=True)[:2]
+    close = top[0] - top[1] <= WIDE_FULL_TOL
+    emit({"phase": "wide_full", "dataset": WIDE_FULL_DATASET, "staging_s": staged,
+          "trials": len(a), "wall_s": runs["auto"][1], "launches": runs["auto"][2],
+          "xla_wall_s": runs["xla"][1], "xla_launches": runs["xla"][2],
+          "max_mean_cv_diff": worst, "best_params_equal": same,
+          "best_params": best["auto"]["search_params"],
+          "best_mean_cv_score": best["auto"]["mean_cv_score"],
+          "xla_top_two_within_tolerance": close,
+          **({} if same else {"xla_best_params": best["xla"]["search_params"],
+                               "xla_top_two": top})})
+    assert runs["auto"][2]["masked_softmax_grad"] == WIDE_FULL_STEPS, runs["auto"][2]
+    assert runs["xla"][2]["masked_softmax_grad"] == 0, runs["xla"][2]
+    assert worst <= WIDE_FULL_TOL, f"wide_full: kernel vs xla mean_cv_score differ by {worst}"
+    assert same or close, "wide_full: best_params_ differ"
+    return runs["auto"][2]["masked_softmax_grad"]
+
+
 KNN_GRID = {"n_neighbors": KNN_GRID_KS, "weights": ["uniform", "distance"]}
 #: B6 against its plain version: distances within this share of
 #: max(qsq + tsq) (the expansion's f32 rounding grows with the norms)
@@ -1173,7 +1301,7 @@ def main() -> int:
     assert manager.device.type == "cuda"
     launches = phase_main(manager)
     phase_main_profile(manager)
-    launches["masked_softmax_grad"] = phase_wide(manager)
+    phase_wide(manager)
     phase_reference(manager)
     launches["level_histogram"] = phase_rf_main(manager, cfg)
     phase_rf_profile(manager, "covertype_frac_10")
@@ -1183,6 +1311,7 @@ def main() -> int:
     rows.update(phase_kernels_mlp(dev))
     launches["mlp_epoch"] = phase_mlp_main(manager)
     phase_mlp_reference(manager)
+    launches["masked_softmax_grad"] = phase_wide_full(manager)
     rows.update(phase_kernels_knn(manager))
     launches["knn_topk"] = phase_knn_main(manager)
     phase_knn_reference(manager)
@@ -1193,8 +1322,8 @@ def main() -> int:
                                 "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"),
         "packed_nesterov_step": (8, "logreg", f"{jax_ops}/pallas_logreg.py:228",
                                  "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"),
-        "masked_softmax_grad": (16, "logreg", f"{jax_ops}/pallas_logreg.py:372",
-                                "n_pad 4096, dpp 896, cp 16, 16 lanes"),
+        "masked_softmax_grad": ("wide_full", "logreg", f"{jax_ops}/pallas_logreg.py:372",
+                                "n_pad 60160, dpp 896, cp 16, c 10, 192 lanes"),
         "level_histogram": ("rf_main_deep", "hist", f"{jax_ops}/pallas_hist.py:106",
                             "6 lanes, 11620 rows, 54 features, 24 bins, 128 nodes, 7 classes"),
         "mlp_epoch": ("784-512-10", "mlp", f"{jax_ops}/pallas_mlp.py:239",

@@ -1,7 +1,7 @@
 """The shapes and inputs at which the port's kernels are checked and timed.
 
-``chip_smoke.py`` holds kernels B1, B2 and B4-B6 against their plain
-versions at these shapes, ``kernel_ab.py`` times two checkouts' kernels on
+``chip_smoke.py`` holds kernels B1-B6 against their plain versions at
+these shapes, ``kernel_ab.py`` times two checkouts' kernels on
 inputs from the same builders, and the GPU tests reuse them. The module imports
 only the standard library, numpy and torch at import time, so that
 ``kernel_ab.py`` can load it from one checkout while it times the package
@@ -93,6 +93,27 @@ def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c
     act = ((tt < maxit) & (done == 0.0)).repeat(1, c)[:, None, :]
     return (torch.where(act, V - step.repeat(1, c)[:, None, :] * G, W),
             torch.where(act, W, Wp), gmax)
+
+
+# ------------------------------------------------------- B3 (masked logreg)
+
+#: B3 shapes: (lanes, n_pad, dpp, cp, classes). ``wide``: chip_smoke.py's
+#: 784-feature search on 4,096 rows (4 trials x 4 splits); ``wide_full``:
+#: RandomizedSearchCV(LogisticRegression(), n_iter=32, cv=5) on
+#: synthetic_60000x784x10 (32 trials x 6 splits, rows padded to 256s), one
+#: dispatch of the generic nesterov driver
+MASKED_SHAPES = {"wide": (16, 4096, 896, 16, 10), "wide_full": (192, 60_160, 896, 16, 10)}
+
+
+def masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c):
+    """B3's inputs: bf16 rows, small bf16 weights with the padded classes
+    zero, labels, and per-lane fold masks (70 % in)."""
+    Ab = torch.randn(n_pad, dpp, generator=gen, device=dev).to(torch.bfloat16)
+    W = torch.randn(lanes, dpp, cp, generator=gen, device=dev) * 0.02
+    W[:, :, c:] = 0
+    y2 = torch.randint(0, c, (n_pad, 1), generator=gen, device=dev, dtype=torch.int32)
+    wm = (torch.rand(n_pad, lanes, generator=gen, device=dev) > 0.3).float()
+    return Ab, W.to(torch.bfloat16), y2, wm
 
 
 # --------------------------------------------------------------- B4 (hist)

@@ -1,4 +1,4 @@
-"""Time kernels B1, B2 and B4-B6 of two checkouts of the port on one card, in turns.
+"""Time kernels B1-B6 of two checkouts of the port on one card, in turns.
 
     python3 kernel_ab.py --trees OLD NEW NEW OLD [--out FILE]
 
@@ -20,7 +20,10 @@ on the same inputs from the same seeds:
   72 lanes, and the widest shape again on one lane (a lane is one CTA, so
   the two times apart say how far the lanes contend for the card);
 - B2 ``packed_nesterov_step`` and B1 ``packed_softmax_grad`` at
-  ``LOGREG_SHAPE`` (bench.py's 1,024-trial dispatch on covertype).
+  ``LOGREG_SHAPE`` (bench.py's 1,024-trial dispatch on covertype);
+- B3 ``masked_softmax_grad`` at every ``MASKED_SHAPES`` entry (the 784-
+  feature search's 16 lanes on 4,096 rows, and a full-size search's 192
+  lanes on 60,160 rows).
 
 Beside each time, a SHA-256 digest of the kernel's output on fresh inputs
 (``*_digest``): equal digests across checkouts mean outputs equal to the
@@ -121,6 +124,16 @@ def worker() -> dict:
         R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
     out["logreg_ms"]["packed_softmax_grad"] = C.time_ms(
         lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
+    del Ab, Wt, Wp, Wb, rest
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for tag, (lanes, n3, dpp3, cp, c3) in C.MASKED_SHAPES.items():
+        Ab, Wl, y2, wm = C.masked_inputs(gen, dev, lanes, n3, dpp3, cp, c3)
+        key = f"masked_softmax_grad_{tag}"
+        out["logreg_digest"][key] = C.digest(R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
+        out["logreg_ms"][key] = C.time_ms(lambda: R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
+        del Ab, Wl, y2, wm
+        torch.cuda.empty_cache()
     return out
 
 

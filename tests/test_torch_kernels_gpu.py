@@ -11,7 +11,8 @@ toolkit:
 Tolerance: 5e-3 of the max for the LogReg kernels, as for the Pallas
 kernels against their references (the kernels round the residual to bf16,
 the plain versions keep it in f32); the fused step's frozen columns must be
-exact. The level histogram (B4) must be bit-exact for integer stats (int32
+exact, and every LogReg kernel gives the same bits on two launches (fixed
+sum orders, no atomics). The level histogram (B4) must be bit-exact for integer stats (int32
 accumulation) and within 1e-5 of the max for float stats (f32 atomics in
 no fixed order). The MLP epoch (B5) and its plain version round the same
 operands to bf16 and sum in different orders. Under SGD every state tensor
@@ -156,6 +157,119 @@ def test_masked_kernel_matches_plain_on_card(cuda):
     torch.cuda.synchronize()
     assert _rel(got, ref) < TOL
     assert float(got[:, :, c:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,dpp,S,n_wb", [
+    (2, 64, 3, 1), (3, 64, 6, 2), (7, 64, 6, 2), (16, 64, 2, 1), (5, 144, 3, 1),
+])
+def test_packed_softmax_grad_repeats_bit_for_bit_on_card(cuda, c, dpp, S, n_wb):
+    """B1 (B2's body with the gradient epilogue) within TOL of its plain
+    version and equal to the bit across two launches."""
+    Ab, W, _, y2, WSP, *_ = _fused_step_inputs(cuda, c, S, n_wb, n_pad=19 * 64, dpp=dpp,
+                                               seed=c + dpp)
+    Wb = W.to(torch.bfloat16)
+    tk.reset_launches()
+    runs = [tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S) for _ in range(2)]
+    ref = tk.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+    torch.cuda.synchronize()
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    assert tk.LAUNCHES["packed_softmax_grad"] == 2
+
+
+def _masked_inputs(dev, n_pad, dpp, cp, c, lanes, seed):
+    rng = np.random.RandomState(seed)
+    Ab = torch.as_tensor(rng.randn(n_pad, dpp).astype(np.float32)).to(dev, torch.bfloat16)
+    W = torch.as_tensor((rng.randn(lanes, dpp, cp) * 0.05).astype(np.float32))
+    W[:, :, c:] = 0
+    y2 = torch.as_tensor(rng.randint(0, c, (n_pad, 1)).astype(np.int32)).to(dev)
+    wm = torch.as_tensor((rng.rand(n_pad, lanes) > 0.3).astype(np.float32)).to(dev)
+    return Ab, W.to(dev, torch.bfloat16), y2, wm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 16, 192])
+@pytest.mark.parametrize("dpp", [128, 896, 1152])
+@pytest.mark.parametrize("cp", [16, 32])
+@pytest.mark.parametrize("c", [2, 10])
+def test_masked_kernel_shapes_repeat_bit_for_bit_on_card(cuda, lanes, dpp, c, cp):
+    """B3 (two passes, lanes sharing each A tile, rows split into ranges)
+    within TOL of its plain version at 1, 16 and 192 lanes, at dpp 128,
+    896 and 1,152 (above the first design's cap), 2 and 10 classes in 16
+    or 32 columns; two launches equal to the bit; padded classes exactly 0.
+    2,000 rows: the last 128-row tile is partial."""
+    Ab, W, y2, wm = _masked_inputs(cuda, 2000, dpp, cp, c, lanes, seed=lanes + dpp + cp)
+    tk.reset_launches()
+    runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
+    ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
+    torch.cuda.synchronize()
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    assert float(runs[0][:, :, c:].abs().max()) == 0.0
+    assert tk.LAUNCHES["masked_softmax_grad"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,dpp,cp,c,lanes", [
+    (64, 16, 16, 2, 1),        # one partial atom, one row tile
+    (300, 80, 16, 3, 5),       # a partial second atom
+    (1000, 192, 48, 40, 3),    # an odd atom count (warpgroup 1 idle in the last block), cp 48
+    (700, 208, 160, 150, 2),   # 256 columns a lane (pass (a) at 256 columns)
+    (4500, 1040, 32, 20, 7),   # past the first design's dpp cap, a partial atom
+])
+def test_masked_kernel_ragged_shapes_on_card(cuda, n_pad, dpp, cp, c, lanes):
+    """B3 at shapes the gate accepts off the search path's grid: features
+    not a multiple of 64 or of 128, classes padded within a lane, and the
+    widest lanes; within TOL of its plain version, two launches equal to
+    the bit, padded classes exactly 0."""
+    Ab, W, y2, wm = _masked_inputs(cuda, n_pad, dpp, cp, c, lanes, seed=dpp + cp)
+    runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
+    ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
+    torch.cuda.synchronize()
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    assert float(runs[0][:, :, c:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_masked_plan_matches_the_library(cuda):
+    """The Python plan of B3 is the C entry's, field for field."""
+    import ctypes
+
+    lib = tk._lib()
+    out = (ctypes.c_longlong * len(tk.MASKED_PLAN_FIELDS))()
+    for shape in ((4096, 896, 16, 16), (60_160, 896, 16, 192), (2000, 1152, 32, 1),
+                  (512, 128, 128, 3), (4096, 896, 160, 16), (256, 16, 256, 2)):
+        assert lib.logreg_masked_plan(*shape, out) == 1, shape
+        plan = tk.masked_plan(*shape)
+        assert list(out) == [plan[k] for k in tk.MASKED_PLAN_FIELDS], shape
+    assert lib.logreg_masked_plan(4096, 896, 272, 16, out) == 0
+    assert tk.masked_plan(4096, 896, 272, 16) is None
+
+
+@pytest.mark.gpu
+def test_masked_kernel_raises_instead_of_falling_back(cuda):
+    """A shape or an input the C entry refuses is an error on the card,
+    never the plain version."""
+    Ab, W, y2, wm = _masked_inputs(cuda, 512, 128, 16, 10, 4, seed=3)
+    tk.reset_launches()
+    with pytest.raises(ValueError):  # 272 classes: past the kernel's 256
+        Wwide = torch.zeros(4, 128, 272, dtype=torch.bfloat16, device=cuda)
+        tk.masked_softmax_grad(Ab, Wwide, y2, wm, c=10)
+    with pytest.raises(TypeError):
+        tk.masked_softmax_grad(Ab.float(), W, y2, wm, c=10)
+    with pytest.raises(ValueError):
+        tk.masked_softmax_grad(Ab, W, y2, wm.cpu(), c=10)
+    assert tk.LAUNCHES["masked_softmax_grad"] == 0
+    # the C entry refuses a row split that is not its plan's
+    plan = tk.masked_plan(512, 128, 16, 4)
+    G = torch.empty(4, 128, 16, device=cuda)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=cuda)
+    with pytest.raises(RuntimeError):
+        tk._launch(tk._lib().logreg_masked_softmax_grad, tk._ptr(Ab), tk._ptr(W), tk._ptr(y2),
+                   tk._ptr(wm), tk._ptr(G), tk._ptr(scratch), plan["scratch"], 512, 128, 16,
+                   10, 4, plan["ranges"] + 1, device=Ab.device)
 
 
 @pytest.mark.gpu

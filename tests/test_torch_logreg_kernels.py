@@ -139,12 +139,26 @@ _MASKED_SHAPES = [
     (512, 128, 7, 128, 256),
     (256, 128, 2, 128, 128),
 ]
+# The wrapper (its plain version on the CPU) at each shape, then the plain
+# counterpart of the card kernel's two passes (bf16 residual, row ranges
+# added in order): at the same shapes, at a 10-class one with cp 16 and 4
+# row ranges, and with a lane whose fold mask is all zero.
+_MASKED_CASES = [pytest.param(s, "wrapper", False, id=str(s)) for s in _MASKED_SHAPES] + [
+    pytest.param(s, "two_pass", False, id=f"{s}-two_pass") for s in _MASKED_SHAPES
+] + [
+    pytest.param((512, 96, 10, 16, 256), "two_pass", False, id="(512, 96, 10, 16, 256)-two_pass"),
+    pytest.param((512, 128, 7, 128, 256), "two_pass", True,
+                 id="(512, 128, 7, 128, 256)-two_pass-zero_lane"),
+]
 
 
-@pytest.mark.parametrize("shape", _MASKED_SHAPES, ids=[str(s) for s in _MASKED_SHAPES])
-def test_masked_softmax_grad_plain_matches_pallas(shape):
+@pytest.mark.parametrize("shape,impl,zero_lane", _MASKED_CASES)
+def test_masked_softmax_grad_plain_matches_pallas(shape, impl, zero_lane):
     """A lane batch of 3 through the port vs the JAX lane kernel lane by
-    lane, each lane with its own fold mask over the shared A."""
+    lane, each lane with its own fold mask over the shared A. ``impl``:
+    the wrapper, or the plain counterpart of the kernel's two passes, also
+    held against the wrapper's plain version; a lane whose mask is all
+    zero gets a gradient of exact zeros."""
     n_pad, dpp, c, cp, bm = shape
     lanes = 3
     rng = np.random.RandomState(0)
@@ -154,14 +168,25 @@ def test_masked_softmax_grad_plain_matches_pallas(shape):
     W_j, W_t = _bf16(W)
     y2 = rng.randint(0, c, (n_pad, 1)).astype(np.int32)
     wm = (rng.rand(n_pad, lanes) > 0.3).astype(np.float32)
-    got = tk.masked_softmax_grad(Ab_t, W_t, torch.as_tensor(y2), torch.as_tensor(wm), c=c)
+    if zero_lane:
+        wm[:, 1] = 0.0
+    args = (Ab_t, W_t, torch.as_tensor(y2), torch.as_tensor(wm))
+    if impl == "wrapper":
+        got = tk.masked_softmax_grad(*args, c=c)
+    else:
+        got = tk.masked_softmax_grad_two_pass(*args, c=c)
+        assert _rel(got.numpy(), tk.masked_softmax_grad_reference(*args, c=c).numpy()) < TOL
+        assert tk.masked_plan(n_pad, dpp, cp, lanes)["ranges"] > 1  # the split sum runs
     assert got.shape == (lanes, dpp, cp)
     for lane in range(lanes):
+        if zero_lane and lane == 1:
+            assert not np.any(got[lane].numpy())
+            continue
         args = (Ab_j, W_j[lane], jnp.asarray(y2), jnp.asarray(wm[:, lane : lane + 1]))
         kern = jx.masked_softmax_grad(*args, c=c, bm=bm, interpret=True)
         ref = _masked_ref(*args, c=c)
         assert _rel(got[lane].numpy(), kern) < TOL
-        assert _rel(got[lane].numpy(), ref) < 1e-4
+        assert _rel(got[lane].numpy(), ref) < (1e-4 if impl == "wrapper" else TOL)
     np.testing.assert_array_equal(got[:, :, c:].numpy(), 0.0)
 
 
@@ -182,17 +207,86 @@ def test_pack_unpack_weights_round_trip_and_jax_layout():
 
 
 def test_gates_and_shared_memory_plan():
-    # covertype: dpp = 64, c = 7 -> the 16-lane tile at any chunk
+    # covertype: dpp = 64, c = 7 -> B1's 16-lane tile
     assert tk.fused_step_applicable(64, 7)
-    assert tk.packed_lane_tile(64, 7, n_wb=8, S=6) == 16
-    # a grid wide enough for two CTAs per SM keeps the 32-lane tile
-    assert tk.packed_lane_tile(64, 2, n_wb=8, S=11) == 32
+    assert tk.step_geometry(64, 7)["L"] == 16
+    # binary: 16 lanes of 2 classes, 32 columns a CTA
+    geo = tk.step_geometry(64, 2)
+    assert (geo["L"], geo["n1"]) == (16, 32)
     assert tk.packed_smem_bytes(64, 7, 16) <= tk.SMEM_LIMIT
-    # too many gradient tiles for a CTA's registers -> generic drivers
+    # outside the routing rule (too many gradient tiles for the first
+    # packed kernels' registers) -> generic drivers
     assert not tk.fused_step_applicable(512, 7)
-    # 784-feature LogReg lane kernel: dpp 896, 10 classes padded to 16
+    # 784-feature LogReg lane kernel: dpp 896, 10 classes padded to 16;
+    # features are tiled, so 2,048 of them pass too; at most 256 classes
     assert tk.masked_grad_applicable(896, 16)
-    assert not tk.masked_grad_applicable(2048, 16)
+    assert tk.masked_grad_applicable(2048, 16)
+    assert not tk.masked_grad_applicable(896, 272)
+    assert not tk.masked_grad_applicable(904, 16)
+
+
+def _wmma_masked_gate(dpp, cp):
+    """The masked gate as it stood before B3's two-pass design (one lane's
+    gradient in a CTA's WMMA registers, its buffers in shared memory),
+    restated from its rule."""
+    def ld_f32(cols):
+        return cols + (40 - cols % 32) % 32
+
+    def align(x):
+        return (x + 127) // 128 * 128
+
+    off = align(dpp * (cp + 8) * 2)  # the lane's weights
+    for _ in range(2):
+        off = align(off + 32 * (dpp + 8) * 2)  # 32-row tiles of A
+    off = align(off + 8 * 32 * ld_f32(cp) * 4)  # per-warp partial logits
+    off = align(off + 32 * ld_f32(cp) * 4)  # logits
+    off = align(off + 32 * (cp + 8) * 2)  # residual
+    for _ in range(4):
+        off = align(off + 32 * 4)  # labels, weights
+    return (dpp % 16 == 0 and cp % 16 == 0 and (dpp // 16) * (cp // 16) <= 64
+            and off <= tk.SMEM_LIMIT)
+
+
+def test_masked_gate_still_accepts_every_shape_it_accepted():
+    """Every (dpp, cp) the WMMA lane kernel took still reaches the kernel;
+    the dpp cap is gone."""
+    grid = [(dpp, cp) for dpp in range(16, 4097, 16) for cp in range(16, 1025, 16)]
+    before = [sh for sh in grid if _wmma_masked_gate(*sh)]
+    assert len(before) == 179 and (896, 16) in before and (1024, 16) in before
+    assert all(tk.masked_grad_applicable(*sh) for sh in before)
+    assert tk.masked_grad_applicable(1152, 16) and tk.masked_grad_applicable(4096, 16)
+
+
+@pytest.mark.parametrize("n_pad,lanes", [(256, 1), (4096, 16), (60_160, 192), (1000, 7)])
+def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
+    """B3's plan at every shape the gate accepts (dpp to 2,048, every cp):
+    both passes' shared memory within a CTA's, an instantiated pass (a),
+    whole lanes in its column tile, the P row ranges covering [0, n_pad)
+    once in order, and the scratch the sum of W^T, R^T and the partials."""
+    for dpp in range(16, 2049, 16):
+        for cp in range(16, tk.MASKED_MAX_CP + 1, 16):
+            assert tk.masked_grad_applicable(dpp, cp)
+            plan = tk.masked_plan(n_pad, dpp, cp, lanes)
+            assert plan["smem_a"] <= tk.SMEM_LIMIT and plan["smem_b"] <= tk.SMEM_LIMIT
+            assert plan["stages_a"] >= 1 and plan["stages_b"] >= 1
+            assert (plan["na"], plan["cpp"]) in tk.MASKED_GEOMETRIES
+            assert plan["cpp"] >= cp and plan["na"] % plan["cpp"] == 0
+            assert plan["cols"] % plan["na"] == 0 and plan["cols"] >= lanes * plan["cpp"]
+            assert plan["mt"] * 64 >= dpp and 2 * plan["fb"] >= plan["mt"]
+            ranges = tk.masked_ranges(plan, n_pad)
+            assert len(ranges) == plan["ranges"] <= min(16, plan["row_tiles"])
+            assert ranges[0][0] == 0 and ranges[-1][1] == n_pad
+            assert all(r0 < r1 for r0, r1 in ranges)
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            rows_pad = plan["row_tiles"] * 128
+            wt = plan["cols"] * dpp * 2
+            r = plan["cols"] * rows_pad * 2
+            part = plan["ranges"] * dpp * plan["cols"] * 4
+            assert plan["r_offset"] >= wt and plan["part_offset"] - plan["r_offset"] >= r
+            assert plan["scratch"] == plan["part_offset"] + part
+            assert plan["r_offset"] % 1024 == 0 and plan["part_offset"] % 1024 == 0
+    assert tk.masked_plan(n_pad, 896, 272, lanes) is None
+    assert tk.masked_plan(n_pad, 904, 16, lanes) is None
 
 
 def _mma_sync_gate(dpp, c):
