@@ -95,6 +95,31 @@ non-zero exit and no result line:
             card, its plain version on the CPU) and without (the generic
             path on both): mean_cv_score within 2e-3 (r2: 1e-4).
 
+Then the other tree families (slice 8):
+
+17. kernels_hist (float rows)  B4's f32 mode at the boosting levels
+            (HIST_FLOAT_SHAPES: gb_main's root and last level, 168 lanes x
+            116,202 rows, and config 4's root, 12 lanes x 867 rows): within
+            1e-5 of the max, whether two launches agree to the bit
+            (recorded), ms beside the plain version, one index_add_ and the
+            bound.
+18. gb_titanic  BASELINE config 4, uncut: the titanic builtin downloaded,
+            preprocessed with TITANIC_PREPROCESS, GridSearchCV(
+            GradientBoostingRegressor(random_state=0), n_estimators [50,
+            100] x learning_rate [0.05, 0.1], cv=5) on the card and on the
+            CPU; B4 launched (50 + 100) x 3 = 450 times (from the plan).
+19. gb_main  GridSearchCV(GradientBoostingClassifier(n_estimators=50),
+            learning_rate [0.05, 0.1, 0.2, 0.5], cv=5) on covertype, twice:
+            the reference's plan (3 chunks of 17 stages), 168 lanes, 150
+            launches; whether the second run repeats the scores, recorded.
+20. gb_reference  boosting grids with subsample 0.8 on a 3,000-row
+            covertype draw, card vs CPU (the classifier through
+            _run_chunked), then one stage of each on both devices split by
+            split but at close calls (ops/tree_checks.py).
+21. trees_reference  RandomForestRegressor at 33 and 64 trees,
+            DecisionTreeClassifier / -Regressor deep and at depth 4,
+            GaussianNB, card vs CPU (TREE_SEARCH_TOL says why each bound).
+
 The kernels phase also holds B4 (the tree level histogram) against its
 plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
 nodes, 24 and 48 bins, 7 classes) and at rf_full's widest level (116,202
@@ -127,10 +152,10 @@ PKG = "cs230_distributed_machine_learning_tpu_torch"
 sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
-    HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_QUERIES,
-    LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SHAPES, MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES,
-    MLP_LIMITS, MLP_SHAPES, digest, hist_inputs, logreg_inputs, masked_inputs, mlp_check,
-    mlp_inputs, step_via_gradient, time_ms)
+    HIST_FLOAT_SHAPES, HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS,
+    KNN_QUERIES, LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SHAPES, MLP_CHECK_STEPS, MLP_EPOCH_LR,
+    MLP_LANES, MLP_LIMITS, MLP_SHAPES, digest, gb_hist_inputs, hist_inputs, logreg_inputs,
+    masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
@@ -159,6 +184,18 @@ SOFTMAX_OPS = 6
 # the SFUs' exponentials a clock an SM (H100: 16), and its SMs
 SFU_PER_CLOCK = 16
 SMS = 132
+#: examples/titanic_preprocess.yaml as the dict the manager's preprocess
+#: takes (the card's machine may have no PyYAML; tests hold the two equal)
+TITANIC_PREPROCESS = {
+    "drop_null": False,
+    "impute": {"Age": "median", "Embarked": "mode"},
+    "outliers": {"Age": "iqr", "Fare": "clip"},
+    "drop_columns": ["Cabin", "Ticket", "Name", "PassengerId"],
+    "drop_duplicates": True,
+    "categorical": [{"Sex": "onehot"}, {"Embarked": "onehot"}, {"Pclass": "onehot"}],
+    "scale": {"method": "standard", "columns": ["Age", "Fare", "SibSp", "Parch"]},
+    "target_column": "Survived",
+}
 #: SM clock (Hz) of the exponential term: the card's maximum, as nvidia-smi
 #: reports it (set in phase_env), else the H100 SXM's 1.98 GHz
 SM_CLOCK_HZ = [1.98e9]
@@ -420,6 +457,26 @@ def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c) -> dict:
                 bound_terms_ms=bound_terms(nbytes, mm, SOFTMAX_OPS * exps, exps))
 
 
+def hist_library_ms(local, xb, SC, n_nodes, n_bins) -> tuple:
+    """The level histogram as one index_add_ (the PyTorch call that
+    computes the same function; the port never calls it): flat (lane, node,
+    feature, bin) cell per (row, feature) with its stats, built beforehand.
+    Returns (its median ms, the adds this run's data needs: nonzero stats
+    times features)."""
+    L, d, kk = local.shape[0], xb.shape[1], SC.shape[-1]
+    ok = (local >= 0) & (local < n_nodes)
+    lanes, rws = ok.nonzero(as_tuple=True)
+    cells = (((lanes * n_nodes + local[lanes, rws].long())[:, None] * d
+              + torch.arange(d, device=local.device)) * n_bins + xb[rws].long()).reshape(-1)
+    src = SC[lanes, rws].repeat_interleave(d, dim=0)
+    out = torch.zeros((L * n_nodes * d * n_bins, kk), device=local.device)
+    lib_ms = time_ms(lambda: out.index_add_(0, cells, src), reps=5)
+    adds = int((SC[lanes, rws] != 0).sum()) * d
+    del cells, src, out
+    torch.cuda.empty_cache()
+    return lib_ms, adds
+
+
 def hist_kernel_rows(gen, dev) -> dict:
     """B4 against its plain version: integer stats bit-exact, float stats
     within HIST_FLOAT_TOL of the max. Times: the kernel, the plain version,
@@ -444,17 +501,7 @@ def hist_kernel_rows(gen, dev) -> dict:
                                                integer_stats=True))
         plain = time_ms(lambda: H.level_histogram_reference(local, xb, SC, n_nodes, n_bins),
                         reps=3)
-        # the same function as one index_add_: flat (lane, node, feature,
-        # bin) cell per (row, feature) with its stats, built beforehand
-        ok = (local >= 0) & (local < n_nodes)
-        lanes, rws = ok.nonzero(as_tuple=True)
-        cells = (((lanes * n_nodes + local[lanes, rws].long())[:, None] * d
-                  + torch.arange(d, device=dev)) * n_bins + xb[rws].long()).reshape(-1)
-        src = SC[lanes, rws].repeat_interleave(d, dim=0)
-        out = torch.zeros((L * n_nodes * d * n_bins, kk), device=dev)
-        lib_ms = time_ms(lambda: out.index_add_(0, cells, src), reps=5)
-        adds = int((SC[lanes, rws] != 0).sum()) * d  # this run's data: nonzero stats
-        del cells, src, out
+        lib_ms, adds = hist_library_ms(local, xb, SC, n_nodes, n_bins)
         nbytes = H.hist_bytes(L, n, d, kk, n_nodes, n_bins)
         t_bytes, t_ops = nbytes / PEAK_BYTES, adds / PEAK_F32
         bound = 1e3 * max(t_bytes, t_ops)
@@ -643,10 +690,11 @@ def _forest(n_estimators: int, random_state: int = 42) -> dict:
                                       "random_state": random_state}}
 
 
-def stage_fraction(cfg, frac: float) -> tuple:
+def stage_fraction(cfg, frac: float, rows: int = 0) -> tuple:
     """Stage a covertype fraction as its own CSV dataset, drawn and written
     as benchmarks/scaling_curve.py does (RandomState(0) permutation of the
-    uncut table, encoded labels last, ``%.6g``)."""
+    uncut table, encoded labels last, ``%.6g``); ``rows`` > 0 takes that
+    many rows of the same permutation instead."""
     import numpy as np
 
     from cs230_distributed_machine_learning_tpu_torch.data.datasets import (
@@ -656,9 +704,9 @@ def stage_fraction(cfg, frac: float) -> tuple:
 
     full = DatasetCache(root=cfg.storage.datasets_dir).get("covertype", "classification")
     X_full, y_full = np.asarray(full.X), np.asarray(full.y)
-    n = max(64, int(X_full.shape[0] * frac))
+    n = rows or max(64, int(X_full.shape[0] * frac))
     idx = np.random.RandomState(0).permutation(X_full.shape[0])[:n]
-    did = f"covertype_frac_{int(frac * 100)}"
+    did = f"covertype_rows_{rows}" if rows else f"covertype_frac_{int(frac * 100)}"
     ddir = os.path.join(dataset_dir(did), "preprocessed")
     os.makedirs(ddir, exist_ok=True)
     csv = os.path.join(ddir, f"{did}_preprocessed.csv")
@@ -1278,6 +1326,368 @@ def phase_knn_reference(manager) -> None:
             assert launches == (n_trials if forced else 0), f"knn_reference: {launches}"
 
 
+# ------------------------------------------------ tree families (slice 8)
+
+#: card vs CPU bounds of the tree-family searches' mean_cv_score, by what
+#: their fits sum. Integer-stat trees are exact. GaussianNB's f32 moment
+#: products and the float-stat forests are summed in other orders, where a
+#: close split call (ops/tree_checks.py: candidates that cut a node's rows
+#: alike tie) may go either way, and a forest averages it over its trees.
+#: A single float-stat tree takes such a flip whole, and boosting fits every
+#: later stage around it: one flip moved a fold's r2 by 0.017 on the CPU
+#: (port against reference), and a boosting grid's card and CPU runs by
+#: 3.4e-3 (a 20-stage regressor at learning rate 0.3). gb_reference holds
+#: single boosting stages split by split instead.
+TREE_SEARCH_TOL = {"exact": 1e-6, "f32": 2e-3, "forest": 2e-3, "float_tree": 1e-2}
+#: BASELINE config 4 (benchmarks/measure_baseline.py) as a model_details payload
+GB_CONFIG4 = {"model_type": "GradientBoostingRegressor", "search_type": "GridSearchCV",
+              "base_estimator_params": {"random_state": 0},
+              "param_grid": {"n_estimators": [50, 100], "learning_rate": [0.05, 0.1]},
+              "cv_params": {"cv": 5}}
+#: the full-width boosting job: benchmarks/model_matrix.py's n_estimators
+GB_MAIN = {"model_type": "GradientBoostingClassifier", "search_type": "GridSearchCV",
+           "base_estimator_params": {"n_estimators": 50, "random_state": 0},
+           "param_grid": {"learning_rate": [0.05, 0.1, 0.2, 0.5]}, "cv_params": {"cv": 5}}
+
+
+def _grid_search(model_type: str, grid: dict, base: dict, cv: int = 5) -> dict:
+    return {"model_type": model_type, "search_type": "GridSearchCV",
+            "base_estimator_params": dict(base), "param_grid": grid, "cv_params": {"cv": cv}}
+
+
+def _resolved(model_type: str, params: dict, n: int, d: int, c: int) -> tuple:
+    """(kernel, the bucket's resolved static) as the trial engine resolves
+    a trial's parameters."""
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+
+    kernel = get_kernel(model_type)
+    static = kernel.resolve_static(kernel.static_from_key(kernel.canonicalize(params)[0]),
+                                   n, d, c)
+    static["_n_classes"] = c
+    return kernel, static
+
+
+def _buckets(search: dict):
+    """Every trial's parameters (base estimator's plus the grid point)."""
+    import itertools
+
+    grid = search["param_grid"]
+    for values in itertools.product(*grid.values()):
+        yield {**search["base_estimator_params"], **dict(zip(grid, values))}
+
+
+def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
+                 env=None, **extra) -> tuple:
+    """One search on the card, B4's launch count zeroed just before and read
+    just after, then on the CPU (plain versions). Every mean_cv_score within
+    ``tol`` and best_params_ equal unless the CPU's top two trials are that
+    close. Returns (the card's scores, B4 launches)."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    os.environ.update(env or {})
+    try:
+        H.reset_launches()
+        t0 = time.perf_counter()
+        gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        launches = H.LAUNCHES["level_histogram"]
+        t0 = time.perf_counter()
+        cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                timeout=900)
+        t_cpu = time.perf_counter() - t0
+    finally:
+        for k in env or {}:
+            os.environ.pop(k, None)
+    for status in (gpu, cpu):
+        assert status["job_status"] == "completed", status
+        assert not status["job_result"]["failed"], status["job_result"]["failed"][:1]
+    g, c = _scores(gpu), _scores(cpu)
+    assert g.keys() == c.keys() and len(g) == len(list(_buckets(search))), (g, c)
+    assert all(math.isfinite(v) for v in g.values()), g
+    worst = max(abs(g[k] - c[k]) for k in g)
+    same = (gpu["job_result"]["best_result"]["search_params"]
+            == cpu["job_result"]["best_result"]["search_params"])
+    top = sorted(c.values(), reverse=True)[:2]
+    close = len(top) == 2 and top[0] - top[1] <= tol
+    emit({"phase": phase, "model": search["model_type"], "dataset": dataset, "trials": len(g),
+          "card_wall_s": t_gpu, "cpu_wall_s": t_cpu, "launches": launches,
+          "max_mean_cv_diff": worst, "tolerance": tol, "best_params_equal": same,
+          "cpu_top_two_within_tolerance": close, "scores": g, "cpu_scores": c, **extra})
+    assert worst <= tol, f"{phase} {search['model_type']}: card vs CPU {worst}"
+    assert same or close, f"{phase} {search['model_type']}: best_params_ differ"
+    return g, launches
+
+
+def hist_float_rows(gen, dev) -> dict:
+    """B4's float mode at the boosting levels (HIST_FLOAT_SHAPES): within
+    HIST_FLOAT_TOL of the plain version; whether two launches on the same
+    inputs agree to the bit (recorded, not asserted: the f32 atomics land in
+    any order); the kernel's, the plain version's and one index_add_'s
+    median ms and the bound (bytes, or the adds at the f32 rate)."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    rows = {}
+    for tag, (L, n, d, n_bins, n_nodes, kk) in HIST_FLOAT_SHAPES.items():
+        local, xb, SC = gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes)
+        got = H.level_histogram(local, xb, SC, n_nodes, n_bins)
+        again = H.level_histogram(local, xb, SC, n_nodes, n_bins)
+        ref = H.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+        torch.cuda.synchronize()
+        fabs, frel = errors(got, ref)
+        stable = bool(torch.equal(got, again))
+        apart = float((got - again).abs().max())
+        del got, again, ref
+        torch.cuda.empty_cache()
+        assert frel < HIST_FLOAT_TOL, f"level_histogram {tag}: float stats {frel}"
+        ms = time_ms(lambda: H.level_histogram(local, xb, SC, n_nodes, n_bins))
+        plain = time_ms(lambda: H.level_histogram_reference(local, xb, SC, n_nodes, n_bins),
+                        reps=3)
+        lib_ms, adds = hist_library_ms(local, xb, SC, n_nodes, n_bins)
+        nbytes = H.hist_bytes(L, n, d, kk, n_nodes, n_bins)
+        t_bytes, t_ops = nbytes / PEAK_BYTES, adds / PEAK_F32
+        del local, xb, SC
+        torch.cuda.empty_cache()
+        rows[("level_histogram", tag)] = dict(
+            shape=dict(lanes=L, rows=n, features=d, bins=n_bins, nodes=n_nodes, stats=kk),
+            ctas=H.grid_ctas(n, n_nodes, d, n_bins, kk, L), float_max_abs_err=fabs,
+            float_max_rel_err=frel, float_bit_stable=stable, two_launches_max_abs_diff=apart,
+            ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+    emit({"phase": "kernels_hist", "stats": "float", "float_tolerance": HIST_FLOAT_TOL,
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
+    return rows
+
+
+def phase_gb_titanic(manager) -> int:
+    """BASELINE config 4, uncut: the titanic builtin staged raw, preprocessed
+    with examples/titanic_preprocess.yaml (as a dict), then the
+    GradientBoostingRegressor grid on the card and on the CPU. Two unchunked
+    buckets of 2 trials x 6 splits = 12 lanes: B4 launches once a tree
+    level a stage, (50 + 100) x 3 = 450."""
+    t0 = time.perf_counter()
+    assert manager.download_data("titanic", "titanic", "builtin")["status"] == "success"
+    pre = manager.preprocess("titanic", TITANIC_PREPROCESS)
+    staged = time.perf_counter() - t0
+    data = manager._coordinator.cache.get("titanic", "regression")
+    n, d = data.X.shape
+    assert pre["n_rows"] == n == 867 and d == 12, (pre, data.X.shape)
+    expected = 0
+    for params in _buckets(GB_CONFIG4):
+        if params["learning_rate"] != GB_CONFIG4["param_grid"]["learning_rate"][0]:
+            continue  # one bucket per n_estimators: learning_rate is traced
+        kernel, static = _resolved("GradientBoostingRegressor", params, n, d, 0)
+        assert kernel.chunked_plan(static, n, d, 0, 6) is None
+        expected += params["n_estimators"] * static["_depth"]
+    _, launches = _card_vs_cpu(manager, "gb_titanic", GB_CONFIG4, "titanic",
+                               TREE_SEARCH_TOL["float_tree"], staging_s=staged,
+                               rows=n, features=d, expected_launches=expected)
+    assert launches == expected == 450, f"gb_titanic: {launches} B4 launches, {expected}"
+    return launches
+
+
+def reference_gb_plan(task, n, d, c, stages, depth, n_bins, n_splits, chunk_macs=4e13):
+    """The reference's boosting chunk plan, written out from its arithmetic
+    (JAX models/trees.py:980-1005): (6 classifier | 10 regressor) x splits x
+    the per-(trial, split) MACs (stages x class trees x rows x 2^(depth-1)
+    nodes x 2 stat columns x features x bins) over 4e13 a chunk."""
+    k_eff = c if (task == "classification" and c > 2) else 1
+    macs = ((6.0 if task == "classification" else 10.0) * n_splits
+            * stages * k_eff * n * 2 ** (depth - 1) * 2 * d * n_bins)
+    n_chunks = math.ceil(macs / chunk_macs)
+    if n_chunks <= 1:
+        return None
+    per = math.ceil(stages / n_chunks)
+    return {"n_chunks": math.ceil(stages / per), "trees_per_chunk": per}
+
+
+def phase_gb_main(manager) -> int:
+    """GB_MAIN on the uncut covertype table, twice: the reference's plan (3
+    chunks of 17 stages), one bucket of 4 trials x 6 splits x 7 class trees
+    = 168 lanes a launch, B4 launched once a level a stage (50 x 3 = 150).
+    Whether the second run gives the first's per-trial scores is recorded
+    (the f32 atomics may order the adds anew)."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+
+    data = manager._coordinator.cache.get("covertype", "classification")
+    (n, d), c = data.X.shape, data.n_classes
+    base = GB_MAIN["base_estimator_params"]
+    kernel, static = _resolved("GradientBoostingClassifier", base, n, d, c)
+    plan = kernel.chunked_plan(static, n, d, c, 6)
+    ref = reference_gb_plan("classification", n, d, c, base["n_estimators"], static["_depth"],
+                            static["_n_bins"], 6)
+    assert plan == ref == {"n_chunks": 3, "trees_per_chunk": 17}, (plan, ref)
+    expected = base["n_estimators"] * static["_depth"]
+    runs = []
+    for _ in range(2):
+        H.reset_launches()
+        t0 = time.perf_counter()
+        status = manager.train(GB_MAIN, "covertype", {"random_state": 42}, timeout=900)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = H.LAUNCHES["level_histogram"]
+        assert status["job_status"] == "completed", status
+        res = status["job_result"]
+        assert not res["failed"] and len(res["results"]) == 4, res["failed"][:1]
+        scores = _scores(status)
+        assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in scores.values()), scores
+        runs.append((wall, launches, scores, res["best_result"]["search_params"]))
+    apart = max(abs(runs[0][2][k] - runs[1][2][k]) for k in runs[0][2])
+    emit({"phase": "gb_main", "dataset": "covertype", "rows": n, "features": d, "classes": c,
+          "plan": plan, "reference_plan": ref, "lanes": 4 * 6 * c,
+          "wall_s": [r[0] for r in runs], "launches": [r[1] for r in runs],
+          "expected_launches": expected, "scores": runs[0][2],
+          "second_run_scores_equal": runs[0][2] == runs[1][2],
+          "second_run_max_diff": apart, "best_params": runs[0][3],
+          "second_run_best_params_equal": runs[0][3] == runs[1][3]})
+    assert all(r[1] == expected for r in runs), f"gb_main: {[r[1] for r in runs]} launches"
+    return runs[0][1]
+
+
+def phase_gb_reference(manager, cfg) -> None:
+    """Boosting on the card and on the CPU on a 3,000-row covertype draw:
+    a classifier grid through _run_chunked (CS230_TREE_CHUNK_MACS lowered
+    to 1e11: 3 chunks of 2 stages) and a regressor grid unchunked, both
+    with subsample 0.8 among the trials; then one stage of each family on
+    both devices from the same raw scores (``gb_stage_check``)."""
+    did, n = stage_fraction(cfg, 0.0, rows=3000)
+    grid = {"learning_rate": [0.1, 0.3], "subsample": [1.0, 0.8]}
+    cases = (("GradientBoostingClassifier", "classification", 6, "1e11"),
+             ("GradientBoostingRegressor", "regression", 20, None))
+    for model_type, task, stages, chunk_macs in cases:
+        search = _grid_search(model_type, grid, {"n_estimators": stages, "random_state": 0})
+        data = manager._coordinator.cache.get(did, task)
+        (rows, d), c = data.X.shape, data.n_classes
+        env = {"CS230_TREE_CHUNK_MACS": chunk_macs} if chunk_macs else {}
+        os.environ.update(env)
+        try:
+            kernel, static = _resolved(model_type, search["base_estimator_params"], rows, d, c)
+            plan = kernel.chunked_plan(static, rows, d, c, 6)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        assert plan == ({"n_chunks": 3, "trees_per_chunk": 2} if chunk_macs else None), plan
+        _, launches = _card_vs_cpu(manager, "gb_reference", search, did,
+                                   TREE_SEARCH_TOL["float_tree"], env=env, plan=plan, rows=rows)
+        assert launches == stages * static["_depth"], f"gb_reference: {launches} launches"
+        gb_stage_check(manager, model_type, did, task, search["base_estimator_params"],
+                       {"learning_rate": [0.3, 0.3], "subsample": [0.8, 1.0]})
+
+
+def gb_stage_check(manager, model_type: str, dataset: str, task: str, params: dict,
+                   hyper: dict) -> None:
+    """One boosting stage (t = 2) on the card and on the CPU from the same
+    raw scores F (two stages on the CPU from the prior), lanes = the first
+    two CV splits with ``hyper``'s values: every split equal but at close
+    calls (ops/tree_checks.py, the CPU tree as the reference), compared leaf
+    values within 1e-5, and F' within 1e-5 where no call was close."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.ops.tree_checks import check_tree
+    from cs230_distributed_machine_learning_tpu_torch.utils import prng
+
+    data = manager._coordinator.cache.get(dataset, task)
+    (n, d), c = data.X.shape, data.n_classes
+    kernel, static = _resolved(model_type, params, n, d, c)
+    plan = build_split_plan(np.asarray(data.y), task=task, n_folds=5, random_state=42)
+    prepared = kernel.prepare_data(np.asarray(data.X), static)
+    cpu, card = torch.device("cpu"), manager.device
+    on = {}
+    for dev in (cpu, card):
+        on[dev] = dict(xb=torch.as_tensor(prepared["xb"], device=dev),
+                       y=torch.as_tensor(np.asarray(data.y), device=dev),
+                       w=torch.as_tensor(plan.train_w[1:3], device=dev),
+                       hyper={k: torch.tensor(v, device=dev) for k, v in hyper.items()})
+    a = on[cpu]
+    F = kernel.chunk_init({"xb": a["xb"]}, a["y"], a["w"], a["hyper"], static)
+    F = kernel._stages(a["xb"], a["y"], a["w"], a["hyper"], static, F, range(2))
+    key = prng.fold_in(prng.PRNGKey(static["_seed"]), 2)
+    trees = {}
+    H.reset_launches()
+    for dev in (cpu, card):
+        b = on[dev]
+        trees[dev] = kernel._stage(b["xb"], b["y"], b["w"], b["hyper"], static, F.to(dev),
+                                   key.to(dev))
+    torch.cuda.synchronize()
+    launches = H.LAUNCHES["level_histogram"]
+    sub_key, feat_key = prng.split(key).unbind(-2)
+    S, C, keys = kernel._stage_stats(a["y"], kernel._subsample(sub_key, a["w"],
+                                     a["hyper"]["subsample"]), F, static, feat_key)
+    (F_cpu, t_cpu), (F_card, t_card) = trees[cpu], trees[card]
+    close = 0
+    for lane in range(S.shape[0]):
+        close += check_tree(
+            prepared["xb"], S[lane].numpy(), C[lane].numpy(),
+            {k: v[lane].numpy() for k, v in t_cpu.items()},
+            {k: v[lane].cpu().numpy() for k, v in t_card.items()},
+            depth=static["_depth"], n_bins=static["_n_bins"], msl=static["_msl"],
+            mf=static["_mf"] if static["_mf"] < d else None,
+            key=keys[lane] if keys.dim() == 2 else keys)
+    f_diff = float((F_card.cpu() - F_cpu).abs().max())
+    emit({"phase": "gb_reference", "check": "one stage, card vs CPU", "model": model_type,
+          "trees": int(S.shape[0]), "internal_nodes": int(S.shape[0]) * (2 ** static["_depth"] - 1),
+          "close_calls": close, "F_max_abs_diff": f_diff, "launches": launches})
+    assert launches == static["_depth"], f"gb_stage_check: {launches} launches"
+    assert close or f_diff <= 1e-5, f"gb_stage_check {model_type}: F' {f_diff}"
+
+
+def stage_regression(cfg, n: int = 3000, d: int = 8) -> str:
+    """A regression table with a continuous target (2 x0 - x1^2 + sin 3 x2
+    plus noise, from RandomState(0)), staged as a preprocessed CSV."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import dataset_dir
+
+    did = f"regression_{n}x{d}"
+    ddir = os.path.join(dataset_dir(did), "preprocessed")
+    os.makedirs(ddir, exist_ok=True)
+    csv = os.path.join(ddir, f"{did}_preprocessed.csv")
+    if not os.path.exists(csv):
+        rng = np.random.RandomState(0)
+        X = rng.randn(n, d)
+        y = 2 * X[:, 0] - X[:, 1] ** 2 + np.sin(3 * X[:, 2]) + 0.3 * rng.randn(n)
+        header = ",".join([f"f{i}" for i in range(d)] + ["target"])
+        np.savetxt(csv, np.column_stack([X, y]), delimiter=",", header=header, comments="",
+                   fmt="%.6g")
+    return did
+
+
+def phase_trees_reference(manager, cfg) -> None:
+    """The other tree families and GaussianNB on the card and on the CPU:
+    RandomForestRegressor at 33 and 64 trees (past the reference's 32-tree
+    window of the forest mean), DecisionTreeClassifier and -Regressor in the
+    deep arena (max_depth None on 3,000 rows) and at max_depth 4, and
+    GaussianNB; mean_cv_score within TREE_SEARCH_TOL by what each sums, B4
+    launched once a tree level (a feature group) per tree."""
+    reg = stage_regression(cfg)
+    cls = "synthetic_3000x20x3"
+    cases = (("RandomForestRegressor", reg, "regression", {"n_estimators": [33, 64]},
+              {"max_depth": 6, "random_state": 0}, "forest"),
+             ("DecisionTreeClassifier", cls, "classification", {"max_depth": [None, 4]},
+              {"random_state": 0}, "exact"),
+             ("DecisionTreeRegressor", reg, "regression", {"max_depth": [None, 4]},
+              {"random_state": 0}, "float_tree"),
+             ("GaussianNB", cls, "classification", {"var_smoothing": [1e-9, 1e-3]}, {}, "f32"))
+    for model_type, dataset, task, grid, base, kind in cases:
+        search = _grid_search(model_type, grid, base)
+        data = manager._coordinator.cache.get(dataset, task)
+        (n, d), c = data.X.shape, data.n_classes
+        expected = 0
+        for params in _buckets(search) if model_type != "GaussianNB" else ():
+            kernel, static = _resolved(model_type, params, n, d, c)
+            groups = 2 if (static.get("_deep") and "xb_coarse" in kernel.prepare_data(
+                data.X, static)) else 1
+            per_tree = static["_levels"] if static.get("_deep") else static["_depth"]
+            expected += int(params.get("n_estimators", 1)) * per_tree * groups
+        _, launches = _card_vs_cpu(manager, "trees_reference", search, dataset,
+                                   TREE_SEARCH_TOL[kind], expected_launches=expected,
+                                   stat_kind=kind)
+        assert launches == expected, f"trees_reference {model_type}: {launches} launches"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
@@ -1315,6 +1725,20 @@ def main() -> int:
     rows.update(phase_kernels_knn(manager))
     launches["knn_topk"] = phase_knn_main(manager)
     phase_knn_reference(manager)
+    # slice 8: the other tree families; B4's float mode on a search path
+    seconds = {}
+    t_phase = time.perf_counter()
+    float_rows = hist_float_rows(torch.Generator(device=dev).manual_seed(8), dev)
+    seconds["kernels_hist_float"] = time.perf_counter() - t_phase
+    float_launches = {}
+    for name, run in (("gb_titanic", lambda: phase_gb_titanic(manager)),
+                      ("gb_main", lambda: phase_gb_main(manager)),
+                      ("gb_reference", lambda: phase_gb_reference(manager, cfg)),
+                      ("trees_reference", lambda: phase_trees_reference(manager, cfg))):
+        t_phase = time.perf_counter()
+        float_launches[name] = run()
+        seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "tree_families", "seconds": seconds, "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -1343,6 +1767,14 @@ def main() -> int:
             **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err", "bound_unit")
                if k in r},
         })
+        if name == "level_histogram":  # its float mode at the boosting levels
+            kernels[-1]["float_modes"] = {
+                tag: {k: float_rows[(name, tag)][k] for k in (
+                    "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
+                    "float_max_rel_err", "float_bit_stable")}
+                for tag in HIST_FLOAT_SHAPES}
+            kernels[-1]["float_launches"] = {k: float_launches[k]
+                                             for k in ("gb_titanic", "gb_main")}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # not measured here: each kernel's ms as PERF.md stood before the
     # current kernels, at the same shapes, for reading beside the line below

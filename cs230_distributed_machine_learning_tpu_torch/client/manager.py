@@ -1,7 +1,8 @@
 """MLTaskManager: the user-facing client API, local mode.
 
 Port of the local mode of the JAX package's ``client/manager.py``: the
-manager talks directly to an in-process Coordinator. ``train`` accepts a
+manager talks directly to an in-process Coordinator. ``download_data``,
+``check_data`` and ``preprocess`` stage a dataset; ``train`` accepts a
 live sklearn estimator, a GridSearchCV / RandomizedSearchCV wrapper, or the
 ``model_details`` payload they stand for (client/introspection.py; the
 form to use where scikit-learn is not installed), plus ``train_params``,
@@ -38,6 +39,20 @@ class MLTaskManager:
     @property
     def device(self):
         return self._coordinator.device
+
+    # ------------- data management -------------
+
+    def check_data(self, data_name: str) -> Dict[str, Any]:
+        return self._coordinator.check_data(self.session_id, data_name)
+
+    def download_data(self, data_link: str, data_name: str, data_type: str) -> Dict[str, Any]:
+        return self._coordinator.download_data(self.session_id, data_link, data_name, data_type)
+
+    def preprocess(self, dataset_id: str,
+                   config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Preprocess a staged dataset with a config dict, or with the
+        YAML under the configs directory when ``config`` is None."""
+        return self._coordinator.preprocess(self.session_id, dataset_id, config)
 
     def train(
         self,

@@ -8,9 +8,10 @@ engine moves them to the device.
 
 The builtins stage byte-identical CSVs to the JAX package's without
 scikit-learn: iris is read from the package's copy of scikit-learn's
-``iris.csv`` as ``load_iris`` reads it, and the synthetic generators call
+``iris.csv`` as ``load_iris`` reads it, the synthetic generators call
 the port's draw-for-draw copy of ``make_classification``
-(utils/sklearn_compat.py). CSVs are parsed with pandas (the JAX package's
+(utils/sklearn_compat.py), and titanic is the reference's numpy draw,
+staged raw for ``preprocess``. CSVs are parsed with pandas (the JAX package's
 native C++ loader is not ported yet); the parsed arrays go to the same
 ``<csv>.npz`` sidecar, same format and version.
 """
@@ -105,13 +106,21 @@ def load_table(path: str) -> Tuple[np.ndarray, np.ndarray, list]:
 
 def materialize_builtin(name: str, root: Optional[str] = None) -> Optional[str]:
     """Write a builtin dataset as a staged CSV (both raw and preprocessed
-    locations, since builtins are already clean). Returns the csv path, or
-    None when ``name`` is not a builtin."""
+    locations, since builtins are already clean; titanic only raw). Returns
+    the csv path, or None when ``name`` is not a builtin."""
     name_l = name.lower()
     if name_l == "iris":
         df = _iris_frame()
     elif name_l in ("covertype", "covtype"):
         df = _synthetic_covertype()
+    elif name_l == "titanic":
+        # raw only (nulls, categoricals): preprocessing is part of its flow
+        base = dataset_dir(name, root)
+        os.makedirs(base, exist_ok=True)
+        raw_path = os.path.join(base, f"{name}.csv")
+        if not os.path.exists(raw_path):
+            _synthetic_titanic().to_csv(raw_path, index=False)
+        return raw_path
     elif name_l.startswith("synthetic"):
         df = _synthetic_classification(name_l)
     else:
@@ -173,6 +182,44 @@ def _synthetic_covertype(n: int = 116_202) -> "Any":
     df = pd.DataFrame(X.astype(np.float32), columns=[f"f{i}" for i in range(54)])
     df["Cover_Type"] = y + 1
     return df
+
+
+def _synthetic_titanic(n: int = 891) -> "Any":
+    """Titanic-shaped synthetic table: the Kaggle dataset's columns, nulls
+    and categorical mix, so the download -> preprocess -> train flow runs
+    with no network."""
+    import pandas as pd
+
+    rng = np.random.RandomState(7)
+    pclass = rng.choice([1, 2, 3], n, p=[0.24, 0.21, 0.55])
+    sex = rng.choice(["male", "female"], n, p=[0.65, 0.35])
+    age = np.round(rng.normal(29.7, 14.5, n).clip(0.4, 80), 1)
+    age[rng.rand(n) < 0.2] = np.nan
+    sibsp = rng.choice([0, 1, 2, 3, 4], n, p=[0.68, 0.23, 0.05, 0.03, 0.01])
+    parch = rng.choice([0, 1, 2], n, p=[0.76, 0.13, 0.11])
+    fare = np.round(np.exp(rng.normal(2.9, 1.0, n)).clip(0, 512), 4)
+    embarked = rng.choice(["S", "C", "Q"], n, p=[0.72, 0.19, 0.09]).astype(object)
+    embarked[rng.rand(n) < 0.002] = None
+    # survival correlated with sex, class and age as in the real data
+    logit = (1.2 - 0.9 * (pclass - 1) + 2.4 * (sex == "female")
+             - 0.015 * np.nan_to_num(age, nan=29.7))
+    survived = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(int)
+    return pd.DataFrame(
+        {
+            "PassengerId": np.arange(1, n + 1),
+            "Survived": survived,
+            "Pclass": pclass,
+            "Name": [f"Passenger {i}" for i in range(n)],
+            "Sex": sex,
+            "Age": age,
+            "SibSp": sibsp,
+            "Parch": parch,
+            "Ticket": [f"T{100000+i}" for i in range(n)],
+            "Fare": fare,
+            "Cabin": [None] * n,
+            "Embarked": embarked,
+        }
+    )
 
 
 def _synthetic_classification(spec: str) -> "Any":
@@ -249,3 +296,11 @@ class DatasetCache:
         with self._lock:
             self._cache[key] = data
         return data
+
+    def invalidate(self, dataset_id: str) -> None:
+        """Forget a dataset's parsed arrays and metadata (after a download or
+        a preprocess restaged it)."""
+        with self._lock:
+            for key in [k for k in self._cache if k[0] == dataset_id]:
+                del self._cache[key]
+            self._meta.pop(dataset_id, None)

@@ -17,10 +17,7 @@ _REGISTRY: Dict[str, ModelKernel] = {}
 #: families the JAX package runs that later slices of the port bring over
 _NOT_YET_PORTED = frozenset(
     {
-        "LinearRegression", "Ridge", "SVC", "SVR", "DecisionTreeClassifier",
-        "DecisionTreeRegressor",
-        "RandomForestRegressor", "GradientBoostingClassifier",
-        "GradientBoostingRegressor", "GaussianNB", "PCA", "StandardScaler", "MinMaxScaler",
+        "LinearRegression", "Ridge", "SVC", "SVR", "PCA", "StandardScaler", "MinMaxScaler",
         "OneHotEncoder", "SimpleImputer",
     }
 )
@@ -47,9 +44,22 @@ def _ensure_populated() -> None:
     from .knn import KNNClassifierKernel, KNNRegressorKernel
     from .logistic import LogisticRegressionKernel
     from .mlp import MLPClassifierKernel, MLPRegressorKernel
-    from .trees import RandomForestClassifierKernel
+    from .naive_bayes import (
+        DecisionTreeClassifierKernel,
+        DecisionTreeRegressorKernel,
+        GaussianNBKernel,
+    )
+    from .trees import (
+        GradientBoostingClassifierKernel,
+        GradientBoostingRegressorKernel,
+        RandomForestClassifierKernel,
+        RandomForestRegressorKernel,
+    )
 
     for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel(),
-                   MLPClassifierKernel(), MLPRegressorKernel(),
-                   KNNClassifierKernel(), KNNRegressorKernel()):
+                   RandomForestRegressorKernel(), GradientBoostingClassifierKernel(),
+                   GradientBoostingRegressorKernel(), MLPClassifierKernel(),
+                   MLPRegressorKernel(), KNNClassifierKernel(), KNNRegressorKernel(),
+                   GaussianNBKernel(), DecisionTreeClassifierKernel(),
+                   DecisionTreeRegressorKernel()):
         _REGISTRY[kernel.name] = kernel

@@ -1,8 +1,8 @@
-"""Tree-ensemble kernels: RandomForestClassifier.
+"""Tree-ensemble kernels: RandomForest and GradientBoosting (classifier and
+regressor).
 
-Port of the RandomForestClassifier part of the JAX package's
-``models/trees.py``, on the histogram tree builders of ops/trees.py. The
-semantics are the reference's:
+Port of the JAX package's ``models/trees.py``, on the histogram tree
+builders of ops/trees.py. The semantics are the reference's:
 
 - structural hyperparameters (n_estimators, max_depth, max_features,
   n_bins) are static, so every combination is its own bucket;
@@ -13,8 +13,15 @@ semantics are the reference's:
   threefry draws as the reference, and every tree's key is
   ``fold_in(PRNGKey(random_state), t)``, so trees can be fitted one at a
   time, in any grouping, and still be the reference's trees;
-- forest prediction averages the trees' leaf class distributions and
-  takes the first-index argmax (sklearn's soft vote).
+- forest prediction averages the trees' leaf values and takes the
+  first-index argmax (sklearn's soft vote) or, for a regressor, the mean;
+- classification forests histogram integer stats (one-hot counts, B4's
+  int32 mode); the regressors' ``y * w`` and boosting's gradients and
+  hessians are float stats (B4's f32 mode), summed in other orders on the
+  card than on the host;
+- boosting is Newton boosting on log-loss or squared-loss gradients
+  (leaf value = sum g / sum h) with sklearn's (c-1)/c multinomial leaf
+  scale; ``learning_rate`` and ``subsample`` are traced hypers.
 
 Every function works on an explicit lane axis L = trials x splits (the
 JAX package vmaps instead): weights ``[L, n]``, stats ``[L, n, k]``.
@@ -28,7 +35,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ..ops.metrics import weighted_accuracy
+from ..ops.metrics import weighted_accuracy, weighted_mse, weighted_r2
 from ..ops.trees import (
     COARSE_BINS,
     bin_data,
@@ -303,6 +310,17 @@ class _TreeBase(ModelKernel):
         return X["xb"]
 
 
+def _chunk_plan(units: int, macs: float):
+    """The reference's cut of ``units`` trees or stages into dispatches of
+    at most ``CS230_TREE_CHUNK_MACS`` (4e13) MACs: {n_chunks,
+    trees_per_chunk}, or None when one dispatch holds them."""
+    n_chunks = int(np.ceil(macs / float(os.environ.get("CS230_TREE_CHUNK_MACS", 4e13))))
+    if n_chunks <= 1:
+        return None
+    per_chunk = int(np.ceil(units / n_chunks))
+    return {"n_chunks": int(np.ceil(units / per_chunk)), "trees_per_chunk": per_chunk}
+
+
 def _bootstrap_counts(key, w, n: int):
     """Exact bootstrap per lane: n draws with replacement from the rows
     where w > 0, by inverse-CDF search over the active-row count, capped at
@@ -369,21 +387,17 @@ class _RandomForestBase(_TreeBase):
     def chunked_plan(self, static, n, d, n_classes, n_splits, prepared=None, device=None):
         """Trees per dispatch from the MAC budget (``device`` is not read:
         the forest's plan is the same on every device)."""
-        chunk_macs = float(os.environ.get("CS230_TREE_CHUNK_MACS", 4e13))
-        trees = int(static.get("n_estimators", 100))
         macs = float(max(n_splits, 1)) * self.macs_estimate(n, d, static, prepared)
-        n_chunks = int(np.ceil(macs / chunk_macs))
-        if n_chunks <= 1:
-            return None
-        trees_per_chunk = int(np.ceil(trees / n_chunks))
-        return {"n_chunks": int(np.ceil(trees / trees_per_chunk)),
-                "trees_per_chunk": trees_per_chunk}
+        return _chunk_plan(int(static.get("n_estimators", 100)), macs)
 
     def _stat_matrix(self, y, w, static):
-        """One-hot class stats times the lane weights: ``[L, n, c]``."""
-        c = max(int(static["_n_classes"]), 2)
-        onehot = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
-        return onehot[None] * w[..., None], c
+        """Per-lane stats ``[L, n, k]``: one-hot classes times the lane
+        weights (k = classes), or ``y * w`` for a regressor (k = 1)."""
+        if self.task == "classification":
+            c = max(int(static["_n_classes"]), 2)
+            onehot = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
+            return onehot[None] * w[..., None], c
+        return (y.to(torch.float32)[None] * w)[..., None], 1
 
     def chunk_init(self, X, y, w, hyper, static):
         _, k = self._stat_matrix(y, w, static)
@@ -405,23 +419,15 @@ class _RandomForestBase(_TreeBase):
 
     def chunk_eval(self, X, y, w_eval, hyper, static, state):
         n_trees = int(static.get("n_estimators", 100))
-        return {"score": self._score(y, _vote_mean(state, n_trees), w_eval)}
+        return self._score(y, _vote_mean(state, n_trees), w_eval)
 
     def _score(self, y, mean, w_eval):
-        pred = torch.argmax(mean, dim=-1)
-        return weighted_accuracy(y.long()[None], pred, w_eval)
-
-
-def _vote_mean(total, n_trees: int):
-    """Soft-vote mean: the f32 sum times f32(1 / n_trees), the reference's
-    arithmetic (XLA rewrites the division by a constant to this product)."""
-    return total * float(np.float32(1.0) / np.float32(n_trees))
-
-
-class RandomForestClassifierKernel(_RandomForestBase):
-    name = "RandomForestClassifier"
-    task = "classification"
-    _mf_default = "sqrt"
+        """Accuracy of the soft vote's first-index argmax, or the mean
+        prediction's r2 and MSE."""
+        if self.task == "classification":
+            pred = torch.argmax(mean, dim=-1)
+            return {"score": weighted_accuracy(y.long()[None], pred, w_eval)}
+        return _regression_scores(y, mean[..., 0], w_eval)
 
     def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
         """Forests of every lane: w [L, n] fit weights."""
@@ -430,7 +436,7 @@ class RandomForestClassifierKernel(_RandomForestBase):
         return {"trees": self._fit_forest(X, S, w, static)}
 
     def _forest_leaf_mean(self, params, xq, static):
-        """Mean of the trees' leaf class distributions, summed tree by tree."""
+        """Mean of the trees' leaf values, summed tree by tree."""
         total = None
         for tree in params["trees"]:
             vals = self._tree_predict(xq, tree, static)
@@ -438,9 +444,9 @@ class RandomForestClassifierKernel(_RandomForestBase):
         return _vote_mean(total, len(params["trees"]))
 
     def evaluate(self, params, X, y, w, static: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Weighted accuracy of every lane on the rows selected by w [L, n]."""
+        """Scores of every lane on the rows selected by w [L, n]."""
         xq = self._query_bins(params, X, static)
-        return {"score": self._score(y, self._forest_leaf_mean(params, xq, static), w)}
+        return self._score(y, self._forest_leaf_mean(params, xq, static), w)
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores: every (trial, split) pair is one lane (lane =
@@ -450,3 +456,243 @@ class RandomForestClassifierKernel(_RandomForestBase):
         fitted = self.fit(X, y, TW.repeat(T, 1), {}, static)
         out = self.evaluate(fitted, X, y, EW.repeat(T, 1), static)
         return {k: v.reshape(T, S) for k, v in out.items()}
+
+
+def _vote_mean(total, n_trees: int):
+    """Soft-vote mean: the f32 sum times f32(1 / n_trees), the reference's
+    arithmetic (XLA rewrites the division by a constant to this product)."""
+    return total * float(np.float32(1.0) / np.float32(n_trees))
+
+
+def _regression_scores(y, pred, w):
+    """The reference's default regression leaves: weighted r2 as the score
+    and weighted MSE, of predictions ``[L, n]`` on the rows of w [L, n]."""
+    yf = y.to(torch.float32)[None]
+    return {"score": weighted_r2(yf, pred, w), "mse": weighted_mse(yf, pred, w)}
+
+
+class RandomForestClassifierKernel(_RandomForestBase):
+    name = "RandomForestClassifier"
+    task = "classification"
+    _mf_default = "sqrt"
+
+
+class RandomForestRegressorKernel(_RandomForestBase):
+    """Regression stats ``y * w`` are not counts: the count column is the
+    weights' own and the level histograms take B4's float mode."""
+
+    name = "RandomForestRegressor"
+    task = "regression"
+    _mf_default = 1.0
+
+
+class _GradientBoostingBase(_TreeBase):
+    """Newton boosting on the histogram trees (JAX ``models/trees.py:974``).
+
+    Stages are sequential; the state between stages, and between the
+    dispatches of ``_run_chunked``, is every lane's raw score F (``[L, n,
+    c]`` classifier, ``[L, n]`` regressor), and the scores come from F
+    directly. Stage t is keyed ``fold_in(PRNGKey(random_state), t)`` and
+    split into a subsample key and a feature key, so any grouping of
+    stages gives the reference's trees. ``learning_rate`` and
+    ``subsample`` are traced: one value per lane. Subclasses give
+    ``_prior``, ``_f0``, ``_stage_stats`` and ``_update``."""
+
+    hyper_defaults = {"learning_rate": 0.1, "subsample": 1.0}
+    static_defaults = {
+        "n_estimators": 100,
+        "max_depth": 3,
+        "min_samples_leaf": 1,
+        "min_samples_split": 2,
+        "max_features": None,
+        "random_state": 0,
+        "n_bins": 128,
+        "loss": "default",
+        "criterion": "friedman_mse",
+        "init": None,
+        "alpha": 0.9,
+        "validation_fraction": 0.1,
+        "n_iter_no_change": None,
+        "tol": 1e-4,
+        "min_weight_fraction_leaf": 0.0,
+        "max_leaf_nodes": None,
+        "min_impurity_decrease": 0.0,
+        "ccp_alpha": 0.0,
+    }
+    _mf_default = 1.0
+
+    def chunked_plan(self, static, n, d, n_classes, n_splits, prepared=None, device=None):
+        """Stages per dispatch from the MAC budget, with the reference's
+        task weights (6 classifier, 10 regressor), so the port cuts a fit
+        into the reference's chunks (``device`` and ``prepared`` are not
+        read)."""
+        weight = 6.0 if self.task == "classification" else 10.0
+        macs = weight * float(max(n_splits, 1)) * self.macs_estimate(n, d, static)
+        return _chunk_plan(int(static.get("n_estimators", 100)), macs)
+
+    def _k_eff(self, static) -> int:
+        """Trees a stage: one a class past two classes, else one."""
+        nc = max(int(static.get("_n_classes", 2)), 2)
+        return nc if (self.task == "classification" and nc > 2) else 1
+
+    def memory_estimate_mb(self, n: int, d: int, static: Dict[str, Any]) -> float:
+        """A stage's k_eff trees are lanes of one builder call: each with
+        the complete builder's working set and ~64 bytes a row of stats,
+        node ids and leaf values."""
+        return self._k_eff(static) * (super().memory_estimate_mb(n, d, static) + 64.0 * n / 1e6)
+
+    def macs_estimate(self, n, d, static, prepared=None):
+        """Per-stage (gradient, hessian) histogram trees: k_eff trees of
+        two stat columns (the reference's formula; ``prepared`` unused)."""
+        stages = int(static.get("n_estimators", 100))
+        k_eff = self._k_eff(static)
+        depth = int(static.get("_depth", 3))
+        n_bins = int(static.get("_n_bins", 128))
+        return float(stages) * k_eff * n * (2 ** max(depth - 1, 0)) * 2 * d * n_bins
+
+    def _tree(self, xb, S, C, static, key):
+        """One complete tree per lane on float stats (B4's float mode)."""
+        return build_tree(
+            xb, S, C, depth=static["_depth"], n_bins=static["_n_bins"],
+            min_samples_leaf=static["_msl"],
+            max_features=static["_mf"] if static["_mf"] < xb.shape[1] else None, key=key)
+
+    @staticmethod
+    def _subsample(sub_key, w, subsample):
+        """Rows of each lane's stage: the shared uniforms below the lane's
+        ``subsample``, times its fit weights."""
+        u = prng.uniform(sub_key, (w.shape[1],))
+        return (u[None] < subsample.to(torch.float32)[:, None]).to(torch.float32) * w
+
+    def _stage(self, xb, y, w, hyper, static, F, key):
+        """One boosting stage of every lane: (F, stage key) -> (F', trees).
+        The stage's trees are one ``build_tree`` call whose lanes are the
+        subclass's ``_stage_stats``."""
+        sub_key, feat_key = prng.split(key).unbind(-2)
+        mask = self._subsample(sub_key, w, hyper["subsample"])
+        S, C, tree_key = self._stage_stats(y, mask, F, static, feat_key)
+        tree = self._tree(xb, S, C, static, tree_key)
+        delta = predict_tree(xb, tree, static["_depth"], static["_n_bins"])[..., 0]
+        return self._update(F, delta, hyper["learning_rate"].to(torch.float32), static), tree
+
+    def _stages(self, xb, y, w, hyper, static, F, ids):
+        """F after the stages ``ids``, in order."""
+        base = prng.PRNGKey(static["_seed"], device=w.device)
+        for t in ids:
+            F, _ = self._stage(xb, y, w, hyper, static, F, prng.fold_in(base, int(t)))
+        return F
+
+    # ---- chunked-fit protocol (parallel/trial_map.py::_run_chunked) ----
+
+    def chunk_init(self, X, y, w, hyper, static):
+        return self._f0(X["xb"].shape[0], self._prior(y, w.to(torch.float32), static), static)
+
+    def chunk_step(self, X, y, w, hyper, static, chunk_idx, state, plan):
+        """Advance F by the chunk's stages (``chunk_idx * g + i``, those
+        past n_estimators skipped)."""
+        n_stages = int(static.get("n_estimators", 100))
+        g = plan["trees_per_chunk"]
+        ids = [t for t in range(chunk_idx * g, (chunk_idx + 1) * g) if t < n_stages]
+        return self._stages(X["xb"], y, w.to(torch.float32), hyper, static, state, ids)
+
+    def chunk_eval(self, X, y, w_eval, hyper, static, state):
+        """Accuracy of F's first-index argmax, or F's r2 and MSE."""
+        if self.task == "classification":
+            pred = torch.argmax(state, dim=-1)
+            return {"score": weighted_accuracy(y.long()[None], pred, w_eval)}
+        return _regression_scores(y, state, w_eval)
+
+    def batched_scores(self, X, y, TW, EW, hyper, static):
+        """``[T, S]`` scores of one unchunked fit: lane = trial * S + split,
+        every stage on every lane, then the scores of F."""
+        T, S = hyper["learning_rate"].shape[0], TW.shape[0]
+        w = TW.repeat(T, 1).to(torch.float32)
+        lanes = {k: v.repeat_interleave(S) for k, v in hyper.items()}
+        F = self.chunk_init(X, y, w, lanes, static)
+        F = self._stages(X["xb"], y, w, lanes, static, F,
+                         range(int(static.get("n_estimators", 100))))
+        out = self.chunk_eval(X, y, EW.repeat(T, 1), lanes, static, F)
+        return {k: v.reshape(T, S) for k, v in out.items()}
+
+
+class GradientBoostingClassifierKernel(_GradientBoostingBase):
+    """Log-loss boosting: the binary fit keeps ``F[:, 0] = 0`` and grows one
+    tree a stage on ``F[:, 1]``; a c-class fit grows c trees a stage, each
+    with its own feature key (``split(feat_key, c)``), leaves scaled by
+    ``(c - 1) / c``. A stage's class trees are extra lanes of one
+    ``build_tree`` call (B4 launched once a level for all of them)."""
+
+    name = "GradientBoostingClassifier"
+    task = "classification"
+
+    def _prior(self, y, w, static):
+        """Per-lane log class priors ``[L, c]``."""
+        c = max(int(static["_n_classes"]), 2)
+        Y = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
+        wsum = torch.clamp(torch.sum(w, dim=-1, keepdim=True), min=1e-12)
+        return torch.log(torch.clamp(torch.sum(Y[None] * w[..., None], dim=1) / wsum,
+                                     min=1e-12))
+
+    def _f0(self, n, prior, static):
+        if max(int(static["_n_classes"]), 2) > 2:
+            return prior[:, None, :].expand(-1, n, -1).contiguous()
+        lift = (prior[:, 1] - prior[:, 0])[:, None].expand(-1, n)
+        return torch.stack([torch.zeros_like(lift), lift], dim=-1)
+
+    def _stage_stats(self, y, mask, F, static, feat_key):
+        """A stage's tree lanes from F [L, n, c] and the subsampled weights
+        mask [L, n]: stats ``[L * kdim, n, 1]`` (gradients), count column
+        ``[L * kdim, n]`` (hessians, floored at 1e-12) and one key a lane;
+        kdim is c, or 1 for a binary fit."""
+        c = max(int(static["_n_classes"]), 2)
+        L, n = mask.shape
+        Y = torch.nn.functional.one_hot(y.long(), c).to(torch.float32)
+        mask = mask[..., None]
+        if c > 2:
+            P = torch.softmax(F, dim=-1)
+            G = (Y - P) * mask
+            H = P * (1.0 - P) * mask
+        else:
+            P = torch.sigmoid(F[..., 1:])
+            G = (Y[:, 1:] - P) * mask
+            H = (P * (1.0 - P)) * mask
+        kdim = G.shape[-1]
+        # lane l * kdim + k is lane l's class-k tree, keyed as class k's
+        keys = prng.split(feat_key, kdim).repeat(L, 1)
+        S = G.transpose(1, 2).reshape(L * kdim, n, 1)
+        C = torch.clamp(H, min=1e-12).transpose(1, 2).reshape(L * kdim, n)
+        return S, C, keys
+
+    def _update(self, F, delta, lr, static):
+        """F plus the learning rate times the class trees' leaf values
+        (delta [L * kdim, n]), scaled by (c - 1) / c past two classes."""
+        c = max(int(static["_n_classes"]), 2)
+        L, n = F.shape[:2]
+        if c > 2:
+            delta = delta.reshape(L, c, n).transpose(1, 2)
+            return F + (lr * ((c - 1) / c))[:, None, None] * delta
+        return torch.stack([F[..., 0], F[..., 1] + lr[:, None] * delta], dim=-1)
+
+
+class GradientBoostingRegressorKernel(_GradientBoostingBase):
+    """Squared-loss boosting: one tree a stage on the residuals, the
+    subsampled weights as its count column."""
+
+    name = "GradientBoostingRegressor"
+    task = "regression"
+
+    def _prior(self, y, w, static):
+        """Per-lane weighted mean of y ``[L]``."""
+        wsum = torch.clamp(torch.sum(w, dim=-1), min=1e-12)
+        return torch.sum(y.to(torch.float32)[None] * w, dim=-1) / wsum
+
+    def _f0(self, n, prior, static):
+        return prior[:, None].expand(-1, n).contiguous()
+
+    def _stage_stats(self, y, mask, F, static, feat_key):
+        """Residual stats ``[L, n, 1]``, the subsampled weights as the count
+        column, the stage's feature key shared by the lanes."""
+        return ((y.to(torch.float32)[None] - F) * mask)[..., None], mask, feat_key
+
+    def _update(self, F, delta, lr, static):
+        return F + lr[:, None] * delta

@@ -154,6 +154,38 @@ def hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, float_stats, skewed=Fals
     return local, xb, torch.nn.functional.one_hot(y, kk).float() * counts[..., None]
 
 
+#: B4's float mode at the boosting levels: (lanes, rows, features, bins,
+#: nodes, stat columns). ``gb_main_*``: GridSearchCV(GradientBoosting-
+#: Classifier(n_estimators=50), 4 learning rates, cv=5) on the uncut
+#: covertype table, 4 trials x 6 splits x 7 class trees folded into lanes,
+#: at the root and at the last level's left children (2 nodes);
+#: ``gb_titanic``: BASELINE config 4's GradientBoostingRegressor, 2 trials
+#: x 6 splits on the preprocessed titanic table, at the root
+HIST_FLOAT_SHAPES = {
+    "gb_main_root": (168, 116_202, 54, 128, 1, 2),
+    "gb_main_l2": (168, 116_202, 54, 128, 2, 2),
+    "gb_titanic": (12, 867, 12, 128, 1, 2),
+}
+
+
+def gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes):
+    """A boosting level's histogram inputs: log-loss gradients ``y - p`` and
+    hessians ``max(p (1 - p), 1e-12)`` of an 80 % subsample (the others add
+    a zero gradient and the 1e-12 floor), shared codes, and node ids: the
+    root (every row in node 0) or, past it, the left children of a level
+    of ``2 * n_nodes`` nodes (ids ``node // 2``, the right children's rows
+    with zero stats, as ``build_tree`` calls the kernel)."""
+    p = torch.rand(L, n, generator=gen, device=dev)
+    y = (torch.rand(L, n, generator=gen, device=dev) < p).float()
+    mask = (torch.rand(L, n, generator=gen, device=dev) < 0.8).float()
+    SC = torch.stack([(y - p) * mask, torch.clamp(p * (1 - p) * mask, min=1e-12)], dim=-1)
+    xb = torch.randint(0, n_bins, (n, d), generator=gen, device=dev, dtype=torch.int32)
+    if n_nodes == 1:
+        return torch.zeros((L, n), dtype=torch.int32, device=dev), xb, SC
+    node = torch.randint(0, 2 * n_nodes, (L, n), generator=gen, device=dev, dtype=torch.int32)
+    return node // 2, xb, SC * (node % 2 == 0)[..., None]
+
+
 #: levels whose nodes hold very uneven row counts
 SKEWED_LEVELS = ("uniform", "one_node_all_rows", "empty_nodes", "all_dead", "geometric")
 

@@ -135,8 +135,9 @@ def _sum_squares(x: torch.Tensor) -> torch.Tensor:
 def _split_gain(H, k: int, n_bins: int, min_samples_leaf: float):
     """Per-(node, feature, bin) gain from histograms ``[..., d, n_bins,
     k+1]`` (stats + count): ``[..., d, n_bins]`` with invalid candidates at
-    -inf. Prefix sums over bins are cumulative sums (exact for the integer
-    stats of this path)."""
+    -inf. Prefix sums over bins are cumulative sums: exact for integer
+    stats, added in bin order for float stats (the reference's triangular
+    contraction adds the same terms; its order is XLA's)."""
     Scum = torch.cumsum(H[..., :k], dim=-2)
     Ccum = torch.cumsum(torch.clamp(H[..., k], min=0.0), dim=-1)
     S_tot = Scum[..., -1:, :]
@@ -190,7 +191,9 @@ def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1
     xb [n, d] int32 codes (shared); S [L, n, k] weighted stats; C [L, n]
     weights (0 = not in this fit). Returns {"split_feat", "split_bin"
     [L, 2^depth-1], "leaf_val" [L, 2^depth, k], "leaf_weight" [L, 2^depth]}.
-    ``key`` is shared by the lanes (one tree key per forest member)."""
+    ``key`` [2] is shared by the lanes (one tree key per forest member);
+    a ``[L, 2]`` key gives each lane its own feature-subset stream (one
+    boosting stage's per-class trees folded into lanes)."""
     L, n, k = S.shape
     d = xb.shape[1]
     dev = S.device
@@ -220,9 +223,10 @@ def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1
         gain = _split_gain(H, k, n_bins, min_samples_leaf)
         if max_features is not None and max_features < d:
             key, sub = prng.split(key).unbind(-2)
-            u = prng.uniform(sub, (n_nodes, d))
-            thresh = torch.sort(u, dim=1).values[:, max_features - 1 : max_features]
-            gain = torch.where((u <= thresh)[None, :, :, None], gain, _neg_inf(gain))
+            u = prng.uniform(sub, (n_nodes, d))  # [n_nodes, d] or [L, n_nodes, d]
+            thresh = torch.sort(u, dim=-1).values[..., max_features - 1 : max_features]
+            allowed = (u <= thresh).expand(L, n_nodes, d)
+            gain = torch.where(allowed[..., None], gain, _neg_inf(gain))
         best_gain, bf, bb = _pick_best(gain, n_bins)
         do_split = best_gain > 1e-7
         bf = torch.where(do_split, bf, 0)

@@ -2,19 +2,24 @@
 
 Port of the direct mode of the JAX package's ``runtime/coordinator.py``:
 one process owns the job store and one in-process executor on the card.
-The job lifecycle mirrors the reference: create a session, expand a train
-job into per-trial subtasks, run them, aggregate by ``mean_cv_score``
-(best first, ties to the earlier trial).
+The job lifecycle mirrors the reference: create a session, stage and
+preprocess datasets, expand a train job into per-trial subtasks, run
+them, aggregate by ``mean_cv_score`` (best first, ties to the earlier
+trial).
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import threading
 import time
 import uuid
 from typing import Any, Dict, List, Optional
 
-from ..data.datasets import DatasetCache
+from ..data.datasets import DatasetCache, dataset_dir, find_csv
+from ..data.download import download_dataset
+from ..data.preprocess import preprocess_dataframe
 from ..parallel.collectives import best_trial
 from ..utils.config import FrameworkConfig, get_config
 from ..utils.logging import get_logger
@@ -49,6 +54,52 @@ class Coordinator:
 
     def create_session(self, session_id: Optional[str] = None) -> str:
         return self.store.create_session(session_id)
+
+    # ------------- data -------------
+
+    def download_data(self, sid: str, dataset_url: str, dataset_name: str,
+                      dataset_type: str) -> Dict[str, Any]:
+        """Stage a dataset (kaggle, huggingface, local or builtin)."""
+        self._require_session(sid)
+        path = download_dataset(dataset_url, dataset_name, dataset_type,
+                                root=self.config.storage.datasets_dir)
+        self.cache.invalidate(dataset_name)
+        return {"status": "success", "dataset_path": path}
+
+    def check_data(self, sid: str, dataset_name: str) -> Dict[str, Any]:
+        self._require_session(sid)
+        path = find_csv(dataset_name, root=self.config.storage.datasets_dir)
+        return {"exists": path is not None, "path": path}
+
+    def preprocess(self, sid: str, dataset_id: str,
+                   config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """Run the preprocessing pipeline on a staged raw dataset and stage
+        the result as its preprocessed CSV. ``config`` is the pipeline's
+        dict; None reads ``<configs_dir>/<dataset_id>/*.yaml`` (needs
+        PyYAML)."""
+        self._require_session(sid)
+        import pandas as pd
+
+        csv = find_csv(dataset_id, root=self.config.storage.datasets_dir)
+        if csv is None:
+            raise FileNotFoundError(f"Dataset {dataset_id!r} not staged")
+        if config is None:
+            import yaml
+
+            hits = sorted(glob.glob(
+                os.path.join(self.config.storage.configs_dir, dataset_id, "*.yaml")))
+            if not hits:
+                raise FileNotFoundError(f"No preprocess config for {dataset_id!r}")
+            with open(hits[0]) as f:
+                config = yaml.safe_load(f.read())
+        df = preprocess_dataframe(pd.read_csv(csv), config)
+        out_dir = os.path.join(dataset_dir(dataset_id, self.config.storage.datasets_dir),
+                               "preprocessed")
+        os.makedirs(out_dir, exist_ok=True)
+        out_path = os.path.join(out_dir, f"{dataset_id}_preprocessed.csv")
+        df.to_csv(out_path, index=False)
+        self.cache.invalidate(dataset_id)
+        return {"status": "success", "preprocessed_path": out_path, "n_rows": len(df)}
 
     # ------------- training -------------
 

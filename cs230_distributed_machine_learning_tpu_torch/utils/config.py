@@ -19,13 +19,18 @@ _ENV_PREFIX = "TPUML_"
 @dataclasses.dataclass
 class StorageConfig:
     """Filesystem layout: ``<root>/datasets/<id>/*.csv`` with a
-    ``preprocessed/`` subdirectory, plus the job journal."""
+    ``preprocessed/`` subdirectory, ``<root>/configs/<id>/*.yaml``
+    preprocessing configs, plus the job journal."""
 
     root: str = os.path.expanduser("~/.tpuml")
 
     @property
     def datasets_dir(self) -> str:
         return os.path.join(self.root, "datasets")
+
+    @property
+    def configs_dir(self) -> str:
+        return os.path.join(self.root, "configs")
 
     @property
     def journal_dir(self) -> str:

@@ -2,12 +2,14 @@
 
 The JAX package calls scikit-learn for the synthetic builtin datasets
 (``make_classification``), the holdout and CV splits (``train_test_split``,
-``StratifiedKFold``, ``KFold``) and the search-space expansion
-(``ParameterGrid``, ``ParameterSampler``). The port keeps its own copies so
+``StratifiedKFold``, ``KFold``), the search-space expansion
+(``ParameterGrid``, ``ParameterSampler``) and the preprocessing's label
+encoding (``LabelEncoder``). The port keeps its own copies so
 that it runs where scikit-learn is not installed. Each makes the same calls
 on the same ``numpy.random.RandomState`` in the same order as scikit-learn,
 so the arrays, folds and drawn parameters are identical
-(tests/test_torch_sklearn_compat.py holds each against scikit-learn).
+(tests/test_torch_sklearn_compat.py and, for the label encoding,
+tests/test_torch_preprocess.py hold each against scikit-learn).
 """
 
 from __future__ import annotations
@@ -103,6 +105,31 @@ def parameter_sampler(distributions, n_iter: int, random_state=None) -> List[Dic
             params[k] = v.rvs(random_state=rng) if hasattr(v, "rvs") else v[rng.randint(len(v))]
         out.append(params)
     return out
+
+
+# ---------------------------------------------------------------------------
+# preprocessing
+# ---------------------------------------------------------------------------
+
+
+def label_encode(values) -> np.ndarray:
+    """``LabelEncoder().fit_transform(values)``: each value's index among the
+    sorted distinct values (int64). In an object array (pandas 3's
+    ``astype(str)`` keeps nulls as NaN) the missing values sort last, None
+    before NaN, as scikit-learn's ``_unique_python`` orders them."""
+    values = np.asarray(values).reshape(-1)
+    if values.dtype != object:
+        return np.unique(values, return_inverse=True)[1].astype(np.int64).reshape(-1)
+
+    def is_nan(v):
+        return isinstance(v, numbers.Real) and not isinstance(v, numbers.Integral) and v != v
+
+    present = sorted({v for v in values if v is not None and not is_nan(v)})
+    index = {v: i for i, v in enumerate(present)}
+    none_code = len(present)
+    nan_code = none_code + any(v is None for v in values)
+    return np.array([none_code if v is None else nan_code if is_nan(v) else index[v]
+                     for v in values], dtype=np.int64)
 
 
 # ---------------------------------------------------------------------------

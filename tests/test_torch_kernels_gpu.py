@@ -14,7 +14,8 @@ the plain versions keep it in f32); the fused step's frozen columns must be
 exact, and every LogReg kernel gives the same bits on two launches (fixed
 sum orders, no atomics). The level histogram (B4) must be bit-exact for integer stats (int32
 accumulation) and within 1e-5 of the max for float stats (f32 atomics in
-no fixed order). The MLP epoch (B5) and its plain version round the same
+no fixed order), also at the boosting levels' shapes (168 lanes of
+gradient and hessian columns on 116,202 rows). The MLP epoch (B5) and its plain version round the same
 operands to bf16 and sum in different orders. Under SGD every state tensor
 stays within 5e-3 of its max. Adam divides by the gradient's root mean
 square, so a gradient within f32 rounding of zero can take either sign and
@@ -317,6 +318,25 @@ def test_level_histogram_matches_plain_on_card(cuda, L, n, d, n_bins, n_nodes, k
     torch.cuda.synchronize()
     assert _rel(got, want) < 1e-5
     assert th.LAUNCHES["level_histogram"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(kc.HIST_FLOAT_SHAPES))
+def test_level_histogram_float_stats_at_boosting_shapes_on_card(cuda, tag):
+    """B4's float mode at the boosting levels (gradient and hessian
+    columns, every live row at the root or the left children of a level):
+    within 1e-5 of the plain version's max, one launch a call. Two launches
+    may differ in the last bits (f32 atomics in any order)."""
+    L, n, d, n_bins, n_nodes, kk = kc.HIST_FLOAT_SHAPES[tag]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    local, xb, SC = kc.gb_hist_inputs(gen, cuda, L, n, d, n_bins, n_nodes)
+    th.reset_launches()
+    got = th.level_histogram(local, xb, SC, n_nodes, n_bins)
+    want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert got.shape == (L, n_nodes, d, n_bins, kk)
+    assert _rel(got, want) < 1e-5
+    assert th.LAUNCHES["level_histogram"] == 1
 
 
 @pytest.mark.gpu
