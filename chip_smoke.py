@@ -120,7 +120,38 @@ Then the other tree families (slice 8):
             DecisionTreeClassifier / -Regressor deep and at depth 4,
             GaussianNB, card vs CPU (TREE_SEARCH_TOL says why each bound).
 
-The kernels phase also holds B4 (the tree level histogram) against its
+Then every scorer and the last families (slice 9):
+
+22. scored_main  bench.py's search cut to 256 trials with scoring=
+            "neg_log_loss" on covertype: a scored job leaves the packed path
+            (as in the reference), so one generic nesterov dispatch of 256 x
+            6 lanes launches B3 200 times and B1 / B2 never; then the same
+            job under CS230_MASKED_GRAD=xla: every mean_cv_score within
+            SCORED_MAIN_TOL, best_params_ equal unless the top two are that
+            close.
+23. scoring_reference  a scored GridSearchCV of every family (label,
+            margin and probability scorers where the family has them; the
+            transformers unscored) on the card and on the CPU, each within
+            SCORED_TOL; the card's run launches exactly its family's kernel
+            (LogReg on the 784-feature table: B3; trees and boosting: B4;
+            KNN under CS230_FORCE_PACKED=1: B6) and none where the family
+            has none, so never B1, B2 or B5 under a scorer; then the
+            refusals (a binary-only scorer on 7 classes, a probability
+            scorer on KNN and on SVC) failing their subtasks with the reason.
+24. svc_matrix  SVC(), cv 5, on the 10 % covertype fraction (11,620 rows,
+            benchmarks/model_matrix.py's row): the exact dual, 21 OvO
+            machines x 6 lanes in one ascent; wall, the slowest lane's stop
+            step, mean_cv_score beside the reference's recorded one; then
+            SVC card vs CPU on 3,000 rows.
+25. svc_nystrom  SVC() on the uncut covertype table (benchmarks/
+            svc_quality.py's point): the Nyström primal, 4,096 landmarks,
+            1,200 steps; wall and mean_cv_score; then the Nyström path
+            card vs CPU on 32,768 rows at 4,096 landmarks (NYSTROM_CUT).
+
+The kernels phase also holds B3 at scored_main's shape (1,536 lanes,
+n_pad 116,224, dpp 128 of which the 55 real columns are nonzero, cp 16,
+c 7; its R^T scratch past 2^31 elements) against its plain version run
+256 lanes at a time, and B4 (the tree level histogram) against its
 plain version at the deep levels of rf_main (6 lanes, 11,620 rows, 128
 nodes, 24 and 48 bins, 7 classes) and at rf_full's widest level (116,202
 rows, 1536 nodes, 16 bins), once with uniform and once with geometric
@@ -153,7 +184,9 @@ sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     HIST_FLOAT_SHAPES, HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS,
-    KNN_QUERIES, LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SHAPES, MLP_CHECK_STEPS, MLP_EPOCH_LR,
+    KNN_QUERIES, LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
+    MASKED_SHAPES,
+    MLP_CHECK_STEPS, MLP_EPOCH_LR,
     MLP_LANES, MLP_LIMITS, MLP_SHAPES, digest, gb_hist_inputs, hist_inputs, logreg_inputs,
     masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
@@ -398,6 +431,11 @@ def phase_kernels(dev) -> dict:
                                                                 *MASKED_SHAPES[tag])
     rows[("masked_softmax_grad", "dpp1152")] = masked_kernel_row(
         K, gen, dev, "dpp1152", 16, 4096, 1152, 16, 10)
+    # scored_main's shape: 1,536 lanes at dpp 128, R^T past 2^31 elements;
+    # the plain version runs 256 lanes at a time (all at once it would hold
+    # ~60 GB of [lanes, rows, 16] temporaries)
+    rows[("masked_softmax_grad", "scored_main")] = masked_kernel_row(
+        K, gen, dev, "scored_main", *MASKED_SCORED_SHAPE, dp=MASKED_SCORED_DP, plain_lanes=256)
     emit({"phase": "kernels", "tolerance": TOL, "sm_clock_hz": SM_CLOCK_HZ[0],
           "rows": [{"kernel": k, "tag": n, **v} for (k, n), v in rows.items()]})
     rows.update(hist_kernel_rows(gen, dev))
@@ -420,19 +458,33 @@ def device_ms_by_kernel(fn, calls: int = 3) -> dict:
             if e.self_device_time_total > 0}
 
 
-def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c) -> dict:
+def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c, dp=None,
+                      plain_lanes=0) -> dict:
     """B3 against its plain version at one shape: within TOL, two launches
-    equal to the bit, padded classes exactly 0; the kernel's and the plain
-    version's median ms, the device ms of each of the call's kernels, and
-    the bound (its products and exponentials over the c real classes: the
-    padded ones are the kernel's layout, not the function's work)."""
-    Ab, Wl, y2, wm = masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c)
+    equal to the bit, padded classes (and padded columns) exactly 0; the
+    kernel's and the plain version's median ms, the device ms of each of
+    the call's kernels, and the bound: the rows, weights and gradient over
+    the dp real columns and c real classes, the products and exponentials
+    over them (the padding is the kernel's layout, not the function's
+    work). ``dp`` < dpp zeroes the columns from dp on, as the nesterov
+    path pads them; ``plain_lanes`` > 0 runs the plain version that many
+    lanes at a time (lanes are independent; its time is the blocks' sum)."""
+    dp = dp or dpp
+    Ab, Wl, y2, wm = masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c, dp=dp)
     got = K.masked_softmax_grad(Ab, Wl, y2, wm, c=c)
     again = K.masked_softmax_grad(Ab, Wl, y2, wm, c=c)
-    ref = K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c)
+    step = plain_lanes or lanes
+
+    def plain():
+        return torch.cat([K.masked_softmax_grad_reference(
+            Ab, Wl[i:i + step], y2, wm[:, i:i + step].contiguous(), c=c)
+            for i in range(0, lanes, step)])
+
+    ref = plain()
     abs3, err3 = errors(got, ref)
     repeat = bool(torch.equal(got, again))
-    padded_zero = float(got[:, :, c:].abs().max()) == 0.0
+    padded_zero = (float(got[:, :, c:].abs().max()) == 0.0
+                   and (dp == dpp or float(got[:, dp:].abs().max()) == 0.0))
     out_digest = digest(got)  # kernel_ab.py prints the same for its inputs
     del again, ref
     torch.cuda.empty_cache()
@@ -440,18 +492,19 @@ def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c) -> dict:
     assert repeat, f"masked_softmax_grad {tag}: two launches differ"
     assert padded_zero, f"masked_softmax_grad {tag}: padded classes not zero"
     ms = time_ms(lambda: K.masked_softmax_grad(Ab, Wl, y2, wm, c=c))
-    plain = time_ms(lambda: K.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c), reps=3)
+    plain_ms = time_ms(plain, reps=3)
     by_kernel = device_ms_by_kernel(lambda: K.masked_softmax_grad(Ab, Wl, y2, wm, c=c))
-    nbytes = Ab.numel() * 2 + Wl.numel() * 2 + y2.numel() * 4 + wm.numel() * 4 + got.numel() * 4
+    nbytes = n_pad * dp * 2 + lanes * dp * c * (2 + 4) + y2.numel() * 4 + wm.numel() * 4
     exps = float(n_pad) * c * lanes
-    mm = 4.0 * n_pad * dpp * c * lanes
+    mm = 4.0 * n_pad * dp * c * lanes
     bound, by, unit = bound_ms(nbytes, mm, SOFTMAX_OPS * exps, exps)
     del Ab, Wl, y2, wm, got
     torch.cuda.empty_cache()
-    return dict(shape=dict(lanes=lanes, n_pad=n_pad, dpp=dpp, cp=cp, c=c),
+    return dict(shape=dict(lanes=lanes, n_pad=n_pad, dpp=dpp, dp=dp, cp=cp, c=c),
                 plan=K.masked_plan(n_pad, dpp, cp, lanes), max_abs_err=abs3,
                 max_rel_err=err3, repeat_bit_equal=repeat, padded_zero=padded_zero,
-                digest=out_digest, ms=ms, plain_ms=plain, device_ms_by_kernel=by_kernel,
+                digest=out_digest, ms=ms, plain_ms=plain_ms, plain_lanes=step,
+                device_ms_by_kernel=by_kernel,
                 library_ms=None, bound_ms=bound,
                 bound_by=by, bound_unit=unit,
                 bound_terms_ms=bound_terms(nbytes, mm, SOFTMAX_OPS * exps, exps))
@@ -1378,21 +1431,21 @@ def _buckets(search: dict):
 
 def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
                  env=None, **extra) -> tuple:
-    """One search on the card, B4's launch count zeroed just before and read
+    """One search on the card, every launch count zeroed just before and read
     just after, then on the CPU (plain versions). Every mean_cv_score within
     ``tol`` and best_params_ equal unless the CPU's top two trials are that
-    close. Returns (the card's scores, B4 launches)."""
+    close. Returns (the card's scores, every kernel's launches in the card's
+    run)."""
     from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
-    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     os.environ.update(env or {})
     try:
-        H.reset_launches()
+        reset_all_launches()
         t0 = time.perf_counter()
         gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
-        launches = H.LAUNCHES["level_histogram"]
+        kernel_launches = all_launches()
         t0 = time.perf_counter()
         cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
                                                 timeout=900)
@@ -1412,12 +1465,13 @@ def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
     top = sorted(c.values(), reverse=True)[:2]
     close = len(top) == 2 and top[0] - top[1] <= tol
     emit({"phase": phase, "model": search["model_type"], "dataset": dataset, "trials": len(g),
-          "card_wall_s": t_gpu, "cpu_wall_s": t_cpu, "launches": launches,
+          "card_wall_s": t_gpu, "cpu_wall_s": t_cpu,
+          "launches": kernel_launches["level_histogram"], "kernel_launches": kernel_launches,
           "max_mean_cv_diff": worst, "tolerance": tol, "best_params_equal": same,
           "cpu_top_two_within_tolerance": close, "scores": g, "cpu_scores": c, **extra})
     assert worst <= tol, f"{phase} {search['model_type']}: card vs CPU {worst}"
     assert same or close, f"{phase} {search['model_type']}: best_params_ differ"
-    return g, launches
+    return g, kernel_launches
 
 
 def hist_float_rows(gen, dev) -> dict:
@@ -1480,9 +1534,10 @@ def phase_gb_titanic(manager) -> int:
         kernel, static = _resolved("GradientBoostingRegressor", params, n, d, 0)
         assert kernel.chunked_plan(static, n, d, 0, 6) is None
         expected += params["n_estimators"] * static["_depth"]
-    _, launches = _card_vs_cpu(manager, "gb_titanic", GB_CONFIG4, "titanic",
-                               TREE_SEARCH_TOL["float_tree"], staging_s=staged,
-                               rows=n, features=d, expected_launches=expected)
+    _, used = _card_vs_cpu(manager, "gb_titanic", GB_CONFIG4, "titanic",
+                           TREE_SEARCH_TOL["float_tree"], staging_s=staged,
+                           rows=n, features=d, expected_launches=expected)
+    launches = used["level_histogram"]
     assert launches == expected == 450, f"gb_titanic: {launches} B4 launches, {expected}"
     return launches
 
@@ -1568,8 +1623,9 @@ def phase_gb_reference(manager, cfg) -> None:
             for k in env:
                 os.environ.pop(k, None)
         assert plan == ({"n_chunks": 3, "trees_per_chunk": 2} if chunk_macs else None), plan
-        _, launches = _card_vs_cpu(manager, "gb_reference", search, did,
-                                   TREE_SEARCH_TOL["float_tree"], env=env, plan=plan, rows=rows)
+        _, used = _card_vs_cpu(manager, "gb_reference", search, did,
+                               TREE_SEARCH_TOL["float_tree"], env=env, plan=plan, rows=rows)
+        launches = used["level_histogram"]
         assert launches == stages * static["_depth"], f"gb_reference: {launches} launches"
         gb_stage_check(manager, model_type, did, task, search["base_estimator_params"],
                        {"learning_rate": [0.3, 0.3], "subsample": [0.8, 1.0]})
@@ -1682,10 +1738,301 @@ def phase_trees_reference(manager, cfg) -> None:
                 data.X, static)) else 1
             per_tree = static["_levels"] if static.get("_deep") else static["_depth"]
             expected += int(params.get("n_estimators", 1)) * per_tree * groups
-        _, launches = _card_vs_cpu(manager, "trees_reference", search, dataset,
-                                   TREE_SEARCH_TOL[kind], expected_launches=expected,
-                                   stat_kind=kind)
+        _, used = _card_vs_cpu(manager, "trees_reference", search, dataset,
+                               TREE_SEARCH_TOL[kind], expected_launches=expected,
+                               stat_kind=kind)
+        launches = used["level_histogram"]
         assert launches == expected, f"trees_reference {model_type}: {launches} launches"
+
+
+# ------------------------------------------------- slice 9: scorers and SVMs
+
+#: scored_main: bench.py's search with a probability scorer, cut to 256
+#: trials so that its 256 x 6 lanes are one generic dispatch
+SCORED_MAIN_TRIALS = 256
+SCORED_MAIN_STEPS = 200
+SCORED_MAIN_SCORER = "neg_log_loss"
+#: kernel vs xla on scored_main: the bf16 residual bound of wide_full
+SCORED_MAIN_TOL = 2e-3
+#: card vs CPU limits of the scored searches (PERF.md section 2)
+SCORED_TOL = {"LogisticRegression": 2e-3, "RandomForestClassifier": 1e-6,
+              "DecisionTreeClassifier": 1e-6, "GaussianNB": 2e-3,
+              "GradientBoostingClassifier": 1e-2, "MLPClassifier": MLP_SEARCH_TOL,
+              "KNeighborsClassifier": 2e-3, "KNeighborsRegressor": 1e-4,
+              "LinearRegression": 1e-4, "Ridge": 1e-4, "SVC": 2e-3, "SVR": 5e-3,
+              "transform": 1e-5}
+#: the kernels a scored job must never launch: the packed and fused paths
+#: score by the default metric only (B1, B2, B5)
+DEFAULT_ONLY_KERNELS = ("packed_softmax_grad", "packed_nesterov_step", "mlp_epoch")
+
+
+def _kernel_modules():
+    from cs230_distributed_machine_learning_tpu_torch.ops import (
+        cuda_hist,
+        cuda_knn,
+        cuda_logreg,
+        cuda_mlp,
+    )
+
+    return cuda_logreg, cuda_hist, cuda_mlp, cuda_knn
+
+
+def reset_all_launches() -> None:
+    for mod in _kernel_modules():
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def _scored(search: dict, scoring) -> dict:
+    return {**search, "cv_params": {**search.get("cv_params", {}), "scoring": scoring}}
+
+
+def phase_scored_main(manager) -> int:
+    """RandomizedSearchCV(LogisticRegression(max_iter=200), C ~
+    loguniform(1e-3, 1e2), tol in {1e-4, 1e-3}, n_iter=256, cv=5,
+    random_state=0, scoring="neg_log_loss") on covertype. A scored job
+    leaves the packed path (as in the reference), so it runs the generic
+    nesterov driver: one dispatch of 256 x 6 lanes, B3 launched once a
+    solver step (200) at 1,536 lanes, and B1 / B2 never. Then the same job
+    under CS230_MASKED_GRAD=xla (torch ops on the card): every
+    mean_cv_score within SCORED_MAIN_TOL, best_params_ equal unless the
+    top two are that close."""
+    torch.cuda.empty_cache()
+    search = _scored(_search(SCORED_MAIN_TRIALS, SCORED_MAIN_STEPS, 5), SCORED_MAIN_SCORER)
+    runs = {}
+    for mode in ("auto", "xla"):
+        os.environ["CS230_MASKED_GRAD"] = mode
+        try:
+            reset_all_launches()
+            t0 = time.perf_counter()
+            status = manager.train(search, "covertype", {"random_state": 42}, timeout=1200)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = all_launches()
+        finally:
+            os.environ.pop("CS230_MASKED_GRAD", None)
+        assert status["job_status"] == "completed", status
+        res = status["job_result"]
+        assert not res["failed"], res["failed"][:1]
+        assert len(res["results"]) == SCORED_MAIN_TRIALS, len(res["results"])
+        assert all(r["scoring"] == SCORED_MAIN_SCORER for r in res["results"])
+        scores = [r["mean_cv_score"] for r in res["results"]]
+        assert all(math.isfinite(v) and v <= 0.0 for v in scores), scores[:5]
+        runs[mode] = (status, wall, launches)
+        torch.cuda.empty_cache()
+    a, b = _scores(runs["auto"][0]), _scores(runs["xla"][0])
+    assert a.keys() == b.keys()
+    worst = max(abs(a[k] - b[k]) for k in a)
+    best = {m: runs[m][0]["job_result"]["best_result"] for m in runs}
+    same = best["auto"]["search_params"] == best["xla"]["search_params"]
+    top = sorted(b.values(), reverse=True)[:2]
+    close = top[0] - top[1] <= SCORED_MAIN_TOL
+    emit({"phase": "scored_main", "scoring": SCORED_MAIN_SCORER, "trials": len(a),
+          "wall_s": runs["auto"][1], "launches": runs["auto"][2],
+          "xla_wall_s": runs["xla"][1], "xla_launches": runs["xla"][2],
+          "max_mean_cv_diff": worst, "tolerance": SCORED_MAIN_TOL, "best_params_equal": same,
+          "best_params": best["auto"]["search_params"],
+          "best_mean_cv_score": best["auto"]["mean_cv_score"],
+          "xla_top_two_within_tolerance": close,
+          **({} if same else {"xla_best_params": best["xla"]["search_params"],
+                               "xla_top_two": top})})
+    auto = runs["auto"][2]
+    assert auto["masked_softmax_grad"] == SCORED_MAIN_STEPS, auto
+    assert all(auto[k] == 0 for k in DEFAULT_ONLY_KERNELS), auto
+    assert runs["xla"][2]["masked_softmax_grad"] == 0, runs["xla"][2]
+    assert worst <= SCORED_MAIN_TOL, f"scored_main: kernel vs xla mean_cv_score differ by {worst}"
+    assert same or close, "scored_main: best_params_ differ"
+    return auto["masked_softmax_grad"]
+
+
+#: the wide table: LogisticRegression takes the nesterov driver there (at
+#: 54 features it takes Newton), so a scored search on it reaches B3
+SCORED_WIDE = "synthetic_4096x784x10"
+#: B6's gate is 150,000 training rows; the scored KNN searches force it,
+#: as knn_reference does (the CPU then runs the kernel's plain version)
+FORCE_B6 = {"CS230_FORCE_PACKED": "1"}
+B4 = "level_histogram"
+
+
+def _scoring_cases(cls, binary, reg):
+    """(model, dataset, grid, base, scorers, the kernel the card's run must
+    launch (None: none), env) of scoring_reference: a label, a margin and a
+    probability scorer for each family with that output; KNN has labels
+    only, SVC no probabilities, the regressors the regression scorers; the
+    transformers take no scorer."""
+    lr = {"C": [0.1, 1.0]}
+    rf = ({"min_samples_leaf": [1, 5]}, {"n_estimators": 10, "max_depth": 6, "random_state": 0})
+    dt = ({"max_depth": [4, 8]}, {"random_state": 0})
+    nb = {"var_smoothing": [1e-9, 1e-3]}
+    gb = ({"learning_rate": [0.1, 0.3]}, {"n_estimators": 10, "random_state": 0})
+    mlp = ({"alpha": [1e-4, 1e-2]},
+           {"hidden_layer_sizes": [32], "max_iter": 10, "random_state": 0})
+    knn = {"n_neighbors": [5, 15]}
+    return [
+        ("LogisticRegression", cls, lr, {"max_iter": 50}, ("f1_macro", "neg_log_loss"), None, {}),
+        ("LogisticRegression", binary, lr, {"max_iter": 50}, ("roc_auc",), None, {}),
+        ("LogisticRegression", SCORED_WIDE, lr, {"max_iter": 30}, ("roc_auc_ovr",),
+         "masked_softmax_grad", {}),
+        ("RandomForestClassifier", "iris", *rf, ("roc_auc_ovr",), B4, {}),
+        ("RandomForestClassifier", binary, *rf, ("balanced_accuracy", "average_precision"),
+         B4, {}),
+        ("DecisionTreeClassifier", cls, *dt, ("precision_weighted", "roc_auc_ovo"), B4, {}),
+        ("DecisionTreeClassifier", binary, *dt, ("roc_auc",), B4, {}),
+        ("GaussianNB", cls, nb, {}, ("recall_macro", "neg_log_loss"), None, {}),
+        ("GaussianNB", binary, nb, {}, ("roc_auc",), None, {}),
+        ("GradientBoostingClassifier", "iris", *gb, ("roc_auc_ovr",), B4, {}),
+        ("GradientBoostingClassifier", binary, *gb, ("f1_micro", "average_precision"), B4, {}),
+        ("MLPClassifier", cls, *mlp, ("precision_macro", "neg_log_loss"), None, {}),
+        ("MLPClassifier", binary, *mlp, ("roc_auc",), None, {}),
+        ("KNeighborsClassifier", cls, knn, {}, ("f1_weighted",), "knn_topk", FORCE_B6),
+        ("KNeighborsRegressor", reg, knn, {}, ("neg_mean_absolute_error",), "knn_topk",
+         FORCE_B6),
+        ("LinearRegression", reg, {"fit_intercept": [True, False]}, {},
+         ("neg_mean_squared_error",), None, {}),
+        ("Ridge", reg, {"alpha": [0.1, 10.0]}, {}, ("explained_variance",), None, {}),
+        ("SVC", "iris", {"C": [0.5, 2.0]}, {}, ("balanced_accuracy",), None, {}),
+        ("SVC", binary, {"C": [0.5, 2.0]}, {}, ("roc_auc",), None, {}),
+        ("SVR", reg, {"epsilon": [0.05, 0.2]}, {}, ("neg_root_mean_squared_error",), None, {}),
+        ("PCA", cls, {"n_components": [2, 5]}, {}, (None,), None, {}),
+        ("StandardScaler", cls, {"with_mean": [True, False]}, {}, (None,), None, {}),
+        ("MinMaxScaler", cls, {"clip": [True, False]}, {}, (None,), None, {}),
+        ("SimpleImputer", cls, {"strategy": ["mean", "median"]}, {}, (None,), None, {}),
+        ("OneHotEncoder", "iris", {"max_categories": [4, 8]}, {}, (None,), None, {}),
+    ]
+
+
+def phase_scoring_reference(manager, cfg) -> None:
+    """Small scored searches of every family on the card and on the CPU:
+    a 5,000-row covertype-like table (54 features, 7 classes), a 2-class
+    table for the binary margin scorers, iris (the forests' multiclass
+    probability scorers: their CPU sides are slow at 5,000 rows), the
+    wide table (B3) and the regression table; each within SCORED_TOL. The
+    card's run of each launches exactly its family's kernel where the
+    family has one and its gate is met (B3, B4, B6), and no other: never
+    B1, B2 or B5, the default-scorer paths. Then the refusals, each
+    failing its subtasks with the reason: a binary-only scorer on a
+    multiclass target, a probability scorer on KNN and on SVC."""
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+
+    cls, binary, reg = "synthetic_5000x54x7", "synthetic_2000x20x2", stage_regression(cfg)
+    searches = 0
+    for model, dataset, grid, base, scorers, kernel, env in _scoring_cases(cls, binary, reg):
+        task = get_kernel(model).task
+        tol = SCORED_TOL["transform" if task == "transform" else model]
+        for scoring in scorers:
+            search = _grid_search(model, grid, base)
+            if scoring is not None:
+                search = _scored(search, scoring)
+            _, used = _card_vs_cpu(manager, "scoring_reference", search, dataset, tol, env=env,
+                                   scoring=scoring, expected_kernel=kernel)
+            launched = {k for k, v in used.items() if v}
+            assert launched == ({kernel} if kernel else set()), (model, scoring, used)
+            searches += 1
+    refusals = (("LogisticRegression", cls, "f1", "binary-only"),
+                ("KNeighborsClassifier", cls, "neg_log_loss", "class probabilities"),
+                ("SVC", "iris", "roc_auc_ovr", "class probabilities"))
+    for model, dataset, scoring, reason in refusals:
+        grid = {"n_neighbors": [5]} if model == "KNeighborsClassifier" else {"C": [1.0]}
+        status = manager.train(_scored(_grid_search(model, grid, {}), scoring), dataset,
+                               {"random_state": 42}, timeout=300)
+        res = status["job_result"]
+        assert status["job_status"] == "completed" and not res["results"], res
+        assert res["failed"] and reason in res["failed"][0]["error"], res["failed"][:1]
+    emit({"phase": "scoring_reference", "searches": searches,
+          "refused": [f"{m} {s}" for m, _, s, _ in refusals]})
+
+
+def reference_cv(model: str):
+    """The JAX package's recorded mean CV of ``model`` on the 10 % covertype
+    fraction (benchmarks/MODEL_MATRIX_MEASURED.json, ``cv_ours``), or None
+    without the file: a score to read beside the port's, never a time."""
+    path = os.path.join(ROOT, "benchmarks", "MODEL_MATRIX_MEASURED.json")
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        rows = json.load(f)
+    return next((r["cv_ours"] for r in rows if r.get("model") == model), None)
+
+
+def phase_svc_matrix(manager, cfg) -> None:
+    """SVC(), cv 5, on the 10 % covertype fraction (11,620 rows, rf_main
+    staged it; benchmarks/model_matrix.py's draw): the exact dual, 21 OvO
+    machines x 6 lanes in one ascent. Wall, the step at which the slowest
+    lane stopped and mean_cv_score beside the reference's recorded one;
+    then SVC card vs CPU on 3,000 rows of the same permutation, also on the
+    exact path."""
+    from cs230_distributed_machine_learning_tpu_torch.models import svm
+
+    torch.cuda.empty_cache()
+    did, n = stage_fraction(cfg, 0.1)
+    payload = {"model_type": "SVC", "search_type": None, "base_estimator_params": {}}
+    svm.reset_dual_stops()
+    t0 = time.perf_counter()
+    status = manager.train(payload, did, {"random_state": 42}, timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = status["job_result"]
+    assert status["job_status"] == "completed" and not res["failed"], res.get("failed", [])[:1]
+    best = res["best_result"]
+    assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in best["cv_scores"]), best
+    stops = dict(svm.DUAL_STOPS)
+    emit({"phase": "svc_matrix", "dataset": did, "rows": n, "wall_s": wall,
+          "dual_ascents": stops["ascents"], "slowest_lane_stop": stops["slowest_stop"],
+          "step_cap": svm._pg_steps(), "mean_cv_score": best["mean_cv_score"],
+          "reference_mean_cv_score": reference_cv("SVC"),
+          "cv_scores": best["cv_scores"], "accuracy": best["accuracy"]})
+    assert stops["ascents"] == 1  # one ascent: every machine of the 6 lanes
+    cut, rows = stage_fraction(cfg, 0.0, rows=3000)
+    _card_vs_cpu(manager, "svc_matrix", _grid_search("SVC", {"C": [1.0]}, {}), cut,
+                 SCORED_TOL["SVC"], rows=rows)
+
+
+#: svc_nystrom's card-vs-CPU cut: rows of the covertype permutation past
+#: _MAX_N (so the Nyström path runs), the uncut fit's 4,096 landmarks (the
+#: default at these rows would be 2,048), cv 2, and 100 of its 1,200 steps:
+#: the CPU side's primal products grow with all three (at 300 steps the
+#: CPU side took 78 s on the 8 host cores of an H100 machine)
+NYSTROM_CUT = {"rows": 32_768, "cv": 2,
+               "env": {"CS230_SVM_NYSTROM_M": "4096", "CS230_SVM_NYSTROM_STEPS": "100"}}
+
+
+def phase_svc_nystrom(manager, cfg) -> None:
+    """SVC() on the uncut covertype table as benchmarks/svc_quality.py runs
+    it: past _MAX_N, the Nyström primal with 4,096 landmarks and 1,200
+    Nesterov steps, one trial x 6 lanes. Then the same path card vs CPU
+    (eigh of K_LL, K_LL^-1/2, the primal steps) at NYSTROM_CUT, within
+    SCORED_TOL["SVC"]."""
+    from cs230_distributed_machine_learning_tpu_torch.models import svm
+
+    torch.cuda.empty_cache()
+    payload = {"model_type": "SVC", "search_type": None, "base_estimator_params": {}}
+    t0 = time.perf_counter()
+    status = manager.train(payload, "covertype", {"random_state": 42}, timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res = status["job_result"]
+    assert status["job_status"] == "completed" and not res["failed"], res.get("failed", [])[:1]
+    best = res["best_result"]
+    assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in best["cv_scores"]), best
+    emit({"phase": "svc_nystrom", "rows": 116_202, "landmarks": svm._nystrom_m(116_202),
+          "steps": svm._nystrom_steps(), "wall_s": wall, "mean_cv_score": best["mean_cv_score"],
+          "cv_scores": best["cv_scores"], "accuracy": best["accuracy"],
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    torch.cuda.empty_cache()
+    cut, rows = stage_fraction(cfg, 0.0, rows=NYSTROM_CUT["rows"])
+    assert rows > svm._MAX_N
+    _card_vs_cpu(manager, "svc_nystrom", _grid_search("SVC", {"C": [1.0]}, {},
+                                                       cv=NYSTROM_CUT["cv"]),
+                 cut, SCORED_TOL["SVC"], env=NYSTROM_CUT["env"], rows=rows,
+                 landmarks=int(NYSTROM_CUT["env"]["CS230_SVM_NYSTROM_M"]),
+                 steps=int(NYSTROM_CUT["env"]["CS230_SVM_NYSTROM_STEPS"]))
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1739,6 +2086,18 @@ def main() -> int:
         float_launches[name] = run()
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "tree_families", "seconds": seconds, "total_s": sum(seconds.values())})
+    # slice 9: every scorer, and the linear, SVM and transform families
+    seconds = {}
+    scored = {}
+    for name, run in (("scored_main", lambda: phase_scored_main(manager)),
+                      ("scoring_reference", lambda: phase_scoring_reference(manager, cfg)),
+                      ("svc_matrix", lambda: phase_svc_matrix(manager, cfg)),
+                      ("svc_nystrom", lambda: phase_svc_nystrom(manager, cfg))):
+        t_phase = time.perf_counter()
+        scored[name] = run()
+        seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "scorers_and_families", "seconds": seconds,
+          "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -1767,6 +2126,13 @@ def main() -> int:
             **{k: r[k] for k in ("float_max_abs_err", "float_max_rel_err", "bound_unit")
                if k in r},
         })
+        if name == "masked_softmax_grad":  # B3 at scored_main's 1,536 lanes
+            r = rows[(name, "scored_main")]
+            kernels[-1]["other_paths"] = {"scored_main": {
+                "launches": scored["scored_main"], "shape": "n_pad 116224, dpp 128, cp 16, c 7, "
+                "1536 lanes (256 trials x 6 splits)",
+                **{k: r[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "bound_unit", "library_ms")}}}
         if name == "level_histogram":  # its float mode at the boosting levels
             kernels[-1]["float_modes"] = {
                 tag: {k: float_rows[(name, tag)][k] for k in (

@@ -111,10 +111,66 @@ class ModelKernel(abc.ABC):
         hyper: name -> [T] f32. Returns {"score": [T, S]} plus optional
         ``curve_*`` leaves, all on X's device."""
 
+    def evaluate(self, params, X, y, w, static: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Scores of lane-batched ``params`` on the rows of ``w [L, n]`` by
+        the job's scorer (``static["_scoring"]``), through ``predict`` and,
+        where the scorer needs them, ``predict_margin`` / ``predict_proba``."""
+        return score_lanes(self, static, y, w,
+                           predict=lambda: self.predict(params, X, static),
+                           margin=lambda: self.predict_margin(params, X, static),
+                           proba=lambda: self.predict_proba(params, X, static))
+
+    def predict_margin(self, params, X, static: Dict[str, Any]):
+        """Binary decision score, positive for class 1, needed by the margin
+        scorers (roc_auc, average_precision). Kernels with a natural margin
+        override it; ``validate_scoring`` refuses those scorers for the
+        others."""
+        raise NotImplementedError(
+            f"scoring requires a decision margin, which the {self.name} kernel "
+            "does not expose (supported: kernels overriding predict_margin)")
+
+    def predict_proba(self, params, X, static: Dict[str, Any]):
+        """Class probabilities ``[..., n, k]``, needed by the probability
+        scorers (neg_log_loss, roc_auc_ovr/ovo). Kernels with natural
+        probabilities override it."""
+        raise NotImplementedError(
+            f"scoring requires class probabilities, which the {self.name} kernel "
+            "does not expose (supported: kernels overriding predict_proba)")
+
     def memory_estimate_mb(self, n: int, d: int, static: Dict[str, Any]) -> float:
         """Rough per-(trial, split) working set in MB; the trial engine
         sizes its generic-path chunks from it."""
         return max(1.0, 4.0 * n * max(d, 1) * 3 / 1e6)
+
+
+def score_lanes(kernel: ModelKernel, static: Dict[str, Any], y, w, predict,
+                margin=None, proba=None) -> Dict[str, torch.Tensor]:
+    """The reference's ``evaluate`` dispatch over a batch of lanes, by the
+    job's scorer (``static["_scoring"]``, None for the task's default):
+
+    - classifiers: a margin scorer reads ``margin()`` ``[..., n]``, a
+      probability scorer ``proba()`` ``[..., n, k]``, any other scorer the
+      labels ``predict()`` ``[..., n]``;
+    - regressors: the scorer and the MSE of ``predict()`` ``[..., n]``.
+
+    The outputs are callables so that only the one the scorer reads is
+    computed. ``y`` is ``[n]``; ``w`` the eval masks, broadcast against
+    the outputs' lane dims. Returns {"score"} (plus "mse" for regressors)
+    with the lane dims."""
+    from ..ops import metrics as M
+
+    scoring = static.get("_scoring")
+    n_classes = static.get("_n_classes", 2)
+    if kernel.task == "classification":
+        y = y.long()
+        if M.scoring_needs_margin(scoring):
+            return {"score": M.margin_score(scoring, y, margin(), w)}
+        if M.scoring_needs_proba(scoring):
+            return {"score": M.proba_score(scoring, y, proba(), w, n_classes)}
+        return {"score": M.classification_score(scoring, y, predict(), w, n_classes)}
+    pred = predict()
+    y = y.to(torch.float32)
+    return {"score": M.regression_score(scoring, y, pred, w), "mse": M.weighted_mse(y, pred, w)}
 
 
 def add_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:

@@ -42,8 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_knn
-from ..ops.metrics import weighted_accuracy, weighted_mse, weighted_r2
-from .base import ModelKernel
+from .base import ModelKernel, score_lanes
 from .logistic import _force_packed
 
 _QUERY_BLOCK = 1024
@@ -148,15 +147,17 @@ class _KNNBase(ModelKernel):
         return torch.ones_like(d2)
 
     def evaluate(self, params, X, y, w, static: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Per-lane default score on the rows ``w [L, n]`` selects: accuracy,
-        or r2 plus MSE."""
-        return self._score(y, self.predict(params, X, static), w)
+        """Per-lane score on the rows ``w [L, n]`` selects, by the job's
+        scorer."""
+        return self._score(static, y, self.predict(params, X, static), w)
 
-    def _score(self, y, pred, w):
+    def _score(self, static, y, pred, w):
+        """The job's score of the predictions ``[L, n]``. KNN exposes
+        neither a margin nor probabilities, as in the reference: the label
+        scorers only (``validate_scoring`` refuses the others)."""
         if self.task == "classification":
-            return {"score": weighted_accuracy(y.long()[None], pred.long(), w)}
-        yf = y.to(torch.float32)[None]
-        return {"score": weighted_r2(yf, pred, w), "mse": weighted_mse(yf, pred, w)}
+            return score_lanes(self, static, y, w, predict=lambda: pred.long())
+        return score_lanes(self, static, y, w, predict=lambda: pred.to(torch.float32))
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores: every (trial, split) pair is one lane (lane =
@@ -223,7 +224,7 @@ class _KNNBase(ModelKernel):
         return state
 
     def chunk_eval(self, X, y, w_eval, hyper, static, state):
-        return self._score(y, state, w_eval)
+        return self._score(static, y, state, w_eval)
 
 
 class KNNClassifierKernel(_KNNBase):

@@ -44,7 +44,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from ..ops.metrics import weighted_accuracy
 from ..parallel.mesh import pad_to_multiple
 from .base import ModelKernel, add_intercept
 
@@ -84,11 +83,33 @@ class LogisticRegressionKernel(ModelKernel):
 
     def memory_estimate_mb(self, n, d, static):
         """Per-(trial, split) working set of the generic drivers: newton
-        holds the [n, dp*c] Hessian factors, nesterov a few [n, c] tensors."""
+        holds the [n, dp*c] Hessian factors, nesterov a few [n, c] tensors
+        plus its lane's bf16 residual columns in the masked lane kernel's
+        scratch (R^T, classes padded to 16)."""
         c = max(int(static.get("_n_classes", 2)), 2)
         if static.get("_method") == "newton":
             return max(1.0, 4.0 * 4.0 * n * (d + 1) * c / 1e6)
-        return max(1.0, 6.0 * 4.0 * n * c / 1e6)
+        return max(1.0, (6.0 * 4.0 * n * c + 2.0 * n * pad_to_multiple(c, 16)) / 1e6)
+
+    # ---- lane-batched outputs of fitted weights W [..., dp, c] -----------
+
+    def _logits(self, W, X, static):
+        """f32 logits ``[..., n, c]`` of every lane, as the reference's
+        ``A @ params``."""
+        A = add_intercept(X, bool(static.get("fit_intercept", True)))
+        return torch.einsum("nd,...dc->...nc", A, W)
+
+    def predict(self, W, X, static):
+        return self._logits(W, X, static).argmax(dim=-1)
+
+    def predict_margin(self, W, X, static):
+        """Binary margin: logit(class 1) - logit(class 0)."""
+        Z = self._logits(W, X, static)
+        return Z[..., 1] - Z[..., 0]
+
+    def predict_proba(self, W, X, static):
+        """Softmax class probabilities."""
+        return torch.softmax(self._logits(W, X, static), dim=-1)
 
     # ---- generic drivers: explicit (trial, split) lane batch -------------
 
@@ -125,9 +146,7 @@ class LogisticRegressionKernel(ModelKernel):
             grad_fn = _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode)
             W, tr = _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps,
                               trace=trace)
-        # f32 logits like the reference's predict()
-        pred = torch.einsum("nd,tsdc->tsnc", A, W).argmax(dim=-1)  # [T, S, n]
-        out = {"score": weighted_accuracy(y[None, None, :], pred, EW.float()[None])}
+        out = dict(self.evaluate(W, X, y, EW.float()[None], static))  # [T, S]
         if trace:
             out["curve_gmax"] = tr.permute(1, 2, 0).contiguous()  # [T, S, P']
             out["curve_stride"] = A.new_full((T, S), float(trace_stride(steps)))

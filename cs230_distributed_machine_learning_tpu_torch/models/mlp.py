@@ -41,9 +41,8 @@ import torch
 
 from ..ops import cuda_mlp
 from ..ops.cuda_mlp import activate
-from ..ops.metrics import weighted_accuracy, weighted_mse, weighted_r2
 from ..utils import prng
-from .base import ModelKernel
+from .base import ModelKernel, score_lanes
 from .logistic import _force_packed
 
 _EPOCH_CAP = 100
@@ -399,9 +398,9 @@ class _MLPBase(ModelKernel):
             "steps": X.new_full((L,), float(epochs)),
         }
 
-    def evaluate(self, params, X, y, w, static) -> Dict[str, torch.Tensor]:
-        """Per-lane score on the rows ``w [L, n]`` selects, with f32 logits
-        as the reference's predict: accuracy, or r2 plus MSE."""
+    def _lane_forward(self, params, X, static):
+        """f32 outputs ``[L, n, k]`` of lane-batched params, as the
+        reference's predict."""
         act = static.get("activation", "relu")
         h = X.float()
         for li, layer in enumerate(params):
@@ -409,12 +408,18 @@ class _MLPBase(ModelKernel):
             h = torch.einsum(eq, h, layer["W"]) + layer["b"][:, None, :]
             if li < len(params) - 1:
                 h = activate(act, h)
+        return h
+
+    def evaluate(self, params, X, y, w, static) -> Dict[str, torch.Tensor]:
+        """Per-lane score on the rows ``w [L, n]`` selects, by the job's
+        scorer: labels, margin and probabilities of the f32 logits, or the
+        regressor's output."""
+        h = self._lane_forward(params, X, static)
         if self.task == "classification":
-            pred = h.argmax(dim=-1)
-            return {"score": weighted_accuracy(y[None, :].long(), pred, w)}
-        pred = h[:, :, 0]
-        yf = y.float()[None, :]
-        return {"score": weighted_r2(yf, pred, w), "mse": weighted_mse(yf, pred, w)}
+            return score_lanes(self, static, y, w, predict=lambda: h.argmax(dim=-1),
+                               margin=lambda: h[..., 1] - h[..., 0],
+                               proba=lambda: torch.softmax(h, dim=-1))
+        return score_lanes(self, static, y, w, predict=lambda: h[..., 0])
 
     # ---- fused path (ops/cuda_mlp.py, kernel B5) --------------------------
     #

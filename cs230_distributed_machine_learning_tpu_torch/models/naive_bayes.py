@@ -20,10 +20,9 @@ from typing import Any, Dict
 
 import torch
 
-from ..ops.metrics import weighted_accuracy
 from ..utils import prng
-from .base import ModelKernel
-from .trees import _regression_scores, _TreeBase
+from .base import ModelKernel, score_lanes
+from .trees import _normalised, _TreeBase, _vote_outputs
 
 _EPS = 1e-9
 
@@ -78,10 +77,21 @@ class GaussianNBKernel(ModelKernel):
         c = max(int(static.get("_n_classes", 2)), 2)
         return max(1.0, 4.0 * n * (2 * c * d + c + 2 * d) / 1e6)
 
+    def predict(self, params, X, static):
+        return torch.argmax(self._log_joint(params, X), dim=-1)
+
+    def predict_margin(self, params, X, static):
+        lj = self._log_joint(params, X)
+        return lj[..., 1] - lj[..., 0]
+
+    def predict_proba(self, params, X, static):
+        """The normalised joint likelihood (sklearn's predict_proba)."""
+        return torch.softmax(self._log_joint(params, X), dim=-1)
+
     def batched_scores(self, X, y, TW, EW, hyper, static):
         T, S, w, ew, lanes = _trial_lanes(hyper, TW, EW)
-        pred = torch.argmax(self._log_joint(self.fit(X, y, w, lanes, static), X), dim=-1)
-        return {"score": weighted_accuracy(y.long()[None], pred, ew).reshape(T, S)}
+        out = self.evaluate(self.fit(X, y, w, lanes, static), X, y, ew, static)
+        return {"score": out["score"].reshape(T, S)}
 
 
 class _DecisionTreeBase(_TreeBase):
@@ -114,9 +124,18 @@ class _DecisionTreeBase(_TreeBase):
         """``[T, S]`` scores; the trees have no traced hypers, ``hyper``
         carries only the trial count."""
         T, S, w, ew, _ = _trial_lanes(hyper, TW, EW)
-        tree = self.fit(X, y, w, {}, static)["tree"]
-        out = self._score(y, self._tree_predict(X["xb"], tree, static), ew)
+        out = self.evaluate(self.fit(X, y, w, {}, static), X, y, ew, static)
         return {k: v.reshape(T, S) for k, v in out.items()}
+
+    def _leaf(self, params, X, static):
+        """Every lane's leaf values ``[L, n, k]`` at X's rows."""
+        return self._tree_predict(self._query_bins(params, X, static), params["tree"], static)
+
+    def evaluate(self, params, X, y, w, static):
+        leaf = self._leaf(params, X, static)
+        if self.task == "classification":
+            return score_lanes(self, static, y, w, **_vote_outputs(leaf))
+        return score_lanes(self, static, y, w, predict=lambda: leaf[..., 0])
 
 
 class DecisionTreeClassifierKernel(_DecisionTreeBase):
@@ -127,10 +146,14 @@ class DecisionTreeClassifierKernel(_DecisionTreeBase):
         c = max(int(static["_n_classes"]), 2)
         return torch.nn.functional.one_hot(y.long(), c).to(torch.float32)[None] * w[..., None]
 
-    def _score(self, y, proba, w_eval):
-        """Accuracy of the leaf class distribution's first-index argmax."""
-        pred = torch.argmax(proba, dim=-1)
-        return {"score": weighted_accuracy(y.long()[None], pred, w_eval)}
+    def predict_margin(self, params, X, static):
+        leaf = self._leaf(params, X, static)
+        return leaf[..., 1] - leaf[..., 0]
+
+    def predict_proba(self, params, X, static):
+        """The leaf class distribution (sklearn's tree predict_proba),
+        normalised."""
+        return _normalised(self._leaf(params, X, static))
 
 
 class DecisionTreeRegressorKernel(_DecisionTreeBase):
@@ -139,6 +162,3 @@ class DecisionTreeRegressorKernel(_DecisionTreeBase):
 
     def _stat_matrix(self, y, w, static):
         return (y.to(torch.float32)[None] * w)[..., None]
-
-    def _score(self, y, leaf_val, w_eval):
-        return _regression_scores(y, leaf_val[..., 0], w_eval)

@@ -1,26 +1,18 @@
 """Model registry: sklearn class name -> kernel.
 
-The port registers the families it has ported so far. A model type the JAX
-package supports but the port does not yet raises a clear "not yet ported"
-error, which the executor turns into a failed subtask like any other
-per-batch error.
+The port registers every family of the JAX package, under the same 22
+names (``Imputer`` is the reference whitelist's spelling of
+SimpleImputer). An unknown name raises, and the executor turns that into a
+failed subtask like any other per-batch error.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 from .base import ModelKernel
 
 _REGISTRY: Dict[str, ModelKernel] = {}
-
-#: families the JAX package runs that later slices of the port bring over
-_NOT_YET_PORTED = frozenset(
-    {
-        "LinearRegression", "Ridge", "SVC", "SVR", "PCA", "StandardScaler", "MinMaxScaler",
-        "OneHotEncoder", "SimpleImputer",
-    }
-)
 
 
 def get_kernel(model_type: str) -> ModelKernel:
@@ -28,26 +20,36 @@ def get_kernel(model_type: str) -> ModelKernel:
     try:
         return _REGISTRY[model_type]
     except KeyError:
-        if model_type in _NOT_YET_PORTED:
-            raise ValueError(
-                f"Model type {model_type!r} is not yet ported to the PyTorch "
-                f"package. Ported: {sorted(_REGISTRY)}"
-            ) from None
         raise ValueError(
             f"Unsupported model type {model_type!r}. Supported: {sorted(_REGISTRY)}"
         ) from None
+
+
+def supported_models() -> List[str]:
+    _ensure_populated()
+    return sorted(_REGISTRY)
 
 
 def _ensure_populated() -> None:
     if _REGISTRY:
         return
     from .knn import KNNClassifierKernel, KNNRegressorKernel
+    from .linear import LinearRegressionKernel, RidgeKernel
     from .logistic import LogisticRegressionKernel
     from .mlp import MLPClassifierKernel, MLPRegressorKernel
     from .naive_bayes import (
         DecisionTreeClassifierKernel,
         DecisionTreeRegressorKernel,
         GaussianNBKernel,
+    )
+    from .svm import SVCKernel, SVRKernel
+    from .transforms import (
+        ImputerKernel,
+        MinMaxScalerKernel,
+        OneHotEncoderKernel,
+        PCAKernel,
+        SimpleImputerKernel,
+        StandardScalerKernel,
     )
     from .trees import (
         GradientBoostingClassifierKernel,
@@ -56,10 +58,12 @@ def _ensure_populated() -> None:
         RandomForestRegressorKernel,
     )
 
-    for kernel in (LogisticRegressionKernel(), RandomForestClassifierKernel(),
-                   RandomForestRegressorKernel(), GradientBoostingClassifierKernel(),
-                   GradientBoostingRegressorKernel(), MLPClassifierKernel(),
-                   MLPRegressorKernel(), KNNClassifierKernel(), KNNRegressorKernel(),
-                   GaussianNBKernel(), DecisionTreeClassifierKernel(),
-                   DecisionTreeRegressorKernel()):
+    for kernel in (LogisticRegressionKernel(), LinearRegressionKernel(), RidgeKernel(),
+                   RandomForestClassifierKernel(), RandomForestRegressorKernel(),
+                   GradientBoostingClassifierKernel(), GradientBoostingRegressorKernel(),
+                   MLPClassifierKernel(), MLPRegressorKernel(), KNNClassifierKernel(),
+                   KNNRegressorKernel(), GaussianNBKernel(), DecisionTreeClassifierKernel(),
+                   DecisionTreeRegressorKernel(), SVCKernel(), SVRKernel(),
+                   StandardScalerKernel(), MinMaxScalerKernel(), PCAKernel(),
+                   OneHotEncoderKernel(), SimpleImputerKernel(), ImputerKernel()):
         _REGISTRY[kernel.name] = kernel

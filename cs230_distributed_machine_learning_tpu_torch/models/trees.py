@@ -35,7 +35,6 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ..ops.metrics import weighted_accuracy, weighted_mse, weighted_r2
 from ..ops.trees import (
     COARSE_BINS,
     bin_data,
@@ -47,7 +46,7 @@ from ..ops.trees import (
 )
 from ..utils import prng
 from ..utils.logging import get_logger
-from .base import ModelKernel
+from .base import ModelKernel, score_lanes
 
 # Complete-tree caps and the deep arena's bands: the reference's values and
 # env knobs (``models/trees.py:59-106`` there, where the sweeps behind them
@@ -419,15 +418,14 @@ class _RandomForestBase(_TreeBase):
 
     def chunk_eval(self, X, y, w_eval, hyper, static, state):
         n_trees = int(static.get("n_estimators", 100))
-        return self._score(y, _vote_mean(state, n_trees), w_eval)
+        return self._score(static, y, _vote_mean(state, n_trees), w_eval)
 
-    def _score(self, y, mean, w_eval):
-        """Accuracy of the soft vote's first-index argmax, or the mean
-        prediction's r2 and MSE."""
+    def _score(self, static, y, mean, w_eval):
+        """The job's score of the mean leaf values ``[L, n, k]``: the soft
+        vote's outputs (``_vote_outputs``), or the mean prediction."""
         if self.task == "classification":
-            pred = torch.argmax(mean, dim=-1)
-            return {"score": weighted_accuracy(y.long()[None], pred, w_eval)}
-        return _regression_scores(y, mean[..., 0], w_eval)
+            return score_lanes(self, static, y, w_eval, **_vote_outputs(mean))
+        return score_lanes(self, static, y, w_eval, predict=lambda: mean[..., 0])
 
     def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
         """Forests of every lane: w [L, n] fit weights."""
@@ -443,10 +441,12 @@ class _RandomForestBase(_TreeBase):
             total = vals if total is None else total + vals
         return _vote_mean(total, len(params["trees"]))
 
+    def _mean(self, params, X, static):
+        return self._forest_leaf_mean(params, self._query_bins(params, X, static), static)
+
     def evaluate(self, params, X, y, w, static: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Scores of every lane on the rows selected by w [L, n]."""
-        xq = self._query_bins(params, X, static)
-        return self._score(y, self._forest_leaf_mean(params, xq, static), w)
+        return self._score(static, y, self._mean(params, X, static), w)
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores: every (trial, split) pair is one lane (lane =
@@ -464,17 +464,39 @@ def _vote_mean(total, n_trees: int):
     return total * float(np.float32(1.0) / np.float32(n_trees))
 
 
-def _regression_scores(y, pred, w):
-    """The reference's default regression leaves: weighted r2 as the score
-    and weighted MSE, of predictions ``[L, n]`` on the rows of w [L, n]."""
-    yf = y.to(torch.float32)[None]
-    return {"score": weighted_r2(yf, pred, w), "mse": weighted_mse(yf, pred, w)}
+def _vote_outputs(proba):
+    """``score_lanes``' outputs of leaf class distributions ``[..., n, c]``
+    (a forest's soft vote, a tree's leaf frequencies): the first-index
+    argmax as the label, p(1) - p(0) as the binary margin, the
+    distribution normalised as the probabilities."""
+    return {"predict": lambda: torch.argmax(proba, dim=-1),
+            "margin": lambda: proba[..., 1] - proba[..., 0],
+            "proba": lambda: _normalised(proba)}
+
+
+def _normalised(proba):
+    """Rows over their sum, the sum taken class by class in order: a
+    reduction's order differs between the card and the CPU, and a last-bit
+    difference would break or make the exact ties the ranking scorers
+    count half."""
+    total = proba[..., 0]
+    for k in range(1, proba.shape[-1]):
+        total = total + proba[..., k]
+    return proba / torch.clamp(total, min=1e-12)[..., None]
 
 
 class RandomForestClassifierKernel(_RandomForestBase):
     name = "RandomForestClassifier"
     task = "classification"
     _mf_default = "sqrt"
+
+    def predict_margin(self, params, X, static):
+        mean = self._mean(params, X, static)
+        return mean[..., 1] - mean[..., 0]
+
+    def predict_proba(self, params, X, static):
+        """The soft vote's mean leaf class distribution, normalised."""
+        return _normalised(self._mean(params, X, static))
 
 
 class RandomForestRegressorKernel(_RandomForestBase):
@@ -596,11 +618,23 @@ class _GradientBoostingBase(_TreeBase):
         return self._stages(X["xb"], y, w.to(torch.float32), hyper, static, state, ids)
 
     def chunk_eval(self, X, y, w_eval, hyper, static, state):
-        """Accuracy of F's first-index argmax, or F's r2 and MSE."""
+        """The job's score of the raw scores F (the state) on the rows it
+        was fitted on: F's first-index argmax as the label, F[:, 1] -
+        F[:, 0] as the binary margin (a binary fit keeps F[:, 0] at zero),
+        softmax(F) as the probabilities; a regressor's F is its prediction."""
+        F = state
         if self.task == "classification":
-            pred = torch.argmax(state, dim=-1)
-            return {"score": weighted_accuracy(y.long()[None], pred, w_eval)}
-        return _regression_scores(y, state, w_eval)
+            return score_lanes(self, static, y, w_eval,
+                               predict=lambda: torch.argmax(F, dim=-1),
+                               margin=lambda: F[..., 1] - F[..., 0],
+                               proba=lambda: torch.softmax(F, dim=-1))
+        return score_lanes(self, static, y, w_eval, predict=lambda: F)
+
+    def predict(self, params, X, static):
+        """A fit keeps no stages, only F on its own rows (scored by
+        ``chunk_eval``): predictions on new rows are not ported yet."""
+        raise NotImplementedError(f"{self.name}: prediction from fitted stages is not yet "
+                                  "ported to the PyTorch package")
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores of one unchunked fit: lane = trial * S + split,
@@ -624,6 +658,14 @@ class GradientBoostingClassifierKernel(_GradientBoostingBase):
 
     name = "GradientBoostingClassifier"
     task = "classification"
+
+    # margin and probability scorers read F in ``chunk_eval``; these
+    # overrides declare the capabilities ``validate_scoring`` tests for
+    def predict_margin(self, params, X, static):
+        return self.predict(params, X, static)
+
+    def predict_proba(self, params, X, static):
+        return self.predict(params, X, static)
 
     def _prior(self, y, w, static):
         """Per-lane log class priors ``[L, c]``."""

@@ -103,14 +103,25 @@ def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c
 #: synthetic_60000x784x10 (32 trials x 6 splits, rows padded to 256s), one
 #: dispatch of the generic nesterov driver
 MASKED_SHAPES = {"wide": (16, 4096, 896, 16, 10), "wide_full": (192, 60_160, 896, 16, 10)}
+#: B3 at a scored covertype search's generic dispatch: 256 trials x 6 splits
+#: on 116,202 rows padded to 256, 55 columns to 128, 7 classes to 16. Its R^T
+#: scratch holds 24,576 x 116,224 bf16 (2.86e9 elements, past 2^31)
+MASKED_SCORED_SHAPE = (1536, 116_224, 128, 16, 7)
+#: the real columns of that shape: 54 features and the intercept
+MASKED_SCORED_DP = 55
 
 
-def masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c):
+def masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c, dp=None):
     """B3's inputs: bf16 rows, small bf16 weights with the padded classes
-    zero, labels, and per-lane fold masks (70 % in)."""
+    zero, labels, and per-lane fold masks (70 % in). With ``dp`` < dpp
+    the columns from dp on are zero in the rows and the weights, as
+    ``models/logistic.py::_make_masked_grad_fn`` pads them."""
     Ab = torch.randn(n_pad, dpp, generator=gen, device=dev).to(torch.bfloat16)
     W = torch.randn(lanes, dpp, cp, generator=gen, device=dev) * 0.02
     W[:, :, c:] = 0
+    if dp is not None:
+        Ab[:, dp:] = 0
+        W[:, dp:] = 0
     y2 = torch.randint(0, c, (n_pad, 1), generator=gen, device=dev, dtype=torch.int32)
     wm = (torch.rand(n_pad, lanes, generator=gen, device=dev) > 0.3).float()
     return Ab, W.to(torch.bfloat16), y2, wm

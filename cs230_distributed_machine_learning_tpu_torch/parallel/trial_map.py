@@ -72,8 +72,11 @@ def run_trials(
     scoring: Optional[str] = None,
 ) -> TrialRunResult:
     """Run all trials (one per param dict) on ``device``, bucketing by
-    static config. ``scoring`` None keeps the default metric (accuracy)."""
-    validate_scoring(scoring, kernel.task)
+    static config. ``scoring`` None keeps the task's default metric; a
+    scorer name rides each bucket's static as ``_scoring`` and keeps the
+    bucket off the packed and fused paths, which score by the default
+    metric only (as in the reference)."""
+    validate_scoring(scoring, kernel.task, data.n_classes, kernel)
     n, d = data.X.shape
     results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
 
@@ -97,6 +100,8 @@ def run_trials(
         if hasattr(kernel, "resolve_static"):
             static = kernel.resolve_static(static, n, d, data.n_classes)
         static["_n_classes"] = data.n_classes
+        if scoring is not None:
+            static["_scoring"] = scoring
         if hasattr(kernel, "bucket_static"):
             static = kernel.bucket_static(static, [hypers[i] for i in idxs])
         hyper_names = sorted(hypers[idxs[0]].keys())
@@ -125,7 +130,7 @@ def run_trials(
         # kernels with a packed path (the LogReg kernel fit) take over the
         # whole chunk, with their own (larger) chunk geometry
         fn = None
-        if hasattr(kernel, "build_batched_fn"):
+        if hasattr(kernel, "build_batched_fn") and scoring is None:
             Tw = kernel.batched_trial_multiple
             chunk = max(Tw, min(kernel.batched_chunk_cap, pad_to_multiple(len(idxs), Tw)))
             fn = kernel.build_batched_fn(
@@ -147,7 +152,7 @@ def run_trials(
     for out, batch_idx in pending:
         host = {k: v.cpu().numpy() for k, v in out.items()}
         for j, gi in enumerate(batch_idx):
-            results[gi] = _postprocess(host, j, plan, kernel.task)
+            results[gi] = _postprocess(host, j, plan, kernel.task, scoring)
     return TrialRunResult(
         trial_metrics=[r for r in results if r is not None],
         run_time_s=time.perf_counter() - t0,
@@ -218,13 +223,19 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
 
 
 def _postprocess(out: Dict[str, np.ndarray], j: int, plan: SplitPlan,
-                 task: str) -> Dict[str, Any]:
+                 task: str, scoring: Optional[str] = None) -> Dict[str, Any]:
     """Split 0 = holdout test metrics; splits 1..K = CV fold scores.
-    mean_cv_score is the trial-ranking key."""
+    mean_cv_score is the trial-ranking key. With a scorer, the holdout
+    score is reported under its name (and ``"scoring"`` names it)."""
     metrics: Dict[str, Any] = {}
     score = float(out["score"][j, 0])
-    if task == "classification":
+    if scoring is not None:
+        metrics[scoring] = score
+        metrics["scoring"] = scoring
+    elif task == "classification":
         metrics["accuracy"] = score
+    elif task == "transform":
+        metrics["score"] = score
     else:
         metrics["r2_score"] = score
     if task == "regression" and "mse" in out:

@@ -96,7 +96,7 @@ class LocalExecutor:
             [subtasks[i]["parameters"] for i in idxs],
             device=self.device,
             max_trials_per_batch=self.max_trials_per_batch,
-            scoring=_normalize_scoring(tp.get("scoring"), kernel.task),
+            scoring=_normalize_scoring(tp.get("scoring"), kernel.task, data.n_classes, kernel),
         )
         per_trial_time = run.run_time_s / max(len(idxs), 1)
         for j, gi in enumerate(idxs):
@@ -117,11 +117,18 @@ class LocalExecutor:
                 on_result(st["subtask_id"], "completed", result)
 
 
-def _normalize_scoring(scoring, task: str):
-    """Collapse the task's default scorer name to None (the engine's
-    default metric); anything else is passed on and checked there."""
-    if scoring == ("accuracy" if task == "classification" else "r2"):
+def _normalize_scoring(scoring, task: str, n_classes: int = 0, kernel=None):
+    """Validate a job's ``scoring`` and collapse the task's default scorer
+    to None (the engine's default metric). A transform takes no scorer;
+    an unknown name, a binary-only scorer on a multiclass target or a
+    scorer the kernel has no output for fails the batch with the reason."""
+    from ..ops.metrics import validate_scoring
+
+    if scoring is None:
         return None
+    if task != "transform" and scoring == ("accuracy" if task == "classification" else "r2"):
+        return None
+    validate_scoring(scoring, task, n_classes, kernel)
     return scoring
 
 

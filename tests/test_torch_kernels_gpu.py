@@ -234,6 +234,25 @@ def test_masked_kernel_ragged_shapes_on_card(cuda, n_pad, dpp, cp, c, lanes):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_pad", [4096, 100_000])
+def test_masked_kernel_many_lanes_at_narrow_dpp_on_card(cuda, n_pad):
+    """B3 at a scored covertype search's lane count: 1,536 lanes at dpp 128,
+    7 classes in 16 columns. At 100,000 rows R^T holds 24,576 x 100,096
+    bf16 (2.46e9 elements, past 2^31), so the last lanes' columns sit at
+    offsets only 64-bit arithmetic reaches. The first and the last 64
+    lanes against the plain version, two launches equal to the bit."""
+    lanes, dpp, cp, c = 1536, 128, 16, 7
+    Ab, W, y2, wm = _masked_inputs(cuda, n_pad, dpp, cp, c, lanes, seed=n_pad % 997)
+    runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
+    for sl in (slice(0, 64), slice(lanes - 64, lanes)):
+        ref = tk.masked_softmax_grad_reference(Ab, W[sl], y2, wm[:, sl].contiguous(), c=c)
+        assert _rel(runs[0][sl], ref) < TOL
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert float(runs[0][:, :, c:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
 def test_masked_plan_matches_the_library(cuda):
     """The Python plan of B3 is the C entry's, field for field."""
     import ctypes
