@@ -148,6 +148,32 @@ Then every scorer and the last families (slice 9):
             1,200 steps; wall and mean_cv_score; then the Nyström path
             card vs CPU on 32,768 rows at 4,096 landmarks (NYSTROM_CUT).
 
+Then the winner artifact:
+
+26. artifacts  the winners of main_auto (LogReg), rf_full (RF-100 uncut),
+            gb_main, knn_main, mlp_main (config 5) and svc_matrix, each
+            through manager.download_best_model (refitted once on the card
+            on its holdout split's training rows, written as
+            <subtask_id>_model.pkl), load_best_model(as_sklearn=False) and
+            predict_with_artifact on the holdout's eval rows on the card,
+            every launch count zeroed before and read after: B3 once a
+            solver step of the LogReg refit, B4 once a level of every tree
+            or stage of the forest and boosting refits, B6 once for the KNN
+            prediction; B1, B2 and B5 never, and nothing on the MLP and SVC
+            paths; a second download returns the cached path; the refit's
+            holdout accuracy is the winner's reported one within
+            ARTIFACT_JOBS' limit; each refit's seconds.
+27. artifact_reference  the same refits at ARTIFACT_CUTS' cut on the card
+            and on the CPU, each predicting its eval rows (the MLP: all of
+            config 5's 60,000 rows): accuracies within the card-vs-CPU
+            limits (SCORED_TOL).
+28. kernels_artifact  B3 at one lane at the covertype refit, B4 at one
+            lane at rf_full's widest level and at the boosting refit's root
+            (7 lanes, float stats), B6 at the KNN prediction (one lane,
+            40,000 queries, 200,000 rows, the winner's k) against their plain
+            versions, timed: each kernel's ``other_paths`` entry on the
+            kernels line.
+
 The kernels phase also holds B3 at scored_main's shape (1,536 lanes,
 n_pad 116,224, dpp 128 of which the 55 real columns are nonzero, cp 16,
 c 7; its R^T scratch past 2^31 elements) against its plain version run
@@ -183,8 +209,9 @@ PKG = "cs230_distributed_machine_learning_tpu_torch"
 sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
-    HIST_FLOAT_SHAPES, HIST_SHAPES, HIST_SKEWED, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS,
-    KNN_QUERIES, LOGREG_SHAPE, LOGREG_STEP_T, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
+    HIST_FLOAT_REFIT_SHAPES, HIST_FLOAT_SHAPES, HIST_REFIT_SHAPES, HIST_SHAPES, HIST_SKEWED,
+    KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
+    LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
     MASKED_SHAPES,
     MLP_CHECK_STEPS, MLP_EPOCH_LR,
     MLP_LANES, MLP_LIMITS, MLP_SHAPES, digest, gb_hist_inputs, hist_inputs, logreg_inputs,
@@ -232,6 +259,10 @@ TITANIC_PREPROCESS = {
 #: SM clock (Hz) of the exponential term: the card's maximum, as nvidia-smi
 #: reports it (set in phase_env), else the H100 SXM's 1.98 GHz
 SM_CLOCK_HZ = [1.98e9]
+
+
+#: job ids of the smoke's searches by phase, for the artifact phases
+JOBS = {}
 
 
 def emit(obj) -> None:
@@ -530,7 +561,7 @@ def hist_library_ms(local, xb, SC, n_nodes, n_bins) -> tuple:
     return lib_ms, adds
 
 
-def hist_kernel_rows(gen, dev) -> dict:
+def hist_kernel_rows(gen, dev, shapes=HIST_SHAPES) -> dict:
     """B4 against its plain version: integer stats bit-exact, float stats
     within HIST_FLOAT_TOL of the max. Times: the kernel, the plain version,
     and one index_add_ over precomputed flat indices (the PyTorch call
@@ -540,7 +571,7 @@ def hist_kernel_rows(gen, dev) -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     rows = {}
-    for tag, (L, n, d, n_bins, n_nodes, kk) in HIST_SHAPES.items():
+    for tag, (L, n, d, n_bins, n_nodes, kk) in shapes.items():
         skewed = tag in HIST_SKEWED
         local, xb, SC = hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False, skewed)
         got = H.level_histogram(local, xb, SC, n_nodes, n_bins, integer_stats=True)
@@ -645,6 +676,7 @@ def phase_main(manager) -> dict:
             manager, _search(1000, 200, 5), "covertype", kernel_name, 1000)
         best = status["job_result"]["best_result"]
         runs[mode] = (status, launches)
+        JOBS[f"main_{mode}"] = manager.job_id
         emit({"phase": f"main_{mode}", "wall_s": wall, "launches": launches,
               "best_params": best["search_params"],
               "best_mean_cv_score": best["mean_cv_score"]})
@@ -796,6 +828,7 @@ def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = H.LAUNCHES["level_histogram"]
+    JOBS[phase] = manager.job_id
     assert status["job_status"] == "completed", status
     res = status["job_result"]
     assert not res["failed"] and len(res["results"]) == 1, res
@@ -1024,6 +1057,7 @@ def phase_mlp_main(manager) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = M.LAUNCHES["mlp_epoch"]
+    JOBS["mlp_main"] = manager.job_id
     assert status["job_status"] == "completed", status
     res = status["job_result"]
     assert not res["failed"], res["failed"][:1]
@@ -1311,6 +1345,7 @@ def phase_knn_main(manager) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = K.LAUNCHES["knn_topk"]
+    JOBS["knn_main"] = manager.job_id
     assert status["job_status"] == "completed", status
     res = status["job_result"]
     assert not res["failed"], res["failed"][:1]
@@ -1474,7 +1509,7 @@ def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
     return g, kernel_launches
 
 
-def hist_float_rows(gen, dev) -> dict:
+def hist_float_rows(gen, dev, shapes=HIST_FLOAT_SHAPES) -> dict:
     """B4's float mode at the boosting levels (HIST_FLOAT_SHAPES): within
     HIST_FLOAT_TOL of the plain version; whether two launches on the same
     inputs agree to the bit (recorded, not asserted: the f32 atomics land in
@@ -1483,7 +1518,7 @@ def hist_float_rows(gen, dev) -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     rows = {}
-    for tag, (L, n, d, n_bins, n_nodes, kk) in HIST_FLOAT_SHAPES.items():
+    for tag, (L, n, d, n_bins, n_nodes, kk) in shapes.items():
         local, xb, SC = gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes)
         got = H.level_histogram(local, xb, SC, n_nodes, n_bins)
         again = H.level_histogram(local, xb, SC, n_nodes, n_bins)
@@ -1582,6 +1617,7 @@ def phase_gb_main(manager) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = H.LAUNCHES["level_histogram"]
+        JOBS["gb_main"] = manager.job_id
         assert status["job_status"] == "completed", status
         res = status["job_result"]
         assert not res["failed"] and len(res["results"]) == 4, res["failed"][:1]
@@ -1977,6 +2013,7 @@ def phase_svc_matrix(manager, cfg) -> None:
     status = manager.train(payload, did, {"random_state": 42}, timeout=1200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    JOBS["svc_matrix"] = manager.job_id
     res = status["job_result"]
     assert status["job_status"] == "completed" and not res["failed"], res.get("failed", [])[:1]
     best = res["best_result"]
@@ -2033,6 +2070,255 @@ def phase_svc_nystrom(manager, cfg) -> None:
                  landmarks=int(NYSTROM_CUT["env"]["CS230_SVM_NYSTROM_M"]),
                  steps=int(NYSTROM_CUT["env"]["CS230_SVM_NYSTROM_STEPS"]))
     torch.cuda.empty_cache()
+
+# --------------------------------------------------------- the winner artifact
+# each job's winner refitted once on its holdout
+# split's training rows, saved, loaded back as the artifact dict and
+# predicted with on the card
+
+#: the refitted winners: phase of the search -> (dataset, the kernel the
+#: family's artifact path launches or None where it has none, the limit of
+#: the holdout-score identity). The refit trains on split 0's rows, so its
+#: accuracy on the eval rows is the winner's reported holdout accuracy:
+#: exactly for the integer-stat forest; LogReg's search ran B2 and the
+#: refit runs B3 (2e-3); the MLP's search ran B5 and the refit the generic
+#: path (0.02, the fused-vs-generic bound); boosting's f32 atomics (1e-2);
+#: KNN and SVC within their card-vs-CPU limits (2e-3)
+ARTIFACT_JOBS = {
+    "main_auto": ("covertype", "masked_softmax_grad", 2e-3),
+    "rf_full": ("covertype", "level_histogram", 1e-6),
+    "gb_main": ("covertype", "level_histogram", 1e-2),
+    "knn_main": (KNN_DATASET, "knn_topk", 2e-3),
+    "mlp_main": ("synthetic_60000x784x10", None, MLP_SEARCH_TOL),
+    "svc_matrix": ("covertype_frac_10", None, 2e-3),
+}
+#: artifact_reference's cut of each refit: (table, rows, overrides of the
+#: winner's parameters). Covertype cuts are rows of its permutation
+#: (stage_fraction), scored on their holdout's eval rows. LogReg at 12,000
+#: rows stays on the nesterov driver (B3 on the card); the forest at 5
+#: trees, boosting at 20 stages and the MLP at 10 epochs keep the CPU sides
+#: within seconds (at 50 stages and 30 epochs they took 12.9 and 17.1 s);
+#: KNN under CS230_FORCE_PACKED=1, so the card takes B6 below 150,000 rows.
+#: The MLP fits the first 4,096 rows of config 5's table and is scored on
+#: all its 60,000: its card and CPU refits at a cut disagree on about half
+#: the labels (Adam's sign flips compound, ROADMAP C), and over 820 eval
+#: rows the rows' own spread of their accuracies' difference (~0.016)
+#: would be the limit's size; over 60,000 rows it is ~0.003, and what is
+#: left is the two refits' difference
+ARTIFACT_CUTS = {
+    "main_auto": ("covertype", 12_000, {}),
+    "rf_full": ("covertype", 3000, {"n_estimators": 5}),
+    "gb_main": ("covertype", 3000, {"n_estimators": 20}),
+    "knn_main": ("covertype", 3000, {}),
+    "mlp_main": ("synthetic_60000x784x10", 4096, {"max_iter": 10}),
+    "svc_matrix": ("covertype", 3000, {}),
+}
+
+
+def _holdout(manager, dataset: str) -> tuple:
+    """(TrialData, n_folds=0 plan, eval-row mask) of a staged dataset: the
+    plan fit_artifact builds, whose split 0 is the search's holdout."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+
+    data = manager._coordinator.cache.get(dataset, "classification")
+    plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=0,
+                            random_state=42)
+    return data, plan, plan.eval_w[0] > 0
+
+
+def phase_artifacts(manager) -> dict:
+    """Each ARTIFACT_JOBS winner through the manager: every launch count
+    zeroed, download_best_model (the refit on the card, the artifact
+    written), load_best_model(as_sklearn=False), predict_with_artifact on
+    the holdout's eval rows on the card, the counts read. The family's
+    kernel must launch (B3 once a solver step, B4 once a level of every
+    tree or stage, B6 once for the prediction), B1, B2 and B5 never, and
+    nothing where the family's artifact path has no kernel; a second
+    download returns the cached path; the holdout-score identity holds.
+    Returns each winner's launch counts."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.runtime.artifacts import (
+        predict_with_artifact,
+    )
+
+    out = {}
+    for tag, (dataset, kernel_name, tol) in ARTIFACT_JOBS.items():
+        job = JOBS[tag]
+        best = manager.best_result(job)
+        data, plan, ev = _holdout(manager, dataset)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        path = manager.download_best_model(job)
+        torch.cuda.synchronize()
+        refit_s = time.perf_counter() - t0
+        artifact = manager.load_best_model(job, as_sklearn=False)
+        t0 = time.perf_counter()
+        pred = predict_with_artifact(artifact, np.asarray(data.X)[ev])
+        assert pred.device.type == "cuda", pred.device
+        pred = pred.cpu().numpy()
+        predict_s = time.perf_counter() - t0
+        launches = all_launches()
+        t0 = time.perf_counter()
+        cached = manager.download_best_model(job) == path
+        cached_s = time.perf_counter() - t0
+        score = float(np.mean(pred == np.asarray(data.y)[ev]))
+        diff = abs(score - best["accuracy"])
+        static = artifact["static"]
+        expected = {"main_auto": static.get("_iters"),
+                    "gb_main": static.get("n_estimators", 100) * static.get("_depth", 0),
+                    "knn_main": 1}.get(tag)
+        if tag == "rf_full":
+            kernel, _, rstatic = _forest_bucket(manager, dataset, 100)
+            prepared = data._prepared_cache[(kernel.name, kernel.prepared_key(rstatic))]
+            expected = rstatic["_levels"] * 100 * (2 if "xb_coarse" in prepared else 1)
+        emit({"phase": "artifacts", "job": tag, "model": artifact["model_type"],
+              "dataset": dataset, "parameters": best["search_params"], "refit_s": refit_s,
+              "predict_s": predict_s, "cached_s": cached_s, "cached": cached,
+              "artifact_mb": os.path.getsize(path) / 1e6, "eval_rows": int(ev.sum()),
+              "holdout_accuracy": score, "best_result_accuracy": best["accuracy"],
+              "holdout_diff": diff, "tolerance": tol, "kernel": kernel_name,
+              "launches": {k: v for k, v in launches.items() if v},
+              "expected_launches": expected})
+        assert cached, f"artifacts {tag}: the second download refitted"
+        assert not any(launches[k] for k in DEFAULT_ONLY_KERNELS), (tag, launches)
+        if kernel_name is None:
+            assert not any(launches.values()), (tag, launches)
+        else:
+            assert launches[kernel_name] == expected, (tag, launches, expected)
+        assert diff <= tol, f"artifacts {tag}: holdout {score} vs {best['accuracy']}"
+        out[tag] = launches
+    return out
+
+
+def phase_artifact_reference(manager, cfg) -> None:
+    """The same refits at ARTIFACT_CUTS' cut, on the card and on the CPU
+    (plain versions), each predicting its scored rows on its own device:
+    the accuracies within the card-vs-CPU limits (SCORED_TOL)."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.models.base import TrialData
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import fit_single
+    from cs230_distributed_machine_learning_tpu_torch.runtime.artifacts import (
+        predict_with_artifact,
+    )
+
+    for tag, (table, rows, overrides) in ARTIFACT_CUTS.items():
+        best = manager.best_result(JOBS[tag])
+        model = best["model_type"]
+        params = {**best["parameters"], **overrides}
+        if table == "covertype":
+            did = stage_fraction(cfg, 0.0, rows=rows)[0]
+            data, plan, ev = _holdout(manager, did)
+            Xq, y = np.asarray(data.X)[ev], np.asarray(data.y)[ev]
+        else:  # the table's first rows; scored on all of its rows
+            did = f"{table}[:{rows}]"
+            full = manager._coordinator.cache.get(table, "classification")
+            Xq, y = np.asarray(full.X), np.asarray(full.y)
+            data = TrialData(Xq[:rows], y[:rows], full.n_classes)
+            plan = build_split_plan(data.y, task="classification", n_folds=0, random_state=42)
+        env = {"CS230_FORCE_PACKED": "1"} if tag == "knn_main" else {}
+        os.environ.update(env)
+        try:
+            res = {}
+            for side, dev in (("card", manager.device), ("cpu", torch.device("cpu"))):
+                reset_all_launches()
+                t0 = time.perf_counter()
+                fitted, static = fit_single(get_kernel(model), data, plan, params, device=dev)
+                artifact = {"model_type": model, "parameters": params, "static": static,
+                            "fitted_params": fitted}
+                pred = predict_with_artifact(artifact, Xq, device=dev)
+                pred = pred.cpu().numpy()
+                res[side] = (pred, time.perf_counter() - t0, all_launches())
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        acc = {k: float(np.mean(v[0] == y)) for k, v in res.items()}
+        diff = abs(acc["card"] - acc["cpu"])
+        emit({"phase": "artifact_reference", "job": tag, "model": model, "dataset": did,
+              "overrides": overrides, "env": env, "scored_rows": len(y),
+              "card_s": res["card"][1], "cpu_s": res["cpu"][1],
+              "card_launches": {k: v for k, v in res["card"][2].items() if v},
+              "accuracy": acc, "diff": diff, "labels_agree": float(
+                  np.mean(res["card"][0] == res["cpu"][0])), "tolerance": SCORED_TOL[model]})
+        assert diff <= SCORED_TOL[model], f"artifact_reference {tag}: {acc}"
+        kernel_name = ARTIFACT_JOBS[tag][1]
+        assert kernel_name is None or res["card"][2][kernel_name] > 0, (tag, res["card"][2])
+        assert not any(res["card"][2][k] for k in DEFAULT_ONLY_KERNELS), (tag, res["card"][2])
+
+
+def knn_predict_row(manager, k: int) -> dict:
+    """B6 at the KNN winner's prediction: one lane (the holdout split's
+    training rows), the 40,000 eval rows as queries, the winner's k.
+    Checked as _knn_compare checks; the plain version timed once (its
+    merge sorts [40,000, 4,096 + k] a training tile), the library
+    (torch.cdist + a masked topk) in 10 blocks of 4,000 queries."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
+
+    data, X, _, _ = knn_table(manager)
+    _, plan, ev = _holdout(manager, KNN_DATASET)
+    W = torch.as_tensor(plan.train_w[:1], device=X.device).contiguous()
+    Q = X[torch.as_tensor(ev, device=X.device)].contiguous()
+    assert Q.shape[0] == KNN_PREDICT_QUERIES, Q.shape
+    L, n = W.shape
+    nq, d = Q.shape
+    check = _knn_compare(K, Q, X, W, k, exact=False)
+    ms = time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
+    plain = time_ms(lambda: K.knn_topk_reference(Q, X, W, k), reps=1, warmup=0)
+    blk = KNN_PREDICT_QUERIES // 10
+
+    def library():
+        for i in range(0, nq, blk):
+            dist = torch.cdist(Q[i:i + blk], X)
+            torch.topk(dist.masked_fill(W[:, None, :] <= 0, float("inf")), k, dim=-1,
+                       largest=False)
+
+    lib_ms = time_ms(library, reps=1, warmup=1)
+    t_ops = K.knn_operations(L, nq, n, d) / PEAK_F32
+    t_bytes = K.knn_bytes(L, nq, n, d, k) / PEAK_BYTES
+    del X, W, Q
+    torch.cuda.empty_cache()
+    return dict(shape=dict(lanes=L, queries=nq, rows=n, features=d, k=k), **check,
+                ms=ms, plain_ms=plain, library_ms=lib_ms,
+                library_note="torch.cdist + masked torch.topk in 10 query blocks: "
+                             "no single call computes it",
+                bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                plan=K.knn_plan(nq, n, L, k))
+
+
+def artifact_kernel_rows(manager, dev, knn_k: int) -> dict:
+    """The artifact path's kernels at its own shapes, against their plain
+    versions, timed: B3 at one lane at the covertype refit, B4 at one lane
+    at rf_full's widest level (integer stats) and at the boosting refit's
+    root (7 class lanes, float stats), B6 at the KNN prediction."""
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    rows = {("masked_softmax_grad", "refit"): masked_kernel_row(
+        K, gen, dev, "refit", *MASKED_REFIT_SHAPE, dp=MASKED_SCORED_DP)}
+    rows.update(hist_kernel_rows(gen, dev, HIST_REFIT_SHAPES))
+    rows.update(hist_float_rows(gen, dev, HIST_FLOAT_REFIT_SHAPES))
+    rows[("knn_topk", "predict")] = knn_predict_row(manager, knn_k)
+    emit({"phase": "kernels_artifact",
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
+    return rows
+
+
+#: each kernel's artifact rows on the kernels line: (other_paths key, row
+#: tag, the job whose winner's launches it counts)
+ARTIFACT_PATHS = {
+    "masked_softmax_grad": [("artifact", "refit", "main_auto")],
+    "level_histogram": [("artifact", "refit_rf_widest", "rf_full"),
+                        ("artifact_f32", "refit_gb_root", "gb_main")],
+    "knn_topk": [("artifact", "predict", "knn_main")],
+}
+ROW_KEYS = ("shape", "max_abs_err", "max_rel_err", "float_max_rel_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_unit", "library_ms")
 
 
 def main() -> int:
@@ -2098,6 +2384,19 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "scorers_and_families", "seconds": seconds,
           "total_s": sum(seconds.values())})
+    # the winner artifact: refitted, saved, loaded and predicted on the card
+    seconds = {}
+    t_phase = time.perf_counter()
+    art_launches = phase_artifacts(manager)
+    seconds["artifacts"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    phase_artifact_reference(manager, cfg)
+    seconds["artifact_reference"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    knn_k = int(manager.best_result(JOBS["knn_main"])["parameters"]["n_neighbors"])
+    art_rows = artifact_kernel_rows(manager, dev, knn_k)
+    seconds["kernels_artifact"] = time.perf_counter() - t_phase
+    emit({"phase": "artifact_path", "seconds": seconds, "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -2141,6 +2440,11 @@ def main() -> int:
                 for tag in HIST_FLOAT_SHAPES}
             kernels[-1]["float_launches"] = {k: float_launches[k]
                                              for k in ("gb_titanic", "gb_main")}
+        for key, tag, job in ARTIFACT_PATHS.get(name, []):  # the winner artifact's path
+            r = art_rows[(name, tag)]
+            kernels[-1].setdefault("other_paths", {})[key] = {
+                "launches": art_launches[job][name], "job": job,
+                **{k: r[k] for k in ROW_KEYS if k in r}}
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     # not measured here: each kernel's ms as PERF.md stood before the
     # current kernels, at the same shapes, for reading beside the line below

@@ -7,7 +7,9 @@ live sklearn estimator, a GridSearchCV / RandomizedSearchCV wrapper, or the
 ``model_details`` payload they stand for (client/introspection.py; the
 form to use where scikit-learn is not installed), plus ``train_params``,
 and optionally blocks until the job ends;
-``check_status`` / ``check_job_status`` / ``best_result`` read results.
+``check_status`` / ``check_job_status`` / ``best_result`` read results;
+``download_best_model`` / ``load_best_model`` refit the winner once and
+serve its artifact (runtime/artifacts.py).
 
 The work runs on the CUDA card by default; ``device="cpu"`` runs it on
 the host. Without a card and without ``device="cpu"``, construction raises.
@@ -130,3 +132,30 @@ class MLTaskManager:
     def best_result(self, job_id: Optional[str] = None) -> Optional[Dict[str, Any]]:
         result = self.check_status(job_id).get("job_result") or {}
         return result.get("best_result")
+
+    def download_best_model(self, job_id: Optional[str] = None,
+                            output_path: Optional[str] = None) -> str:
+        """Path of the job's winner artifact (``<subtask_id>_model.pkl``
+        under the models directory), refitted on the first call; copied to
+        ``output_path`` when given, and that path returned."""
+        jid = job_id or self.job_id
+        path = self._coordinator.best_model_path(self.session_id, jid)
+        if path is None:
+            raise FileNotFoundError("No best model artifact for this job")
+        if output_path:
+            import shutil
+
+            shutil.copy(path, output_path)
+            return output_path
+        return path
+
+    def load_best_model(self, job_id: Optional[str] = None, as_sklearn: bool = True):
+        """Download the winning artifact and load it: by default as a fitted
+        scikit-learn estimator (runtime/sklearn_export.py; raises
+        ``ScikitLearnMissing`` where scikit-learn is not installed), with
+        ``as_sklearn=False`` as the artifact dict, which
+        ``runtime.artifacts.predict_with_artifact`` predicts with."""
+        from ..runtime.artifacts import load_artifact, to_sklearn
+
+        artifact = load_artifact(self.download_best_model(job_id))
+        return to_sklearn(artifact) if as_sklearn else artifact

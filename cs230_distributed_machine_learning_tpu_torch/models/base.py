@@ -142,6 +142,22 @@ class ModelKernel(abc.ABC):
         sizes its generic-path chunks from it."""
         return max(1.0, 4.0 * n * max(d, 1) * 3 / 1e6)
 
+    # ---- the winner artifact (runtime/artifacts.py) ----------------------
+    #
+    # The port's fits are lane-batched; an artifact holds one lane in the
+    # JAX package's layout (its family's keys, shapes and dtypes, as host
+    # numpy), so an artifact of either package loads in the other. The
+    # defaults serve params whose every tensor has a leading lane axis.
+
+    def artifact_params(self, params, lane: int = 0):
+        """Lane ``lane`` of fitted ``params`` in the JAX artifact layout."""
+        return tree_map(lambda t: to_host(t[lane]), params)
+
+    def params_from_artifact(self, np_params, device):
+        """The JAX artifact layout back to this kernel's params, as one lane
+        on ``device``: what ``predict`` takes."""
+        return tree_map(lambda a: to_device(a, device)[None], np_params)
+
 
 def score_lanes(kernel: ModelKernel, static: Dict[str, Any], y, w, predict,
                 margin=None, proba=None) -> Dict[str, torch.Tensor]:
@@ -179,6 +195,37 @@ def add_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:
     if not fit_intercept:
         return X
     return torch.cat([X, X.new_ones((X.shape[0], 1))], dim=1)
+
+
+def tree_map(fn, tree):
+    """``fn`` over the array leaves of nested dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_host(t) -> np.ndarray:
+    """An artifact leaf: host numpy in the JAX package's dtypes (int64 as
+    int32, float64 as float32, as JAX keeps them without x64)."""
+    a = t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    if a.dtype == np.int64:
+        return a.astype(np.int32)
+    if a.dtype == np.float64:
+        return a.astype(np.float32)
+    return a
+
+
+def to_device(a, device) -> torch.Tensor:
+    """An artifact leaf as a port tensor: integers as int64 (the port
+    indexes with them), floats as float32."""
+    a = np.asarray(a)
+    if np.issubdtype(a.dtype, np.integer):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+    if np.issubdtype(a.dtype, np.floating):
+        return torch.as_tensor(a.astype(np.float32), device=device)
+    return torch.as_tensor(a, device=device)
 
 
 def _hashable(v: Any):

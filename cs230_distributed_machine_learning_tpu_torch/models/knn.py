@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..ops import cuda_knn
-from .base import ModelKernel, score_lanes
+from .base import ModelKernel, score_lanes, to_device, to_host
 from .logistic import _force_packed
 
 _QUERY_BLOCK = 1024
@@ -92,6 +92,16 @@ class _KNNBase(ModelKernel):
     def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
         """The whole table and the lanes' split weights ``w [L, n]``."""
         return {"X": X.to(torch.float32), "y": y, "w": w.to(torch.float32)}
+
+    def artifact_params(self, params, lane: int = 0):
+        """The JAX layout ``{X, y, w}``: the table and targets, the lane's
+        split weights ``[n]``."""
+        return {"X": to_host(params["X"]), "y": to_host(params["y"]),
+                "w": to_host(params["w"][lane])}
+
+    def params_from_artifact(self, np_params, device):
+        return {"X": to_device(np_params["X"], device), "y": to_device(np_params["y"], device),
+                "w": to_device(np_params["w"], device)[None]}
 
     def _neighbors(self, params, Q, static):
         """Per lane and query: (top-k distances^2, top-k training rows),

@@ -31,7 +31,8 @@ Valves (names and modes as in the JAX package):
   formulation otherwise; ``xla`` always the fused-mask tensor formulation;
   ``pallas`` forces the kernel; ``legacy`` the pre-fusion formulation.
 - ``CS230_FORCE_PACKED=1``: take the packed path whatever the device and
-  n (the kernels' plain versions on the CPU), for tests.
+  n, and the masked lane kernel in the generic nesterov driver under
+  ``auto`` (the kernels' plain versions on the CPU), for tests.
 
 "pallas" names the kernel route in both packages.
 """
@@ -45,7 +46,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import pad_to_multiple
-from .base import ModelKernel, add_intercept
+from .base import ModelKernel, add_intercept, to_host
 
 _NEWTON_STEPS = 25
 _NESTEROV_STEPS = 400
@@ -113,7 +114,15 @@ class LogisticRegressionKernel(ModelKernel):
 
     # ---- generic drivers: explicit (trial, split) lane batch -------------
 
-    def batched_scores(self, X, y, TW, EW, hyper, static):
+    def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
+        """Weights ``[T, S, dp, c]`` f32 of T trials (hypers ``[T]``) on S
+        split masks ``w [S, n]``, by the bucket's solver. The winner's refit
+        (one trial, one split) on the card takes kernel B3 at one lane
+        wherever the nesterov driver would take it in a search."""
+        return self._fit(X, y, w, hyper, static, trace=False)[0]
+
+    def _fit(self, X, y, w, hyper, static, trace: bool):
+        """(W ``[T, S, dp, c]``, the grad-norm trace or None, solver steps)."""
         n_classes = int(static["_n_classes"])
         c = max(n_classes, 2)
         fit_intercept = bool(static.get("fit_intercept", True))
@@ -124,18 +133,15 @@ class LogisticRegressionKernel(ModelKernel):
         C = hyper["C"].float()
         max_iter = hyper["max_iter"].float()
         tol = hyper["tol"].float()
-        T, S = C.shape[0], TW.shape[0]
+        T, S = C.shape[0], w.shape[0]
         lam = (1.0 if use_penalty else 0.0) * (2.0 if n_classes == 2 else 1.0)
         # intercept row is unpenalized (sklearn semantics)
         pen_mask = A.new_ones((dp, c))
         if fit_intercept:
             pen_mask[-1, :] = 0.0
         W0 = A.new_zeros((T, S, dp, c))
-        w = TW.float()
+        w = w.float()
 
-        from ..obs.curves import curves_enabled, trace_stride
-
-        trace = curves_enabled()
         mode = _masked_grad_mode()
         if static["_method"] == "newton":
             steps = int(static.get("_iters", _NEWTON_STEPS))
@@ -146,12 +152,30 @@ class LogisticRegressionKernel(ModelKernel):
             grad_fn = _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode)
             W, tr = _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps,
                               trace=trace)
+        return W, tr, steps
+
+    def batched_scores(self, X, y, TW, EW, hyper, static):
+        from ..obs.curves import curves_enabled, trace_stride
+
+        trace = curves_enabled()
+        W, tr, steps = self._fit(X, y, TW, hyper, static, trace)
         out = dict(self.evaluate(W, X, y, EW.float()[None], static))  # [T, S]
         if trace:
+            T, S = W.shape[:2]
             out["curve_gmax"] = tr.permute(1, 2, 0).contiguous()  # [T, S, P']
-            out["curve_stride"] = A.new_full((T, S), float(trace_stride(steps)))
-            out["curve_steps"] = A.new_full((T, S), float(steps))
+            out["curve_stride"] = W.new_full((T, S), float(trace_stride(steps)))
+            out["curve_steps"] = W.new_full((T, S), float(steps))
         return out
+
+    # ---- the artifact: the JAX layout is one lane's W [dp, c] ------------
+
+    def artifact_params(self, params, lane: int = 0):
+        return to_host(params.reshape(-1, *params.shape[-2:])[lane])
+
+    def params_from_artifact(self, np_params, device):
+        from ..ops.cuda_logreg import weights_from_jax
+
+        return weights_from_jax(np_params, device)
 
     # ---- packed batched path (ops/cuda_logreg.py) ------------------------
     #
@@ -389,8 +413,7 @@ def _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode):
 
     use_kernel = mode == "pallas" or (
         mode == "auto"
-        and A.device.type == "cuda"
-        and n >= 4096
+        and (_force_packed() or (A.device.type == "cuda" and n >= 4096))
         and masked_grad_applicable(dpp, cp)
     )
     if use_kernel:

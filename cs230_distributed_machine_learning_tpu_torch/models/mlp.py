@@ -42,7 +42,7 @@ import torch
 from ..ops import cuda_mlp
 from ..ops.cuda_mlp import activate
 from ..utils import prng
-from .base import ModelKernel, score_lanes
+from .base import ModelKernel, score_lanes, to_host
 from .logistic import _force_packed
 
 _EPOCH_CAP = 100
@@ -68,10 +68,13 @@ def _sr_bf16(x32: torch.Tensor, key) -> torch.Tensor:
     ``_sr_bf16``, bit for bit). The bits are drawn for ``key`` at the
     shape of ``x32``'s trailing dims, so every lane of a batch gets the
     same bits, as under the reference's vmap."""
-    shape = x32.shape[1:]
+    return _sr_bf16_with(x32, prng.bits(key, x32.shape[1:]))
+
+
+def _sr_bf16_with(x32: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """``_sr_bf16`` with its random bits (``[*x32.shape[1:]]``) drawn."""
     u = x32.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    r = prng.bits(key, shape) & 0xFFFF
-    u = (u + r) & 0xFFFF0000
+    u = (u + (bits & 0xFFFF)) & 0xFFFF0000
     return u.to(torch.int32).view(torch.float32).to(torch.bfloat16)
 
 
@@ -213,6 +216,14 @@ class _MLPBase(ModelKernel):
         curve)``."""
         return self._fit(X, y, w, hyper, static, trace=True)
 
+    def artifact_params(self, params, lane: int = 0):
+        """The JAX layout: a list of ``{"W": [din, dout], "b": [dout]}``."""
+        return [{k: to_host(layer[k][lane]) for k in ("W", "b")} for layer in params]
+
+    def params_from_artifact(self, np_params, device):
+        """One model (``predict`` takes a single model, not lanes)."""
+        return cuda_mlp.params_from_jax(np_params, device)
+
     def _loss_grad(self, params, xb, tb, wb, alpha, static):
         """Loss (mean weighted batch loss plus ``alpha/2 ||W||^2`` over the
         batch weight) and its gradient for every lane, by hand, rounding
@@ -296,7 +307,14 @@ class _MLPBase(ModelKernel):
         m = [{k: torch.zeros_like(v, dtype=bf16) for k, v in layer.items()} for layer in params]
         v = [{k: torch.zeros_like(x, dtype=bf16 if v_bf16 else torch.float32)
               for k, x in layer.items()} for layer in params]
-        sr_key = prng.fold_in(key, 0x5A)  # stochastic-rounding stream
+        if v_bf16:
+            # every step's per-leaf keys at once (step s: split(fold_in(sr_key,
+            # s)), leaves in the reference's flatten order: W before b, layer
+            # by layer), and each step's bits in one threefry pass
+            sr_key = prng.fold_in(key, 0x5A)  # stochastic-rounding stream
+            steps_d = torch.arange(1, total + 1, dtype=torch.int64, device=X.device)
+            step_keys = prng.split(prng.fold_in(sr_key, steps_d), 2 * len(params))
+            leaf_shapes = [layer[name].shape[1:] for layer in params for name in ("W", "b")]
         f32 = torch.float32
         lr3, lr2 = lr[:, None, None], lr[:, None]
         step = 0
@@ -314,15 +332,13 @@ class _MLPBase(ModelKernel):
                 bc1 = 1 - torch.pow(torch.tensor(b1, dtype=f32, device=X.device), t)
                 bc2 = 1 - torch.pow(torch.tensor(b2, dtype=f32, device=X.device), t)
                 if v_bf16:
-                    # per-step, per-leaf keys (leaves in the reference's
-                    # flatten order: W before b, layer by layer)
-                    vkeys = prng.split(prng.fold_in(sr_key, step), 2 * len(params))
+                    sr_bits = prng.random_bits_each(step_keys[step - 1], leaf_shapes)
                 for li in range(len(params)):
                     for j, name in enumerate(("W", "b")):
                         gg = g[li][name]
                         m[li][name] = (b1 * m[li][name].float() + (1 - b1) * gg).to(bf16)
                         v32 = b2 * v[li][name].float() + (1 - b2) * gg * gg
-                        v[li][name] = _sr_bf16(v32, vkeys[2 * li + j]) if v_bf16 else v32
+                        v[li][name] = _sr_bf16_with(v32, sr_bits[2 * li + j]) if v_bf16 else v32
                         lr_ = lr3 if gg.dim() == 3 else lr2
                         mhat = m[li][name].float() / bc1
                         vhat = v[li][name].float() / bc2

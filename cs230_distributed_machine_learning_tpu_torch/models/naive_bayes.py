@@ -21,7 +21,7 @@ from typing import Any, Dict
 import torch
 
 from ..utils import prng
-from .base import ModelKernel, score_lanes
+from .base import ModelKernel, score_lanes, to_device, to_host
 from .trees import _normalised, _TreeBase, _vote_outputs
 
 _EPS = 1e-9
@@ -118,7 +118,17 @@ class _DecisionTreeBase(_TreeBase):
         the subclass's ``_stat_matrix`` gives the stats ``[L, n, k]``."""
         w = w.to(torch.float32)
         key = prng.PRNGKey(static["_seed"], device=w.device)
-        return {"tree": self._fit_one_tree(X, self._stat_matrix(y, w, static), w, static, key)}
+        tree = self._fit_one_tree(X, self._stat_matrix(y, w, static), w, static, key)
+        return self._with_edges({"tree": tree}, X)
+
+    def artifact_params(self, params, lane: int = 0):
+        """The lane's tree and the bin edges (the JAX layout)."""
+        tree = {k: to_host(v[lane]) for k, v in params["tree"].items()}
+        return self._edges_artifact(params, {"tree": tree})
+
+    def params_from_artifact(self, np_params, device):
+        tree = {k: to_device(v, device)[None] for k, v in np_params["tree"].items()}
+        return self._edges_artifact(np_params, {"tree": tree}, device)
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores; the trees have no traced hypers, ``hyper``
@@ -146,6 +156,10 @@ class DecisionTreeClassifierKernel(_DecisionTreeBase):
         c = max(int(static["_n_classes"]), 2)
         return torch.nn.functional.one_hot(y.long(), c).to(torch.float32)[None] * w[..., None]
 
+    def predict(self, params, X, static):
+        """Labels ``[L, n]``: the leaf's first-index argmax."""
+        return torch.argmax(self._leaf(params, X, static), dim=-1)
+
     def predict_margin(self, params, X, static):
         leaf = self._leaf(params, X, static)
         return leaf[..., 1] - leaf[..., 0]
@@ -162,3 +176,7 @@ class DecisionTreeRegressorKernel(_DecisionTreeBase):
 
     def _stat_matrix(self, y, w, static):
         return (y.to(torch.float32)[None] * w)[..., None]
+
+    def predict(self, params, X, static):
+        """The leaf values ``[L, n]``."""
+        return self._leaf(params, X, static)[..., 0]

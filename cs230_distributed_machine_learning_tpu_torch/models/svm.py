@@ -42,7 +42,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .base import ModelKernel
+from .base import ModelKernel, to_device, to_host
 
 _PG_STEPS = int(os.environ.get("CS230_SVM_PG_STEPS", "600"))
 _MAX_N = 30_000
@@ -272,10 +272,56 @@ class SVCKernel(ModelKernel):
     def _query_features(self, params, Xq, static):
         """Nyström features of query rows ``[G, nq, m + 1]``; the fit's own
         Z where the query is the fitted table (the search path)."""
-        if Xq is params["X"]:
+        if Xq is params.get("X"):
             return params["Z"]
         Zq = self._kernel_of(Xq, params["landmarks"], params["gamma"], static) @ params["inv_sqrt"]
         return torch.cat([Zq, Zq.new_ones(Zq.shape[:-1] + (1,))], dim=-1)
+
+    # ---- the artifact: one (trial, split) lane in the JAX layout ---------
+    #
+    # Lane l is (trial l // S, split l % S) of the fit's ``[T, S]`` lanes.
+    # The exact dual keeps the table; the Nyström primal keeps the
+    # landmarks and K_LL^{-1/2} (one a split, or one shared by a linear
+    # kernel). The search path's products of the fitted rows (F, K, Z) and
+    # the step count are not part of it.
+
+    def artifact_params(self, params, lane: int = 0):
+        S = params["gamma"].shape[0]
+        t, s = divmod(lane, S)
+        out = {"gamma": to_host(params["gamma"][s])}
+        if "W" in params:
+            inv = params["inv_sqrt"]
+            out.update(W=self._lane_w(params["W"][t, s]), landmarks=to_host(params["landmarks"]),
+                       inv_sqrt=to_host(inv[min(s, inv.shape[0] - 1)]))
+        else:
+            out.update(X=to_host(params["X"]), dual=self._lane_w(params["dual"][t, s]),
+                       intercept=to_host(params["intercept"][t, s]))
+        if "pairs_a" in params:
+            out.update(pairs_a=to_host(params["pairs_a"]), pairs_b=to_host(params["pairs_b"]))
+        return out
+
+    @staticmethod
+    def _lane_w(v):
+        """A lane's ``[n, P]`` duals or ``[m + 1, P]`` weights as the JAX
+        ``[P, ...]``."""
+        return to_host(v.T)
+
+    def params_from_artifact(self, np_params, device):
+        p = {k: to_device(v, device) for k, v in np_params.items()}
+        p["gamma"] = p["gamma"].reshape(1)
+        if "inv_sqrt" in p:
+            p["inv_sqrt"] = p["inv_sqrt"][None]
+        if "intercept" in p:
+            p["intercept"] = p["intercept"][None, None]
+        for k in ("W", "dual"):
+            if k in p:
+                p[k] = self._unlane_w(p[k])[None, None]
+        return p
+
+    @staticmethod
+    def _unlane_w(a):
+        """Inverse of ``_lane_w``."""
+        return a.T
 
     # ---- SVC ---------------------------------------------------------------
 
@@ -437,6 +483,22 @@ class SVRKernel(SVCKernel):
 
         W = _nesterov_primal(grad, X.new_zeros((T, S, Z.shape[2], 1)), L_est, _nystrom_steps())
         return {"W": W, "Z": Z, "landmarks": landmarks, "inv_sqrt": inv}
+
+    @staticmethod
+    def _lane_w(v):
+        """SVR's lane: duals ``[n]``; Nyström weights ``[m + 1, 1]`` as the
+        JAX ``[m + 1]``."""
+        return to_host(v.reshape(v.shape[0]))
+
+    @staticmethod
+    def _unlane_w(a):
+        return a  # the duals, ``[n]``; the Nyström weights are reshaped below
+
+    def params_from_artifact(self, np_params, device):
+        p = super().params_from_artifact(np_params, device)
+        if "W" in p:
+            p["W"] = p["W"][..., None]  # [1, 1, m + 1, 1]
+        return p
 
     def predict(self, params, X, static: Dict[str, Any]):
         """Predictions ``[T, S, nq]``."""

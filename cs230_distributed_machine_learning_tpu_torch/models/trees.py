@@ -46,7 +46,7 @@ from ..ops.trees import (
 )
 from ..utils import prng
 from ..utils.logging import get_logger
-from .base import ModelKernel, score_lanes
+from .base import ModelKernel, score_lanes, to_device, to_host
 
 # Complete-tree caps and the deep arena's bands: the reference's values and
 # env knobs (``models/trees.py:59-106`` there, where the sweeps behind them
@@ -303,10 +303,47 @@ class _TreeBase(ModelKernel):
 
     @staticmethod
     def _query_bins(params, X, static):
-        """The prepared data's precomputed codes (the search path scores the
-        rows it was fitted on; the artifact path's raw-matrix branch is not
-        ported)."""
-        return X["xb"]
+        """Bin codes of the query rows: the prepared data's own (the search
+        path scores the rows it was fitted on), or a raw feature matrix
+        binned by the fitted edges (the artifact path)."""
+        if isinstance(X, dict):
+            return X["xb"]
+        return bin_data(X, params["edges"])
+
+    @staticmethod
+    def _with_edges(params, X):
+        """``params`` plus the prepared data's bin edges, which the artifact
+        carries to bin new rows."""
+        if isinstance(X, dict):
+            params["edges"] = X["edges"]
+        return params
+
+    @staticmethod
+    def _edges_artifact(params, out, device=None):
+        """Copy ``edges`` into ``out``: to host numpy, or to ``device``."""
+        if "edges" in params:
+            e = params["edges"]
+            out["edges"] = to_host(e) if device is None else to_device(e, device)
+        return out
+
+
+def _stack_trees(trees, rows) -> Dict[str, np.ndarray]:
+    """Tree dicts with a lane axis -> one dict of host arrays stacked on a
+    leading tree axis, each tree's ``rows`` of its lane axis (an index, or
+    a slice: a boosting stage's class trees)."""
+    return {k: np.stack([to_host(t[k][rows]) for t in trees]) for k in trees[0]}
+
+
+def _unstack_trees(trees, device, lane_axis: bool) -> List[Dict[str, torch.Tensor]]:
+    """Inverse of ``_stack_trees`` for one lane: a list of tree dicts on
+    ``device``, each with a lane axis of 1 (``lane_axis``) or with the
+    stored axis (a stage's class trees) as its lane axis."""
+    n = len(next(iter(trees.values())))
+    out = []
+    for i in range(n):
+        tree = {k: to_device(v[i], device) for k, v in trees.items()}
+        out.append({k: v[None] for k, v in tree.items()} if lane_axis else tree)
+    return out
 
 
 def _chunk_plan(units: int, macs: float):
@@ -420,6 +457,33 @@ class _RandomForestBase(_TreeBase):
         n_trees = int(static.get("n_estimators", 100))
         return self._score(static, y, _vote_mean(state, n_trees), w_eval)
 
+    # the winner's refit (parallel/trial_map.py::fit_single): the chunk's
+    # trees themselves, assembled into the artifact after the last chunk
+
+    def fit_chunk(self, X, y, w, hyper, static, chunk_idx, carry, plan):
+        """The chunk's trees (ids past n_estimators skipped); ``carry``
+        passes through."""
+        w = w.to(torch.float32)
+        S, _ = self._stat_matrix(y, w, static)
+        n_trees = int(static.get("n_estimators", 100))
+        g = plan["trees_per_chunk"]
+        ids = [t for t in range(chunk_idx * g, (chunk_idx + 1) * g) if t < n_trees]
+        return carry, [self._one_tree(X, S, w, static, key)
+                       for key in self._tree_keys(static, ids, w.device)]
+
+    def assemble_artifact(self, trees, X, hyper, static, data_y, data_w):
+        return self._with_edges({"trees": trees}, X)
+
+    def artifact_params(self, params, lane: int = 0):
+        """The trees stacked on a leading ``[n_estimators]`` axis, as the
+        JAX forest holds them (every tree of a forest has the same arena
+        shapes), and the bin edges."""
+        return self._edges_artifact(params, {"trees": _stack_trees(params["trees"], lane)})
+
+    def params_from_artifact(self, np_params, device):
+        return self._edges_artifact(
+            np_params, {"trees": _unstack_trees(np_params["trees"], device, True)}, device)
+
     def _score(self, static, y, mean, w_eval):
         """The job's score of the mean leaf values ``[L, n, k]``: the soft
         vote's outputs (``_vote_outputs``), or the mean prediction."""
@@ -431,7 +495,7 @@ class _RandomForestBase(_TreeBase):
         """Forests of every lane: w [L, n] fit weights."""
         w = w.to(torch.float32)
         S, _ = self._stat_matrix(y, w, static)
-        return {"trees": self._fit_forest(X, S, w, static)}
+        return self.assemble_artifact(self._fit_forest(X, S, w, static), X, hyper, static, y, w)
 
     def _forest_leaf_mean(self, params, xq, static):
         """Mean of the trees' leaf values, summed tree by tree."""
@@ -490,6 +554,10 @@ class RandomForestClassifierKernel(_RandomForestBase):
     task = "classification"
     _mf_default = "sqrt"
 
+    def predict(self, params, X, static):
+        """Labels ``[L, n]``: the soft vote's first-index argmax."""
+        return torch.argmax(self._mean(params, X, static), dim=-1)
+
     def predict_margin(self, params, X, static):
         mean = self._mean(params, X, static)
         return mean[..., 1] - mean[..., 0]
@@ -507,16 +575,22 @@ class RandomForestRegressorKernel(_RandomForestBase):
     task = "regression"
     _mf_default = 1.0
 
+    def predict(self, params, X, static):
+        """The trees' mean ``[L, n]``."""
+        return self._mean(params, X, static)[..., 0]
+
 
 class _GradientBoostingBase(_TreeBase):
     """Newton boosting on the histogram trees (JAX ``models/trees.py:974``).
 
     Stages are sequential; the state between stages, and between the
     dispatches of ``_run_chunked``, is every lane's raw score F (``[L, n,
-    c]`` classifier, ``[L, n]`` regressor), and the scores come from F
-    directly. Stage t is keyed ``fold_in(PRNGKey(random_state), t)`` and
-    split into a subsample key and a feature key, so any grouping of
-    stages gives the reference's trees. ``learning_rate`` and
+    c]`` classifier, ``[L, n]`` regressor), and the search's scores come
+    from F directly. ``fit`` (the winner's refit) keeps the stages' trees,
+    and ``predict*`` replay them on new rows (``_raw_scores``). Stage t is
+    keyed ``fold_in(PRNGKey(random_state), t)`` and split into a subsample
+    key and a feature key, so any grouping of stages gives the reference's
+    trees. ``learning_rate`` and
     ``subsample`` are traced: one value per lane. Subclasses give
     ``_prior``, ``_f0``, ``_stage_stats`` and ``_update``."""
 
@@ -597,11 +671,14 @@ class _GradientBoostingBase(_TreeBase):
         delta = predict_tree(xb, tree, static["_depth"], static["_n_bins"])[..., 0]
         return self._update(F, delta, hyper["learning_rate"].to(torch.float32), static), tree
 
-    def _stages(self, xb, y, w, hyper, static, F, ids):
-        """F after the stages ``ids``, in order."""
+    def _stages(self, xb, y, w, hyper, static, F, ids, trees=None):
+        """F after the stages ``ids``, in order; each stage's trees are
+        appended to ``trees`` where a list is given."""
         base = prng.PRNGKey(static["_seed"], device=w.device)
         for t in ids:
-            F, _ = self._stage(xb, y, w, hyper, static, F, prng.fold_in(base, int(t)))
+            F, tree = self._stage(xb, y, w, hyper, static, F, prng.fold_in(base, int(t)))
+            if trees is not None:
+                trees.append(tree)
         return F
 
     # ---- chunked-fit protocol (parallel/trial_map.py::_run_chunked) ----
@@ -612,10 +689,66 @@ class _GradientBoostingBase(_TreeBase):
     def chunk_step(self, X, y, w, hyper, static, chunk_idx, state, plan):
         """Advance F by the chunk's stages (``chunk_idx * g + i``, those
         past n_estimators skipped)."""
+        return self.fit_chunk(X, y, w, hyper, static, chunk_idx, state, plan)[0]
+
+    def fit_chunk(self, X, y, w, hyper, static, chunk_idx, carry, plan):
+        """(F, the trees) after the chunk's stages (``chunk_idx * g + i``,
+        those past n_estimators skipped)."""
         n_stages = int(static.get("n_estimators", 100))
         g = plan["trees_per_chunk"]
         ids = [t for t in range(chunk_idx * g, (chunk_idx + 1) * g) if t < n_stages]
-        return self._stages(X["xb"], y, w.to(torch.float32), hyper, static, state, ids)
+        trees = []
+        F = self._stages(X["xb"], y, w.to(torch.float32), hyper, static, carry, ids, trees)
+        return F, trees
+
+    def assemble_artifact(self, trees, X, hyper, static, data_y, data_w):
+        """Every stage's trees, the prior and the learning rate of each
+        lane, and the bin edges: what ``_raw_scores`` replays."""
+        return self._with_edges({
+            "trees": trees,
+            "prior": self._prior(data_y, data_w.to(torch.float32), static),
+            "lr": hyper["learning_rate"].to(torch.float32),
+        }, X)
+
+    def fit(self, X, y, w, hyper: Dict[str, Any], static: Dict[str, Any]):
+        """Every stage of every lane: w [L, n] fit weights, hypers [L]."""
+        w = w.to(torch.float32)
+        trees = []
+        self._stages(X["xb"], y, w, hyper, static, self.chunk_init(X, y, w, hyper, static),
+                     range(int(static.get("n_estimators", 100))), trees)
+        return self.assemble_artifact(trees, X, hyper, static, y, w)
+
+    def _raw_scores(self, params, X, static):
+        """F of the query rows: the lanes' priors, then every stage's trees
+        at the rows' bins, through the subclass's ``_update``."""
+        xq = self._query_bins(params, X, static)
+        F = self._f0(xq.shape[0], params["prior"], static)
+        for tree in params["trees"]:
+            delta = predict_tree(xq, tree, static["_depth"], static["_n_bins"])[..., 0]
+            F = self._update(F, delta, params["lr"], static)
+        return F
+
+    def artifact_params(self, params, lane: int = 0):
+        """The JAX layout: stage trees on a leading ``[n_estimators]`` axis
+        (the classifier's with a class-tree axis after it, of one tree for a
+        binary fit), the lane's prior and learning rate, the bin edges."""
+        rows = lane
+        if self.task == "classification":  # lane l's class trees: l * kdim + k
+            kdim = params["trees"][0]["leaf_val"].shape[0] // params["prior"].shape[0]
+            rows = slice(lane * kdim, (lane + 1) * kdim)
+        return self._edges_artifact(params, {
+            "trees": _stack_trees(params["trees"], rows),
+            "prior": to_host(params["prior"][lane]),
+            "lr": to_host(params["lr"][lane]),
+        })
+
+    def params_from_artifact(self, np_params, device):
+        return self._edges_artifact(np_params, {
+            "trees": _unstack_trees(np_params["trees"], device,
+                                    lane_axis=self.task != "classification"),
+            "prior": to_device(np_params["prior"], device)[None],
+            "lr": to_device(np_params["lr"], device).reshape(1),
+        }, device)
 
     def chunk_eval(self, X, y, w_eval, hyper, static, state):
         """The job's score of the raw scores F (the state) on the rows it
@@ -629,12 +762,6 @@ class _GradientBoostingBase(_TreeBase):
                                margin=lambda: F[..., 1] - F[..., 0],
                                proba=lambda: torch.softmax(F, dim=-1))
         return score_lanes(self, static, y, w_eval, predict=lambda: F)
-
-    def predict(self, params, X, static):
-        """A fit keeps no stages, only F on its own rows (scored by
-        ``chunk_eval``): predictions on new rows are not ported yet."""
-        raise NotImplementedError(f"{self.name}: prediction from fitted stages is not yet "
-                                  "ported to the PyTorch package")
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
         """``[T, S]`` scores of one unchunked fit: lane = trial * S + split,
@@ -659,13 +786,18 @@ class GradientBoostingClassifierKernel(_GradientBoostingBase):
     name = "GradientBoostingClassifier"
     task = "classification"
 
-    # margin and probability scorers read F in ``chunk_eval``; these
-    # overrides declare the capabilities ``validate_scoring`` tests for
+    def predict(self, params, X, static):
+        """Labels ``[L, n]``: F's first-index argmax."""
+        return torch.argmax(self._raw_scores(params, X, static), dim=-1)
+
     def predict_margin(self, params, X, static):
-        return self.predict(params, X, static)
+        """F[:, 1] - F[:, 0] (a binary fit keeps F[:, 0] at zero)."""
+        F = self._raw_scores(params, X, static)
+        return F[..., 1] - F[..., 0]
 
     def predict_proba(self, params, X, static):
-        return self.predict(params, X, static)
+        """softmax(F) (sklearn's predict_proba of the raw scores)."""
+        return torch.softmax(self._raw_scores(params, X, static), dim=-1)
 
     def _prior(self, y, w, static):
         """Per-lane log class priors ``[L, c]``."""
@@ -738,3 +870,7 @@ class GradientBoostingRegressorKernel(_GradientBoostingBase):
 
     def _update(self, F, delta, lr, static):
         return F + lr[:, None] * delta
+
+    def predict(self, params, X, static):
+        """Predictions ``[L, n]``: F."""
+        return self._raw_scores(params, X, static)

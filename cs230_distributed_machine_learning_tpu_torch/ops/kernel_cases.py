@@ -109,6 +109,9 @@ MASKED_SHAPES = {"wide": (16, 4096, 896, 16, 10), "wide_full": (192, 60_160, 896
 MASKED_SCORED_SHAPE = (1536, 116_224, 128, 16, 7)
 #: the real columns of that shape: 54 features and the intercept
 MASKED_SCORED_DP = 55
+#: B3 at the winner's refit on covertype (runtime/executor.py::fit_artifact):
+#: one lane (one trial, the holdout split), the same padded rows and columns
+MASKED_REFIT_SHAPE = (1, 116_224, 128, 16, 7)
 
 
 def masked_inputs(gen, dev, lanes, n_pad, dpp, cp, c, dp=None):
@@ -139,6 +142,9 @@ HIST_SHAPES = {
     "rf_full_skewed": (6, 116_202, 54, 16, 1536, 7),
 }
 HIST_SKEWED = {"rf_full_skewed"}
+#: B4 at the winner's refit of rf_full: one lane (one tree of the holdout
+#: split) at the widest level
+HIST_REFIT_SHAPES = {"refit_rf_widest": (1, 116_202, 54, 16, 1536, 7)}
 #: the geometric law's success probability: the largest node of a level
 #: holds a few % of its rows, the smallest one row or none
 HIST_SKEW_P = 0.05
@@ -177,6 +183,9 @@ HIST_FLOAT_SHAPES = {
     "gb_main_l2": (168, 116_202, 54, 128, 2, 2),
     "gb_titanic": (12, 867, 12, 128, 1, 2),
 }
+#: B4's float mode at the winner's refit of gb_main: one trial on the
+#: holdout split, its 7 class trees a stage as lanes, at the root
+HIST_FLOAT_REFIT_SHAPES = {"refit_gb_root": (7, 116_202, 54, 128, 1, 2)}
 
 
 def gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes):
@@ -315,6 +324,9 @@ KNN_QUERIES = 4096
 #: the search grid's k, and a k above the shared-memory lists' limit
 KNN_GRID_KS = [5, 25]
 KNN_DEVICE_LISTS_K = 300
+#: queries of the winner artifact's prediction on the holdout rows: one
+#: lane (the holdout split's training rows), the 40,000 eval rows
+KNN_PREDICT_QUERIES = 40_000
 
 
 def knn_table(cache, dev) -> tuple:

@@ -17,6 +17,9 @@ Trials are bucketed by static config. Per bucket, the first that applies:
   cap;
 - any other bucket runs the kernel's ``batched_scores``.
 
+``fit_single`` refits one configuration on one split, for the winner's
+artifact (runtime/artifacts.py).
+
 The first and the last run in trial chunks bounded by device memory. A
 kernel with ``prepare_data`` (tree binning) stages its prepared forms once
 per bucket configuration, cached on the dataset. Results stay on the device
@@ -157,6 +160,53 @@ def run_trials(
         trial_metrics=[r for r in results if r is not None],
         run_time_s=time.perf_counter() - t0,
     )
+
+
+def fit_single(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
+               params: Dict[str, Any], split: int = 0, *, device: torch.device):
+    """Fit one configuration on one split's training rows (default: split
+    0, the holdout's) on ``device``; returns (the fitted params in the JAX
+    artifact layout, as host numpy; the resolved static). Counterpart of
+    the JAX ``fit_single``: the winner's artifact is refitted once, after
+    the search (the reference pickled every trial's model). A kernel with
+    a chunked plan and ``fit_chunk`` (the tree ensembles) fits its trees
+    or stages in the plan's chunks, as the search does; any other kernel
+    runs its ``fit`` at one lane."""
+    n, d = data.X.shape
+    static_key, hyper = kernel.canonicalize(params)
+    static = kernel.static_from_key(static_key)
+    if hasattr(kernel, "resolve_static"):
+        static = kernel.resolve_static(static, n, d, data.n_classes)
+    static["_n_classes"] = data.n_classes
+    if hasattr(kernel, "bucket_static"):  # caps masked-out solver steps only
+        static = kernel.bucket_static(static, [hyper])
+
+    prepared = None
+    if hasattr(kernel, "prepare_data"):
+        prepared = _prepared_data(kernel, data, static)
+        X = {k: torch.as_tensor(v, device=device) for k, v in prepared.items()}
+    else:
+        X = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
+    y = torch.as_tensor(np.asarray(data.y), device=device)
+    w = torch.as_tensor(plan.train_w[split:split + 1], device=device)  # [1, n]
+    hyper_arg = {k: torch.tensor([v], dtype=torch.float32, device=device)
+                 for k, v in hyper.items()}
+
+    chunk_plan = None
+    if hasattr(kernel, "chunked_plan") and hasattr(kernel, "fit_chunk"):
+        chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, 1,
+                                         prepared=prepared, device=device)
+    if chunk_plan:
+        carry = kernel.chunk_init(X, y, w, hyper_arg, static)
+        units: List[Any] = []
+        for ci in range(int(chunk_plan["n_chunks"])):
+            carry, part = kernel.fit_chunk(X, y, w, hyper_arg, static, ci, carry, chunk_plan)
+            units.extend(part)
+        units = units[: int(static.get("n_estimators", 100))]
+        fitted = kernel.assemble_artifact(units, X, hyper_arg, static, y, w)
+    else:
+        fitted = kernel.fit(X, y, w, hyper_arg, static)
+    return kernel.artifact_params(fitted, lane=0), static
 
 
 def _hyper_batch(hypers, batch_idx, hyper_names, chunk, device) -> Dict[str, torch.Tensor]:

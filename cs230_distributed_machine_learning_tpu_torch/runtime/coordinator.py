@@ -5,7 +5,8 @@ one process owns the job store and one in-process executor on the card.
 The job lifecycle mirrors the reference: create a session, stage and
 preprocess datasets, expand a train job into per-trial subtasks, run
 them, aggregate by ``mean_cv_score`` (best first, ties to the earlier
-trial).
+trial), and refit the winner for its artifact on demand
+(``best_model_path``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import os
 import threading
 import time
 import uuid
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from ..data.datasets import DatasetCache, dataset_dir, find_csv
 from ..data.download import download_dataset
@@ -24,6 +25,7 @@ from ..parallel.collectives import best_trial
 from ..utils.config import FrameworkConfig, get_config
 from ..utils.logging import get_logger
 from ..utils.torch_setup import DeviceLike, resolve_device
+from .artifacts import save_artifact
 from .executor import LocalExecutor
 from .store import JobStore
 from .subtasks import create_subtasks
@@ -51,6 +53,11 @@ class Coordinator:
         self.cache = DatasetCache(root=self.config.storage.datasets_dir)
         self.executor = executor or LocalExecutor(self.device, cache=self.cache)
         self._job_threads: Dict[str, threading.Thread] = {}
+        # the winner's subtask spec of each finished job, and its artifact's
+        # path once refitted (best_model_path)
+        self._artifact_lock = threading.Lock()
+        self._artifact_specs: Dict[Tuple[str, str], Dict[str, Any]] = {}
+        self._artifact_paths: Dict[Tuple[str, str], str] = {}
 
     def create_session(self, session_id: Optional[str] = None) -> str:
         return self.store.create_session(session_id)
@@ -142,14 +149,17 @@ class Coordinator:
 
         try:
             results = self.executor.run_subtasks(subtasks, on_result=on_result)
-            self._aggregate(sid, job_id, results)
+            self._aggregate(sid, job_id, results, subtasks)
         except Exception as e:  # noqa: BLE001 — the job thread's boundary
             logger.exception("Job %s failed", job_id)
             self.store.finalize_job(sid, job_id, {"status": "failed", "error": str(e)})
 
-    def _aggregate(self, sid, job_id, results) -> None:
+    def _aggregate(self, sid, job_id, results, subtasks) -> None:
         """Completed trials sorted by mean_cv_score, best first; the
-        winner is the first trial with the highest score."""
+        winner is the first trial with the highest score. The winner's
+        subtask spec is kept for its artifact, which is refitted lazily, on
+        the first ``best_model_path`` (the reference pickled every trial's
+        model, ``worker.py:352-356``: pure overhead for a search)."""
         completed = [r for r in results if r and r.get("status") == "completed"]
         failed = [r for r in results if r and r.get("status") == "failed"]
 
@@ -161,6 +171,9 @@ class Coordinator:
         if completed:
             idx, _ = best_trial([score_key(r) for r in completed])
             best = dict(completed[idx])
+            st = next(s for s in subtasks if s["subtask_id"] == best["subtask_id"])
+            with self._artifact_lock:
+                self._artifact_specs[(sid, job_id)] = st
         final = {
             "results": sorted(completed, key=score_key, reverse=True),
             "failed": failed,
@@ -193,6 +206,25 @@ class Coordinator:
         if not self.store.wait_job(sid, job_id, timeout):
             raise TimeoutError(f"Job {job_id} did not complete in time")
         return self.store.job_progress(sid, job_id)
+
+    def best_model_path(self, sid: str, job_id: str) -> Optional[str]:
+        """Path of the job's winner artifact: refitted on the device on the
+        first call (runtime/executor.py::fit_artifact), the cached path
+        after. None where the job has no winner spec (no completed trial,
+        or a job read back from the journal)."""
+        self._require_session(sid)
+        with self._artifact_lock:
+            path = self._artifact_paths.get((sid, job_id))
+            if path is not None:
+                return path
+            st = self._artifact_specs.get((sid, job_id))
+        if st is None:
+            return None
+        artifact = self.executor.fit_artifact(st)
+        path = save_artifact(st["subtask_id"], artifact, self.config.storage.models_dir)
+        with self._artifact_lock:
+            self._artifact_paths[(sid, job_id)] = path
+        return path
 
     def _require_session(self, sid: str) -> None:
         if not self.store.has_session(sid):

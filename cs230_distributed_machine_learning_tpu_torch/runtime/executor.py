@@ -6,7 +6,7 @@ model type) and each group runs as one call of the trial engine
 (parallel/trial_map.py). Per-subtask results keep the reference's schema.
 A group that raises (unknown or not-yet-ported model, missing dataset,
 unsupported scoring) fails its subtasks with the error text; the job goes
-on.
+on. ``fit_artifact`` refits a job's winner for its artifact.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 from ..data.datasets import DatasetCache
 from ..models.registry import get_kernel
 from ..ops.folds import build_split_plan
-from ..parallel.trial_map import run_trials
+from ..parallel.trial_map import fit_single, run_trials
 from ..utils.config import get_config
 from ..utils.logging import get_logger
 
@@ -115,6 +115,31 @@ class LocalExecutor:
             results[gi] = result
             if on_result:
                 on_result(st["subtask_id"], "completed", result)
+
+
+    def fit_artifact(self, subtask: Dict[str, Any]) -> Dict[str, Any]:
+        """Refit one configuration on the holdout split's training rows and
+        return its artifact dict (runtime/artifacts.py). The ``n_folds=0``
+        plan's split 0 is the search plan's holdout split (ops/folds.py),
+        so these are the rows the winner's holdout score was fitted on."""
+        kernel = get_kernel(subtask["model_type"])
+        data = self.cache.get(subtask["dataset_id"], kernel.task)
+        tp = subtask.get("train_params", {}) or {}
+        plan = build_split_plan(
+            np.asarray(data.y),
+            task=kernel.task,
+            n_folds=0,
+            test_size=float(tp.get("test_size", get_config().execution.default_test_size)),
+            random_state=tp.get("random_state", 42),
+        )
+        fitted, static = fit_single(kernel, data, plan, subtask["parameters"],
+                                    device=self.device)
+        return {
+            "model_type": subtask["model_type"],
+            "parameters": subtask["parameters"],
+            "static": dict(static),
+            "fitted_params": fitted,
+        }
 
 
 def _normalize_scoring(scoring, task: str, n_classes: int = 0, kernel=None):

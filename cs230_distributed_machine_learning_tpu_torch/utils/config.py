@@ -20,7 +20,8 @@ _ENV_PREFIX = "TPUML_"
 class StorageConfig:
     """Filesystem layout: ``<root>/datasets/<id>/*.csv`` with a
     ``preprocessed/`` subdirectory, ``<root>/configs/<id>/*.yaml``
-    preprocessing configs, plus the job journal."""
+    preprocessing configs, ``<root>/models/<subtask_id>_model.pkl`` winner
+    artifacts (runtime/artifacts.py), plus the job journal."""
 
     root: str = os.path.expanduser("~/.tpuml")
 
@@ -31,6 +32,10 @@ class StorageConfig:
     @property
     def configs_dir(self) -> str:
         return os.path.join(self.root, "configs")
+
+    @property
+    def models_dir(self) -> str:
+        return os.path.join(self.root, "models")
 
     @property
     def journal_dir(self) -> str:

@@ -8,7 +8,8 @@ give those streams, and the same fits need the same draws, so this module
 is the port's explicit key-passing counterpart of the calls the paths make:
 
 - ``PRNGKey(seed)``, ``fold_in(key, data)``, ``split(key, num)``;
-- ``bits(key, shape)`` (the uint32 words of ``jax.random.bits``);
+- ``bits(key, shape)`` (the uint32 words of ``jax.random.bits``), and
+  ``random_bits_each(keys, shapes)`` (several keys' draws in one pass);
 - ``uniform(key, shape, minval, maxval)`` (f32 in [minval, maxval));
 - ``randint(key, shape, minval, maxval)`` (int32, ``maxval`` may be a
   tensor, e.g. one bound per lane);
@@ -23,7 +24,7 @@ after each add and shift. Everything runs on the device of its inputs.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Union
+from typing import List, Sequence, Union
 
 import torch
 
@@ -101,6 +102,20 @@ def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
     lo = _counter(shape, key.device)
     b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
     return b1 ^ b2
+
+
+def random_bits_each(keys: Key, shapes: Sequence[Sequence[int]]) -> List[torch.Tensor]:
+    """``random_bits(keys[j], shapes[j])`` for every j, in one threefry pass
+    over the concatenated counters (a key's counters are the flat indices
+    of its own shape), so a step that draws for several tensors issues one
+    pass instead of one each."""
+    sizes = [math.prod(int(x) for x in s) for s in shapes]
+    dev = keys.device
+    owner = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                    torch.tensor(sizes, device=dev))
+    lo = torch.cat([torch.arange(n, dtype=torch.int64, device=dev) for n in sizes])
+    b1, b2 = threefry2x32(keys[owner, 0], keys[owner, 1], torch.zeros_like(lo), lo)
+    return [part.reshape(tuple(s)) for part, s in zip(torch.split(b1 ^ b2, sizes), shapes)]
 
 
 def bits(key: Key, shape: Sequence[int]) -> torch.Tensor:

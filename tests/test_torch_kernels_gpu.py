@@ -29,7 +29,10 @@ distances are further apart than that; on integer data every distance is
 exact and the outputs must be equal, ties (lowest index first) and empty
 slots (3.4e38, -1) included, with the lists in shared memory (k <= 256)
 and in device memory (k 300), at lane groups of 1, 6 and 9 lanes and with
-the rows split into ranges whose partial lists are merged.
+the rows split into ranges whose partial lists are merged. B3 and B6 are
+also held at the winner artifact's shapes (one lane: the covertype refit,
+the KNN prediction on 40,000 holdout rows), and a LogReg refit on the card
+must launch B3 once a solver step and never B1 or B2.
 """
 
 import numpy as np
@@ -250,6 +253,57 @@ def test_masked_kernel_many_lanes_at_narrow_dpp_on_card(cuda, n_pad):
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1])
     assert float(runs[0][:, :, c:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_masked_kernel_at_the_refit_shape_on_card(cuda):
+    """B3 at one lane at the winner's covertype refit (n_pad 116,224, dpp
+    128 of which 55 columns are real, 7 classes in 16): within TOL of its
+    plain version, two launches equal to the bit, padding exactly 0."""
+    lanes, n_pad, dpp, cp, c = kc.MASKED_REFIT_SHAPE
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    Ab, W, y2, wm = kc.masked_inputs(gen, cuda, lanes, n_pad, dpp, cp, c,
+                                     dp=kc.MASKED_SCORED_DP)
+    runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
+    ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
+    torch.cuda.synchronize()
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    assert float(runs[0][:, :, c:].abs().max()) == 0.0
+    assert float(runs[0][:, kc.MASKED_SCORED_DP:].abs().max()) == 0.0
+
+
+@pytest.mark.gpu
+def test_logreg_refit_takes_the_masked_lane_kernel_on_card(cuda):
+    """A nesterov refit (fit_single) on the card launches B3 once a solver
+    step, at one lane, and never B1 or B2; its predictions on the card are
+    the CPU refit's within one eval row in a hundred."""
+    from cs230_distributed_machine_learning_tpu_torch.models.base import TrialData
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import fit_single
+    from cs230_distributed_machine_learning_tpu_torch.runtime.artifacts import (
+        predict_with_artifact,
+    )
+
+    rng = np.random.RandomState(3)
+    X = rng.randn(12_000, 54).astype(np.float32)
+    y = np.argmax(X[:, :7] + 0.5 * rng.randn(12_000, 7), axis=1).astype(np.int32)
+    data = TrialData(X, y, 7)
+    plan = build_split_plan(y, task="classification", n_folds=0, random_state=42)
+    kernel = get_kernel("LogisticRegression")
+    params = {"C": 1.0, "max_iter": 40}
+    tk.reset_launches()
+    card, static = fit_single(kernel, data, plan, params, device=cuda)
+    assert static["_method"] == "nesterov"
+    assert tk.LAUNCHES == {**tk.LAUNCHES, "masked_softmax_grad": 40, "packed_softmax_grad": 0,
+                           "packed_nesterov_step": 0}
+    host, _ = fit_single(kernel, data, plan, params, device=torch.device("cpu"))
+    ev = plan.eval_w[0] > 0
+    art = {"model_type": kernel.name, "parameters": params, "static": static}
+    a = predict_with_artifact({**art, "fitted_params": card}, X).cpu().numpy()[ev]
+    b = predict_with_artifact({**art, "fitted_params": host}, X, device="cpu").numpy()[ev]
+    assert float(np.mean(a != b)) <= 1e-2
 
 
 @pytest.mark.gpu
@@ -609,4 +663,20 @@ def test_knn_topk_above_256_launches_on_card(cuda):
     torch.cuda.synchronize()
     assert tn.knn_list_mode(300) == "device"
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert tn.LAUNCHES["knn_topk"] == 1
+
+
+@pytest.mark.gpu
+def test_knn_topk_at_the_artifact_predict_shape_on_card(cuda):
+    """B6 at one lane at the KNN winner's prediction on its holdout: the
+    40,000 eval rows as queries against 200,000 training rows (the split's
+    160,000 masked in), k 5; the plain version asked for k + 1 decides
+    which rows' neighbour sets are clear of a tie."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    X = torch.randn(200_000, 54, generator=gen, device=cuda)
+    Q = X[:kc.KNN_PREDICT_QUERIES].contiguous()
+    W = (torch.rand(1, 200_000, generator=gen, device=cuda) > 0.2).float()
+    tn.reset_launches()
+    err, tol, _ = _knn_check(Q, X, W, 5)
+    assert err <= tol
     assert tn.LAUNCHES["knn_topk"] == 1

@@ -311,15 +311,6 @@ def test_gradient_boosting_scores_its_raw_scores(scoring, c):
     assert got.shape == (2,) and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("method", ["predict", "predict_margin", "predict_proba"])
-def test_gradient_boosting_predict_on_new_rows_is_not_ported(method):
-    """A fit keeps F, not its stages: predicting new rows raises rather than
-    reading F as fitted params."""
-    kernel = get_kernel("GradientBoostingClassifier")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        getattr(kernel, method)({}, torch.zeros((4, 3)), {"_n_classes": 3})
-
-
 @pytest.mark.parametrize("scoring,dataset", [
     ("accuracy", "iris"), ("roc_auc", "synthetic_600x8x2"), ("neg_log_loss", "iris")])
 def test_mlp_scored_search_matches_jax(scoring, dataset):
