@@ -57,9 +57,12 @@ non-zero exit and no result line:
             bf16 operands, on 72 lanes (one config-5 dispatch: 12 trials x
             6 splits) at 784-512-10 with batch 256 and 784-256-128-10 with
             batch 128: one step and an 8-step epoch from the Glorot init
-            under Adam and SGD, held to MLP_LIMITS (its comment says why
-            they are what they are), then a full Adam epoch (234 / 468
-            steps) timed beside the plain version and the bound.
+            under Adam and SGD, with the loss accumulator on (the fused
+            path's mode while curves are on), held to MLP_LIMITS (its
+            comment says why they are what they are) and MLP_LOSS_LIMIT,
+            the params bit-equal to the kernel's without the loss; then a
+            full Adam epoch (234 / 468 steps) with the loss timed beside
+            the plain version and the bound, and without it.
 12. mlp_main  MLTaskManager() on the card trains BASELINE config 5, uncut:
             RandomizedSearchCV(MLPClassifier(max_iter=30, random_state=0),
             hidden_layer_sizes x learning_rate_init x alpha x batch_size,
@@ -174,6 +177,37 @@ Then the winner artifact:
             versions, timed: each kernel's ``other_paths`` entry on the
             kernels line.
 
+Then adaptive search, the learning curves and the event stream, the
+"adaptive_search" group, each phase's seconds on its line:
+
+29. asha_main  bench.py's job, uncut, as an ASHA search (search_params
+            {"type": "asha", "eta": 3}: min_resource 200 // 9 = 22, the
+            ladder [22, 66, 200]) through the manager with stream=True:
+            rung waves of 1000, 333 and 111 trials; no failed trial,
+            completed + pruned = 1000, the search summary; B2 launched each
+            wave's largest resource times its 1024-trial chunks (288) and
+            nothing else; every final-rung mean_cv_score within 2e-3 of
+            main_auto's for the same configuration (bit-equal expected);
+            one curve a (trial, rung) dispatch, and the coordinator's
+            stream_status of the finished job yields each once before its
+            terminal snapshot. Prints the wall beside main_auto's, the solver
+            iterations beside the exhaustive 200,000, and the ASHA winner's
+            rank in main_auto's ranking (no relation between the winners is
+            asserted: ASHA may prune the exhaustive winner early).
+30. asha_refit  download_best_model on asha_main: the winner refits at its
+            final rung's 200 steps, B3 launched 200 times, never B1, B2, B5.
+31. hyperband_rf  RandomForestClassifier (random_state 42) over a 2 x 2
+            grid as a Hyperband search (eta 3, max_resource 9, n_iter 9) on
+            the uncut table: brackets of 5, 3 and 2 trials at 1, 3 and 9
+            trees; B4's int32 mode launched; every dispatch of more than one
+            tree (one tree a chunk there) carries a score-vs-chunk curve of
+            one point a tree. Prints the brackets, the waves and the wall.
+32. asha_diverged  tests/test_telemetry_curves.py's diverging MLP job on
+            covertype: the port routes it to the fused path (B5, 10 + 30
+            launches), whose per-epoch loss curve the watchdog reads;
+            exactly one diverged trial, at rung 0, none failed, the winner's
+            learning rate below 1.
+
 The kernels phase also holds B3 at scored_main's shape (1,536 lanes,
 n_pad 116,224, dpp 128 of which the 55 real columns are nonzero, cp 16,
 c 7; its R^T scratch past 2^31 elements) against its plain version run
@@ -185,16 +219,23 @@ node sizes: integer stats bit-exact, float stats within 1e-5 of the max,
 with the kernel's, the plain version's and one ``index_add_``'s median ms
 and the bound.
 
+The lines of main_auto, main_legacy, scored_main and asha_main, and the
+done line, carry the garbage collector's pauses by generation during the
+job (the run, on the done line): the job store keeps every result, so a
+full collection's pause grows as the run goes on.
+
 Then a line of each kernel's ``earlier_ms`` (the figure PERF.md's kernel
 table held for its earlier design, not measured in this run), the
 kernels line (every number measured in this run, but the bound, which it
-computes from this run's inputs), the nvidia-smi line, and the result line
+computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
+entries for asha_main, asha_refit and hyperband_rf), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -213,9 +254,8 @@ from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # n
     KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
     LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
     MASKED_SHAPES,
-    MLP_CHECK_STEPS, MLP_EPOCH_LR,
-    MLP_LANES, MLP_LIMITS, MLP_SHAPES, digest, gb_hist_inputs, hist_inputs, logreg_inputs,
-    masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
+    MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_LOSS_LIMIT, MLP_SHAPES,
+    digest, gb_hist_inputs, hist_inputs, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
@@ -263,6 +303,29 @@ SM_CLOCK_HZ = [1.98e9]
 
 #: job ids of the smoke's searches by phase, for the artifact phases
 JOBS = {}
+#: the garbage collector's pauses by generation since main() began: the
+#: job store keeps every job's results, so a full collection's pause
+#: grows with the run, and the phases that print it read its share
+GC_PAUSE_S = [0.0, 0.0, 0.0]
+#: job walls by phase, for the phases that print theirs beside them
+WALLS = {}
+
+
+def watch_gc() -> None:
+    started = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[0] = time.perf_counter()
+        else:
+            GC_PAUSE_S[info["generation"]] += time.perf_counter() - started[0]
+
+    gc.callbacks.append(on_gc)
+
+
+def gc_since(before: list) -> dict:
+    """The pauses by generation since ``before`` (a copy of GC_PAUSE_S)."""
+    return {"gc_pause_s": [b - a for a, b in zip(before, GC_PAUSE_S)]}
 
 
 def emit(obj) -> None:
@@ -672,13 +735,17 @@ def phase_main(manager) -> dict:
     for mode, kernel_name in (("auto", "packed_nesterov_step"),
                               ("legacy", "packed_softmax_grad")):
         os.environ["CS230_FUSED_STEP"] = mode
+        paused = list(GC_PAUSE_S)
         status, wall, launches = _train(
             manager, _search(1000, 200, 5), "covertype", kernel_name, 1000)
         best = status["job_result"]["best_result"]
+        # curves are on by default: every trial carries its solver's trace
+        assert all((r.get("curve") or {}).get("gmax") for r in status["job_result"]["results"])
         runs[mode] = (status, launches)
         JOBS[f"main_{mode}"] = manager.job_id
-        emit({"phase": f"main_{mode}", "wall_s": wall, "launches": launches,
-              "best_params": best["search_params"],
+        WALLS[f"main_{mode}"] = wall
+        emit({"phase": f"main_{mode}", "wall_s": wall, **gc_since(paused),
+              "launches": launches, "best_params": best["search_params"],
               "best_mean_cv_score": best["mean_cv_score"]})
     os.environ["CS230_FUSED_STEP"] = "auto"
     a, b = _scores(runs["auto"][0]), _scores(runs["legacy"][0])
@@ -949,10 +1016,13 @@ def phase_rf_reference(manager) -> None:
 
 def phase_kernels_mlp(dev) -> dict:
     """B5 against its plain version (bf16 operands) on the card, under Adam
-    (the main path) and SGD: one step and an 8-step epoch checked
-    (MLP_LIMITS), a full Adam epoch timed beside the plain version and the
-    bound. No single PyTorch call computes an Adam epoch: library_ms is
-    null."""
+    (the main path) and SGD, in the mode the fused path runs while curves
+    are on (the default): the loss accumulator on. One step and an 8-step
+    epoch checked (MLP_LIMITS, the loss within MLP_LOSS_LIMIT, the params
+    bit-equal to the kernel's without the loss); a full Adam epoch with
+    the loss timed beside the plain version and the bound, and without it
+    ("ms_untracked", the mode at CS230_CURVES=0). No single PyTorch call
+    computes an Adam epoch: library_ms is null."""
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -967,28 +1037,38 @@ def phase_kernels_mlp(dev) -> dict:
             part = (X[:nb * bs], Y[:nb * bs], Wl[:nb * bs].contiguous(), lr_c, alpha)
             for solver in ("adam", "sgd"):
                 checks[(check, solver)] = mlp_check(M, part, params, L, solver,
-                                                     dict(kw, n_batches=nb))
-        emit({"phase": "kernels_mlp_check", "tag": tag,
+                                                     dict(kw, n_batches=nb), track_loss=True)
+        emit({"phase": "kernels_mlp_check", "tag": tag, "track_loss": True,
+              "loss_limit": MLP_LOSS_LIMIT,
               "checks": {f"{c}_{s}": v for (c, s), v in checks.items()}})
         for key, limits in MLP_LIMITS.items():
             for metric, limit in limits.items():
                 got = checks[key][metric]
                 assert got < limit, f"B5 {tag} {key}: {metric} {got} (limit {limit})"
+            got = checks[key]
+            assert got["loss_rel"] < MLP_LOSS_LIMIT, f"B5 {tag} {key}: loss_rel {got}"
+            assert got["untracked_param_abs"] == 0.0, f"B5 {tag} {key}: {got}"
         adam = checks[("epoch", "adam")]
-        state = M.epoch_state(params, L, "adam")
+        state = M.epoch_state(params, L, "adam", track_loss=True)
 
         full = (X, Y, Wl, lr, alpha)
-        ms = time_ms(lambda: M.epoch(*full, 0, state, n_batches=steps, **kw), reps=3, warmup=1)
-        plain = time_ms(lambda: M.epoch_reference(*full, 0, state, n_batches=steps, **kw),
+        ms = time_ms(lambda: M.epoch(*full, 0, state, n_batches=steps, track_loss=True, **kw),
+                     reps=3, warmup=1)
+        plain = time_ms(lambda: M.epoch_reference(*full, 0, state, n_batches=steps,
+                                                  track_loss=True, **kw),
                         reps=3, warmup=1)
+        bare = state[:-1]
+        ms_untracked = time_ms(lambda: M.epoch(*full, 0, bare, n_batches=steps, **kw),
+                               reps=3, warmup=1)
         flops = M.epoch_flops(dims, bs, steps, L)
         nbytes = M.epoch_bytes(dims, bs, steps, L)
         t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
         rows[("mlp_epoch", tag)] = dict(
             shape=dict(dims=list(dims), batch=bs, steps=steps, lanes=L),
             max_abs_err=adam["param_abs"], max_rel_err=adam["param_rel"],
+            loss_rel_err=adam["loss_rel"], track_loss=True,
             checks={f"{c}_{s}": v for (c, s), v in checks.items()},
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
+            ms=ms, ms_untracked=ms_untracked, plain_ms=plain, library_ms=None, bound_ms=1e3 * max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes",
             design_floor_ms=1e3 * M.epoch_bytes(dims, bs, steps, L, every_step=True) / PEAK_BYTES,
             tflops=flops / (ms * 1e-3) / 1e12)
@@ -996,6 +1076,7 @@ def phase_kernels_mlp(dev) -> dict:
         torch.cuda.empty_cache()
     emit({"phase": "kernels_mlp",
           "limits": {f"{c}_{s}": v for (c, s), v in MLP_LIMITS.items()},
+          "loss_limit": MLP_LOSS_LIMIT,
           "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
     return rows
 
@@ -1352,6 +1433,9 @@ def phase_knn_main(manager) -> int:
     assert len(res["results"]) == 4, len(res["results"])
     scores = [r["mean_cv_score"] for r in res["results"]]
     assert all(math.isfinite(s) and 0.0 <= s <= 1.0 for s in scores), scores
+    # curves are on by default: each bucket's query chunks draw a
+    # score-vs-chunk curve
+    assert all((r.get("curve") or {}).get("score") for r in res["results"]), res["results"][0]
     best = res["best_result"]
     emit({"phase": "knn_main", "dataset": KNN_DATASET, "wall_s": wall, "trials": len(scores),
           "launches": launches, "expected_launches": expected, "plans": plans,
@@ -1842,15 +1926,18 @@ def phase_scored_main(manager) -> int:
     torch.cuda.empty_cache()
     search = _scored(_search(SCORED_MAIN_TRIALS, SCORED_MAIN_STEPS, 5), SCORED_MAIN_SCORER)
     runs = {}
+    gc_paused = {}
     for mode in ("auto", "xla"):
         os.environ["CS230_MASKED_GRAD"] = mode
         try:
             reset_all_launches()
+            paused = list(GC_PAUSE_S)
             t0 = time.perf_counter()
             status = manager.train(search, "covertype", {"random_state": 42}, timeout=1200)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = all_launches()
+            gc_paused[mode] = gc_since(paused)["gc_pause_s"]
         finally:
             os.environ.pop("CS230_MASKED_GRAD", None)
         assert status["job_status"] == "completed", status
@@ -1870,8 +1957,9 @@ def phase_scored_main(manager) -> int:
     top = sorted(b.values(), reverse=True)[:2]
     close = top[0] - top[1] <= SCORED_MAIN_TOL
     emit({"phase": "scored_main", "scoring": SCORED_MAIN_SCORER, "trials": len(a),
-          "wall_s": runs["auto"][1], "launches": runs["auto"][2],
-          "xla_wall_s": runs["xla"][1], "xla_launches": runs["xla"][2],
+          "wall_s": runs["auto"][1], "gc_pause_s": gc_paused["auto"],
+          "launches": runs["auto"][2], "xla_wall_s": runs["xla"][1],
+          "xla_gc_pause_s": gc_paused["xla"], "xla_launches": runs["xla"][2],
           "max_mean_cv_diff": worst, "tolerance": SCORED_MAIN_TOL, "best_params_equal": same,
           "best_params": best["auto"]["search_params"],
           "best_mean_cv_score": best["auto"]["mean_cv_score"],
@@ -2309,6 +2397,247 @@ def artifact_kernel_rows(manager, dev, knn_k: int) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# adaptive search, learning curves, the event stream
+# ---------------------------------------------------------------------------
+
+#: asha_main: bench.py's job as an ASHA search; plan_trials gives
+#: min_resource 200 // 3**2 = 22 and the ladder [22, 66, 200]
+ASHA_MAIN = {"type": "asha", "eta": 3}
+#: hyperband_rf: brackets of 1, 3 and 9 trees over a 2 x 2 grid of the
+#: forest's hyperparameters, as rf_main's estimator (random_state 42) sets
+#: them, on the uncut table (one tree a chunk there, so every fit of more
+#: than one tree draws its score-vs-chunk curve)
+HYPERBAND_RF = {"type": "hyperband", "eta": 3, "max_resource": 9, "n_iter": 9}
+HYPERBAND_RF_GRID = {"max_depth": [None, 12], "max_features": ["sqrt", 0.3]}
+#: asha_diverged: tests/test_telemetry_curves.py's job (its third learning
+#: rate explodes inside rung 0), on covertype
+ASHA_DIVERGED = {
+    "model_type": "MLPClassifier", "search_type": "asha",
+    "base_estimator_params": {"hidden_layer_sizes": [4], "solver": "sgd", "random_state": 0},
+    "param_grid": {"learning_rate_init": [0.05, 0.02, 1e6]}, "cv_params": {"cv": 2},
+    "n_iter": 3, "asha": {"eta": 3, "min_resource": 10, "max_resource": 30},
+}
+#: the final rung's scores against main_auto's for the same configuration:
+#: B2's lanes are independent, so bit-equal is expected
+ASHA_MAIN_TOL = 2e-3
+#: the packed LogReg path's trials a dispatch
+PACKED_CHUNK = 1024
+
+
+class WaveLog:
+    """Records each rung wave the coordinator hands its executor: the
+    trials and their (bracket, rung, resource) stamps."""
+
+    def __init__(self, manager):
+        self.executor = manager._coordinator.executor
+        self.waves = []
+
+    def __enter__(self):
+        run = self.executor.run_subtasks
+
+        def logged(tasks, **kw):
+            stamps = sorted({(t["asha"]["bracket"], t["asha"]["rung"], t["asha"]["resource"])
+                             for t in tasks})
+            self.waves.append({"trials": len(tasks), "stamps": stamps})
+            return run(tasks, **kw)
+
+        self.executor.run_subtasks = logged
+        return self
+
+    def __exit__(self, *exc):
+        del self.executor.run_subtasks
+
+
+def _rung_reports(manager, job_id: str) -> dict:
+    """{subtask_id: [(rung, resource, score), ...]} of a finished job's
+    journaled rung reports."""
+    job = manager._coordinator.store.get_job(manager.session_id, job_id)
+    return {stid: [(h["rung"], h["resource"], h["score"]) for h in sub.get("rung_history") or []
+                   if h.get("report")]
+            for stid, sub in job["subtasks"].items()}
+
+
+def _check_stream(manager, job_id: str, n_curves: int) -> int:
+    """The coordinator's stream of a finished job yields every curve entry
+    once, before the terminal snapshot."""
+    events = list(manager._coordinator.stream_status(manager.session_id, job_id, tick_s=0))
+    curves = [e for e in events if e.get("kind") == "curve"]
+    keys = {(e["subtask_id"], e["rung"], e["attempt"]) for e in curves}
+    assert events[-1].get("job_status") == "completed", events[-1]
+    assert all(e.get("kind") == "curve" for e in events[:-1])
+    assert len(curves) == len(keys) == n_curves, (len(curves), len(keys), n_curves)
+    return len(curves)
+
+
+def phase_asha_main(manager) -> dict:
+    """bench.py's job uncut as an ASHA search (eta 3) through the manager
+    with stream=True, every launch count zeroed before and read after:
+    the job completes with no failed trial, completed + pruned = 1000, the
+    search summary is there, B2 launches sum over the rung waves each
+    wave's largest resource times its 1024-trial chunks, every trial of
+    the final rung scores main_auto's score of its configuration within
+    ASHA_MAIN_TOL, the curves hold one entry per (trial, rung) dispatch,
+    and the stream yields each once. Returns the kernels line's entry."""
+    reset_all_launches()
+    paused = list(GC_PAUSE_S)
+    with WaveLog(manager) as log:
+        t0 = time.perf_counter()
+        status = manager.train(_search(1000, 200, 5), "covertype", {"random_state": 42},
+                               timeout=900, show_progress=False, stream=True,
+                               search_params=ASHA_MAIN)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    paused = gc_since(paused)
+    launches = all_launches()
+    job = JOBS["asha_main"] = manager.job_id
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    assert res["failed"] == [], res["failed"][:1]
+    assert len(res["results"]) + res["n_pruned"] == 1000, (len(res["results"]), res["n_pruned"])
+    (bracket,) = res["search"]["brackets"]
+    rungs = bracket["rungs"]
+    assert [r["resource"] for r in rungs] == [22, 66, 200], rungs
+    waves = [{**w, "chunks": math.ceil(w["trials"] / PACKED_CHUNK),
+              "resource": max(st[2] for st in w["stamps"])} for w in log.waves]
+    expected = sum(w["resource"] * w["chunks"] for w in waves)
+    assert launches["packed_nesterov_step"] == expected, (launches, waves)
+    assert not any(v for k, v in launches.items() if k != "packed_nesterov_step"), launches
+
+    reports = _rung_reports(manager, job)
+    iterations = sum(r for reps in reports.values() for _, r, _ in reps)
+    main = _scores(manager.check_status(JOBS["main_auto"]))
+    final = {json.dumps(r["search_params"], sort_keys=True): r["mean_cv_score"]
+             for r in res["results"]}
+    assert final and all(r["parameters"]["max_iter"] == 200 for r in res["results"])
+    worst = max(abs(v - main[k]) for k, v in final.items())
+    assert worst <= ASHA_MAIN_TOL, f"asha_main: final rung vs main_auto {worst}"
+    best = res["best_result"]
+    best_key = json.dumps(best["search_params"], sort_keys=True)
+    rank = 1 + sum(1 for v in main.values() if v > main[best_key])
+    main_best = max(main.values())
+
+    curves = manager.curves(job)
+    dispatches = sum(len(reps) for reps in reports.values())
+    assert curves["n_curves"] == dispatches == sum(r["entered"] for r in rungs), \
+        (curves["n_curves"], dispatches)
+    streamed = _check_stream(manager, job, curves["n_curves"])
+    emit({"phase": "asha_main", "wall_s": wall, **paused,
+          "main_auto_wall_s": WALLS["main_auto"],
+          "rungs": rungs, "waves": waves, "launches": launches["packed_nesterov_step"],
+          "expected_launches": expected, "main_auto_launches": 200,
+          "iterations": iterations, "exhaustive_iterations": 1000 * 200,
+          "completed": len(res["results"]), "pruned": res["n_pruned"],
+          "final_rung_max_diff": worst, "best_params": best["search_params"],
+          "best_mean_cv_score": best["mean_cv_score"], "rank_in_main_auto": rank,
+          "main_auto_best_mean_cv_score": main_best, "curves": curves["n_curves"],
+          "streamed_curves": streamed})
+    return {"launches": launches["packed_nesterov_step"], "job": "asha_main",
+            "expected_launches": expected, "iterations": iterations,
+            "waves": [{k: w[k] for k in ("trials", "resource", "chunks")} for w in waves]}
+
+
+def phase_asha_refit(manager) -> int:
+    """download_best_model on asha_main: the winner refits at its final
+    rung's budget (200 steps), launching B3 once a step and never B1, B2
+    or B5."""
+    job = JOBS["asha_main"]
+    best = manager.best_result(job)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    manager.download_best_model(job)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    artifact = manager.load_best_model(job, as_sklearn=False)
+    resource = best["asha"]["resource"]
+    emit({"phase": "asha_refit", "refit_s": wall, "final_resource": resource,
+          "max_iter": artifact["parameters"]["max_iter"], "iters": artifact["static"]["_iters"],
+          "launches": {k: v for k, v in launches.items() if v}})
+    assert resource == artifact["parameters"]["max_iter"] == 200, (resource, artifact["parameters"])
+    assert launches["masked_softmax_grad"] == resource, launches
+    assert not any(launches[k] for k in DEFAULT_ONLY_KERNELS), launches
+    return launches["masked_softmax_grad"]
+
+
+def phase_hyperband_rf(manager) -> dict:
+    """RandomForestClassifier as a Hyperband search on the uncut table: the
+    job completes with no failed trial, B4's int32 mode launches, and
+    every (trial, rung) dispatch of more than one tree (one tree a chunk)
+    has a score-vs-chunk curve of one point a tree. Prints the brackets,
+    the waves and the wall."""
+    search = {"model_type": "RandomForestClassifier", "search_type": "GridSearchCV",
+              "base_estimator_params": {"random_state": 42}, "param_grid": HYPERBAND_RF_GRID,
+              "cv_params": {"cv": 5}}
+    reset_all_launches()
+    with WaveLog(manager) as log:
+        t0 = time.perf_counter()
+        status = manager.train(search, "covertype", {"random_state": 42}, timeout=900,
+                               show_progress=False, search_params=HYPERBAND_RF)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = all_launches()
+    job = JOBS["hyperband_rf"] = manager.job_id
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    assert res["failed"] == [], res["failed"][:1]
+    assert launches["level_histogram"] > 0, launches
+    reports = _rung_reports(manager, job)
+    curves = {(e["subtask_id"], e["rung"]): e["curve"] for e in manager.curves(job)["curves"]}
+    multi = 0
+    for stid, reps in reports.items():
+        for rung, resource, _ in reps:
+            if resource > 1:
+                rows = curves[(stid, rung)].get("score")
+                assert rows and all(len(r) == resource for r in rows), (stid, rung, resource)
+                multi += 1
+    assert multi, "no dispatch of more than one tree"
+    emit({"phase": "hyperband_rf", "wall_s": wall, "brackets": res["search"]["brackets"],
+          "waves": log.waves, "launches": launches["level_histogram"],
+          "completed": len(res["results"]), "pruned": res["n_pruned"],
+          "dispatches": sum(len(r) for r in reports.values()), "score_curves": multi,
+          "trees_fitted": sum(r for reps in reports.values() for _, r, _ in reps),
+          "best_params": res["best_result"]["search_params"],
+          "best_mean_cv_score": res["best_result"]["mean_cv_score"]})
+    return {"launches": launches["level_histogram"], "job": "hyperband_rf",
+            "trees_fitted": sum(r for reps in reports.values() for _, r, _ in reps)}
+
+
+def phase_asha_diverged(manager) -> dict:
+    """The diverging MLP job on covertype: the port routes it to the fused
+    path (B5, n >= 4096), whose per-epoch loss curve the watchdog reads.
+    Exactly one trial diverges, at rung 0; none fails; the winner's
+    learning rate is below 1."""
+    reset_all_launches()
+    with WaveLog(manager) as log:
+        t0 = time.perf_counter()
+        status = manager.train(ASHA_DIVERGED, "covertype", {"random_state": 42}, timeout=900,
+                               show_progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = all_launches()
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    diverged = res.get("diverged_results") or []
+    emit({"phase": "asha_diverged", "wall_s": wall, "waves": log.waves,
+          "launches": {k: v for k, v in launches.items() if v},
+          "route": "fused (B5)" if launches["mlp_epoch"] else "generic",
+          "diverged": [{"parameters": d["parameters"], "rung": (d.get("asha") or {}).get("rung")}
+                       for d in diverged],
+          "n_diverged": res.get("n_diverged"), "failed": len(res["failed"]),
+          "best_params": res["best_result"]["search_params"],
+          "best_mean_cv_score": res["best_result"]["mean_cv_score"]})
+    assert res["failed"] == [], res["failed"][:1]
+    assert len(diverged) == 1 and res.get("n_diverged") == 1, diverged
+    assert diverged[0]["parameters"]["learning_rate_init"] == 1e6
+    assert int((diverged[0].get("asha") or {}).get("rung") or 0) == 0
+    assert res["best_result"]["parameters"]["learning_rate_init"] < 1.0
+    expected = sum(max(st[2] for st in w["stamps"]) for w in log.waves)
+    assert launches["mlp_epoch"] == expected, (launches, log.waves)
+    return {"launches": launches["mlp_epoch"], "job": "asha_diverged"}
+
+
+
 #: each kernel's artifact rows on the kernels line: (other_paths key, row
 #: tag, the job whose winner's launches it counts)
 ARTIFACT_PATHS = {
@@ -2316,6 +2645,19 @@ ARTIFACT_PATHS = {
     "level_histogram": [("artifact", "refit_rf_widest", "rf_full"),
                         ("artifact_f32", "refit_gb_root", "gb_main")],
     "knn_topk": [("artifact", "predict", "knn_main")],
+}
+#: each kernel's adaptive-search paths on the kernels line: (other_paths
+#: key, the row of this run's kernel rows at the path's shape, its shape).
+#: asha_main's waves run at 8, 3 and 1 trial blocks; the row is the final
+#: rung's 1-block shape. hyperband_rf's per-trial shape is rf_full's (six
+#: lanes, the widest level); asha_refit's is main_auto's refit
+ADAPTIVE_PATHS = {
+    "packed_nesterov_step": [("asha_main", 1, "n_pad 116736, dpp 64, c 7, S 6, 1 block "
+                              "(the final rung's 111 trials)")],
+    "masked_softmax_grad": [("asha_refit", "refit", "n_pad 116224, dpp 128, cp 16, c 7, "
+                             "1 lane (the winner's refit at 200 steps)")],
+    "level_histogram": [("hyperband_rf", "rf_full_widest", "6 lanes, 116202 rows, 54 "
+                         "features, 16 bins, 1536 nodes, 7 classes")],
 }
 ROW_KEYS = ("shape", "max_abs_err", "max_rel_err", "float_max_rel_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_unit", "library_ms")
@@ -2332,9 +2674,12 @@ def main() -> int:
     # datasets and the journal live inside the checkout
     cfg = cfg_mod.FrameworkConfig.load()
     cfg.storage.root = os.path.join(ROOT, ".smoke_storage")
+    # the event stream's tick: a streamed job's wall includes at most one
+    cfg.service.sse_tick_s = 0.1
     cfg_mod.set_config(cfg)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    watch_gc()
 
     env = phase_env()
     phase_build()
@@ -2397,6 +2742,17 @@ def main() -> int:
     art_rows = artifact_kernel_rows(manager, dev, knn_k)
     seconds["kernels_artifact"] = time.perf_counter() - t_phase
     emit({"phase": "artifact_path", "seconds": seconds, "total_s": sum(seconds.values())})
+    # adaptive search, the curves, the event stream
+    seconds = {}
+    adaptive = {}
+    for name, run in (("asha_main", lambda: phase_asha_main(manager)),
+                      ("asha_refit", lambda: phase_asha_refit(manager)),
+                      ("hyperband_rf", lambda: phase_hyperband_rf(manager)),
+                      ("asha_diverged", lambda: phase_asha_diverged(manager))):
+        t_phase = time.perf_counter()
+        adaptive[name] = run()
+        seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "adaptive_search", "seconds": seconds, "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -2409,7 +2765,8 @@ def main() -> int:
         "level_histogram": ("rf_main_deep", "hist", f"{jax_ops}/pallas_hist.py:106",
                             "6 lanes, 11620 rows, 54 features, 24 bins, 128 nodes, 7 classes"),
         "mlp_epoch": ("784-512-10", "mlp", f"{jax_ops}/pallas_mlp.py:239",
-                      "one epoch: 784-512-10, batch 256, 234 steps, 72 lanes, adam"),
+                      "one epoch: 784-512-10, batch 256, 234 steps, 72 lanes, adam, "
+                      "loss tracked (the fused path's mode while curves are on)"),
         "knn_topk": ("launch_k5", "knn", f"{jax_ops}/pallas_knn.py:111",
                      "6 lanes, 4096 queries, 200000 rows, 54 features, k 5"),
     }
@@ -2445,7 +2802,14 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 "launches": art_launches[job][name], "job": job,
                 **{k: r[k] for k in ROW_KEYS if k in r}}
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
+        for key, row_key, shape in ADAPTIVE_PATHS.get(name, []):  # the adaptive-search jobs
+            r = (art_rows if key == "asha_refit" else rows)[(name, row_key)]
+            entry = adaptive[key] if isinstance(adaptive[key], dict) else {
+                "launches": adaptive[key], "job": "asha_main"}
+            kernels[-1].setdefault("other_paths", {})[key] = {
+                **entry, "row": row_key, **{k: r[k] for k in ROW_KEYS if k in r},
+                "shape": shape}
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S})
     # not measured here: each kernel's ms as PERF.md stood before the
     # current kernels, at the same shapes, for reading beside the line below
     emit({"earlier_ms": EARLIER_MS, "source": EARLIER_MS_SOURCE})

@@ -29,7 +29,11 @@ Two paths, as in the JAX package:
   ``CS230_FORCE_PACKED=1`` anywhere) each epoch is one launch of the epoch
   kernel (``ops/cuda_mlp.py``, kernel B5) over every lane, then a
   row-chunked eval. On the CPU the kernel's plain version runs in f32,
-  as the JAX fused path runs in interpret mode.
+  as the JAX fused path runs in interpret mode. With ``CS230_CURVES`` on
+  it emits a per-epoch ``curve_loss`` leaf, from the kernel's loss
+  accumulator (the epoch loss of the adaptive schedule). The JAX fused
+  path emits no curve; this one does so that the numerical-health
+  watchdog sees a diverging trial on the card's route too.
 """
 
 from __future__ import annotations
@@ -495,13 +499,18 @@ class _MLPBase(ModelKernel):
         tol = float(static.get("tol", 1e-4))
         no_change = int(static.get("n_iter_no_change", 10))
         k = cuda_mlp.per_layer(solver)
+        from ..obs.curves import curves_enabled, trace_stride, trace_update
+
+        capture = curves_enabled()
+        track = adaptive or capture  # the kernel accumulates the batch losses
+        tr_stride = trace_stride(epochs)
         lane_split = torch.arange(L0, device=device) % S
         # operand precision: bf16 on the card (the kernel's); f32 on the
         # CPU, as the JAX fused path computes in interpret mode
         mdt = torch.bfloat16 if device.type == "cuda" else torch.float32
         kw = dict(dims=dims, act=act, bs=bs, n_batches=n_batches,
                   classification=classification, solver=solver, momentum=momentum,
-                  nesterov=nesterov, track_loss=adaptive)
+                  nesterov=nesterov, track_loss=track)
         f32 = torch.float32
 
         def mm(eq, a, b):
@@ -519,35 +528,46 @@ class _MLPBase(ModelKernel):
 
             key = prng.PRNGKey(seed, device=X.device)
             key, init_key = prng.split(key).unbind(-2)
-            state = cuda_mlp.epoch_state(self._init(init_key, dims), L0, solver, adaptive)
+            state = cuda_mlp.epoch_state(self._init(init_key, dims), L0, solver, track)
             ekeys = prng.split(key, epochs)
             lr_col = lr
             best = X.new_full((L0,), float("inf"))
             wait = torch.zeros((L0,), dtype=torch.int32, device=X.device)
+            trace = X.new_zeros((-(-epochs // tr_stride), L0)) if capture else None
             for e in range(epochs):
                 if invscaling:  # sklearn's t_ advances by n samples an epoch
                     lr_col = lr / (torch.tensor(float(e), dtype=f32, device=X.device) * n
                                    + 1.0) ** power_t
                 perm = prng.permutation(ekeys[e], n)[:R]
                 Wl = TWf[:, perm].T[:, lane_split].contiguous()  # [R, L0], lane-minor
-                if adaptive:
+                if track:
                     state[-1].zero_()
                 cuda_mlp.epoch(Xb[perm].contiguous(), Y[perm].contiguous(), Wl,
                                lr_col.contiguous(), alpha, e * n_batches, state, **kw)
+                if not track:
+                    continue
+                # the epoch's data loss plus the L2 term of the weights at
+                # its end, over the mean batch weight
+                data_loss = state[-1] / n_batches
+                l2 = sum(torch.sum(state[k * li] ** 2, dim=(1, 2))
+                         for li in range(len(dims) - 1))
+                bw_mean = torch.clamp(Wl.sum(dim=0) / n_batches, min=1e-12)
+                epoch_loss = data_loss + 0.5 * alpha * l2 / bw_mean
+                if capture:
+                    trace_update(trace, e, epoch_loss, tr_stride)
                 if adaptive:
-                    # the epoch's data loss plus the L2 term of the weights
-                    # at its end, over the mean batch weight
-                    data_loss = state[-1] / n_batches
-                    l2 = sum(torch.sum(state[k * li] ** 2, dim=(1, 2))
-                             for li in range(len(dims) - 1))
-                    bw_mean = torch.clamp(Wl.sum(dim=0) / n_batches, min=1e-12)
-                    epoch_loss = data_loss + 0.5 * alpha * l2 / bw_mean
                     improved = epoch_loss < best - tol
                     wait = torch.where(improved, torch.zeros_like(wait), wait + 1)
                     cut = wait > no_change
                     lr_col = torch.where(cut, torch.clamp(lr_col / 5.0, min=1e-6), lr_col)
                     wait = torch.where(cut, torch.zeros_like(wait), wait)
                     best = torch.minimum(best, epoch_loss)
+
+            curve = {}
+            if capture:
+                curve = {"curve_loss": trace.T.reshape(chunk, S, -1),
+                         "curve_stride": X.new_full((chunk, S), float(tr_stride)),
+                         "curve_steps": X.new_full((chunk, S), float(epochs))}
 
             # ---- eval: weighted score per lane over row chunks ----
             pWs = [state[k * li] for li in range(len(dims) - 1)]
@@ -573,7 +593,7 @@ class _MLPBase(ModelKernel):
                     acc = acc + torch.sum(hit * ewc, dim=1)
                 den = torch.sum(EWp, dim=1)[lane_split]
                 score = acc / torch.clamp(den, min=1e-12)
-                return {"score": score.reshape(chunk, S)}
+                return {"score": score.reshape(chunk, S), **curve}
             sw, swy, swyy, ssr = (X.new_zeros((L0,)) for _ in range(4))
             for start in starts:
                 out, ewc = forward_chunk(start)
@@ -585,7 +605,7 @@ class _MLPBase(ModelKernel):
             swc = torch.clamp(sw, min=1e-12)
             ss_tot = torch.clamp(swyy - swy * swy / swc, min=1e-12)
             return {"score": (1.0 - ssr / ss_tot).reshape(chunk, S),
-                    "mse": (ssr / swc).reshape(chunk, S)}
+                    "mse": (ssr / swc).reshape(chunk, S), **curve}
 
         return fn
 

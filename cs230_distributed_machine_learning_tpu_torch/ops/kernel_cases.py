@@ -260,6 +260,13 @@ MLP_LIMITS = {
     ("epoch", "sgd"): {"param_rel": 5e-3, "mean_rel": 2e-2},
     ("epoch", "adam"): {"param_far_share": 1e-2, "mean_rel": 1e-1},
 }
+# The loss accumulator the fused path runs whenever curves are on: every
+# lane's summed batch loss within this share of the plain version's. The
+# losses of one step come from the same state and differ only in their
+# summation order (f32 rounding, ~1e-6 relative); after the 8-step epoch
+# the params have drifted by the shares above. A batch lost or counted
+# twice moves an 8-step sum by ~1/8.
+MLP_LOSS_LIMIT = 1e-3
 
 
 def mlp_inputs(gen, dev, dims, bs, steps, L, S=6):
@@ -284,23 +291,36 @@ def mlp_inputs(gen, dev, dims, bs, steps, L, S=6):
     return X, Y, Wl, lr, alpha, params
 
 
-def mlp_check(M, part, params, L, solver, kw) -> dict:
+def mlp_check(M, part, params, L, solver, kw, track_loss: bool = False) -> dict:
     """One short epoch of B5 (module ``M``: ``ops/cuda_mlp.py``) against its
     plain version from the same state. Params (every W and b): the largest
     error over the largest |param| ("param_rel") and the share of params
     more than 1e-3 of the largest |param| apart ("param_far_share"); every
-    state tensor: its mean error over its mean change ("mean_rel")."""
-    state = M.epoch_state(params, L, solver)
+    layer's state tensor: its mean error over its mean change ("mean_rel").
+    With ``track_loss``, the mode of the fused path while curves are on:
+    the accumulated loss's largest error over the lane's |loss|
+    ("loss_rel"), and the largest difference of the params from the same
+    kernel's epoch without the loss ("untracked_param_abs"; the loss only
+    reads what the update uses, so 0.0)."""
+    state = M.epoch_state(params, L, solver, track_loss)
     k = M.per_layer(solver)
+    kw = dict(kw, track_loss=track_loss)
     ref = M.epoch_reference(*part, 0, [t.clone() for t in state], solver=solver, **kw)
     got = M.epoch(*part, 0, [t.clone() for t in state], solver=solver, **kw)
     if got[0].is_cuda:
         torch.cuda.synchronize()
-    pidx = [i for i in range(len(got)) if i % k < 2]  # params: W, b
+    n_layer = len(got) - int(track_loss)  # the loss [L] trails the layers' tensors
+    pidx = [i for i in range(n_layer) if i % k < 2]  # params: W, b
     scale = max(float(ref[i].abs().max()) for i in pidx)
     out = dict(param_abs=0.0, mean_rel=0.0)
+    if track_loss:
+        out["loss_rel"] = float(((got[-1] - ref[-1]).abs()
+                                 / ref[-1].abs().clamp(min=1e-12)).max())
+        bare = M.epoch(*part, 0, [t.clone() for t in state[:n_layer]], solver=solver,
+                       **dict(kw, track_loss=False))
+        out["untracked_param_abs"] = max(float((got[i] - bare[i]).abs().max()) for i in pidx)
     far = total = 0
-    for i, (g, r, a) in enumerate(zip(got, ref, state)):
+    for i, (g, r, a) in enumerate(zip(got[:n_layer], ref, state)):
         assert bool(torch.isfinite(g).all()), f"B5 {solver}: non-finite state {i}"
         if i in pidx:
             out["param_abs"] = max(out["param_abs"], float((g - r).abs().max()))

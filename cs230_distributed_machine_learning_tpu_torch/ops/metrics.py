@@ -277,15 +277,16 @@ def validate_scoring(scoring, task: str, n_classes: int = 0, kernel=None) -> Non
     boundary rather than inside a fit: an unknown name, a binary-only
     scorer on a multiclass target (sklearn raises there too), and, given
     the kernel, a margin or probability scorer the kernel has no output
-    for. Callable scorers need the winner artifact and an sklearn export,
-    which the port does not have yet."""
+    for. A callable ``scorer(estimator, X, y)`` takes the host-side path
+    (``parallel/trial_map.py::run_trials_callable``): nothing to validate
+    here."""
     if scoring is None:
         return
     if callable(scoring) and not isinstance(scoring, str):
-        raise ValueError("callable scoring is not yet ported to the PyTorch package "
-                         "(pass a scorer name)")
+        return
     if not isinstance(scoring, str):
-        raise ValueError(f"scoring must be a sklearn scorer name (got {type(scoring).__name__})")
+        raise ValueError(f"scoring must be a sklearn scorer name or a callable "
+                         f"scorer(estimator, X, y) (got {type(scoring).__name__})")
     known = scorer_names(task)
     if not known:
         raise ValueError(f"scoring={scoring!r} is not applicable to task {task!r}")

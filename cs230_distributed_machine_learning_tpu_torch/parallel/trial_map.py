@@ -18,7 +18,9 @@ Trials are bucketed by static config. Per bucket, the first that applies:
 - any other bucket runs the kernel's ``batched_scores``.
 
 ``fit_single`` refits one configuration on one split, for the winner's
-artifact (runtime/artifacts.py).
+artifact (runtime/artifacts.py). ``run_trials_callable`` is the host-side
+path of a callable ``scoring``: ``fit_single`` on the device per (trial,
+split), the scikit-learn export, the user's scorer on the host.
 
 The first and the last run in trial chunks bounded by device memory. A
 kernel with ``prepare_data`` (tree binning) stages its prepared forms once
@@ -209,6 +211,50 @@ def fit_single(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
     return kernel.artifact_params(fitted, lane=0), static
 
 
+def run_trials_callable(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
+                        params_list: Sequence[Dict[str, Any]], scorer, *,
+                        device: torch.device) -> List[Dict[str, Any]]:
+    """Host-side path of a callable ``scoring``: per (trial, split),
+    ``fit_single`` on ``device``, the fitted params exported to a fitted
+    scikit-learn estimator (runtime/sklearn_export.py), and the user's
+    ``scorer(estimator, X_eval, y_eval)`` on the host. Needs scikit-learn.
+    A scorer that raises scores its split NaN; any non-finite split marks
+    the trial diverged at -inf with the ``scorer_error``, and the job goes
+    on. Returns per-trial metrics dicts shaped like ``_postprocess``'s
+    (JAX ``run_trials_callable``)."""
+    from ..runtime.sklearn_export import to_sklearn
+
+    X_np = np.asarray(data.X)
+    y_np = np.asarray(data.y)
+    results: List[Dict[str, Any]] = []
+    for params in params_list:
+        split_scores: List[float] = []
+        scorer_errors: List[str] = []
+        for s in range(plan.n_splits):
+            fitted, static = fit_single(kernel, data, plan, params, split=s, device=device)
+            est = to_sklearn({"model_type": kernel.name, "parameters": params,
+                              "static": dict(static), "fitted_params": fitted})
+            keep = np.asarray(plan.eval_w[s]) > 0
+            try:
+                split_scores.append(float(scorer(est, X_np[keep], y_np[keep])))
+            except Exception as e:  # noqa: BLE001 — a scorer bug fails this trial
+                split_scores.append(float("nan"))
+                scorer_errors.append(f"split {s}: {e!r}")
+        metrics: Dict[str, Any] = {"scoring": "callable", "score": split_scores[0]}
+        if plan.n_folds >= 2 and len(split_scores) > 1:
+            metrics["cv_scores"] = split_scores[1:]
+            metrics["mean_cv_score"] = float(np.mean(split_scores[1:]))
+        else:
+            metrics["mean_cv_score"] = split_scores[0]
+        if not all(np.isfinite(v) for v in split_scores):
+            metrics["mean_cv_score"] = float("-inf")
+            metrics["diverged"] = True
+            if scorer_errors:
+                metrics["scorer_error"] = "; ".join(scorer_errors)
+        results.append(metrics)
+    return results
+
+
 def _hyper_batch(hypers, batch_idx, hyper_names, chunk, device) -> Dict[str, torch.Tensor]:
     """``[chunk]`` tensors of the chunk's hypers, padded with the last
     trial's values (padded lanes are computed and dropped). A kernel with
@@ -249,8 +295,19 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
     never leaves the device. ``d`` is the table's feature count. The trial
     chunk is bounded by the state's memory, the kernel's working set and
     64 trials (``trial_map.py:1707`` there). Returns the pending
-    (outputs, trial indices) pairs."""
+    (outputs, trial indices) pairs.
+
+    With curves on and more than one chunk, the score-vs-chunk curve:
+    an extra ``chunk_eval`` after every ``curve_stride``-th chunk but the
+    last (every prefix of the accumulator is a valid model), emitted with
+    the final eval as the ``curve_score`` / ``curve_stride`` /
+    ``curve_steps`` leaves, as in the JAX package."""
+    from ..obs.curves import curve_points, curves_enabled
+
     n, n_splits = y.shape[0], int(plan.n_splits)
+    n_chunks = int(chunk_plan["n_chunks"])
+    curve_stride = (max(1, -(-n_chunks // curve_points()))
+                    if curves_enabled() and n_chunks > 1 else 0)
     n_classes = int(static.get("_n_classes", 0))
     state_mb = 4.0 * n * max(n_classes, 1) * n_splits / 1e6
     mem_cap = _memory_chunk_cap(kernel, n, d, static, n_splits, device)
@@ -263,12 +320,23 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
         # lane = trial * S + split: the fold masks repeated per trial
         TWl = TW.repeat(chunk, 1)
         hyper_l = {k: v.repeat_interleave(n_splits) for k, v in hyper.items()}
+        EWl = EW.repeat(chunk, 1)
         state = kernel.chunk_init(X, y, TWl, hyper_l, static)
-        for ci in range(int(chunk_plan["n_chunks"])):
+        mids = []
+        for ci in range(n_chunks):
             state = kernel.chunk_step(X, y, TWl, hyper_l, static, ci, state, chunk_plan)
-        res = kernel.chunk_eval(X, y, EW.repeat(chunk, 1), hyper_l, static, state)
-        out.append(({k: v.reshape(chunk, n_splits, *v.shape[1:]) for k, v in res.items()},
-                    batch_idx))
+            if curve_stride and (ci + 1) % curve_stride == 0 and ci < n_chunks - 1:
+                mids.append(kernel.chunk_eval(X, y, EWl, hyper_l, static, state)["score"])
+        res = kernel.chunk_eval(X, y, EWl, hyper_l, static, state)
+        res = {k: v.reshape(chunk, n_splits, *v.shape[1:]) for k, v in res.items()}
+        if curve_stride:
+            res["curve_score"] = torch.stack(
+                [m.reshape(chunk, n_splits) for m in mids] + [res["score"]], dim=-1)
+            res["curve_stride"] = torch.full((chunk, n_splits), float(curve_stride),
+                                             device=res["score"].device)
+            res["curve_steps"] = torch.full((chunk, n_splits), float(n_chunks),
+                                            device=res["score"].device)
+        out.append((res, batch_idx))
     return out
 
 

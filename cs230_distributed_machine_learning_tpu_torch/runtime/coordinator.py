@@ -7,6 +7,15 @@ preprocess datasets, expand a train job into per-trial subtasks, run
 them, aggregate by ``mean_cv_score`` (best first, ties to the earlier
 trial), and refit the winner for its artifact on demand
 (``best_model_path``).
+
+An adaptive-search job (``asha`` / ``hyperband``, runtime/search.py) runs
+as synchronous rung waves on the in-process executor: each wave's
+reports feed the rung controller in the group's order, and its Steps
+give the next wave. Learning curves of every result and metrics message
+land in the CurveStore (``job_curves`` / ``subtask_curves`` and the
+``curve`` events of ``stream_status``); on the metrics path of a search,
+the numerical-health watchdog terminates a diverging trial as
+``diverged``.
 """
 
 from __future__ import annotations
@@ -21,13 +30,16 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..data.datasets import DatasetCache, dataset_dir, find_csv
 from ..data.download import download_dataset
 from ..data.preprocess import preprocess_dataframe
+from ..obs import counter_inc, flush_journal, record_event
+from ..obs.curves import CurveStore, divergence
 from ..parallel.collectives import best_trial
 from ..utils.config import FrameworkConfig, get_config
 from ..utils.logging import get_logger
 from ..utils.torch_setup import DeviceLike, resolve_device
 from .artifacts import save_artifact
 from .executor import LocalExecutor
-from .store import JobStore
+from .search import SearchJobDriver, Step
+from .store import TERMINAL_STATUSES, JobStore
 from .subtasks import create_subtasks
 
 logger = get_logger("tpuml.coordinator")
@@ -58,9 +70,17 @@ class Coordinator:
         self._artifact_lock = threading.Lock()
         self._artifact_specs: Dict[Tuple[str, str], Dict[str, Any]] = {}
         self._artifact_paths: Dict[Tuple[str, str], str] = {}
+        # per-trial learning curves, fed by result and metrics ingest; the
+        # journaled curves of a read-back journal re-seed it
+        self.curves = CurveStore()
+        for e in self.store.drain_replayed_curves():
+            self.curves.ingest(e["jid"], e["stid"], e["curve"], rung=e["rung"],
+                               attempt=e["attempt"], diverged=e["diverged"])
 
-    def create_session(self, session_id: Optional[str] = None) -> str:
-        return self.store.create_session(session_id)
+    def create_session(self, session_id: Optional[str] = None, *, priority: int = 0) -> str:
+        """``priority`` is the session's QoS lane, kept in the session
+        record and its journal line (JAX ``create_session``)."""
+        return self.store.create_session(session_id, priority=priority)
 
     # ------------- data -------------
 
@@ -142,26 +162,159 @@ class Coordinator:
         return {"status": "submitted", "job_id": job_id, "total_subtasks": len(subtasks)}
 
     def _run_job(self, sid: str, job_id: str, subtasks: List[Dict[str, Any]]) -> None:
-        """Execute a job's subtasks and aggregate; any error fails the job."""
+        """Execute a job's subtasks and aggregate; any error fails the job.
+        A job whose specs carry an ``asha`` block goes through the rung
+        controller (``_run_job_search_direct``)."""
 
         def on_result(subtask_id: str, status: str, result: Optional[Dict[str, Any]]):
             self.store.update_subtask(sid, job_id, subtask_id, status, result)
+            r = result or {}
+            if isinstance(r.get("curve"), dict):
+                # verdict only: this result is terminal already
+                self.ingest_curve(sid, job_id, subtask_id, r["curve"],
+                                  rung=int((r.get("asha") or {}).get("rung") or 0),
+                                  attempt=int(r.get("attempt") or 0))
+            record_event("result", job_id=job_id, subtask_id=subtask_id,
+                         attempt=int(r.get("attempt") or 0), status=status,
+                         mean_cv_score=r.get("mean_cv_score"), error=r.get("error"))
 
+        def on_metrics(msg: Dict[str, Any]):
+            if isinstance(msg.get("curve"), dict):
+                # live ingest at the group boundary, before the result settles
+                self.ingest_curve(sid, job_id, msg.get("subtask_id"), msg["curve"],
+                                  rung=int(msg.get("rung") or 0),
+                                  attempt=int(msg.get("attempt") or 0))
+
+        def on_intermediate(subtask_id: str, result: Optional[Dict[str, Any]]):
+            # a non-terminal rung boundary (promoted or paused): journal the
+            # report and its curve, no terminal transition
+            self.store.update_subtask(sid, job_id, subtask_id, "promoted", result)
+            r = result or {}
+            if isinstance(r.get("curve"), dict):
+                self.ingest_curve(sid, job_id, subtask_id, r["curve"],
+                                  rung=int((r.get("asha") or {}).get("rung") or 0),
+                                  attempt=int(r.get("attempt") or 0))
+            record_event("result", job_id=job_id, subtask_id=subtask_id,
+                         attempt=int(r.get("attempt") or 0), status="promoted",
+                         mean_cv_score=r.get("mean_cv_score"),
+                         rung=(r.get("asha") or {}).get("rung"))
+
+        driver: Optional[SearchJobDriver] = None
+        if any(st.get("asha") for st in subtasks):
+            driver = SearchJobDriver(subtasks)
+            # rebuild rung state from the journaled rung history (a no-op on
+            # a fresh job; resuming an in-flight job waits for ROADMAP A2)
+            driver.resume(self.store.get_job(sid, job_id))
         try:
-            results = self.executor.run_subtasks(subtasks, on_result=on_result)
-            self._aggregate(sid, job_id, results, subtasks)
+            if driver is not None:
+                by_id = self._run_job_search_direct(sid, job_id, driver, on_result,
+                                                    on_intermediate, on_metrics)
+                results = [by_id.get(st["subtask_id"]) for st in subtasks]
+            else:
+                results = self.executor.run_subtasks(subtasks, on_result=on_result,
+                                                     on_metrics=on_metrics)
+            self._aggregate(sid, job_id, results, subtasks,
+                            search_summary=driver.summary() if driver is not None else None)
+            counter_inc("tpuml_jobs_completed_total")
         except Exception as e:  # noqa: BLE001 — the job thread's boundary
             logger.exception("Job %s failed", job_id)
+            counter_inc("tpuml_jobs_failed_total")
+            flush_journal()
             self.store.finalize_job(sid, job_id, {"status": "failed", "error": str(e)})
 
-    def _aggregate(self, sid, job_id, results, subtasks) -> None:
+    def _apply_search_step_direct(self, step: Step, results_by_id, on_result,
+                                  on_intermediate) -> List[Dict[str, Any]]:
+        """Apply one Step; returns the fresh rung dispatches for the next
+        wave."""
+        for tid, res in step.promoted:
+            if res is not None:
+                on_intermediate(tid, res)
+        new_tasks = []
+        for task in step.new_tasks:
+            # no attempt ledger in direct mode: bump the attempt stamp so rung
+            # dispatches stay distinguishable in results and journals
+            task["attempt"] = int(task.get("attempt") or 0) + 1
+            task.pop("speculative", None)
+            new_tasks.append(task)
+        if step.cancels:
+            self.executor.cancel(step.cancels)
+        for tid, status, res in step.finished:
+            results_by_id[tid] = res
+            on_result(tid, status, res)
+        return new_tasks
+
+    def _run_job_search_direct(self, sid, job_id, driver: SearchJobDriver, on_result,
+                               on_intermediate, on_metrics) -> Dict[str, Dict[str, Any]]:
+        """The rung loop: synchronous waves on the in-process executor. The
+        executor's metrics messages carry each rung's score and curve;
+        during a wave they feed the watchdog and the stop_score fast path,
+        so cancels reach the executor before its next group boundary.
+        After the wave, each result feeds the controller in the wave's
+        order. Failures are terminal (no retries) and drop the trial off
+        its ladder."""
+        results_by_id: Dict[str, Dict[str, Any]] = {}
+        self._apply_search_step_direct(driver.resume_step(), results_by_id, on_result,
+                                       on_intermediate)
+        tasks = driver.pending_tasks()
+        while tasks:
+            steps: List[Step] = []
+
+            def _metrics(msg):
+                curve = msg.get("curve")
+                stid_m = msg.get("subtask_id")
+                if isinstance(curve, dict) and stid_m:
+                    # the watchdog on the metrics path: a diverged trial ends
+                    # now instead of burning the rest of its rung budget
+                    if self.ingest_curve(sid, job_id, stid_m, curve,
+                                         rung=int(msg.get("rung") or 0),
+                                         attempt=int(msg.get("attempt") or 0)):
+                        dstep = driver.handle_diverged(stid_m, curve, result=None)
+                        if dstep.cancels:
+                            self.executor.cancel(dstep.cancels)
+                        if dstep.finished or dstep.new_tasks or dstep.promoted:
+                            steps.append(dstep)
+                step = driver.handle_metrics(msg)
+                if step.cancels:
+                    self.executor.cancel(step.cancels)
+                if step.finished or step.new_tasks or step.promoted:
+                    steps.append(step)
+                on_metrics(msg)
+
+            wave = self.executor.run_subtasks(tasks, on_metrics=_metrics)
+            for st, r in zip(tasks, wave):
+                stid = st["subtask_id"]
+                r = r or {}
+                status = r.get("status", "completed")
+                if status == "failed":
+                    steps.append(driver.handle_quarantine(stid, r))
+                elif status == "pruned":
+                    steps.append(driver.handle_pruned_result(stid, r))
+                else:
+                    steps.append(driver.handle_result(stid, r))
+            tasks = []
+            for step in steps:
+                tasks.extend(self._apply_search_step_direct(step, results_by_id, on_result,
+                                                            on_intermediate))
+            self.store.set_search_state(sid, job_id, driver.summary())
+        if not driver.done():
+            logger.warning("Search job %s: wave loop drained with %d trials undecided",
+                           job_id, sum(1 for t in driver.specs
+                                       if t not in driver.controller.decided))
+        return results_by_id
+
+    def _aggregate(self, sid, job_id, results, subtasks,
+                   search_summary: Optional[Dict[str, Any]] = None) -> None:
         """Completed trials sorted by mean_cv_score, best first; the
         winner is the first trial with the highest score. The winner's
         subtask spec is kept for its artifact, which is refitted lazily, on
         the first ``best_model_path`` (the reference pickled every trial's
-        model, ``worker.py:352-356``: pure overhead for a search)."""
+        model, ``worker.py:352-356``: pure overhead for a search). An
+        adaptive-search winner is refitted at its final rung's parameters.
+        Pruned and diverged trials are separate, non-failure reports."""
         completed = [r for r in results if r and r.get("status") == "completed"]
         failed = [r for r in results if r and r.get("status") == "failed"]
+        pruned = [r for r in results if r and r.get("status") == "pruned"]
+        diverged = [r for r in results if r and r.get("status") == "diverged"]
 
         def score_key(r):
             v = r.get("mean_cv_score")
@@ -172,6 +325,9 @@ class Coordinator:
             idx, _ = best_trial([score_key(r) for r in completed])
             best = dict(completed[idx])
             st = next(s for s in subtasks if s["subtask_id"] == best["subtask_id"])
+            if best.get("asha") and best.get("parameters"):
+                # the subtask list still holds the rung-0 spec
+                st = {**st, "parameters": best["parameters"]}
             with self._artifact_lock:
                 self._artifact_specs[(sid, job_id)] = st
         final = {
@@ -180,7 +336,63 @@ class Coordinator:
             "best_result": best,
             "completion_time": time.time(),
         }
+        if pruned or search_summary is not None:
+            final["pruned_results"] = sorted(pruned, key=score_key, reverse=True)
+            final["n_pruned"] = len(pruned)
+            if search_summary is not None:
+                final["search"] = search_summary
+        if diverged:
+            final["diverged_results"] = diverged
+            final["n_diverged"] = len(diverged)
+        flush_journal()  # the job's events are on disk once it reads as done
         self.store.finalize_job(sid, job_id, final)
+
+    # ------------- learning curves -------------
+
+    def ingest_curve(self, sid: str, job_id: str, subtask_id: str, curve: Dict[str, Any],
+                     *, rung: int = 0, attempt: int = 0) -> bool:
+        """Ingest one trial's curve record and return the watchdog's
+        divergence verdict. The store dedups on (subtask, rung, attempt),
+        so a curve delivered by both the metrics and the result transport
+        counts, journals and records its event once; the caller decides
+        whether the verdict ends the trial (search loops do)."""
+        if not isinstance(curve, dict) or not subtask_id:
+            return False
+        diverged = divergence(curve, self.config.service.curve_divergence_factor)
+        added = self.curves.ingest(job_id, subtask_id, curve, rung=rung, attempt=attempt,
+                                   diverged=diverged)
+        if added:
+            counter_inc("tpuml_curve_points_total", float(added))
+            record_event("curve.ingest", job_id=job_id, subtask_id=subtask_id,
+                         rung=int(rung or 0), attempt=int(attempt or 0), n_points=added,
+                         diverged=diverged)
+            try:
+                self.store.record_curve(sid, job_id, subtask_id, curve, rung=rung,
+                                        attempt=attempt, diverged=diverged)
+            except KeyError:
+                pass  # an unknown job: serve from memory only
+        return diverged
+
+    def job_curves(self, job_id: str) -> Optional[Dict[str, Any]]:
+        """Every recorded curve of a job, joined with its live status; None
+        when the job id is unknown, an empty ``curves`` list when it has
+        none yet."""
+        sid = self.store.session_of(job_id)
+        if sid is None:
+            return None
+        progress = self.store.job_progress(sid, job_id)
+        out = self.curves.job(job_id) or {"job_id": job_id, "n_curves": 0, "curves": []}
+        out["job_status"] = progress.get("job_status")
+        out["tasks_diverged"] = progress.get("tasks_diverged", 0)
+        return out
+
+    def subtask_curves(self, job_id: str, subtask_id: str) -> Dict[str, Any]:
+        """One trial's curves across rungs and attempts; KeyError when the
+        pair never reported one."""
+        out = self.curves.subtask(job_id, subtask_id)
+        if out is None:
+            raise KeyError(f"no curves recorded for subtask {subtask_id!r} of job {job_id!r}")
+        return out
 
     # ------------- status / metrics -------------
 
@@ -194,6 +406,25 @@ class Coordinator:
                 out["best_result"] = result.get("best_result")
             return out
         return progress
+
+    def stream_status(self, sid: str, job_id: str, tick_s: Optional[float] = None):
+        """Generator of progress snapshots until the job ends, with the
+        freshly ingested curves interleaved as ``{"kind": "curve", ...}``
+        events (the CurveStore's version is the cursor, so each curve
+        streams once). The snapshot is read before the curve drain: a
+        terminal status means aggregation finished, so every curve is
+        already behind the cursor and flushes before the last snapshot."""
+        tick = tick_s if tick_s is not None else self.config.service.sse_tick_s
+        since = 0
+        while True:
+            progress = self.store.job_progress(sid, job_id)
+            fresh, since = self.curves.updates(job_id, since)
+            for entry in fresh:
+                yield {"kind": "curve", "job_id": job_id, **entry}
+            yield progress
+            if progress["job_status"] in TERMINAL_STATUSES:
+                return
+            time.sleep(tick)
 
     def job_metrics(self, sid: str, job_id: str) -> List[Dict[str, Any]]:
         """Per-subtask results array."""

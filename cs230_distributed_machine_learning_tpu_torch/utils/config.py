@@ -55,9 +55,16 @@ class ExecutionConfig:
 
 @dataclasses.dataclass
 class ServiceConfig:
-    """Client-side waiting knobs."""
+    """Client-side waiting knobs, the event stream's tick and the
+    numerical-health watchdog's threshold."""
 
     client_timeout_s: float = 600.0
+    # the tick between progress snapshots of Coordinator.stream_status
+    sse_tick_s: float = 1.5
+    # the watchdog's rule (obs/curves.py::divergence): a trial diverges when
+    # its loss / grad-norm trace tail exceeds this factor times the median
+    # of its own early quarter, or any sample is non-finite
+    curve_divergence_factor: float = 1e3
 
 
 @dataclasses.dataclass

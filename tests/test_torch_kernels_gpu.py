@@ -526,17 +526,24 @@ def test_mlp_epoch_matches_plain_on_card(cuda, dims, act, bs, nb, L, cls, solver
 def test_mlp_one_step_within_smoke_limits_on_card(cuda, tag):
     """One step of B5 at the smoke test's MLP_SHAPES on its 72 lanes, from
     the Glorot init at the lanes' own learning rates, held to its
-    MLP_LIMITS for a step under Adam and SGD (ops/kernel_cases.py)."""
+    MLP_LIMITS for a step under Adam and SGD (ops/kernel_cases.py), with
+    and without the loss accumulator (MLP_LOSS_LIMIT; the params the same
+    to the bit either way)."""
     dims, bs, _ = kc.MLP_SHAPES[tag]
     gen = torch.Generator(device=cuda).manual_seed(5)
     X, Y, Wl, lr, alpha, params = kc.mlp_inputs(gen, cuda, dims, bs, 1, kc.MLP_LANES)
     kw = dict(dims=dims, act="relu", bs=bs, classification=True, n_batches=1)
     tm.reset_launches()
     for solver in ("adam", "sgd"):
-        got = kc.mlp_check(tm, (X, Y, Wl, lr, alpha), params, kc.MLP_LANES, solver, kw)
-        for metric, limit in kc.MLP_LIMITS[("step", solver)].items():
-            assert got[metric] < limit, (solver, metric, got[metric])
-    assert tm.LAUNCHES["mlp_epoch"] == 2
+        for track_loss in (False, True):
+            got = kc.mlp_check(tm, (X, Y, Wl, lr, alpha), params, kc.MLP_LANES, solver, kw,
+                               track_loss=track_loss)
+            for metric, limit in kc.MLP_LIMITS[("step", solver)].items():
+                assert got[metric] < limit, (solver, metric, got[metric])
+            if track_loss:
+                assert got["loss_rel"] < kc.MLP_LOSS_LIMIT, (solver, got["loss_rel"])
+                assert got["untracked_param_abs"] == 0.0, (solver, got)
+    assert tm.LAUNCHES["mlp_epoch"] == 2 + 2 * 2
 
 
 @pytest.mark.gpu
@@ -680,3 +687,84 @@ def test_knn_topk_at_the_artifact_predict_shape_on_card(cuda):
     err, tol, _ = _knn_check(Q, X, W, 5)
     assert err <= tol
     assert tn.LAUNCHES["knn_topk"] == 1
+
+
+def _rung_reports(manager):
+    """{trial index: [(rung, score), ...]} of the journaled rung reports and
+    {trial index: final status} of a finished adaptive-search job."""
+    job = manager._coordinator.store.get_job(manager.session_id, manager.job_id)
+    reports, final = {}, {}
+    for stid, sub in job["subtasks"].items():
+        i = int(stid.rsplit("-", 1)[1])
+        reports[i] = [(h["rung"], h["score"]) for h in sub.get("rung_history") or []
+                      if h.get("report")]
+        final[i] = sub["status"]
+    return reports, final
+
+
+def _close_cut(reports, tol):
+    """True where a trial promoted out of a rung and one stopped there lie
+    within ``tol`` of each other (and are not exactly tied)."""
+    by_rung = {}
+    for i, reps in reports.items():
+        for rung, score in reps:
+            by_rung.setdefault(rung, {})[i] = score
+    for rung, scores in by_rung.items():
+        up = {i for i in scores if i in by_rung.get(rung + 1, {})}
+        if any(0.0 < abs(scores[p] - scores[q]) <= tol
+               for p in up for q in set(scores) - up):
+            return True
+    return False
+
+
+@pytest.mark.gpu
+def test_asha_logreg_job_card_matches_cpu(cuda, monkeypatch, tmp_path):
+    """A small ASHA LogReg search through the manager on the card (every
+    rung wave on the fused step, B2) and on the CPU (its plain version,
+    forced onto the same packed path): each (trial, rung) score within
+    2e-3, and the same rung decisions wherever no cut has two peers within
+    2e-3. At 20,000 x 54 x 7 the solver is nesterov (n * dp * c past the
+    Newton workspace) and the packed gate takes dpp 64, c 7."""
+    from scipy.stats import loguniform
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as tcfg
+
+    monkeypatch.setenv("CS230_FORCE_PACKED", "1")
+    cfg = tcfg.FrameworkConfig.load(env={})
+    cfg.storage.root = str(tmp_path)
+    tcfg.set_config(cfg)
+    job = {"model_type": "LogisticRegression", "search_type": "RandomizedSearchCV",
+           "base_estimator_params": {"max_iter": 45},
+           "param_distributions": {"C": loguniform(1e-3, 1e2), "tol": [1e-4, 1e-3]},
+           "n_iter": 27, "random_state": 0, "cv_params": {"cv": 3}}
+    asha = {"type": "asha", "eta": 3}
+    try:
+        tk.reset_launches()
+        card = MLTaskManager(device=cuda)
+        cs = card.train(job, "synthetic_20000x54x7", {"random_state": 42},
+                        search_params=asha, show_progress=False)
+        launches = dict(tk.LAUNCHES)
+        host = MLTaskManager(device="cpu")
+        hs = host.train(job, "synthetic_20000x54x7", {"random_state": 42},
+                        search_params=asha, show_progress=False)
+    finally:
+        tcfg.set_config(tcfg.FrameworkConfig.load(env={}))
+    assert cs["job_status"] == hs["job_status"] == "completed"
+    assert cs["job_result"]["failed"] == [] and hs["job_result"]["failed"] == []
+    # rung waves of 27, 9 and 3 trials at 5, 15 and 45 steps, one block each
+    assert launches["packed_nesterov_step"] == 5 + 15 + 45, launches
+    crep, cfinal = _rung_reports(card)
+    hrep, hfinal = _rung_reports(host)
+    for i in crep:
+        for (rc, a), (rh, b) in zip(crep[i], hrep[i]):
+            if rc == rh:
+                assert abs(a - b) <= 2e-3, (i, rc, a, b)
+    # the ladder's counts do not depend on which trials climb it
+    assert cs["job_result"]["search"] == hs["job_result"]["search"]
+    if not _close_cut(hrep, 2e-3):
+        assert cfinal == hfinal
+        assert [[r for r, _ in crep[i]] for i in sorted(crep)] == \
+            [[r for r, _ in hrep[i]] for i in sorted(hrep)]
+        assert cs["job_result"]["best_result"]["parameters"] == \
+            hs["job_result"]["best_result"]["parameters"]

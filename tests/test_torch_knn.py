@@ -143,7 +143,9 @@ def test_kernel_and_generic_neighbours_agree():
 @pytest.mark.parametrize("task", list(FAMILIES))
 def test_chunked_protocol_matches_monolithic(task, monkeypatch):
     """Query-row chunks (the last one ragged, its start clamped) predict
-    every row exactly as one dispatch does."""
+    every row exactly as one dispatch does. The chunked run also draws the
+    score-vs-chunk curve (an eval after the first chunk, then the final
+    one), whose last point is each split's score."""
     X, y, c = _data(task, n=2000, seed=3)
     data = TrialData(X=X, y=y, n_classes=c)
     plan = build_split_plan(y, task=task, n_folds=3, random_state=0)
@@ -157,7 +159,11 @@ def test_chunked_protocol_matches_monolithic(task, monkeypatch):
     assert cp == {"n_chunks": 2, "rows_per_chunk": 1024}, cp  # the last one ragged
     chunked = trial_map.run_trials(kernel, data, plan, params, device=cpu)
     for a, b in zip(mono.trial_metrics, chunked.trial_metrics):
+        curve = b.pop("curve")
         assert a == b
+        assert curve["stride"] == 1 and curve["steps"] == 2
+        assert [row[-1] for row in curve["score"]] == curve["tail"]
+        assert all(len(row) == 2 for row in curve["score"])
 
 
 PLAN_TABLE = [  # (n, d, S, k)

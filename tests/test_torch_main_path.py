@@ -101,8 +101,9 @@ def test_iris_grid_search_newton_matches_jax():
 def test_train_takes_bench_keywords_like_jax():
     """Both managers called with the keywords bench.py passes
     (``train_params``, ``show_progress=False``, ``timeout``), positionally
-    where bench.py is: the same winner. ``stream=True`` and
-    ``search_params`` are refused by name on the port."""
+    where bench.py is: the same winner. ``stream=True`` follows the job to
+    the same result, and ``search_params`` runs the search as ASHA with the
+    JAX package's winner."""
     search = GridSearchCV(LogisticRegression(max_iter=100), {"C": [0.1, 1.0]}, cv=3)
     kw = dict(show_progress=False, timeout=600)
     js = JaxManager().train(search, "iris", {"random_state": 42}, **kw)
@@ -113,10 +114,16 @@ def test_train_takes_bench_keywords_like_jax():
     ts2 = tm.train(search, "iris", {"random_state": 42}, True, 600, False)
     assert ts2["job_result"]["best_result"]["search_params"] == \
         ts["job_result"]["best_result"]["search_params"]
-    with pytest.raises(ValueError, match="stream=True.*not yet ported"):
-        tm.train(search, "iris", stream=True, **kw)
-    with pytest.raises(ValueError, match="search_params.*not yet ported"):
-        tm.train(search, "iris", search_params={"type": "asha", "eta": 3}, **kw)
+    streamed = tm.train(search, "iris", {"random_state": 42}, stream=True, **kw)
+    assert streamed["job_status"] == "completed"
+    assert streamed["job_result"]["best_result"]["search_params"] == \
+        ts["job_result"]["best_result"]["search_params"]
+    asha = {"type": "asha", "eta": 3}
+    ja = JaxManager().train(search, "iris", {"random_state": 42}, search_params=asha, **kw)
+    ta = tm.train(search, "iris", {"random_state": 42}, search_params=asha, **kw)
+    assert ta["job_result"]["search"] == ja["job_result"]["search"]
+    assert ta["job_result"]["best_result"]["parameters"] == \
+        ja["job_result"]["best_result"]["parameters"]
 
 
 def test_synthetic_covertype_and_fold_plans_are_identical():
@@ -268,7 +275,7 @@ def test_coordinator_journal_reads_back_finished_jobs():
     from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
 
     first = Coordinator(device="cpu", journal=True)
-    manager = TorchManager(first)
+    manager = TorchManager(coordinator=first)
     ts = manager.train(GridSearchCV(LogisticRegression(), {"C": [0.1, 1.0]}, cv=3), "iris")
     again = Coordinator(device="cpu", journal=True)
     status = again.check_status(manager.session_id, manager.job_id)
@@ -290,3 +297,33 @@ def test_store_journal_round_trip(tmp_path):
     again = JobStore(journal_dir=str(tmp_path))
     assert again.get_job(sid, "j") == store.get_job(sid, "j")
     assert again.job_progress(sid, "j")["job_status"] == "completed"
+
+
+def test_manager_constructor_takes_the_jax_signature():
+    """Both managers take ``(url, coordinator, priority)`` positionally; the
+    priority reaches the session and its ``create_session`` journal line.
+    The port refuses a URL (remote mode is not ported yet)."""
+    from cs230_distributed_machine_learning_tpu.runtime.coordinator import (
+        Coordinator as JaxCoordinator,
+    )
+    from cs230_distributed_machine_learning_tpu.utils.config import get_config as jax_config
+    from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
+
+    lines = {}
+    for name, coord, root in (
+            ("jax", JaxCoordinator(journal=True), jax_config().storage.journal_dir),
+            ("torch", Coordinator(device="cpu", journal=True),
+             tcfg.get_config().storage.journal_dir)):
+        manager = (JaxManager if name == "jax" else TorchManager)(None, coord, 2)
+        assert manager.priority == 2
+        assert coord.store.session_priority(manager.session_id) == 2
+        with open(os.path.join(root, "jobs.jsonl")) as f:
+            entries = [json.loads(line) for line in f]
+        (line,) = [e for e in entries if e.get("sid") == manager.session_id]
+        lines[name] = {k: v for k, v in line.items() if k != "sid"}
+    assert lines["torch"] == lines["jax"] == {"op": "create_session", "priority": 2}
+    assert TorchManager(device="cpu").priority == 0
+    with pytest.raises(ValueError, match="remote mode .* not yet ported"):
+        TorchManager("http://localhost:5001")
+    with pytest.raises(ValueError, match="remote mode .* not yet ported"):
+        TorchManager(url="http://localhost:5001", device="cpu")

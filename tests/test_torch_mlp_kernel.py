@@ -164,7 +164,8 @@ def test_kernel_cases_load_by_path_and_hold_b5_on_cpu():
     """``ops/kernel_cases.py`` loads from its file alone (as the A/B timer
     loads it beside another checkout's package), and its B5 check, on CPU
     tensors where the wrapper runs the plain version, finds no error at a
-    small shape: 6 lanes of the 6 splits, one step and two."""
+    small shape: 6 lanes of the 6 splits, one step and two, with and
+    without the loss accumulator."""
     import importlib.util
     import os
 
@@ -182,4 +183,8 @@ def test_kernel_cases_load_by_path_and_hold_b5_on_cpu():
         for solver in ("adam", "sgd"):
             got = kc.mlp_check(cuda_mlp, part, params, L, solver, dict(kw, n_batches=nb))
             assert got["param_abs"] == 0.0 and got["mean_rel"] == 0.0, (solver, nb, got)
+            got = kc.mlp_check(cuda_mlp, part, params, L, solver, dict(kw, n_batches=nb),
+                               track_loss=True)
+            assert got["param_abs"] == 0.0 and got["mean_rel"] == 0.0, (solver, nb, got)
+            assert got["loss_rel"] == 0.0 and got["untracked_param_abs"] == 0.0, got
     assert set(kc.MLP_LIMITS) == {(c, s) for c in ("step", "epoch") for s in ("adam", "sgd")}

@@ -7,8 +7,8 @@
   log-loss clip acts) and masked rows.
 - The set of names each package accepts, and the refusals: an unknown
   name, a binary-only scorer on a multiclass target, a scorer the kernel
-  has no output for, a callable scorer (not yet ported), any scorer on a
-  transform.
+  has no output for, any scorer on a transform; a callable scorer passes
+  (it takes the host-side path).
 - A scored search of every family with a scorer of each kind it supports
   (label, margin, probability), through both MLTaskManagers, within
   PERF.md section 2's limits; and the route a scored job takes (never the
@@ -191,8 +191,13 @@ def test_refusals(scoring, task, n_classes, model, match):
 
 
 def test_callable_scoring_is_refused_by_name():
-    with pytest.raises(ValueError, match="callable scoring is not yet ported"):
-        tm.validate_scoring(lambda est, X, y: 0.0, "classification", 2)
+    """A callable scorer passes validation in both packages (it takes the
+    host-side path, tests/test_torch_callable_scoring.py); a scoring that
+    is neither a name nor a callable is still refused."""
+    for mod in (tm, jm):
+        mod.validate_scoring(lambda est, X, y: 0.0, "classification", 2)
+        with pytest.raises(ValueError, match="scorer name or a callable"):
+            mod.validate_scoring(3, "classification", 2)
 
 
 def test_refused_scorer_fails_the_subtasks():
