@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; the first that fails ends the run with a
-non-zero exit and no result line:
+non-zero exit and no result line. The three largest tables (covertype,
+config 5's and the KNN table) are staged from the start in a child
+process each, beside the build; a ``prestage`` line gives each wait:
 
 1. env      torch / CUDA versions and the card (name, power limit).
 2. build    nvcc builds csrc/*.cu for sm_90a (seconds, ptxas report).
@@ -208,6 +210,41 @@ Then adaptive search, the learning curves and the event stream, the
             exactly one diverged trial, at rung 0, none failed, the winner's
             learning rate below 1.
 
+Then the data plane, the "data_plane" group, each phase's seconds on its
+line (the group restores every env valve it sets):
+
+33. native_csv  the native CSV loader (native/, built with g++ at first
+            use under the storage root; asserted built) parses covertype's
+            CSV and config 5's bit-equal to pandas; both parse times.
+34. stage_cache  tools/job_ab.py's main_10 (bench.py's job at max_iter 10)
+            twice: the second run uploads nothing (uploads_by_key
+            unchanged) and scores to the bit as the first; covertype's X,
+            its padded bf16 A (_logreg_ab) and Lipschitz bound
+            (_logreg_lam_max) were uploaded once each in the whole run.
+35. stream_logreg  bench.py's job at its sampler's first 16 trials under
+            a STREAM_BUDGET_MB stage budget, below covertype's staged X, the
+            stage cache emptied first: with CS230_STAGE_STRICT=1 and CS230_STREAM=0 the engine raises
+            StageBudgetExceeded (every trial fails with it through the
+            manager); under auto it streams (31 power passes, a pass a
+            solver step, an eval pass; every pass re-uploads its blocks),
+            every mean_cv_score within 2e-3 of main_auto's for the same
+            trial, best_params_ equal unless the top two are that close.
+            Prints blocks, passes, uploads, bytes, the upload and wait
+            seconds and the hidden fraction.
+36. stream_rf  RandomForestClassifier(n_estimators=8, max_depth=8,
+            random_state=42), cv 3 (complete trees, no chunked plan) on the
+            uncut table under the same budget: strict single-shot raises;
+            auto streams the bin codes, B4 launched splits x trees x depth
+            x blocks times (the leaf pass launches none); every score equal
+            to the bit to the same job with CS230_STREAM=0 and the default
+            budget. Then B4 at the widest streamed level (1 lane, a block
+            of rows, the deepest level's left children) against its plain
+            version and index_add_.
+
+The stage_cache line carries the stage cache's stats of the run so far;
+stream_logreg empties the cache first (so that its single-shot run must
+upload), and the done line carries the stats since.
+
 The kernels phase also holds B3 at scored_main's shape (1,536 lanes,
 n_pad 116,224, dpp 128 of which the 55 real columns are nonzero, cp 16,
 c 7; its R^T scratch past 2^31 elements) against its plain version run
@@ -228,13 +265,15 @@ Then a line of each kernel's ``earlier_ms`` (the figure PERF.md's kernel
 table held for its earlier design, not measured in this run), the
 kernels line (every number measured in this run, but the bound, which it
 computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
-entries for asha_main, asha_refit and hyperband_rf), the nvidia-smi line, and the result line
+entries for asha_main, asha_refit and hyperband_rf, B4 one for
+stream_rf), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
 """
 
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import math
@@ -363,6 +402,51 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+#: the tables whose staging (a synthetic draw, a CSV write, the parse)
+#: runs from the start of the run in a child process each, beside the
+#: kernels' build; each phase that first reads one waits for its child and
+#: then loads the parsed sidecar the child wrote
+PRESTAGED = ("covertype", "synthetic_60000x784x10", KNN_DATASET)
+
+
+def prestage_start(storage: str) -> dict:
+    """Start one child process a PRESTAGED table; the children are killed
+    at exit if a failed phase ends the run before they are waited for."""
+    code = ("import sys; sys.path.insert(0, {root!r}); import chip_smoke; "
+            "chip_smoke.prestage_child({storage!r}, {name!r})")
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", code.format(root=ROOT, storage=storage, name=name)],
+        cwd=ROOT, stdout=sys.stderr) for name in PRESTAGED}
+
+    def stop():
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+    atexit.register(stop)
+    return procs
+
+
+def prestage_child(storage: str, name: str) -> None:
+    """In the child: stage ``name`` (its CSV and the parsed sidecar) under
+    the smoke's storage root, as the manager's dataset cache does."""
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import DatasetCache
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    cfg = cfg_mod.FrameworkConfig.load()
+    cfg.storage.root = storage
+    cfg_mod.set_config(cfg)
+    DatasetCache(root=cfg.storage.datasets_dir).get(name, "classification")
+
+
+def prestage_wait(procs: dict, name: str) -> None:
+    t0 = time.perf_counter()
+    rc = procs[name].wait()
+    assert rc == 0, f"staging {name} in a child process failed (rc {rc})"
+    emit({"phase": "prestage", "dataset": name, "waited_s": time.perf_counter() - t0})
 
 
 # ---------------------------------------------------------------- phases
@@ -710,19 +794,27 @@ def _train(manager, search, dataset, kernel_name, n_trials):
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
 
     K.reset_launches()
+    status, wall = _run_job(manager, search, dataset, n_trials)
+    launches = dict(K.LAUNCHES)
+    assert launches[kernel_name] > 0, f"{kernel_name} never launched: {launches}"
+    return status, wall, launches
+
+
+def _run_job(manager, search, dataset, n_trials):
+    """One job through the manager: completed, ``n_trials`` results, no
+    failed trial, every mean_cv_score a float in [0, 1]. Returns (status,
+    wall seconds)."""
     t0 = time.perf_counter()
     status = manager.train(search, dataset, {"random_state": 42}, timeout=900)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
     assert status["job_status"] == "completed", status
     res = status["job_result"]
     assert not res["failed"], res["failed"][:1]
     assert len(res["results"]) == n_trials, len(res["results"])
     scores = [r["mean_cv_score"] for r in res["results"]]
     assert all(isinstance(s, float) and 0.0 <= s <= 1.0 for s in scores), scores[:5]
-    assert launches[kernel_name] > 0, f"{kernel_name} never launched: {launches}"
-    return status, wall, launches
+    return status, wall
 
 
 def _scores(status):
@@ -883,6 +975,13 @@ def _forest_bucket(manager, dataset: str, n_estimators: int) -> tuple:
     return kernel, data, static
 
 
+def _prepared(kernel, data, static) -> dict:
+    """The bucket's prepared forms, as the trial engine cached them."""
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import _prepared_data
+
+    return _prepared_data(kernel, data, static)
+
+
 def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
     """One forest through the manager with B4's launch count zeroed just
     before and read just after; the count must be the arena's levels x
@@ -904,7 +1003,7 @@ def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
 
     kernel, data, static = _forest_bucket(manager, dataset, n_estimators)
     n, d = data.X.shape
-    prepared = data._prepared_cache[(kernel.name, kernel.prepared_key(static))]
+    prepared = _prepared(kernel, data, static)
     plan = kernel.chunked_plan(static, n, d, data.n_classes, 6, prepared=prepared)
     groups = 2 if "xb_coarse" in prepared else 1
     expected = static["_levels"] * n_estimators * groups
@@ -2260,7 +2359,7 @@ def phase_artifacts(manager) -> dict:
                     "knn_main": 1}.get(tag)
         if tag == "rf_full":
             kernel, _, rstatic = _forest_bucket(manager, dataset, 100)
-            prepared = data._prepared_cache[(kernel.name, kernel.prepared_key(rstatic))]
+            prepared = _prepared(kernel, data, rstatic)
             expected = rstatic["_levels"] * 100 * (2 if "xb_coarse" in prepared else 1)
         emit({"phase": "artifacts", "job": tag, "model": artifact["model_type"],
               "dataset": dataset, "parameters": best["search_params"], "refit_s": refit_s,
@@ -2638,6 +2737,263 @@ def phase_asha_diverged(manager) -> dict:
 
 
 
+
+# ---------------------------------------------------------------------------
+# the data plane: native CSV loader, stage cache, streaming
+# ---------------------------------------------------------------------------
+
+#: the streamed phases' stage budget (MB): below covertype's staged X
+#: (116,202 x 54 f32) and its prepared bin codes (int32), 25.1 MB each, so
+#: strict single-shot staging raises, auto streams (past the budget),
+#: and a pass's blocks do not fit beside the pinned fold tensors: every
+#: pass re-uploads every block
+STREAM_BUDGET_MB = 20
+#: stream_logreg: bench.py's job at the first 16 trials of its sampler
+STREAM_LOGREG_TRIALS = 16
+STREAM_LOGREG_TOL = 2e-3
+#: stream_rf: a complete-tree forest one dispatch holds (no chunked plan)
+STREAM_RF = {"n_estimators": 8, "max_depth": 8, "random_state": 42}
+STREAM_RF_CV = 3
+STREAM_COUNTERS = ("passes", "blocks", "bytes", "upload_seconds", "wait_seconds")
+
+
+class valves:
+    """Set env valves for a block and restore each one's earlier state."""
+
+    def __init__(self, **kv):
+        self.kv = {k: None if v is None else str(v) for k, v in kv.items()}
+
+    def __enter__(self):
+        self.old = {k: os.environ.get(k) for k in self.kv}
+        self._apply(self.kv)
+        return self
+
+    def __exit__(self, *exc):
+        self._apply(self.old)
+
+    @staticmethod
+    def _apply(kv):
+        for k, v in kv.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def stream_counters() -> dict:
+    """The tpuml_stream_* counters and the stage cache's block uploads so
+    far (a streamer's stats, summed over the run's streamers)."""
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_cache as sc
+    from cs230_distributed_machine_learning_tpu_torch.obs import REGISTRY
+
+    out = {k: REGISTRY.counter(f"tpuml_stream_{k}_total").value() for k in STREAM_COUNTERS}
+    out["uploads"] = sum(v for k, v in sc.STAGE_CACHE.uploads_by_key().items() if "block" in k)
+    return out
+
+
+def stream_delta(before: dict) -> dict:
+    """Stream stats since ``before``, with the streamer's
+    ``hidden_fraction()``: 1 - wait / upload."""
+    now = stream_counters()
+    d = {k: now[k] - before[k] for k in now}
+    up = d["upload_seconds"]
+    d["hidden_fraction"] = max(0.0, 1.0 - d["wait_seconds"] / up) if up > 0 else None
+    return d
+
+
+def phase_native_csv(cfg, datasets=("covertype", WIDE_FULL_DATASET)) -> dict:
+    """The native loader is built (g++ at first use under the storage
+    root) and parses covertype's CSV and config 5's bit-equal to pandas;
+    both parse times."""
+    import numpy as np
+    import pandas as pd
+
+    from cs230_distributed_machine_learning_tpu_torch import native
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import DatasetCache
+
+    lib = native.get_lib()
+    assert lib is not None, "the native CSV loader did not build"
+    files = {}
+    for name in datasets:
+        path = DatasetCache(root=cfg.storage.datasets_dir).resolve_csv(name)
+        t0 = time.perf_counter()
+        mat, ok = native.csv_parse_f32(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = pd.read_csv(path).to_numpy(dtype=np.float32)
+        pandas_s = time.perf_counter() - t0
+        assert ok.all() and mat.shape == ref.shape, (name, mat.shape, ref.shape)
+        assert np.array_equal(mat, ref), f"native parse of {name} differs from pandas"
+        files[name] = {"shape": list(mat.shape), "mb": os.path.getsize(path) / 1e6,
+                       "native_s": native_s, "pandas_s": pandas_s, "bit_equal": True}
+        del mat, ref
+    emit({"phase": "native_csv", "library": os.path.basename(lib._name), "files": files})
+    return files
+
+
+def phase_stage_cache(manager, dataset: str = "covertype") -> dict:
+    """bench.py's job at max_iter 10 (tools/job_ab.py's main_10), twice:
+    the second run uploads nothing (the same uploads_by_key) and scores to
+    the bit as the first. Covertype's X, the padded bf16 A (_logreg_ab) and
+    the Lipschitz bound (_logreg_lam_max) were each uploaded once in the
+    whole run."""
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_cache as sc
+
+    runs = []
+    for _ in range(2):
+        before = sc.STAGE_CACHE.uploads_by_key()
+        status, wall, _ = _train(manager, _search(1000, 10, 5), dataset,
+                                 "packed_nesterov_step", 1000)
+        after = sc.STAGE_CACHE.uploads_by_key()
+        runs.append({"wall_s": wall, "scores": _scores(status),
+                     "new_uploads": {repr(k): v - before.get(k, 0) for k, v in after.items()
+                                     if v != before.get(k, 0)}})
+    data = manager._coordinator.cache.get(dataset, "classification")
+    fp = sc.dataset_fingerprint(data)
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import _device_sig
+
+    mine = {k: v for k, v in after.items() if k[:2] == (fp, _device_sig(manager.device))}
+    named = {tag: {repr(k): v for k, v in mine.items() if tag in k}
+             for tag in ("X", "_logreg_ab", "_logreg_lam_max")}
+    emit({"phase": "stage_cache", "walls_s": [r["wall_s"] for r in runs],
+          "new_uploads": [r["new_uploads"] for r in runs], "dataset_entries": named,
+          "scores_bit_equal": runs[0]["scores"] == runs[1]["scores"],
+          "stats": sc.STAGE_CACHE.stats()})
+    assert runs[1]["new_uploads"] == {}, runs[1]["new_uploads"]
+    assert runs[0]["scores"] == runs[1]["scores"]
+    assert all(len(v) == 1 and set(v.values()) == {1} for v in named.values()), named
+    return {"walls_s": [r["wall_s"] for r in runs]}
+
+
+def phase_stream_logreg(manager, dataset: str = "covertype") -> dict:
+    """bench.py's job at its sampler's first 16 trials on uncut covertype
+    under a STREAM_BUDGET_MB stage budget: with CS230_STAGE_STRICT=1 and
+    CS230_STREAM=0 the engine raises StageBudgetExceeded (and through the
+    manager every trial fails with it); under auto the job streams, every
+    mean_cv_score within 2e-3 of main_auto's for the same trial, best_params_
+    equal unless the top two are that close, every block of every pass
+    uploaded. Prints the stream's stats."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import (
+        StageBudgetExceeded,
+    )
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import run_trials
+
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
+
+    search = _search(STREAM_LOGREG_TRIALS, 200, 5)
+    # a process that has not staged the dataset: the earlier phases' cached
+    # X would otherwise serve the single-shot run (the budget binds uploads)
+    STAGE_CACHE.clear()
+    with valves(CS230_STAGE_CACHE_MB=STREAM_BUDGET_MB, CS230_STAGE_STRICT=1, CS230_STREAM=0):
+        status = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+        failed = status["job_result"]["failed"]
+        assert len(failed) == STREAM_LOGREG_TRIALS and not status["job_result"]["results"]
+        assert all("CS230_STAGE_STRICT=1" in f["error"] for f in failed), failed[:1]
+        data = manager._coordinator.cache.get(dataset, "classification")
+        plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=5,
+                                test_size=0.2, random_state=42)
+        try:
+            run_trials(get_kernel("LogisticRegression"), data, plan,
+                       [f["parameters"] for f in failed], device=manager.device)
+            raise AssertionError("strict single-shot staging did not raise")
+        except StageBudgetExceeded as e:
+            strict_error = str(e)
+    with valves(CS230_STAGE_CACHE_MB=STREAM_BUDGET_MB, CS230_STAGE_STRICT=1,
+                CS230_STREAM="auto"):
+        before = stream_counters()
+        reset_all_launches()
+        status, wall = _run_job(manager, search, dataset, STREAM_LOGREG_TRIALS)
+        launches = all_launches()
+        stats = stream_delta(before)
+    got, main = _scores(status), _scores(manager.check_status(JOBS["main_auto"]))
+    worst = max(abs(v - main[k]) for k, v in got.items())
+    ranked = sorted((main[k] for k in got), reverse=True)
+    best = json.dumps(status["job_result"]["best_result"]["search_params"], sort_keys=True)
+    main_best = max(got, key=lambda k: main[k])
+    emit({"phase": "stream_logreg", "wall_s": wall, "budget_mb": STREAM_BUDGET_MB,
+          "strict_error": strict_error[:160], "stream": stats,
+          "max_mean_cv_diff_vs_main_auto": worst, "best_params": json.loads(best),
+          "main_auto_best_of_these": json.loads(main_best),
+          "launches": {k: v for k, v in launches.items() if v}})
+    assert worst <= STREAM_LOGREG_TOL, f"stream_logreg vs main_auto: {worst}"
+    assert best == main_best or ranked[0] - ranked[1] <= STREAM_LOGREG_TOL, (best, main_best)
+    assert stats["uploads"] == stats["blocks"] > 0, stats  # every pass re-uploads
+    assert not any(launches.values()), launches  # plain f32 block products, as in JAX
+    return {"wall_s": wall, **stats}
+
+
+def phase_stream_rf(manager, dev, dataset: str = "covertype") -> dict:
+    """STREAM_RF (complete trees, no chunked plan) with cv 3 on uncut
+    covertype under the STREAM_BUDGET_MB budget: strict single-shot raises,
+    auto streams the prepared bin codes, B4 launched splits x trees x
+    depth x blocks times, every score equal to the bit to the same job
+    unstreamed (CS230_STREAM=0, the default budget). Then B4 at the
+    widest streamed level's shape against its plain version and
+    index_add_. Returns the kernels line's entry."""
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import (
+        StageBudgetExceeded,
+    )
+    from cs230_distributed_machine_learning_tpu_torch.data.streaming import plan_blocks
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import run_trials
+
+    search = {"model_type": "RandomForestClassifier", "search_type": None,
+              "base_estimator_params": STREAM_RF, "cv_params": {"cv": STREAM_RF_CV}}
+    kernel = get_kernel("RandomForestClassifier")
+    data = manager._coordinator.cache.get(dataset, "classification")
+    n, d = data.X.shape
+    static = kernel.resolve_static(kernel.static_from_key(kernel.canonicalize(STREAM_RF)[0]),
+                                   n, d, data.n_classes)
+    static["_n_classes"] = data.n_classes
+    assert not static.get("_deep") and kernel.stream_applicable(static, n, d)
+    plan = build_split_plan(data.y, task="classification", n_folds=STREAM_RF_CV,
+                            test_size=0.2, random_state=42)
+    assert kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits) is None
+    with valves(CS230_STAGE_CACHE_MB=STREAM_BUDGET_MB, CS230_STAGE_STRICT=1, CS230_STREAM=0):
+        try:
+            run_trials(kernel, data, plan, [STREAM_RF], device=dev)
+            raise AssertionError("strict single-shot staging did not raise")
+        except StageBudgetExceeded as e:
+            strict_error = str(e)
+    with valves(CS230_STREAM=0):
+        off, off_wall = _run_job(manager, search, dataset, 1)
+    with valves(CS230_STAGE_CACHE_MB=STREAM_BUDGET_MB, CS230_STAGE_STRICT=1,
+                CS230_STREAM="auto"):
+        prepared = _prepared(kernel, data, static)
+        bplan = plan_blocks(n, prepared["xb"].nbytes // n)
+        before = stream_counters()
+        reset_all_launches()
+        on, wall = _run_job(manager, search, dataset, 1)
+        launches = all_launches()
+        stats = stream_delta(before)
+    depth = static["_depth"]
+    expected = plan.n_splits * STREAM_RF["n_estimators"] * depth * bplan.n_blocks
+    a, b = on["job_result"]["results"][0], off["job_result"]["results"][0]
+    scores = {"streamed": [a["accuracy"], a["cv_scores"]], "unstreamed": [b["accuracy"], b["cv_scores"]]}
+    # B4 at the deepest level's left children: 2^(depth-2) nodes, one lane,
+    # a block of rows
+    shape = (1, bplan.rows, d, static["_n_bins"], 2 ** (depth - 2), data.n_classes)
+    row = hist_kernel_rows(torch.Generator(device=dev).manual_seed(12), dev,
+                           {"stream_rf_widest": shape})[("level_histogram", "stream_rf_widest")]
+    emit({"phase": "stream_rf", "wall_s": wall, "unstreamed_wall_s": off_wall,
+          "budget_mb": STREAM_BUDGET_MB, "strict_error": strict_error[:160],
+          "blocks": bplan.n_blocks, "block_rows": bplan.rows, "depth": depth,
+          "splits": plan.n_splits, "launches": launches["level_histogram"],
+          "expected_launches": expected, "stream": stats, "scores": scores})
+    assert scores["streamed"] == scores["unstreamed"], scores
+    assert launches["level_histogram"] == expected, (launches, expected)
+    assert stats["uploads"] == stats["blocks"] > 0, stats
+    return {"launches": launches["level_histogram"], "job": "stream_rf", "row": row,
+            "shape": f"1 lane, {bplan.rows} rows (a block), {d} features, "
+                     f"{static['_n_bins']} bins, {2 ** (depth - 2)} nodes (level {depth - 1}'s "
+                     f"left children), {data.n_classes} classes"}
+
+
 #: each kernel's artifact rows on the kernels line: (other_paths key, row
 #: tag, the job whose winner's launches it counts)
 ARTIFACT_PATHS = {
@@ -2679,11 +3035,13 @@ def main() -> int:
     cfg_mod.set_config(cfg)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    staging = prestage_start(cfg.storage.root)
     watch_gc()
 
     env = phase_env()
     phase_build()
     rows = phase_kernels(dev)
+    prestage_wait(staging, "covertype")
     phase_data(cfg)
     manager = MLTaskManager()
     assert manager.device.type == "cuda"
@@ -2697,9 +3055,11 @@ def main() -> int:
     phase_rf_profile(manager, "covertype")
     phase_rf_reference(manager)
     rows.update(phase_kernels_mlp(dev))
+    prestage_wait(staging, "synthetic_60000x784x10")
     launches["mlp_epoch"] = phase_mlp_main(manager)
     phase_mlp_reference(manager)
     launches["masked_softmax_grad"] = phase_wide_full(manager)
+    prestage_wait(staging, KNN_DATASET)
     rows.update(phase_kernels_knn(manager))
     launches["knn_topk"] = phase_knn_main(manager)
     phase_knn_reference(manager)
@@ -2753,6 +3113,17 @@ def main() -> int:
         adaptive[name] = run()
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "adaptive_search", "seconds": seconds, "total_s": sum(seconds.values())})
+    # the data plane: the native CSV loader, the stage cache, streaming
+    seconds = {}
+    plane = {}
+    for name, run in (("native_csv", lambda: phase_native_csv(cfg)),
+                      ("stage_cache", lambda: phase_stage_cache(manager)),
+                      ("stream_logreg", lambda: phase_stream_logreg(manager)),
+                      ("stream_rf", lambda: phase_stream_rf(manager, dev))):
+        t_phase = time.perf_counter()
+        plane[name] = run()
+        seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "data_plane", "seconds": seconds, "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -2802,6 +3173,16 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 "launches": art_launches[job][name], "job": job,
                 **{k: r[k] for k in ROW_KEYS if k in r}}
+        if name == "level_histogram":  # the streamed forest: one launch a level block
+            entry = dict(plane["stream_rf"])
+            r = entry.pop("row")
+            kernels[-1].setdefault("other_paths", {})["stream_rf"] = {
+                **entry, **{k: r[k] for k in ROW_KEYS if k in r and k != "shape"}}
+        if name == "packed_nesterov_step":
+            kernels[-1]["operand"] = (
+                "Ab (the padded bf16 design matrix) and the per-split Lipschitz bound staged "
+                "once per (dataset, device, fold plan) in the stage cache (_logreg_ab, "
+                "_logreg_lam_max); the stage_cache phase's repeated job uploads nothing")
         for key, row_key, shape in ADAPTIVE_PATHS.get(name, []):  # the adaptive-search jobs
             r = (art_rows if key == "asha_refit" else rows)[(name, row_key)]
             entry = adaptive[key] if isinstance(adaptive[key], dict) else {
@@ -2809,7 +3190,10 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **entry, "row": row_key, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
-    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S})
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
+
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S,
+          "stage_cache_since_stream_logreg": STAGE_CACHE.stats()})
     # not measured here: each kernel's ms as PERF.md stood before the
     # current kernels, at the same shapes, for reading beside the line below
     emit({"earlier_ms": EARLIER_MS, "source": EARLIER_MS_SOURCE})

@@ -11,9 +11,11 @@ scikit-learn: iris is read from the package's copy of scikit-learn's
 ``iris.csv`` as ``load_iris`` reads it, the synthetic generators call
 the port's draw-for-draw copy of ``make_classification``
 (utils/sklearn_compat.py), and titanic is the reference's numpy draw,
-staged raw for ``preprocess``. CSVs are parsed with pandas (the JAX package's
-native C++ loader is not ported yet); the parsed arrays go to the same
-``<csv>.npz`` sidecar, same format and version.
+staged raw for ``preprocess``. CSVs are parsed by the native C++ loader
+(``native/``, a copy of the JAX package's: mmap + threaded float32 parse)
+when every column is numeric, and by pandas otherwise, by the JAX
+package's rules; the parsed arrays go to the same ``<csv>.npz`` sidecar,
+same format and version.
 """
 
 from __future__ import annotations
@@ -48,11 +50,43 @@ def find_csv(dataset_id: str, *, preprocessed: bool = False, root: Optional[str]
     return hits[0] if hits else None
 
 
-def collect_csv_metadata(path: str) -> Dict[str, Any]:
-    """n_rows / n_cols / size_mb of a staged CSV."""
+def stage_arrays(dataset_id: str, X, y, *, root: Optional[str] = None) -> str:
+    """Stage (X, y) as a preprocessed CSV dataset (target last column),
+    atomically, skipping when already staged with the same row count.
+    Returns the CSV path."""
     import pandas as pd
 
+    n = len(X)
+    ddir = os.path.join(dataset_dir(dataset_id, root), "preprocessed")
+    os.makedirs(ddir, exist_ok=True)
+    path = os.path.join(ddir, f"{dataset_id}_preprocessed.csv")
+
+    def _rows(p):
+        with open(p) as f:
+            return sum(1 for _ in f) - 1
+
+    if not os.path.exists(path) or _rows(path) != n:
+        df = pd.DataFrame(np.asarray(X))
+        df["target"] = np.asarray(y)
+        tmp = path + f".tmp.{os.getpid()}"
+        df.to_csv(tmp, index=False)
+        os.replace(tmp, path)  # atomic: a torn write can't pass the row check
+    return path
+
+
+def collect_csv_metadata(path: str) -> Dict[str, Any]:
+    """n_rows / n_cols / size_mb of a staged CSV: the native scanner's
+    dimensions, or pandas and a line count without a toolchain."""
     size_mb = round(os.path.getsize(path) / (1024 * 1024), 2)
+
+    from ..native import csv_dims
+
+    dims = csv_dims(path)
+    if dims is not None:
+        return {"n_rows": dims[0], "n_cols": dims[1], "size_mb": size_mb}
+
+    import pandas as pd
+
     n_cols = pd.read_csv(path, nrows=1).shape[1]
     with open(path, "rb") as f:
         n_rows = sum(1 for _ in f) - 1
@@ -62,7 +96,12 @@ def collect_csv_metadata(path: str) -> Dict[str, Any]:
 def load_table(path: str) -> Tuple[np.ndarray, np.ndarray, list]:
     """Load a staged CSV: features = all but last column, target = last.
     Non-numeric feature columns are label-encoded; returns (X, y_raw,
-    columns). A fresh ``<csv>.npz`` sidecar is reused instead of re-parsing."""
+    columns). A fresh ``<csv>.npz`` sidecar is reused instead of re-parsing.
+
+    The cold parse is native (``native.csv_parse_f32``) when every column
+    is numeric; pandas parses a table with a string column, a quoted
+    header (its phantom column reads non-numeric) or labels at or above
+    2^24, which f32 cannot hold exactly (the JAX package's rules)."""
     import pandas as pd
 
     sidecar = path + ".npz"
@@ -73,6 +112,19 @@ def load_table(path: str) -> Tuple[np.ndarray, np.ndarray, list]:
                 return z["X"], z["y"], list(z["columns"])
         except (OSError, KeyError, ValueError):
             pass  # unreadable or foreign sidecar: re-parse
+
+    from .. import native
+
+    parsed = native.csv_parse_f32(path)
+    if parsed is not None and bool(parsed[1].all()) and parsed[0].shape[1] >= 1:
+        mat, _ = parsed
+        with open(path, "r", encoding="utf-8", errors="replace") as f:
+            columns = [c.strip().strip('"').strip("'")
+                       for c in f.readline().rstrip("\r\n").split(",")]
+        X, y = mat[:, :-1], mat[:, -1].astype(np.float64)
+        if not np.any(np.abs(y) >= 2**24):
+            _save_sidecar(sidecar, X, y, columns)
+            return X, y, columns
 
     df = pd.read_csv(path)
     X_df = df.iloc[:, :-1]
@@ -86,17 +138,16 @@ def load_table(path: str) -> Tuple[np.ndarray, np.ndarray, list]:
             _, codes = np.unique(series.astype(str).to_numpy(), return_inverse=True)
             X_cols.append(codes.astype(np.float32))
     X = np.stack(X_cols, axis=1) if X_cols else np.zeros((len(df), 0), np.float32)
+    _save_sidecar(sidecar, X, y, list(df.columns))
+    return X, y, list(df.columns)
+
+
+def _save_sidecar(sidecar: str, X, y, columns) -> None:
     try:
-        np.savez(
-            sidecar,
-            X=X,
-            y=y,
-            columns=np.asarray(list(df.columns), object),
-            version=_SIDECAR_VERSION,
-        )
+        np.savez(sidecar, X=X, y=y, columns=np.asarray(list(columns), object),
+                 version=_SIDECAR_VERSION)
     except OSError:
         pass
-    return X, y, list(df.columns)
 
 
 # ---------------------------------------------------------------------------

@@ -9,12 +9,34 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+from typing import Iterator, Optional, Sequence
 
 from ..utils.logging import get_logger
 from .datasets import dataset_dir, materialize_builtin
 
 logger = get_logger("tpuml.data")
+
+
+def iter_csv_chunks(
+    path: str,
+    chunk_rows: int = 65536,
+    columns: Optional[Sequence[str]] = None,
+) -> Iterator["object"]:
+    """Stream a CSV's rows in bounded-height DataFrame chunks: the ingest
+    half of out-of-core streaming (data/streaming.py). A CSV larger than
+    host memory is consumed one ``chunk_rows`` slice at a time —
+    ``data/preprocess.py``'s two-pass scaler folds these into running
+    stats, then re-reads them as design blocks for ``CsvBlockSource``.
+    ``pandas.read_csv(chunksize=)``, so dtype inference and header
+    handling match the whole-file reader."""
+    import pandas as pd
+
+    reader = pd.read_csv(
+        path, chunksize=max(int(chunk_rows), 1),
+        usecols=list(columns) if columns is not None else None,
+    )
+    for chunk in reader:
+        yield chunk
 
 
 def download_dataset(

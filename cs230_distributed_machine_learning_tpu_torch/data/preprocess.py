@@ -11,6 +11,11 @@ config schema (``examples/titanic_preprocess.yaml``):
 
 Training reads the last column as the target. The ``label`` encoding is
 the port's numpy copy of scikit-learn's ``LabelEncoder``.
+
+``chunked_column_stats`` and ``iter_design_blocks`` (copies of the JAX
+package's) are the two passes of an out-of-core ``scale: standard`` over
+``data/download.py::iter_csv_chunks``, feeding
+``data/streaming.py::CsvBlockSource``.
 """
 
 from __future__ import annotations
@@ -79,6 +84,81 @@ def preprocess_dataframe(df: pd.DataFrame, config: Dict[str, Any]) -> pd.DataFra
         df[target] = df.pop(target)
 
     return df
+
+
+def chunked_column_stats(
+    chunks: "Any", columns: "Any" = None
+) -> Dict[str, Dict[str, float]]:
+    """Single streaming pass over DataFrame chunks -> per-column
+    ``{count, mean, std}`` via Chan/Welford parallel merge — the stats
+    half of an out-of-core ``scale: standard`` (data/streaming.py): the
+    full column never materializes, yet mean/std match the whole-frame
+    computation to f32 round-off."""
+    import numpy as np
+
+    acc: Dict[str, list] = {}
+    for chunk in chunks:
+        cols = list(columns) if columns is not None else [
+            c for c in chunk.columns
+            if np.issubdtype(np.asarray(chunk[c]).dtype, np.number)
+        ]
+        for c in cols:
+            v = np.asarray(chunk[c], np.float64)
+            v = v[np.isfinite(v)]
+            if v.size == 0:
+                continue
+            cnt, mean = float(v.size), float(v.mean())
+            m2 = float(((v - mean) ** 2).sum())
+            if c not in acc:
+                acc[c] = [cnt, mean, m2]
+            else:
+                n0, mu0, m20 = acc[c]
+                delta = mean - mu0
+                tot = n0 + cnt
+                acc[c] = [
+                    tot,
+                    mu0 + delta * cnt / tot,
+                    m20 + m2 + delta * delta * n0 * cnt / tot,
+                ]
+    return {
+        c: {
+            "count": n0,
+            "mean": mu0,
+            "std": (m20 / n0) ** 0.5 if n0 > 0 else 0.0,
+        }
+        for c, (n0, mu0, m20) in acc.items()
+    }
+
+
+def iter_design_blocks(
+    chunks: "Any",
+    stats: Dict[str, Dict[str, float]] = None,
+    target_column: str = None,
+):
+    """Second streaming pass: yield standardized float32 feature blocks
+    (target column dropped) — the host block source ``CsvBlockSource``
+    re-chunks into uniform streamer rows. With ``stats`` from
+    :func:`chunked_column_stats`, columns named there are standardized
+    ``(x - mean) / std`` (std 0 -> column zeroed, matching
+    ``preprocess_dataframe``'s whole-frame scaler)."""
+    import numpy as np
+
+    for chunk in chunks:
+        df = chunk
+        if target_column is not None and target_column in df.columns:
+            df = df.drop(columns=[target_column])
+        X = np.asarray(df, np.float32)
+        if stats:
+            for j, c in enumerate(df.columns):
+                s = stats.get(c)
+                if s is None:
+                    continue
+                std = s["std"]
+                if std != 0:
+                    X[:, j] = (X[:, j] - s["mean"]) / std
+                else:
+                    X[:, j] = 0.0
+        yield X
 
 
 def _normalize(config: Dict[str, Any]) -> Dict[str, Any]:

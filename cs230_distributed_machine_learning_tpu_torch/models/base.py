@@ -101,6 +101,14 @@ class ModelKernel(abc.ABC):
     def static_from_key(self, static_key: Tuple) -> Dict[str, Any]:
         return {k: v for k, v in static_key}
 
+    def trace_salt(self) -> Tuple:
+        """The env valves this kernel reads that change what it stages or
+        computes without landing in ``static``: the streamed blocks' stage
+        keys carry it, so a valve flip mid-process misses (the JAX
+        package's ``trace_salt``). The prepared forms do not: they depend
+        on ``prepared_key`` alone."""
+        return ()
+
     @abc.abstractmethod
     def batched_scores(
         self, X, y, TW, EW, hyper: Dict[str, torch.Tensor], static: Dict[str, Any]

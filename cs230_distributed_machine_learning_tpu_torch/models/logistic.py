@@ -61,6 +61,15 @@ class LogisticRegressionKernel(ModelKernel):
     hyper_defaults = {"C": 1.0, "max_iter": 100.0, "tol": 1e-4}
     static_defaults = {"fit_intercept": True, "penalty": "l2"}
 
+    def trace_salt(self):
+        """The resolved CS230_MASKED_GRAD and CS230_FUSED_STEP modes, the
+        resolved CS230_STREAM mode (the streamed and single-shot drivers
+        stage different forms) and the curves' valves."""
+        from ..data.streaming import stream_mode
+        from ..obs.curves import curves_salt
+
+        return (_masked_grad_mode(), _fused_step_mode(), stream_mode(), curves_salt())
+
     def resolve_static(self, static: Dict[str, Any], n: int, d: int, n_classes: int):
         if static.get("penalty") not in ("l2", None, "none"):
             raise ValueError(
@@ -81,6 +90,27 @@ class LogisticRegressionKernel(ModelKernel):
         cap = _NEWTON_STEPS if static["_method"] == "newton" else _NESTEROV_STEPS
         max_iters = [int(h.get("max_iter", 100)) for h in hypers] or [cap]
         return {**static, "_iters": max(1, min(cap, max(max_iters)))}
+
+    # ---- out-of-core row-block streaming (data/streaming.py) -------------
+
+    def stream_applicable(self, static: Dict[str, Any], n: int, d: int) -> bool:
+        """Only the nesterov driver accumulates across row blocks: its
+        gradient and power iteration are row sums. Newton wants its whole
+        workspace resident, and its n threshold keeps it small anyway."""
+        return static.get("_method") == "nesterov"
+
+    def stream_form(self, X_np, static: Dict[str, Any]):
+        """The host array blocks are sliced from, and a salt naming the
+        form in the block keys."""
+        return np.asarray(X_np, np.float32), ("raw", "f32")
+
+    def stream_scores(self, streamer, y_pad, TW, EW, hyper_batch, static, n):
+        """Block-accumulated nesterov over a RowBlockStreamer: 31
+        power-iteration passes, one pass a solver step (with the
+        host-visible early exit) and one eval pass; ``[T, S]`` accuracies
+        as numpy. Pad rows carry zero weight, so every block sum is the
+        single-shot value up to f32 summation order."""
+        return _stream_nesterov_scores(streamer, y_pad, TW, EW, hyper_batch, static, n)
 
     def memory_estimate_mb(self, n, d, static):
         """Per-(trial, split) working set of the generic drivers: newton
@@ -204,11 +234,49 @@ class LogisticRegressionKernel(ModelKernel):
             return True
         return device.type == "cuda" and n >= 4096
 
+    def batched_staged_extras(self, static, n, d, n_classes, n_splits,
+                              fold_signature=None, *, device: torch.device):
+        """Dispatch-invariant inputs of the packed path, staged by the
+        trial engine in the stage cache (data/stage_cache.py) and merged
+        into each dispatch's ``hyper`` under these names:
+
+        - ``_logreg_ab``: the padded bf16 design matrix (B1/B2's operand);
+        - ``_logreg_lam_max``: the per-split Lipschitz power iteration,
+          keyed by the fold plan's signature.
+
+        Returns ``{name: (subkey | None, make)}``; ``make(ctx)`` takes
+        ``{"X", "y", "TW", "EW"}`` device tensors. A ``None`` subkey means
+        made once a bucket, not cached (no fold signature to key on).
+        Empty under ``CS230_FUSED_STEP=legacy``, which derives everything
+        inline, as the JAX package's rollback path does."""
+        if _fused_step_mode() == "legacy" or not self.batched_applicable(static, n, d, device):
+            return {}
+        geo = _packed_geometry(static, n, d, n_classes, n_splits)
+        fit_intercept, dpp, n_pad = geo["fit_intercept"], geo["dpp"], geo["n_pad"]
+
+        def make_ab(ctx):
+            return _padded_design(ctx["X"], fit_intercept, dpp, n_pad).to(torch.bfloat16)
+
+        def make_lam_max(ctx):
+            TWp = torch.nn.functional.pad(ctx["TW"].float(), (0, n_pad - n))
+            return _lam_max(_padded_design(ctx["X"], fit_intercept, dpp, n_pad), TWp)
+
+        return {
+            "_logreg_ab": (("ab", fit_intercept, dpp, n_pad), make_ab),
+            "_logreg_lam_max": (
+                None if fold_signature is None
+                else ("lam_max", fold_signature, fit_intercept, dpp, n_pad),
+                make_lam_max),
+        }
+
     def build_batched_fn(self, static, n, d, n_classes, n_splits, chunk,
                          device: torch.device):
         """Returns fn(X, y, TW, EW, hyper) -> {"score": [chunk, n_splits]}
         (plus the curve leaves), or None when the packed path does not
-        apply. One call = the whole fit plus eval for ``chunk`` trials."""
+        apply. One call = the whole fit plus eval for ``chunk`` trials.
+        ``hyper`` may carry ``batched_staged_extras``' forms (the engine
+        merges them in); when absent — direct calls, ``legacy`` — they are
+        derived inline, to the same bits."""
         if not self.batched_applicable(static, n, d, device):
             return None
         Tw = self.batched_trial_multiple
@@ -252,29 +320,31 @@ class LogisticRegressionKernel(ModelKernel):
         pen_row = pen_col.reshape(1, dpp, 1)
 
         def fn(X, y, TW, EW, hyper):
-            A = add_intercept(X, fit_intercept)  # [n, dp] f32
-            A = torch.nn.functional.pad(A, (0, dpp - dp, 0, n_pad - n))
-            Ab = A.to(torch.bfloat16)
             y_pad = torch.nn.functional.pad(y.to(torch.int32), (0, n_pad - n))
             y2 = y_pad[:, None].contiguous()
             TWp = torch.nn.functional.pad(TW.float(), (0, n_pad - n))
             EWp = torch.nn.functional.pad(EW.float(), (0, n_pad - n))
             WSP = TWp.T.contiguous()  # [n_pad, S]
+            Ab, lam_max = hyper.get("_logreg_ab"), hyper.get("_logreg_lam_max")
+            if Ab is None or lam_max is None:
+                A = _padded_design(X, fit_intercept, dpp, n_pad)  # [n_pad, dpp] f32
+                Ab = A.to(torch.bfloat16) if Ab is None else Ab
+                # Lipschitz bound per split: L <= 0.5*C*lam_max(A' diag(w) A) + lam
+                lam_max = _lam_max(A, TWp) if lam_max is None else lam_max
 
             Cb = hyper["C"].float()[trial_map]  # [n_wb, Bblk]
             maxit_b = hyper["max_iter"].float()[trial_map]
             tol_b = hyper["tol"].float()[trial_map]
-
-            # Lipschitz bound per split: L <= 0.5*C*lam_max(A' diag(w) A) + lam
-            lam_s = _lam_max(A, TWp)[split_of]  # [Bblk]
+            lam_s = lam_max[split_of]  # [Bblk]
             step_b = 1.0 / (0.5 * Cb * lam_s[None, :] + lam + 1e-6)
 
             # fixed-length loop (capped at the bucket's largest max_iter by
             # bucket_static's _iters): no host sync inside the fit
-            W = A.new_zeros((n_wb, dpp, NB))
-            Wp = A.new_zeros((n_wb, dpp, NB))
-            done = torch.zeros((n_wb, Bblk), dtype=torch.bool, device=A.device)
-            tr = A.new_zeros((tr_used, n_wb, Bblk)) if capture else None
+            f32 = dict(dtype=torch.float32, device=X.device)
+            W = torch.zeros((n_wb, dpp, NB), **f32)
+            Wp = torch.zeros((n_wb, dpp, NB), **f32)
+            done = torch.zeros((n_wb, Bblk), dtype=torch.bool, device=X.device)
+            tr = torch.zeros((tr_used, n_wb, Bblk), **f32) if capture else None
 
             if use_fused:
                 for t in range(steps):
@@ -304,7 +374,7 @@ class LogisticRegressionKernel(ModelKernel):
                         tr[t // tr_stride] = gmax
 
             # ---- eval: row chunks, argmax over the class axis (f32) ----
-            acc = A.new_zeros((n_wb, Bblk))
+            acc = torch.zeros((n_wb, Bblk), **f32)
             for start in range(0, n_pad, rc):
                 a = Ab[start:start + rc].float()
                 logits = torch.einsum("rd,wdn->wrn", a, W)
@@ -326,8 +396,8 @@ class LogisticRegressionKernel(ModelKernel):
                     tr.permute(1, 2, 0).reshape(n_wb, S, Tw, tr_used)
                     .permute(0, 2, 1, 3).reshape(chunk, S, tr_used)
                 )
-                out["curve_stride"] = A.new_full((chunk, S), float(tr_stride))
-                out["curve_steps"] = A.new_full((chunk, S), float(steps))
+                out["curve_stride"] = torch.full((chunk, S), float(tr_stride), **f32)
+                out["curve_steps"] = torch.full((chunk, S), float(steps), **f32)
             return out
 
         return fn
@@ -371,6 +441,12 @@ def _packed_geometry(static, n, d, n_classes, n_splits):
         "rc": rc,
         "n_pad": pad_to_multiple(n, rc),
     }
+
+
+def _padded_design(X, fit_intercept: bool, dpp: int, n_pad: int) -> torch.Tensor:
+    """``[X | 1]`` zero-padded to ``[n_pad, dpp]`` f32: the packed path's A."""
+    A = add_intercept(X, fit_intercept)
+    return torch.nn.functional.pad(A, (0, dpp - A.shape[1], 0, n_pad - A.shape[0]))
 
 
 def _lam_max(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -551,3 +627,95 @@ def _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps=_NESTEROV_STEPS,
             # what is masked), so the trace tail freezes at convergence
             tr[t // stride] = gmax
     return W, tr
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streamed nesterov (parallel/trial_map.py::_run_streamed)
+# ---------------------------------------------------------------------------
+#
+# _nesterov restructured around row blocks (JAX ``models/logistic.py:833``):
+# every quantity the solver reduces over rows (the power iteration's
+# application, the masked gradient, the weighted-accuracy numerator) is a
+# sum of per-block partial reductions, accumulated in f32 across one
+# streamed pass per solver step. Block order is fixed (ascending), so
+# results are deterministic; they differ from the single-shot values only
+# by f32 summation order. The lane axes stay batched on the device:
+# resident state is W / W_prev / V / G at [T, S, dp, c] plus the fold
+# tensors, independent of n. The block products are plain f32 matmuls (the
+# gradient's operands bf16-rounded, as in the reference's bf16 dot), not
+# kernels, as in the JAX package.
+
+
+def _stream_nesterov_scores(streamer, y_pad, TW, EW, hyper_batch, static, n):
+    dev = TW.device
+    n_classes = int(static["_n_classes"])
+    c = max(n_classes, 2)
+    fit_intercept = bool(static.get("fit_intercept", True))
+    use_penalty = static.get("penalty") in ("l2",)
+    lam = (1.0 if use_penalty else 0.0) * (2.0 if n_classes == 2 else 1.0)
+
+    def lanes(name):
+        return torch.as_tensor(np.asarray(hyper_batch[name], np.float32), device=dev)
+
+    C, max_iter, tol = lanes("C"), lanes("max_iter"), lanes("tol")
+    T, S = C.shape[0], TW.shape[0]
+    rows = int(streamer.plan.rows)
+    dp = int(streamer.row_shape[0]) + (1 if fit_intercept else 0)
+    steps = int(static.get("_iters", _NESTEROV_STEPS))
+    TW, EW = TW.float(), EW.float()
+    f32 = dict(dtype=torch.float32, device=dev)
+    pen_mask = torch.ones((dp, c), **f32)
+    if fit_intercept:
+        pen_mask[-1, :] = 0.0
+
+    def blocks():
+        """(A, rows' labels, fit weights, eval weights) of every block of
+        one pass."""
+        for _i, start, blk in streamer.iter_blocks():
+            sl = slice(start, start + rows)
+            yield add_intercept(blk, fit_intercept), y_pad[sl], TW[:, sl], EW[:, sl]
+
+    # Lipschitz bound: _lam_max's 30-step power iteration plus the
+    # Rayleigh quotient, 31 streamed applications of A' diag(w) A
+    v = torch.ones((S, dp), **f32)
+    for it in range(31):
+        u = torch.zeros((S, dp), **f32)
+        for A, _yb, wb, _ in blocks():
+            u = u + (wb * (v @ A.T)) @ A
+        if it < 30:
+            v = u / torch.clamp(torch.linalg.vector_norm(u, dim=1, keepdim=True), min=1e-12)
+    lam_max = torch.sum(v * u, dim=1)  # [S]
+    L = 0.5 * C[:, None] * lam_max[None, :] + lam + 1e-6  # [T, S]
+    step = (1.0 / L)[:, :, None, None]
+
+    W = torch.zeros((T, S, dp, c), **f32)
+    Wp = W
+    done = torch.zeros((T, S), dtype=torch.bool, device=dev)
+    for t in range(steps):
+        mom = float(np.float32(t) / np.float32(t + 3.0))
+        V = W + mom * (W - Wp)
+        G = torch.zeros((T, S, dp, c), **f32)
+        for A, yb, wb, _ in blocks():
+            # the fused masked-gradient formulation on one block: pad rows
+            # have wb == 0, so their softmax and label terms vanish exactly
+            Z = _mm_bf16("rd,tsdc->tsrc", A, V)
+            e = torch.exp(Z - Z.amax(dim=-1, keepdim=True))
+            scale = (wb[None] / e.sum(dim=-1))[..., None]
+            WY = wb[:, :, None] * _onehot(yb, c)[None]  # [S, rows, c]
+            G = G + _mm_bf16("rd,tsrc->tsdc", A, e * scale - WY[None])
+        G = C[:, None, None, None] * G + lam * pen_mask * V
+        gmax = G.abs().amax(dim=(2, 3))  # [T, S]
+        active = ((float(t) < max_iter[:, None]) & ~done)[:, :, None, None]
+        W, Wp = torch.where(active, V - step * G, W), torch.where(active, W, Wp)
+        done = done | (gmax < tol[:, None])
+        # host-visible early exit: once every lane is converged or past its
+        # max_iter, the remaining steps would be masked no-ops, each a pass
+        if bool((done | (float(t + 1) >= max_iter[:, None])).all()):
+            break
+
+    acc = torch.zeros((T, S), **f32)
+    for A, yb, _, ewb in blocks():
+        hit = (torch.einsum("rd,tsdc->tsrc", A, W).argmax(dim=-1) == yb.long()).float()
+        acc = acc + torch.einsum("sr,tsr->ts", ewb, hit)
+    den = torch.clamp(EW.sum(dim=1), min=1e-12)
+    return (acc / den[None, :]).cpu().numpy()

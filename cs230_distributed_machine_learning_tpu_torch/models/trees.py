@@ -37,6 +37,7 @@ import torch
 
 from ..ops.trees import (
     COARSE_BINS,
+    _gather_leaf,
     bin_data,
     build_tree,
     build_tree_deep,
@@ -107,6 +108,14 @@ class _TreeBase(ModelKernel):
     _supports_deep = False
     # random_state seeds the forest's draws: keep it
     ignored_params = ModelKernel.ignored_params - {"random_state"}
+
+    def trace_salt(self):
+        """The resolved CS230_STREAM mode (the streamed and single-shot
+        drivers stage different forms) and CS230_HIST_KERNEL mode."""
+        from ..data.streaming import stream_mode
+        from ..ops.trees import _hist_kernel_mode
+
+        return (stream_mode(), _hist_kernel_mode())
 
     def resolve_static(self, static: Dict[str, Any], n: int, d: int, n_classes: int):
         """The reference's resolution (``models/trees.py:209``): depth or
@@ -496,6 +505,74 @@ class _RandomForestBase(_TreeBase):
         w = w.to(torch.float32)
         S, _ = self._stat_matrix(y, w, static)
         return self.assemble_artifact(self._fit_forest(X, S, w, static), X, hyper, static, y, w)
+
+    # ---- out-of-core row-block streaming (data/streaming.py) ----
+
+    def stream_applicable(self, static: Dict[str, Any], n: int, d: int) -> bool:
+        """Complete-tree classification forests only: the deep arena keeps
+        per-level routing tables over all rows, and a regressor's float
+        stats would let f32 order move the splits themselves."""
+        return (not static.get("_deep") and self.task == "classification"
+                and int(static.get("_depth", 0)) >= 1)
+
+    def stream_form(self, X_np, static: Dict[str, Any]):
+        """Blocks are sliced from the prepared bin codes (the only per-row
+        array the builder reads); the edges stay on the host."""
+        xb = X_np["xb"] if isinstance(X_np, dict) else np.asarray(X_np)
+        return np.ascontiguousarray(xb), ("xb", int(static["_n_bins"]))
+
+    def stream_scores(self, streamer, y_pad, TW, EW, hyper_batch, static, n):
+        """Block-accumulated forest fit and soft-vote accuracy over a
+        RowBlockStreamer: every (split, tree) is one one-lane
+        ``build_tree_streamed`` (depth + 1 passes; on the card one B4
+        launch a level block), equal to the bit to ``build_tree`` on these
+        integer stats. Tree t's key is ``fold_in(base, t)`` and its
+        bootstrap is drawn on the unpadded rows, so the draws are the
+        single-shot path's; predictions for the fitted rows are the
+        builder's final node ids, looked up. RF hypers are static, so every
+        trial of the chunk gets the same ``[S]`` row; returns ``[T, S]``
+        numpy."""
+        from ..ops.trees import build_tree_streamed
+
+        dev = TW.device
+        c = max(int(static["_n_classes"]), 2)
+        n_splits, n_pad = TW.shape
+        d = int(streamer.row_shape[0])
+        depth = int(static["_depth"])
+        mf = static["_mf"] if static["_mf"] < d else None
+        n_trees = int(static.get("n_estimators", 100))
+        n_internal = 2**depth - 1
+
+        def stream_pass(fn, carry, *consts):
+            for _i, start, blk in streamer.iter_blocks():
+                carry = fn(carry, *consts, blk, start)
+            return carry
+
+        y = y_pad[:n]
+        onehot = torch.nn.functional.one_hot(y_pad.long(), c).to(torch.float32)
+        pad = torch.zeros((n_pad - n,), dtype=torch.float32, device=dev)
+        keys = self._tree_keys(static, range(n_trees), dev)
+        scores = np.zeros((n_splits,), np.float32)
+        for s in range(n_splits):
+            w = TW[s:s + 1].to(torch.float32)  # one lane [1, n_pad]
+            Sw = onehot[None] * w[..., None]
+            total = None
+            for key in keys:
+                boot_key, feat_key = prng.split(key).unbind(-2)
+                if static.get("bootstrap", True):
+                    counts = torch.cat([_bootstrap_counts(boot_key, w[:, :n], n)[0], pad])[None]
+                else:
+                    counts = (w > 0).to(torch.float32)
+                tree, node = build_tree_streamed(
+                    stream_pass, Sw * counts[..., None], w * counts, d, depth=depth,
+                    n_bins=int(static["_n_bins"]), min_samples_leaf=static["_msl"],
+                    max_features=mf, key=feat_key, count_from_stats=True)
+                vals = _gather_leaf(tree["leaf_val"], node[:, :n] - n_internal)
+                total = vals if total is None else total + vals
+            out = self._score(static, y, _vote_mean(total, n_trees), EW[s:s + 1, :n])
+            scores[s] = float(out["score"][0])
+        n_t = len(next(iter(hyper_batch.values()))) if hyper_batch else 1
+        return np.broadcast_to(scores, (max(int(n_t), 1), n_splits)).copy()
 
     def _forest_leaf_mean(self, params, xq, static):
         """Mean of the trees' leaf values, summed tree by tree."""

@@ -23,6 +23,7 @@ StratifiedKFold for classifiers, KFold for regressors — the same defaults
 from __future__ import annotations
 
 import dataclasses
+import numbers
 
 import numpy as np
 
@@ -43,7 +44,9 @@ class SplitPlan:
     n_folds: int
     #: content identity: (task, n, n_folds, test_size, random_state).
     #: Plans are deterministic in these, so equal signatures mean equal
-    #: masks (the JAX package keys its device-staging cache on this).
+    #: masks, and the stage cache keys the plan's device tensors on it.
+    #: None when ``random_state`` is not an integer: such a holdout is
+    #: drawn anew by every plan, so no two plans may share its tensors.
     signature: tuple | None = None
 
     @property
@@ -85,7 +88,8 @@ def build_split_plan(
         train_w=np.stack(rows_train).astype(np.float32),
         eval_w=np.stack(rows_eval).astype(np.float32),
         n_folds=n_folds or 0,
-        signature=(task, n, n_folds or 0, float(test_size), random_state),
+        signature=((task, n, n_folds or 0, float(test_size), int(random_state))
+                   if isinstance(random_state, numbers.Integral) else None),
     )
 
 

@@ -178,6 +178,25 @@ def _lane_codes(xb, feat):
     return torch.take(xb, rows + feat)
 
 
+def _level_splits(H, key, k: int, n_bins: int, min_samples_leaf: float,
+                  max_features: Optional[int]):
+    """A complete tree level's splits from its histograms ``H [L, m, d,
+    n_bins, k+1]``: (the key left after the level's feature-subset draw,
+    feature, bin), both ``[L, m]``; a node with no positive gain gets the
+    never-taken split (feature 0, the last bin)."""
+    L, n_nodes, d = H.shape[:3]
+    gain = _split_gain(H, k, n_bins, min_samples_leaf)
+    if max_features is not None and max_features < d:
+        key, sub = prng.split(key).unbind(-2)
+        u = prng.uniform(sub, (n_nodes, d))  # [n_nodes, d] or [L, n_nodes, d]
+        thresh = torch.sort(u, dim=-1).values[..., max_features - 1 : max_features]
+        allowed = (u <= thresh).expand(L, n_nodes, d)
+        gain = torch.where(allowed[..., None], gain, _neg_inf(gain))
+    best_gain, bf, bb = _pick_best(gain, n_bins)
+    do_split = best_gain > 1e-7
+    return key, torch.where(do_split, bf, 0), torch.where(do_split, bb, n_bins - 1)
+
+
 # ---------------------------------------------------------------------------
 # complete-tree builder
 # ---------------------------------------------------------------------------
@@ -220,17 +239,7 @@ def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1
             H = torch.stack([H_left, H_prev - H_left], dim=2).reshape(
                 L, n_nodes, d, n_bins, k + 1)
         H_prev = H
-        gain = _split_gain(H, k, n_bins, min_samples_leaf)
-        if max_features is not None and max_features < d:
-            key, sub = prng.split(key).unbind(-2)
-            u = prng.uniform(sub, (n_nodes, d))  # [n_nodes, d] or [L, n_nodes, d]
-            thresh = torch.sort(u, dim=-1).values[..., max_features - 1 : max_features]
-            allowed = (u <= thresh).expand(L, n_nodes, d)
-            gain = torch.where(allowed[..., None], gain, _neg_inf(gain))
-        best_gain, bf, bb = _pick_best(gain, n_bins)
-        do_split = best_gain > 1e-7
-        bf = torch.where(do_split, bf, 0)
-        bb = torch.where(do_split, bb, n_bins - 1)
+        key, bf, bb = _level_splits(H, key, k, n_bins, min_samples_leaf, max_features)
         split_feat[:, base : base + n_nodes] = bf
         split_bin[:, base : base + n_nodes] = bb
         go_left = (_lane_codes(xb, split_feat.gather(1, node))
@@ -248,6 +257,131 @@ def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1
         "leaf_val": Sl / torch.clamp(Cl, min=_EPS)[..., None],
         "leaf_weight": Cl,
     }
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streamed builder
+# ---------------------------------------------------------------------------
+#
+# build_tree's per-level work is two row reductions (the level histogram
+# and, at the end, the leaf stat sums) plus node-level math. Both are sums
+# over rows, so they block-accumulate: one streamed pass per level (route
+# the pending previous-level split, then add the block's histogram), one
+# final pass for the last routing and the leaf sums — depth + 1 passes,
+# with resident state only the node ids [L, n_pad] and stats [L, n_pad,
+# k+1]. On the card every level block is one launch of kernel B4 (int32
+# mode for integer stats). For integer stats every partial sum is exact,
+# so the streamed tree equals build_tree's to the bit (JAX
+# ``ops/trees.py:660-850``).
+
+
+def _stream_tree_level_fn(k: int, n_bins: int, level: int, count_from_stats: bool):
+    """One block's step of streamed level ``level``: apply the pending
+    previous-level routing to the block's rows, then add the block's
+    contribution to the level histogram (left children only past the root:
+    the subtraction trick runs after the pass, on the summed histogram, as
+    in build_tree)."""
+    n_nodes = 2**level
+    base = n_nodes - 1
+
+    def fn(carry, SC, bf, bb, xb_b, start):
+        node, H = carry
+        rows = xb_b.shape[0]
+        nb = node[:, start:start + rows]
+        scb = SC[:, start:start + rows]
+        if level > 0:
+            lp = nb - (n_nodes // 2 - 1)
+            go_left = _lane_codes(xb_b, bf.gather(1, lp)) <= bb.gather(1, lp)
+            nb = 2 * nb + 1 + (~go_left).long()
+            node[:, start:start + rows] = nb
+        local = nb - base
+        if level == 0:
+            Hb = _hist_with_count(local, xb_b, scb, n_nodes, n_bins, k, count_from_stats)
+        else:
+            went_left = (local % 2 == 0).to(scb.dtype)
+            Hb = _hist_with_count(local // 2, xb_b, scb * went_left[..., None],
+                                  n_nodes // 2, n_bins, k, count_from_stats)
+        return node, H + Hb
+
+    return fn
+
+
+def _stream_tree_leaf_fn(k: int, depth: int):
+    """The final streamed pass: apply the last level's pending routing,
+    then add the block's per-leaf stat sums."""
+    n_internal = 2**depth - 1
+    prev_base = 2 ** (depth - 1) - 1
+
+    def fn(carry, SC, bf, bb, xb_b, start):
+        node, SCl = carry
+        rows = xb_b.shape[0]
+        nb = node[:, start:start + rows]
+        scb = SC[:, start:start + rows]
+        lp = nb - prev_base
+        go_left = _lane_codes(xb_b, bf.gather(1, lp)) <= bb.gather(1, lp)
+        nb = 2 * nb + 1 + (~go_left).long()
+        node[:, start:start + rows] = nb
+        leaf_local = nb - n_internal
+        return node, SCl.scatter_add(1, leaf_local[..., None].expand(-1, -1, k + 1), scb)
+
+    return fn
+
+
+def build_tree_streamed(stream_pass, S, C, d: int, *, depth: int, n_bins: int,
+                        min_samples_leaf: float = 1.0, max_features: Optional[int] = None,
+                        key=None, count_from_stats: bool = False):
+    """build_tree over streamed row blocks: depth + 1 passes, identical
+    split and leaf math.
+
+    ``stream_pass(fn, carry, *consts)`` runs one ascending pass over the
+    bin-code blocks, folding ``carry = fn(carry, *consts, xb_b, start)``
+    per block. ``S [L, n_pad, k]`` / ``C [L, n_pad]`` are the full padded
+    per-sample stats and weights — zero on pad rows, which land in node
+    0's histograms and add nothing, like a zero-count sample in
+    build_tree. The per-level feature subsets consume ``key`` in
+    build_tree's split order, so the draws are the same bits.
+
+    Returns ``(tree, node)``: ``tree`` as build_tree's dict, ``node`` the
+    final node id of every row and lane ``[L, n_pad]``, so predictions for
+    the fitted rows are a leaf lookup, with no pass over the data."""
+    if depth < 1:
+        raise ValueError("build_tree_streamed requires depth >= 1")
+    L, n_pad, k = S.shape
+    dev = S.device
+    SC = torch.cat([S.to(torch.float32), C.to(torch.float32)[..., None]], dim=-1)
+    n_internal = 2**depth - 1
+    split_feat = torch.zeros((L, n_internal), dtype=torch.int64, device=dev)
+    split_bin = torch.full((L, n_internal), n_bins - 1, dtype=torch.int64, device=dev)
+    node = torch.zeros((L, n_pad), dtype=torch.int64, device=dev)
+
+    H_prev = None
+    bf = bb = torch.zeros((L, 1), dtype=torch.int64, device=dev)
+    for level in range(depth):
+        n_nodes = 2**level
+        base = n_nodes - 1
+        fn = _stream_tree_level_fn(k, n_bins, level, count_from_stats)
+        H0 = torch.zeros((L, max(n_nodes // 2, 1), d, n_bins, k + 1), dtype=torch.float32,
+                         device=dev)
+        node, Hl = stream_pass(fn, (node, H0), SC, bf, bb)
+        if level == 0:
+            H = Hl
+        else:
+            H = torch.stack([Hl, H_prev - Hl], dim=2).reshape(L, n_nodes, d, n_bins, k + 1)
+        H_prev = H
+        key, bf, bb = _level_splits(H, key, k, n_bins, min_samples_leaf, max_features)
+        split_feat[:, base : base + n_nodes] = bf
+        split_bin[:, base : base + n_nodes] = bb
+
+    SCl0 = torch.zeros((L, 2**depth, k + 1), dtype=torch.float32, device=dev)
+    node, SCl = stream_pass(_stream_tree_leaf_fn(k, depth), (node, SCl0), SC, bf, bb)
+    Sl, Cl = SCl[..., :k], SCl[..., k]
+    tree = {
+        "split_feat": split_feat,
+        "split_bin": split_bin,
+        "leaf_val": Sl / torch.clamp(Cl, min=_EPS)[..., None],
+        "leaf_weight": Cl,
+    }
+    return tree, node
 
 
 # ---------------------------------------------------------------------------

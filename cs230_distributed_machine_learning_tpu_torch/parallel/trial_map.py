@@ -23,10 +23,23 @@ path of a callable ``scoring``: ``fit_single`` on the device per (trial,
 split), the scikit-learn export, the user's scorer on the host.
 
 The first and the last run in trial chunks bounded by device memory. A
-kernel with ``prepare_data`` (tree binning) stages its prepared forms once
-per bucket configuration, cached on the dataset. Results stay on the device
+kernel with ``prepare_data`` (tree binning) prepares its forms once per
+bucket configuration, cached on the dataset. Results stay on the device
 until every chunk has been dispatched, then come back to the host once per
 output leaf.
+
+Staging (``_Staging``): the dataset (raw, or its prepared forms), the fold
+tensors and the packed LogReg path's precomputes
+(``batched_staged_extras``) go through the process-global stage cache
+(data/stage_cache.py), keyed by the dataset's content fingerprint and the
+device, so the jobs of a process share one upload; a run pins what it
+touches while it runs. ``CS230_STAGE_CACHE=0`` stages per call instead.
+
+Out-of-core streaming (``_run_streamed``, data/streaming.py): decided
+before any X staging, a single-device, unchunked, unscored bucket whose
+kernel has ``stream_scores`` and whose staged form crowds the stage budget
+(``CS230_STREAM``) never uploads the whole matrix: the kernel accumulates
+over row blocks instead.
 """
 
 from __future__ import annotations
@@ -49,8 +62,71 @@ class TrialRunResult:
     """Per-trial metrics in submission order, plus batch-level timing."""
 
     trial_metrics: List[Dict[str, Any]]
-    #: wall seconds from the first dispatch to the last result on the host
+    #: wall seconds from the first dispatch to the last result on the host,
+    #: less the streamed buckets' waits for their blocks
     run_time_s: float
+
+
+def _device_sig(device: torch.device) -> tuple:
+    """The device's identity in stage-cache keys: (type, index)."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device() if device.type == "cuda" else 0
+    return (device.type, int(index))
+
+
+class _Staging:
+    """Device copies of one run's job-invariant tensors (the dataset, its
+    prepared forms, the fold tensors, the packed path's precomputes).
+
+    Default: the process-global stage cache (data/stage_cache.py), keyed
+    ``(dataset_fingerprint, (device.type, device.index)) + subkey`` with
+    single-flight uploads and refcounted LRU eviction, so every job of a
+    process over one dataset stages it once. ``CS230_STAGE_CACHE=0``: made
+    once per call, as before the cache."""
+
+    def __init__(self, data: TrialData, device: torch.device):
+        from ..data import stage_cache
+
+        self.data = data
+        self.device = device
+        self._sc = stage_cache if stage_cache.enabled() else None
+        self._local: Dict[Any, Any] = {}
+        self._folds: Optional[tuple] = None
+
+    def get(self, key: tuple, make, cache: bool = True):
+        if self._sc is None or not cache:
+            if key not in self._local:
+                self._local[key] = make()
+            return self._local[key]
+        gkey = (self._sc.dataset_fingerprint(self.data), _device_sig(self.device)) + tuple(key)
+        return self._sc.STAGE_CACHE.get_or_stage(gkey, make)[0]
+
+    def get_signed(self, signature, key: tuple, make):
+        """A fold-plan-derived entry, keyed ``key[0], signature, *key[1:]``:
+        cached when the plan has a signature to key on, else made for this
+        call alone."""
+        return self.get(key[:1] + (signature,) + key[1:], make, cache=signature is not None)
+
+    def folds(self, plan: SplitPlan):
+        """(y [n], TW [S, n], EW [S, n]) on the device."""
+        if self._folds is None:
+            dev = self.device
+            self._folds = self.get_signed(plan.signature, ("folds",), lambda: (
+                torch.as_tensor(np.asarray(self.data.y), device=dev),
+                torch.as_tensor(plan.train_w, device=dev),
+                torch.as_tensor(plan.eval_w, device=dev)))
+        return self._folds
+
+    def X(self, kernel, static, prepared):
+        """The bucket's X: its prepared forms (a dict) or the raw f32 matrix."""
+        dev = self.device
+        if prepared is not None:
+            return self.get(("prepared", kernel.name, kernel.prepared_key(static)),
+                            lambda: {k: torch.as_tensor(v, device=dev)
+                                     for k, v in prepared.items()})
+        return self.get(("X",), lambda: torch.as_tensor(
+            np.asarray(self.data.X, np.float32), device=dev))
 
 
 def _device_memory_mb(device: torch.device) -> float:
@@ -79,8 +155,22 @@ def run_trials(
     """Run all trials (one per param dict) on ``device``, bucketing by
     static config. ``scoring`` None keeps the task's default metric; a
     scorer name rides each bucket's static as ``_scoring`` and keeps the
-    bucket off the packed and fused paths, which score by the default
-    metric only (as in the reference)."""
+    bucket off the packed, fused and streamed paths, which score by the
+    default metric only (as in the reference). The stage-cache entries the
+    run touches are pinned while it runs."""
+    from ..data import stage_cache
+
+    token = stage_cache.STAGE_CACHE.pin_begin() if stage_cache.enabled() else None
+    try:
+        return _run_trials_impl(kernel, data, plan, param_dicts, device=device,
+                                max_trials_per_batch=max_trials_per_batch, scoring=scoring)
+    finally:
+        if token is not None:
+            stage_cache.STAGE_CACHE.pin_end(token)
+
+
+def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_batch,
+                     scoring) -> TrialRunResult:
     validate_scoring(scoring, kernel.task, data.n_classes, kernel)
     n, d = data.X.shape
     results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
@@ -92,13 +182,9 @@ def run_trials(
         hypers.append(hyper)
         buckets.setdefault(static_key, []).append(i)
 
-    y = torch.as_tensor(np.asarray(data.y), device=device)
-    TW = torch.as_tensor(plan.train_w, device=device)
-    EW = torch.as_tensor(plan.eval_w, device=device)
-    X_raw = None
-    staged: Dict[int, Dict[str, torch.Tensor]] = {}  # prepared forms on the device
-
+    staging = _Staging(data, device)
     pending: List[Any] = []
+    stream_wait = 0.0
     t0 = time.perf_counter()
     for static_key, idxs in buckets.items():
         static = kernel.static_from_key(static_key)
@@ -111,22 +197,29 @@ def run_trials(
             static = kernel.bucket_static(static, [hypers[i] for i in idxs])
         hyper_names = sorted(hypers[idxs[0]].keys())
 
-        prepared = None
-        if hasattr(kernel, "prepare_data"):
-            prepared = _prepared_data(kernel, data, static)
-            if id(prepared) not in staged:
-                staged[id(prepared)] = {k: torch.as_tensor(v, device=device)
-                                        for k, v in prepared.items()}
-            X = staged[id(prepared)]
-        else:
-            if X_raw is None:
-                X_raw = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
-            X = X_raw
-
+        prepared = _prepared_data(kernel, data, static) if hasattr(kernel, "prepare_data") else None
         chunk_plan = None
         if hasattr(kernel, "chunked_plan"):
             chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
                                              prepared=prepared, device=device)
+
+        # out-of-core streaming, decided before any X staging so that the
+        # oversized single-shot upload never happens
+        if not chunk_plan and scoring is None and hasattr(kernel, "stream_scores"):
+            from ..data.stage_cache import _tree_nbytes
+            from ..data.streaming import should_stream, stream_mode
+
+            X_host = prepared if prepared is not None else np.asarray(data.X, np.float32)
+            if (stream_mode() != "off" and kernel.stream_applicable(static, n, d)
+                    and should_stream(_tree_nbytes(X_host))):
+                out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
+                                            plan, staging, max_trials_per_batch)
+                pending.extend(out)
+                stream_wait += waited
+                continue
+
+        X = staging.X(kernel, static, prepared)
+        y, TW, EW = staging.folds(plan)
         if chunk_plan:
             pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
                                         hyper_names, plan, chunk_plan, d, device))
@@ -135,6 +228,7 @@ def run_trials(
         # kernels with a packed path (the LogReg kernel fit) take over the
         # whole chunk, with their own (larger) chunk geometry
         fn = None
+        extras: Dict[str, Any] = {}
         if hasattr(kernel, "build_batched_fn") and scoring is None:
             Tw = kernel.batched_trial_multiple
             chunk = max(Tw, min(kernel.batched_chunk_cap, pad_to_multiple(len(idxs), Tw)))
@@ -142,6 +236,20 @@ def run_trials(
                 static=static, n=n, d=d, n_classes=data.n_classes,
                 n_splits=plan.n_splits, chunk=chunk, device=device,
             )
+        if fn is not None and hasattr(kernel, "batched_staged_extras"):
+            # dispatch-invariant forms staged once per (dataset, device,
+            # subkey) and merged into every dispatch's hypers
+            specs = kernel.batched_staged_extras(
+                static=static, n=n, d=d, n_classes=data.n_classes, n_splits=plan.n_splits,
+                fold_signature=plan.signature, device=device)
+            ctx = {"X": X, "y": y, "TW": TW, "EW": EW}
+            for name in sorted(specs):
+                subkey, make = specs[name]
+                if subkey is None:  # nothing stable to key on: made once a bucket
+                    extras[name] = make(ctx)
+                else:
+                    extras[name] = staging.get(("batched_extra", kernel.name, name) + tuple(subkey),
+                                               lambda m=make: m(ctx))
         if fn is None:
             mem_cap = _memory_chunk_cap(kernel, n, d, static, plan.n_splits, device)
             chunk = max(1, min(max_trials_per_batch, mem_cap, len(idxs)))
@@ -152,7 +260,7 @@ def run_trials(
         for start in range(0, len(idxs), chunk):
             batch_idx = idxs[start : start + chunk]
             hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
-            pending.append((fn(X, y, TW, EW, hyper_arg), batch_idx))
+            pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx))
 
     for out, batch_idx in pending:
         host = {k: v.cpu().numpy() for k, v in out.items()}
@@ -160,7 +268,7 @@ def run_trials(
             results[gi] = _postprocess(host, j, plan, kernel.task, scoring)
     return TrialRunResult(
         trial_metrics=[r for r in results if r is not None],
-        run_time_s=time.perf_counter() - t0,
+        run_time_s=time.perf_counter() - t0 - stream_wait,
     )
 
 
@@ -183,14 +291,23 @@ def fit_single(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
     if hasattr(kernel, "bucket_static"):  # caps masked-out solver steps only
         static = kernel.bucket_static(static, [hyper])
 
-    prepared = None
-    if hasattr(kernel, "prepare_data"):
-        prepared = _prepared_data(kernel, data, static)
-        X = {k: torch.as_tensor(v, device=device) for k, v in prepared.items()}
-    else:
-        X = torch.as_tensor(np.asarray(data.X, np.float32), device=device)
-    y = torch.as_tensor(np.asarray(data.y), device=device)
-    w = torch.as_tensor(plan.train_w[split:split + 1], device=device)  # [1, n]
+    from ..data import stage_cache
+
+    token = stage_cache.STAGE_CACHE.pin_begin() if stage_cache.enabled() else None
+    try:
+        return _fit_single_impl(kernel, data, plan, static, hyper, split, device)
+    finally:
+        if token is not None:
+            stage_cache.STAGE_CACHE.pin_end(token)
+
+
+def _fit_single_impl(kernel, data, plan, static, hyper, split, device):
+    n, d = data.X.shape
+    prepared = _prepared_data(kernel, data, static) if hasattr(kernel, "prepare_data") else None
+    staging = _Staging(data, device)
+    X = staging.X(kernel, static, prepared)
+    y, TW, _ = staging.folds(plan)
+    w = TW[split:split + 1]  # [1, n]
     hyper_arg = {k: torch.tensor([v], dtype=torch.float32, device=device)
                  for k, v in hyper.items()}
 
@@ -275,7 +392,8 @@ def _prepared_data(kernel, data: TrialData, static: Dict[str, Any]):
     """Bucket-level ``prepare_data`` (tree binning), cached on the TrialData
     so that every bucket and every job over a cached dataset reuses it.
     Keyed by the kernel and the resolved static entries prepare_data reads
-    (``kernel.prepared_key``)."""
+    (``kernel.prepared_key``): no valve changes the prepared forms, so a
+    ``CS230_STREAM`` flip reuses them."""
     cache = data.__dict__.get("_prepared_cache")
     if cache is None:
         cache = {}
@@ -338,6 +456,59 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
                                             device=res["score"].device)
         out.append((res, batch_idx))
     return out
+
+
+def _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names, plan: SplitPlan,
+                  staging: _Staging, max_trials_per_batch: int):
+    """One bucket through the kernel's out-of-core streaming driver (JAX
+    ``trial_map.py:1929``). The full design matrix never stages:
+    ``kernel.stream_form`` names the blockable host array,
+    data/streaming.py tiles it into row blocks staged through the stage
+    cache, and ``kernel.stream_scores`` accumulates
+    across them. The fold tensors are padded to the blocks' ``n_pad``
+    (zero weights) and staged as ordinary entries. Block keys carry the
+    fingerprint, ``host_signature()``, the kernel's name and
+    ``trace_salt()``, the form's salt and the block height. Returns the
+    pending (outputs, trial indices) pairs and the seconds the consumer
+    waited for blocks."""
+    from ..data import stage_cache
+    from ..data.streaming import RowBlockStreamer, array_block_source, plan_blocks
+
+    data, device = staging.data, staging.device
+    blockable, form_salt = kernel.stream_form(X_host, static)
+    n = int(blockable.shape[0])
+    bplan = plan_blocks(n, int(blockable.nbytes // max(n, 1)))
+    base_key = (stage_cache.dataset_fingerprint(data), stage_cache.host_signature(device),
+                "block", kernel.name, kernel.trace_salt(), tuple(form_salt), bplan.rows)
+    streamer = RowBlockStreamer(base_key, array_block_source(blockable, bplan), bplan,
+                                device=device, row_shape=tuple(blockable.shape[1:]))
+    n_pad = bplan.n_pad
+
+    def pad(a, dtype=None):
+        a = np.asarray(a, dtype)
+        return torch.as_tensor(np.concatenate(
+            [a, np.zeros(a.shape[:-1] + (n_pad - n,), a.dtype)], axis=-1), device=device)
+
+    y_d = staging.get_signed(plan.signature, ("stream_folds", n_pad, "y"), lambda: pad(data.y))
+    TW_d = staging.get_signed(plan.signature, ("stream_folds", n_pad, "tw"),
+                              lambda: pad(plan.train_w, np.float32))
+    EW_d = staging.get_signed(plan.signature, ("stream_folds", n_pad, "ew"),
+                              lambda: pad(plan.eval_w, np.float32))
+
+    out = []
+    chunk = min(max_trials_per_batch, len(idxs))
+    for start in range(0, len(idxs), chunk):
+        batch_idx = idxs[start : start + chunk]
+        if hyper_names:
+            last = [hypers[batch_idx[-1]]] * (chunk - len(batch_idx))
+            hyper_batch = {k: np.asarray([hypers[gi][k] for gi in batch_idx]
+                                         + [h[k] for h in last], np.float32)
+                           for k in hyper_names}
+        else:
+            hyper_batch = {"_pad": np.zeros((chunk,), np.float32)}
+        score = kernel.stream_scores(streamer, y_d, TW_d, EW_d, hyper_batch, static, n)
+        out.append(({"score": torch.as_tensor(np.asarray(score))}, batch_idx))
+    return out, streamer.stats["wait_s"]
 
 
 def _postprocess(out: Dict[str, np.ndarray], j: int, plan: SplitPlan,

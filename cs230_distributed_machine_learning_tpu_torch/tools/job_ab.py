@@ -2,6 +2,8 @@
 
     python3 cs230_distributed_machine_learning_tpu_torch/tools/job_ab.py \\
         --trees OLD NEW NEW OLD [--history 8] [--profile] [--out FILE]
+    python3 cs230_distributed_machine_learning_tpu_torch/tools/job_ab.py \
+        --stream --trees . [--out FILE]
 
 Each entry of ``--trees`` is the root of a checkout (for example the
 parent commit unpacked with ``git archive`` into a directory that
@@ -30,6 +32,15 @@ own time, and the package's functions by cumulative time. Also the
 journal directory's cost of a line: an open, append and close against a
 write to a handle kept open.
 
+With ``--stream``, each process instead runs ``chip_smoke.py``'s two
+streamed jobs on uncut covertype under a 20 MB stage budget (every pass
+re-uploads every block): ``stream_logreg`` (bench.py's search at its
+first 16 trials, max_iter 200) and ``stream_rf`` (8 trees of depth 8,
+cv 3). Each runs once to warm up, then four times with
+``CS230_STREAM_DOUBLE_BUFFER`` 1, 0, 0, 1: the wall, the consumer's
+block waits, the upload seconds, the blocks and the block uploads of
+every run.
+
 Prints one JSON line per entry and, last, the card's name and power
 limit. Needs one CUDA card.
 """
@@ -47,6 +58,9 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 STORAGE = os.path.join(ROOT, ".smoke_storage", "job_ab")
 JOBS = ("main_10", "scored_main", "knn_main")
 TURNS = ("0", "auto", "auto", "0")
+STREAM_JOBS = ("stream_logreg", "stream_rf")
+STREAM_TURNS = ("1", "0", "0", "1")
+STREAM_VALVES = {"CS230_STAGE_CACHE_MB": "20", "CS230_STREAM": "auto"}
 
 
 def _search(n_iter, max_iter, cv=5):
@@ -60,6 +74,13 @@ def _search(n_iter, max_iter, cv=5):
 
 
 def _job(name):
+    if name == "stream_logreg":
+        return _search(16, 200), "covertype", 16
+    if name == "stream_rf":
+        return ({"model_type": "RandomForestClassifier", "search_type": None,
+                 "base_estimator_params": {"n_estimators": 8, "max_depth": 8,
+                                           "random_state": 42},
+                 "cv_params": {"cv": 3}}, "covertype", 1)
     if name == "main_10":
         return _search(1000, 10), "covertype", 1000
     if name == "scored_main":
@@ -94,6 +115,70 @@ def _journal_line_us(d: str, n: int = 2000) -> dict:
     return {"open_append_close": reopen, "kept_handle": kept}
 
 
+def _use_storage(run_dir: str) -> None:
+    """Point the framework's storage at ``run_dir``, with the shared
+    datasets linked in."""
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    os.makedirs(os.path.join(STORAGE, "datasets"), exist_ok=True)
+    os.makedirs(run_dir, exist_ok=True)
+    link = os.path.join(run_dir, "datasets")
+    if not os.path.exists(link):
+        os.symlink(os.path.join(STORAGE, "datasets"), link)
+    cfg = cfg_mod.FrameworkConfig.load()
+    cfg.storage.root = run_dir
+    cfg_mod.set_config(cfg)
+
+
+def stream_worker(run_dir: str) -> dict:
+    """The streamed jobs with the double buffer on and off, in turns."""
+    sys.path.insert(0, os.getcwd())
+    import time
+
+    import numpy as np
+    import torch
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
+    from cs230_distributed_machine_learning_tpu_torch.obs import REGISTRY
+
+    _use_storage(run_dir)
+    manager = MLTaskManager()
+    assert manager.device.type == "cuda"
+    os.environ.update(STREAM_VALVES)
+
+    def counters():
+        out = {k: REGISTRY.counter(f"tpuml_stream_{k}_total").value()
+               for k in ("blocks", "upload_seconds", "wait_seconds")}
+        out["uploads"] = sum(v for k, v in STAGE_CACHE.uploads_by_key().items() if "block" in k)
+        return out
+
+    def run(name, double_buffer):
+        search, dataset, n = _job(name)
+        os.environ["CS230_STREAM_DOUBLE_BUFFER"] = double_buffer
+        before = counters()
+        t0 = time.perf_counter()
+        status = manager.train(search, dataset, {"random_state": 42}, timeout=1200)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = status["job_result"]
+        assert status["job_status"] == "completed" and not res["failed"], name
+        assert len(res["results"]) == n, (name, len(res["results"]))
+        after = counters()
+        return {"wall_s": wall, **{k: after[k] - before[k] for k in after},
+                "scores": [r["mean_cv_score"] for r in res["results"]]}
+
+    out = {"tree": os.getcwd(), "valves": STREAM_VALVES, "runs": {}}
+    for name in STREAM_JOBS:
+        run(name, "1")
+        runs = out["runs"][name] = {"1": [], "0": []}
+        for mode in STREAM_TURNS:
+            runs[mode].append(run(name, mode))
+        assert all(r["blocks"] > 0 for m in runs.values() for r in m), name
+        scores = np.array([r.pop("scores") for m in runs.values() for r in m])
+        out.setdefault("max_score_diff", {})[name] = float(np.ptp(scores, axis=0).max())
+    return out
+
+
 def worker(run_dir: str, history: int, profile: bool) -> dict:
     """Run the jobs with the checkout in the working directory."""
     sys.path.insert(0, os.getcwd())
@@ -105,16 +190,8 @@ def worker(run_dir: str, history: int, profile: bool) -> dict:
     import torch
     from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
-    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
 
-    os.makedirs(os.path.join(STORAGE, "datasets"), exist_ok=True)
-    os.makedirs(run_dir, exist_ok=True)
-    link = os.path.join(run_dir, "datasets")
-    if not os.path.exists(link):
-        os.symlink(os.path.join(STORAGE, "datasets"), link)
-    cfg = cfg_mod.FrameworkConfig.load()
-    cfg.storage.root = run_dir
-    cfg_mod.set_config(cfg)
+    _use_storage(run_dir)
 
     pauses = [0.0, 0.0, 0.0]
     started = [0.0]
@@ -206,11 +283,15 @@ def main() -> int:
     ap.add_argument("--history", type=int, default=8,
                     help="main_10 runs before the timed turns")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stream", action="store_true",
+                    help="the streamed jobs with the double buffer on and off")
     ap.add_argument("--out", help="also write the JSON lines here")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.history, args.profile)), flush=True)
+        out = (stream_worker(args.worker) if args.stream
+               else worker(args.worker, args.history, args.profile))
+        print(json.dumps(out), flush=True)
         return 0
     import torch
 
@@ -221,7 +302,8 @@ def main() -> int:
     lines = []
     for i, tree in enumerate(args.trees):
         cmd = [sys.executable, here, "--worker", os.path.join(STORAGE, f"run_{i}"),
-               "--history", str(args.history)] + (["--profile"] if args.profile else [])
+               "--history", str(args.history)] + (["--profile"] if args.profile else []) + (
+                   ["--stream"] if args.stream else [])
         proc = subprocess.run(cmd, cwd=os.path.abspath(tree), capture_output=True, text=True,
                               check=False)
         if proc.returncode != 0:

@@ -768,3 +768,56 @@ def test_asha_logreg_job_card_matches_cpu(cuda, monkeypatch, tmp_path):
             [[r for r, _ in hrep[i]] for i in sorted(hrep)]
         assert cs["job_result"]["best_result"]["parameters"] == \
             hs["job_result"]["best_result"]["parameters"]
+
+
+@pytest.mark.gpu
+def test_level_histogram_at_the_streamed_block_shape_on_card(cuda):
+    """B4 at chip_smoke's stream_rf widest level: one lane, a block of
+    11,574 rows (a 20 MB stage budget's block of covertype's codes), the
+    deepest level's 64 left children, 54 features, 128 bins, 7 classes:
+    integer stats bit-exact."""
+    th.reset_launches()
+    local, xb, SC = _hist_inputs(cuda, 1, 11_574, 54, 128, 64, 7, float_stats=False)
+    got = th.level_histogram(local, xb, SC, 64, 128, integer_stats=True)
+    want = th.level_histogram_reference(local, xb, SC, 64, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert th.LAUNCHES["level_histogram"] == 1
+
+
+@pytest.mark.gpu
+def test_streamed_forest_card_matches_cpu(cuda, monkeypatch):
+    """One streamed forest (CS230_STREAM=force, 256-row blocks not
+    dividing n) on the card and on the CPU: scores equal to the bit; on
+    the card B4 launches once a level block of every (split, tree), the
+    blocks staged through the side stream, each device's under its own
+    keys."""
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_cache as sc
+    from cs230_distributed_machine_learning_tpu_torch.models.base import TrialData
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+    from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import run_trials
+
+    monkeypatch.setenv("CS230_STAGE_CACHE", "1")
+    monkeypatch.setenv("CS230_STREAM", "force")
+    monkeypatch.setenv("CS230_STREAM_BLOCK_ROWS", "256")
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(1500, 12)).astype(np.float32)
+    y = np.argmax(X[:, :3] + rng.normal(scale=0.5, size=(1500, 3)), 1).astype(np.int32)
+    plan = build_split_plan(y, task="classification", n_folds=2)
+    kernel = get_kernel("RandomForestClassifier")
+    params = [{"n_estimators": 2, "max_depth": 4, "n_bins": 16, "max_features": 4,
+               "random_state": 3}]
+    sc.STAGE_CACHE.clear()
+    try:
+        th.reset_launches()
+        card = run_trials(kernel, TrialData(X=X, y=y, n_classes=3), plan, params, device=cuda)
+        launches = th.LAUNCHES["level_histogram"]
+        host = run_trials(kernel, TrialData(X=X, y=y, n_classes=3), plan, params,
+                          device=torch.device("cpu"))
+        devices = {k[1] for k in sc.STAGE_CACHE.uploads_by_key()}
+    finally:
+        sc.STAGE_CACHE.clear()
+    assert card.trial_metrics == host.trial_metrics
+    assert launches == plan.n_splits * 2 * 4 * 6  # splits x trees x depth x blocks
+    assert devices == {("cuda", 0), ("cpu", 0)}
