@@ -11,7 +11,7 @@ process each, beside the build; a ``prestage`` line gives each wait:
 2. build    nvcc builds csrc/*.cu for sm_90a (seconds, ptxas report).
 3. kernels  each CUDA kernel against its plain PyTorch version on the
             card at the main path's shapes (covertype: n_pad 116,736,
-            dpp 64, 7 classes, 6 splits, 1 and 8 trial blocks; the
+            dpp 64, 7 classes, 6 splits, 1, 2 and 8 trial blocks; the
             784-feature lane kernel B3 at dpp 896 on the wide phase's 16
             lanes and 4,096 rows and on wide_full's 192 lanes and 60,160
             rows, and at dpp 1,152): max|err| / max|ref| < 5e-3, the fused
@@ -241,6 +241,27 @@ line (the group restores every env valve it sets):
             of rows, the deepest level's left children) against its plain
             version and index_add_.
 
+Then the scheduled runtime and the REST routes, the "scheduled" group:
+
+37. rest_main  main_auto's 1000 trials, uncut, through REST on the card:
+            the port's server (runtime/server.py, port 0, a thread) over a
+            ClusterRuntime with no in-process executor, one WorkerAgent
+            thread on the card with a fresh storage root (covertype reaches
+            it through FetchingDatasetCache and GET /dataset/covertype),
+            and MLTaskManager(url=...) training main_auto's drawn trials as
+            a GridSearchCV payload (a scipy distribution cannot cross REST),
+            streamed; the agent starts once all 1000 are placed on it, so it
+            pulls 4 full batches of 256 and B2 launches 800 times; every
+            score within 2e-3 of main_auto's, best_params_ equal; then
+            download_best_model over HTTP refits the winner (B3, 200);
+            the agent thread's seconds in the trial engine and its posts.
+38. rest_supervised  an AgentSupervisor child agent on the card
+            (--max-batch 32) trains rest_main's first 128 trials; after the
+            first result the smoke SIGKILLs it: the sweep requeues its
+            tasks, the supervisor respawns it, every trial completes within
+            2e-3 of rest_main's; the respawns and the seconds from the kill
+            to completion.
+
 The stage_cache line carries the stage cache's stats of the run so far;
 stream_logreg empties the cache first (so that its single-shot run must
 upload), and the done line carries the stats since.
@@ -266,7 +287,7 @@ table held for its earlier design, not measured in this run), the
 kernels line (every number measured in this run, but the bound, which it
 computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
 entries for asha_main, asha_refit and hyperband_rf, B4 one for
-stream_rf), the nvidia-smi line, and the result line
+stream_rf, B2 and B3 for rest_main and its refit), the nvidia-smi line, and the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
 """
@@ -530,7 +551,8 @@ def phase_kernels(dev) -> dict:
     n_pad, dpp, c, S, _ = LOGREG_SHAPE
     t = LOGREG_STEP_T
     rows = {}
-    for n_wb in (1, LOGREG_SHAPE[4]):
+    # 1 block (asha_main's final wave), 2 (rest_main's 256-trial pulls), 8
+    for n_wb in (1, REST_BLOCKS, LOGREG_SHAPE[4]):
         Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(
             gen, dev, n_pad, dpp, c, S, n_wb)
         NB = W.shape[2]
@@ -2994,6 +3016,257 @@ def phase_stream_rf(manager, dev, dataset: str = "covertype") -> dict:
                      f"left children), {data.n_classes} classes"}
 
 
+# ---------------------------------------------------------------- scheduled
+
+
+#: the worker agent's pull: its executor's max_trials_per_batch, which it
+#: sends as ``max`` on /next_tasks (the route's own default, 64, applies
+#: only to a poll without one)
+REST_PULL = 256
+#: the packed trial blocks (128 trials each) of one REST_PULL pull
+REST_BLOCKS = math.ceil(REST_PULL / 128)
+#: rest_supervised: the first trials of rest_main's grid, and the child
+#: agent's pull
+SUPERVISED_TRIALS = 128
+SUPERVISED_PULL = 32
+#: rest_main and rest_supervised against main_auto / rest_main, trial by
+#: trial (B2's lanes are independent, so 0 is expected)
+REST_TOL = 2e-3
+
+
+def _trial_order(status) -> list:
+    """A job's results in trial order (``<job_id>-subtask-<i>``)."""
+    return sorted(status["job_result"]["results"],
+                  key=lambda r: int(r["subtask_id"].rsplit("-", 1)[1]))
+
+
+def _grid_payload(trials: list) -> dict:
+    """main_auto's drawn trials as a GridSearchCV payload: ``param_grid``
+    is the list ``[{"C": [c_i], "tol": [t_i]}, ...]`` in trial order, so
+    the server's ParameterGrid yields exactly those trials in that order.
+    (A scipy distribution cannot cross REST in either package: JSON turns
+    it into a string.)"""
+    grid = [{"C": [r["search_params"]["C"]], "tol": [r["search_params"]["tol"]]}
+            for r in trials]
+    return {"model_type": "LogisticRegression", "search_type": "GridSearchCV",
+            "base_estimator_params": {"max_iter": 200}, "param_grid": grid,
+            "cv_params": {"cv": 5}}
+
+
+class Served:
+    """The port's coordinator server over a ClusterRuntime with no
+    in-process executor, on 127.0.0.1, port 0, in a thread."""
+
+    def __init__(self):
+        from cs230_distributed_machine_learning_tpu_torch.runtime.cluster import ClusterRuntime
+        from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
+        from cs230_distributed_machine_learning_tpu_torch.runtime.server import start_server
+
+        self.cluster = ClusterRuntime()
+        self.coord = Coordinator(cluster=self.cluster)
+        self.server, self.thread = start_server(self.coord)
+        self.url = self.server.url
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=10)
+        self.cluster.shutdown()
+
+
+def _agent_counters() -> dict:
+    from cs230_distributed_machine_learning_tpu_torch.obs import REGISTRY
+
+    return {k: REGISTRY.counter(f"tpuml_agent_{k}_total").value()
+            for k in ("polls", "tasks_pulled", "acks")}
+
+
+def phase_rest_main(cfg, srv, main_auto_status) -> dict:
+    """main_auto's 1000 trials, uncut, through REST on the card: the port's
+    server over a ClusterRuntime, one WorkerAgent thread on the card whose
+    storage root is fresh (covertype reaches it through
+    FetchingDatasetCache and GET /dataset/covertype), and
+    MLTaskManager(url=...) training the trials as a GridSearchCV payload
+    (_grid_payload), streamed. The agent starts polling once the engine
+    has placed all 1000 trials on it, so its pulls are full: ceil(1000 /
+    REST_PULL) batches, each one packed chunk of 200 solver steps, so B2
+    launches 200 x 4 = 800 times (the prediction, PERF.md §6) and no other
+    kernel. Every trial completes with a finite score within REST_TOL of
+    main_auto's, best_params_ equal. Then download_best_model over HTTP
+    refits the winner on the coordinator: B3 200 times. Prints the wall
+    beside main_auto's, the fetch, the agent counters and the agent
+    thread's seconds in the trial engine and in its posts."""
+    import shutil
+    import threading
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.runtime.agent import WorkerAgent
+
+    main = _trial_order(main_auto_status)
+    assert len(main) == 1000
+    payload = _grid_payload(main)
+    agent_root = os.path.join(cfg.storage.root, "rest_agent")
+    shutil.rmtree(agent_root, ignore_errors=True)
+    agent = WorkerAgent(srv.url, datasets_root=os.path.join(agent_root, "datasets"),
+                        poll_timeout_s=1.0)
+    assert agent.executor.max_trials_per_batch == REST_PULL and agent.executor.device.type == "cuda"
+    wid = agent.worker_id
+    # where the agent's thread spends the job: the trial engine's calls and
+    # the posts of each trial's result and metrics message (each a request
+    # the coordinator serves before it answers)
+    spent = {"trials_s": 0.0, "post_result_s": 0.0, "post_metrics_s": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return run
+
+    agent.executor._run_trials = timed(agent.executor._run_trials, "trials_s")
+    agent._post_result = timed(agent._post_result, "post_result_s")
+    agent._post_metrics = timed(agent._post_metrics, "post_metrics_s")
+    placed = {}
+
+    def start_when_placed():
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            if len(srv.cluster.engine.queue_snapshot().get(wid, ())) >= 1000:
+                placed["s"] = time.perf_counter() - t0
+                agent.start()
+                return
+            time.sleep(0.01)
+
+    manager = MLTaskManager(url=srv.url)
+    counters0 = _agent_counters()
+    reset_all_launches()
+    starter = threading.Thread(target=start_when_placed, daemon=True)
+    t0 = time.perf_counter()
+    starter.start()
+    status = manager.train(payload, "covertype", {"random_state": 42}, timeout=900,
+                           show_progress=False, stream=True)
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    starter.join(timeout=5)
+    assert agent.alive() and srv.thread.is_alive(), "an agent or server thread died"
+    counters = {k: v - counters0[k] for k, v in _agent_counters().items()}
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    assert not res["failed"] and len(res["results"]) == 1000, (res["failed"][:1],
+                                                               len(res["results"]))
+    scores = _scores(status)
+    assert all(isinstance(v, float) and math.isfinite(v) for v in scores.values())
+    ref = _scores(main_auto_status)
+    assert scores.keys() == ref.keys()
+    worst = max(abs(scores[k] - ref[k]) for k in ref)
+    assert worst <= REST_TOL, f"rest_main vs main_auto {worst}"
+    best = res["best_result"]["search_params"]
+    assert best == main_auto_status["job_result"]["best_result"]["search_params"]
+    batches = math.ceil(1000 / REST_PULL)
+    expected = 200 * batches
+    assert launches["packed_nesterov_step"] == expected, (launches, expected)
+    assert not any(v for k, v in launches.items() if k != "packed_nesterov_step"), launches
+    assert counters["tasks_pulled"] == 1000 and counters["acks"] == 1000, counters
+    (fetch,) = [f for f in agent.executor.cache.fetches if f["dataset_id"] == "covertype"]
+    agent.stop()
+    # the winner's refit behind GET /download_model, on the coordinator's card
+    reset_all_launches()
+    t1 = time.perf_counter()
+    path = manager.download_best_model(
+        output_path=os.path.join(agent_root, "rest_main_best_model.pkl"))
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t1
+    refit = all_launches()
+    assert os.path.getsize(path) > 0
+    assert refit["masked_softmax_grad"] == 200, refit
+    assert not any(refit[k] for k in DEFAULT_ONLY_KERNELS), refit
+    emit({"phase": "rest_main", "wall_s": wall, "main_auto_wall_s": WALLS["main_auto"],
+          "wall_over_main_auto": wall / WALLS["main_auto"], "placed_s": placed.get("s"),
+          "fetch": fetch, "agent_counters": counters, "agent_seconds": spent,
+          "pull": REST_PULL, "batches": batches,
+          "launches": launches["packed_nesterov_step"], "expected_launches": expected,
+          "max_mean_cv_diff": worst, "best_params": best, "refit_s": refit_s,
+          "refit_launches": {k: v for k, v in refit.items() if v}})
+    WALLS["rest_main"] = wall
+    return {"status": status, "b2": {"launches": launches["packed_nesterov_step"],
+                                      "expected_launches": expected, "job": "rest_main"},
+            "b3": refit["masked_softmax_grad"]}
+
+
+def phase_rest_supervised(cfg, srv, rest_status) -> dict:
+    """Containment of a dead agent process on the card: the port's
+    AgentSupervisor runs one child agent (slot 0: the card) against the
+    same server with --max-batch SUPERVISED_PULL, training the first
+    SUPERVISED_TRIALS of rest_main's grid. After the first result the
+    smoke SIGKILLs the child: the dead-worker sweep requeues its tasks,
+    the supervisor respawns the child, and the job completes every trial,
+    each score within REST_TOL of the same trial's in rest_main. Prints
+    the respawns and the seconds from the kill to completion. The child's
+    launches are its own process's, not counted here."""
+    import signal
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.runtime.supervisor import (
+        AgentSupervisor, agent_command)
+
+    sched = cfg.scheduler
+    saved = (sched.dead_after_s, sched.sweep_interval_s)
+    sched.dead_after_s, sched.sweep_interval_s = 2.0, 0.25
+    trials = _trial_order(rest_status)[:SUPERVISED_TRIALS]
+    sup = AgentSupervisor(
+        agent_command(srv.url, max_batch=SUPERVISED_PULL), n=1, backoff_s=0.5,
+        poll_interval_s=0.1,
+        # the smoke's storage root (covertype is staged there) and a
+        # heartbeat inside the shortened dead-worker window
+        slot_envs=[{"TPUML_STORAGE__ROOT": cfg.storage.root,
+                    "TPUML_SCHEDULER__HEARTBEAT_INTERVAL_S": "0.5"}])
+    t0 = time.perf_counter()
+    sup.start()
+    try:
+        manager = MLTaskManager(url=srv.url)
+        submit = manager.train(_grid_payload(trials), "covertype", {"random_state": 42},
+                               wait_for_completion=False)
+        sid, jid = manager.session_id, submit["job_id"]
+        deadline = time.time() + 300
+        while srv.coord.store.job_progress(sid, jid)["tasks_completed"] < 1:
+            assert time.time() < deadline, "no result from the child agent"
+            assert sup.status()[0]["restarts_total"] == 0, sup.status()
+            time.sleep(0.05)
+        first_result_s = time.perf_counter() - t0
+        victim = sup.status()[0]["pid"]
+        done_before_kill = srv.coord.store.job_progress(sid, jid)["tasks_completed"]
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while srv.coord.store.job_progress(sid, jid)["job_status"] not in (
+                "completed", "completed_with_failures", "failed"):
+            assert time.time() < deadline + 300, "rest_supervised did not complete"
+            time.sleep(0.1)
+        kill_to_done = time.perf_counter() - t_kill
+        status = manager.check_status(jid)
+        slot = sup.status()[0]
+    finally:
+        sup.stop()
+        sched.dead_after_s, sched.sweep_interval_s = saved
+    assert srv.thread.is_alive(), "the server thread died"
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    assert not res["failed"] and len(res["results"]) == SUPERVISED_TRIALS
+    assert slot["restarts_total"] >= 1 and slot["pid"] not in (None, victim), slot
+    workers = sorted({r["worker_id"] for r in res["results"]})
+    assert len(workers) >= 2, workers  # the respawned child finished the job
+    ref = _scores(rest_status)
+    got = _scores(status)
+    worst = max(abs(v - ref[k]) for k, v in got.items())
+    assert worst <= REST_TOL, f"rest_supervised vs rest_main {worst}"
+    emit({"phase": "rest_supervised", "trials": SUPERVISED_TRIALS, "pull": SUPERVISED_PULL,
+          "first_result_s": first_result_s, "done_before_kill": done_before_kill,
+          "respawns": slot["restarts_total"], "kill_to_completion_s": kill_to_done,
+          "workers": workers, "max_mean_cv_diff_vs_rest_main": worst})
+    return {"respawns": slot["restarts_total"], "kill_to_completion_s": kill_to_done}
+
+
 #: each kernel's artifact rows on the kernels line: (other_paths key, row
 #: tag, the job whose winner's launches it counts)
 ARTIFACT_PATHS = {
@@ -3124,6 +3397,19 @@ def main() -> int:
         plane[name] = run()
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "data_plane", "seconds": seconds, "total_s": sum(seconds.values())})
+    # the scheduled runtime and the REST routes: server, agents, supervisor
+    seconds = {}
+    t_phase = time.perf_counter()
+    srv = Served()
+    try:
+        rest = phase_rest_main(cfg, srv, manager.check_status(JOBS["main_auto"]))
+        seconds["rest_main"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        phase_rest_supervised(cfg, srv, rest["status"])
+        seconds["rest_supervised"] = time.perf_counter() - t_phase
+    finally:
+        srv.close()
+    emit({"phase": "scheduled", "seconds": seconds, "total_s": sum(seconds.values())})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -3190,6 +3476,19 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **entry, "row": row_key, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
+        if name == "packed_nesterov_step":  # REST: the agent's pulls of REST_PULL trials
+            r = rows[(name, REST_BLOCKS)]
+            kernels[-1].setdefault("other_paths", {})["rest_main"] = {
+                **rest["b2"], "row": REST_BLOCKS, **{k: r[k] for k in ROW_KEYS if k in r},
+                "shape": f"n_pad 116736, dpp 64, c 7, S 6, {REST_BLOCKS} blocks "
+                         f"({REST_PULL}-trial pulls)"}
+        if name == "masked_softmax_grad":  # the winner's refit behind GET /download_model
+            r = art_rows[(name, "refit")]
+            kernels[-1].setdefault("other_paths", {})["rest_main_refit"] = {
+                "launches": rest["b3"], "job": "rest_main", "row": "refit",
+                **{k: r[k] for k in ROW_KEYS if k in r},
+                "shape": "n_pad 116224, dpp 128, cp 16, c 7, 1 lane (the winner's refit "
+                         "behind GET /download_model, 200 steps)"}
     from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S,

@@ -1,7 +1,11 @@
-"""MLTaskManager: the user-facing client API, local mode.
+"""MLTaskManager: the user-facing client API.
 
-Port of the local mode of the JAX package's ``client/manager.py``: the
-manager talks directly to an in-process Coordinator. ``download_data``,
+Port of the JAX package's ``client/manager.py``. In local mode (no
+``url``) the manager talks directly to an in-process Coordinator; with
+``url=`` it talks REST to a coordinator server (runtime/server.py), with
+the JAX manager's retries and backoff for idempotent requests, the SSE
+stream of ``/train_status`` for ``stream=True``, and the winner's artifact
+fetched from ``/download_model``. ``download_data``,
 ``check_data`` and ``preprocess`` stage a dataset; ``train`` accepts a
 live sklearn estimator, a GridSearchCV / RandomizedSearchCV wrapper, or the
 ``model_details`` payload they stand for (client/introspection.py; the
@@ -13,20 +17,28 @@ search (ASHA / Hyperband); ``check_status`` / ``check_job_status`` /
 ``download_best_model`` / ``load_best_model`` refit the winner once and
 serve its artifact (runtime/artifacts.py).
 
-The constructor takes the JAX package's ``(url, coordinator, priority)``;
-remote mode (``url=``) is not ported yet and raises. The work runs on the
-CUDA card by default; ``device="cpu"`` runs it on the host. Without a card
-and without ``device="cpu"``, construction raises.
+The constructor takes the JAX package's ``(url, coordinator, priority)``.
+A local-mode coordinator runs on the CUDA card by default; ``device="cpu"``
+runs it on the host, and without a card and without ``device="cpu"``
+construction raises. Over REST the server's workers decide the device.
+The REST transport is written on ``urllib.request`` (utils/http.py). It
+refuses what cannot cross it: a callable ``scoring``, and a scipy
+distribution in a search space (JSON turns it into a string), each with a
+``ValueError`` at the client that names it.
 """
 
 from __future__ import annotations
 
+import json
+import random
 import time
 import uuid
 from typing import Any, Dict, Optional
 
 from ..runtime.store import TERMINAL_STATUSES
+from ..utils import http
 from ..utils.config import get_config
+from ..utils.serialization import json_safe
 from ..utils.torch_setup import DeviceLike
 from .introspection import extract_model_details
 
@@ -34,37 +46,59 @@ from .introspection import extract_model_details
 class MLTaskManager:
     def __init__(self, url: Optional[str] = None, coordinator=None, priority: int = 0, *,
                  device: DeviceLike = None):
-        """``priority`` is this session's QoS lane, journaled with the
+        """``priority`` is this session's QoS lane (its subtasks dispatch
+        ahead of lower lanes on a backlogged cluster), journaled with the
         session as in the JAX package."""
-        if url is not None:
-            raise ValueError("remote mode (url=...) is not yet ported to the PyTorch package")
+        self.api_url = url.rstrip("/") if url else None
         self.priority = int(priority)
-        if coordinator is None:
-            from ..runtime.coordinator import Coordinator
+        if self.api_url is None:
+            if coordinator is None:
+                from ..runtime.coordinator import Coordinator
 
-            coordinator = Coordinator(device=device)
-        self._coordinator = coordinator
-        self.session_id = coordinator.create_session(priority=self.priority)
+                coordinator = Coordinator(device=device)
+            self._coordinator = coordinator
+        else:
+            self._coordinator = None
+        self.session_id = self._create_session()
         self.job_id: Optional[str] = None
         self.result: Optional[Dict[str, Any]] = None
 
     @property
     def device(self):
-        return self._coordinator.device
+        """The local coordinator's device; None over REST."""
+        return self._coordinator.device if self._coordinator is not None else None
+
+    def _create_session(self) -> str:
+        if self._coordinator is not None:
+            return self._coordinator.create_session(priority=self.priority)
+        return self._request("post", "create_session",
+                             json={"priority": self.priority} if self.priority else None,
+                             idempotent=False)["session_id"]
 
     # ------------- data management -------------
 
     def check_data(self, data_name: str) -> Dict[str, Any]:
-        return self._coordinator.check_data(self.session_id, data_name)
+        if self._coordinator is not None:
+            return self._coordinator.check_data(self.session_id, data_name)
+        return self._request("get", f"check_data/{self.session_id}",
+                             params={"dataset_name": data_name})
 
     def download_data(self, data_link: str, data_name: str, data_type: str) -> Dict[str, Any]:
-        return self._coordinator.download_data(self.session_id, data_link, data_name, data_type)
+        if self._coordinator is not None:
+            return self._coordinator.download_data(self.session_id, data_link, data_name,
+                                                   data_type)
+        return self._request("post", f"download_data/{self.session_id}",
+                             json={"dataset_url": data_link, "dataset_name": data_name,
+                                   "dataset_type": data_type})
 
     def preprocess(self, dataset_id: str,
                    config: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
         """Preprocess a staged dataset with a config dict, or with the
         YAML under the configs directory when ``config`` is None."""
-        return self._coordinator.preprocess(self.session_id, dataset_id, config)
+        if self._coordinator is not None:
+            return self._coordinator.preprocess(self.session_id, dataset_id, config)
+        return self._request("post", f"preprocess/{self.session_id}",
+                             json={"dataset_id": dataset_id, "config": config})
 
     def train(
         self,
@@ -136,17 +170,53 @@ class MLTaskManager:
             "train_params": train_params,
             "timestamp": time.time(),
         }
-        submit = self._coordinator.submit_train(self.session_id, payload)
+        if self._coordinator is not None:
+            submit = self._coordinator.submit_train(self.session_id, payload)
+        else:
+            _check_rest_payload(model_details)
+            if stream and wait_for_completion:
+                # /train_status submits and streams: one request
+                return self._train_stream(payload, timeout=timeout,
+                                          show_progress=show_progress)
+            # idempotent: the coordinator dedupes the client-minted job id,
+            # so a retried POST never expands the job twice
+            submit = self._request("post", f"train/{self.session_id}", json=payload,
+                                   idempotent=True)
         self.job_id = submit.get("job_id") or self.job_id
         if not wait_for_completion:
             return submit
         if stream:
             return self._stream_local(timeout=timeout, show_progress=show_progress)
+        if self._coordinator is None:
+            return self._wait_remote(timeout=timeout, show_progress=show_progress)
         self._coordinator.wait_for_completion(self.session_id, self.job_id, timeout)
         status = self.check_status()
         if status.get("job_status") in TERMINAL_STATUSES:
             self.result = status.get("job_result")
         return status
+
+    def _wait_remote(self, timeout: Optional[float] = None,
+                     show_progress: bool = True) -> Dict[str, Any]:
+        """Poll ``/check_status`` every ``client_poll_s`` to the job's end."""
+        cfg = get_config().service
+        timeout = timeout or cfg.client_timeout_s
+        deadline = time.time() + timeout
+        bar = self._progress_bar(show_progress)
+        try:
+            while time.time() < deadline:
+                status = self.check_status()
+                if bar is not None:
+                    bar.n = int(_pct(status.get("job_status")))
+                    _bar_postfix(bar, status)
+                    bar.refresh()
+                if status.get("job_status") in TERMINAL_STATUSES:
+                    self.result = status.get("job_result")
+                    return status
+                time.sleep(cfg.client_poll_s)
+        finally:
+            if bar is not None:
+                bar.close()
+        raise TimeoutError(f"Job {self.job_id} did not complete within {timeout}s")
 
     # ------------- the event stream (stream=True) -------------
 
@@ -195,12 +265,112 @@ class MLTaskManager:
                 bar.close()
         return self._finish_stream(last, timeout)
 
+    def _train_stream(self, payload: Dict[str, Any], timeout: Optional[float] = None,
+                      show_progress: bool = True) -> Dict[str, Any]:
+        """POST the job to ``/train_status`` and read its SSE events (one
+        request submits and follows). A dropped stream is resumed, not
+        raised: the payload's client-minted job id makes the re-POST
+        re-attach to the same job, and each event is a whole progress
+        snapshot. 429 / 503 back off per their ``Retry-After``; an endpoint
+        that never answered raises after ``request_retry_s``."""
+        cfg = get_config().service
+        timeout = timeout or cfg.client_timeout_s
+        start = time.time()
+        deadline = start + timeout
+        retry_window = max(cfg.request_retry_s, 0.0)
+        read_timeout = max(10.0, 8 * cfg.sse_tick_s)
+        bar = self._progress_bar(show_progress)
+        last: Optional[Dict[str, Any]] = None
+        attempt = 0
+        established = False  # a stream was opened at least once
+        try:
+            while time.time() < deadline:
+                try:
+                    resp = http.open_request("POST",
+                                             f"{self.api_url}/train_status/{self.session_id}",
+                                             json=json_safe(payload), timeout=read_timeout)
+                except http.TransportError:
+                    if not established and time.time() - start > retry_window:
+                        raise
+                    attempt += 1
+                    time.sleep(_retry_delay(attempt))
+                    continue
+                status = getattr(resp, "status", None) or resp.code
+                if status in (429, 503) and retry_window > 0:
+                    retry_after = resp.headers.get("Retry-After")
+                    resp.close()
+                    attempt += 1
+                    time.sleep(_retry_delay(attempt, retry_after))
+                    continue
+                if status >= 400:
+                    body = resp.read()
+                    resp.close()
+                    raise http.HTTPStatusError(http.Response(
+                        f"{self.api_url}/train_status/{self.session_id}", status,
+                        resp.headers, body))
+                established = True
+                try:
+                    for raw in resp:
+                        line = raw.decode().rstrip("\r\n")
+                        if not line.startswith("data: "):
+                            continue
+                        try:
+                            event = json.loads(line[len("data: "):])
+                        except ValueError:
+                            continue  # a torn event: the stream is ending
+                        attempt = 0
+                        if event.get("kind") == "curve":
+                            continue  # curves() reads them
+                        last = event
+                        if event.get("job_id"):
+                            self.job_id = event["job_id"]
+                        if bar is not None:
+                            bar.n = int(_pct(event.get("job_status")))
+                            _bar_postfix(bar, event)
+                            bar.refresh()
+                        if event.get("job_status") in TERMINAL_STATUSES:
+                            return self._finish_stream(last, timeout)
+                        if time.time() > deadline:
+                            raise TimeoutError(
+                                f"Job {self.job_id} did not complete within {timeout}s")
+                except (OSError, ValueError):
+                    # the stream dropped mid-job: resume by re-POSTing
+                    attempt += 1
+                    time.sleep(_retry_delay(attempt))
+                finally:
+                    resp.close()
+                # a stream that ended without a terminal event resumes too,
+                # paced at the tick
+                time.sleep(min(1.0, max(cfg.sse_tick_s, 0.1)))
+            return self._finish_stream(last, timeout)
+        finally:
+            if bar is not None:
+                bar.close()
+
     def check_status(self, job_id: Optional[str] = None) -> Dict[str, Any]:
-        return self._coordinator.check_status(self.session_id, job_id or self.job_id)
+        jid = job_id or self.job_id
+        if self._coordinator is not None:
+            return self._coordinator.check_status(self.session_id, jid)
+        return self._request("get", f"check_status/{self.session_id}/{jid}")
 
     def check_job_status(self, job_id: Optional[str] = None):
         """Per-trial metrics array."""
-        return self._coordinator.job_metrics(self.session_id, job_id or self.job_id)
+        jid = job_id or self.job_id
+        if self._coordinator is not None:
+            return self._coordinator.job_metrics(self.session_id, jid)
+        return self._request("get", f"metrics/{self.session_id}/{jid}")
+
+    def explain(self, job_id: Optional[str] = None, subtask_id: Optional[str] = None):
+        """The flight recorder's timeline of one subtask (JAX
+        ``MLTaskManager.explain``): not ported yet."""
+        raise NotImplementedError("explain() needs the flight recorder's timelines, which "
+                                  "are not ported to the PyTorch package yet")
+
+    def critical_path(self, job_id: Optional[str] = None, compare: Optional[str] = None):
+        """A job's critical-path report (JAX ``MLTaskManager.critical_path``):
+        not ported yet."""
+        raise NotImplementedError("critical_path() needs the span tracer, which is not "
+                                  "ported to the PyTorch package yet")
 
     def curves(self, job_id: Optional[str] = None,
                subtask_id: Optional[str] = None) -> Dict[str, Any]:
@@ -212,6 +382,15 @@ class MLTaskManager:
         jid = job_id or self.job_id
         if jid is None:
             raise TypeError("curves() requires a job id (or a prior train())")
+        if self._coordinator is None:
+            path = f"curves/{jid}" if subtask_id is None else f"curves/{jid}/{subtask_id}"
+            try:
+                return self._request("get", path)
+            except http.HTTPStatusError as e:
+                if e.response.status == 404:
+                    raise KeyError(f"no curves for job {jid!r}"
+                                   + (f" subtask {subtask_id!r}" if subtask_id else "")) from e
+                raise
         if subtask_id is not None:
             return self._coordinator.subtask_curves(jid, subtask_id)
         out = self._coordinator.job_curves(jid)
@@ -229,6 +408,18 @@ class MLTaskManager:
         under the models directory), refitted on the first call; copied to
         ``output_path`` when given, and that path returned."""
         jid = job_id or self.job_id
+        if self._coordinator is None:
+            # the server refits on its first download, so this waits for
+            # the refit (the JAX manager's 60 s would cut a long one)
+            out = output_path or f"{jid}_best_model.pkl"
+            resp = http.request("GET", f"{self.api_url}/download_model/{self.session_id}/{jid}",
+                                timeout=get_config().service.client_timeout_s)
+            if resp.status == 404:
+                raise FileNotFoundError("No best model artifact for this job")
+            resp.raise_for_status()
+            with open(out, "wb") as f:
+                f.write(resp.body)
+            return out
         path = self._coordinator.best_model_path(self.session_id, jid)
         if path is None:
             raise FileNotFoundError("No best model artifact for this job")
@@ -249,6 +440,73 @@ class MLTaskManager:
 
         artifact = load_artifact(self.download_best_model(job_id))
         return to_sklearn(artifact) if as_sklearn else artifact
+
+
+    # ------------- REST plumbing -------------
+
+    def _request(self, method: str, endpoint: str, json=None, params=None,
+                 idempotent: Optional[bool] = None) -> Dict[str, Any]:
+        """One REST call with the JAX manager's resilience: 429 / 503 are
+        retried after their ``Retry-After`` (the request was not processed,
+        so any method may retry), and transport errors are retried with
+        capped jittered backoff for idempotent requests (GETs by default;
+        train submits opt in, the coordinator dedupes their job id), for
+        ``service.request_retry_s`` (0 disables)."""
+        url = f"{self.api_url}/{endpoint.lstrip('/')}"
+        if idempotent is None:
+            idempotent = method.lower() == "get"
+        deadline = time.time() + max(get_config().service.request_retry_s, 0.0)
+        attempt = 0
+        while True:
+            try:
+                resp = http.request(method, url,
+                                    json=json_safe(json) if json is not None else None,
+                                    params=params, timeout=600)
+            except http.TransportError:
+                if not idempotent or time.time() >= deadline:
+                    raise
+                attempt += 1
+                time.sleep(_retry_delay(attempt))
+                continue
+            if resp.status in (429, 503) and time.time() < deadline:
+                attempt += 1
+                time.sleep(_retry_delay(attempt, resp.headers.get("Retry-After")))
+                continue
+            return resp.raise_for_status().json()
+
+
+def _check_rest_payload(model_details: Dict[str, Any]) -> None:
+    """Refuse, at the client, what JSON cannot carry to the server: a
+    callable ``scoring`` (it would turn into an unknown scorer's name) and
+    a scipy distribution in ``param_distributions`` / ``param_grid`` (it
+    would turn into its ``str()``, which the server cannot sample)."""
+    scoring = (model_details.get("cv_params") or {}).get("scoring")
+    if callable(scoring) and not isinstance(scoring, str):
+        raise ValueError(
+            "callable scoring cannot be sent over the REST transport (it is not "
+            "JSON-serializable); use a scorer name, or a local-mode MLTaskManager for "
+            "callable scorers")
+    for key in ("param_distributions", "param_grid"):
+        space = model_details.get(key)
+        for grid in (space if isinstance(space, list) else [space]):
+            for name, values in (grid or {}).items():
+                if hasattr(values, "rvs"):
+                    raise ValueError(
+                        f"{key}[{name!r}] is a distribution ({values!r}), which cannot be "
+                        "sent over the REST transport; send a list of values (a "
+                        "GridSearchCV grid of the draws), or use a local-mode MLTaskManager")
+
+
+def _retry_delay(attempt: int, retry_after=None, cap: float = 30.0) -> float:
+    """Capped jittered backoff: a server's ``Retry-After`` is the floor,
+    padded with up to 25 % jitter; otherwise exponential from 0.5 s with
+    full jitter."""
+    if retry_after is not None:
+        try:
+            return min(float(retry_after) * (1.0 + 0.25 * random.random()), cap)
+        except (TypeError, ValueError):
+            pass
+    return min(10.0, 0.5 * 2 ** min(attempt - 1, 5)) * (0.5 + random.random())
 
 
 def _bar_postfix(bar, progress: Dict[str, Any]) -> None:

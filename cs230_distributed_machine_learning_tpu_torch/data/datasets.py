@@ -15,7 +15,8 @@ staged raw for ``preprocess``. CSVs are parsed by the native C++ loader
 (``native/``, a copy of the JAX package's: mmap + threaded float32 parse)
 when every column is numeric, and by pandas otherwise, by the JAX
 package's rules; the parsed arrays go to the same ``<csv>.npz`` sidecar,
-same format and version.
+same format and version. A worker agent's ``FetchingDatasetCache`` fetches
+what it lacks from the coordinator's ``GET /dataset/<id>``.
 """
 
 from __future__ import annotations
@@ -355,3 +356,97 @@ class DatasetCache:
             for key in [k for k in self._cache if k[0] == dataset_id]:
                 del self._cache[key]
             self._meta.pop(dataset_id, None)
+
+
+class FetchingDatasetCache(DatasetCache):
+    """DatasetCache that fetches missing datasets from the coordinator
+    (``GET /dataset/<id>``), for a worker agent on another host: a dataset
+    downloaded, preprocessed or staged (``stage_arrays``) on the coordinator
+    reaches every agent, fetched once and then read from the local staged
+    layout.
+
+    Resolution per lookup: the local preprocessed copy, then a cheap probe
+    of the coordinator (``?probe=1``: the staged kind only), then a download
+    when the coordinator holds something better than what is local
+    (preprocessed beats raw), then local raw or builtin staging. Nothing is
+    negative-cached. ``fetches`` records each download's dataset, kind,
+    bytes and seconds. Port of the JAX package's class over
+    ``utils/http.py``."""
+
+    def __init__(self, coordinator_url: str, root: Optional[str] = None,
+                 timeout_s: float = 120.0):
+        super().__init__(root=root)
+        self._url = coordinator_url.rstrip("/")
+        self._timeout_s = timeout_s
+        self.fetches: list = []
+
+    def resolve_csv(self, dataset_id: str) -> str:
+        local_pre = find_csv(dataset_id, preprocessed=True, root=self._root)
+        if local_pre is not None:
+            return local_pre
+        remote_kind = self._probe(dataset_id)
+        if remote_kind is not None:
+            local_raw = find_csv(dataset_id, root=self._root)
+            if remote_kind == "raw" and local_raw is not None:
+                return local_raw
+            path = self._fetch(dataset_id)
+            if path is not None:
+                return path
+        return super().resolve_csv(dataset_id)
+
+    def _dataset_url(self, dataset_id: str) -> str:
+        import urllib.parse
+
+        return f"{self._url}/dataset/{urllib.parse.quote(dataset_id, safe='')}"
+
+    def _probe(self, dataset_id: str) -> Optional[str]:
+        """The coordinator's staged kind ('preprocessed' / 'raw'), or None
+        when it has none or cannot be reached."""
+        from ..utils import http
+
+        try:
+            resp = http.request("GET", self._dataset_url(dataset_id), params={"probe": "1"},
+                                timeout=min(self._timeout_s, 15.0))
+            return resp.raise_for_status().json().get("kind", "raw")
+        except Exception:  # noqa: BLE001 — 404 and unreachable alike: no remote copy
+            return None
+
+    def _fetch(self, dataset_id: str) -> Optional[str]:
+        import time
+
+        from ..utils import http
+        from ..utils.logging import get_logger
+
+        logger = get_logger("tpuml.data")
+        t0 = time.perf_counter()
+        try:
+            resp = http.open_request("GET", self._dataset_url(dataset_id),
+                                     timeout=self._timeout_s)
+        except http.TransportError:
+            logger.exception("Dataset fetch for %r failed; trying local staging", dataset_id)
+            return None
+        with resp:
+            status = getattr(resp, "status", None) or resp.code
+            if status >= 400:
+                if status != 404:
+                    logger.error("Dataset fetch for %r failed (%d); trying local staging",
+                                 dataset_id, status)
+                return None
+            kind = resp.headers.get("X-Dataset-Kind", "raw")
+            base = dataset_dir(dataset_id, self._root)
+            if kind == "preprocessed":
+                out_dir = os.path.join(base, "preprocessed")
+                out = os.path.join(out_dir, f"{dataset_id}_preprocessed.csv")
+            else:
+                out_dir, out = base, os.path.join(base, f"{dataset_id}.csv")
+            os.makedirs(out_dir, exist_ok=True)
+            tmp = f"{out}.tmp.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                shutil.copyfileobj(resp, f, 1 << 20)
+        os.replace(tmp, out)
+        nbytes = os.path.getsize(out)
+        self.fetches.append({"dataset_id": dataset_id, "kind": kind, "bytes": nbytes,
+                             "seconds": time.perf_counter() - t0})
+        logger.info("Fetched dataset %s (%s, %d bytes) from the coordinator",
+                    dataset_id, kind, nbytes)
+        return out

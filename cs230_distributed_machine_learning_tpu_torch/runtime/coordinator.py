@@ -1,7 +1,17 @@
 """Coordinator: sessions, job fan-out, result collection, aggregation.
 
-Port of the direct mode of the JAX package's ``runtime/coordinator.py``:
-one process owns the job store and one in-process executor on the card.
+Port of the JAX package's ``runtime/coordinator.py`` in its two dispatch
+modes. Direct (the default): one process owns the job store and one
+in-process executor on the card. Scheduled (``cluster=`` a
+ClusterRuntime): the placement engine dispatches subtasks to a pool of
+in-process executors and remote agents, and the job loop collects their
+results at least once, deduplicated by attempt, with bounded retries and
+backoff, poison quarantine (``completed_with_failures``), and stall and
+hard deadlines. ``admission_check`` / ``overload_shedding`` cap the
+accepted load, and ``journal=True`` replays the store and resumes the
+in-flight jobs (``_recover`` / ``resume_inflight``). The sharded control
+plane's migration and stealing are not ported.
+
 The job lifecycle mirrors the reference: create a session, stage and
 preprocess datasets, expand a train job into per-trial subtasks, run
 them, aggregate by ``mean_cv_score`` (best first, ties to the earlier
@@ -30,7 +40,7 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..data.datasets import DatasetCache, dataset_dir, find_csv
 from ..data.download import download_dataset
 from ..data.preprocess import preprocess_dataframe
-from ..obs import counter_inc, flush_journal, record_event
+from ..obs import counter_inc, flush_journal, gauge_set, record_event
 from ..obs.curves import CurveStore, divergence
 from ..parallel.collectives import best_trial
 from ..utils.config import FrameworkConfig, get_config
@@ -39,7 +49,7 @@ from ..utils.torch_setup import DeviceLike, resolve_device
 from .artifacts import save_artifact
 from .executor import LocalExecutor
 from .search import SearchJobDriver, Step
-from .store import TERMINAL_STATUSES, JobStore
+from .store import SUBTASK_TERMINAL_STATUSES, TERMINAL_STATUSES, JobStore
 from .subtasks import create_subtasks
 
 logger = get_logger("tpuml.coordinator")
@@ -52,17 +62,27 @@ class Coordinator:
         *,
         device: DeviceLike = None,
         executor: Optional[LocalExecutor] = None,
+        cluster=None,
         journal: bool = False,
     ):
         """``device`` defaults to the CUDA card and raises when there is
-        none; ``device="cpu"`` runs on the host. ``journal=True`` keeps the
-        job store's JSONL journal under the storage root and reads back the
-        jobs of an earlier run (finished ones; in-flight jobs are not
-        resumed)."""
+        none; ``device="cpu"`` runs on the host. In scheduled mode
+        (``cluster=`` a ClusterRuntime) the jobs run on the cluster's
+        workers, and this device only refits winners for their artifacts.
+        ``journal=True`` keeps the job store's JSONL journal under the
+        storage root, reads back the jobs of an earlier run and resumes the
+        ones still in flight (``ready`` is False until that is done)."""
         self.config = config or get_config()
         self.device = resolve_device(device)
+        self.cluster = cluster
+        self.bus = cluster.bus if cluster is not None else None
         self.store = JobStore(journal_dir=self.config.storage.journal_dir if journal else None)
-        self.cache = DatasetCache(root=self.config.storage.datasets_dir)
+        if cluster is not None and cluster.cache is not None:
+            self.cache = cluster.cache
+        else:
+            self.cache = DatasetCache(root=self.config.storage.datasets_dir)
+            if cluster is not None:
+                cluster.cache = self.cache
         self.executor = executor or LocalExecutor(self.device, cache=self.cache)
         self._job_threads: Dict[str, threading.Thread] = {}
         # the winner's subtask spec of each finished job, and its artifact's
@@ -70,12 +90,179 @@ class Coordinator:
         self._artifact_lock = threading.Lock()
         self._artifact_specs: Dict[Tuple[str, str], Dict[str, Any]] = {}
         self._artifact_paths: Dict[Tuple[str, str], str] = {}
+        #: submit dedupe: client-minted job ids being expanded, so a retried
+        #: POST that arrives during the expansion cannot expand twice
+        self._submit_lock = threading.Lock()
+        self._submitting: set = set()
+        #: readiness (GET /readyz): False while the journal is replayed and
+        #: in-flight jobs are requeued
+        self.ready = not journal
+        #: recovery forensics for /healthz and /readyz
+        self.recovery: Dict[str, Any] = {}
+        #: the supervisor of child agents, when the server runs them
+        self.agent_supervisor = None
         # per-trial learning curves, fed by result and metrics ingest; the
         # journaled curves of a read-back journal re-seed it
         self.curves = CurveStore()
-        for e in self.store.drain_replayed_curves():
+        if cluster is not None:
+            # journal every attempt issue and every placement, so a replayed
+            # coordinator keeps retry budgets and tells dispatched subtasks
+            # from never-dispatched ones; speculation sheds first under load
+            cluster.ledger.on_attempt = self._journal_attempt
+            cluster.engine.on_place = self._journal_placement
+            cluster.engine.shed_check = self.overload_shedding
+        if journal:
+            self._recover()
+        else:
+            for e in self.store.drain_replayed_curves():
+                self.curves.ingest(e["jid"], e["stid"], e["curve"], rung=e["rung"],
+                                   attempt=e["attempt"], diverged=e["diverged"])
+
+    # ------------- recovery -------------
+
+    def _recover(self) -> None:
+        """Boot-time recovery: surface the store's journal replay, re-seed
+        the curves, resume the in-flight jobs, then flip readiness; a
+        coordinator never serves half-recovered."""
+        t0 = time.time()
+        for op, n in self.store.replay_ops.items():
+            counter_inc("tpuml_recovery_replayed_ops_total", n, op=op)
+        record_event("recovery.start", replayed_ops=sum(self.store.replay_ops.values()),
+                     replay_skipped=self.store.replay_skipped)
+        replayed_curves = self.store.drain_replayed_curves()
+        for e in replayed_curves:
             self.curves.ingest(e["jid"], e["stid"], e["curve"], rung=e["rung"],
                                attempt=e["attempt"], diverged=e["diverged"])
+        resumed = self.resume_inflight()
+        recovery_s = time.time() - t0
+        self.recovery = {
+            "replayed_ops": dict(self.store.replay_ops),
+            "replay_skipped": self.store.replay_skipped,
+            "jobs_resumed": len(resumed),
+            "subtasks_requeued": self._resume_requeued,
+            "curves_replayed": len(replayed_curves),
+            "recovery_seconds": recovery_s,
+        }
+        gauge_set("tpuml_coordinator_recovery_seconds", recovery_s)
+        record_event("recovery.done", **self.recovery)
+        if resumed:
+            logger.info("Recovery done in %.3fs: %d jobs resumed, %d subtasks requeued",
+                        recovery_s, len(resumed), self._resume_requeued)
+        self.ready = True
+
+    def _journal_attempt(self, task: Dict[str, Any], entry, reason: str) -> None:
+        sid, jid, stid = task.get("session_id"), task.get("job_id"), task.get("subtask_id")
+        if not (sid and jid and stid):
+            return
+        try:
+            self.store.record_attempt(sid, jid, stid, attempt=entry.attempt,
+                                      failures=entry.failures, excluded=entry.excluded)
+        except KeyError:
+            pass  # a job this store never saw: nothing to journal
+
+    def _journal_placement(self, task: Dict[str, Any], worker_id: str,
+                           lease_deadline=None) -> None:
+        sid, jid, stid = task.get("session_id"), task.get("job_id"), task.get("subtask_id")
+        if not (sid and jid and stid):
+            return
+        try:
+            self.store.record_placement(sid, jid, stid, worker_id,
+                                        attempt=int(task.get("attempt") or 0),
+                                        lease_deadline=lease_deadline)
+        except KeyError:
+            pass
+
+    #: subtasks re-dispatched by the latest resume_inflight()
+    _resume_requeued = 0
+
+    def resume_inflight(self) -> List[str]:
+        """Re-dispatch the jobs the journal shows unfinished: replay
+        restores state, this restores work. Subtasks with a journaled
+        terminal result are not run again. In scheduled mode, a subtask the
+        journal shows placed gets a fresh attempt before it is requeued, so
+        a zombie worker's late failure is stale while its late completion
+        is still accepted (first terminal result wins)."""
+        resumed = []
+        self._resume_requeued = 0
+        for sid, job_id in self.store.unfinished_jobs():
+            job = self.store.get_job(sid, job_id)
+            specs = [sub["spec"] for sub in job["subtasks"].values()]
+            existing = {stid: sub["result"] for stid, sub in job["subtasks"].items()
+                        if sub["status"] in SUBTASK_TERMINAL_STATUSES and sub["result"]}
+            remaining = [st for st in specs if st["subtask_id"] not in existing]
+            if self.cluster is not None:
+                for st in remaining:
+                    if st.get("placed_worker") is None:
+                        continue  # never dispatched
+                    self.cluster.ledger.seed(st)
+                    self.cluster.ledger.next_attempt(st, reason="recovery")
+            logger.info("Resuming job %s: %d/%d subtasks already journaled",
+                        job_id, len(existing), len(specs))
+            record_event("job.resume", job_id=job_id, n_done=len(existing),
+                         n_requeued=len(remaining))
+            counter_inc("tpuml_recovery_jobs_resumed_total")
+            counter_inc("tpuml_recovery_subtasks_requeued_total", len(remaining))
+            self._resume_requeued += len(remaining)
+            t = threading.Thread(target=self._run_job, args=(sid, job_id, specs),
+                                 kwargs={"existing": existing}, daemon=True)
+            self._job_threads[job_id] = t
+            t.start()
+            resumed.append(job_id)
+        return resumed
+
+    # ------------- admission control -------------
+
+    def admission_check(self, sid: Optional[str] = None) -> Optional[Dict[str, Any]]:
+        """Admission decision for one would-be submit: None when admitted,
+        else {reason, retry_after_s, status} for the server's 429 (or 503
+        while recovering). Caps: in-flight jobs in all and per session, and
+        the pending-subtask watermark."""
+        svc = self.config.service
+        if not self.ready:
+            return {"reason": "recovering", "retry_after_s": svc.admission_retry_after_s,
+                    "status": 503}
+        counts = self.store.unfinished_counts()
+        reason = None
+        if 0 < svc.max_inflight_jobs <= counts["jobs"]:
+            reason = "global_inflight"
+        elif (sid is not None and 0 < svc.max_inflight_jobs_per_session
+              <= counts["per_session"].get(sid, 0)):
+            reason = "session_inflight"
+        elif 0 < svc.admission_queue_watermark <= counts["pending_subtasks"]:
+            reason = "queue_depth"
+        if reason is None:
+            return None
+        counter_inc("tpuml_jobs_rejected_total", reason=reason)
+        record_event("admission.reject", reason=reason, session_id=sid,
+                     inflight_jobs=counts["jobs"], pending_subtasks=counts["pending_subtasks"])
+        logger.warning("Rejecting submit for session %s: %s (%d jobs in flight, "
+                       "%d subtasks pending)", sid, reason, counts["jobs"],
+                       counts["pending_subtasks"])
+        return {"reason": reason, "retry_after_s": svc.admission_retry_after_s, "status": 429}
+
+    def overload_shedding(self) -> bool:
+        """True while the accepted load is above ``shed_fraction`` of an
+        enabled cap: the band where the engine sheds optional work
+        (speculative duplicates) before admission rejects submits."""
+        svc = self.config.service
+        frac = svc.shed_fraction
+        if frac <= 0:
+            return False
+        counts = self.store.unfinished_counts()
+        if svc.max_inflight_jobs > 0 and counts["jobs"] >= frac * svc.max_inflight_jobs:
+            return True
+        return (svc.admission_queue_watermark > 0
+                and counts["pending_subtasks"] >= frac * svc.admission_queue_watermark)
+
+    def predictor_calibration(self) -> Dict[str, Any]:
+        """Per-family predicted-vs-actual calibration of the runtime
+        predictor (``GET /predictor/calibration``); empty in direct mode."""
+        families: Dict[str, Any] = {}
+        if self.cluster is not None:
+            report = getattr(self.cluster.engine.predictor, "calibration_report", None)
+            if report is not None:
+                families = report()
+        return {"families": families, "n_families": len(families)}
 
     def create_session(self, session_id: Optional[str] = None, *, priority: int = 0) -> str:
         """``priority`` is the session's QoS lane, kept in the session
@@ -133,38 +320,74 @@ class Coordinator:
     def submit_train(self, sid: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         """Expand a train job into subtasks, persist, and run it on a
         background thread. Payload: {job_id?, dataset_id, model_details,
-        train_params}."""
+        train_params, priority?}. A resubmit of a client-minted job id
+        (a retried POST, a resumed event stream) returns the first
+        acceptance with ``duplicate: true`` and never expands again."""
         self._require_session(sid)
-        job_id = payload.get("job_id") or str(uuid.uuid4())
-        if self.store.has_job(sid, job_id):
-            # idempotent resubmit of a client-minted job id
-            return {
-                "status": "submitted",
-                "job_id": job_id,
-                "total_subtasks": self.store.job_progress(sid, job_id)["total_subtasks"],
-                "duplicate": True,
-            }
+        if not payload.get("job_id"):
+            return self._submit_train_locked(sid, str(uuid.uuid4()), payload)
+        job_id = payload["job_id"]
+        with self._submit_lock:
+            known = self.store.has_job(sid, job_id)
+            if known or job_id in self._submitting:
+                return {
+                    "status": "submitted",
+                    "job_id": job_id,
+                    # unknown while the first copy is still expanding
+                    "total_subtasks": (self.store.job_progress(sid, job_id)["total_subtasks"]
+                                       if known else None),
+                    "duplicate": True,
+                }
+            self._submitting.add(job_id)
+        try:
+            return self._submit_train_locked(sid, job_id, payload)
+        finally:
+            with self._submit_lock:
+                self._submitting.discard(job_id)
+
+    def _submit_train_locked(self, sid: str, job_id: str,
+                             payload: Dict[str, Any]) -> Dict[str, Any]:
         dataset_id = payload["dataset_id"]
         model_details = payload["model_details"]
         train_params = dict(payload.get("train_params") or {})
         cv_params = model_details.get("cv_params") or {}
         if "cv" in cv_params and "cv" not in train_params:
             train_params["cv"] = cv_params["cv"]
+        scoring = train_params.get("scoring", cv_params.get("scoring"))
+        if callable(scoring) and not isinstance(scoring, str) and self.cluster is not None:
+            # a cluster's agents pull tasks over REST, where a function
+            # cannot travel: fail the submission with the reason
+            raise ValueError(
+                "callable scoring is not supported on a clustered coordinator (tasks are "
+                "serialized to worker agents); use a scorer name, or a coordinator "
+                "without a cluster")
         subtasks = create_subtasks(job_id, sid, dataset_id, model_details, train_params)
+        if self.cluster is not None:
+            # the QoS lane rides every spec (payload first, else the
+            # session's): the dispatch queues order on it, and retries and
+            # requeues copy the spec, so the lane survives them
+            priority = payload.get("priority")
+            if priority is None:
+                priority = self.store.session_priority(sid)
+            for st in subtasks:
+                st["priority"] = int(priority or 0)
         try:
             metadata = self.cache.metadata(dataset_id)
         except FileNotFoundError:
             metadata = {}
         self.store.create_job(sid, job_id, payload, subtasks, metadata)
+        counter_inc("tpuml_jobs_submitted_total")
         t = threading.Thread(target=self._run_job, args=(sid, job_id, subtasks), daemon=True)
         self._job_threads[job_id] = t
         t.start()
         return {"status": "submitted", "job_id": job_id, "total_subtasks": len(subtasks)}
 
-    def _run_job(self, sid: str, job_id: str, subtasks: List[Dict[str, Any]]) -> None:
+    def _run_job(self, sid: str, job_id: str, subtasks: List[Dict[str, Any]],
+                 existing: Optional[Dict[str, Dict[str, Any]]] = None) -> None:
         """Execute a job's subtasks and aggregate; any error fails the job.
-        A job whose specs carry an ``asha`` block goes through the rung
-        controller (``_run_job_search_direct``)."""
+        ``existing`` (the resume path) maps the subtasks already finished to
+        their journaled results; only the rest run. A job whose specs carry
+        an ``asha`` block goes through the rung controller."""
 
         def on_result(subtask_id: str, status: str, result: Optional[Dict[str, Any]]):
             self.store.update_subtask(sid, job_id, subtask_id, status, result)
@@ -175,6 +398,7 @@ class Coordinator:
                                   rung=int((r.get("asha") or {}).get("rung") or 0),
                                   attempt=int(r.get("attempt") or 0))
             record_event("result", job_id=job_id, subtask_id=subtask_id,
+                         worker_id=r.get("worker_id"),
                          attempt=int(r.get("attempt") or 0), status=status,
                          mean_cv_score=r.get("mean_cv_score"), error=r.get("error"))
 
@@ -195,24 +419,37 @@ class Coordinator:
                                   rung=int((r.get("asha") or {}).get("rung") or 0),
                                   attempt=int(r.get("attempt") or 0))
             record_event("result", job_id=job_id, subtask_id=subtask_id,
+                         worker_id=r.get("worker_id"),
                          attempt=int(r.get("attempt") or 0), status="promoted",
                          mean_cv_score=r.get("mean_cv_score"),
                          rung=(r.get("asha") or {}).get("rung"))
 
+        existing = existing or {}
+        remaining = [st for st in subtasks if st["subtask_id"] not in existing]
         driver: Optional[SearchJobDriver] = None
         if any(st.get("asha") for st in subtasks):
             driver = SearchJobDriver(subtasks)
             # rebuild rung state from the journaled rung history (a no-op on
-            # a fresh job; resuming an in-flight job waits for ROADMAP A2)
+            # a fresh job; a resumed job re-derives its promotions)
             driver.resume(self.store.get_job(sid, job_id))
         try:
+            by_id: Dict[str, Optional[Dict[str, Any]]] = dict(existing)
             if driver is not None:
-                by_id = self._run_job_search_direct(sid, job_id, driver, on_result,
-                                                    on_intermediate, on_metrics)
-                results = [by_id.get(st["subtask_id"]) for st in subtasks]
-            else:
-                results = self.executor.run_subtasks(subtasks, on_result=on_result,
-                                                     on_metrics=on_metrics)
+                if self.cluster is not None:
+                    by_id.update(self._run_job_search_scheduled(
+                        sid, job_id, driver, on_result, on_intermediate))
+                else:
+                    by_id.update(self._run_job_search_direct(
+                        sid, job_id, driver, on_result, on_intermediate, on_metrics))
+            elif remaining:
+                if self.cluster is not None:
+                    new_results = self._run_job_scheduled(sid, job_id, remaining, on_result)
+                else:
+                    new_results = self.executor.run_subtasks(remaining, on_result=on_result,
+                                                             on_metrics=on_metrics)
+                for st, r in zip(remaining, new_results):
+                    by_id[st["subtask_id"]] = r
+            results = [by_id.get(st["subtask_id"]) for st in subtasks]
             self._aggregate(sid, job_id, results, subtasks,
                             search_summary=driver.summary() if driver is not None else None)
             counter_inc("tpuml_jobs_completed_total")
@@ -221,6 +458,263 @@ class Coordinator:
             counter_inc("tpuml_jobs_failed_total")
             flush_journal()
             self.store.finalize_job(sid, job_id, {"status": "failed", "error": str(e)})
+
+    # ------------- scheduled mode -------------
+
+    def _quarantine(self, job_id: str, stid: str, result: Dict[str, Any], entry,
+                    poisoned: bool) -> Dict[str, Any]:
+        """The quarantined form of a failed result (retry budget spent, or
+        the subtask killed too many worker backends), counted and recorded."""
+        quarantined = {**result, "quarantined": True, "attempts": entry.failures,
+                       "quarantine_reason": "poisoned" if poisoned else "retries_exhausted"}
+        counter_inc("tpuml_subtasks_quarantined_total")
+        logger.error("Quarantining %s after %d failed attempts (%s): %s", stid,
+                     entry.failures, quarantined["quarantine_reason"], result.get("error"))
+        record_event("quarantine", job_id=job_id, subtask_id=stid,
+                     worker_id=result.get("worker_id"),
+                     attempt=int(result.get("attempt") or 0),
+                     reason=quarantined["quarantine_reason"], attempts=entry.failures,
+                     device_losses=entry.device_losses, error=result.get("error"))
+        return quarantined
+
+    def _retry_task(self, job_id: str, stid: str, spec: Dict[str, Any],
+                    result: Dict[str, Any], entry) -> tuple:
+        """A failed attempt's retry: a fresh attempt that excludes the
+        failing worker, due after the exponential backoff. Returns (due
+        time, task)."""
+        cfg = self.config.scheduler
+        wid = result.get("worker_id")
+        task = dict(spec)
+        task.pop("speculative", None)
+        self.cluster.ledger.next_attempt(task, exclude_worker=wid, reason="failure")
+        backoff = min(cfg.retry_backoff_s * 2 ** max(entry.failures - 1, 0),
+                      cfg.retry_backoff_max_s)
+        counter_inc("tpuml_subtasks_retried_total", reason="failure")
+        logger.warning("Retrying %s (attempt %d/%d) in %.2fs, excluding worker %s", stid,
+                       task["attempt"], cfg.retry_max_attempts, backoff, wid)
+        record_event("retry", job_id=job_id, subtask_id=stid, worker_id=wid,
+                     attempt=task["attempt"], reason="failure", backoff_s=backoff,
+                     failures=entry.failures, max_attempts=cfg.retry_max_attempts,
+                     error=result.get("error"))
+        return time.time() + backoff, task
+
+    def _await_result(self, sub, pending: set, retry_due: List[tuple], clock: Dict[str, float],
+                      metadata) -> Optional[tuple]:
+        """One wait of a scheduled loop: submit the retries that came due,
+        then wait up to 0.5 s for a result. None on a quiet wait. Raises
+        TimeoutError past the hard deadline (20 x ``client_timeout_s``), or
+        when no result came for ``client_timeout_s`` and no live worker
+        holds any pending subtask (progress-aware, not a wall clock)."""
+        import queue as _q
+
+        stall_grace = self.config.service.client_timeout_s
+        now = time.time()
+        if now > clock["hard_deadline"]:
+            raise TimeoutError(f"{len(pending)} subtasks unfinished at the hard deadline "
+                               f"({20.0 * stall_grace:.0f}s)")
+        due = [t for ts, t in retry_due if ts <= now]
+        if due:
+            retry_due[:] = [(ts, t) for ts, t in retry_due if ts > now]
+            self.cluster.submit(due, metadata=metadata)
+        try:
+            return sub.get(timeout=0.5)
+        except _q.Empty:
+            if time.time() - clock["last_progress"] > stall_grace:
+                owned = {t["subtask_id"] for _, t in retry_due}
+                for q in self.cluster.engine.queue_snapshot().values():
+                    owned.update(q)
+                if not (pending & owned):
+                    raise TimeoutError(
+                        f"{len(pending)} subtasks stalled with no live owner for "
+                        f"{stall_grace:.0f}s (e.g. {sorted(pending)[:3]})")
+                clock["last_progress"] = time.time()  # workers still own tasks
+            return None
+
+    def _run_job_scheduled(self, sid, job_id, subtasks, on_result) -> List[Dict[str, Any]]:
+        """Dispatch through the placement engine and collect the results
+        from the bus, with the fault-tolerance layer: the first terminal
+        non-failed result of a subtask wins and later copies (requeue races,
+        a speculative loser, a zombie attempt) are dropped; a failure counts
+        against the retry budget only when it is the current attempt's, and
+        is retried after its backoff on another worker up to
+        ``retry_max_attempts`` executions; a subtask that spent its budget,
+        or killed ``poison_kill_threshold`` worker backends, is quarantined
+        and the job completes with partial results."""
+        cfg = self.config.scheduler
+        ledger = self.cluster.ledger
+        wanted = {st["subtask_id"]: i for i, st in enumerate(subtasks)}
+        spec_by_id = {st["subtask_id"]: st for st in subtasks}
+        results: List[Optional[Dict[str, Any]]] = [None] * len(subtasks)
+        retry_due: List[tuple] = []
+        sub = self.bus.subscribe("result", key_filter=lambda k: k in wanted)
+        try:
+            metadata = self.store.get_job(sid, job_id).get("metadata") or None
+            for st in subtasks:
+                ledger.seed(st)
+            self.cluster.submit(subtasks, metadata=metadata)
+            pending = set(wanted)
+            clock = {"last_progress": time.time(),
+                     "hard_deadline": time.time() + 20.0 * self.config.service.client_timeout_s}
+            while pending:
+                got = self._await_result(sub, pending, retry_due, clock, metadata)
+                if got is None:
+                    continue
+                stid, result = got
+                result = result or {}
+                if stid not in pending:
+                    counter_inc("tpuml_results_duplicate_dropped_total")
+                    record_event("result.duplicate", job_id=job_id, subtask_id=stid,
+                                 worker_id=result.get("worker_id"),
+                                 attempt=int(result.get("attempt") or 0))
+                    if ledger.was_speculated(stid):
+                        counter_inc("tpuml_speculative_wasted_total")
+                    continue
+                if result.get("status", "completed") != "failed":
+                    pending.discard(stid)
+                    ledger.mark_done(stid)
+                    results[wanted[stid]] = result
+                    if result.get("speculative"):
+                        counter_inc("tpuml_speculative_won_total")
+                    on_result(stid, "completed", result)
+                    clock["last_progress"] = time.time()
+                    continue
+                attempt = int(result.get("attempt") or 0)
+                if ledger.is_stale(stid, attempt):
+                    # a newer attempt owns the subtask: this failure burns nothing
+                    record_event("result.stale", job_id=job_id, subtask_id=stid,
+                                 worker_id=result.get("worker_id"), attempt=attempt,
+                                 error=result.get("error"))
+                    continue
+                entry = ledger.record_failure(stid, result.get("worker_id"))
+                poisoned = entry.device_losses >= cfg.poison_kill_threshold
+                if poisoned or entry.failures >= cfg.retry_max_attempts:
+                    quarantined = self._quarantine(job_id, stid, result, entry, poisoned)
+                    pending.discard(stid)
+                    ledger.mark_done(stid)
+                    results[wanted[stid]] = quarantined
+                    on_result(stid, "failed", quarantined)
+                else:
+                    retry_due.append(self._retry_task(job_id, stid, spec_by_id[stid], result,
+                                                      entry))
+                clock["last_progress"] = time.time()
+            return results  # type: ignore[return-value]
+        finally:
+            sub.close()
+            ledger.forget(wanted)
+
+    def _apply_search_step(self, step: Step, job_id, pending, results_by_id, on_result,
+                           on_intermediate, metadata) -> None:
+        """Apply one rung-controller step to the scheduled loop: journal the
+        promoted reports first, then issue the cancels, finalize the
+        terminals, and submit the fresh rung dispatches last, so a crash
+        between two phases replays into a state the resume path handles."""
+        ledger = self.cluster.ledger
+        for tid, res in step.promoted:
+            if res is not None:
+                on_intermediate(tid, res)
+        new_tasks = []
+        for task in step.new_tasks:
+            task.pop("speculative", None)
+            ledger.next_attempt(task, reason="promotion")
+            new_tasks.append(task)
+        for c in step.cancels:
+            self.cluster.cancel_subtask(c["subtask_id"], c.get("attempt", 0), job_id=job_id)
+        for tid, status, res in step.finished:
+            pending.discard(tid)
+            ledger.mark_done(tid)
+            results_by_id[tid] = res
+            on_result(tid, status, res)
+            # the cancel registry is not cleared here: a prune's terminal
+            # lands in the same step as its cancel, before any agent polled
+        if new_tasks:
+            self.cluster.submit(new_tasks, metadata=metadata)
+
+    def _run_job_search_scheduled(self, sid, job_id, driver: SearchJobDriver, on_result,
+                                  on_intermediate) -> Dict[str, Dict[str, Any]]:
+        """The scheduled rung loop: ``_run_job_scheduled``'s ingest (dedup,
+        retries, quarantine), with each result fed to the rung controller,
+        which may promote its trial (a fresh attempt at eta times the
+        budget), pause it, or prune its peers; a quarantined trial leaves
+        the ladder so its rungs close for the others."""
+        cfg = self.config.scheduler
+        ledger = self.cluster.ledger
+        all_ids = set(driver.specs)
+        results_by_id: Dict[str, Dict[str, Any]] = {}
+        pending = {tid for tid in all_ids if tid not in driver._finalized}
+        retry_due: List[tuple] = []
+        sub = self.bus.subscribe("result", key_filter=lambda k: k in all_ids)
+
+        def apply(step):
+            self._apply_search_step(step, job_id, pending, results_by_id, on_result,
+                                    on_intermediate, metadata)
+            self.store.set_search_state(sid, job_id, driver.summary())
+
+        try:
+            metadata = self.store.get_job(sid, job_id).get("metadata") or None
+            # resume: terminal states the replayed controller derived whose
+            # store writes a crash swallowed
+            apply(driver.resume_step())
+            tasks = driver.pending_tasks()
+            for st in tasks:
+                ledger.seed(st)
+            if tasks:
+                self.cluster.submit(tasks, metadata=metadata)
+            clock = {"last_progress": time.time(),
+                     "hard_deadline": time.time() + 20.0 * self.config.service.client_timeout_s}
+            while pending:
+                got = self._await_result(sub, pending, retry_due, clock, metadata)
+                if got is None:
+                    continue
+                stid, result = got
+                result = result or {}
+                if stid not in pending:
+                    counter_inc("tpuml_results_duplicate_dropped_total")
+                    record_event("result.duplicate", job_id=job_id, subtask_id=stid,
+                                 worker_id=result.get("worker_id"),
+                                 attempt=int(result.get("attempt") or 0))
+                    continue
+                status = result.get("status", "completed")
+                if status != "failed":
+                    # a rung report or a cooperative-cancel terminal: both
+                    # feed the controller, which drops stale deliveries
+                    curve = result.get("curve")
+                    if status == "pruned":
+                        step = driver.handle_pruned_result(stid, result)
+                    elif isinstance(curve, dict) and self.ingest_curve(
+                            sid, job_id, stid, curve,
+                            rung=int((result.get("asha") or {}).get("rung") or 0),
+                            attempt=int(result.get("attempt") or 0)):
+                        # the watchdog: a diverging trial ends as diverged
+                        step = driver.handle_diverged(stid, curve, result=result)
+                    else:
+                        step = driver.handle_result(stid, result)
+                    apply(step)
+                    clock["last_progress"] = time.time()
+                    continue
+                attempt = int(result.get("attempt") or 0)
+                if ledger.is_stale(stid, attempt):
+                    record_event("result.stale", job_id=job_id, subtask_id=stid,
+                                 worker_id=result.get("worker_id"), attempt=attempt,
+                                 error=result.get("error"))
+                    continue
+                entry = ledger.record_failure(stid, result.get("worker_id"))
+                poisoned = entry.device_losses >= cfg.poison_kill_threshold
+                if poisoned or entry.failures >= cfg.retry_max_attempts:
+                    apply(driver.handle_quarantine(
+                        stid, self._quarantine(job_id, stid, result, entry, poisoned)))
+                else:
+                    due, task = self._retry_task(job_id, stid, driver.specs[stid], result,
+                                                 entry)
+                    # the driver's spec follows the live attempt, so a later
+                    # prune's cancel carries this attempt
+                    driver.specs[stid] = task
+                    retry_due.append((due, task))
+                clock["last_progress"] = time.time()
+            return results_by_id
+        finally:
+            sub.close()
+            ledger.forget(all_ids)
+            self.cluster.clear_cancels(all_ids)
 
     def _apply_search_step_direct(self, step: Step, results_by_id, on_result,
                                   on_intermediate) -> List[Dict[str, Any]]:
@@ -344,6 +838,18 @@ class Coordinator:
         if diverged:
             final["diverged_results"] = diverged
             final["n_diverged"] = len(diverged)
+        # the scheduled runtime's quarantine contract: the subtasks the
+        # retry layer gave up on form a report, and the job finalizes as
+        # ``completed_with_failures``; direct-mode failures carry no
+        # quarantine stamp and keep ``completed`` with a failed list
+        quarantined = [r for r in failed if r.get("quarantined")]
+        if quarantined:
+            final["failed_subtasks"] = [
+                {"subtask_id": r.get("subtask_id"), "attempts": r.get("attempts"),
+                 "reason": r.get("quarantine_reason"), "error": r.get("error")}
+                for r in quarantined]
+            logger.warning("Job %s completed with %d quarantined subtasks", job_id,
+                           len(quarantined))
         flush_journal()  # the job's events are on disk once it reads as done
         self.store.finalize_job(sid, job_id, final)
 
@@ -399,11 +905,14 @@ class Coordinator:
     def check_status(self, sid: str, job_id: str) -> Dict[str, Any]:
         self._require_session(sid)
         progress = self.store.job_progress(sid, job_id)
-        if progress["job_status"] == "completed" and progress["job_result"]:
+        status = progress["job_status"]
+        if status in ("completed", "completed_with_failures") and progress["job_result"]:
             result = progress["job_result"]
-            out = {"job_status": "completed", "job_result": result}
+            out = {"job_status": status, "job_result": result}
             if result.get("results") and len(result["results"]) > 1:
                 out["best_result"] = result.get("best_result")
+            if result.get("failed_subtasks"):
+                out["failed_subtasks"] = result["failed_subtasks"]
             return out
         return progress
 

@@ -17,10 +17,19 @@ running), the ``asha`` stamp echoed on each result, and the rung fields
 of the metrics message. A callable ``scoring`` takes the host-side path
 (``run_trials_callable``). ``fit_artifact`` refits a job's winner for its
 artifact.
+
+The scheduled runtime adds the JAX executor's fault containment: a batch
+that fails with a process-fatal CUDA error (``_is_device_fatal``: a sticky
+error that poisons the context for every later launch) raises
+``DeviceLostError`` instead of failing its subtasks, so the owning worker
+leaves the pool and its tasks are requeued; ``FaultInjector`` scripts
+delays, failures, dropped results and device losses; ``ResourceSampler``
+fills the metrics message's host and device resource fields.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -41,8 +50,164 @@ logger = get_logger("tpuml.executor")
 ResultCallback = Callable[[str, str, Optional[Dict[str, Any]]], None]
 MetricsCallback = Callable[[Dict[str, Any]], None]
 
-#: the executor id of the in-process executor, on its metrics messages
+#: the executor id of the direct-mode executor, on its metrics messages
 EXECUTOR_ID = "local"
+
+
+class ResourceSampler:
+    """Background CPU / host-memory sampling at a fixed cadence during a
+    batch, and the batch's peak device memory. The CPU and memory averages
+    are two of the runtime predictor's features; they come from psutil and
+    stay None where psutil is not installed, as in the JAX package. The
+    device peak is ``torch.cuda.max_memory_allocated`` on ``device`` since
+    the batch began (its peak counter is reset on entry); None on the CPU."""
+
+    def __init__(self, device: Optional[torch.device] = None, interval_s: float = 0.5):
+        self.device = device
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._cpu: List[float] = []
+        self._mem: List[float] = []
+        self._dev_peak_mb: Optional[float] = None
+
+    def _on_card(self) -> bool:
+        return self.device is not None and self.device.type == "cuda"
+
+    def _loop(self) -> None:
+        try:
+            import psutil
+        except ImportError:
+            return
+        psutil.cpu_percent(interval=None)  # prime the delta-based counter
+        while not self._stop.wait(self.interval_s):
+            self._cpu.append(psutil.cpu_percent(interval=None))
+            self._mem.append(psutil.virtual_memory().percent)
+
+    def __enter__(self) -> "ResourceSampler":
+        if self._on_card():
+            torch.cuda.reset_peak_memory_stats(self.device)
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=self.interval_s + 1)
+        if self._on_card() and exc[0] is None:
+            self._dev_peak_mb = torch.cuda.max_memory_allocated(self.device) / 1e6
+
+    def averages(self) -> Dict[str, Optional[float]]:
+        """Averaged samples; one instantaneous reading when the batch ended
+        inside the first sampling interval."""
+        cpu = mem = None
+        if self._cpu:
+            cpu = float(sum(self._cpu) / len(self._cpu))
+            mem = float(sum(self._mem) / len(self._mem))
+        else:
+            try:
+                import psutil
+
+                cpu = psutil.cpu_percent(interval=None)
+                mem = psutil.virtual_memory().percent
+            except ImportError:
+                pass
+        return {"cpu_percent_avg": cpu, "mem_percent_avg": mem,
+                "device_peak_mem_mb": self._dev_peak_mb}
+
+
+class DeviceLostError(RuntimeError):
+    """The executor's CUDA context is poisoned: every later launch in this
+    process fails, so the owning worker leaves the pool instead of posting
+    per-task failures. A CUDA context cannot be reset inside a process, so
+    a remote agent (runtime/agent.py) exits with ``DEVICE_LOST_EXIT_CODE``
+    for its supervisor to replace it, and an in-process worker
+    (runtime/cluster.py) stops without unsubscribing, so the dead-worker
+    sweep requeues its tasks onto the survivors."""
+
+
+#: the sticky CUDA errors (cudaError_t codes) after which the context fails
+#: every later launch: illegal address, device-side assert, hardware stack
+#: error, illegal instruction, misaligned address, invalid address space,
+#: invalid PC, launch failure, uncorrectable ECC
+_STICKY_CUDA_CODES = frozenset({700, 710, 714, 715, 716, 717, 718, 719, 214})
+#: PyTorch's spelling of the same errors ("CUDA error: <cudaGetErrorString>")
+_STICKY_CUDA_TEXT = (
+    "an illegal memory access was encountered",
+    "device-side assert triggered",
+    "hardware stack error",
+    "an illegal instruction was encountered",
+    "misaligned address",
+    "operation not supported on global/shared address space",
+    "invalid program counter",
+    "unspecified launch failure",
+    "uncorrectable ECC error encountered",
+)
+#: the kernels' wrappers: "... failed: CUDA error <code>"
+_CODE_RE = re.compile(r"CUDA error (\d+)")
+
+
+def _is_device_fatal(e: BaseException) -> bool:
+    """True for a process-fatal CUDA error in either spelling: a port
+    kernel's ``RuntimeError("... failed: CUDA error <code>")`` with a sticky
+    code, or PyTorch's ``"CUDA error: <text>"`` for one. Out-of-memory
+    (``torch.OutOfMemoryError``, code 2) and every other error stay
+    task-level."""
+    if isinstance(e, DeviceLostError):
+        return True
+    if isinstance(e, torch.OutOfMemoryError):
+        return False
+    msg = str(e)
+    if any(int(code) in _STICKY_CUDA_CODES for code in _CODE_RE.findall(msg)):
+        return True
+    return "CUDA error" in msg and any(t in msg for t in _STICKY_CUDA_TEXT)
+
+
+class FaultInjector:
+    """Test and chaos hooks, as in the JAX package: delay a batch, fail N
+    batches (task-level), drop the results of N batches silently (the
+    hung-worker case the lease layer recovers), or lose the device
+    (process-level), at once or after N healthy batches
+    (``device_lost_after``). ``only_worker=`` scopes every mode to one
+    executor id."""
+
+    def __init__(self, delay_s: float = 0.0, fail_batches: int = 0,
+                 device_lost: bool = False, device_lost_after: Optional[int] = None,
+                 drop_results: int = 0, only_worker: Optional[str] = None):
+        self.delay_s = delay_s
+        self.fail_batches = fail_batches
+        self.device_lost = device_lost
+        self.device_lost_after = device_lost_after
+        self.drop_results = drop_results
+        self.only_worker = only_worker
+        self._batches_seen = 0
+
+    def _targets(self, executor_id: str) -> bool:
+        return self.only_worker is None or executor_id == self.only_worker
+
+    def before_batch(self, executor_id: str, model_type: str) -> None:
+        if not self._targets(executor_id):
+            return
+        if self.delay_s > 0:
+            time.sleep(self.delay_s)
+        if self.device_lost or (self.device_lost_after is not None
+                                and self._batches_seen >= self.device_lost_after):
+            raise DeviceLostError(f"fault injection: simulated device loss on {executor_id}")
+        if self.fail_batches > 0:
+            self.fail_batches -= 1
+            raise RuntimeError(f"fault injection: simulated batch failure on {executor_id}")
+        self._batches_seen += 1  # only batches that passed injection count
+
+    def drop_batch_results(self, executor_id: str) -> bool:
+        """True when this batch's results and metrics must be dropped
+        (consumes one ``drop_results`` unit)."""
+        if not self._targets(executor_id):
+            return False
+        if self.drop_results > 0:
+            self.drop_results -= 1
+            return True
+        return False
 
 
 class LocalExecutor:
@@ -54,8 +219,14 @@ class LocalExecutor:
         *,
         cache: Optional[DatasetCache] = None,
         max_trials_per_batch: Optional[int] = None,
+        executor_id: str = EXECUTOR_ID,
+        fault_injector: Optional[FaultInjector] = None,
     ):
         self.device = device
+        #: the worker id on results and metrics messages (a cluster sets it
+        #: to the worker id the placement engine minted)
+        self.executor_id = executor_id
+        self.fault_injector = fault_injector
         self.cache = cache or DatasetCache()
         self.max_trials_per_batch = (
             max_trials_per_batch or get_config().execution.max_trials_per_batch
@@ -122,7 +293,7 @@ class LocalExecutor:
         if on_result:
             on_result(st["subtask_id"], "pruned", result)
         if on_metrics:
-            on_metrics({"worker_id": EXECUTOR_ID, "subtask_id": st["subtask_id"],
+            on_metrics({"worker_id": self.executor_id, "subtask_id": st["subtask_id"],
                         "status": "PRUNED", "cancelled": True, "algo": st.get("model_type")})
 
     def run_subtasks(
@@ -151,6 +322,12 @@ class LocalExecutor:
                 self._run_group(subtasks, idxs, dataset_id, model_type, results,
                                 on_result, on_metrics)
             except Exception as e:  # noqa: BLE001 — task-level failure semantics
+                if _is_device_fatal(e):
+                    # a poisoned context fails every later launch: post no
+                    # per-task failures (the owner keeps the tasks queued for
+                    # the dead-worker requeue) and escalate
+                    raise DeviceLostError(
+                        f"device lost on {self.executor_id}: {e}") from e
                 logger.exception("Batch failed for %s/%s", dataset_id, model_type)
                 for gi in idxs:
                     st = subtasks[gi]
@@ -163,6 +340,8 @@ class LocalExecutor:
                         "error": str(e),
                         "attempt": int(st.get("attempt") or 0),
                     }
+                    if st.get("speculative"):
+                        result["speculative"] = True
                     results[gi] = result
                     counter_inc("tpuml_subtasks_failed_total")
                     if on_result:
@@ -172,6 +351,8 @@ class LocalExecutor:
     def _run_group(self, subtasks, idxs, dataset_id, model_type, results, on_result,
                    on_metrics=None) -> None:
         received_at = time.time()
+        if self.fault_injector is not None:
+            self.fault_injector.before_batch(self.executor_id, model_type)
         kernel = get_kernel(model_type)
         data = self.cache.get(dataset_id, kernel.task)
         tp = subtasks[idxs[0]].get("train_params", {}) or {}
@@ -185,25 +366,17 @@ class LocalExecutor:
         )
         started_at = time.time()
         params = [subtasks[i]["parameters"] for i in idxs]
-        if callable(scoring) and not isinstance(scoring, str):
-            # host-side path: fits on the device per (trial, split), the
-            # scikit-learn export, the user's scorer on the host
-            t0 = time.perf_counter()
-            metrics_list = run_trials_callable(kernel, data, plan, params, scoring,
-                                               device=self.device)
-            run = TrialRunResult(trial_metrics=metrics_list,
-                                 run_time_s=time.perf_counter() - t0)
-        else:
-            run = run_trials(
-                kernel,
-                data,
-                plan,
-                params,
-                device=self.device,
-                max_trials_per_batch=self.max_trials_per_batch,
-                scoring=scoring,
-            )
+        with ResourceSampler(self.device) as sampler:
+            run = self._run_trials(kernel, data, plan, params, scoring)
         finished_at = time.time()
+        if self.fault_injector is not None and self.fault_injector.drop_batch_results(
+                self.executor_id):
+            # the hung-worker case: the batch ran, but no result or metrics
+            # message leaves this executor (the lease layer recovers them)
+            logger.warning("FaultInjector: dropping the results of a %d-trial %s batch on %s",
+                           len(idxs), model_type, self.executor_id)
+            return
+        resources = sampler.averages()
         per_trial_time = run.run_time_s / max(len(idxs), 1)
         for j, gi in enumerate(idxs):
             st = subtasks[gi]
@@ -222,13 +395,28 @@ class LocalExecutor:
                 # the rung stamp, so the rung controller attributes the
                 # score without a spec lookup
                 result["asha"] = dict(st["asha"])
+            if st.get("speculative"):
+                result["speculative"] = True
             results[gi] = result
             counter_inc("tpuml_subtasks_completed_total")
             if on_result:
                 on_result(st["subtask_id"], "completed", result)
             if on_metrics:
                 on_metrics(_metrics_message(st, received_at, started_at, finished_at,
-                                            model_type, run.trial_metrics[j]))
+                                            model_type, run.trial_metrics[j],
+                                            self.executor_id, resources))
+
+    def _run_trials(self, kernel, data, plan, params, scoring) -> TrialRunResult:
+        if callable(scoring) and not isinstance(scoring, str):
+            # host-side path: fits on the device per (trial, split), the
+            # scikit-learn export, the user's scorer on the host
+            t0 = time.perf_counter()
+            metrics_list = run_trials_callable(kernel, data, plan, params, scoring,
+                                               device=self.device)
+            return TrialRunResult(trial_metrics=metrics_list,
+                                  run_time_s=time.perf_counter() - t0)
+        return run_trials(kernel, data, plan, params, device=self.device,
+                          max_trials_per_batch=self.max_trials_per_batch, scoring=scoring)
 
     def fit_artifact(self, subtask: Dict[str, Any]) -> Dict[str, Any]:
         """Refit one configuration on the holdout split's training rows and
@@ -255,17 +443,16 @@ class LocalExecutor:
         }
 
 
-def _metrics_message(st, received_at, started_at, finished_at, algo,
-                     metrics) -> Dict[str, Any]:
-    """The reference's metrics schema (``worker.py:233-243``) with the
-    fields this port can fill: timing; for an adaptive-search rung its
-    rung, ``resource``, ``intermediate_score`` and
+def _metrics_message(st, received_at, started_at, finished_at, algo, metrics,
+                     worker_id: str = EXECUTOR_ID,
+                     resources: Optional[Dict[str, Optional[float]]] = None) -> Dict[str, Any]:
+    """The reference's metrics schema (``worker.py:233-243``): timing, the
+    batch's resource averages (``ResourceSampler``), and for an
+    adaptive-search rung its rung, ``resource``, ``intermediate_score`` and
     ``asha_resource_fraction``; the trial's ``curve`` and ``attempt`` when
-    it has one. The host and device resource averages of the JAX
-    package's ResourceSampler are ``None`` until the scheduled runtime is
-    ported (ROADMAP A2)."""
+    it has one."""
     msg = {
-        "worker_id": EXECUTOR_ID,
+        "worker_id": worker_id,
         "subtask_id": st["subtask_id"],
         "status": "DONE",
         "received_at": received_at,
@@ -274,6 +461,7 @@ def _metrics_message(st, received_at, started_at, finished_at, algo,
         "cpu_percent_avg": None,
         "mem_percent_avg": None,
         "device_peak_mem_mb": None,
+        **(resources or {}),
         "algo": algo,
     }
     a = st.get("asha")

@@ -1,10 +1,12 @@
 """In-memory, journaled job/session state store.
 
-Port of the direct-mode subset of the JAX package's ``runtime/store.py``:
-plain dicts guarded by one lock, plus an append-only JSONL journal in the
-same format (``jobs.jsonl``, ops ``create_session`` / ``create_job`` /
-``update_subtask`` / ``curve`` / ``finalize_job``), so a restarted
-coordinator can read back the jobs it ran and their learning curves.
+Port of the JAX package's ``runtime/store.py`` without the sharded
+control plane's ops: plain dicts guarded by one lock, plus an append-only
+JSONL journal in the same format (``jobs.jsonl``, ops ``create_session`` /
+``create_job`` / ``update_subtask`` / ``subtask_attempt`` / ``place`` /
+``curve`` / ``finalize_job``), so a restarted coordinator reads back the
+jobs it ran, their learning curves, and for a scheduled job each
+subtask's attempt budget and placement, and resumes the unfinished ones.
 
 Status semantics: ``status`` is "pending" until the first subtask ends,
 then a percentage string, then "completed"; failed, pruned and diverged
@@ -23,8 +25,11 @@ from typing import Any, Dict, List, Optional
 
 from ..utils.serialization import json_safe
 
-#: job statuses past which no further transitions happen
-TERMINAL_STATUSES = ("completed", "failed")
+#: job statuses past which no further transitions happen.
+#: ``completed_with_failures`` is the scheduled runtime's quarantine
+#: contract: the job finished with partial results and a ``failed_subtasks``
+#: report instead of stalling on a poisoned subtask.
+TERMINAL_STATUSES = ("completed", "failed", "completed_with_failures")
 
 #: per-subtask terminal statuses. ``pruned`` is the adaptive-search
 #: contract (docs/SEARCH.md): a non-failure terminal for a trial the rung
@@ -42,7 +47,12 @@ def _done(job: Dict[str, Any]) -> int:
 
 
 def _final_status(result) -> str:
-    return "failed" if (result or {}).get("status") == "failed" else "completed"
+    result = result or {}
+    if result.get("status") == "failed":
+        return "failed"
+    if result.get("failed_subtasks"):
+        return "completed_with_failures"
+    return "completed"
 
 
 class JobStore:
@@ -85,6 +95,35 @@ class JobStore:
     def has_session(self, sid: str) -> bool:
         with self._lock:
             return sid in self._sessions
+
+    def jobs_overview(self) -> List[Dict[str, Any]]:
+        """One summary per job across the sessions, newest first (``GET
+        /jobs``)."""
+        out: List[Dict[str, Any]] = []
+        with self._lock:
+            for sid, sess in self._sessions.items():
+                for jid, job in sess["jobs"].items():
+                    payload = job.get("payload") or {}
+                    out.append({
+                        "session_id": sid,
+                        "job_id": jid,
+                        "status": job.get("status"),
+                        "model_type": (payload.get("model_details") or {}).get("model_type"),
+                        "dataset_id": payload.get("dataset_id"),
+                        "total_subtasks": job.get("total_subtasks"),
+                        "completed_subtasks": job.get("completed_subtasks"),
+                        "failed_subtasks": job.get("failed_subtasks"),
+                        "pruned_subtasks": job.get("pruned_subtasks", 0),
+                        "diverged_subtasks": job.get("diverged_subtasks", 0),
+                        "created_at": job.get("created_at"),
+                        "completion_time": job.get("completion_time"),
+                        # the sharded control plane's provenance (not
+                        # ported): kept for the JAX wire format
+                        "migrated_to": None,
+                        "migrated_from": None,
+                    })
+        out.sort(key=lambda j: j.get("created_at") or 0, reverse=True)
+        return out
 
     def session_of(self, job_id: str) -> Optional[str]:
         """The session that holds ``job_id``, or None."""
@@ -175,6 +214,36 @@ class JobStore:
         if done < job["total_subtasks"]:
             job["status"] = f"{100.0 * done / job['total_subtasks']:.1f}%"
 
+    def record_attempt(self, sid: str, job_id: str, subtask_id: str, attempt: int,
+                       failures: int = 0, excluded: Optional[List[str]] = None) -> None:
+        """Journal a subtask attempt (lease reclaim, failure retry, requeue,
+        speculation) into its spec, so a replayed coordinator resumes with
+        the retry budget and the excluded workers intact."""
+        with self._lock:
+            spec = self._require_job(sid, job_id)["subtasks"][subtask_id]["spec"]
+            spec["attempt"] = int(attempt)
+            spec["failures"] = int(failures)
+            spec["excluded_workers"] = list(excluded or [])
+        self._journal({"op": "subtask_attempt", "sid": sid, "jid": job_id,
+                       "stid": subtask_id, "attempt": int(attempt),
+                       "failures": int(failures), "excluded": list(excluded or [])})
+
+    def record_placement(self, sid: str, job_id: str, subtask_id: str, worker_id: str,
+                         attempt: int = 0, lease_deadline: Optional[float] = None) -> None:
+        """Journal a placement and its lease into the spec. A replayed
+        coordinator then tells dispatched in-flight subtasks (a fresh
+        attempt before requeueing, so a zombie worker's late failure is
+        stale) from never-dispatched ones."""
+        with self._lock:
+            spec = self._require_job(sid, job_id)["subtasks"][subtask_id]["spec"]
+            spec["placed_worker"] = worker_id
+            spec["placed_attempt"] = int(attempt or 0)
+            if lease_deadline is not None:
+                spec["lease_deadline"] = float(lease_deadline)
+        self._journal({"op": "place", "sid": sid, "jid": job_id, "stid": subtask_id,
+                       "worker": worker_id, "attempt": int(attempt or 0),
+                       "lease_deadline": lease_deadline})
+
     def record_curve(self, sid: str, job_id: str, subtask_id: str, curve: Dict[str, Any],
                      rung: int = 0, attempt: int = 0, diverged: bool = False) -> None:
         """Journal a rung-boundary learning curve (the fifth journal op).
@@ -258,6 +327,29 @@ class JobStore:
                 out["search"] = json.loads(json.dumps(job["search"]))
             return out
 
+    def unfinished_jobs(self) -> List[tuple]:
+        """(sid, job_id) of the jobs not yet finalized: after a journal
+        replay, the in-flight jobs a restarted coordinator resumes."""
+        with self._lock:
+            return [(sid, jid) for sid, sess in self._sessions.items()
+                    for jid, job in sess["jobs"].items()
+                    if job["status"] not in TERMINAL_STATUSES]
+
+    def unfinished_counts(self) -> Dict[str, Any]:
+        """Admission control's inputs in one lock hold: unfinished jobs
+        (in all and by session) and their pending subtasks."""
+        per_session: Dict[str, int] = {}
+        jobs = pending = 0
+        with self._lock:
+            for sid, sess in self._sessions.items():
+                for job in sess["jobs"].values():
+                    if job["status"] in TERMINAL_STATUSES:
+                        continue
+                    jobs += 1
+                    per_session[sid] = per_session.get(sid, 0) + 1
+                    pending += max(int(job["total_subtasks"]) - _done(job), 0)
+        return {"jobs": jobs, "per_session": per_session, "pending_subtasks": pending}
+
     def subtask_results(self, sid: str, job_id: str) -> List[Dict[str, Any]]:
         with self._lock:
             job = self._require_job(sid, job_id)
@@ -334,6 +426,17 @@ class JobStore:
                 self._apply_subtask_update(
                     job, job["subtasks"][e["stid"]], e["status"], e.get("result")
                 )
+            elif op == "subtask_attempt":
+                spec = self._sessions[e["sid"]]["jobs"][e["jid"]]["subtasks"][e["stid"]]["spec"]
+                spec["attempt"] = int(e.get("attempt", 0) or 0)
+                spec["failures"] = int(e.get("failures", 0) or 0)
+                spec["excluded_workers"] = list(e.get("excluded") or [])
+            elif op == "place":
+                spec = self._sessions[e["sid"]]["jobs"][e["jid"]]["subtasks"][e["stid"]]["spec"]
+                spec["placed_worker"] = e.get("worker")
+                spec["placed_attempt"] = int(e.get("attempt", 0) or 0)
+                if e.get("lease_deadline") is not None:
+                    spec["lease_deadline"] = float(e["lease_deadline"])
             elif op == "curve":
                 # a truncated journal may hold a curve of a job whose
                 # create_job entry was torn away

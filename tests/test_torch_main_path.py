@@ -302,7 +302,8 @@ def test_store_journal_round_trip(tmp_path):
 def test_manager_constructor_takes_the_jax_signature():
     """Both managers take ``(url, coordinator, priority)`` positionally; the
     priority reaches the session and its ``create_session`` journal line.
-    The port refuses a URL (remote mode is not ported yet)."""
+    With a URL the port's manager opens its session over REST, priority
+    included."""
     from cs230_distributed_machine_learning_tpu.runtime.coordinator import (
         Coordinator as JaxCoordinator,
     )
@@ -323,7 +324,15 @@ def test_manager_constructor_takes_the_jax_signature():
         lines[name] = {k: v for k, v in line.items() if k != "sid"}
     assert lines["torch"] == lines["jax"] == {"op": "create_session", "priority": 2}
     assert TorchManager(device="cpu").priority == 0
-    with pytest.raises(ValueError, match="remote mode .* not yet ported"):
-        TorchManager("http://localhost:5001")
-    with pytest.raises(ValueError, match="remote mode .* not yet ported"):
-        TorchManager(url="http://localhost:5001", device="cpu")
+    from cs230_distributed_machine_learning_tpu_torch.runtime.server import start_server
+
+    coord = Coordinator(device="cpu")
+    server, thread = start_server(coord)
+    try:
+        remote = TorchManager(server.url, None, 3)
+        assert remote.priority == 3 and remote.device is None
+        assert coord.store.session_priority(remote.session_id) == 3
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
