@@ -241,9 +241,23 @@ line (the group restores every env valve it sets):
             of rows, the deepest level's left children) against its plain
             version and index_add_.
 
+Then observability, the "observability" group:
+
+37. obs_main  main_auto's job in direct mode inside one PROFILER capture
+            (obs/devprof.py, torch.profiler): a foreign torch.profiler
+            session refused as backend, a second start as busy; B2 200
+            launches by its counter and 200 calls in the exported trace;
+            phase_totals() positive for stage and dispatch; job_cost's
+            model_flops = 2 * macs * splits * trials, MFU in (0, 1]; the
+            critical path tiling the wall within 1e-6 s; the span tree;
+            the device busy share, the top five kernels, the MFU and the
+            critical path's top segments.
+38. obs_overhead  main_auto's job four times, CS230_OBS 0, 1, 1, 0: the
+            walls, and the per-trial scores identical in both modes.
+
 Then the scheduled runtime and the REST routes, the "scheduled" group:
 
-37. rest_main  main_auto's 1000 trials, uncut, through REST on the card:
+39. rest_main  main_auto's 1000 trials, uncut, through REST on the card:
             the port's server (runtime/server.py, port 0, a thread) over a
             ClusterRuntime with no in-process executor, one WorkerAgent
             thread on the card with a fresh storage root (covertype reaches
@@ -255,7 +269,14 @@ Then the scheduled runtime and the REST routes, the "scheduled" group:
             score within 2e-3 of main_auto's, best_params_ equal; then
             download_best_model over HTTP refits the winner (B3, 200);
             the agent thread's seconds in the trial engine and its posts.
-38. rest_supervised  an AgentSupervisor child agent on the card
+40. obs_rest  rest_main's job through the server's observability routes
+            (/trace: the manager's trace id, the agent's shipped agent.poll
+            and executor.batch spans; /critical_path tiling the wall;
+            /cost; /explain; /events; /metrics/prom; /alerts;
+            /metrics/history), then /profile/start -> /profile/stop around
+            20 matmuls the main thread launches (the device kernels and the
+            CPU operations of another thread the capture holds).
+41. rest_supervised  an AgentSupervisor child agent on the card
             (--max-batch 32) trains rest_main's first 128 trials; after the
             first result the smoke SIGKILLs it: the sweep requeues its
             tasks, the supervisor respawns it, every trial completes within
@@ -287,7 +308,8 @@ table held for its earlier design, not measured in this run), the
 kernels line (every number measured in this run, but the bound, which it
 computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
 entries for asha_main, asha_refit and hyperband_rf, B4 one for
-stream_rf, B2 and B3 for rest_main and its refit), the nvidia-smi line, and the result line
+stream_rf, B2 and B3 for rest_main and its refit, B2 for obs_main), the nvidia-smi line, and
+the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
 """
@@ -3190,7 +3212,8 @@ def phase_rest_main(cfg, srv, main_auto_status) -> dict:
           "max_mean_cv_diff": worst, "best_params": best, "refit_s": refit_s,
           "refit_launches": {k: v for k, v in refit.items() if v}})
     WALLS["rest_main"] = wall
-    return {"status": status, "b2": {"launches": launches["packed_nesterov_step"],
+    return {"status": status, "job_id": manager.job_id, "trace_id": manager.trace_id,
+            "b2": {"launches": launches["packed_nesterov_step"],
                                       "expected_launches": expected, "job": "rest_main"},
             "b3": refit["masked_softmax_grad"]}
 
@@ -3265,6 +3288,264 @@ def phase_rest_supervised(cfg, srv, rest_status) -> dict:
           "respawns": slot["restarts_total"], "kill_to_completion_s": kill_to_done,
           "workers": workers, "max_mean_cv_diff_vs_rest_main": worst})
     return {"respawns": slot["restarts_total"], "kill_to_completion_s": kill_to_done}
+
+
+# ---------------- observability: spans, the profiler capture, device cost ----------------
+
+#: B2's symbol in a capture's trace: packed_step_kernel<N1, L, MT, kGrad>
+#: with kGrad false (B1 is the same template with kGrad true)
+B2_SYMBOL = "packed_step_kernel"
+
+
+def trace_kernels(trace_dir: str) -> list:
+    """The device kernels of a capture's Chrome trace (obs/devprof.py
+    writes ``trace.json``): (name, start us, duration us) each."""
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    return [(e["name"], float(e["ts"]), float(e.get("dur", 0.0))) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel"]
+
+
+def busy_seconds(kernels: list) -> float:
+    """The union of the kernels' intervals: seconds the card ran anything."""
+    total, cur = 0.0, None
+    for start, end in sorted((ts, ts + dur) for _, ts, dur in kernels):
+        if cur is None or start > cur[1]:
+            if cur is not None:
+                total += cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    if cur is not None:
+        total += cur[1] - cur[0]
+    return total / 1e6
+
+
+def top_kernels(kernels: list, k: int = 5) -> list:
+    by_name: dict = {}
+    for name, _, dur in kernels:
+        row = by_name.setdefault(name, [0.0, 0])
+        row[0] += dur
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:k]
+    return [{"name": name[:100], "ms": us / 1e3, "calls": n} for name, (us, n) in top]
+
+
+def b2_calls(kernels: list) -> list:
+    """B2's launches in a trace: the fused step's instantiation (kGrad
+    false); B1's (kGrad true) never runs under CS230_FUSED_STEP=auto."""
+    return [k for k in kernels if B2_SYMBOL in k[0] and "true" not in k[0]]
+
+
+def expected_main_flops(manager, params: dict) -> float:
+    """2 * macs_estimate * splits * trials for bench.py's 1000-trial job:
+    one bucket, 6 splits (the holdout and 5 folds), the resolved static of
+    its trials (newton or nesterov, ``_iters``) as the trial engine
+    resolves it."""
+    data = manager._coordinator.cache.get("covertype", "classification")
+    n, d = data.X.shape
+    kernel, static = _resolved("LogisticRegression", params, n, d, data.n_classes)
+    static = kernel.bucket_static(static, [kernel.canonicalize(params)[1]])
+    return 2.0 * float(kernel.macs_estimate(n, d, static)) * 6 * 1000
+
+
+def check_tiles(report: dict) -> float:
+    """The critical path's segments sum to the job's wall (1e-6 s)."""
+    gap = abs(sum(s["duration_s"] for s in report["segments"]) - report["wall_s"])
+    assert gap <= 1e-6, (gap, report["wall_s"])
+    return gap
+
+
+def phase_obs_main(manager) -> dict:
+    """bench.py's job, uncut, in direct mode (main_auto's), inside one
+    ``PROFILER.start`` / ``stop`` capture (obs/devprof.py on
+    torch.profiler; the capture runs on its own thread, the job on the
+    coordinator's). Asserts: a torch.profiler session already open in the
+    process refuses a start as ``backend``, a second start as ``busy``; B2
+    launched 200 times by its counter and 200 times in the exported trace,
+    with device time above 0; phase_totals() positive for stage and
+    dispatch; job_cost's model_flops equal to 2 * macs * splits * trials
+    and its MFU in (0, 1] against the H100's peak; the critical path
+    tiling the wall within 1e-6 s; the spans client.train > job.submit,
+    job.execute > executor.batch > its four phases. Prints the device busy
+    share over the job's wall, the top five kernels by device time, the
+    MFU and the critical path's top segments."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from cs230_distributed_machine_learning_tpu_torch.obs import PROFILER, TRACER
+    from cs230_distributed_machine_learning_tpu_torch.obs.devprof import phase_totals
+    from cs230_distributed_machine_learning_tpu_torch.utils.flops import device_peak_flops
+
+    with profile(activities=[ProfilerActivity.CPU]):
+        clash = PROFILER.start("obs_clash")
+    assert (clash["status"], clash["reason"]) == ("error", "backend"), clash
+    phases0 = phase_totals()
+    started = PROFILER.start("obs_main")
+    assert started["status"] == "started", started
+    try:
+        busy = PROFILER.start("obs_busy")
+        assert busy["reason"] == "busy", busy
+        status, wall, launches = _train(manager, _search(1000, 200, 5), "covertype",
+                                        "packed_nesterov_step", 1000)
+    finally:
+        stopped = PROFILER.stop()
+    assert stopped["status"] == "stopped", stopped
+    jid = manager.job_id
+    manager._coordinator._job_threads[jid].join(timeout=60)  # job.aggregate recorded
+    assert launches["packed_nesterov_step"] == 200, launches
+    kernels = trace_kernels(stopped["trace_dir"])
+    b2 = b2_calls(kernels)
+    b2_ms = sum(dur for _, _, dur in b2) / 1e3
+    assert len(b2) == 200 and b2_ms > 0, (len(b2), b2_ms, top_kernels(kernels))
+    phases = phase_totals()
+    assert phases["stage"] > 0 and phases["dispatch"] > 0, phases
+    job_phases = {p: phases[p] - phases0[p] for p in phases}
+    assert job_phases["dispatch"] > 0, job_phases
+    cost = manager._coordinator.job_cost(jid)
+    params = status["job_result"]["results"][0]["parameters"]
+    expected = expected_main_flops(manager, params)
+    assert math.isclose(cost["model_flops"], expected, rel_tol=1e-12), (cost, expected)
+    assert cost["device_peak_flops"] == device_peak_flops() is not None
+    assert 0.0 < cost["mfu"] <= 1.0, cost
+    report = manager.critical_path()
+    gap = check_tiles(report)
+    spans = TRACER.spans_for(manager.trace_id)
+    by_id = {s["span_id"]: s for s in spans}
+    first = {}
+    for s in spans:
+        first.setdefault(s["name"], s)
+
+    def parent(name):
+        return by_id.get(first[name]["parent_id"], {}).get("name")
+
+    assert parent("job.submit") == "client.train" and parent("executor.batch") == "job.execute"
+    for phase in ("compile", "stage", "dispatch", "fetch"):
+        assert parent(f"executor.{phase}") == "executor.batch", phase
+    order = [first[n]["start"] for n in ("client.train", "job.submit", "job.execute",
+                                         "executor.batch")]
+    assert order == sorted(order), order
+    busy_s = busy_seconds(kernels)
+    batch = first["executor.batch"]["attrs"]
+    out = {"wall_s": wall, "b2_launches": launches["packed_nesterov_step"],
+           "b2_trace_calls": len(b2), "b2_trace_device_ms": b2_ms,
+           "b2_trace_ms_per_call": b2_ms / len(b2), "trace_kernels": len(kernels),
+           "device_busy_s": busy_s, "device_busy_share": busy_s / wall,
+           "device_idle_share": 1.0 - busy_s / wall, "top_kernels": top_kernels(kernels),
+           "model_flops": cost["model_flops"], "expected_model_flops": expected,
+           "device_seconds": cost["device_seconds"], "mfu": cost["mfu"],
+           "mfu_over_wall": cost["model_flops"] / wall / cost["device_peak_flops"],
+           "device_peak_flops": cost["device_peak_flops"],
+           "hbm_peak_bytes": cost["hbm_peak_bytes"], "job_phases_s": job_phases,
+           "batch": {k: batch.get(k) for k in ("compile_time_s", "run_time_s", "n_dispatches",
+                                                "n_host_fetches")},
+           "critical_path": {"wall_s": report["wall_s"], "tiling_gap_s": gap,
+                             "untraced_s": report.get("untraced_s"),
+                             "top": sorted(report["totals"].items(), key=lambda kv: -kv[1])[:5]},
+           "capture": {"duration_s": stopped["duration_s"], "n_files": stopped["n_files"]}}
+    emit({"phase": "obs_main", **out})
+    return out
+
+
+def phase_obs_overhead(manager) -> dict:
+    """main_auto's job four times in turns, ``CS230_OBS`` 0, 1, 1, 0: the
+    walls of each mode, and the per-trial scores identical in both."""
+    saved = os.environ.get("CS230_OBS")
+    walls = {"0": [], "1": []}
+    scores: dict = {}
+    try:
+        for mode in ("0", "1", "1", "0"):
+            os.environ["CS230_OBS"] = mode
+            status, wall = _run_job(manager, _search(1000, 200, 5), "covertype", 1000)
+            walls[mode].append(wall)
+            got = _scores(status)
+            assert scores.setdefault(mode, got) == got, f"CS230_OBS={mode} runs differ"
+    finally:
+        if saved is None:
+            os.environ.pop("CS230_OBS", None)
+        else:
+            os.environ["CS230_OBS"] = saved
+    assert scores["0"] == scores["1"], "per-trial scores differ with CS230_OBS on and off"
+    ref = _scores(manager.check_status(JOBS["main_auto"]))
+    out = {"walls_s": {"obs_off": walls["0"], "obs_on": walls["1"]},
+           "on_over_off": sum(walls["1"]) / sum(walls["0"]), "scores_identical": True,
+           "max_mean_cv_diff_vs_main_auto": max(abs(v - ref[k]) for k, v in scores["1"].items())}
+    emit({"phase": "obs_overhead", **out})
+    return out
+
+
+def phase_obs_rest(srv, rest: dict, obs_main: dict) -> dict:
+    """rest_main's job through the server's observability routes, no new
+    job: /trace (its spans carry the manager's trace id, the agent's
+    shipped agent.poll and executor.batch among them), /critical_path
+    (tiling the wall), /cost (model_flops as obs_main's, MFU in (0, 1]),
+    /explain, /events, /metrics/prom, /alerts, /metrics/history; then a
+    /profile/start -> /profile/stop capture (the server's request threads
+    open and close it) around 20 matmuls the smoke's main thread launches:
+    the trace holds all 20 of their GEMM kernels (and how many of their CPU
+    operations, which are per thread)."""
+    from cs230_distributed_machine_learning_tpu_torch.utils import http
+
+    jid, url = rest["job_id"], srv.url
+
+    def get(path, **params):
+        resp = http.request("GET", f"{url}{path}", params=params or None, timeout=60)
+        assert resp.status == 200, (path, resp.status, resp.text()[:200])
+        return resp
+
+    trace = get(f"/trace/{jid}").json()
+    names = [s["name"] for s in trace["spans"]]
+    assert trace["trace_id"] == rest["trace_id"], trace["trace_id"]
+    need = {"http.train_status", "job.submit", "job.execute", "schedule.place", "agent.poll",
+            "executor.batch", "executor.dispatch", "executor.fetch", "job.aggregate"}
+    assert need <= set(names), sorted(need - set(names))
+    polls, batches = names.count("agent.poll"), names.count("executor.batch")
+    assert polls == batches == math.ceil(1000 / REST_PULL), (polls, batches)
+    report = get(f"/critical_path/{jid}").json()
+    gap = check_tiles(report)
+    cost = get(f"/cost/{jid}").json()
+    assert math.isclose(cost["model_flops"], obs_main["expected_model_flops"], rel_tol=1e-12)
+    assert 0.0 < cost["mfu"] <= 1.0 and cost["n_groups"] == polls, cost
+    stids = get(f"/explain/{jid}").json()["subtask_ids"]
+    assert len(stids) == 1000
+    kinds = [e["kind"] for e in get(f"/explain/{jid}/{stids[0]}").json()["events"]]
+    assert "placement" in kinds and "result" in kinds, kinds
+    events = get("/events", since=0, limit=100).json()
+    assert events["n_events"] > 0
+    prom = get("/metrics/prom").text()
+    for needle in ('tpuml_executor_device_seconds_total{phase="dispatch"}',
+                   "tpuml_executor_flops_total", "tpuml_http_request_seconds_bucket"):
+        assert needle in prom, needle
+    alerts = get("/alerts").json()
+    history = get("/metrics/history").json()
+    started = http.request("POST", f"{url}/profile/start", json={"tag": "obs_rest"})
+    assert started.status == 201, started.text()
+    x = torch.randn(4096, 4096, device="cuda")
+    for _ in range(20):
+        x = torch.tanh(x @ x * 1e-3)
+    torch.cuda.synchronize()
+    stopped = http.request("POST", f"{url}/profile/stop")
+    assert stopped.status == 200, stopped.text()
+    trace_dir = stopped.json()["trace_dir"]
+    kernels = trace_kernels(trace_dir)
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        cpu_mm = sum(1 for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "cpu_op" and e.get("name") == "aten::mm")
+    # a capture opened on another thread holds this thread's device
+    # kernels, all of them: the session's dropped first records are the
+    # capture thread's own (devprof.ABSORB_KERNELS)
+    gemms = [k for k in kernels if "gemm" in k[0].lower()]
+    assert len(gemms) == 20, top_kernels(kernels)
+    out = {"spans": len(names), "agent_poll_spans": polls, "executor_batch_spans": batches,
+           "critical_path": {"wall_s": report["wall_s"], "tiling_gap_s": gap,
+                             "top": sorted(report["totals"].items(), key=lambda kv: -kv[1])[:5]},
+           "cost": {k: cost[k] for k in ("n_groups", "device_seconds", "model_flops", "mfu")},
+           "explain_events": len(kinds), "events": events["n_events"],
+           "alerts": {a["rule"]: a["state"] for a in alerts["alerts"]},
+           "history_names": len(history["names"]),
+           "profile_cross_thread": {"device_kernels": len(kernels), "gemms_launched": 20,
+                                    "gemm_kernels": len(gemms), "cpu_aten_mm_events": cpu_mm}}
+    emit({"phase": "obs_rest", **out})
+    return out
 
 
 #: each kernel's artifact rows on the kernels line: (other_paths key, row
@@ -3397,6 +3678,15 @@ def main() -> int:
         plane[name] = run()
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "data_plane", "seconds": seconds, "total_s": sum(seconds.values())})
+    # observability: spans, the profiler capture, device cost, critical path
+    seconds = {}
+    t_phase = time.perf_counter()
+    obs = phase_obs_main(manager)
+    seconds["obs_main"] = time.perf_counter() - t_phase
+    t_phase = time.perf_counter()
+    phase_obs_overhead(manager)
+    seconds["obs_overhead"] = time.perf_counter() - t_phase
+    emit({"phase": "observability", "seconds": seconds, "total_s": sum(seconds.values())})
     # the scheduled runtime and the REST routes: server, agents, supervisor
     seconds = {}
     t_phase = time.perf_counter()
@@ -3404,6 +3694,9 @@ def main() -> int:
     try:
         rest = phase_rest_main(cfg, srv, manager.check_status(JOBS["main_auto"]))
         seconds["rest_main"] = time.perf_counter() - t_phase
+        t_phase = time.perf_counter()
+        phase_obs_rest(srv, rest, obs)
+        seconds["obs_rest"] = time.perf_counter() - t_phase
         t_phase = time.perf_counter()
         phase_rest_supervised(cfg, srv, rest["status"])
         seconds["rest_supervised"] = time.perf_counter() - t_phase
@@ -3476,6 +3769,13 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **entry, "row": row_key, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
+        if name == "packed_nesterov_step":  # obs_main: main_auto's job inside a capture
+            r = rows[(name, 8)]
+            kernels[-1].setdefault("other_paths", {})["obs_main"] = {
+                "launches": obs["b2_launches"], "job": "obs_main",
+                "trace_calls": obs["b2_trace_calls"], "trace_device_ms": obs["b2_trace_device_ms"],
+                "row": 8, **{k: r[k] for k in ROW_KEYS if k in r},
+                "shape": "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"}
         if name == "packed_nesterov_step":  # REST: the agent's pulls of REST_PULL trials
             r = rows[(name, REST_BLOCKS)]
             kernels[-1].setdefault("other_paths", {})["rest_main"] = {

@@ -15,7 +15,13 @@ stream with ``stream=True``; ``search_params`` makes it an adaptive
 search (ASHA / Hyperband); ``check_status`` / ``check_job_status`` /
 ``best_result`` / ``curves`` read results and learning curves;
 ``download_best_model`` / ``load_best_model`` refit the winner once and
-serve its artifact (runtime/artifacts.py).
+serve its artifact (runtime/artifacts.py); ``explain`` reads one subtask's
+flight-recorder timeline and ``critical_path`` a job's wall decomposition.
+
+Each ``train`` mints a trace id (``trace_id``): in local mode it is
+activated around a ``client.train`` span, over REST it rides the
+``X-Trace-Id`` header of the submit and the stream, so the job's spans
+(``GET /trace/<job_id>``) start at the client.
 
 The constructor takes the JAX package's ``(url, coordinator, priority)``.
 A local-mode coordinator runs on the CUDA card by default; ``device="cpu"``
@@ -35,6 +41,7 @@ import time
 import uuid
 from typing import Any, Dict, Optional
 
+from ..obs import TRACE_HEADER, activate, new_trace_id, span
 from ..runtime.store import TERMINAL_STATUSES
 from ..utils import http
 from ..utils.config import get_config
@@ -62,6 +69,9 @@ class MLTaskManager:
         self.session_id = self._create_session()
         self.job_id: Optional[str] = None
         self.result: Optional[Dict[str, Any]] = None
+        #: the trace id of the latest train(), minted here and sent to the
+        #: coordinator (GET /trace/<job_id> reads the job's spans)
+        self.trace_id: Optional[str] = None
 
     @property
     def device(self):
@@ -170,8 +180,14 @@ class MLTaskManager:
             "train_params": train_params,
             "timestamp": time.time(),
         }
+        self.trace_id = new_trace_id()
         if self._coordinator is not None:
-            submit = self._coordinator.submit_train(self.session_id, payload)
+            # the job's trace starts here: submit_train (this process)
+            # adopts the active id, under the client's span
+            with activate(self.trace_id):
+                with span("client.train", trace_id=self.trace_id, job_id=self.job_id,
+                          dataset_id=dataset_id):
+                    submit = self._coordinator.submit_train(self.session_id, payload)
         else:
             _check_rest_payload(model_details)
             if stream and wait_for_completion:
@@ -181,7 +197,7 @@ class MLTaskManager:
             # idempotent: the coordinator dedupes the client-minted job id,
             # so a retried POST never expands the job twice
             submit = self._request("post", f"train/{self.session_id}", json=payload,
-                                   idempotent=True)
+                                   idempotent=True, headers={TRACE_HEADER: self.trace_id})
         self.job_id = submit.get("job_id") or self.job_id
         if not wait_for_completion:
             return submit
@@ -286,9 +302,10 @@ class MLTaskManager:
         try:
             while time.time() < deadline:
                 try:
-                    resp = http.open_request("POST",
-                                             f"{self.api_url}/train_status/{self.session_id}",
-                                             json=json_safe(payload), timeout=read_timeout)
+                    resp = http.open_request(
+                        "POST", f"{self.api_url}/train_status/{self.session_id}",
+                        json=json_safe(payload), timeout=read_timeout,
+                        headers={TRACE_HEADER: self.trace_id} if self.trace_id else None)
                 except http.TransportError:
                     if not established and time.time() - start > retry_window:
                         raise
@@ -360,17 +377,57 @@ class MLTaskManager:
             return self._coordinator.job_metrics(self.session_id, jid)
         return self._request("get", f"metrics/{self.session_id}/{jid}")
 
-    def explain(self, job_id: Optional[str] = None, subtask_id: Optional[str] = None):
-        """The flight recorder's timeline of one subtask (JAX
-        ``MLTaskManager.explain``): not ported yet."""
-        raise NotImplementedError("explain() needs the flight recorder's timelines, which "
-                                  "are not ported to the PyTorch package yet")
+    def explain(self, job_id: Optional[str] = None,
+                subtask_id: Optional[str] = None) -> Dict[str, Any]:
+        """The flight recorder's timeline of one subtask of a job, every
+        scheduling decision in order (placement with its score breakdown,
+        lease grant and reclaim, attempts and retries, speculation, the
+        terminal result). ``job_id`` defaults to the latest ``train()``;
+        KeyError when the coordinator recorded nothing for the pair
+        (unknown ids, or a run under ``CS230_OBS=0``)."""
+        jid = job_id or self.job_id
+        if jid is None or subtask_id is None:
+            raise TypeError("explain() requires a job id (or a prior train()) and a subtask_id")
+        if self._coordinator is not None:
+            return self._coordinator.explain(jid, subtask_id)
+        try:
+            return self._request("get", f"explain/{jid}/{subtask_id}")
+        except http.HTTPStatusError as e:
+            if e.response.status == 404:
+                raise KeyError(
+                    f"no recorded events for subtask {subtask_id!r} of job {jid!r}") from e
+            raise
 
-    def critical_path(self, job_id: Optional[str] = None, compare: Optional[str] = None):
-        """A job's critical-path report (JAX ``MLTaskManager.critical_path``):
-        not ported yet."""
-        raise NotImplementedError("critical_path() needs the span tracer, which is not "
-                                  "ported to the PyTorch package yet")
+    def critical_path(self, job_id: Optional[str] = None,
+                      compare: Optional[str] = None) -> Dict[str, Any]:
+        """A job's wall decomposed into critical-path segments that tile it
+        (gaps labeled ``untraced``), the dominant segment, and the retry and
+        speculation attribution. ``compare=<baseline_job_id>`` adds a
+        per-segment diff against that job (``report["diff"]``). ``job_id``
+        defaults to the latest ``train()``; KeyError when no trace is bound
+        to the job (unknown id, or ``CS230_OBS=0``)."""
+        jid = job_id or self.job_id
+        if jid is None:
+            raise TypeError("critical_path() requires a job id (or a prior train())")
+        if self._coordinator is not None:
+            report = self._coordinator.critical_path(jid)
+            if report is None:
+                raise KeyError(f"no critical path for job {jid!r}")
+            if compare is not None:
+                from ..obs.critpath import compare as _compare
+
+                base = self._coordinator.critical_path(compare)
+                if base is None:
+                    raise KeyError(f"no critical path for job {compare!r}")
+                report["diff"] = _compare(base, report)
+            return report
+        try:
+            return self._request("get", f"critical_path/{jid}",
+                                 params={"compare": compare} if compare is not None else None)
+        except http.HTTPStatusError as e:
+            if e.response.status == 404:
+                raise KeyError(f"no critical path for job {jid!r}") from e
+            raise
 
     def curves(self, job_id: Optional[str] = None,
                subtask_id: Optional[str] = None) -> Dict[str, Any]:
@@ -445,7 +502,8 @@ class MLTaskManager:
     # ------------- REST plumbing -------------
 
     def _request(self, method: str, endpoint: str, json=None, params=None,
-                 idempotent: Optional[bool] = None) -> Dict[str, Any]:
+                 idempotent: Optional[bool] = None,
+                 headers: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
         """One REST call with the JAX manager's resilience: 429 / 503 are
         retried after their ``Retry-After`` (the request was not processed,
         so any method may retry), and transport errors are retried with
@@ -461,7 +519,7 @@ class MLTaskManager:
             try:
                 resp = http.request(method, url,
                                     json=json_safe(json) if json is not None else None,
-                                    params=params, timeout=600)
+                                    params=params, headers=headers, timeout=600)
             except http.TransportError:
                 if not idempotent or time.time() >= deadline:
                     raise

@@ -38,9 +38,10 @@ past the stage budget) | ``0``/``off`` | ``1``/``force``;
 ``CS230_STREAM_BLOCK_ROWS``; ``CS230_STREAM_DOUBLE_BUFFER=1`` (the
 JAX package's default; off here).
 
-Observability: ``tpuml_stream_*`` counters and one ``stage.stream``
-flight-recorder event per pass. The device profile's ``stream`` phase
-waits for the port's ``obs/devprof.py`` (ROADMAP A4).
+Observability: ``tpuml_stream_*`` counters, one ``stage.stream``
+flight-recorder event per pass, and devprof's ``stream`` phase (the share
+of the transfer wall hidden behind compute; the blocking remainder is the
+engine's staging time).
 """
 
 from __future__ import annotations
@@ -368,6 +369,11 @@ class RowBlockStreamer:
             counter_inc("tpuml_stream_upload_seconds_total", upload_s)
         if wait_s > 0.0:
             counter_inc("tpuml_stream_wait_seconds_total", wait_s)
+        # devprof overlap attribution: the hidden share of the transfer
+        # wall lands in the ``stream`` phase
+        from ..obs import devprof
+
+        devprof.device_seconds("stream", hidden_s)
         record_event(
             "stage.stream", blocks=blocks, uploads=uploads, nbytes=nbytes,
             upload_s=round(upload_s, 6), wait_s=round(wait_s, 6),

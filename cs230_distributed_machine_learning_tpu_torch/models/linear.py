@@ -57,6 +57,12 @@ class LinearRegressionKernel(ModelKernel):
         """The lane's weighted design matrix and the products around it."""
         return max(1.0, 4.0 * n * (d + 1) * 2 / 1e6)
 
+    def macs_estimate(self, n, d, static):
+        """The closed-form solve's multiply-accumulates (the JAX formula):
+        the Gram n (d+1)^2 and the (d+1)^3 solve."""
+        dp = d + 1
+        return float(n * dp * dp + dp**3)
+
 
 class RidgeKernel(LinearRegressionKernel):
     name = "Ridge"

@@ -122,6 +122,21 @@ class LogisticRegressionKernel(ModelKernel):
             return max(1.0, 4.0 * 4.0 * n * (d + 1) * c / 1e6)
         return max(1.0, (6.0 * 4.0 * n * c + 2.0 * n * pad_to_multiple(c, 16)) / 1e6)
 
+    def macs_estimate(self, n, d, static):
+        """Model-analytical multiply-accumulates of one (trial, split) fit,
+        the JAX formula term for term: ``steps`` solver iterations of 3 n
+        (d+1) c (logits, gradient, the line's products), plus for newton the
+        Hessian's n dim (d+1) and its dim^3 solve. The MFU numerator
+        (utils/flops.py)."""
+        c = max(int(static.get("_n_classes", 2)), 2)
+        newton = static.get("_method") == "newton"
+        steps = int(static.get("_iters", _NEWTON_STEPS if newton else _NESTEROV_STEPS))
+        per_iter = 3.0 * n * (d + 1) * c
+        if newton:
+            dim = (d + 1) * c
+            per_iter += n * dim * (d + 1) + float(dim) ** 3
+        return steps * per_iter
+
     # ---- lane-batched outputs of fitted weights W [..., dp, c] -----------
 
     def _logits(self, W, X, static):

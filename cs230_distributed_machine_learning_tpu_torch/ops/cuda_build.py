@@ -10,6 +10,11 @@ which keeps a build to seconds. Several sources compile in parallel, one
 
 The compiler's resource report (``-Xptxas -v``: registers, shared memory,
 spills per kernel) is kept beside each library as ``.log``.
+
+``load_seconds()`` is the calling thread's running total of seconds spent
+building and loading libraries at first use: the trial engine reads it
+before and after a run for ``TrialRunResult.compile_time_s`` (0 once every
+library a run needs is loaded).
 """
 
 from __future__ import annotations
@@ -33,6 +38,13 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: per thread: seconds spent in ``load`` building or opening a library
+_tls = threading.local()
+
+
+def load_seconds() -> float:
+    """Seconds this thread has spent building and loading libraries."""
+    return getattr(_tls, "seconds", 0.0)
 
 
 def nvcc_path() -> str:
@@ -104,10 +116,17 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
-            _loaded[name] = lib
+    lib = _loaded.get(name)
+    if lib is not None:
         return lib
+    t0 = time.perf_counter()
+    try:
+        with _lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
+                _loaded[name] = lib
+            return lib
+    finally:
+        _tls.seconds = load_seconds() + time.perf_counter() - t0

@@ -40,6 +40,18 @@ before any X staging, a single-device, unchunked, unscored bucket whose
 kernel has ``stream_scores`` and whose staged form crowds the stage budget
 (``CS230_STREAM``) never uploads the whole matrix: the kernel accumulates
 over row blocks instead.
+
+Batch accounting (JAX ``TrialRunResult``): the run's phase timers tile its
+wall, ``compile_time_s`` (the kernel libraries' first-use build or load,
+ops/cuda_build.py), ``stage_time_s`` (staging uploads and the streamed
+buckets' block waits), ``run_time_s`` (first dispatch to the last result on
+the host, less the compile and staging inside that window) and, within it,
+``fetch_time_s`` (the blocking device-to-host reads, which on the card also
+wait for the kernels still queued). ``model_flops`` sums each bucket's
+``2 * macs_estimate * splits * trials`` (``flops_coverage``: the share of
+buckets priced); ``hbm_peak_bytes`` is the card's allocator high-water. The
+compiler cost figures (``xla_flops``, ``bytes_accessed``) stay None: eager
+PyTorch has no cost analysis. ``CS230_OBS=0`` leaves the cost fields None.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ import numpy as np
 import torch
 
 from ..models.base import ModelKernel, TrialData
+from ..obs import obs_enabled, observe
 from ..ops.folds import SplitPlan
 from ..ops.metrics import validate_scoring
 from .mesh import pad_to_multiple
@@ -59,12 +72,51 @@ from .mesh import pad_to_multiple
 
 @dataclasses.dataclass
 class TrialRunResult:
-    """Per-trial metrics in submission order, plus batch-level timing."""
+    """Per-trial metrics in submission order, plus batch-level timing and
+    the device cost accounting (the JAX fields; see the module docstring)."""
 
     trial_metrics: List[Dict[str, Any]]
     #: wall seconds from the first dispatch to the last result on the host,
-    #: less the streamed buckets' waits for their blocks
+    #: less the compile and staging seconds inside that window
     run_time_s: float
+    #: kernel-library build / load seconds at first use (0 when warm)
+    compile_time_s: float = 0.0
+    #: dispatches queued (one a packed chunk, trial chunk or streamed chunk)
+    n_dispatches: int = 0
+    #: blocking device->host reads (one an output leaf) and their bytes
+    n_host_fetches: int = 0
+    result_bytes: int = 0
+    #: staging uploads (cache misses and waits) plus streamed block waits
+    stage_time_s: float = 0.0
+    #: blocking device->host result reads
+    fetch_time_s: float = 0.0
+    #: 2 * macs * splits * trials summed over the priced buckets
+    model_flops: Optional[float] = None
+    #: compiler cost analysis: always None on eager PyTorch
+    xla_flops: Optional[float] = None
+    bytes_accessed: Optional[float] = None
+    #: share of this run's buckets with a model-FLOP estimate
+    flops_coverage: Optional[float] = None
+    #: the card's allocator high-water at run end (monotonic over the
+    #: process unless reset; the executor's sampler supplies the per-batch
+    #: figure); None on the CPU
+    hbm_peak_bytes: Optional[int] = None
+
+
+def _hbm_peak_bytes() -> Optional[int]:
+    from ..utils.flops import device_memory_stats
+
+    peak = device_memory_stats().get("peak_bytes_in_use")
+    return int(peak) if peak is not None else None
+
+
+def _call_with_prepared(fn, prepared, *args):
+    """A kernel cost hook, given the prepared-data dict where its
+    estimator prices it (the tree kernels)."""
+    try:
+        return fn(*args, prepared=prepared)
+    except TypeError:
+        return fn(*args)
 
 
 def _device_sig(device: torch.device) -> tuple:
@@ -90,17 +142,33 @@ class _Staging:
 
         self.data = data
         self.device = device
+        #: this run's staging seconds: uploads (and waits for another
+        #: thread's upload of the same entry) and streamed block waits
+        self.seconds = 0.0
         self._sc = stage_cache if stage_cache.enabled() else None
         self._local: Dict[Any, Any] = {}
         self._folds: Optional[tuple] = None
 
     def get(self, key: tuple, make, cache: bool = True):
+        """The entry under ``key``, made on a miss. A miss's upload (and a
+        wait for another thread's) adds to the run's staging seconds; only
+        real uploads feed ``tpuml_executor_stage_seconds``."""
+        t0 = time.perf_counter()
         if self._sc is None or not cache:
-            if key not in self._local:
-                self._local[key] = make()
-            return self._local[key]
-        gkey = (self._sc.dataset_fingerprint(self.data), _device_sig(self.device)) + tuple(key)
-        return self._sc.STAGE_CACHE.get_or_stage(gkey, make)[0]
+            if key in self._local:
+                return self._local[key]
+            val = self._local[key] = make()
+            outcome = "miss"
+        else:
+            gkey = ((self._sc.dataset_fingerprint(self.data), _device_sig(self.device))
+                    + tuple(key))
+            val, outcome = self._sc.STAGE_CACHE.get_or_stage(gkey, make)
+        if outcome != "hit":
+            dt = time.perf_counter() - t0
+            if outcome == "miss":
+                observe("tpuml_executor_stage_seconds", dt)
+            self.seconds += dt
+        return val
 
     def get_signed(self, signature, key: tuple, make):
         """A fold-plan-derived entry, keyed ``key[0], signature, *key[1:]``:
@@ -171,9 +239,25 @@ def run_trials(
 
 def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_batch,
                      scoring) -> TrialRunResult:
+    from ..ops.cuda_build import load_seconds
+
     validate_scoring(scoring, kernel.task, data.n_classes, kernel)
     n, d = data.X.shape
     results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
+    # cost accounting for THIS run (the valve read once: a mid-run flip
+    # must not produce a half-priced result)
+    acct = obs_enabled()
+    model_flops = 0.0
+    n_buckets = buckets_priced = 0
+    compile0 = load_seconds()
+    staging = _Staging(data, device)
+    # the dispatch window opens at the first dispatch; the compile and
+    # staging seconds inside it are the other phases', not the run's
+    window: Dict[str, float] = {}
+
+    def _dispatching() -> None:
+        if not window:
+            window.update(t=time.perf_counter(), compile=load_seconds(), stage=staging.seconds)
 
     buckets: Dict[Any, List[int]] = {}
     hypers: List[Dict[str, float]] = []
@@ -182,10 +266,7 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
         hypers.append(hyper)
         buckets.setdefault(static_key, []).append(i)
 
-    staging = _Staging(data, device)
     pending: List[Any] = []
-    stream_wait = 0.0
-    t0 = time.perf_counter()
     for static_key, idxs in buckets.items():
         static = kernel.static_from_key(static_key)
         if hasattr(kernel, "resolve_static"):
@@ -198,6 +279,16 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
         hyper_names = sorted(hypers[idxs[0]].keys())
 
         prepared = _prepared_data(kernel, data, static) if hasattr(kernel, "prepare_data") else None
+        # the bucket's analytical model FLOPs, 2 * per-(trial, split) MACs
+        # * splits * trials, whatever dispatch path it takes below
+        n_buckets += 1
+        if acct and hasattr(kernel, "macs_estimate"):
+            try:
+                macs = _call_with_prepared(kernel.macs_estimate, prepared, n, d, static)
+                model_flops += 2.0 * float(macs) * max(plan.n_splits, 1) * len(idxs)
+                buckets_priced += 1
+            except Exception:  # noqa: BLE001 — an estimator bug leaves the bucket unpriced
+                pass
         chunk_plan = None
         if hasattr(kernel, "chunked_plan"):
             chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
@@ -212,15 +303,18 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             X_host = prepared if prepared is not None else np.asarray(data.X, np.float32)
             if (stream_mode() != "off" and kernel.stream_applicable(static, n, d)
                     and should_stream(_tree_nbytes(X_host))):
+                _dispatching()
                 out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
                                             plan, staging, max_trials_per_batch)
                 pending.extend(out)
-                stream_wait += waited
+                # the blocking share of the transfer wall is staging time
+                staging.seconds += waited
                 continue
 
         X = staging.X(kernel, static, prepared)
         y, TW, EW = staging.folds(plan)
         if chunk_plan:
+            _dispatching()
             pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
                                         hyper_names, plan, chunk_plan, d, device))
             continue
@@ -260,15 +354,42 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
         for start in range(0, len(idxs), chunk):
             batch_idx = idxs[start : start + chunk]
             hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
+            _dispatching()
             pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx))
 
+    # one blocking read an output leaf; on the card each waits for the
+    # kernels still queued before it
+    fetch_s = 0.0
+    n_fetches = result_bytes = 0
     for out, batch_idx in pending:
+        t_fetch = time.perf_counter()
         host = {k: v.cpu().numpy() for k, v in out.items()}
+        dt = time.perf_counter() - t_fetch
+        observe("tpuml_executor_fetch_seconds", dt)
+        fetch_s += dt
+        n_fetches += len(host)
+        result_bytes += sum(int(a.nbytes) for a in host.values())
         for j, gi in enumerate(batch_idx):
             results[gi] = _postprocess(host, j, plan, kernel.task, scoring)
+    compile_s = load_seconds() - compile0
+    run_s = 0.0
+    if window:
+        run_s = max(time.perf_counter() - window["t"] - (load_seconds() - window["compile"])
+                    - (staging.seconds - window["stage"]), 0.0)
+    if compile_s > 0.0:
+        observe("tpuml_executor_compile_seconds", compile_s)
     return TrialRunResult(
         trial_metrics=[r for r in results if r is not None],
-        run_time_s=time.perf_counter() - t0 - stream_wait,
+        run_time_s=run_s,
+        compile_time_s=compile_s,
+        n_dispatches=len(pending),
+        n_host_fetches=n_fetches,
+        result_bytes=result_bytes,
+        stage_time_s=staging.seconds,
+        fetch_time_s=fetch_s,
+        model_flops=model_flops if acct and buckets_priced else None,
+        flops_coverage=buckets_priced / n_buckets if acct and n_buckets else None,
+        hbm_peak_bytes=_hbm_peak_bytes() if acct else None,
     )
 
 

@@ -20,6 +20,12 @@ reset in place: the agent exits with ``DEVICE_LOST_EXIT_CODE`` for its
 supervisor to start a fresh process, and the dead-worker sweep requeues
 the tasks it held. The JAX agent's multi-process mesh (``--distributed``)
 is not ported.
+
+Tracing: the agent records its spans (``agent.poll`` over the long-poll
+that delivered a traced batch, the executor's ``executor.batch`` and its
+phases) into a private pending ``Tracer`` and ships them after each batch
+with ``POST /trace_spans/<wid>`` (``X-Trace-Id`` on the request), where the
+coordinator's tracer joins them to the job's trace.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from ..obs import counter_inc, process_token
+from ..obs import TRACE_HEADER, Tracer, counter_inc, obs_enabled, process_token, span, use_tracer
 from ..utils import http
 from ..utils.config import get_config
 from ..utils.logging import get_logger
@@ -88,6 +94,8 @@ class WorkerAgent:
         self._poll_failures = 0
         #: cancel list of the most recent successful poll
         self._last_cancels: List[Dict[str, Any]] = []
+        #: the executor's spans, drained and shipped after each batch
+        self._tracer = Tracer(pending=True, journal=False)
         self.worker_id = self._register(mem_capacity_mb, register_retries, register_backoff_s)
         self.executor = LocalExecutor(
             resolve_device(device), executor_id=self.worker_id, max_trials_per_batch=max_batch,
@@ -252,14 +260,39 @@ class WorkerAgent:
 
     def _run_loop(self) -> None:
         while not self._stop.is_set():
+            t_poll = time.time()
             tasks = self._poll_tasks()
             if not tasks:
                 continue
+            tid = next((t.get("trace_id") for t in tasks if t.get("trace_id")), None)
+            if tid and obs_enabled():
+                # back-dated over the long-poll that delivered the batch
+                with span("agent.poll", trace_id=tid, parent_id=None, tracer=self._tracer,
+                          worker=self.worker_id, n_tasks=len(tasks)) as sp:
+                    sp.start = t_poll
             try:
-                self.executor.run_subtasks(tasks, on_result=self._post_result,
-                                           on_metrics=self._post_metrics)
+                with use_tracer(self._tracer):
+                    self.executor.run_subtasks(tasks, on_result=self._post_result,
+                                               on_metrics=self._post_metrics)
             except DeviceLostError:
                 _exit_for_restart(f"Agent {self.worker_id} lost its CUDA context")
+            finally:
+                self._ship_spans()
+
+    def _ship_spans(self) -> None:
+        """Ship the spans recorded here to the coordinator's tracer (``POST
+        /trace_spans/<wid>``, ``X-Trace-Id`` on the request): the return
+        leg of the trace propagation. Best-effort: a lost batch of spans
+        degrades the timeline, never the job."""
+        spans = self._tracer.drain()
+        if not spans:
+            return
+        try:
+            http.request("POST", f"{self.url}/trace_spans/{self.worker_id}",
+                         json={"spans": json_safe(spans)},
+                         headers={TRACE_HEADER: spans[0].get("trace_id", "")}, timeout=10)
+        except http.TransportError:
+            logger.warning("Span shipping failed (%d spans dropped)", len(spans))
 
     def _post_result(self, stid: str, status: str, result: Optional[Dict[str, Any]]) -> None:
         # obs_pid rides the wire only: the coordinator counts the outcomes

@@ -5,7 +5,9 @@ the card (or the CPU), remote agents over REST (register, long-poll pull,
 result and metrics push), the dead-worker sweep and requeue, device-loss
 correlation and cooperative cancels. The sharded control plane's
 ``shard_id`` and the mesh-slice reports are not ported (a worker is one
-device), and the remote metrics ingest keeps no batch-phase timers.
+device). The remote metrics ingest (``push_metrics``) counts a remote
+batch's phase timers, device-seconds and FLOPs once, on its primary
+message, unless the batch ran in this process.
 
 This is the process topology of the reference system — master -> Kafka
 ``tasks`` -> scheduler -> Kafka ``train`` (keyed by worker) -> workers ->
@@ -30,7 +32,14 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
-from ..obs import counter_inc, process_token, record_event
+from ..obs import (
+    counter_inc,
+    gauge_set,
+    observe,
+    process_token,
+    record_batch_device_seconds,
+    record_event,
+)
 from ..utils.config import get_config
 from ..utils.logging import get_logger
 from ..utils.torch_setup import DeviceLike, resolve_device
@@ -377,6 +386,39 @@ class ClusterRuntime:
         self.bus.publish(TOPIC_RESULT, result, key=result.get("subtask_id"))
 
     def push_metrics(self, worker_id: str, msg: Dict[str, Any]) -> None:
+        # a remote batch's phase timers and cost figures -> this registry.
+        # An agent's registry lives in its own process, so the batch totals
+        # ride the metrics message: batch_primary marks one message a
+        # batch, and obs_pid the process that already observed it (an
+        # agent in THIS process is skipped, so nothing counts twice)
+        if msg.get("batch_primary") and msg.get("obs_pid") != process_token():
+            for field, metric in (
+                ("batch_compile_s", "tpuml_executor_compile_seconds"),
+                ("batch_stage_s", "tpuml_executor_stage_seconds"),
+                ("batch_dispatch_s", "tpuml_executor_dispatch_seconds"),
+                ("batch_fetch_s", "tpuml_executor_fetch_seconds"),
+            ):
+                v = msg.get(field)
+                if isinstance(v, (int, float)):
+                    observe(metric, float(v))
+            phase = {f: msg.get(f) for f in ("batch_compile_s", "batch_stage_s",
+                                             "batch_dispatch_s", "batch_fetch_s")}
+            if all(isinstance(v, (int, float)) for v in phase.values()):
+                record_batch_device_seconds(
+                    phase["batch_compile_s"], phase["batch_stage_s"],
+                    phase["batch_dispatch_s"], phase["batch_fetch_s"])
+            algo = str(msg.get("algo") or "unknown")
+            flops = msg.get("batch_model_flops")
+            if flops is None:
+                flops = msg.get("batch_xla_flops")
+            if isinstance(flops, (int, float)):
+                counter_inc("tpuml_executor_flops_total", float(flops), model=algo)
+            nbytes = msg.get("batch_bytes_accessed")
+            if isinstance(nbytes, (int, float)):
+                counter_inc("tpuml_executor_bytes_total", float(nbytes), model=algo)
+            mfu_v = msg.get("batch_mfu")
+            if isinstance(mfu_v, (int, float)):
+                gauge_set("tpuml_executor_mfu", float(mfu_v), model=algo)
         self.bus.publish(
             TOPIC_METRICS, {**msg, "worker_id": worker_id}, key=msg.get("subtask_id")
         )

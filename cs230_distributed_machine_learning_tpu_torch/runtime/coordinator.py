@@ -26,6 +26,16 @@ land in the CurveStore (``job_curves`` / ``subtask_curves`` and the
 ``curve`` events of ``stream_status``); on the metrics path of a search,
 the numerical-health watchdog terminates a diverging trial as
 ``diverged``.
+
+Observability (JAX ``coordinator.py``): each job has one trace id (the
+client's, else minted at submit), stamped into every subtask spec, and the
+spans ``job.submit`` / ``job.expand`` / ``job.execute`` / ``job.aggregate``
+(with ``job.quarantine`` / ``job.retry`` markers in scheduled mode);
+``job_cost`` sums the executors' per-batch cost records, ``critical_path``
+tiles a job's wall from its spans and flight-recorder timelines, and
+``explain`` returns one subtask's timeline. ``health_tick`` derives the
+capacity signals and runs the SLO alert rules, on the engine's sweep in
+scheduled mode and at every scrape or read.
 """
 
 from __future__ import annotations
@@ -40,7 +50,18 @@ from typing import Any, Dict, List, Optional, Tuple
 from ..data.datasets import DatasetCache, dataset_dir, find_csv
 from ..data.download import download_dataset
 from ..data.preprocess import preprocess_dataframe
-from ..obs import counter_inc, flush_journal, gauge_set, record_event
+from ..obs import (
+    RECORDER,
+    TRACER,
+    activate,
+    counter_inc,
+    current_trace_id,
+    flush_journal,
+    gauge_set,
+    new_trace_id,
+    record_event,
+    span,
+)
 from ..obs.curves import CurveStore, divergence
 from ..parallel.collectives import best_trial
 from ..utils.config import FrameworkConfig, get_config
@@ -104,6 +125,17 @@ class Coordinator:
         # per-trial learning curves, fed by result and metrics ingest; the
         # journaled curves of a read-back journal re-seed it
         self.curves = CurveStore()
+        #: an unsharded coordinator: the capacity signals read these
+        self.shard_id: Optional[int] = None
+        self.n_shards = 1
+        # the fleet health plane: capacity signals (GET /autoscale) and the
+        # SLO alert rules (GET /alerts)
+        from ..obs.signals import CapacitySignals
+        from ..obs.slo import AlertEngine, default_rules
+
+        self.signals = CapacitySignals(self)
+        self.alerts = AlertEngine(default_rules(self.config),
+                                  interval_s=self.config.service.alert_eval_interval_s)
         if cluster is not None:
             # journal every attempt issue and every placement, so a replayed
             # coordinator keeps retry budgets and tells dispatched subtasks
@@ -111,12 +143,27 @@ class Coordinator:
             cluster.ledger.on_attempt = self._journal_attempt
             cluster.engine.on_place = self._journal_placement
             cluster.engine.shed_check = self.overload_shedding
+            cluster.engine.on_sweep_end = self.health_tick
         if journal:
             self._recover()
         else:
             for e in self.store.drain_replayed_curves():
                 self.curves.ingest(e["jid"], e["stid"], e["curve"], rung=e["rung"],
                                    attempt=e["attempt"], diverged=e["diverged"])
+
+    def health_tick(self, force: bool = False) -> None:
+        """One fleet-health evaluation: the capacity signals, then the
+        alert rules. Driven by the engine's sweep (scheduled mode), every
+        ``/metrics/prom`` scrape and ``/alerts`` / ``/autoscale`` reads;
+        both halves throttle themselves."""
+        try:
+            self.signals.evaluate(force=force)
+        except Exception:  # noqa: BLE001 — health derivation must never break a caller
+            logger.exception("Capacity-signal derivation failed")
+        try:
+            self.alerts.evaluate(force=force)
+        except Exception:  # noqa: BLE001
+            logger.exception("Alert-rule evaluation failed")
 
     # ------------- recovery -------------
 
@@ -361,21 +408,34 @@ class Coordinator:
                 "callable scoring is not supported on a clustered coordinator (tasks are "
                 "serialized to worker agents); use a scorer name, or a coordinator "
                 "without a cluster")
-        subtasks = create_subtasks(job_id, sid, dataset_id, model_details, train_params)
-        if self.cluster is not None:
-            # the QoS lane rides every spec (payload first, else the
-            # session's): the dispatch queues order on it, and retries and
-            # requeues copy the spec, so the lane survives them
-            priority = payload.get("priority")
-            if priority is None:
-                priority = self.store.session_priority(sid)
+        # one trace id a job: the client's (X-Trace-Id, or an activate() in
+        # local mode), else minted here; stamped into every spec, so it
+        # rides the task bus and /next_tasks to the agents
+        trace_id = current_trace_id() or new_trace_id()
+        TRACER.bind_job(job_id, trace_id)
+        with span("job.submit", trace_id=trace_id, job_id=job_id, dataset_id=dataset_id,
+                  model_type=model_details.get("model_type")) as sub_sp:
+            with span("job.expand", job_id=job_id):
+                subtasks = create_subtasks(job_id, sid, dataset_id, model_details,
+                                           train_params)
+            priority = None
+            if self.cluster is not None:
+                # the QoS lane rides every spec (payload first, else the
+                # session's): the dispatch queues order on it, and retries
+                # and requeues copy the spec, so the lane survives them
+                priority = payload.get("priority")
+                if priority is None:
+                    priority = self.store.session_priority(sid)
             for st in subtasks:
-                st["priority"] = int(priority or 0)
-        try:
-            metadata = self.cache.metadata(dataset_id)
-        except FileNotFoundError:
-            metadata = {}
-        self.store.create_job(sid, job_id, payload, subtasks, metadata)
+                st["trace_id"] = trace_id
+                if priority is not None:
+                    st["priority"] = int(priority or 0)
+            sub_sp.attrs["total_subtasks"] = len(subtasks)
+            try:
+                metadata = self.cache.metadata(dataset_id)
+            except FileNotFoundError:
+                metadata = {}
+            self.store.create_job(sid, job_id, payload, subtasks, metadata)
         counter_inc("tpuml_jobs_submitted_total")
         t = threading.Thread(target=self._run_job, args=(sid, job_id, subtasks), daemon=True)
         self._job_threads[job_id] = t
@@ -432,26 +492,40 @@ class Coordinator:
             # rebuild rung state from the journaled rung history (a no-op on
             # a fresh job; a resumed job re-derives its promotions)
             driver.resume(self.store.get_job(sid, job_id))
+        # a job thread starts with an empty context: re-activate the trace
+        # the specs carry (journaled specs keep it, so a resumed job
+        # stitches into the same trace)
+        trace_id = next((st.get("trace_id") for st in subtasks if st.get("trace_id")),
+                        None) or TRACER.trace_for_job(job_id) or new_trace_id()
+        TRACER.bind_job(job_id, trace_id)
         try:
             by_id: Dict[str, Optional[Dict[str, Any]]] = dict(existing)
-            if driver is not None:
-                if self.cluster is not None:
-                    by_id.update(self._run_job_search_scheduled(
-                        sid, job_id, driver, on_result, on_intermediate))
-                else:
-                    by_id.update(self._run_job_search_direct(
-                        sid, job_id, driver, on_result, on_intermediate, on_metrics))
-            elif remaining:
-                if self.cluster is not None:
-                    new_results = self._run_job_scheduled(sid, job_id, remaining, on_result)
-                else:
-                    new_results = self.executor.run_subtasks(remaining, on_result=on_result,
-                                                             on_metrics=on_metrics)
-                for st, r in zip(remaining, new_results):
-                    by_id[st["subtask_id"]] = r
-            results = [by_id.get(st["subtask_id"]) for st in subtasks]
-            self._aggregate(sid, job_id, results, subtasks,
-                            search_summary=driver.summary() if driver is not None else None)
+            with activate(trace_id):
+                with span("job.execute", trace_id=trace_id, job_id=job_id,
+                          n_subtasks=len(remaining), n_resumed=len(existing),
+                          search="asha" if driver is not None else None,
+                          mode="scheduled" if self.cluster is not None else "direct"):
+                    if driver is not None:
+                        if self.cluster is not None:
+                            by_id.update(self._run_job_search_scheduled(
+                                sid, job_id, driver, on_result, on_intermediate))
+                        else:
+                            by_id.update(self._run_job_search_direct(
+                                sid, job_id, driver, on_result, on_intermediate, on_metrics))
+                    elif remaining:
+                        if self.cluster is not None:
+                            new_results = self._run_job_scheduled(sid, job_id, remaining,
+                                                                  on_result)
+                        else:
+                            new_results = self.executor.run_subtasks(
+                                remaining, on_result=on_result, on_metrics=on_metrics)
+                        for st, r in zip(remaining, new_results):
+                            by_id[st["subtask_id"]] = r
+                results = [by_id.get(st["subtask_id"]) for st in subtasks]
+                with span("job.aggregate", trace_id=trace_id, job_id=job_id):
+                    self._aggregate(sid, job_id, results, subtasks,
+                                    search_summary=(driver.summary() if driver is not None
+                                                    else None))
             counter_inc("tpuml_jobs_completed_total")
         except Exception as e:  # noqa: BLE001 — the job thread's boundary
             logger.exception("Job %s failed", job_id)
@@ -470,6 +544,9 @@ class Coordinator:
         counter_inc("tpuml_subtasks_quarantined_total")
         logger.error("Quarantining %s after %d failed attempts (%s): %s", stid,
                      entry.failures, quarantined["quarantine_reason"], result.get("error"))
+        with span("job.quarantine", job_id=job_id, subtask_id=stid, attempts=entry.failures,
+                  reason=quarantined["quarantine_reason"]):
+            pass
         record_event("quarantine", job_id=job_id, subtask_id=stid,
                      worker_id=result.get("worker_id"),
                      attempt=int(result.get("attempt") or 0),
@@ -492,6 +569,9 @@ class Coordinator:
         counter_inc("tpuml_subtasks_retried_total", reason="failure")
         logger.warning("Retrying %s (attempt %d/%d) in %.2fs, excluding worker %s", stid,
                        task["attempt"], cfg.retry_max_attempts, backoff, wid)
+        with span("job.retry", job_id=job_id, subtask_id=stid, attempt=task["attempt"],
+                  backoff_s=backoff, excluded_worker=wid):
+            pass
         record_event("retry", job_id=job_id, subtask_id=stid, worker_id=wid,
                      attempt=task["attempt"], reason="failure", backoff_s=backoff,
                      failures=entry.failures, max_attempts=cfg.retry_max_attempts,
@@ -965,6 +1045,99 @@ class Coordinator:
         with self._artifact_lock:
             self._artifact_paths[(sid, job_id)] = path
         return path
+
+    # ------------- cost, critical path, explain -------------
+
+    def job_cost(self, job_id: str) -> Optional[Dict[str, Any]]:
+        """A job's device cost report: device-seconds, model FLOPs, the HBM
+        high-water and MFU against the card's peak, summed from the
+        ``batch_cost`` records the executors stamp on each batch's first
+        result. None for an unknown job; a known job with no records
+        (``CS230_OBS=0``) reports zeros and no groups. MFU is None on the
+        CPU and whenever a group lacks a complete model-FLOP sum. The JAX
+        report's schema (docs/OBSERVABILITY.md "Job cost report")."""
+        sid = self.store.session_of(job_id)
+        if sid is None:
+            return None
+        from ..utils.flops import device_peak_flops
+
+        progress = self.store.job_progress(sid, job_id)
+        groups: List[Dict[str, Any]] = []
+        device_seconds = capacity_device_seconds = 0.0
+        model_flops = xla_flops = bytes_accessed = 0.0
+        hbm_peak = None
+        priced = True  # every group carries a complete model-FLOP figure
+        for r in self.store.subtask_results(sid, job_id):
+            cost = (r or {}).get("batch_cost")
+            if not cost:
+                continue
+            groups.append(dict(cost))
+            secs = float(cost.get("device_seconds") or 0.0)
+            device_seconds += secs
+            capacity_device_seconds += secs * max(int(cost.get("n_devices") or 1), 1)
+            if cost.get("model_flops") is not None and cost.get("flops_coverage") == 1.0:
+                model_flops += float(cost["model_flops"])
+            else:
+                priced = False
+            if cost.get("xla_flops") is not None:
+                xla_flops += float(cost["xla_flops"])
+            if cost.get("bytes_accessed") is not None:
+                bytes_accessed += float(cost["bytes_accessed"])
+            if cost.get("hbm_peak_bytes") is not None:
+                hbm_peak = max(hbm_peak or 0, int(cost["hbm_peak_bytes"]))
+        peak = device_peak_flops()
+        mfu = None
+        if peak and capacity_device_seconds > 0 and model_flops > 0 and priced:
+            mfu = model_flops / (capacity_device_seconds * peak)
+        return {
+            "job_id": job_id,
+            "session_id": sid,
+            "job_status": progress.get("job_status"),
+            "n_groups": len(groups),
+            "device_seconds": device_seconds,
+            "model_flops": model_flops if groups and priced else None,
+            "xla_flops": xla_flops if xla_flops > 0 else None,
+            "bytes_accessed": bytes_accessed if bytes_accessed > 0 else None,
+            "hbm_peak_bytes": hbm_peak,
+            "mfu": mfu,
+            "device_peak_flops": peak,
+            "groups": groups,
+        }
+
+    def critical_path(self, job_id: str) -> Optional[Dict[str, Any]]:
+        """The job's wall decomposed into critical-path segments that sum
+        to it exactly (obs/critpath.py; gaps are ``untraced``), from its
+        spans and flight-recorder timelines. None when no trace is bound
+        to the job (the ``GET /critical_path`` 404)."""
+        from ..obs.critpath import critical_path as _critical_path
+
+        tid = TRACER.trace_for_job(job_id)
+        if tid is None:
+            return None
+        timelines = {stid: RECORDER.timeline(job_id, stid) or []
+                     for stid in RECORDER.job_subtasks(job_id)}
+        # the store's wall (created_at -> completion_time) beside the spans'
+        job_wall = None
+        sid = self.store.session_of(job_id)
+        if sid is not None:
+            try:
+                job = self.store.get_job(sid, job_id)
+                if job.get("completion_time") and job.get("created_at"):
+                    job_wall = float(job["completion_time"]) - float(job["created_at"])
+            except KeyError:
+                pass
+        return _critical_path(job_id, trace_id=tid, spans=TRACER.spans_for(tid),
+                              timelines=timelines, job_wall_s=job_wall)
+
+    def explain(self, job_id: str, subtask_id: str) -> Dict[str, Any]:
+        """One subtask's flight-recorder timeline, every lifecycle decision
+        in order. KeyError when the recorder never saw the pair (unknown
+        ids, ``CS230_OBS=0``, or evicted): the ``GET /explain`` 404."""
+        timeline = RECORDER.timeline(job_id, subtask_id)
+        if timeline is None:
+            raise KeyError(f"no recorded events for subtask {subtask_id!r} of job {job_id!r}")
+        return {"job_id": job_id, "subtask_id": subtask_id, "n_events": len(timeline),
+                "events": timeline}
 
     def _require_session(self, sid: str) -> None:
         if not self.store.has_session(sid):

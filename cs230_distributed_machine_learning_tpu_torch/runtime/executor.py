@@ -25,10 +25,21 @@ error that poisons the context for every later launch) raises
 leaves the pool and its tasks are requeued; ``FaultInjector`` scripts
 delays, failures, dropped results and device losses; ``ResourceSampler``
 fills the metrics message's host and device resource fields.
+
+Observability (JAX ``executor.py``): a batch whose subtasks carry a trace
+id runs inside an ``executor.batch`` span, and the trial engine's phase
+timers become its synthesized ``executor.{compile,stage,dispatch,fetch}``
+children; every batch feeds ``tpuml_executor_device_seconds_total{phase}``,
+``tpuml_executor_{flops,bytes}_total``, ``tpuml_executor_mfu`` and the HBM
+gauges, and its cost record (``batch_cost``) rides the batch's first
+result into the job store, where ``Coordinator.job_cost`` sums it. The
+metrics messages carry the batch's ``batch_*`` totals and ``obs_pid`` for
+the coordinator's ingest of remote batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 import threading
 import time
@@ -39,10 +50,21 @@ import torch
 
 from ..data.datasets import DatasetCache
 from ..models.registry import get_kernel
-from ..obs import counter_inc
+from ..obs import (
+    counter_inc,
+    gauge_set,
+    obs_enabled,
+    observe,
+    process_token,
+    record_batch_device_seconds,
+    record_phase,
+    span,
+)
 from ..ops.folds import build_split_plan
 from ..parallel.trial_map import TrialRunResult, fit_single, run_trials, run_trials_callable
 from ..utils.config import get_config
+from ..utils.flops import device_memory_stats
+from ..utils.flops import mfu as _mfu
 from ..utils.logging import get_logger
 
 logger = get_logger("tpuml.executor")
@@ -54,13 +76,32 @@ MetricsCallback = Callable[[Dict[str, Any]], None]
 EXECUTOR_ID = "local"
 
 
+def record_hbm_gauges() -> None:
+    """Refresh ``tpuml_device_hbm_bytes{kind=used|peak|limit}`` from the
+    card's memory stats. The CPU has none: the family stays at its
+    registered zero. Called after every executed batch and at
+    /metrics/prom scrape time."""
+    if not obs_enabled():
+        return
+    stats = device_memory_stats()
+    for kind, key in (
+        ("used", "bytes_in_use"),
+        ("peak", "peak_bytes_in_use"),
+        ("limit", "bytes_limit"),
+    ):
+        v = stats.get(key)
+        if v is not None:
+            gauge_set("tpuml_device_hbm_bytes", float(v), kind=kind)
+
+
 class ResourceSampler:
     """Background CPU / host-memory sampling at a fixed cadence during a
     batch, and the batch's peak device memory. The CPU and memory averages
     are two of the runtime predictor's features; they come from psutil and
     stay None where psutil is not installed, as in the JAX package. The
-    device peak is ``torch.cuda.max_memory_allocated`` on ``device`` since
-    the batch began (its peak counter is reset on entry); None on the CPU."""
+    device peak is ``device_memory_stats()``'s ``peak_bytes_in_use`` since
+    the batch began (the allocator's peak is reset on entry); None on the
+    CPU."""
 
     def __init__(self, device: Optional[torch.device] = None, interval_s: float = 0.5):
         self.device = device
@@ -96,7 +137,9 @@ class ResourceSampler:
         if self._thread is not None:
             self._thread.join(timeout=self.interval_s + 1)
         if self._on_card() and exc[0] is None:
-            self._dev_peak_mb = torch.cuda.max_memory_allocated(self.device) / 1e6
+            peak = device_memory_stats().get("peak_bytes_in_use")
+            if peak is not None:
+                self._dev_peak_mb = peak / 1e6
 
     def averages(self) -> Dict[str, Optional[float]]:
         """Averaged samples; one instantaneous reading when the batch ended
@@ -318,9 +361,19 @@ class LocalExecutor:
                 self._post_pruned(subtasks[gi], results, gi, on_result, on_metrics)
             if not idxs:
                 continue
+            received_at = time.time()
+            # the batch rides the submitting job's trace (the coordinator
+            # stamps its id into each spec); a spec with none opens no span
+            tid = next((subtasks[i].get("trace_id") for i in idxs
+                        if subtasks[i].get("trace_id")), None)
+            batch_cm = (span("executor.batch", trace_id=tid, worker=self.executor_id,
+                             model_type=model_type, dataset_id=dataset_id,
+                             n_subtasks=len(idxs))
+                        if tid else contextlib.nullcontext(None))
             try:
-                self._run_group(subtasks, idxs, dataset_id, model_type, results,
-                                on_result, on_metrics)
+                with batch_cm as batch_sp:
+                    self._run_group(subtasks, idxs, dataset_id, model_type, received_at,
+                                    results, on_result, on_metrics, batch_sp)
             except Exception as e:  # noqa: BLE001 — task-level failure semantics
                 if _is_device_fatal(e):
                     # a poisoned context fails every later launch: post no
@@ -348,9 +401,12 @@ class LocalExecutor:
                         on_result(st["subtask_id"], "failed", result)
         return results  # type: ignore[return-value]
 
-    def _run_group(self, subtasks, idxs, dataset_id, model_type, results, on_result,
-                   on_metrics=None) -> None:
-        received_at = time.time()
+    def _run_group(self, subtasks, idxs, dataset_id, model_type, received_at, results,
+                   on_result, on_metrics=None, batch_sp=None) -> None:
+        """One (dataset, model_type) group on the trial engine, then its
+        per-subtask results and metrics messages. ``batch_sp`` is the
+        enclosing ``executor.batch`` span (or None); the engine's phase
+        timers become its synthesized children."""
         if self.fault_injector is not None:
             self.fault_injector.before_batch(self.executor_id, model_type)
         kernel = get_kernel(model_type)
@@ -376,7 +432,12 @@ class LocalExecutor:
             logger.warning("FaultInjector: dropping the results of a %d-trial %s batch on %s",
                            len(idxs), model_type, self.executor_id)
             return
+        observe("tpuml_executor_dispatch_seconds", run.run_time_s)
+        record_batch_device_seconds(run.compile_time_s, run.stage_time_s,
+                                    run.run_time_s, run.fetch_time_s)
         resources = sampler.averages()
+        batch_cost = self._record_batch_cost(run, model_type, dataset_id, len(idxs), resources)
+        self._record_batch_phases(batch_sp, run, started_at, batch_cost)
         per_trial_time = run.run_time_s / max(len(idxs), 1)
         for j, gi in enumerate(idxs):
             st = subtasks[gi]
@@ -397,6 +458,10 @@ class LocalExecutor:
                 result["asha"] = dict(st["asha"])
             if st.get("speculative"):
                 result["speculative"] = True
+            if j == 0 and batch_cost is not None:
+                # the batch's cost rides exactly one result into the job
+                # store, where job_cost sums it
+                result["batch_cost"] = batch_cost
             results[gi] = result
             counter_inc("tpuml_subtasks_completed_total")
             if on_result:
@@ -404,7 +469,78 @@ class LocalExecutor:
             if on_metrics:
                 on_metrics(_metrics_message(st, received_at, started_at, finished_at,
                                             model_type, run.trial_metrics[j],
-                                            self.executor_id, resources))
+                                            self.executor_id, resources, run=run,
+                                            batch_size=len(idxs), primary=(j == 0),
+                                            batch_cost=batch_cost))
+
+    @staticmethod
+    def _record_batch_cost(run, model_type: str, dataset_id: str, batch_size: int,
+                           resources: Optional[Dict[str, Any]] = None
+                           ) -> Optional[Dict[str, Any]]:
+        """Device cost accounting for one executed batch: the
+        ``tpuml_executor_flops_total`` / ``_mfu`` / ``tpuml_device_hbm_bytes``
+        families, and the cost record that rides the batch's first result
+        (the ``GET /cost/<job_id>`` input). None when ``CS230_OBS=0``. MFU
+        only from a complete model-FLOP sum (``flops_coverage`` 1.0), over
+        the batch's run window; None on the CPU."""
+        if not obs_enabled():
+            return None
+        flops = run.model_flops if run.model_flops is not None else run.xla_flops
+        mfu_val = (_mfu(run.model_flops, run.run_time_s)
+                   if run.flops_coverage == 1.0 else None)
+        if flops is not None:
+            counter_inc("tpuml_executor_flops_total", flops, model=model_type)
+        if run.bytes_accessed is not None:
+            counter_inc("tpuml_executor_bytes_total", run.bytes_accessed, model=model_type)
+        if mfu_val is not None:
+            gauge_set("tpuml_executor_mfu", mfu_val, model=model_type)
+        record_hbm_gauges()
+        # the batch's own peak (the sampler resets the allocator's peak on
+        # entry); the run's high-water is the fallback
+        dev_peak_mb = (resources or {}).get("device_peak_mem_mb")
+        hbm_peak = int(dev_peak_mb * 1e6) if dev_peak_mb is not None else run.hbm_peak_bytes
+        return {
+            "model_type": model_type,
+            "dataset_id": dataset_id,
+            "n_subtasks": batch_size,
+            "n_devices": 1,
+            "device_seconds": run.run_time_s,
+            "model_flops": run.model_flops,
+            "xla_flops": run.xla_flops,
+            "bytes_accessed": run.bytes_accessed,
+            "flops_coverage": run.flops_coverage,
+            "mfu": mfu_val,
+            "hbm_peak_bytes": hbm_peak,
+        }
+
+    @staticmethod
+    def _record_batch_phases(batch_sp, run, started_at: float,
+                             batch_cost: Optional[Dict[str, Any]] = None) -> None:
+        """The engine's measured phase totals as synthesized children of
+        the batch span, laid out in sequence from the batch's start (the
+        durations are measured, the offsets indicative; attrs carry
+        ``synthesized: true``)."""
+        if batch_sp is None or getattr(batch_sp, "span_id", None) is None:
+            return
+        batch_sp.attrs.update(
+            n_dispatches=run.n_dispatches,
+            n_host_fetches=run.n_host_fetches,
+            result_bytes=run.result_bytes,
+            compile_time_s=round(run.compile_time_s, 6),
+            run_time_s=round(run.run_time_s, 6),
+        )
+        if batch_cost is not None:
+            batch_sp.attrs.update({
+                k: batch_cost[k]
+                for k in ("model_flops", "xla_flops", "bytes_accessed", "mfu", "hbm_peak_bytes")
+                if batch_cost.get(k) is not None})
+        t = record_phase(batch_sp, "executor.compile", run.compile_time_s, start=started_at)
+        t = record_phase(batch_sp, "executor.stage", run.stage_time_s, start=t)
+        dispatch_s = max(run.run_time_s - run.fetch_time_s, 0.0)
+        t = record_phase(batch_sp, "executor.dispatch", dispatch_s, start=t,
+                         n_dispatches=run.n_dispatches)
+        record_phase(batch_sp, "executor.fetch", run.fetch_time_s, start=t,
+                     n_host_fetches=run.n_host_fetches, result_bytes=run.result_bytes)
 
     def _run_trials(self, kernel, data, plan, params, scoring) -> TrialRunResult:
         if callable(scoring) and not isinstance(scoring, str):
@@ -414,7 +550,8 @@ class LocalExecutor:
             metrics_list = run_trials_callable(kernel, data, plan, params, scoring,
                                                device=self.device)
             return TrialRunResult(trial_metrics=metrics_list,
-                                  run_time_s=time.perf_counter() - t0)
+                                  run_time_s=time.perf_counter() - t0,
+                                  n_dispatches=len(params) * plan.n_splits)
         return run_trials(kernel, data, plan, params, device=self.device,
                           max_trials_per_batch=self.max_trials_per_batch, scoring=scoring)
 
@@ -445,12 +582,19 @@ class LocalExecutor:
 
 def _metrics_message(st, received_at, started_at, finished_at, algo, metrics,
                      worker_id: str = EXECUTOR_ID,
-                     resources: Optional[Dict[str, Optional[float]]] = None) -> Dict[str, Any]:
+                     resources: Optional[Dict[str, Optional[float]]] = None, *,
+                     run: Optional[TrialRunResult] = None, batch_size: int = 1,
+                     primary: bool = False,
+                     batch_cost: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     """The reference's metrics schema (``worker.py:233-243``): timing, the
     batch's resource averages (``ResourceSampler``), and for an
     adaptive-search rung its rung, ``resource``, ``intermediate_score`` and
     ``asha_resource_fraction``; the trial's ``curve`` and ``attempt`` when
-    it has one."""
+    it has one. ``obs_pid`` names the process that already observed the
+    batch's phase and cost metrics; with ``run``, the batch's totals as
+    ``batch_*`` fields (the same on every message of the batch;
+    ``batch_primary`` marks one), and with ``batch_cost`` its cost figures,
+    so the coordinator can count a remote agent's batches."""
     msg = {
         "worker_id": worker_id,
         "subtask_id": st["subtask_id"],
@@ -463,6 +607,7 @@ def _metrics_message(st, received_at, started_at, finished_at, algo, metrics,
         "device_peak_mem_mb": None,
         **(resources or {}),
         "algo": algo,
+        "obs_pid": process_token(),
     }
     a = st.get("asha")
     if a:
@@ -473,6 +618,22 @@ def _metrics_message(st, received_at, started_at, finished_at, algo, metrics,
         if isinstance(big, (int, float)) and big > 0:
             msg["asha_resource_fraction"] = min(
                 max(float(a.get("resource", 0)) / float(big), 0.01), 1.0)
+    if run is not None:
+        msg["batch_n_subtasks"] = batch_size
+        msg["batch_n_dispatches"] = run.n_dispatches
+        msg["batch_device_fetches"] = run.n_host_fetches
+        msg["batch_result_bytes"] = run.result_bytes
+        msg["batch_primary"] = bool(primary)
+        msg["batch_compile_s"] = run.compile_time_s
+        msg["batch_stage_s"] = run.stage_time_s
+        msg["batch_dispatch_s"] = run.run_time_s
+        msg["batch_fetch_s"] = run.fetch_time_s
+    if batch_cost is not None:
+        msg["batch_model_flops"] = batch_cost.get("model_flops")
+        msg["batch_xla_flops"] = batch_cost.get("xla_flops")
+        msg["batch_bytes_accessed"] = batch_cost.get("bytes_accessed")
+        msg["batch_mfu"] = batch_cost.get("mfu")
+        msg["batch_hbm_peak_bytes"] = batch_cost.get("hbm_peak_bytes")
     if metrics.get("curve") is not None:
         msg["curve"] = metrics["curve"]
         msg["attempt"] = int(st.get("attempt") or 0)

@@ -1,9 +1,6 @@
 """Placement engine: learned-runtime, load/memory/speed-aware scheduling.
 
-A copy of the JAX package's ``runtime/scheduler.py`` (framework-free),
-less its calls into the tracing and time-series pieces of ``obs`` that the
-port has not taken yet (the placement and speculation spans, the sweep's
-route-p99 refresh and time-series sample).
+A copy of the JAX package's ``runtime/scheduler.py`` (framework-free).
 
 Capability parity with the reference scheduler service
 (``aws-prod/scheduler/scheduler_service.py``), re-homed from Kafka-keyed
@@ -60,6 +57,9 @@ from ..obs import (
     obs_enabled,
     observe,
     record_event,
+    refresh_route_p99,
+    span,
+    timeseries_sample,
 )
 from ..utils.config import get_config
 from ..utils.logging import get_logger
@@ -764,6 +764,13 @@ class PlacementEngine:
                     lease_factor=self.cfg.lease_factor,
                     lease_floor_s=self.cfg.lease_floor_s,
                 )
+        tid = task.get("trace_id")
+        if tid:
+            # the decision already ran: back-date the span over it
+            with span("schedule.place", trace_id=tid, parent_id=None,
+                      subtask_id=stid, worker=wid, est_runtime_s=est,
+                      attempt=attempt) as sp:
+                sp.start = time.time() - elapsed
         hook = self.on_place
         if hook is not None:
             try:
@@ -977,7 +984,15 @@ class PlacementEngine:
         self._speculate()
         if dead or reclaimed:
             self.refresh_health_metrics()
-        # the fleet-health tick rides the sweep's cadence
+        # one time-series sample per sweep: the embedded metrics history
+        # rides the cadence every other periodic decision already runs on
+        # (obs/timeseries.py; throttled, no-op when disabled). The derived
+        # route-p99 gauge refreshes first so the sample catches it even on
+        # coordinators nothing ever scrapes (dashboard-only deployments).
+        refresh_route_p99()
+        timeseries_sample()
+        # fleet-health tick rides the same cadence, AFTER the sample so
+        # the alert rules see this sweep's datapoints
         hook = self.on_sweep_end
         if hook is not None:
             try:
@@ -1074,6 +1089,12 @@ class PlacementEngine:
                 worker_id=owner, attempt=task["attempt"],
                 in_flight_s=round(age, 3),
             )
+            tid = task.get("trace_id")
+            if tid:
+                with span("schedule.speculate", trace_id=tid, parent_id=None,
+                          subtask_id=task.get("subtask_id"), owner=owner,
+                          attempt=task["attempt"]):
+                    pass
             self._replace(task)
             launched.append(task)
         return launched

@@ -13,10 +13,16 @@ machine has neither werkzeug nor requests.
 body_iter)`` is the whole surface, callable without a socket (the tests
 drive it as the JAX tests drive werkzeug's ``Client``); ``start_server``
 serves it on a port in a background thread, ``serve`` / ``main`` in the
-foreground. The observability routes (Prometheus exposition, profiles,
-traces, cost, events, alerts, autoscale, history, the dashboard) and the
-sharded control plane's routes (slices, migration, stealing, peers) are
-not ported yet; ``/`` lists only the routes that exist.
+foreground. The observability routes (JAX ``server.py``) are ported: the
+dashboard, the Prometheus exposition with its scrape-time refreshes, the
+``torch.profiler`` capture, traces and their export, critical paths, the
+agents' span ingest, cost, explain, the event firehose, alerts, autoscale
+and the metrics history; and the RED and trace middleware (an
+``X-Trace-Id`` request runs inside an ``http.<endpoint>`` span of that
+trace, the id echoed on the reply; every request lands in
+``tpuml_http_request_seconds{route,method,code}``). The sharded control
+plane's routes (slices, migration, stealing, peers) are not ported yet;
+``/`` lists only the routes that exist.
 """
 
 from __future__ import annotations
@@ -31,12 +37,349 @@ from http import HTTPStatus
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Iterable, List, Optional, Tuple
 
-from ..obs import counter_inc, gauge_set, obs_enabled, observe
+from ..obs import (
+    PARENT_HEADER,
+    PROFILER,
+    RECORDER,
+    TIMESERIES,
+    TRACE_HEADER,
+    TRACER,
+    activate,
+    compare_critical_paths,
+    counter_inc,
+    export_trace,
+    gauge_set,
+    obs_enabled,
+    observe,
+    refresh_route_p99,
+    render_prometheus,
+    span,
+    timeseries_sample,
+)
 from ..utils.logging import get_logger
 from ..utils.serialization import json_safe
 from .coordinator import Coordinator
 
 logger = get_logger("tpuml.server")
+
+#: Self-contained observability page (no external assets — fleets run
+#: without egress). Tables over the JSON endpoints, 2 s auto-refresh.
+_DASHBOARD_HTML = """<!doctype html>
+<html><head><meta charset="utf-8"><title>tpuml coordinator</title>
+<style>
+ body{font:14px/1.45 system-ui,sans-serif;margin:24px;color:#1a1a1a;background:#fafafa}
+ h1{font-size:18px;margin:0 0 4px} h2{font-size:15px;margin:24px 0 6px}
+ table{border-collapse:collapse;width:100%;background:#fff}
+ th,td{border:1px solid #ddd;padding:4px 8px;text-align:left;font-size:13px}
+ th{background:#f0f0f0} .ok{color:#1a7f37} .bad{color:#b42318}
+ #meta{color:#666;font-size:12px} code{background:#eee;padding:0 3px}
+</style></head><body>
+<h1>tpuml coordinator</h1>
+<div id="meta">health: <span id="health">…</span> · refreshed <span id="ts">never</span>
+ · JSON: <code>/jobs</code> <code>/workers</code> <code>/queues</code> <code>/supervisor</code>
+ <code>/metrics/prom</code> <code>/metrics/history?name=</code> <code>/trace/&lt;job_id&gt;</code>
+ <code>/critical_path/&lt;job_id&gt;</code> <code>/trace/&lt;job_id&gt;/export</code>
+ <code>/cost/&lt;job_id&gt;</code> <code>/explain/&lt;job_id&gt;/&lt;subtask_id&gt;</code>
+ <code>/curves/&lt;job_id&gt;</code> <code>/events</code> <code>/predictor/calibration</code> <code>/healthz</code>
+ <code>/alerts</code> <code>/autoscale</code></div>
+<h2>Jobs</h2><table id="jobs"><thead><tr><th>job</th><th>model</th><th>dataset</th>
+<th>status</th><th>done</th><th>failed</th><th>pruned</th><th>diverged</th><th>total</th><th>session</th></tr></thead><tbody></tbody></table>
+<h2>Learning curves (latest job)</h2>
+<div id="curves" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no curves yet</div>
+<h2>Latest job trace</h2>
+<div id="trace" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no trace yet</div>
+<h2>Critical path</h2>
+<div id="critpath" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no critical path yet</div>
+<h2>Latest job cost</h2>
+<div id="cost" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no cost data yet</div>
+<h2>Metrics history</h2>
+<div id="spark" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no samples yet</div>
+<h2>Perf observatory</h2>
+<div id="perfspark" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no samples yet</div>
+<h2>Fleet health</h2>
+<div id="autoscale" style="background:#fff;border:1px solid #ddd;padding:8px;font-size:12px">no signals yet</div>
+<table id="alerts"><thead></thead><tbody></tbody></table>
+<h2>Flight recorder (latest events)</h2>
+<table id="events"><thead></thead><tbody></tbody></table>
+<h2>Workers</h2><table id="workers"><thead></thead><tbody></tbody></table>
+<h2>Queues</h2><table id="queues"><thead></thead><tbody></tbody></table>
+<h2>Supervised agents</h2><table id="sup"><thead></thead><tbody></tbody></table>
+<script>
+const get = u => fetch(u).then(r => r.ok ? r.json() : null).catch(() => null);
+// quotes escaped too: esc() output lands inside attribute values (the
+// trace rows' title tooltips), and attrs carry client-controlled strings
+const esc = s => String(s ?? "").replace(/[&<>"']/g,
+  c => ({"&":"&amp;","<":"&lt;",">":"&gt;",'"':"&quot;","'":"&#39;"}[c]));
+// cell renderer: arrays (e.g. a worker's queued-subtask list) collapse to
+// a count + sample, never one column per index
+const cell = v => Array.isArray(v)
+  ? `${v.length} queued${v.length ? ": " + v.slice(0, 3).join(", ") + (v.length > 3 ? ", …" : "") : ""}`
+  : (typeof v === "object" && v ? JSON.stringify(v) : v);
+function kvTable(el, obj){
+  const rows = Object.entries(obj || {});
+  if (!rows.length){ el.tBodies[0].innerHTML = "<tr><td>none</td></tr>"; el.tHead.innerHTML=""; return; }
+  const plain = rows.every(([,v]) => typeof v !== "object" || !v || Array.isArray(v));
+  const cols = plain ? null
+    : [...new Set(rows.flatMap(([,v]) => Object.keys(v)))];
+  el.tHead.innerHTML = plain
+    ? "<tr><th>id</th><th>value</th></tr>"
+    : "<tr><th>id</th>" + cols.map(c => `<th>${esc(c)}</th>`).join("") + "</tr>";
+  el.tBodies[0].innerHTML = rows.map(([k, v]) =>
+    `<tr><td>${esc(k)}</td>` + (plain
+      ? `<td>${esc(cell(v))}</td>`
+      : cols.map(c => `<td>${esc(cell(v[c]))}</td>`).join("")) + "</tr>").join("");
+}
+function listTable(el, arr){
+  if (!arr || !arr.length){ el.tBodies[0].innerHTML = "<tr><td>none</td></tr>"; el.tHead.innerHTML=""; return; }
+  const cols = Object.keys(arr[0]);
+  el.tHead.innerHTML = "<tr>" + cols.map(c => `<th>${esc(c)}</th>`).join("") + "</tr>";
+  el.tBodies[0].innerHTML = arr.map(r =>
+    "<tr>" + cols.map(c => `<td>${esc(JSON.stringify(r[c]))}</td>`).join("") + "</tr>").join("");
+}
+// span-tree timeline: one row per span, bar offset/width proportional to
+// [start, end] within the trace window, indented by tree depth
+function renderTrace(el, data){
+  if (!data || !data.spans || !data.spans.length){ el.textContent = "no trace yet"; return; }
+  const t0 = Math.min(...data.spans.map(s => s.start));
+  const t1 = Math.max(...data.spans.map(s => s.end));
+  const total = Math.max(t1 - t0, 1e-6);
+  const rows = [];
+  const walk = (nodes, depth) => (nodes || []).forEach(n => {
+    rows.push({n, depth}); walk(n.children, depth + 1); });
+  walk(data.tree, 0);
+  el.innerHTML =
+    `<div style="color:#666">trace <code>${esc(data.trace_id)}</code> · ` +
+    `${data.spans.length} spans · ${(total * 1000).toFixed(1)} ms</div>` +
+    rows.map(({n, depth}) => {
+      const off = 100 * (n.start - t0) / total;
+      const w = Math.max(100 * (n.end - n.start) / total, 0.4);
+      return `<div style="display:flex;align-items:center;margin:1px 0">` +
+        `<span style="width:230px;padding-left:${depth * 12}px;overflow:hidden;` +
+        `white-space:nowrap" title="${esc(JSON.stringify(n.attrs))}">${esc(n.name)}</span>` +
+        `<span style="flex:1;position:relative;height:10px;background:#f4f4f4">` +
+        `<span style="position:absolute;left:${off}%;width:${w}%;height:10px;` +
+        `background:${n.attrs && n.attrs.synthesized ? "#9bb8d3" : "#4a7fb5"}"></span></span>` +
+        `<span style="width:80px;text-align:right">${((n.end - n.start) * 1000).toFixed(1)} ms</span></div>`;
+    }).join("");
+}
+// critical-path waterfall (GET /critical_path/<job_id>): one stacked bar
+// tiling the job wall plus a ranked per-segment table; untraced slices
+// render hatched-gray so coverage gaps are visible, not hidden
+const SEG_COLORS = {
+  "frontend.proxy": "#8e7cc3", "submit.http": "#6fa8dc", submit: "#4a7fb5",
+  expand: "#3d6d9e", "queue.wait": "#e6b84c", place: "#c27ba0",
+  "reclaim.wait": "#b42318", "executor.compile": "#93c47d",
+  "executor.stage": "#76a5af", "executor.dispatch": "#45818e",
+  "executor.fetch": "#6aa84f", execute: "#38761d",
+  "result.ingest": "#a2c4c9", aggregate: "#674ea7", untraced: "#d9d9d9",
+};
+function renderCritPath(el, cp){
+  if (!cp || !cp.segments || !cp.segments.length){
+    el.textContent = "no critical path yet"; return; }
+  const wall = Math.max(cp.wall_s, 1e-9);
+  el.innerHTML =
+    `<div style="color:#666">job <code>${esc(cp.job_id)}</code> · ` +
+    `wall ${(cp.wall_s * 1000).toFixed(1)} ms · coverage ` +
+    `${(100 * cp.coverage).toFixed(1)}% · dominant ` +
+    `<b>${esc((cp.dominant || [])[0] || "")}</b>` +
+    (cp.n_reclaims ? ` · <span class="bad">${esc(cp.n_reclaims)} reclaim(s)</span>` : "") +
+    (cp.speculated ? ` · speculative win` : "") + `</div>` +
+    `<div style="display:flex;height:18px;margin:6px 0;border:1px solid #ccc">` +
+    cp.segments.map(s =>
+      `<span title="${esc(s.name)} ${(s.duration_s * 1000).toFixed(1)} ms" ` +
+      `style="width:${(100 * s.duration_s / wall).toFixed(3)}%;` +
+      `background:${SEG_COLORS[s.name] || "#999"}"></span>`).join("") +
+    `</div>` +
+    `<table><thead><tr><th>segment</th><th>total</th><th>share</th></tr></thead><tbody>` +
+    (cp.dominant || []).map(n =>
+      `<tr><td><span style="display:inline-block;width:10px;height:10px;` +
+      `background:${SEG_COLORS[n] || "#999"}"></span> ${esc(n)}</td>` +
+      `<td>${((cp.totals[n] || 0) * 1000).toFixed(1)} ms</td>` +
+      `<td>${(100 * (cp.totals[n] || 0) / wall).toFixed(1)}%</td></tr>`).join("") +
+    `</tbody></table>`;
+}
+// SI-ish magnitude formatter for FLOP/byte counts
+const fmt = n => n == null ? "\\u2013"
+  : n >= 1e12 ? (n / 1e12).toFixed(2) + " T"
+  : n >= 1e9 ? (n / 1e9).toFixed(2) + " G"
+  : n >= 1e6 ? (n / 1e6).toFixed(2) + " M"
+  : String(Math.round(n));
+const pct = v => v == null ? "\\u2013" : (100 * v).toFixed(1) + "%";
+// per-job device cost report (GET /cost/<job_id>): totals line + one row
+// per executed (dataset, model) group
+function renderCost(el, c){
+  if (!c || !c.n_groups){ el.textContent = "no cost data yet"; return; }
+  el.innerHTML =
+    `<div style="color:#666">job <code>${esc(c.job_id)}</code> · ` +
+    `${(c.device_seconds || 0).toFixed(3)} device-s · ` +
+    `model FLOPs ${fmt(c.model_flops)} · bytes ${fmt(c.bytes_accessed)} · ` +
+    `MFU ${c.mfu == null ? "n/a" : pct(c.mfu)}</div>` +
+    `<table><thead><tr><th>model</th><th>dataset</th><th>trials</th>` +
+    `<th>device-s</th><th>FLOPs</th><th>bytes</th><th>MFU</th>` +
+    `<th>HBM peak</th></tr></thead><tbody>` +
+    c.groups.map(g => `<tr><td>${esc(g.model_type)}</td>` +
+      `<td>${esc(g.dataset_id)}</td><td>${esc(g.n_subtasks)}</td>` +
+      `<td>${(g.device_seconds || 0).toFixed(3)}</td>` +
+      `<td>${fmt(g.model_flops != null ? g.model_flops : g.xla_flops)}</td>` +
+      `<td>${fmt(g.bytes_accessed)}</td><td>${pct(g.mfu)}</td>` +
+      `<td>${fmt(g.hbm_peak_bytes)}</td></tr>`).join("") +
+    `</tbody></table>`;
+}
+// sparkline panels over GET /metrics/history (the embedded time-series
+// ring, obs/timeseries.py): per-worker queue depth and breaker state,
+// the retry RATE derived from the counter's samples, and MFU per model
+const SPARKS = [
+  {name: "tpuml_worker_queue_depth", title: "queue depth", mode: "raw"},
+  {name: "tpuml_subtasks_retried_total", title: "retries/s", mode: "rate"},
+  {name: "tpuml_worker_breaker_state", title: "breaker state", mode: "raw"},
+  {name: "tpuml_executor_mfu", title: "MFU", mode: "raw"},
+];
+// perf-observatory panel (docs/OBSERVABILITY.md "Perf observatory"):
+// per-route p99 (the derived gauge the scrape refreshes) and the
+// device-seconds-per-phase RATE (fraction of wall the device pipeline
+// spends staging / compiling / dispatching / fetching)
+const PERF_SPARKS = [
+  {name: "tpuml_http_route_p99_seconds", title: "route p99 (s)", mode: "raw"},
+  {name: "tpuml_executor_device_seconds_total",
+   title: "device-s/s by phase", mode: "rate"},
+  {name: "tpuml_sse_lag_seconds", title: "SSE lag (s)", mode: "raw"},
+];
+function sparkSvg(pts){
+  if (pts.length < 2) return "";
+  const t0 = pts[0][0], t1 = pts[pts.length - 1][0];
+  const vs = pts.map(p => p[1]);
+  const vmin = Math.min(...vs, 0), vmax = Math.max(...vs);
+  const W = 160, H = 26;
+  const poly = pts.map(([t, v]) =>
+    `${(W * (t - t0) / Math.max(t1 - t0, 1e-9)).toFixed(1)},` +
+    `${(H - 2 - (H - 4) * (v - vmin) / Math.max(vmax - vmin, 1e-9)).toFixed(1)}`
+  ).join(" ");
+  return `<svg width="${W}" height="${H}" style="background:#f4f4f4;vertical-align:middle">` +
+    `<polyline points="${poly}" fill="none" stroke="#4a7fb5" stroke-width="1.5"/></svg>`;
+}
+// counter samples -> per-interval rate (clamped at 0: restarts reset)
+const rate = s => s.slice(1).map((p, i) =>
+  [p[0], Math.max(p[1] - s[i][1], 0) / Math.max(p[0] - s[i][0], 1e-9)]);
+async function renderSparks(el, sparks){
+  const blocks = await Promise.all(sparks.map(async p => {
+    const h = await get(`/metrics/history?name=${p.name}`);
+    const series = ((h && h.series) || []).filter(s => s.samples.length > 1);
+    if (!series.length) return "";
+    return `<div style="margin:2px 0"><b>${esc(p.title)}</b> ` +
+      series.slice(0, 8).map(s => {
+        const pts = p.mode === "rate" ? rate(s.samples) : s.samples;
+        if (!pts.length) return "";
+        const last = pts[pts.length - 1][1];
+        const lbl = Object.values(s.labels).join(",") || "total";
+        return `<span style="margin-right:12px;white-space:nowrap">` +
+          `${esc(lbl)} ${sparkSvg(pts)} <code>${(+last).toPrecision(3)}</code></span>`;
+      }).join("") + `</div>`;
+  }));
+  const html = blocks.filter(Boolean).join("");
+  el.innerHTML = html || "no samples yet";
+}
+// learning-curve panel (GET /curves/<job_id> — docs/OBSERVABILITY.md
+// "Trial telemetry plane"): one sparkline per trial curve, drawn from
+// the record's primary channel (loss > score > gmax), split 0. Diverged
+// trials are flagged; None points (non-finite on device) are skipped.
+function renderCurves(el, c){
+  if (!c || !c.curves || !c.curves.length){ el.textContent = "no curves yet"; return; }
+  el.innerHTML =
+    `<div style="color:#666">job <code>${esc(c.job_id)}</code> · ` +
+    `${c.n_curves} curves · ${c.tasks_diverged || 0} diverged</div>` +
+    c.curves.slice(-10).map(e => {
+      const rec = e.curve || {};
+      const ch = rec.loss ? "loss" : (rec.score ? "score" : "gmax");
+      const row = ((rec[ch] || [])[0] || []);
+      const pts = row.map((v, i) => [i, v]).filter(p => p[1] != null && isFinite(p[1]));
+      const tail = (rec.tail || [])[0];
+      return `<div style="margin:2px 0;white-space:nowrap">` +
+        `<code>${esc(e.subtask_id)}</code> r${esc(e.rung)} ` +
+        sparkSvg(pts) + ` <b>${esc(ch)}</b>` +
+        (tail == null ? "" : ` tail <code>${(+tail).toPrecision(3)}</code>`) +
+        (e.diverged ? ` <span class="bad">diverged</span>` : "") + `</div>`;
+    }).join("");
+}
+// fleet health panel (docs/OBSERVABILITY.md "Fleet health plane"):
+// the derived capacity signals + per-rule alert states
+function renderHealth(scaleEl, alertsEl, sc, al){
+  if (sc && sc.desired_workers != null){
+    const held = sc.hysteresis && sc.hysteresis.scale_down_held;
+    const sig = sc.signals || {};
+    scaleEl.innerHTML =
+      `desired workers <b>${esc(sc.desired_workers)}</b> (live ${esc(sc.live_workers)})` +
+      ` \\u00b7 desired shards <b>${esc(sc.desired_shards)}</b> (now ${esc(sc.n_shards)})` +
+      (held ? ` \\u00b7 <span class="bad">scale-down held (drain)</span>` : "") +
+      `<div style="color:#666">backlog ${esc(sig.backlog_seconds)} s \\u00b7 ` +
+      `inflight ${esc(sig.inflight_jobs)} jobs / ${esc(sig.pending_subtasks)} subtasks \\u00b7 ` +
+      `admission ${esc(((sig.admission_utilization || 0) * 100).toFixed(0))}% \\u00b7 ` +
+      `p99 ${esc(sig.route_p99_s)} s \\u00b7 pressure ${esc(sig.pressure)}</div>`;
+  } else scaleEl.textContent = "no signals yet";
+  const rows = ((al && al.alerts) || []).map(a => ({
+    rule: a.rule,
+    state: a.state === "firing" ? "\\u25cf firing" : a.state,
+    value: a.value == null ? "\\u2013" : (+a.value).toPrecision(3),
+    threshold: `${a.cmp} ${a.threshold}`, severity: a.severity,
+    since: a.for_s == null ? "" : `${a.for_s.toFixed(0)}s`,
+  }));
+  listTable(alertsEl, rows);
+}
+// flight-recorder feed: the newest events, newest first
+async function renderEvents(el, ev){
+  const rows = ((ev && ev.events) || []).slice(-15).reverse().map(e => ({
+    seq: e.seq, kind: e.kind,
+    subtask: e.subtask_id ? `${(e.job_id || "").slice(0, 8)}/${e.subtask_id}` : "",
+    worker: e.worker_id || "", attempt: e.attempt == null ? "" : e.attempt,
+    detail: JSON.stringify(e.data).slice(0, 120),
+  }));
+  listTable(el, rows);
+}
+async function tick(){
+  // fire-and-forget scrape: refreshes the derived gauges (route p99) and
+  // drives the time-series sampler even on direct-mode coordinators that
+  // have no sweep loop and no external Prometheus
+  fetch("/metrics/prom").catch(() => {});
+  const [h, jobs, workers, queues, sup, ev, al, sc] = await Promise.all(
+    ["/health", "/jobs", "/workers", "/queues", "/supervisor",
+     "/events?limit=500", "/alerts", "/autoscale"].map(get));
+  const he = document.getElementById("health");
+  he.textContent = h ? h.status : "unreachable";
+  he.className = h && h.status === "ok" ? "ok" : "bad";
+  document.getElementById("jobs").tBodies[0].innerHTML =
+    (Array.isArray(jobs) ? jobs : []).map(j => `<tr>
+    <td>${esc(j.job_id)}</td><td>${esc(j.model_type)}</td><td>${esc(j.dataset_id)}</td>
+    <td class="${j.status === "completed" ? "ok" : (j.status === "failed" || j.status === "completed_with_failures") ? "bad" : ""}">${esc(j.status)}</td>
+    <td>${esc(j.completed_subtasks)}</td><td>${esc(j.failed_subtasks)}</td>
+    <td>${esc(j.pruned_subtasks || 0)}</td>
+    <td class="${j.diverged_subtasks ? "bad" : ""}">${esc(j.diverged_subtasks || 0)}</td>
+    <td>${esc(j.total_subtasks)}</td><td>${esc((j.session_id || "").slice(0, 8))}</td></tr>`).join("")
+    || "<tr><td colspan=10>no jobs yet</td></tr>";
+  kvTable(document.getElementById("workers"), workers);
+  kvTable(document.getElementById("queues"), queues);
+  listTable(document.getElementById("sup"), sup);
+  renderEvents(document.getElementById("events"), ev);
+  renderHealth(document.getElementById("autoscale"),
+               document.getElementById("alerts"), sc, al);
+  await renderSparks(document.getElementById("spark"), SPARKS);
+  await renderSparks(document.getElementById("perfspark"), PERF_SPARKS);
+  const latest = Array.isArray(jobs) && jobs.length ? jobs[0].job_id : null;
+  renderTrace(document.getElementById("trace"),
+              latest ? await get(`/trace/${latest}`) : null);
+  renderCritPath(document.getElementById("critpath"),
+                 latest ? await get(`/critical_path/${latest}`) : null);
+  renderCurves(document.getElementById("curves"),
+               latest ? await get(`/curves/${latest}`) : null);
+  renderCost(document.getElementById("cost"),
+             latest ? await get(`/cost/${latest}`) : null);
+  document.getElementById("ts").textContent = new Date().toLocaleTimeString();
+}
+tick(); setInterval(tick, 2000);
+</script></body></html>
+"""
+
+#: profiler error reasons -> HTTP status: the valve off is 503, an open or
+#: absent capture a 409, a backend or filesystem failure a 500
+_PROFILE_STATUS = {"disabled": 503, "busy": 409, "idle": 409, "backend": 500}
 
 #: CORS parity with the reference master's flask-cors default (allow-all)
 CORS_HEADERS = (
@@ -125,11 +468,27 @@ class App:
             ("GET", "/queues", "queues"),
             ("GET", "/supervisor", "supervisor"),
             ("GET", "/jobs", "jobs"),
+            ("GET", "/dashboard", "dashboard"),
+            ("GET", "/metrics/prom", "metrics_prom"),
+            ("POST", "/profile/start", "profile_start"),
+            ("POST", "/profile/stop", "profile_stop"),
+            ("GET", "/profile/status", "profile_status"),
+            ("GET", "/trace/<jid>", "trace"),
+            ("GET", "/trace/<jid>/export", "trace_export"),
+            ("GET", "/critical_path/<jid>", "critical_path_report"),
+            ("POST", "/trace_spans/<wid>", "trace_spans"),
+            ("GET", "/cost/<jid>", "cost"),
             ("GET", "/healthz", "healthz"),
             ("GET", "/livez", "livez"),
             ("GET", "/readyz", "readyz"),
+            ("GET", "/explain/<jid>/<stid>", "explain"),
+            ("GET", "/explain/<jid>", "explain_job"),
             ("GET", "/curves/<jid>", "curves_job"),
             ("GET", "/curves/<jid>/<stid>", "curves_subtask"),
+            ("GET", "/events", "events"),
+            ("GET", "/alerts", "alerts"),
+            ("GET", "/autoscale", "autoscale"),
+            ("GET", "/metrics/history", "metrics_history"),
             ("GET", "/predictor/calibration", "predictor_calibration"),
             ("POST", "/subscribe", "subscribe"),
             ("POST", "/unsubscribe/<wid>", "unsubscribe"),
@@ -162,20 +521,35 @@ class App:
 
     def handle(self, method: str, path: str, query=None,
                headers: Optional[Dict[str, str]] = None, body: bytes = b"") -> Reply:
-        """Serve one request: (status, headers, body chunks). No route reads
-        a request header yet (the trace headers are not ported). Errors become
+        """Serve one request: (status, headers, body chunks). Errors become
         JSON ``{"status": "error", "message": ...}``: 404 for an unknown
         path, a KeyError or a missing file; the HTTPError's own code; 500
-        for anything else. Every reply carries the CORS headers."""
+        for anything else. Every reply carries the CORS headers.
+
+        The trace middleware: an ``X-Trace-Id`` header activates that trace
+        for the handler, which runs inside an ``http.<endpoint>`` span
+        (nested under ``X-Parent-Span`` when sent), and the id is echoed on
+        the reply; untraced requests open no span, and the span transport
+        (``/trace_spans``) is never traced. The RED middleware: every request
+        lands in ``tpuml_http_request_seconds{route,method,code}`` (route =
+        the endpoint's name; a streamed reply counts to its first byte)."""
         method = method.upper()
         if method == "OPTIONS":
             return 204, list(CORS_HEADERS), []
+        hdr = {k.lower(): v for k, v in (headers or {}).items()}
+        trace_id = hdr.get(TRACE_HEADER.lower())
         t0 = time.perf_counter()
         endpoint = None
         try:
             endpoint, values = self.match(method, path)
             counter_inc("tpuml_http_requests_total", endpoint=endpoint)
-            status, hdrs, chunks = getattr(self, endpoint)(Request(query, body), **values)
+            handler = getattr(self, endpoint)
+            if trace_id and endpoint != "trace_spans" and obs_enabled():
+                with activate(trace_id, hdr.get(PARENT_HEADER.lower())):
+                    with span(f"http.{endpoint}", trace_id=trace_id):
+                        status, hdrs, chunks = handler(Request(query, body), **values)
+            else:
+                status, hdrs, chunks = handler(Request(query, body), **values)
         except HTTPError as e:
             if e.code == 404 and endpoint is None:
                 status, hdrs, chunks = _json({"status": "error", "message": "not found"}, 404)
@@ -188,7 +562,10 @@ class App:
             status, hdrs, chunks = _json({"status": "error", "message": str(e)}, 500)
         observe("tpuml_http_request_seconds", time.perf_counter() - t0,
                 route=endpoint or "unmatched", method=method, code=str(status))
-        return status, [*hdrs, *CORS_HEADERS], chunks
+        out = [*hdrs, *CORS_HEADERS]
+        if trace_id:
+            out.append((TRACE_HEADER, trace_id))
+        return status, out, chunks
 
     # ---------------- helpers ----------------
 
@@ -244,7 +621,21 @@ class App:
                 "GET  /queues",
                 "GET  /supervisor",
                 "GET  /jobs",
+                "GET  /dashboard  (HTML)",
+                "GET  /metrics/prom  (Prometheus exposition)",
+                "POST /profile/start  (on-demand torch.profiler capture)",
+                "POST /profile/stop",
+                "GET  /profile/status",
+                "GET  /metrics/history?name=&since=  (embedded time series)",
+                "GET  /trace/<job_id>  (span tree)",
+                "GET  /trace/<job_id>/export?format=perfetto|otlp",
+                "GET  /critical_path/<job_id>[?compare=<job_id>]",
+                "GET  /cost/<job_id>  (device cost report)",
+                "GET  /explain/<job_id>/<subtask_id>  (decision timeline)",
                 "GET  /curves/<job_id>[/<subtask_id>]  (learning curves)",
+                "GET  /events?since=&limit=  (flight-recorder firehose)",
+                "GET  /alerts  (SLO alert states)",
+                "GET  /autoscale  (capacity signals)",
                 "GET  /predictor/calibration  (predicted-vs-actual stats)",
                 "GET  /health",
                 "GET  /healthz  (deep health: device, workers, stragglers)",
@@ -364,6 +755,160 @@ class App:
 
     def jobs(self, request) -> Reply:
         return _json(self.coord.store.jobs_overview())
+
+    def dashboard(self, request) -> Reply:
+        return 200, [("Content-Type", "text/html; charset=utf-8")], [_DASHBOARD_HTML.encode()]
+
+    # ---------------- the observability plane ----------------
+
+    def metrics_prom(self, request) -> Reply:
+        """The Prometheus exposition, after the scrape-time refreshes: the
+        fleet's size and per-worker health, the card's memory, the per-route
+        p99 gauge, one time-series sample and the fleet-health tick (a
+        direct-mode coordinator has no sweep to drive them)."""
+        coord = self.coord
+        if coord.cluster is not None:
+            gauge_set("tpuml_workers_alive", len(coord.cluster.engine.workers))
+            coord.cluster.engine.refresh_health_metrics()
+        from .executor import record_hbm_gauges
+
+        record_hbm_gauges()
+        refresh_route_p99()
+        timeseries_sample()
+        coord.health_tick()
+        return 200, [("Content-Type", "text/plain; version=0.0.4; charset=utf-8")], [
+            render_prometheus().encode()]
+
+    def profile_start(self, request) -> Reply:
+        """Begin a ``torch.profiler`` capture (obs/devprof.py); the optional
+        body ``{"tag": "..."}`` names its directory under
+        ``<journal_dir>/profile/``. 201; 409 while a capture is open; 503
+        with observability off; 500 when the profiler refuses (another
+        session in the process) or the filesystem does."""
+        body = request.json(silent=True) or {}
+        out = PROFILER.start(body.get("tag"))
+        if out["status"] == "started":
+            return _json(out, 201)
+        return _json(out, _PROFILE_STATUS.get(out.get("reason"), 500))
+
+    def profile_stop(self, request) -> Reply:
+        """Finish the capture and export its Chrome trace; 409 when none is
+        open, 500 when the stop or export failed."""
+        out = PROFILER.stop()
+        if out["status"] == "stopped":
+            return _json(out)
+        return _json(out, _PROFILE_STATUS.get(out.get("reason"), 500))
+
+    def profile_status(self, request) -> Reply:
+        return _json(PROFILER.status())
+
+    def cost(self, request, jid) -> Reply:
+        """The job's device cost report (``Coordinator.job_cost``)."""
+        report = self.coord.job_cost(jid)
+        if report is None:
+            return _json({"status": "error", "message": f"no job {jid!r}"}, 404)
+        return _json(report)
+
+    def trace(self, request, jid) -> Reply:
+        tid = TRACER.trace_for_job(jid)
+        if tid is None:
+            return _json({"status": "error", "message": f"no trace for job {jid!r}"}, 404)
+        spans = sorted(TRACER.spans_for(tid), key=lambda s: (s.get("start") or 0))
+        return _json({"job_id": jid, "trace_id": tid, "n_spans": len(spans), "spans": spans,
+                      "tree": TRACER.tree(tid)})
+
+    def trace_export(self, request, jid) -> Reply:
+        """The job's trace as ``?format=perfetto`` (default: Chrome trace
+        JSON) or ``otlp``, written under the journal directory and returned
+        inline; 400 on an unknown format, 404 when no trace is bound."""
+        tid = TRACER.trace_for_job(jid)
+        if tid is None:
+            return _json({"status": "error", "message": f"no trace for job {jid!r}"}, 404)
+        fmt = request.args.get("format", "perfetto")
+        try:
+            out = export_trace(tid, sorted(TRACER.spans_for(tid),
+                                           key=lambda s: (s.get("start") or 0)),
+                               fmt, job_id=jid)
+        except ValueError as e:
+            return _json({"status": "error", "message": str(e)}, 400)
+        return _json(out)
+
+    def critical_path_report(self, request, jid) -> Reply:
+        """The job's critical path (``Coordinator.critical_path``);
+        ``?compare=<job_id>`` adds a per-segment diff against that job as
+        the baseline."""
+        report = self.coord.critical_path(jid)
+        if report is None:
+            return _json({"status": "error",
+                          "message": f"no critical path for job {jid!r} (no trace bound)"}, 404)
+        baseline_id = request.args.get("compare")
+        if baseline_id:
+            baseline = self.coord.critical_path(baseline_id)
+            if baseline is None:
+                return _json({"status": "error", "message": "no critical path for baseline "
+                              f"job {baseline_id!r}"}, 404)
+            report = dict(report)
+            report["diff"] = compare_critical_paths(baseline, report)
+        return _json(report)
+
+    def trace_spans(self, request, wid) -> Reply:
+        """The agents' span shipping: the return leg of the trace
+        propagation."""
+        body = request.json(silent=True) or {}
+        n = TRACER.ingest(body.get("spans") or [])
+        counter_inc("tpuml_trace_spans_ingested_total", n)
+        return _json({"status": "ok", "ingested": n})
+
+    def explain(self, request, jid, stid) -> Reply:
+        try:
+            return _json(self.coord.explain(jid, stid))
+        except KeyError as e:
+            return _json({"status": "error", "message": str(e).strip("'")}, 404)
+
+    def explain_job(self, request, jid) -> Reply:
+        """The subtask ids with a recorded timeline for the job."""
+        stids = RECORDER.job_subtasks(jid)
+        if not stids:
+            return _json({"status": "error",
+                          "message": f"no recorded events for job {jid!r}"}, 404)
+        return _json({"job_id": jid, "subtask_ids": stids})
+
+    def events(self, request) -> Reply:
+        """The flight recorder's firehose: events with seq > ``?since=``,
+        oldest first, at most ``?limit=``; ``last_seq`` is the next cursor."""
+        def _int_arg(name, default):
+            try:
+                return int(request.args.get(name, default))
+            except ValueError:
+                return default
+
+        evts, last = RECORDER.events(since=_int_arg("since", 0), limit=_int_arg("limit", 1000))
+        return _json({"events": evts, "n_events": len(evts), "last_seq": last})
+
+    def alerts(self, request) -> Reply:
+        """The alert rules' states, evaluated first (``?force=1`` skips the
+        throttle)."""
+        self.coord.health_tick(force=bool(request.args.get("force")))
+        return _json(self.coord.alerts.snapshot())
+
+    def autoscale(self, request) -> Reply:
+        """The capacity signals (desired workers and shards, the raw
+        signals, the hysteresis), evaluated first like /alerts."""
+        self.coord.health_tick(force=bool(request.args.get("force")))
+        return _json(dict(self.coord.signals.report()))
+
+    def metrics_history(self, request) -> Reply:
+        """The embedded time series: ``?name=`` a metric family, ``?since=``
+        epoch seconds; without a name, the sampled names."""
+        name = request.args.get("name")
+        if not name:
+            return _json({"names": TIMESERIES.names()})
+        try:
+            since = float(request.args.get("since", 0.0))
+        except ValueError:
+            since = 0.0
+        return _json({"name": name, "since": since,
+                      "series": TIMESERIES.history(name, since=since)})
 
     def healthz(self, request) -> Reply:
         """Deep health: the coordinator's device and its memory, each
@@ -490,21 +1035,25 @@ class App:
 
 def _device_health(device) -> Dict[str, Any]:
     """The coordinator's device: reachability, kind, and on the card its
-    memory from ``torch.cuda.mem_get_info``."""
+    memory (``utils/flops.py::device_memory_stats``)."""
     import torch
+
+    from ..utils.flops import device_memory_stats
 
     if device.type != "cuda":
         return {"reachable": True, "platform": "cpu", "n_devices": 1, "device_kind": "cpu"}
-    free, total = torch.cuda.mem_get_info(device)
-    return {
+    out = {
         "reachable": True,
         "platform": "gpu",
         "n_devices": torch.cuda.device_count(),
         "device_kind": torch.cuda.get_device_name(device),
-        "memory": {"bytes_in_use": int(total - free),
-                   "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(device)),
-                   "bytes_limit": int(total)},
     }
+    stats = device_memory_stats()
+    mem = {k: stats[k] for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")
+           if k in stats}
+    if mem:
+        out["memory"] = mem
+    return out
 
 
 def create_app(coordinator: Optional[Coordinator] = None) -> App:

@@ -141,6 +141,25 @@ class ServiceConfig:
     # its loss / grad-norm trace tail exceeds this factor times the median
     # of its own early quarter, or any sample is non-finite
     curve_divergence_factor: float = 1e3
+    # ---- the fleet health plane: capacity signals (obs/signals.py) and
+    # SLO alert rules (obs/slo.py). The engine sweep, /metrics/prom
+    # scrapes and /alerts / /autoscale reads all drive evaluation; these
+    # floors keep the drivers from evaluating more often
+    autoscale_interval_s: float = 5.0
+    alert_eval_interval_s: float = 5.0
+    # desired_workers is sized so the predictor-priced backlog drains
+    # within this horizon (also the rejection-rate window)
+    autoscale_horizon_s: float = 120.0
+    autoscale_min_workers: int = 1
+    autoscale_max_workers: int = 256
+    # desired_shards targets this fill fraction of the admission caps
+    autoscale_target_fill: float = 0.7
+    # scale-down hysteresis: a below-live signal must hold this long
+    autoscale_downscale_hold_s: float = 180.0
+    # the SLO targets of the default alert rules
+    route_p99_slo_s: float = 2.0
+    sse_lag_slo_s: float = 5.0
+    alert_admission_reject_per_s: float = 0.2
 
 
 @dataclasses.dataclass

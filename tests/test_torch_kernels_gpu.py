@@ -32,7 +32,8 @@ and in device memory (k 300), at lane groups of 1, 6 and 9 lanes and with
 the rows split into ranges whose partial lists are merged. B3 and B6 are
 also held at the winner artifact's shapes (one lane: the covertype refit,
 the KNN prediction on 40,000 holdout rows), and a LogReg refit on the card
-must launch B3 once a solver step and never B1 or B2.
+must launch B3 once a solver step and never B1 or B2. A torch.profiler
+capture (obs/devprof.py) around one B2 launch must name B2's kernel.
 """
 
 import numpy as np
@@ -821,3 +822,36 @@ def test_streamed_forest_card_matches_cpu(cuda, monkeypatch):
     assert card.trial_metrics == host.trial_metrics
     assert launches == plan.n_splits * 2 * 4 * 6  # splits x trees x depth x blocks
     assert devices == {("cuda", 0), ("cpu", 0)}
+
+
+@pytest.mark.gpu
+def test_profile_capture_names_the_fused_step_kernel_on_card(cuda, tmp_path, monkeypatch):
+    """obs/devprof.py's torch.profiler capture (opened on its own thread)
+    around one B2 launch on this thread: the exported Chrome trace holds
+    the fused step's kernel (packed_step_kernel, kGrad false) with device
+    time, and device_memory_stats() reports the allocator's nonzero peak."""
+    import json
+    import os
+
+    from cs230_distributed_machine_learning_tpu_torch.obs.devprof import DeviceProfiler
+    from cs230_distributed_machine_learning_tpu_torch.utils.flops import device_memory_stats
+
+    monkeypatch.setenv("CS230_JOURNAL_DIR", str(tmp_path))
+    args = _fused_step_inputs(cuda, 7, 6, 2, n_pad=1024, dpp=64)
+    tk.packed_nesterov_step(*args[:5], 3.0, *args[5:], c=7, S=6, lam=1.0)  # build, warm
+    torch.cuda.synchronize()
+    prof = DeviceProfiler()
+    assert prof.start("b2")["status"] == "started"
+    tk.reset_launches()
+    tk.packed_nesterov_step(*args[:5], 3.0, *args[5:], c=7, S=6, lam=1.0)
+    torch.cuda.synchronize()
+    out = prof.stop()
+    assert out["status"] == "stopped" and tk.LAUNCHES["packed_nesterov_step"] == 1
+    with open(os.path.join(out["trace_dir"], "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    b2 = [e for e in events if e.get("cat") == "kernel"
+          and "packed_step_kernel" in e["name"] and "true" not in e["name"]]
+    assert len(b2) == 1 and b2[0]["dur"] > 0, sorted({e.get("name") for e in events
+                                                      if e.get("cat") == "kernel"})
+    stats = device_memory_stats()
+    assert stats["peak_bytes_in_use"] > 0 and stats["bytes_limit"] > stats["bytes_in_use"]

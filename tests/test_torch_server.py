@@ -4,7 +4,8 @@ against the JAX package's werkzeug server, on the CPU.
 One request sequence goes to both: the JAX app through werkzeug's test
 ``Client``, the port's through ``App.handle`` (no socket). Every reply's
 status code, JSON keys (nested where the bodies are the same structure;
-the JAX results' per-batch ``batch_cost`` is not ported) and CORS headers
+the per-batch ``batch_cost``, whose carrier depends on the batching, left
+out) and CORS headers
 are equal, including the errors (404 unknown path,
 unknown session or job, 400 bad input, 405 wrong method), admission's 429
 and the recovering 503 with ``Retry-After``, the OPTIONS preflight, the
@@ -89,9 +90,9 @@ class TorchSide:
         return status, {k.lower(): v for k, v in headers}, b"".join(chunks)
 
 
-#: result fields of the JAX package's item-4 observability that the port
-#: does not emit yet (the executor's per-batch device cost, on the first
-#: result of a batch): ROADMAP A item 4
+#: result fields left out of the shape comparison: the per-batch
+#: ``batch_cost`` rides the first result of each executor batch, and how
+#: an in-process worker batches the subtasks it pulls depends on timing
 NOT_PORTED_FIELDS = {"batch_cost"}
 
 
