@@ -503,6 +503,11 @@ def phase_env() -> dict:
         "device": torch.cuda.get_device_name(0),
         "device_count": torch.cuda.device_count(),
         "nvidia_smi": nvidia_smi(),
+        # the multi_device group runs several processes on the card; an
+        # exclusive-process card fails it loudly
+        "compute_mode": subprocess.run(
+            ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
     }
     clock = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -574,7 +579,9 @@ def phase_kernels(dev) -> dict:
     t = LOGREG_STEP_T
     rows = {}
     # 1 block (asha_main's final wave), 2 (rest_main's 256-trial pulls), 8
-    for n_wb in (1, REST_BLOCKS, LOGREG_SHAPE[4]):
+    # 1 block (asha_main's final wave), 2 (rest_main's 256-trial pulls), 4
+    # (a rank's shard in dist_main), 8
+    for n_wb in sorted({1, REST_BLOCKS, DIST_BLOCKS, LOGREG_SHAPE[4]}):
         Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(
             gen, dev, n_pad, dpp, c, S, n_wb)
         NB = W.shape[2]
@@ -1039,6 +1046,7 @@ def _rf_train(manager, phase: str, dataset: str, n_estimators: int) -> tuple:
     wall = time.perf_counter() - t0
     launches = H.LAUNCHES["level_histogram"]
     JOBS[phase] = manager.job_id
+    WALLS[phase] = wall
     assert status["job_status"] == "completed", status
     res = status["job_result"]
     assert not res["failed"] and len(res["results"]) == 1, res
@@ -3079,13 +3087,19 @@ class Served:
     """The port's coordinator server over a ClusterRuntime with no
     in-process executor, on 127.0.0.1, port 0, in a thread."""
 
-    def __init__(self):
+    def __init__(self, journal_dir=None):
+        """``journal_dir``: journal the coordinator there (emptied first)."""
+        import shutil
+
         from cs230_distributed_machine_learning_tpu_torch.runtime.cluster import ClusterRuntime
         from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
         from cs230_distributed_machine_learning_tpu_torch.runtime.server import start_server
 
         self.cluster = ClusterRuntime()
-        self.coord = Coordinator(cluster=self.cluster)
+        if journal_dir is not None:
+            shutil.rmtree(journal_dir, ignore_errors=True)
+        self.coord = Coordinator(cluster=self.cluster, journal=journal_dir is not None,
+                                 journal_dir=journal_dir)
         self.server, self.thread = start_server(self.coord)
         self.url = self.server.url
 
@@ -3569,6 +3583,726 @@ ADAPTIVE_PATHS = {
     "level_histogram": [("hyperband_rf", "rf_full_widest", "6 lanes, 116202 rows, 54 "
                          "features, 16 bins, 1536 nodes, 7 classes")],
 }
+# ---------------------------------------------------------------------------
+# slice 15: the multi_device group. Several processes on the one card: an
+# SPMD worker of two gloo ranks (NCCL refuses two ranks on one device), a
+# fleet of two coordinator shards behind a front end, fresh agents.
+# ---------------------------------------------------------------------------
+
+#: B2's blocks on each rank of dist_main: 1000 trials in one chunk of 1024
+#: lanes (a multiple of 2 ranks x 128), 512 lanes a rank
+DIST_RANKS = 2
+DIST_BLOCKS = 4
+#: fleet_main's search: the first trials of main_auto's grid (a cut for the
+#: smoke's time; printed), and the queued job that is migrated
+FLEET_TRIALS = 256
+FLEET_MIGRATED_TRIALS = 8
+#: prewarm: the first trials of main_auto's grid, one pull
+PREWARM_TRIALS = 128
+#: dist_rf's forest: rf_main's cut from 100 to 50 trees (2 chunks of the
+#: chunked protocol) for the smoke's time, which passed 900 s with the
+#: multi_device group at 100
+DIST_RF_TREES = 50
+
+
+def dist_rank_main(argv=None) -> None:
+    """One rank of the smoke's SPMD worker, in a child process: joins the
+    group (the backend rule's choice), runs the agent's ``run_distributed``
+    until rank 0 is told to stop, and appends each batch's kernel launches
+    (counted from 0 at the batch's start) to its report file."""
+    import argparse
+
+    from cs230_distributed_machine_learning_tpu_torch.parallel.distributed import (
+        init_distributed, shutdown)
+    from cs230_distributed_machine_learning_tpu_torch.runtime.agent import run_distributed
+    from cs230_distributed_machine_learning_tpu_torch.runtime.executor import LocalExecutor
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    p = argparse.ArgumentParser()
+    for flag in ("--url", "--address", "--out", "--storage"):
+        p.add_argument(flag, required=True)
+    for flag in ("--n", "--rank", "--max-batch"):
+        p.add_argument(flag, type=int, required=True)
+    args = p.parse_args(argv)
+    cfg = cfg_mod.FrameworkConfig.load()
+    cfg.storage.root = args.storage
+    cfg_mod.set_config(cfg)
+    backend = init_distributed(args.address, args.n, args.rank)
+    plain = LocalExecutor.run_subtasks
+
+    def counted(self, subtasks, **kw):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        try:
+            return plain(self, subtasks, **kw)
+        finally:
+            torch.cuda.synchronize()
+            with open(args.out, "a") as f:
+                f.write(json.dumps({
+                    "rank": args.rank, "backend": backend, "device": str(self.device),
+                    "model_type": subtasks[0]["model_type"] if subtasks else None,
+                    "n_tasks": len(subtasks), "seconds": time.perf_counter() - t0,
+                    "launches": {k: v for k, v in all_launches().items() if v}}) + "\n")
+
+    LocalExecutor.run_subtasks = counted
+    try:
+        run_distributed(args.url, max_batch=args.max_batch, poll_timeout_s=1.0)
+    finally:
+        shutdown()
+
+
+def _rank_reports(paths, model_type: str) -> list:
+    """Each rank's batches of ``model_type``: [[batch, ...] a rank]."""
+    out = []
+    for path in paths:
+        rows = []
+        if os.path.exists(path):
+            with open(path) as f:
+                rows = [json.loads(ln) for ln in f if ln.strip()]
+        out.append([r for r in rows if r["model_type"] == model_type])
+    return out
+
+
+def _prom_gauge(url: str, name: str) -> dict:
+    """``{label value: sample}`` of one labelled family on a server's
+    /metrics/prom."""
+    import re
+
+    from cs230_distributed_machine_learning_tpu_torch.utils import http
+
+    text = http.request("GET", f"{url}/metrics/prom", timeout=30).raise_for_status().text()
+    return {m.group(1): float(m.group(2)) for m in re.finditer(
+        rf'^{name}{{kernel="([^"]+)"}} ([0-9.e+]+)$', text, re.M)}
+
+
+def _shard_launches(url: str) -> dict:
+    return _prom_gauge(url, "tpuml_kernel_launches")
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: int(after.get(k, 0) - before.get(k, 0)) for k in after
+            if after.get(k, 0) != before.get(k, 0)}
+
+
+def _child_env(cfg, **extra) -> dict:
+    return {**os.environ, "TPUML_STORAGE__ROOT": cfg.storage.root,
+            "PYTHONPATH": ROOT + (os.pathsep + os.environ["PYTHONPATH"]
+                                  if os.environ.get("PYTHONPATH") else ""), **extra}
+
+
+def _stop(procs, sig=None, timeout: float = 60.0) -> list:
+    """Signal (default: none) and reap every child; kill the stragglers."""
+    import signal
+
+    for p in procs:
+        if sig is not None and p.poll() is None:
+            p.send_signal(sig)
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=timeout))
+        except subprocess.TimeoutExpired:
+            p.send_signal(signal.SIGKILL)
+            codes.append(p.wait(timeout=30))
+    return codes
+
+
+def _dump_logs(*dirs) -> None:
+    """The tails of the child processes' logs under ``dirs``, on stderr (a
+    failed phase's diagnosis)."""
+    import glob
+
+    for d in dirs:
+        for path in sorted(glob.glob(os.path.join(d, "*.log"))):
+            print(f"--- {path}\n{_log_tail(path, 4000)}", file=sys.stderr, flush=True)
+
+
+def _log_tail(path: str, n: int = 3000) -> str:
+    try:
+        with open(path, "rb") as f:
+            return f.read()[-n:].decode(errors="replace")
+    except OSError:
+        return ""
+
+
+def phase_dist_nccl1() -> dict:
+    """An NCCL group of world size 1 on the card, in this process: one
+    all_gather and one broadcast_json, then the group is left. Shows the
+    NCCL build links and runs on this card."""
+    from cs230_distributed_machine_learning_tpu_torch.parallel import distributed as D
+    from cs230_distributed_machine_learning_tpu_torch.parallel.mesh import trial_mesh
+    from cs230_distributed_machine_learning_tpu_torch.runtime.fleet import free_port
+
+    t0 = time.perf_counter()
+    backend = D.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, timeout_s=120)
+    try:
+        assert backend == "nccl", backend
+        mesh = trial_mesh()
+        x = torch.arange(8, dtype=torch.float32, device=mesh.device)
+        got = D.all_gather_tensor(x, mesh)
+        assert got.device.type == "cuda" and torch.equal(got, x), got
+        msg = {"tasks": [{"subtask_id": "s", "parameters": {"C": 0.5}}], "stop": False}
+        assert D.broadcast_json(msg, mesh) == msg
+    finally:
+        D.shutdown()
+    out = {"phase": "dist_nccl1", "backend": backend, "wall_s": time.perf_counter() - t0,
+           "nccl_version": str(torch.cuda.nccl.version()),
+           "card": nvidia_smi()}
+    emit(out)
+    return out
+
+
+class DistSlice:
+    """The smoke's SPMD worker: ``DIST_RANKS`` child processes of
+    ``dist_rank_main`` on the card, joined over TCP on 127.0.0.1, rank 0
+    registered with ``srv`` as one worker of ``DIST_RANKS`` devices."""
+
+    def __init__(self, cfg, srv, max_batch: int = 1024):
+        import shutil
+
+        from cs230_distributed_machine_learning_tpu_torch.runtime.fleet import free_port
+
+        logs = os.path.join(cfg.storage.root, "dist")
+        shutil.rmtree(logs, ignore_errors=True)
+        os.makedirs(logs)
+        self.reports = [os.path.join(logs, f"rank{r}.jsonl") for r in range(DIST_RANKS)]
+        self.logs = [os.path.join(logs, f"rank{r}.log") for r in range(DIST_RANKS)]
+        address = f"127.0.0.1:{free_port()}"
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.dist_rank_main(sys.argv[1:])",
+             "--url", srv.url, "--address", address, "--n", str(DIST_RANKS), "--rank", str(r),
+             "--out", self.reports[r], "--storage", cfg.storage.root,
+             "--max-batch", str(max_batch)],
+            cwd=ROOT, env=_child_env(cfg), stdout=open(self.logs[r], "w"),
+            stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
+        t0 = time.perf_counter()
+        deadline = time.time() + 180
+        self.worker_id = None
+        while self.worker_id is None:
+            snap = srv.cluster.engine.worker_snapshot()
+            self.worker_id = next((w for w, h in snap.items()
+                                   if h.get("n_devices") == DIST_RANKS), None)
+            dead = [r for r, p in enumerate(self.procs) if p.poll() is not None]
+            assert not dead, f"rank {dead[0]} exited: {_log_tail(self.logs[dead[0]])}"
+            assert time.time() < deadline, "the SPMD worker never registered"
+            time.sleep(0.1)
+        self.start_s = time.perf_counter() - t0
+        self.snapshot = srv.cluster.engine.worker_snapshot()[self.worker_id]
+
+    def close(self) -> list:
+        import signal
+
+        return _stop(self.procs[:1], signal.SIGTERM) + _stop(self.procs[1:])
+
+
+def _hold_pulls(srv, worker_id: str, n: int) -> dict:
+    """Answer the worker's long-polls with nothing until the engine has
+    placed ``n`` tasks on it, so one pull takes the whole job, as
+    rest_main's agent starts once its trials are placed; then stop
+    holding. A held poll waits at most its own long-poll timeout and then
+    drains nothing, so no task is ever handed to a client that gave up.
+    Waits out a poll already in flight before returning. Returns
+    ``{"undo", "placed_s"}`` (seconds from the hold to the release)."""
+    cluster = srv.cluster
+    plain = cluster.pull_tasks
+    state = {"armed": True, "t0": time.perf_counter(), "placed_s": None}
+
+    def pull(wid, max_n=64, timeout_s=10.0):
+        if wid == worker_id and state["armed"]:
+            deadline = time.time() + float(timeout_s)
+            while len(cluster.engine.queue_snapshot().get(wid, ())) < n:
+                if time.time() > deadline:
+                    return []
+                time.sleep(0.01)
+            state["armed"] = False
+            state["placed_s"] = time.perf_counter() - state["t0"]
+        return plain(wid, max_n, timeout_s)
+
+    cluster.pull_tasks = pull
+    time.sleep(1.5)  # a plain poll already in flight (1 s long-polls) returns first
+    state["t0"] = time.perf_counter()
+    state["undo"] = lambda: setattr(cluster, "pull_tasks", plain)
+    return state
+
+
+def phase_dist_main(cfg, srv, dist: DistSlice, main_auto_status) -> dict:
+    """bench.py's job (main_auto's 1000 trials, full covertype, cv 5) through
+    the port server to an SPMD worker of two gloo ranks on the one card,
+    ``run_distributed``: one pull of 1000 trials, padded to 1024 lanes,
+    512 (4 blocks) a rank; each rank launches B2 once a step for its shard
+    (200 a rank, 400 in all, the prediction in PERF.md §6). Every
+    mean_cv_score equal to main_auto's to the bit, best_params_ equal, and
+    the winner journaled with ``winner_via`` (the collective's)."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+
+    main = _trial_order(main_auto_status)
+    assert len(main) == 1000
+    hold = _hold_pulls(srv, dist.worker_id, 1000)
+    t0 = time.perf_counter()
+    try:
+        manager = MLTaskManager(url=srv.url)
+        status = manager.train(_grid_payload(main), "covertype", {"random_state": 42},
+                               timeout=300, show_progress=False, stream=True)
+    finally:
+        hold["undo"]()
+    wall = time.perf_counter() - t0
+    assert status["job_status"] == "completed", status.get("job_status")
+    res = status["job_result"]
+    assert not res["failed"] and len(res["results"]) == 1000, res["failed"][:1]
+    scores, ref = _scores(status), _scores(main_auto_status)
+    assert scores.keys() == ref.keys()
+    diff = [k for k in ref if scores[k] != ref[k]]
+    assert not diff, (f"dist_main: {len(diff)} scores differ from main_auto's, e.g. "
+                      f"{scores[diff[0]]} vs {ref[diff[0]]}")
+    best = res["best_result"]
+    assert best["search_params"] == main_auto_status["job_result"]["best_result"]["search_params"]
+    assert best.get("winner_via") == "ici_argmax", best.get("winner_via")
+    journaled = _journaled_result(srv.coord.store._journal_path, manager.job_id)
+    assert journaled["best_result"]["winner_via"] == "ici_argmax", journaled["best_result"]
+    batches = _rank_reports(dist.reports, "LogisticRegression")
+    per_rank = [sum(b["launches"].get("packed_nesterov_step", 0) for b in rows)
+                for rows in batches]
+    others = {k for rows in batches for b in rows for k in b["launches"]
+              if k != "packed_nesterov_step"}
+    out = {"phase": "dist_main", "ranks": DIST_RANKS, "backend": batches[0][0]["backend"],
+           "devices": [rows[0]["device"] for rows in batches], "wall_s": wall,
+           "main_auto_wall_s": WALLS.get("main_auto"), "rest_main_wall_s": WALLS.get("rest_main"),
+           "worker": dist.snapshot, "ranks_start_s": dist.start_s,
+           "placed_s": hold["placed_s"],
+           "pulls": [len(rows) for rows in batches],
+           "batch_seconds": [[b["seconds"] for b in rows] for rows in batches],
+           "launches_per_rank": per_rank, "launches": sum(per_rank),
+           "expected_per_rank": 200, "blocks_per_rank": DIST_BLOCKS,
+           "winner_via": best["winner_via"], "best_params": best["search_params"],
+           "card": nvidia_smi()}
+    emit(out)
+    assert per_rank == [200] * DIST_RANKS and not others, (per_rank, others)
+    WALLS["dist_main"] = wall
+    return out
+
+
+def _journaled_result(path: str, job_id: str) -> dict:
+    """The ``finalize_job`` journal entry's result of ``job_id``."""
+    with open(path) as f:
+        for ln in f:
+            e = json.loads(ln)
+            if e.get("op") == "finalize_job" and e.get("jid") == job_id:
+                return e["result"]
+    raise AssertionError(f"no finalize_job entry for {job_id}")
+
+
+def phase_dist_rf(cfg, srv, dist: DistSlice, manager) -> dict:
+    """rf_main's forest cut to DIST_RF_TREES trees (the 10 % covertype
+    fraction, one trial, 2 chunks of the chunked protocol; the cut is
+    printed) on the same SPMD worker: the trial chunk is padded to 2 lanes,
+    one a rank (rank 1's is padding), and each rank runs every tree level
+    for its lane, so B4 launches levels x trees x feature groups on each
+    rank, the chunk plan's count. Scores equal to the bit those of the
+    same forest run in this process, which runs beside it (its wall is
+    printed apart)."""
+    import threading
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+
+    trees = DIST_RF_TREES
+    did, _ = stage_fraction(cfg, 0.1)
+    kernel, data, static = _forest_bucket(manager, did, trees)
+    n, d = data.X.shape
+    prepared = _prepared(kernel, data, static)
+    plan = kernel.chunked_plan(static, n, d, data.n_classes, 6, prepared=prepared)
+    assert plan and plan["n_chunks"] >= 2, plan
+    groups = 2 if "xb_coarse" in prepared else 1
+    trial_chunks = 1  # one trial: one chunk of DIST_RANKS lanes
+    expected = trial_chunks * static["_levels"] * trees * groups
+    box = {}
+
+    def in_process():
+        t = time.perf_counter()
+        box["status"] = manager.train(_forest(trees), did, {"random_state": 42}, timeout=300)
+        box["wall_s"] = time.perf_counter() - t
+
+    hold = _hold_pulls(srv, dist.worker_id, 1)
+    ref_thread = threading.Thread(target=in_process, daemon=True)
+    t0 = time.perf_counter()
+    try:
+        ref_thread.start()
+        status = MLTaskManager(url=srv.url).train(_forest(trees), did, {"random_state": 42},
+                                                  timeout=300, show_progress=False)
+    finally:
+        hold["undo"]()
+    wall = time.perf_counter() - t0
+    ref_thread.join(timeout=300)
+    assert status["job_status"] == "completed", status.get("job_status")
+    assert box["status"]["job_status"] == "completed", box
+    best = status["job_result"]["best_result"]
+    ref = box["status"]["job_result"]["best_result"]
+    assert best["cv_scores"] == ref["cv_scores"], (best["cv_scores"], ref["cv_scores"])
+    assert best["accuracy"] == ref["accuracy"] and best["mean_cv_score"] == ref["mean_cv_score"]
+    batches = _rank_reports(dist.reports, "RandomForestClassifier")
+    per_rank = [sum(b["launches"].get("level_histogram", 0) for b in rows) for rows in batches]
+    out = {"phase": "dist_rf", "dataset": did, "rows": n, "n_estimators": trees,
+           "cut": f"rf_main's forest at {trees} of 100 trees, for the smoke's time",
+           "chunks": plan["n_chunks"], "levels": static["_levels"],
+           "feature_groups": groups, "wall_s": wall, "in_process_wall_s": box["wall_s"],
+           "rf_main_wall_s": WALLS.get("rf_main"),
+           "launches_per_rank": per_rank, "launches": sum(per_rank),
+           "expected_per_rank": expected, "mean_cv_score": best["mean_cv_score"],
+           "winner_via": best.get("winner_via"), "card": nvidia_smi()}
+    emit(out)
+    assert per_rank == [expected] * DIST_RANKS, (per_rank, expected)
+    return out
+
+
+class FleetStart:
+    """A ShardFleet of 2 shard processes (one in-process executor each, on
+    the card) and 1 front end, started on a thread so its processes come
+    up while the dist phases run; ``wait()`` returns the started fleet."""
+
+    def __init__(self, cfg):
+        import shutil
+        import threading
+
+        from cs230_distributed_machine_learning_tpu_torch.runtime.fleet import ShardFleet
+
+        self.root = os.path.join(cfg.storage.root, "fleet")
+        shutil.rmtree(self.root, ignore_errors=True)
+        os.makedirs(self.root)
+        os.symlink(cfg.storage.datasets_dir, os.path.join(self.root, "datasets"))
+        self.fleet = ShardFleet(2, storage_root=self.root, n_frontends=1, local_executors=1,
+                                journal=True, env={"TPUML_SERVICE__SSE_TICK_S": "0.1"})
+        self.error = None
+        self.t0 = time.perf_counter()
+        self.start_s = None
+        self.thread = threading.Thread(target=self._start, daemon=True)
+        self.thread.start()
+
+    def _start(self):
+        try:
+            self.fleet.start(timeout_s=240)
+            self.start_s = time.perf_counter() - self.t0
+        except BaseException as e:  # noqa: BLE001 — raised by wait()
+            self.error = e
+
+    def wait(self):
+        self.thread.join(timeout=300)
+        if self.error is not None:
+            raise self.error
+        assert self.start_s is not None, "the fleet never started"
+        return self.fleet
+
+    def stop(self):
+        self.thread.join(timeout=300)
+        self.fleet.stop()
+
+
+def phase_fleet_main(cfg, main_auto_status, starter: FleetStart) -> dict:
+    """A ShardFleet of 2 shard processes (one in-process executor each, on
+    the card) behind 1 front end. A session and bench.py's search cut to
+    FLEET_TRIALS trials (main_auto's first) run through the front end,
+    scores equal to main_auto's to the bit; a second job queued behind it
+    on the same shard is moved with ``migrate_job`` (``POST /migrate_job``)
+    to the other shard and completes there; ``/jobs`` through the front
+    end shows both records (``migrated_to`` on the donor's,
+    ``migrated_from`` on the recipient's); ``GET /download_model`` of the
+    first job refits the winner on its shard with B3. Each shard's
+    launches are read from its /metrics/prom."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.runtime.sharding import id_shard, shard_of
+    from cs230_distributed_machine_learning_tpu_torch.utils import http
+
+    main = _trial_order(main_auto_status)
+    fleet = starter.wait()
+    root = starter.root
+    try:
+        start_s = starter.start_s
+        fe = fleet.frontend_urls[0]
+        before = [_shard_launches(u) for u in fleet.shard_urls]
+        manager = MLTaskManager(url=fe)
+        home = shard_of(manager.session_id, 2)
+        other = 1 - home
+        t1 = time.perf_counter()
+        status = manager.train(_grid_payload(main[:FLEET_TRIALS]), "covertype",
+                               {"random_state": 42}, timeout=900, show_progress=False,
+                               stream=True)
+        wall = time.perf_counter() - t1
+        assert status["job_status"] == "completed", status.get("job_status")
+        first_job = manager.job_id
+        assert id_shard(first_job) == home, (first_job, home)
+        res = status["job_result"]
+        assert not res["failed"] and len(res["results"]) == FLEET_TRIALS
+        ref = _scores(main_auto_status)
+        scores = _scores(status)
+        diff = [k for k in scores if scores[k] != ref[k]]
+        assert not diff, f"fleet_main: {len(diff)} scores differ from main_auto's"
+        search = [_delta(_shard_launches(u), b) for u, b in zip(fleet.shard_urls, before)]
+        # the moved job: queued on the same shard behind a running job
+        blocker = MLTaskManager(url=fe)
+        blocker.session_id = manager.session_id
+        blocker.train(_grid_payload(main[:FLEET_TRIALS]), "covertype", {"random_state": 42},
+                      wait_for_completion=False)
+        moved = MLTaskManager(url=fe)
+        moved.session_id = manager.session_id
+        sub = moved.train(_grid_payload(main[FLEET_TRIALS:FLEET_TRIALS + FLEET_MIGRATED_TRIALS]),
+                          "covertype", {"random_state": 42}, wait_for_completion=False)
+        moved_id = sub["job_id"]
+        t2 = time.perf_counter()
+        r = http.request("POST", f"{fleet.shard_urls[home]}/migrate_job",
+                         json={"session_id": manager.session_id, "job_id": moved_id,
+                               "dest_shard": other}, timeout=120).raise_for_status().json()
+        assert r.get("migrated") is True, r
+        # polled through the front end: the donor's 409 moved is followed
+        st = _wait_job(fe, manager.session_id, moved_id)
+        assert st.get("job_status") == "completed", st.get("job_status")
+        migrate_s = time.perf_counter() - t2
+        moved_scores = {json.dumps(x["search_params"], sort_keys=True): x["mean_cv_score"]
+                        for x in st["job_result"]["results"]}
+        assert len(moved_scores) == FLEET_MIGRATED_TRIALS
+        assert all(moved_scores[k] == ref[k] for k in moved_scores), "migrated job's scores"
+        jobs = http.request("GET", f"{fe}/jobs", timeout=30).json()
+        recs = [j for j in jobs if j["job_id"] == moved_id]
+        donor = [j for j in recs if j.get("migrated_to") is not None]
+        adopted = [j for j in recs if j.get("migrated_from") is not None]
+        assert len(recs) == 2 and donor and adopted, recs
+        assert donor[0]["migrated_to"] == other and adopted[0]["migrated_from"] == home, recs
+        assert adopted[0]["status"] == "completed", adopted
+        direct = [j for j in http.request("GET", f"{fleet.shard_urls[other]}/jobs",
+                                          timeout=30).json() if j["job_id"] == moved_id]
+        assert direct and direct[0]["migrated_from"] == home, direct
+        _wait_job(fe, manager.session_id, blocker.job_id)
+        # the first job's winner refit behind GET /download_model, on its shard
+        pre = [_shard_launches(u) for u in fleet.shard_urls]
+        t3 = time.perf_counter()
+        path = manager.download_best_model(job_id=first_job,
+                                           output_path=os.path.join(root, "fleet_best.pkl"))
+        refit_s = time.perf_counter() - t3
+        refit = [_delta(_shard_launches(u), b) for u, b in zip(fleet.shard_urls, pre)]
+        assert os.path.getsize(path) > 0
+        # B3 runs on the job's shard alone; the other shard may still run a
+        # trailing copy of the moved job's trials (at least once: the
+        # donor's forwarded results can finish the job first)
+        assert refit[home] == {"masked_softmax_grad": 200}, refit
+        assert not refit[other].get("masked_softmax_grad"), refit
+        b2 = search[home].get("packed_nesterov_step", 0)
+        out = {"phase": "fleet_main", "shards": 2, "frontends": 1,
+               "trials": FLEET_TRIALS, "cut": f"bench.py's search at {FLEET_TRIALS} of 1000 "
+               "trials (main_auto's first), for the smoke's time",
+               "start_overlapped_s": start_s, "wall_s": wall, "home_shard": home,
+               "search_launches": search,
+               "b2_launches": b2, "migrated_job": moved_id, "migrated_to": other,
+               "migrate_to_complete_s": migrate_s, "jobs_records": recs,
+               "refit_launches": refit, "refit_s": refit_s, "card": nvidia_smi()}
+        emit(out)
+        assert b2 > 0 and b2 % 200 == 0 and not search[other], search
+        return out
+    finally:
+        starter.stop()
+
+
+def _wait_job(url: str, sid: str, jid: str, timeout: float = 600) -> dict:
+    from cs230_distributed_machine_learning_tpu_torch.utils import http
+
+    deadline = time.time() + timeout
+    while True:
+        st = http.request("GET", f"{url}/check_status/{sid}/{jid}", timeout=30).json()
+        if st.get("job_status") in ("completed", "failed", "completed_with_failures"):
+            return st
+        assert time.time() < deadline, st
+        time.sleep(0.2)
+
+
+def _agent_first_batch(cfg, srv, main, tag: str, env: dict) -> dict:
+    """A fresh agent process on the card against ``srv``, its only worker;
+    the first PREWARM_TRIALS of main_auto's grid through it; the primary
+    metrics message of its first batch (compile and staging seconds). The
+    agent is stopped with SIGINT, its graceful stop: it unsubscribes."""
+    import queue as _q
+    import signal
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+
+    log = os.path.join(cfg.storage.root, "dist", f"agent_{tag}.log")
+    before = set(srv.cluster.engine.worker_snapshot())
+    assert not before, f"workers left from an earlier agent: {before}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"{PKG}.runtime.agent", "--url", srv.url,
+         "--max-batch", str(PREWARM_TRIALS)],
+        cwd=ROOT, env=_child_env(cfg, **env), stdout=open(log, "w"), stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 180
+        while not set(srv.cluster.engine.worker_snapshot()) - before:
+            assert proc.poll() is None, _log_tail(log)
+            assert time.time() < deadline, "the agent never registered"
+            time.sleep(0.05)
+        wid = (set(srv.cluster.engine.worker_snapshot()) - before).pop()
+        register_s = time.perf_counter() - t0
+        warm_s = None
+        if env.get("CS230_PREWARM") != "0":
+            while "Prewarmed LogisticRegression" not in _log_tail(log, 100_000):
+                assert proc.poll() is None, _log_tail(log)
+                assert time.time() < deadline, "the prewarm never finished"
+                time.sleep(0.05)
+            warm_s = time.perf_counter() - t0
+        sub = srv.cluster.bus.subscribe("metrics")
+        t1 = time.perf_counter()
+        status = MLTaskManager(url=srv.url).train(
+            _grid_payload(main[:PREWARM_TRIALS]), "covertype",
+            {"random_state": 42, "cv": 5}, timeout=300, show_progress=False)
+        wall = time.perf_counter() - t1
+        assert status["job_status"] == "completed", status.get("job_status")
+        first = None
+        while first is None:
+            try:
+                _, msg = sub.get(timeout=30)
+            except _q.Empty:
+                raise AssertionError("no metrics message from the agent")
+            if msg.get("worker_id") == wid and msg.get("batch_primary"):
+                first = msg
+        sub.close()
+        return {"worker": wid, "register_s": register_s, "warmed_s": warm_s, "job_wall_s": wall,
+                "batch_compile_s": first["batch_compile_s"],
+                "batch_stage_s": first["batch_stage_s"],
+                "batch_dispatch_s": first["batch_dispatch_s"],
+                "batch_n_subtasks": first["batch_n_subtasks"],
+                "log": [ln for ln in _log_tail(log, 100_000).splitlines()
+                        if "Prewarm" in ln or "prewarm hints" in ln][-3:]}
+    finally:
+        _stop([proc], signal.SIGINT, timeout=30)
+        deadline = time.time() + 30
+        while srv.cluster.engine.worker_snapshot() and time.time() < deadline:
+            time.sleep(0.05)
+        for gone in list(srv.cluster.engine.worker_snapshot()):
+            srv.cluster.unregister_remote(gone)  # it exited without unsubscribing
+
+
+def phase_prewarm(cfg, main_auto_status) -> dict:
+    """Cold start on the card: a fresh coordinator server; a cold agent
+    process (CS230_PREWARM=0) runs the first PREWARM_TRIALS of main_auto's
+    grid, so the coordinator has one job shape; then a fresh agent
+    registers, receives that one hint (LogisticRegression on covertype),
+    warms it in the background (the kernel libraries loaded, the dataset
+    and the fold and packed-path forms staged) and runs the same search:
+    its first batch reports compile_time_s 0 and staging 0 (no upload).
+    The cold agent's first batch is printed beside it."""
+    main = _trial_order(main_auto_status)
+    srv = Served()
+    saved = os.environ.get("CS230_PREWARM_MAX_HINTS")
+    os.environ["CS230_PREWARM_MAX_HINTS"] = "1"
+    try:
+        cold = _agent_first_batch(cfg, srv, main, "cold", {"CS230_PREWARM": "0"})
+        hints = srv.coord.prewarm_hints()
+        assert [(h["model_type"], h["dataset_id"]) for h in hints] == [
+            ("LogisticRegression", "covertype")], hints
+        warm = _agent_first_batch(cfg, srv, main, "warm", {"CS230_PREWARM_MAX_HINTS": "1"})
+    finally:
+        if saved is None:
+            os.environ.pop("CS230_PREWARM_MAX_HINTS", None)
+        else:
+            os.environ["CS230_PREWARM_MAX_HINTS"] = saved
+        srv.close()
+    out = {"phase": "prewarm", "hint": {k: hints[0][k] for k in ("model_type", "dataset_id",
+                                                                "n_trials")},
+           "warm": warm, "cold": cold, "card": nvidia_smi()}
+    emit(out)
+    assert warm["batch_compile_s"] == 0.0 and warm["batch_stage_s"] == 0.0, warm
+    return out
+
+
+def phase_multi_device(cfg, manager, env) -> dict:
+    """The multi_device group: dist_nccl1, dist_main, dist_rf (one server,
+    one SPMD worker of two ranks), fleet_main, prewarm. Each phase prints
+    its wall, its launches per rank and the card's name and power limit."""
+    assert "exclusive" not in env["compute_mode"].lower(), (
+        f"compute mode {env['compute_mode']}: two processes cannot share the card")
+    main_auto_status = manager.check_status(JOBS["main_auto"])
+    logs = [os.path.join(cfg.storage.root, d) for d in ("dist", "fleet")]
+    try:
+        return _multi_device(cfg, manager, main_auto_status)
+    except BaseException:
+        _dump_logs(*logs)
+        raise
+
+
+def _multi_device(cfg, manager, main_auto_status) -> dict:
+    # the group's servers each have one worker: a speculative duplicate
+    # would land on the straggler itself, so speculation is off; and rank 0
+    # posts a 1000-trial pull's results one by one (~15-25 s), so the
+    # lease floor is raised past that (a healthy slow poster is no hung
+    # worker)
+    sched = cfg.scheduler
+    saved = (sched.speculative_enabled, sched.lease_floor_s)
+    sched.speculative_enabled, sched.lease_floor_s = False, 300.0
+    try:
+        return _multi_device_phases(cfg, manager, main_auto_status)
+    finally:
+        sched.speculative_enabled, sched.lease_floor_s = saved
+
+
+def _multi_device_phases(cfg, manager, main_auto_status) -> dict:
+    seconds, out = {}, {}
+    t = time.perf_counter()
+    out["dist_nccl1"] = phase_dist_nccl1()
+    seconds["dist_nccl1"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fleet = FleetStart(cfg)  # its processes come up beside the dist phases
+    try:
+        srv = Served(journal_dir=os.path.join(cfg.storage.root, "dist_journal"))
+        dist = None
+        try:
+            dist = DistSlice(cfg, srv)
+            out["dist_main"] = phase_dist_main(cfg, srv, dist, main_auto_status)
+            seconds["dist_main"] = time.perf_counter() - t
+            t = time.perf_counter()
+            out["dist_rf"] = phase_dist_rf(cfg, srv, dist, manager)
+            seconds["dist_rf"] = time.perf_counter() - t
+        finally:
+            codes = dist.close() if dist is not None else []
+            srv.close()
+        assert codes == [0] * DIST_RANKS, (codes, [_log_tail(p) for p in dist.logs])
+    except BaseException:
+        fleet.stop()
+        raise
+    for name, run in (("fleet_main", lambda: phase_fleet_main(cfg, main_auto_status, fleet)),
+                      ("prewarm", lambda: phase_prewarm(cfg, main_auto_status))):
+        t = time.perf_counter()
+        out[name] = run()
+        seconds[name] = time.perf_counter() - t
+    emit({"phase": "multi_device", "seconds": seconds, "total_s": sum(seconds.values()),
+          "card": nvidia_smi()})
+    return out
+
+
+#: the multi_device group's kernel paths: (other_paths key, kernel row,
+#: shape, the launches from the group's result)
+MULTI_DEVICE_PATHS = {
+    "packed_nesterov_step": [
+        ("dist_main", DIST_BLOCKS, f"n_pad 116736, dpp 64, c 7, S 6, {DIST_BLOCKS} blocks a rank "
+         f"(1000 trials padded to 1024 over {DIST_RANKS} gloo ranks on one card)",
+         lambda m: {"launches": m["dist_main"]["launches"],
+                    "launches_per_rank": m["dist_main"]["launches_per_rank"],
+                    "job": "dist_main"}),
+        ("fleet_main", REST_BLOCKS, "n_pad 116736, dpp 64, c 7, S 6, the shard executor's "
+         f"pulls of bench.py's search at {FLEET_TRIALS} trials",
+         lambda m: {"launches": m["fleet_main"]["b2_launches"],
+                    "launches_per_shard": [d.get("packed_nesterov_step", 0)
+                                           for d in m["fleet_main"]["search_launches"]],
+                    "job": "fleet_main"})],
+    "masked_softmax_grad": [
+        ("fleet_main_refit", "refit", "n_pad 116224, dpp 128, cp 16, c 7, 1 lane (the winner's "
+         "refit behind GET /download_model through the front end, on its shard)",
+         lambda m: {"launches": sum(d.get("masked_softmax_grad", 0)
+                                    for d in m["fleet_main"]["refit_launches"]),
+                    "launches_per_shard": [d.get("masked_softmax_grad", 0)
+                                           for d in m["fleet_main"]["refit_launches"]],
+                    "job": "fleet_main"})],
+    "level_histogram": [
+        ("dist_rf", "rf_main_deep", "6 lanes a rank, 11620 rows, 54 features, 24 bins, 128 nodes, "
+         f"7 classes (rf_main's forest at {DIST_RF_TREES} trees, trial-sharded over "
+         f"{DIST_RANKS} ranks)",
+         lambda m: {"launches": m["dist_rf"]["launches"],
+                    "launches_per_rank": m["dist_rf"]["launches_per_rank"],
+                    "job": "dist_rf"})],
+}
 ROW_KEYS = ("shape", "max_abs_err", "max_rel_err", "float_max_rel_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_unit", "library_ms")
 
@@ -3703,6 +4437,8 @@ def main() -> int:
     finally:
         srv.close()
     emit({"phase": "scheduled", "seconds": seconds, "total_s": sum(seconds.values())})
+    # several processes on the card: an SPMD worker, a shard fleet, prewarm
+    multi = phase_multi_device(cfg, manager, env)
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -3789,6 +4525,12 @@ def main() -> int:
                 **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": "n_pad 116224, dpp 128, cp 16, c 7, 1 lane (the winner's refit "
                          "behind GET /download_model, 200 steps)"}
+        # the multi_device group: launches on every rank or shard, summed
+        for key, row, shape, get in MULTI_DEVICE_PATHS.get(name, []):
+            r = (art_rows if row == "refit" else rows)[(name, row)]
+            kernels[-1].setdefault("other_paths", {})[key] = {
+                **get(multi), "row": row, **{k: r[k] for k in ROW_KEYS if k in r},
+                "shape": shape}
     from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S,

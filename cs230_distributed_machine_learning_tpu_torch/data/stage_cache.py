@@ -72,10 +72,20 @@ class StageBudgetExceeded(RuntimeError):
     ``CS230_STAGE_STRICT=1``."""
 
 
+#: ranks of a trial mesh that share this process's device; each stages
+#: into its share of the device's memory (parallel/mesh.py sets it)
+_DEVICE_SHARE = 1
+
+
+def set_device_share(n: int) -> None:
+    global _DEVICE_SHARE
+    _DEVICE_SHARE = max(int(n), 1)
+
+
 def budget_bytes() -> int:
     """Device-memory budget for staged entries: ``CS230_STAGE_CACHE_MB``
-    when set, else 40% of the card's total memory, else (no CUDA) the
-    JAX package's 8 GB assumption."""
+    when set, else 40% of the card's total memory (of the JAX package's
+    8 GB assumption without CUDA) over the ranks that share the device."""
     env = os.environ.get("CS230_STAGE_CACHE_MB")
     if env:
         try:
@@ -86,8 +96,8 @@ def budget_bytes() -> int:
 
     if torch.cuda.is_available():
         dev = torch.cuda.current_device()
-        return int(0.4 * torch.cuda.get_device_properties(dev).total_memory)
-    return int(0.4 * 8e9)
+        return int(0.4 * torch.cuda.get_device_properties(dev).total_memory) // _DEVICE_SHARE
+    return int(0.4 * 8e9) // _DEVICE_SHARE
 
 
 def dataset_fingerprint(data) -> str:

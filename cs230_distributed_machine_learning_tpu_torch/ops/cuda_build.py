@@ -78,7 +78,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     ``{name: seconds}`` for the sources compiled now; raises with the
     compiler's output when one fails."""
     if names is None:
-        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+        names = source_names()
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
@@ -105,7 +105,31 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failures:
         raise RuntimeError("\n".join(failures))
+    # a new generation landed: superseded libraries may go (age-guarded)
+    from ..utils.aot_cache import _prune_stale_generations
+
+    _prune_stale_generations()
     return seconds
+
+
+def source_names() -> list:
+    """The stems of every ``csrc/*.cu``."""
+    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+
+
+def warm_libraries(names: Optional[Iterable[str]] = None) -> None:
+    """Build the missing libraries (one ``nvcc`` each, all started
+    together) and load every one, so a later first launch pays nothing.
+    The seconds count toward this thread's ``load_seconds``."""
+    names = list(source_names() if names is None else names)
+    t0 = time.perf_counter()
+    try:
+        with _lock:
+            build([n for n in names if n not in _loaded])
+    finally:
+        _tls.seconds = load_seconds() + time.perf_counter() - t0
+    for name in names:
+        load(name)
 
 
 def build_log(name: str) -> str:

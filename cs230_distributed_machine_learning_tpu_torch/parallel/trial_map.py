@@ -1,4 +1,5 @@
-"""Trial execution engine: batched fits of whole trial buckets on one device.
+"""Trial execution engine: batched fits of whole trial buckets, on one
+device or sharded over the ranks of a trial mesh.
 
 Port of the main-path subset of the JAX package's ``parallel/trial_map.py``
 (``run_trials`` / ``_run_trials_impl`` / ``_postprocess``). One dispatch
@@ -41,6 +42,23 @@ kernel has ``stream_scores`` and whose staged form crowds the stage budget
 (``CS230_STREAM``) never uploads the whole matrix: the kernel accumulates
 over row blocks instead.
 
+Trial sharding (``mesh=``, parallel/mesh.py; JAX ``trial_map.py:900``,
+``:1312-1320``): over a mesh of N ranks every rank runs the same buckets
+in the same order. Each chunk is padded to a multiple of N (of N x 128 on
+the packed path, so every rank's shard is whole 128-trial blocks and B2
+packs the same blocks it packs on one card); rank r dispatches its
+contiguous shard on its own device; the winner of each chunk comes from
+``collectives.best_trial`` over the shards (``device_best``, JAX
+``_chunk_best``), and ``distributed.fetch`` assembles every output leaf
+on every rank. The chunked protocol (``_run_chunked``) shards its trial
+chunks the same way. Streamed buckets run only without a mesh. A mesh
+of one rank is no mesh.
+
+``warm_only=True`` (the prewarm path, runtime/prewarm.py) loads the kernel
+libraries and stages every bucket's tensors, then stops before any
+dispatch: the result carries the compile and staging seconds and no
+metrics.
+
 Batch accounting (JAX ``TrialRunResult``): the run's phase timers tile its
 wall, ``compile_time_s`` (the kernel libraries' first-use build or load,
 ops/cuda_build.py), ``stage_time_s`` (staging uploads and the streamed
@@ -67,7 +85,7 @@ from ..models.base import ModelKernel, TrialData
 from ..obs import obs_enabled, observe
 from ..ops.folds import SplitPlan
 from ..ops.metrics import validate_scoring
-from .mesh import pad_to_multiple
+from .mesh import effective_mesh, pad_to_multiple
 
 
 @dataclasses.dataclass
@@ -101,6 +119,9 @@ class TrialRunResult:
     #: process unless reset; the executor's sampler supplies the per-batch
     #: figure); None on the CPU
     hbm_peak_bytes: Optional[int] = None
+    #: (submission-order index, mean_cv_score) of the winner as the mesh
+    #: collective found it; None without a mesh
+    device_best: Optional[tuple] = None
 
 
 def _hbm_peak_bytes() -> Optional[int]:
@@ -203,11 +224,13 @@ def _device_memory_mb(device: torch.device) -> float:
     return 8_000.0
 
 
-def _memory_chunk_cap(kernel, n, d, static, n_splits, device) -> int:
+def _memory_chunk_cap(kernel, n, d, static, n_splits, device, n_dev: int = 1,
+                      share: int = 1) -> int:
     """Trials per generic dispatch bounded by device memory: each trial
-    holds ~memory_estimate_mb per split at once."""
+    holds ~memory_estimate_mb per split at once, on each of ``n_dev``
+    ranks' devices, each rank with its ``share``-th of its device."""
     per_trial_mb = max(kernel.memory_estimate_mb(n, d, static), 0.5) * max(n_splits, 1)
-    return max(1, int(0.5 * _device_memory_mb(device) / per_trial_mb))
+    return max(n_dev, int(0.5 * _device_memory_mb(device) / share * n_dev / per_trial_mb))
 
 
 def run_trials(
@@ -219,154 +242,215 @@ def run_trials(
     device: torch.device,
     max_trials_per_batch: int = 256,
     scoring: Optional[str] = None,
+    mesh=None,
+    warm_only: bool = False,
 ) -> TrialRunResult:
     """Run all trials (one per param dict) on ``device``, bucketing by
     static config. ``scoring`` None keeps the task's default metric; a
     scorer name rides each bucket's static as ``_scoring`` and keeps the
     bucket off the packed, fused and streamed paths, which score by the
-    default metric only (as in the reference). The stage-cache entries the
-    run touches are pinned while it runs."""
+    default metric only (as in the reference). ``mesh`` (a TrialMesh of
+    more than one rank) shards every chunk over the ranks, which must all
+    make this call with the same arguments; the rank's device replaces
+    ``device``. ``warm_only`` stages and loads, and dispatches nothing.
+    The stage-cache entries the run touches are pinned while it runs."""
     from ..data import stage_cache
 
     token = stage_cache.STAGE_CACHE.pin_begin() if stage_cache.enabled() else None
     try:
         return _run_trials_impl(kernel, data, plan, param_dicts, device=device,
-                                max_trials_per_batch=max_trials_per_batch, scoring=scoring)
+                                max_trials_per_batch=max_trials_per_batch, scoring=scoring,
+                                mesh=mesh, warm_only=warm_only)
     finally:
         if token is not None:
             stage_cache.STAGE_CACHE.pin_end(token)
 
 
 def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_batch,
-                     scoring) -> TrialRunResult:
-    from ..ops.cuda_build import load_seconds
+                     scoring, mesh=None, warm_only=False) -> TrialRunResult:
+    from ..ops.cuda_build import load_seconds, warm_libraries
+    from .distributed import LockstepLostError, agree, fetch
 
-    validate_scoring(scoring, kernel.task, data.n_classes, kernel)
-    n, d = data.X.shape
-    results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
-    # cost accounting for THIS run (the valve read once: a mid-run flip
-    # must not produce a half-priced result)
-    acct = obs_enabled()
-    model_flops = 0.0
-    n_buckets = buckets_priced = 0
-    compile0 = load_seconds()
-    staging = _Staging(data, device)
-    # the dispatch window opens at the first dispatch; the compile and
-    # staging seconds inside it are the other phases', not the run's
-    window: Dict[str, float] = {}
+    mesh = effective_mesh(mesh)
+    n_dev = int(mesh.world_size) if mesh is not None else 1
+    share = int(mesh.device_share) if mesh is not None else 1
+    if mesh is not None:
+        device = mesh.device
+    # this rank's part of the run (staging, dispatch) makes no collective;
+    # over a mesh the ranks agree on it before the first result collective,
+    # so a part that failed on one rank fails the run on every rank
+    agreeing = mesh is not None and not warm_only
+    try:
+        validate_scoring(scoring, kernel.task, data.n_classes, kernel)
+        n, d = data.X.shape
+        results: List[Optional[Dict[str, Any]]] = [None] * len(param_dicts)
+        # cost accounting for THIS run (the valve read once: a mid-run flip
+        # must not produce a half-priced result)
+        acct = obs_enabled()
+        model_flops = 0.0
+        n_buckets = buckets_priced = 0
+        compile0 = load_seconds()
+        if warm_only and device.type == "cuda":
+            warm_libraries()
+        staging = _Staging(data, device)
+        # the dispatch window opens at the first dispatch; the compile and
+        # staging seconds inside it are the other phases', not the run's
+        window: Dict[str, float] = {}
 
-    def _dispatching() -> None:
-        if not window:
-            window.update(t=time.perf_counter(), compile=load_seconds(), stage=staging.seconds)
+        def _dispatching() -> None:
+            if not window:
+                window.update(t=time.perf_counter(), compile=load_seconds(), stage=staging.seconds)
 
-    buckets: Dict[Any, List[int]] = {}
-    hypers: List[Dict[str, float]] = []
-    for i, params in enumerate(param_dicts):
-        static_key, hyper = kernel.canonicalize(params)
-        hypers.append(hyper)
-        buckets.setdefault(static_key, []).append(i)
+        buckets: Dict[Any, List[int]] = {}
+        hypers: List[Dict[str, float]] = []
+        for i, params in enumerate(param_dicts):
+            static_key, hyper = kernel.canonicalize(params)
+            hypers.append(hyper)
+            buckets.setdefault(static_key, []).append(i)
 
-    pending: List[Any] = []
-    for static_key, idxs in buckets.items():
-        static = kernel.static_from_key(static_key)
-        if hasattr(kernel, "resolve_static"):
-            static = kernel.resolve_static(static, n, d, data.n_classes)
-        static["_n_classes"] = data.n_classes
-        if scoring is not None:
-            static["_scoring"] = scoring
-        if hasattr(kernel, "bucket_static"):
-            static = kernel.bucket_static(static, [hypers[i] for i in idxs])
-        hyper_names = sorted(hypers[idxs[0]].keys())
+        pending: List[Any] = []
+        for static_key, idxs in buckets.items():
+            static = kernel.static_from_key(static_key)
+            if hasattr(kernel, "resolve_static"):
+                static = kernel.resolve_static(static, n, d, data.n_classes)
+            static["_n_classes"] = data.n_classes
+            if scoring is not None:
+                static["_scoring"] = scoring
+            if hasattr(kernel, "bucket_static"):
+                static = kernel.bucket_static(static, [hypers[i] for i in idxs])
+            hyper_names = sorted(hypers[idxs[0]].keys())
 
-        prepared = _prepared_data(kernel, data, static) if hasattr(kernel, "prepare_data") else None
-        # the bucket's analytical model FLOPs, 2 * per-(trial, split) MACs
-        # * splits * trials, whatever dispatch path it takes below
-        n_buckets += 1
-        if acct and hasattr(kernel, "macs_estimate"):
-            try:
-                macs = _call_with_prepared(kernel.macs_estimate, prepared, n, d, static)
-                model_flops += 2.0 * float(macs) * max(plan.n_splits, 1) * len(idxs)
-                buckets_priced += 1
-            except Exception:  # noqa: BLE001 — an estimator bug leaves the bucket unpriced
-                pass
-        chunk_plan = None
-        if hasattr(kernel, "chunked_plan"):
-            chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
-                                             prepared=prepared, device=device)
+            prepared = _prepared_data(kernel, data, static) if hasattr(kernel, "prepare_data") else None
+            # the bucket's analytical model FLOPs, 2 * per-(trial, split) MACs
+            # * splits * trials, whatever dispatch path it takes below
+            n_buckets += 1
+            if acct and hasattr(kernel, "macs_estimate"):
+                try:
+                    macs = _call_with_prepared(kernel.macs_estimate, prepared, n, d, static)
+                    model_flops += 2.0 * float(macs) * max(plan.n_splits, 1) * len(idxs)
+                    buckets_priced += 1
+                except Exception:  # noqa: BLE001 — an estimator bug leaves the bucket unpriced
+                    pass
+            chunk_plan = None
+            if hasattr(kernel, "chunked_plan"):
+                chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
+                                                 prepared=prepared, device=device)
 
-        # out-of-core streaming, decided before any X staging so that the
-        # oversized single-shot upload never happens
-        if not chunk_plan and scoring is None and hasattr(kernel, "stream_scores"):
-            from ..data.stage_cache import _tree_nbytes
-            from ..data.streaming import should_stream, stream_mode
+            # out-of-core streaming, decided before any X staging so that the
+            # oversized single-shot upload never happens
+            if (not chunk_plan and scoring is None and mesh is None
+                    and hasattr(kernel, "stream_scores")):
+                from ..data.stage_cache import _tree_nbytes
+                from ..data.streaming import should_stream, stream_mode
 
-            X_host = prepared if prepared is not None else np.asarray(data.X, np.float32)
-            if (stream_mode() != "off" and kernel.stream_applicable(static, n, d)
-                    and should_stream(_tree_nbytes(X_host))):
+                X_host = prepared if prepared is not None else np.asarray(data.X, np.float32)
+                if (stream_mode() != "off" and kernel.stream_applicable(static, n, d)
+                        and should_stream(_tree_nbytes(X_host))):
+                    if warm_only:
+                        continue  # nothing worth warming short of a whole block pass
+                    _dispatching()
+                    out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
+                                                plan, staging, max_trials_per_batch)
+                    pending.extend(out)
+                    # the blocking share of the transfer wall is staging time
+                    staging.seconds += waited
+                    continue
+
+            X = staging.X(kernel, static, prepared)
+            y, TW, EW = staging.folds(plan)
+            if chunk_plan:
+                if warm_only:
+                    continue
                 _dispatching()
-                out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
-                                            plan, staging, max_trials_per_batch)
-                pending.extend(out)
-                # the blocking share of the transfer wall is staging time
-                staging.seconds += waited
+                pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
+                                            hyper_names, plan, chunk_plan, d, device, mesh))
                 continue
 
-        X = staging.X(kernel, static, prepared)
-        y, TW, EW = staging.folds(plan)
-        if chunk_plan:
-            _dispatching()
-            pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
-                                        hyper_names, plan, chunk_plan, d, device))
-            continue
+            # kernels with a packed path (the LogReg kernel fit) take over the
+            # whole chunk, with their own (larger) chunk geometry
+            fn = None
+            extras: Dict[str, Any] = {}
+            if hasattr(kernel, "build_batched_fn") and scoring is None:
+                # every rank's shard is whole trial blocks; the cap is the
+                # kernel's per device
+                Tw = kernel.batched_trial_multiple * n_dev
+                chunk = max(Tw, min(kernel.batched_chunk_cap * n_dev,
+                                    pad_to_multiple(len(idxs), Tw)))
+                fn = kernel.build_batched_fn(
+                    static=static, n=n, d=d, n_classes=data.n_classes,
+                    n_splits=plan.n_splits, chunk=chunk // n_dev, device=device,
+                )
+            if fn is not None and hasattr(kernel, "batched_staged_extras"):
+                # dispatch-invariant forms staged once per (dataset, device,
+                # subkey) and merged into every dispatch's hypers
+                specs = kernel.batched_staged_extras(
+                    static=static, n=n, d=d, n_classes=data.n_classes, n_splits=plan.n_splits,
+                    fold_signature=plan.signature, device=device)
+                ctx = {"X": X, "y": y, "TW": TW, "EW": EW}
+                for name in sorted(specs):
+                    subkey, make = specs[name]
+                    if subkey is None:  # nothing stable to key on: made once a bucket
+                        extras[name] = make(ctx)
+                    else:
+                        extras[name] = staging.get(("batched_extra", kernel.name, name) + tuple(subkey),
+                                                   lambda m=make: m(ctx))
+            if fn is None:
+                mem_cap = _memory_chunk_cap(kernel, n, d, static, plan.n_splits, device, n_dev,
+                                        share)
+                chunk = min(max_trials_per_batch, mem_cap, pad_to_multiple(len(idxs), n_dev))
+                chunk = max(n_dev, pad_to_multiple(chunk, n_dev))
 
-        # kernels with a packed path (the LogReg kernel fit) take over the
-        # whole chunk, with their own (larger) chunk geometry
-        fn = None
-        extras: Dict[str, Any] = {}
-        if hasattr(kernel, "build_batched_fn") and scoring is None:
-            Tw = kernel.batched_trial_multiple
-            chunk = max(Tw, min(kernel.batched_chunk_cap, pad_to_multiple(len(idxs), Tw)))
-            fn = kernel.build_batched_fn(
-                static=static, n=n, d=d, n_classes=data.n_classes,
-                n_splits=plan.n_splits, chunk=chunk, device=device,
-            )
-        if fn is not None and hasattr(kernel, "batched_staged_extras"):
-            # dispatch-invariant forms staged once per (dataset, device,
-            # subkey) and merged into every dispatch's hypers
-            specs = kernel.batched_staged_extras(
-                static=static, n=n, d=d, n_classes=data.n_classes, n_splits=plan.n_splits,
-                fold_signature=plan.signature, device=device)
-            ctx = {"X": X, "y": y, "TW": TW, "EW": EW}
-            for name in sorted(specs):
-                subkey, make = specs[name]
-                if subkey is None:  # nothing stable to key on: made once a bucket
-                    extras[name] = make(ctx)
-                else:
-                    extras[name] = staging.get(("batched_extra", kernel.name, name) + tuple(subkey),
-                                               lambda m=make: m(ctx))
-        if fn is None:
-            mem_cap = _memory_chunk_cap(kernel, n, d, static, plan.n_splits, device)
-            chunk = max(1, min(max_trials_per_batch, mem_cap, len(idxs)))
+                def fn(X, y, TW, EW, hyper, static=static):
+                    return kernel.batched_scores(X, y, TW, EW, hyper, static)
 
-            def fn(X, y, TW, EW, hyper, static=static):
-                return kernel.batched_scores(X, y, TW, EW, hyper, static)
-
-        for start in range(0, len(idxs), chunk):
-            batch_idx = idxs[start : start + chunk]
-            hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
-            _dispatching()
-            pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx))
+            if warm_only:
+                continue  # staged and built: the prewarm stops before dispatching
+            lanes = mesh.shard(chunk) if mesh is not None else None
+            for start in range(0, len(idxs), chunk):
+                batch_idx = idxs[start : start + chunk]
+                hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device, lanes)
+                _dispatching()
+                pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx))
+    except Exception:
+        if agreeing:
+            agree(False, mesh)
+        raise
+    if agreeing:
+        agree(True, mesh)
 
     # one blocking read an output leaf; on the card each waits for the
-    # kernels still queued before it
+    # kernels still queued before it. Over a mesh each chunk's winner is
+    # reduced first, then every leaf is all-gathered: the same collectives
+    # in the same order on every rank. A rank that fails between them
+    # leaves its siblings in one it never enters (LockstepLostError)
     fetch_s = 0.0
     n_fetches = result_bytes = 0
-    for out, batch_idx in pending:
-        t_fetch = time.perf_counter()
-        host = {k: v.cpu().numpy() for k, v in out.items()}
-        dt = time.perf_counter() - t_fetch
-        observe("tpuml_executor_fetch_seconds", dt)
-        fetch_s += dt
+    device_best: Optional[tuple] = None
+    hosts = []
+    try:
+        for out, batch_idx in pending:
+            t_fetch = time.perf_counter()
+            if mesh is not None:
+                bi, bs = _chunk_best(out["score"], len(batch_idx), plan, mesh)
+                n_fetches += 2
+                if bi < len(batch_idx) and np.isfinite(bs):
+                    gi = batch_idx[bi]
+                    # sklearn's first-max rule over the whole run: on equal
+                    # scores the smaller submission index
+                    if (device_best is None or bs > device_best[1]
+                            or (bs == device_best[1] and gi < device_best[0])):
+                        device_best = (gi, bs)
+            host = fetch(out, mesh)
+            dt = time.perf_counter() - t_fetch
+            observe("tpuml_executor_fetch_seconds", dt)
+            fetch_s += dt
+            hosts.append((host, batch_idx))
+    except Exception as e:
+        if mesh is None:
+            raise
+        raise LockstepLostError(f"rank {mesh.rank} failed between a run's collectives: "
+                                f"{e}") from e
+    for host, batch_idx in hosts:
         n_fetches += len(host)
         result_bytes += sum(int(a.nbytes) for a in host.values())
         for j, gi in enumerate(batch_idx):
@@ -390,7 +474,22 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
         model_flops=model_flops if acct and buckets_priced else None,
         flops_coverage=buckets_priced / n_buckets if acct and n_buckets else None,
         hbm_peak_bytes=_hbm_peak_bytes() if acct else None,
+        device_best=device_best,
     )
+
+
+def _chunk_best(score: torch.Tensor, n_valid: int, plan: SplitPlan, mesh) -> tuple:
+    """This rank's shard of a chunk's ``[lanes, S]`` scores -> the chunk's
+    (lane, mean-CV score) winner over every rank (JAX ``_chunk_best``):
+    the mean of the CV folds (the holdout alone without folds), padding
+    lanes and non-finite means ranked last, first max on ties."""
+    from .collectives import best_trial
+
+    local = int(score.shape[0])
+    lo = mesh.rank * local
+    mean_cv = score[:, 1:].mean(dim=1) if plan.n_folds >= 2 else score[:, 0]
+    valid = torch.arange(lo, lo + local, device=score.device) < int(n_valid)
+    return best_trial(mean_cv, mesh, valid_mask=valid, offset=lo)
 
 
 def fit_single(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
@@ -493,20 +592,22 @@ def run_trials_callable(kernel: ModelKernel, data: TrialData, plan: SplitPlan,
     return results
 
 
-def _hyper_batch(hypers, batch_idx, hyper_names, chunk, device) -> Dict[str, torch.Tensor]:
+def _hyper_batch(hypers, batch_idx, hyper_names, chunk, device,
+                 lanes: Optional[tuple] = None) -> Dict[str, torch.Tensor]:
     """``[chunk]`` tensors of the chunk's hypers, padded with the last
     trial's values (padded lanes are computed and dropped). A kernel with
     no traced hypers gets a ``_pad`` of zeros, which carries the chunk's
-    trial count."""
+    trial count. ``lanes`` ``(start, stop)`` keeps a rank's shard."""
+    lo, hi = lanes if lanes is not None else (0, chunk)
     if not hyper_names:
-        return {"_pad": torch.zeros((chunk,), dtype=torch.float32, device=device)}
+        return {"_pad": torch.zeros((hi - lo,), dtype=torch.float32, device=device)}
     hyper_batch = {
         k: np.full((chunk,), hypers[batch_idx[-1]][k], np.float32) for k in hyper_names
     }
     for j, gi in enumerate(batch_idx):
         for k in hyper_names:
             hyper_batch[k][j] = hypers[gi][k]
-    return {k: torch.as_tensor(v, device=device) for k, v in hyper_batch.items()}
+    return {k: torch.as_tensor(v[lo:hi], device=device) for k, v in hyper_batch.items()}
 
 
 def _prepared_data(kernel, data: TrialData, static: Dict[str, Any]):
@@ -526,15 +627,17 @@ def _prepared_data(kernel, data: TrialData, static: Dict[str, Any]):
 
 
 def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
-                 chunk_plan, d, device) -> List[Any]:
-    """One bucket through the kernel's chunked-fit protocol, on one device:
-    per trial chunk, ``chunk_init`` -> n_chunks x ``chunk_step`` ->
-    ``chunk_eval`` over all (trial, split) lanes; the state between steps
-    (a forest's summed leaf predictions, a KNN's predicted query rows)
-    never leaves the device. ``d`` is the table's feature count. The trial
-    chunk is bounded by the state's memory, the kernel's working set and
-    64 trials (``trial_map.py:1707`` there). Returns the pending
-    (outputs, trial indices) pairs.
+                 chunk_plan, d, device, mesh=None) -> List[Any]:
+    """One bucket through the kernel's chunked-fit protocol: per trial
+    chunk, ``chunk_init`` -> n_chunks x ``chunk_step`` -> ``chunk_eval``
+    over all (trial, split) lanes; the state between steps (a forest's
+    summed leaf predictions, a KNN's predicted query rows) never leaves the
+    device. ``d`` is the table's feature count. The trial chunk is bounded
+    by the state's memory, the kernel's working set and 64 trials a device
+    (``trial_map.py:1707`` there), and over a mesh padded to a multiple of
+    its ranks, each rank running every chunk step for its own shard of the
+    lanes (JAX ``:1649``, ``:1870-1874``). Returns the pending (outputs,
+    trial indices) pairs; the outputs are the rank's shard.
 
     With curves on and more than one chunk, the score-vs-chunk curve:
     an extra ``chunk_eval`` after every ``curve_stride``-th chunk but the
@@ -548,18 +651,25 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
     curve_stride = (max(1, -(-n_chunks // curve_points()))
                     if curves_enabled() and n_chunks > 1 else 0)
     n_classes = int(static.get("_n_classes", 0))
+    n_dev = int(mesh.world_size) if mesh is not None else 1
+    share = int(mesh.device_share) if mesh is not None else 1
     state_mb = 4.0 * n * max(n_classes, 1) * n_splits / 1e6
-    mem_cap = _memory_chunk_cap(kernel, n, d, static, n_splits, device)
+    mem_cap = _memory_chunk_cap(kernel, n, d, static, n_splits, device, n_dev, share)
     chunk = max(1, min(len(idxs), mem_cap,
-                       int(0.25 * _device_memory_mb(device) / max(state_mb, 1.0)), 64))
+                       int(0.25 * n_dev * _device_memory_mb(device) / share
+                           / max(state_mb, 1.0)),
+                       64 * n_dev))
+    chunk = max(n_dev, pad_to_multiple(chunk, n_dev))
+    lanes = mesh.shard(chunk) if mesh is not None else (0, chunk)
+    local = lanes[1] - lanes[0]
     out = []
     for start in range(0, len(idxs), chunk):
         batch_idx = idxs[start : start + chunk]
-        hyper = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device)
+        hyper = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device, lanes)
         # lane = trial * S + split: the fold masks repeated per trial
-        TWl = TW.repeat(chunk, 1)
+        TWl = TW.repeat(local, 1)
         hyper_l = {k: v.repeat_interleave(n_splits) for k, v in hyper.items()}
-        EWl = EW.repeat(chunk, 1)
+        EWl = EW.repeat(local, 1)
         state = kernel.chunk_init(X, y, TWl, hyper_l, static)
         mids = []
         for ci in range(n_chunks):
@@ -567,13 +677,13 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
             if curve_stride and (ci + 1) % curve_stride == 0 and ci < n_chunks - 1:
                 mids.append(kernel.chunk_eval(X, y, EWl, hyper_l, static, state)["score"])
         res = kernel.chunk_eval(X, y, EWl, hyper_l, static, state)
-        res = {k: v.reshape(chunk, n_splits, *v.shape[1:]) for k, v in res.items()}
+        res = {k: v.reshape(local, n_splits, *v.shape[1:]) for k, v in res.items()}
         if curve_stride:
             res["curve_score"] = torch.stack(
-                [m.reshape(chunk, n_splits) for m in mids] + [res["score"]], dim=-1)
-            res["curve_stride"] = torch.full((chunk, n_splits), float(curve_stride),
+                [m.reshape(local, n_splits) for m in mids] + [res["score"]], dim=-1)
+            res["curve_stride"] = torch.full((local, n_splits), float(curve_stride),
                                              device=res["score"].device)
-            res["curve_steps"] = torch.full((chunk, n_splits), float(n_chunks),
+            res["curve_steps"] = torch.full((local, n_splits), float(n_chunks),
                                             device=res["score"].device)
         out.append((res, batch_idx))
     return out

@@ -3,9 +3,13 @@
 Port of the JAX package's ``runtime/cluster.py``: in-process executors on
 the card (or the CPU), remote agents over REST (register, long-poll pull,
 result and metrics push), the dead-worker sweep and requeue, device-loss
-correlation and cooperative cancels. The sharded control plane's
-``shard_id`` and the mesh-slice reports are not ported (a worker is one
-device). The remote metrics ingest (``push_metrics``) counts a remote
+correlation and cooperative cancels. ``shard_id`` makes the runtime one
+shard of a sharded control plane: the engine mints ``s<k>-worker-<n>``
+ids (runtime/sharding.worker_prefix), so front ends route worker-plane
+requests by the stamp. Every worker reports its mesh slice at
+registration (``parallel/mesh.mesh_info``: a trial mesh of N ranks is N
+devices, a plain executor one), and placement prices a batch per slice.
+The remote metrics ingest (``push_metrics``) counts a remote
 batch's phase timers, device-seconds and FLOPs once, on its primary
 message, unless the batch ran in this process.
 
@@ -160,16 +164,20 @@ class ExecutorWorker:
 
 class ClusterRuntime:
     def __init__(self, *, cache=None, predictor=None, shard_id=None):
-        if shard_id is not None:
-            raise ValueError("shard_id: the sharded control plane is not ported to the "
-                             "PyTorch package yet")
         self.bus = TopicBus()
         #: shared attempt/exclusion/poison accounting: the engine bumps it
         #: on lease reclaims/requeues/speculation, the coordinator on
         #: failure retries; one ledger keeps attempt ids monotonic
         self.ledger = AttemptLedger()
-        self.shard_id = None
-        self.engine = PlacementEngine(bus=self.bus, predictor=predictor, ledger=self.ledger)
+        #: shard identity: stamps minted worker ids; None = unsharded
+        self.shard_id = shard_id
+        prefix = ""
+        if shard_id is not None:
+            from .sharding import worker_prefix
+
+            prefix = worker_prefix(int(shard_id))
+        self.engine = PlacementEngine(bus=self.bus, predictor=predictor, ledger=self.ledger,
+                                      worker_prefix=prefix)
         self.engine.on_evict = self._on_worker_evicted
         self.cache = cache
         self.workers: Dict[str, ExecutorWorker] = {}
@@ -192,12 +200,19 @@ class ClusterRuntime:
     # ---------------- executor pool ----------------
 
     def add_executor(self, device: DeviceLike = None, mem_capacity_mb: Optional[float] = None,
-                     executor: Optional[LocalExecutor] = None) -> str:
+                     executor: Optional[LocalExecutor] = None, mesh=None) -> str:
         """Subscribe an in-process worker. ``device`` defaults to the CUDA
-        card (raises without one); ``device="cpu"`` runs it on the host."""
-        wid = self.engine.subscribe(mem_capacity_mb=mem_capacity_mb)
+        card (raises without one); ``device="cpu"`` runs it on the host.
+        ``mesh`` (or the given executor's) is reported as its slice."""
+        from ..parallel.mesh import mesh_info
+
+        if mesh is None and executor is not None:
+            mesh = executor.mesh
+        n_devices, mesh_shape = mesh_info(mesh)
+        wid = self.engine.subscribe(mem_capacity_mb=mem_capacity_mb, n_devices=n_devices,
+                                    mesh_shape=mesh_shape)
         if executor is None:
-            executor = LocalExecutor(resolve_device(device), cache=self.cache)
+            executor = LocalExecutor(resolve_device(device), cache=self.cache, mesh=mesh)
         executor.executor_id = wid
         worker = ExecutorWorker(self, executor, wid)
         self.workers[wid] = worker
@@ -308,8 +323,11 @@ class ClusterRuntime:
     # reference worker's /subscribe + keyed Kafka consumption
     # (worker.py:90-112, 185-186).
 
-    def register_remote(self, mem_capacity_mb: Optional[float] = None) -> str:
-        wid = self.engine.subscribe(mem_capacity_mb=mem_capacity_mb)
+    def register_remote(self, mem_capacity_mb: Optional[float] = None,
+                        n_devices: Optional[int] = None,
+                        mesh_shape: Optional[Dict[str, int]] = None) -> str:
+        wid = self.engine.subscribe(mem_capacity_mb=mem_capacity_mb, n_devices=n_devices,
+                                    mesh_shape=mesh_shape)
         self._remote_subs[wid] = self.bus.subscribe(
             TOPIC_TRAIN, key_filter=lambda k, w=wid: k == w, priority=True
         )

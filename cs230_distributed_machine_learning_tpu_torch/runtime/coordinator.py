@@ -9,8 +9,20 @@ results at least once, deduplicated by attempt, with bounded retries and
 backoff, poison quarantine (``completed_with_failures``), and stall and
 hard deadlines. ``admission_check`` / ``overload_shedding`` cap the
 accepted load, and ``journal=True`` replays the store and resumes the
-in-flight jobs (``_recover`` / ``resume_inflight``). The sharded control
-plane's migration and stealing are not ported.
+in-flight jobs (``_recover`` / ``resume_inflight``).
+
+The sharded control plane (JAX ``coordinator.py``): ``shard_id`` /
+``n_shards`` make the coordinator one shard of N behind stateless front
+ends (runtime/frontend.py), with ``s<k>-`` stamped job ids
+(``canonical_job_id``), shard-minted session ids that hash home, and a
+journal of its own (``journal_dir``). With ``peer_urls`` and
+``service.rebalance_enabled`` it rebalances on its pressure signal: a hot
+shard migrates a job to a cold peer (``migrate_job`` -> the peer's
+``migrate_in``) and offers queued subtasks (``steal_candidates`` /
+``release_for_steal``); an idle shard steals them
+(``_steal_from_hot_peer``). ``prewarm_hints`` ships the recent job shapes
+to a worker that registers; ``_aggregate`` marks the winner the trial
+mesh's collective found (``winner_via``).
 
 The job lifecycle mirrors the reference: create a session, stage and
 preprocess datasets, expand a train job into per-trial subtasks, run
@@ -64,8 +76,10 @@ from ..obs import (
 )
 from ..obs.curves import CurveStore, divergence
 from ..parallel.collectives import best_trial
+from ..utils import http
 from ..utils.config import FrameworkConfig, get_config
 from ..utils.logging import get_logger
+from ..utils.serialization import json_safe
 from ..utils.torch_setup import DeviceLike, resolve_device
 from .artifacts import save_artifact
 from .executor import LocalExecutor
@@ -74,6 +88,21 @@ from .store import SUBTASK_TERMINAL_STATUSES, TERMINAL_STATUSES, JobStore
 from .subtasks import create_subtasks
 
 logger = get_logger("tpuml.coordinator")
+
+#: the cluster bus topic results arrive on
+TOPIC_RESULTS = "result"
+
+#: the value ``_aggregate`` journals under ``winner_via`` when the winner is
+#: the trial mesh's collective argmax: the JAX package's value, kept so that
+#: either package reads the other's journal (the port's collective runs on
+#: torch.distributed, not over ICI)
+WINNER_VIA_MESH = "ici_argmax"
+
+
+class JobMigratedError(Exception):
+    """Raised in a job's loop when the rebalancer marked the job for
+    migration: the loop unwinds without finalizing (the destination shard
+    completes it) and without the failure path (nothing failed)."""
 
 
 class Coordinator:
@@ -85,6 +114,9 @@ class Coordinator:
         executor: Optional[LocalExecutor] = None,
         cluster=None,
         journal: bool = False,
+        journal_dir: Optional[str] = None,
+        shard_id: Optional[int] = None,
+        n_shards: int = 1,
     ):
         """``device`` defaults to the CUDA card and raises when there is
         none; ``device="cpu"`` runs on the host. In scheduled mode
@@ -92,12 +124,16 @@ class Coordinator:
         workers, and this device only refits winners for their artifacts.
         ``journal=True`` keeps the job store's JSONL journal under the
         storage root, reads back the jobs of an earlier run and resumes the
-        ones still in flight (``ready`` is False until that is done)."""
+        ones still in flight (``ready`` is False until that is done).
+        ``shard_id`` / ``n_shards`` make it one shard of a sharded control
+        plane, whose journal is ``journal_dir`` (``<journal>/shard-<k>``:
+        the unit a replacement process takes over)."""
         self.config = config or get_config()
         self.device = resolve_device(device)
         self.cluster = cluster
         self.bus = cluster.bus if cluster is not None else None
-        self.store = JobStore(journal_dir=self.config.storage.journal_dir if journal else None)
+        self.store = JobStore(journal_dir=(journal_dir or self.config.storage.journal_dir)
+                              if journal else None)
         if cluster is not None and cluster.cache is not None:
             self.cache = cluster.cache
         else:
@@ -125,9 +161,17 @@ class Coordinator:
         # per-trial learning curves, fed by result and metrics ingest; the
         # journaled curves of a read-back journal re-seed it
         self.curves = CurveStore()
-        #: an unsharded coordinator: the capacity signals read these
-        self.shard_id: Optional[int] = None
-        self.n_shards = 1
+        #: this shard's index (None: unsharded) and the fleet's shard count
+        self.shard_id = shard_id
+        self.n_shards = max(int(n_shards), 1)
+        #: peer shard base URLs, index = shard id (server --peers); every
+        #: rebalancing path is inert without them
+        self.peer_urls: List[str] = []
+        #: jobs being quiesced for migration: (sid, jid) -> destination
+        self._migrating: Dict[tuple, int] = {}
+        self._rebalance_lock = threading.Lock()
+        self._rebalance_busy = False
+        self._last_rebalance = 0.0
         # the fleet health plane: capacity signals (GET /autoscale) and the
         # SLO alert rules (GET /alerts)
         from ..obs.signals import CapacitySignals
@@ -142,6 +186,9 @@ class Coordinator:
             # from never-dispatched ones; speculation sheds first under load
             cluster.ledger.on_attempt = self._journal_attempt
             cluster.engine.on_place = self._journal_placement
+            # reshard markers (worker join, death, eviction), so a recovered
+            # coordinator resumes the mesh generation
+            cluster.engine.on_mesh_change = self._journal_mesh_change
             cluster.engine.shed_check = self.overload_shedding
             cluster.engine.on_sweep_end = self.health_tick
         if journal:
@@ -164,6 +211,10 @@ class Coordinator:
             self.alerts.evaluate(force=force)
         except Exception:  # noqa: BLE001
             logger.exception("Alert-rule evaluation failed")
+        try:
+            self.rebalance_tick()
+        except Exception:  # noqa: BLE001 — rebalancing must never break a caller
+            logger.exception("Rebalance tick failed")
 
     # ------------- recovery -------------
 
@@ -176,6 +227,14 @@ class Coordinator:
             counter_inc("tpuml_recovery_replayed_ops_total", n, op=op)
         record_event("recovery.start", replayed_ops=sum(self.store.replay_ops.values()),
                      replay_skipped=self.store.replay_skipped)
+        if self.cluster is not None and self.store.mesh_generation:
+            # resume the reshard counter monotonically: workers that joined
+            # during recovery already bumped the live engine
+            eng = self.cluster.engine
+            with eng._lock:
+                eng.mesh_generation = max(eng.mesh_generation, self.store.mesh_generation)
+                gauge_set("tpuml_mesh_generation", float(eng.mesh_generation))
+                gauge_set("tpuml_mesh_devices_total", float(eng.total_devices()))
         replayed_curves = self.store.drain_replayed_curves()
         for e in replayed_curves:
             self.curves.ingest(e["jid"], e["stid"], e["curve"], rung=e["rung"],
@@ -257,6 +316,529 @@ class Coordinator:
             resumed.append(job_id)
         return resumed
 
+    # ------------- cross-shard rebalancing -------------
+    # A hot shard (high shard pressure) migrates whole jobs to a cold peer
+    # and offers queued subtasks to thieves; an idle shard steals. Both ride
+    # the crash-safety machinery: journal ops with total replay, attempt
+    # fencing, first-terminal-result-wins dedupe (JAX coordinator.py).
+
+    def _journal_mesh_change(self, generation: int, reason: str,
+                             snapshot: Dict[str, Any]) -> None:
+        try:
+            self.store.record_mesh_generation(generation, reason)
+        except Exception:  # noqa: BLE001 — journaling must not block resharding
+            logger.exception("Mesh-generation journal failed")
+
+    def rebalance_tick(self) -> None:
+        """Throttled entry point, driven by ``health_tick``; the pass runs
+        on a background thread (it probes its peers over HTTP)."""
+        svc = self.config.service
+        if (not svc.rebalance_enabled or self.cluster is None or self.shard_id is None
+                or not self.peer_urls or not self.ready):
+            return
+        now = time.time()
+        with self._rebalance_lock:
+            if self._rebalance_busy or now - self._last_rebalance < svc.rebalance_interval_s:
+                return
+            self._rebalance_busy = True
+            self._last_rebalance = now
+        threading.Thread(target=self._rebalance_once, daemon=True).start()
+
+    def _rebalance_once(self) -> None:
+        try:
+            self._reclaim_stale_steals()
+            sig = (self.signals.evaluate() or {}).get("signals") or {}
+            my_p = float(sig.get("shard_pressure") or 0.0)
+            svc = self.config.service
+            if my_p >= svc.rebalance_hot_pressure:
+                self._migrate_if_peer_cold(my_p)
+            elif my_p <= svc.rebalance_cold_pressure and int(sig.get("idle_workers") or 0) > 0:
+                self._steal_from_hot_peer()
+        except Exception:  # noqa: BLE001 — a failed pass must not wedge the next
+            logger.exception("Rebalance pass failed")
+        finally:
+            with self._rebalance_lock:
+                self._rebalance_busy = False
+
+    def _peer_pressures(self) -> Dict[int, float]:
+        """The shard pressure of every answering peer (a dead peer is no
+        candidate)."""
+        out: Dict[int, float] = {}
+        for k, url in enumerate(self.peer_urls):
+            if k == self.shard_id or not url:
+                continue
+            try:
+                r = http.request("GET", f"{url}/autoscale", timeout=3)
+                if r.status < 400:
+                    sig = (r.json() or {}).get("signals") or {}
+                    out[k] = float(sig.get("shard_pressure") or 0.0)
+            except (*http.TransportError, ValueError):
+                continue
+        return out
+
+    def _migrate_if_peer_cold(self, my_pressure: float) -> None:
+        svc = self.config.service
+        peers = self._peer_pressures()
+        if not peers:
+            return
+        dest, cold = min(peers.items(), key=lambda kv: kv[1])
+        if cold > svc.rebalance_cold_pressure:
+            return
+        if cold > 0 and my_pressure / cold < svc.rebalance_imbalance_ratio:
+            return  # hot, but not hot enough next to the peer
+        picked = self._pick_migratable()
+        if picked is not None:
+            self.migrate_job(picked[0], picked[1], dest)
+
+    def _pick_migratable(self) -> Optional[tuple]:
+        """The cheapest unfinished job that can move: not expanding, not
+        migrating, not an adaptive search (its rung state has no export),
+        not adopted already (a job migrates at most once). A job with
+        nothing at a worker queue's head (nothing running) wins; one that
+        is running is the fallback."""
+        heads = set()
+        if self.cluster is not None:
+            for q in self.cluster.engine.queue_snapshot().values():
+                if q:
+                    heads.add(q[0])
+        fallback: Optional[tuple] = None
+        for sid, jid in self.store.unfinished_jobs():
+            if (sid, jid) in self._migrating:
+                continue
+            with self._submit_lock:
+                if jid in self._submitting:
+                    continue
+            try:
+                job = self.store.get_job(sid, jid)
+            except KeyError:
+                continue
+            subs = job.get("subtasks") or {}
+            if any((s.get("spec") or {}).get("asha") for s in subs.values()):
+                continue
+            if job.get("migrated_from") is not None:
+                continue
+            live = [stid for stid, s in subs.items()
+                    if s["status"] not in SUBTASK_TERMINAL_STATUSES]
+            if not live:
+                continue
+            if not any(stid in heads for stid in live):
+                return sid, jid
+            if fallback is None:
+                fallback = (sid, jid)
+        return fallback
+
+    def migrate_job(self, sid: str, job_id: str, dest_shard: int) -> bool:
+        """Donor half of the migration state machine (JAX ``migrate_job``):
+
+        1. quiesce: mark the job migrating; its loop unwinds
+           (``JobMigratedError``) without finalizing;
+        2. fence: bump every open subtask's attempt (journaled) and release
+           its engine entry, so no donor copy re-dispatches and a late
+           failure is stale (a late completion still wins);
+        3. export: POST the whole record to the peer's ``/migrate_in``,
+           where the recipient journals ``migrate_in`` first;
+        4. stamp: journal ``migrate_out`` only after the peer accepted;
+        5. forward: relay late donor-side results to the new owner for
+           ``rebalance_forward_s``.
+
+        A failed export aborts and respawns the job here."""
+        if self.cluster is None or not self.peer_urls:
+            return False
+        try:
+            url = self.peer_urls[int(dest_shard)]
+        except (IndexError, ValueError):
+            return False
+        record_event("migrate.start", job_id=job_id, dest_shard=int(dest_shard))
+        self._migrating[(sid, job_id)] = int(dest_shard)
+        try:
+            t = self._job_threads.get(job_id)
+            if t is not None and t.is_alive():
+                t.join(timeout=30.0)
+                if t.is_alive():
+                    record_event("migrate.abort", job_id=job_id, dest_shard=int(dest_shard),
+                                 reason="quiesce_timeout")
+                    return False
+            job = self.store.get_job(sid, job_id)
+            owner = {stid: wid for wid, q in self.cluster.engine.queue_snapshot().items()
+                     for stid in q}
+            fenced = 0
+            for stid, sub in job["subtasks"].items():
+                if sub["status"] in SUBTASK_TERMINAL_STATUSES:
+                    continue
+                task = dict(sub["spec"])
+                self.cluster.ledger.seed(task)
+                self.cluster.ledger.next_attempt(task, reason="migrate")
+                wid = owner.get(stid) or task.get("placed_worker")
+                if wid:
+                    self.cluster.engine.release_task(wid, stid)
+                self.store.clear_steal(stid)
+                fenced += 1
+            # re-read: the fence journaled fresh attempts into the specs
+            job = self.store.get_job(sid, job_id)
+            export = {"session_id": sid, "priority": self.store.session_priority(sid),
+                      "source_shard": self.shard_id, "job": job}
+            try:
+                r = http.request("POST", f"{url}/migrate_in", json=json_safe(export),
+                                 timeout=30)
+            except http.TransportError as e:
+                self._abort_migration(sid, job_id, f"peer_unreachable: {e}")
+                return False
+            if r.status != 200:
+                self._abort_migration(sid, job_id, f"peer_rejected: HTTP {r.status}")
+                return False
+            # holds the window where the recipient has the job and the donor
+            # has not stamped it yet open, for crash drills
+            delay = float(os.environ.get("CS230_MIGRATE_DELAY_S", 0) or 0)
+            if delay > 0:
+                time.sleep(delay)
+            self.store.record_migrate_out(sid, job_id, int(dest_shard))
+            counter_inc("tpuml_jobs_migrated_total", direction="out")
+            record_event("migrate.out", job_id=job_id, dest_shard=int(dest_shard),
+                         n_fenced=fenced)
+            logger.info("Migrated job %s to shard %d (%d subtasks fenced)", job_id,
+                        int(dest_shard), fenced)
+            pending = [stid for stid, sub in job["subtasks"].items()
+                       if sub["status"] not in SUBTASK_TERMINAL_STATUSES]
+            self._forward_late_results(job_id, int(dest_shard), pending)
+            self.cluster.ledger.forget(list(job["subtasks"]))
+            return True
+        finally:
+            self._migrating.pop((sid, job_id), None)
+
+    def _abort_migration(self, sid: str, job_id: str, reason: str) -> None:
+        """A failed export: the job never left. Clear the mark and respawn
+        it here; the fenced attempts re-dispatch (as after a restart)."""
+        record_event("migrate.abort", job_id=job_id, reason=reason)
+        logger.warning("Migration of job %s aborted: %s", job_id, reason)
+        self._migrating.pop((sid, job_id), None)
+        self._respawn_job(sid, job_id)
+
+    def _respawn_job(self, sid: str, job_id: str) -> None:
+        """Resume one job from its store record: run what is not terminal."""
+        job = self.store.get_job(sid, job_id)
+        specs = [sub["spec"] for sub in job["subtasks"].values()]
+        existing = {stid: sub["result"] for stid, sub in job["subtasks"].items()
+                    if sub["status"] in SUBTASK_TERMINAL_STATUSES and sub["result"]}
+        t = threading.Thread(target=self._run_job, args=(sid, job_id, specs),
+                             kwargs={"existing": existing}, daemon=True)
+        self._job_threads[job_id] = t
+        t.start()
+
+    def _forward_late_results(self, job_id: str, dest_shard: int,
+                              pending_ids: List[str]) -> None:
+        """Relay late results of a migrated job's open subtasks (zombie
+        workers finishing fenced attempts) to the new owner's
+        ``/peer_result`` for ``rebalance_forward_s``, once a subtask."""
+        if not pending_ids:
+            return
+        import queue as _q
+
+        url = self.peer_urls[dest_shard]
+        wanted = set(pending_ids)
+        sub = self.bus.subscribe(TOPIC_RESULTS, key_filter=lambda k: k in wanted)
+        deadline = time.time() + self.config.service.rebalance_forward_s
+
+        def _pump():
+            done: set = set()
+            try:
+                while time.time() < deadline and len(done) < len(wanted):
+                    try:
+                        stid, result = sub.get(timeout=1.0)
+                    except _q.Empty:
+                        continue
+                    if stid in done:
+                        continue
+                    try:
+                        http.request("POST", f"{url}/peer_result",
+                                     json=json_safe(result or {}), timeout=10)
+                        done.add(stid)
+                        counter_inc("tpuml_results_forwarded_total")
+                        record_event("migrate.forward", job_id=job_id, subtask_id=stid,
+                                     dest_shard=dest_shard)
+                    except http.TransportError:
+                        logger.warning("Forwarding late result %s to shard %d failed", stid,
+                                       dest_shard)
+            finally:
+                sub.close()
+
+        threading.Thread(target=_pump, daemon=True).start()
+
+    def migrate_in(self, export: Dict[str, Any]) -> Dict[str, Any]:
+        """Recipient half: journal the adopted record (before the donor
+        stamps ``migrate_out``), then resume it like a recovered job. A
+        duplicate export is answered idempotently."""
+        if self.cluster is None:
+            raise ValueError("job migration requires a clustered coordinator")
+        job = (export or {}).get("job") or {}
+        sid = (export or {}).get("session_id")
+        job_id = job.get("job_id")
+        if not (sid and job_id and job.get("subtasks") is not None):
+            raise ValueError("malformed migration export")
+        if self.store.has_job(sid, job_id):
+            return {"status": "accepted", "job_id": job_id, "shard": self.shard_id,
+                    "duplicate": True}
+        src = export.get("source_shard")
+        self.store.create_session(sid, priority=int(export.get("priority") or 0))
+        self.store.import_job(sid, job, source_shard=src)
+        counter_inc("tpuml_jobs_migrated_total", direction="in")
+        record_event("migrate.in", job_id=job_id, source_shard=src,
+                     n_subtasks=len(job.get("subtasks") or {}))
+        logger.info("Adopted job %s from shard %s (%d subtasks)", job_id, src,
+                    len(job.get("subtasks") or {}))
+        self._respawn_job(sid, job_id)
+        return {"status": "accepted", "job_id": job_id, "shard": self.shard_id}
+
+    # ---- work stealing ----
+
+    def _steal_owner(self) -> Dict[str, str]:
+        """Queued, not-head, not-tombstoned subtask -> its worker."""
+        tomb = dict(self.store.steal_tombstones)
+        return {stid: wid for wid, q in self.cluster.engine.queue_snapshot().items()
+                for stid in q[1:] if stid not in tomb}
+
+    def steal_candidates(self) -> Dict[str, Any]:
+        """Donor surface (``GET /steal_candidates``): queued subtasks an
+        idle peer may pull, offered only while this shard is hot. Queue
+        heads (likely running), tombstoned and adaptive-search subtasks
+        are withheld; each candidate is priced with its worker's width."""
+        out: Dict[str, Any] = {"shard": self.shard_id, "candidates": [],
+                               "shard_pressure": None, "backlog_device_seconds": None}
+        if self.cluster is None or not self.config.service.rebalance_enabled:
+            return out
+        sig = (self.signals.report() or {}).get("signals") or {}
+        out["shard_pressure"] = sig.get("shard_pressure")
+        out["backlog_device_seconds"] = sig.get("backlog_device_seconds")
+        if float(sig.get("shard_pressure") or 0.0) < self.config.service.rebalance_hot_pressure:
+            return out
+        snap = self.cluster.engine.worker_snapshot()
+        owner = self._steal_owner()
+        for stid, rec in self.store.lookup_specs(list(owner)).items():
+            spec = rec["spec"]
+            if spec.get("asha"):
+                continue
+            out["candidates"].append({
+                "subtask_id": stid, "job_id": rec["job_id"], "session_id": rec["session_id"],
+                "est_s": spec.get("est_s"),
+                "n_devices": int((snap.get(owner[stid]) or {}).get("n_devices") or 1),
+            })
+        return out
+
+    def release_for_steal(self, thief_shard: int, max_n: int,
+                          max_n_devices: Optional[int] = None,
+                          prefer_wide: bool = False) -> List[Dict[str, Any]]:
+        """Donor grant (``POST /steal_tasks``): up to ``max_n`` queued
+        subtasks as fresh attempts (fencing the donor's copy), each released
+        from its worker and tombstoned (``steal``) so neither a live nor a
+        restarted donor re-dispatches it inside the steal lease.
+        ``max_n_devices`` drops candidates priced wider than the thief's
+        widest idle slice; ``prefer_wide`` grants the widest first."""
+        if self.cluster is None or not self.config.service.rebalance_enabled or max_n <= 0:
+            return []
+        snap = self.cluster.engine.worker_snapshot()
+        owner = self._steal_owner()
+        width = {stid: int((snap.get(wid) or {}).get("n_devices") or 1)
+                 for stid, wid in owner.items()}
+        if max_n_devices is not None:
+            owner = {stid: wid for stid, wid in owner.items()
+                     if width[stid] <= int(max_n_devices)}
+        items = sorted(self.store.lookup_specs(list(owner)).items(),
+                       key=((lambda kv: (-width.get(kv[0], 1), kv[0])) if prefer_wide
+                            else (lambda kv: kv[0])))
+        granted: List[Dict[str, Any]] = []
+        for stid, rec in items:
+            if len(granted) >= int(max_n):
+                break
+            if rec["spec"].get("asha"):
+                continue
+            task = dict(rec["spec"])
+            self.cluster.ledger.seed(task)
+            self.cluster.ledger.next_attempt(task, reason="steal")
+            self.cluster.engine.release_task(owner[stid], stid)
+            self.store.record_steal(rec["session_id"], rec["job_id"], stid,
+                                    thief_shard=int(thief_shard),
+                                    attempt=int(task.get("attempt") or 0))
+            task["metadata"] = rec["metadata"]
+            task["stolen_from"] = self.shard_id
+            granted.append(task)
+            counter_inc("tpuml_subtasks_stolen_total", direction="out")
+            record_event("steal.out", job_id=rec["job_id"], subtask_id=stid,
+                         attempt=int(task.get("attempt") or 0), thief_shard=int(thief_shard),
+                         n_devices=width.get(stid, 1))
+        if granted:
+            logger.info("Granted %d queued subtasks to thief shard %d", len(granted),
+                        int(thief_shard))
+        return granted
+
+    def _steal_from_hot_peer(self) -> None:
+        """Thief half: read the peers' ``/steal_candidates``, pull from the
+        hottest offering shard what this shard's widest idle slice can
+        serve, run the grants here and relay each result to the donor."""
+        svc = self.config.service
+        widest_idle = 0
+        try:
+            snap = self.cluster.engine.worker_snapshot()
+            for wid, q in self.cluster.engine.queue_snapshot().items():
+                if not q:
+                    widest_idle = max(widest_idle,
+                                      int((snap.get(wid) or {}).get("n_devices") or 1))
+        except Exception:  # noqa: BLE001 — a torn snapshot must not crash the sweep
+            widest_idle = 0
+        if widest_idle <= 0:
+            return
+        offers: Dict[int, Dict[str, Any]] = {}
+        for k, url in enumerate(self.peer_urls):
+            if k == self.shard_id or not url:
+                continue
+            try:
+                r = http.request("GET", f"{url}/steal_candidates", timeout=3)
+                if r.status < 400:
+                    body = r.json() or {}
+                    servable = [c for c in (body.get("candidates") or [])
+                                if int(c.get("n_devices") or 1) <= widest_idle]
+                    if servable:
+                        body["candidates"] = servable
+                        offers[k] = body
+            except (*http.TransportError, ValueError):
+                continue
+        if not offers:
+            return
+        donor = max(offers, key=lambda k: float(offers[k].get("shard_pressure") or 0.0))
+        try:
+            r = http.request("POST", f"{self.peer_urls[donor]}/steal_tasks", json={
+                "thief_shard": self.shard_id, "max_n": int(svc.steal_max_tasks),
+                "max_n_devices": widest_idle, "prefer_wide": widest_idle > 1,
+            }, timeout=10)
+            tasks = (r.json() or {}).get("tasks") or [] if r.status < 400 else []
+        except (*http.TransportError, ValueError):
+            return
+        if tasks:
+            self._run_stolen(donor, tasks)
+
+    def _run_stolen(self, donor_shard: int, tasks: List[Dict[str, Any]]) -> None:
+        """Run stolen grants on this shard's workers and relay the results
+        home. The thief journals nothing: if it dies, the donor's steal
+        lease reclaims the subtasks with a fencing attempt."""
+        import queue as _q
+
+        url = self.peer_urls[donor_shard]
+        wanted = {t["subtask_id"] for t in tasks if t.get("subtask_id")}
+        sub = self.bus.subscribe(TOPIC_RESULTS, key_filter=lambda k: k in wanted)
+        for t in tasks:
+            counter_inc("tpuml_subtasks_stolen_total", direction="in")
+            record_event("steal.in", job_id=t.get("job_id"), subtask_id=t.get("subtask_id"),
+                         attempt=int(t.get("attempt") or 0), donor_shard=donor_shard)
+        logger.info("Stole %d queued subtasks from shard %d", len(tasks), donor_shard)
+        self.cluster.submit([dict(t) for t in tasks])
+
+        def _pump():
+            deadline = time.time() + 20.0 * self.config.service.client_timeout_s
+            pending = set(wanted)
+            try:
+                while pending and time.time() < deadline:
+                    try:
+                        stid, result = sub.get(timeout=1.0)
+                    except _q.Empty:
+                        continue
+                    if stid not in pending:
+                        continue  # an echo of a relayed result: never re-post
+                    try:
+                        http.request("POST", f"{url}/peer_result",
+                                     json=json_safe(result or {}), timeout=10)
+                        pending.discard(stid)
+                    except http.TransportError:
+                        logger.warning("Relaying stolen result %s to shard %d failed", stid,
+                                       donor_shard)
+            finally:
+                sub.close()
+                self.cluster.ledger.forget(wanted)
+
+        threading.Thread(target=_pump, daemon=True).start()
+
+    def _reclaim_stale_steals(self) -> None:
+        """Donor lease sweep: a tombstone older than ``steal_lease_s`` whose
+        subtask is still open means the thief went dark; reclaim it with a
+        fresh attempt and dispatch it here."""
+        svc = self.config.service
+        now = time.time()
+        for stid, t in list(self.store.steal_tombstones.items()):
+            if now - float(t.get("ts") or 0) < svc.steal_lease_s:
+                continue
+            self.store.clear_steal(stid)
+            info = self.store.lookup_specs([stid])
+            if stid not in info:
+                continue  # terminal already
+            rec = info[stid]
+            task = dict(rec["spec"])
+            self.cluster.ledger.seed(task)
+            self.cluster.ledger.next_attempt(task, reason="steal_reclaim")
+            task["metadata"] = rec["metadata"]
+            counter_inc("tpuml_subtasks_retried_total", reason="steal_reclaim")
+            record_event("steal.reclaim", job_id=rec["job_id"], subtask_id=stid,
+                         attempt=int(task.get("attempt") or 0), thief_shard=t.get("thief"))
+            logger.warning("Steal lease expired for %s (thief shard %s): reclaimed", stid,
+                           t.get("thief"))
+            self.cluster.submit([task])
+
+    def ingest_peer_result(self, result: Dict[str, Any]) -> None:
+        """``POST /peer_result``: a peer shard hands back a result (a
+        thief's stolen grant, or a donor's late result of a migrated job),
+        published on the local result topic under the same dedupe and
+        stale-attempt rules as any worker result."""
+        result = dict(result or {})
+        stid = result.get("subtask_id")
+        if not stid or self.bus is None:
+            return
+        counter_inc("tpuml_peer_results_ingested_total")
+        self.bus.publish(TOPIC_RESULTS, result, key=stid)
+
+    def canonical_job_id(self, job_id: str) -> str:
+        """The id a job is stored and routed under: on a shard, a
+        client-minted id gains this shard's ``s<k>-`` stamp
+        (deterministically, so a resubmit dedupes); stamped, adopted and
+        unsharded ids pass through."""
+        if self.shard_id is None or not job_id:
+            return job_id
+        if self.store.is_adopted_job(job_id):
+            return job_id  # keeps the donor's stamp
+        from .sharding import stamp_job_id
+
+        return stamp_job_id(self.shard_id, job_id)
+
+    def prewarm_hints(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Prewarm hints for a worker that registers (the ``/subscribe``
+        response's ``prewarm``): the latest job shape of each (model family,
+        dataset), ranked by the placement engine's hot families, newest
+        first within a rank. Empty with ``CS230_PREWARM=0``, under overload
+        (counted as shed) or before any job ran."""
+        from .prewarm import enabled as prewarm_enabled
+        from .prewarm import max_hints
+
+        if not prewarm_enabled():
+            return []
+        if self.overload_shedding():
+            counter_inc("tpuml_overload_shed_total", kind="prewarm")
+            return []
+        limit = limit if limit is not None else max_hints()
+        if limit <= 0:
+            return []
+        hints: Dict[Any, Dict[str, Any]] = {}
+        for job in self.store.jobs_overview():
+            family, dataset_id = job.get("model_type"), job.get("dataset_id")
+            if not family or not dataset_id or (family, dataset_id) in hints:
+                continue
+            try:
+                shape = self.store.hint_shape(job["session_id"], job["job_id"])
+            except Exception:  # noqa: BLE001 — an evicted or foreign job
+                continue
+            hints[(family, dataset_id)] = {"model_type": family, "dataset_id": dataset_id,
+                                           **shape}
+        ranked = list(hints.values())
+        hot = (self.cluster.engine.hot_families(top_n=max(limit, 5))
+               if self.cluster is not None else [])
+        rank = {family: i for i, family in enumerate(hot)}
+        ranked.sort(key=lambda h: rank.get(h["model_type"], len(rank)))
+        return ranked[:limit]
+
     # ------------- admission control -------------
 
     def admission_check(self, sid: Optional[str] = None) -> Optional[Dict[str, Any]]:
@@ -313,7 +895,16 @@ class Coordinator:
 
     def create_session(self, session_id: Optional[str] = None, *, priority: int = 0) -> str:
         """``priority`` is the session's QoS lane, kept in the session
-        record and its journal line (JAX ``create_session``)."""
+        record and its journal line (JAX ``create_session``). A shard that
+        mints the id itself mints one that hashes to it, so the front ends
+        route the session here."""
+        if session_id is None and self.shard_id is not None:
+            from .sharding import shard_of
+
+            while True:
+                session_id = str(uuid.uuid4())
+                if shard_of(session_id, self.n_shards) == self.shard_id:
+                    break
         return self.store.create_session(session_id, priority=priority)
 
     # ------------- data -------------
@@ -372,8 +963,9 @@ class Coordinator:
         acceptance with ``duplicate: true`` and never expands again."""
         self._require_session(sid)
         if not payload.get("job_id"):
-            return self._submit_train_locked(sid, str(uuid.uuid4()), payload)
-        job_id = payload["job_id"]
+            return self._submit_train_locked(sid, self.canonical_job_id(str(uuid.uuid4())),
+                                             payload)
+        job_id = self.canonical_job_id(payload["job_id"])
         with self._submit_lock:
             known = self.store.has_job(sid, job_id)
             if known or job_id in self._submitting:
@@ -527,6 +1119,10 @@ class Coordinator:
                                     search_summary=(driver.summary() if driver is not None
                                                     else None))
             counter_inc("tpuml_jobs_completed_total")
+        except JobMigratedError:
+            # not a failure: the job left this shard; migrate_job owns the
+            # handoff and the destination shard finalizes it
+            logger.info("Job %s quiesced for migration", job_id)
         except Exception as e:  # noqa: BLE001 — the job thread's boundary
             logger.exception("Job %s failed", job_id)
             counter_inc("tpuml_jobs_failed_total")
@@ -636,6 +1232,10 @@ class Coordinator:
             clock = {"last_progress": time.time(),
                      "hard_deadline": time.time() + 20.0 * self.config.service.client_timeout_s}
             while pending:
+                # the quiesce gate: the rebalancer marked the job for
+                # migration; unwind without finalizing
+                if self._migrating.get((sid, job_id)) is not None:
+                    raise JobMigratedError(job_id)
                 got = self._await_result(sub, pending, retry_due, clock, metadata)
                 if got is None:
                     continue
@@ -898,6 +1498,19 @@ class Coordinator:
         if completed:
             idx, _ = best_trial([score_key(r) for r in completed])
             best = dict(completed[idx])
+            # the winner by the trial mesh's collective argmax: each sharded
+            # group marks its winner (device_argmax) and the host only
+            # combines the marked few; a near-tie that ranks another way
+            # on the host keeps the host's winner (JAX coordinator.py)
+            marked = [r for r in completed if r.get("device_argmax")]
+            if marked:
+                dev_best = max(marked, key=score_key)
+                if dev_best["subtask_id"] == best["subtask_id"]:
+                    best["winner_via"] = WINNER_VIA_MESH
+                else:
+                    logger.info("device argmax winner %s (%.6f) differs from the host-ranked "
+                                "%s (%.6f); keeping the host winner", dev_best["subtask_id"],
+                                score_key(dev_best), best["subtask_id"], score_key(best))
             st = next(s for s in subtasks if s["subtask_id"] == best["subtask_id"])
             if best.get("asha") and best.get("parameters"):
                 # the subtask list still holds the rung-0 spec

@@ -35,6 +35,13 @@ gauges, and its cost record (``batch_cost``) rides the batch's first
 result into the job store, where ``Coordinator.job_cost`` sums it. The
 metrics messages carry the batch's ``batch_*`` totals and ``obs_pid`` for
 the coordinator's ingest of remote batches.
+
+Over a trial mesh (``mesh=``, parallel/mesh.py) the executor is one rank of
+an SPMD worker: the engine shards each chunk over the ranks, the result at
+the mesh collective's winner carries ``device_argmax`` (the coordinator's
+``winner_via``), and the batch's MFU divides its FLOPs by the peak of every
+rank's card. ``prewarm_hint`` warms one coordinator hint (runtime/
+prewarm.py); ``busy`` is true while a batch runs, so a prewarm yields.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from ..obs import (
     span,
 )
 from ..ops.folds import build_split_plan
+from ..parallel.distributed import LockstepLostError, agree
 from ..parallel.trial_map import TrialRunResult, fit_single, run_trials, run_trials_callable
 from ..utils.config import get_config
 from ..utils.flops import device_memory_stats
@@ -264,8 +272,12 @@ class LocalExecutor:
         max_trials_per_batch: Optional[int] = None,
         executor_id: str = EXECUTOR_ID,
         fault_injector: Optional[FaultInjector] = None,
+        mesh=None,
     ):
-        self.device = device
+        #: the trial mesh this executor is one rank of (None: one device);
+        #: its rank's device replaces ``device``
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else device
         #: the worker id on results and metrics messages (a cluster sets it
         #: to the worker id the placement engine minted)
         self.executor_id = executor_id
@@ -278,6 +290,14 @@ class LocalExecutor:
         #: cancelled attempt, consumed at the next group boundary
         self._cancel_lock = threading.Lock()
         self._cancelled: Dict[str, int] = {}
+        #: batches in flight (``busy``: a prewarm yields while one runs)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+
+    @property
+    def busy(self) -> bool:
+        """True while a batch runs on this executor."""
+        return self._inflight > 0
 
     def cancel(self, items) -> None:
         """Mark attempts cancelled. ``items``: dicts with ``subtask_id``
@@ -349,6 +369,15 @@ class LocalExecutor:
         """Run subtasks grouped by (dataset, model_type); returns results in
         input order. Per subtask, as its group completes, ``on_result``
         fires and then ``on_metrics`` with its metrics message."""
+        with self._inflight_lock:
+            self._inflight += 1
+        try:
+            return self._run_subtasks(subtasks, on_result, on_metrics)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def _run_subtasks(self, subtasks, on_result, on_metrics) -> List[Dict[str, Any]]:
         results: List[Optional[Dict[str, Any]]] = [None] * len(subtasks)
         groups: Dict[Any, List[int]] = {}
         for i, st in enumerate(subtasks):
@@ -375,10 +404,11 @@ class LocalExecutor:
                     self._run_group(subtasks, idxs, dataset_id, model_type, received_at,
                                     results, on_result, on_metrics, batch_sp)
             except Exception as e:  # noqa: BLE001 — task-level failure semantics
-                if _is_device_fatal(e):
-                    # a poisoned context fails every later launch: post no
-                    # per-task failures (the owner keeps the tasks queued for
-                    # the dead-worker requeue) and escalate
+                if _is_device_fatal(e) or isinstance(e, LockstepLostError):
+                    # a poisoned context fails every later launch, and a mesh
+                    # rank out of step with its siblings cannot rejoin them:
+                    # post no per-task failures (the owner keeps the tasks
+                    # queued for the dead-worker requeue) and escalate
                     raise DeviceLostError(
                         f"device lost on {self.executor_id}: {e}") from e
                 logger.exception("Batch failed for %s/%s", dataset_id, model_type)
@@ -407,19 +437,26 @@ class LocalExecutor:
         per-subtask results and metrics messages. ``batch_sp`` is the
         enclosing ``executor.batch`` span (or None); the engine's phase
         timers become its synthesized children."""
-        if self.fault_injector is not None:
-            self.fault_injector.before_batch(self.executor_id, model_type)
-        kernel = get_kernel(model_type)
-        data = self.cache.get(dataset_id, kernel.task)
-        tp = subtasks[idxs[0]].get("train_params", {}) or {}
-        scoring = _normalize_scoring(tp.get("scoring"), kernel.task, data.n_classes, kernel)
-        plan = build_split_plan(
-            np.asarray(data.y),
-            task=kernel.task,
-            n_folds=_coerce_cv(tp.get("cv")),
-            test_size=float(tp.get("test_size", get_config().execution.default_test_size)),
-            random_state=tp.get("random_state", 42),
-        )
+        try:
+            if self.fault_injector is not None:
+                self.fault_injector.before_batch(self.executor_id, model_type)
+            kernel = get_kernel(model_type)
+            data = self.cache.get(dataset_id, kernel.task)
+            tp = subtasks[idxs[0]].get("train_params", {}) or {}
+            scoring = _normalize_scoring(tp.get("scoring"), kernel.task, data.n_classes, kernel)
+            plan = build_split_plan(
+                np.asarray(data.y),
+                task=kernel.task,
+                n_folds=_coerce_cv(tp.get("cv")),
+                test_size=float(tp.get("test_size", get_config().execution.default_test_size)),
+                random_state=tp.get("random_state", 42),
+            )
+        except Exception:
+            if self.mesh is not None:
+                # the siblings' run_trials agrees on its rank-local part
+                # before any collective: this rank's verdict meets them there
+                agree(False, self.mesh)
+            raise
         started_at = time.time()
         params = [subtasks[i]["parameters"] for i in idxs]
         with ResourceSampler(self.device) as sampler:
@@ -436,9 +473,12 @@ class LocalExecutor:
         record_batch_device_seconds(run.compile_time_s, run.stage_time_s,
                                     run.run_time_s, run.fetch_time_s)
         resources = sampler.averages()
-        batch_cost = self._record_batch_cost(run, model_type, dataset_id, len(idxs), resources)
+        batch_cost = self._record_batch_cost(run, model_type, dataset_id, len(idxs), resources,
+                                             n_devices=self._n_devices())
         self._record_batch_phases(batch_sp, run, started_at, batch_cost)
         per_trial_time = run.run_time_s / max(len(idxs), 1)
+        # the mesh collective's winner within the group (submission order)
+        device_best_pos = run.device_best[0] if run.device_best is not None else None
         for j, gi in enumerate(idxs):
             st = subtasks[gi]
             result = {
@@ -458,6 +498,8 @@ class LocalExecutor:
                 result["asha"] = dict(st["asha"])
             if st.get("speculative"):
                 result["speculative"] = True
+            if device_best_pos == j:
+                result["device_argmax"] = True
             if j == 0 and batch_cost is not None:
                 # the batch's cost rides exactly one result into the job
                 # store, where job_cost sums it
@@ -473,20 +515,27 @@ class LocalExecutor:
                                             batch_size=len(idxs), primary=(j == 0),
                                             batch_cost=batch_cost))
 
+    def _n_devices(self) -> int:
+        from ..parallel.mesh import mesh_info
+
+        return mesh_info(self.mesh)[0]
+
     @staticmethod
     def _record_batch_cost(run, model_type: str, dataset_id: str, batch_size: int,
-                           resources: Optional[Dict[str, Any]] = None
-                           ) -> Optional[Dict[str, Any]]:
+                           resources: Optional[Dict[str, Any]] = None,
+                           n_devices: int = 1) -> Optional[Dict[str, Any]]:
         """Device cost accounting for one executed batch: the
         ``tpuml_executor_flops_total`` / ``_mfu`` / ``tpuml_device_hbm_bytes``
         families, and the cost record that rides the batch's first result
         (the ``GET /cost/<job_id>`` input). None when ``CS230_OBS=0``. MFU
         only from a complete model-FLOP sum (``flops_coverage`` 1.0), over
-        the batch's run window; None on the CPU."""
+        the batch's run window and the peak of each of ``n_devices`` ranks'
+        cards (the whole mesh's FLOPs over one card's peak would read N
+        times too high); None on the CPU."""
         if not obs_enabled():
             return None
         flops = run.model_flops if run.model_flops is not None else run.xla_flops
-        mfu_val = (_mfu(run.model_flops, run.run_time_s)
+        mfu_val = (_mfu(run.model_flops, run.run_time_s, n_devices=n_devices)
                    if run.flops_coverage == 1.0 else None)
         if flops is not None:
             counter_inc("tpuml_executor_flops_total", flops, model=model_type)
@@ -503,7 +552,7 @@ class LocalExecutor:
             "model_type": model_type,
             "dataset_id": dataset_id,
             "n_subtasks": batch_size,
-            "n_devices": 1,
+            "n_devices": int(n_devices),
             "device_seconds": run.run_time_s,
             "model_flops": run.model_flops,
             "xla_flops": run.xla_flops,
@@ -553,7 +602,48 @@ class LocalExecutor:
                                   run_time_s=time.perf_counter() - t0,
                                   n_dispatches=len(params) * plan.n_splits)
         return run_trials(kernel, data, plan, params, device=self.device,
-                          max_trials_per_batch=self.max_trials_per_batch, scoring=scoring)
+                          max_trials_per_batch=self.max_trials_per_batch, scoring=scoring,
+                          mesh=self.mesh)
+
+    def prewarm_hint(self, hint: Dict[str, Any], mode: str = "construct") -> Dict[str, Any]:
+        """Warm one coordinator prewarm hint (JAX ``prewarm_hint``): resolve
+        the dataset (a cold agent fetches and parses it), then run the
+        hinted job shape's engine call with ``warm_only=True``: the kernel
+        libraries are built or loaded and the bucket's tensors staged, and
+        nothing is dispatched. ``mode="execute"`` also dispatches the bucket
+        once with the hinted parameters and discards the result.
+
+        Hint schema (``Coordinator.prewarm_hints``): ``{model_type,
+        dataset_id, parameters, n_trials, train_params}``; ``n_trials`` is
+        capped at this executor's ``max_trials_per_batch`` (the largest
+        batch a pull delivers). A string ``scoring`` survives into the warm
+        (it changes the bucket's path)."""
+        kernel = get_kernel(hint["model_type"])
+        data = self.cache.get(hint["dataset_id"], kernel.task)
+        tp = dict(hint.get("train_params") or {})
+        scoring = tp.get("scoring")
+        scoring = _normalize_scoring(scoring if isinstance(scoring, str) else None,
+                                     kernel.task, data.n_classes, kernel)
+        plan = build_split_plan(
+            np.asarray(data.y), task=kernel.task, n_folds=_coerce_cv(tp.get("cv")),
+            test_size=float(tp.get("test_size", get_config().execution.default_test_size)),
+            random_state=tp.get("random_state", 42),
+        )
+        n_trials = max(1, min(int(hint.get("n_trials") or 1), self.max_trials_per_batch))
+        params = dict(hint.get("parameters") or {})
+        run = run_trials(kernel, data, plan, [params] * n_trials, device=self.device,
+                         max_trials_per_batch=self.max_trials_per_batch, scoring=scoring,
+                         mesh=self.mesh, warm_only=(mode != "execute"))
+        return {
+            "model_type": hint["model_type"],
+            "dataset_id": hint["dataset_id"],
+            "n_trials": n_trials,
+            "mode": mode,
+            "compile_s": round(run.compile_time_s, 6),
+            "stage_s": round(run.stage_time_s, 6),
+            "run_s": round(run.run_time_s, 6),
+            "n_dispatches": run.n_dispatches,
+        }
 
     def fit_artifact(self, subtask: Dict[str, Any]) -> Dict[str, Any]:
         """Refit one configuration on the holdout split's training rows and

@@ -20,9 +20,19 @@ agents' span ingest, cost, explain, the event firehose, alerts, autoscale
 and the metrics history; and the RED and trace middleware (an
 ``X-Trace-Id`` request runs inside an ``http.<endpoint>`` span of that
 trace, the id echoed on the reply; every request lands in
-``tpuml_http_request_seconds{route,method,code}``). The sharded control
-plane's routes (slices, migration, stealing, peers) are not ported yet;
-``/`` lists only the routes that exist.
+``tpuml_http_request_seconds{route,method,code}``).
+
+The sharded control plane (JAX ``server.py``): ``--shard-index K
+--num-shards N`` serve shard K behind stateless front ends (a journal of
+its own under ``<journal>/shard-<K>``, the admission caps carved per
+shard, ``/create_session`` honoring a front-end-minted id that hashes
+here), ``--peers`` the shard directory for rebalancing; the routes
+``/migrate_in``, ``/steal_candidates``, ``/steal_tasks`` and
+``/peer_result``; a migrated job's routes answer ``409 {"status":
+"moved", "migrated_to": k}``, which front ends turn into a cached
+redirect. ``/slice_heartbeat`` and ``/slice_status`` carry the SPMD slice
+watchdog of ``run_distributed`` (runtime/agent.py). ``/subscribe`` takes
+the worker's mesh-slice report and answers with prewarm hints.
 """
 
 from __future__ import annotations
@@ -497,9 +507,19 @@ class App:
             ("POST", "/task_result/<wid>", "task_result"),
             ("POST", "/task_metrics/<wid>", "task_metrics"),
             ("GET", "/dataset/<dataset_id>", "dataset"),
+            ("POST", "/slice_heartbeat/<slice_id>/<rank>", "slice_heartbeat"),
+            ("GET", "/slice_status/<slice_id>", "slice_status"),
+            ("POST", "/migrate_in", "migrate_in"),
+            ("POST", "/migrate_job", "migrate_job"),
+            ("GET", "/steal_candidates", "steal_candidates"),
+            ("POST", "/steal_tasks", "steal_tasks"),
+            ("POST", "/peer_result", "peer_result"),
         ):
             regex = "^" + re.sub(r"<(\w+)>", r"(?P<\1>[^/]+)", pattern) + "$"
             self._routes.append((method, re.compile(regex), endpoint))
+        #: SPMD slice liveness: slice id -> {rank: last heartbeat}
+        self._slices: Dict[str, Dict[int, float]] = {}
+        self._slices_lock = threading.Lock()
 
     # ---------------- dispatch ----------------
 
@@ -648,11 +668,32 @@ class App:
                 "POST /task_result/<worker_id>",
                 "POST /task_metrics/<worker_id>",
                 "GET  /dataset/<dataset_id>[?probe=1]",
+                "POST /slice_heartbeat/<slice_id>/<rank>  (SPMD slice watchdog)",
+                "GET  /slice_status/<slice_id>",
+                "POST /migrate_in  (shard rebalancing: adopt a job)",
+                "POST /migrate_job  (move one of this shard's jobs to a peer)",
+                "GET  /steal_candidates",
+                "POST /steal_tasks",
+                "POST /peer_result",
             ],
         })
 
+    def _shard_keys(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        if self.coord.shard_id is not None:
+            out["shard"] = self.coord.shard_id
+            out["n_shards"] = self.coord.n_shards
+        return out
+
+    def _moved(self, jid) -> Optional[Reply]:
+        """A migrated job's forwarding stamp: 409 with the destination
+        shard, or None while this shard owns the job."""
+        dest = self.coord.store.migrated_to(jid)
+        if dest is None:
+            return None
+        return _json({"status": "moved", "migrated_to": dest, "job_id": jid}, 409)
+
     def health(self, request) -> Reply:
-        out: Dict[str, Any] = {"status": "ok"}
+        out: Dict[str, Any] = self._shard_keys({"status": "ok"})
         slots = self._slots()
         if slots is not None:
             out["agent_slots"] = slots
@@ -661,10 +702,28 @@ class App:
         return _json(out)
 
     def create_session(self, request) -> Reply:
+        """Optional body ``{"session_id", "priority"}``: a sharded front end
+        mints the session id (so ``shard_of`` and the owning shard agree);
+        an unsharded coordinator always mints its own, and a shard refuses
+        an id that hashes elsewhere (400)."""
         body = request.json(silent=True) or {}
-        # an unsharded coordinator always mints the session id itself
-        sid = self.coord.create_session(priority=self._priority_or_400(body.get("priority")))
-        return _json({"session_id": sid}, 201)
+        sid_req = body.get("session_id")
+        coord = self.coord
+        if sid_req is not None:
+            if coord.shard_id is None:
+                sid_req = None
+            else:
+                from .sharding import shard_of
+
+                home = shard_of(sid_req, coord.n_shards)
+                if home != coord.shard_id:
+                    raise HTTPError(400, f"session id {sid_req!r} hashes to shard {home}, "
+                                         f"not this shard ({coord.shard_id})")
+        sid = coord.create_session(sid_req, priority=self._priority_or_400(body.get("priority")))
+        out = {"session_id": sid}
+        if coord.shard_id is not None:
+            out["shard"] = coord.shard_id
+        return _json(out, 201)
 
     def download_data(self, request, sid) -> Reply:
         body = request.json()
@@ -691,7 +750,14 @@ class App:
         """Submit and stream: SSE progress events until the job ends. A
         resume (a known job id) is a read and bypasses admission."""
         body = request.json()
-        known = bool(body.get("job_id") and self.coord.store.has_job(sid, body["job_id"]))
+        canonical = self.coord.canonical_job_id(body["job_id"]) if body.get("job_id") else None
+        known = bool(canonical and self.coord.store.has_job(sid, canonical))
+        if known:
+            # a resume of a job this shard handed off redirects; it never
+            # resubmits a second live copy
+            moved = self._moved(canonical)
+            if moved is not None:
+                return moved
         if not known:
             reject = self._admission_reject(sid)
             if reject is not None:
@@ -717,11 +783,16 @@ class App:
         return 200, [("Content-Type", "text/event-stream; charset=utf-8")], stream()
 
     def check_status(self, request, sid, jid) -> Reply:
-        return _json(self.coord.check_status(sid, jid))
+        jid = self.coord.canonical_job_id(jid)
+        return self._moved(jid) or _json(self.coord.check_status(sid, jid))
 
     def metrics(self, request, sid, jid) -> Reply:
         """Per-subtask results; ``?wait=1`` blocks until the job finalizes
         (the reference master's blocking /metrics)."""
+        jid = self.coord.canonical_job_id(jid)
+        moved = self._moved(jid)
+        if moved is not None:
+            return moved
         if request.args.get("wait"):
             timeout = float(request.args.get("timeout",
                                              self.coord.config.service.client_timeout_s))
@@ -730,7 +801,10 @@ class App:
         return _json(self.coord.job_metrics(sid, jid))
 
     def download_model(self, request, sid, jid) -> Reply:
-        path = self.coord.best_model_path(sid, jid)
+        moved = self._moved(self.coord.canonical_job_id(jid))
+        if moved is not None:
+            return moved
+        path = self.coord.best_model_path(sid, self.coord.canonical_job_id(jid))
         if path is None:
             return _json({"status": "error", "message": "no model artifact"}, 404)
         with open(path, "rb") as f:
@@ -773,6 +847,7 @@ class App:
         from .executor import record_hbm_gauges
 
         record_hbm_gauges()
+        _record_kernel_launches()
         refresh_route_p99()
         timeseries_sample()
         coord.health_tick()
@@ -889,13 +964,19 @@ class App:
         """The alert rules' states, evaluated first (``?force=1`` skips the
         throttle)."""
         self.coord.health_tick(force=bool(request.args.get("force")))
-        return _json(self.coord.alerts.snapshot())
+        out = self.coord.alerts.snapshot()
+        if self.coord.shard_id is not None:
+            out["shard"] = self.coord.shard_id
+        return _json(out)
 
     def autoscale(self, request) -> Reply:
         """The capacity signals (desired workers and shards, the raw
         signals, the hysteresis), evaluated first like /alerts."""
         self.coord.health_tick(force=bool(request.args.get("force")))
-        return _json(dict(self.coord.signals.report()))
+        out = dict(self.coord.signals.report())
+        if self.coord.shard_id is not None:
+            out["shard"] = self.coord.shard_id
+        return _json(out)
 
     def metrics_history(self, request) -> Reply:
         """The embedded time series: ``?name=`` a metric family, ``?since=``
@@ -916,8 +997,8 @@ class App:
         depth), the stragglers, readiness. Always 200; ``status`` says ok
         or degraded."""
         coord = self.coord
-        out: Dict[str, Any] = {"status": "ok", "obs_enabled": obs_enabled(),
-                               "ready": coord.ready}
+        out: Dict[str, Any] = self._shard_keys({"status": "ok", "obs_enabled": obs_enabled(),
+                                                "ready": coord.ready})
         if coord.recovery:
             out["recovery"] = coord.recovery
         if not coord.ready:
@@ -955,12 +1036,20 @@ class App:
                      [("Retry-After", f"{retry_after:g}")])
 
     def curves_job(self, request, jid) -> Reply:
+        jid = self.coord.canonical_job_id(jid)
+        moved = self._moved(jid)
+        if moved is not None:
+            return moved
         out = self.coord.job_curves(jid)
         if out is None:
             return _json({"status": "error", "message": f"no job {jid!r}"}, 404)
         return _json(out)
 
     def curves_subtask(self, request, jid, stid) -> Reply:
+        jid = self.coord.canonical_job_id(jid)
+        moved = self._moved(jid)
+        if moved is not None:
+            return moved
         try:
             return _json(self.coord.subtask_curves(jid, stid))
         except KeyError as e:
@@ -972,15 +1061,36 @@ class App:
     # ---------------- worker agents ----------------
 
     def subscribe(self, request) -> Reply:
+        """Register a remote worker with its mesh-slice report (``n_devices``,
+        ``mesh_shape``: the placement engine prices its batches per slice);
+        the reply carries the prewarm hints (``prewarm``) when there are
+        any."""
         body = request.json(silent=True) or {}
         n_devices = body.get("n_devices")
         if n_devices is not None:
             try:
-                int(n_devices)
+                n_devices = int(n_devices)
             except (TypeError, ValueError):
                 raise HTTPError(400, f"n_devices must be an integer, got {n_devices!r}")
-        wid = self._cluster_or_400().register_remote(body.get("mem_capacity_mb"))
-        return _json({"worker_id": wid}, 201)
+        mesh_shape = body.get("mesh_shape")
+        if mesh_shape is not None:
+            try:
+                mesh_shape = {str(k): int(v) for k, v in mesh_shape.items()}
+            except (TypeError, ValueError, AttributeError):
+                raise HTTPError(400, "mesh_shape must be an object of integer axis sizes, "
+                                     f"got {mesh_shape!r}")
+        wid = self._cluster_or_400().register_remote(body.get("mem_capacity_mb"),
+                                                     n_devices=n_devices,
+                                                     mesh_shape=mesh_shape)
+        resp: Dict[str, Any] = {"worker_id": wid}
+        try:
+            hints = self.coord.prewarm_hints()
+        except Exception:  # noqa: BLE001 — hints are advisory, never a failed registration
+            logger.exception("Prewarm hints failed")
+            hints = []
+        if hints:
+            resp["prewarm"] = hints
+        return _json(resp, 201)
 
     def unsubscribe(self, request, wid) -> Reply:
         self._cluster_or_400().unregister_remote(wid)
@@ -1031,6 +1141,104 @@ class App:
                      ("X-Dataset-Kind", kind),
                      ("Content-Disposition", f"attachment; filename={dataset_id}.csv")
                      ], _file_chunks(path)
+
+
+    # ---------------- SPMD slices and the shard rebalancing plane ----------------
+
+    def slice_heartbeat(self, request, slice_id, rank) -> Reply:
+        """A rank of an SPMD slice is alive (runtime/agent.py
+        ``_slice_watchdog``); slices whose every rank is silent for 900 s
+        are pruned."""
+        try:
+            rank = int(rank)
+        except ValueError:
+            raise HTTPError(400, f"rank must be an integer, got {rank!r}")
+        now = time.time()
+        with self._slices_lock:
+            self._slices.setdefault(slice_id, {})[rank] = now
+            for other in [k for k, ranks in self._slices.items()
+                          if k != slice_id and ranks and now - max(ranks.values()) > 900]:
+                del self._slices[other]
+        return _json({"status": "ok"})
+
+    def slice_status(self, request, slice_id) -> Reply:
+        """Seconds since each rank's last heartbeat."""
+        now = time.time()
+        with self._slices_lock:
+            ranks = dict(self._slices.get(slice_id, {}))
+        return _json({"ranks": {str(r): round(now - ts, 3) for r, ts in ranks.items()}})
+
+    def migrate_in(self, request) -> Reply:
+        """A donor shard hands over a quiesced job's whole record; the
+        recipient journals it before the donor stamps its move.
+        Idempotent."""
+        body = request.json(silent=True) or {}
+        try:
+            return _json(self.coord.migrate_in(body))
+        except ValueError as e:
+            return _json({"status": "error", "message": str(e)}, 400)
+
+    def migrate_job(self, request) -> Reply:
+        """An operator's move of one unfinished job to a peer shard: body
+        ``{"session_id", "job_id", "dest_shard"}`` -> ``Coordinator.
+        migrate_job`` (the rebalancer's own path; the JAX server has no
+        such route). ``{"migrated": false}`` when the move was refused or
+        aborted (the job then stays here)."""
+        body = request.json()
+        try:
+            sid, jid, dest = body["session_id"], body["job_id"], int(body["dest_shard"])
+        except (KeyError, TypeError, ValueError):
+            raise HTTPError(400, "session_id, job_id and an integer dest_shard are required")
+        jid = self.coord.canonical_job_id(jid)
+        if not self.coord.store.has_job(sid, jid):
+            return _json({"status": "error", "message": f"no job {jid!r}"}, 404)
+        if dest == self.coord.shard_id:
+            raise HTTPError(400, "dest_shard is this shard")
+        return _json({"migrated": bool(self.coord.migrate_job(sid, jid, dest)),
+                      "job_id": jid, "dest_shard": dest})
+
+    def steal_candidates(self, request) -> Reply:
+        return _json(self.coord.steal_candidates())
+
+    def steal_tasks(self, request) -> Reply:
+        """The steal grant: ``{"thief_shard", "max_n", "max_n_devices"?,
+        "prefer_wide"?}`` -> fenced task attempts the thief may run; their
+        results come back through ``/peer_result``."""
+        body = request.json(silent=True) or {}
+        try:
+            thief = int(body.get("thief_shard", -1))
+            max_n = int(body.get("max_n", self.coord.config.service.steal_max_tasks))
+            max_nd = body.get("max_n_devices")
+            max_nd = int(max_nd) if max_nd is not None else None
+        except (TypeError, ValueError):
+            raise HTTPError(400, "thief_shard, max_n and max_n_devices must be integers")
+        return _json({"tasks": self.coord.release_for_steal(
+            thief, max_n, max_n_devices=max_nd, prefer_wide=bool(body.get("prefer_wide")))})
+
+    def peer_result(self, request) -> Reply:
+        """Results relayed by a peer shard (``{"results": [...]}`` or one
+        result), published on the local bus like a worker's."""
+        body = request.json(silent=True) or {}
+        results = body.get("results")
+        if results is None:
+            results = [body]
+        n = 0
+        for r in results:
+            if isinstance(r, dict) and r.get("subtask_id"):
+                self.coord.ingest_peer_result(r)
+                n += 1
+        return _json({"status": "ok", "ingested": n})
+
+
+def _record_kernel_launches() -> None:
+    """``tpuml_kernel_launches{kernel}``: each CUDA kernel wrapper's launch
+    count in this process (``LAUNCHES`` of ops/cuda_*.py), read at scrape,
+    so another process (a shard of a fleet) can read its launches."""
+    from ..ops import cuda_hist, cuda_knn, cuda_logreg, cuda_mlp
+
+    for mod in (cuda_logreg, cuda_hist, cuda_mlp, cuda_knn):
+        for name, n in mod.LAUNCHES.items():
+            gauge_set("tpuml_kernel_launches", float(n), kernel=name)
 
 
 def _device_health(device) -> Dict[str, Any]:
@@ -1167,9 +1375,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--device", default=None,
                         help="the coordinator's and in-process workers' device "
                              "(default: the CUDA card; 'cpu' for the host)")
+    # the sharded control plane: this process serves one shard of N behind
+    # stateless front ends (runtime/frontend.py)
+    parser.add_argument("--shard-index", type=int, default=None, metavar="K",
+                        help="serve shard K of a sharded control plane")
+    parser.add_argument("--num-shards", type=int, default=1, metavar="N",
+                        help="total shards in the fleet (with --shard-index)")
+    parser.add_argument("--peers", default=None, metavar="URL,URL,...",
+                        help="comma-separated shard base URLs (index = shard id) for "
+                             "cross-shard migration and work stealing")
     args = parser.parse_args(argv)
     if args.direct and args.agent_executors > 0:
         parser.error("--agent-executors requires cluster mode (drop --direct)")
+    if args.shard_index is not None and not 0 <= args.shard_index < max(args.num_shards, 1):
+        parser.error("--shard-index must be in [0, --num-shards)")
+    if args.num_shards > 100:
+        parser.error("--num-shards is capped at 100 by the id stamp grammar")
+    if args.shard_index is not None and args.direct:
+        parser.error("--shard-index requires cluster mode (drop --direct)")
 
     from ..utils.config import get_config
 
@@ -1179,10 +1402,24 @@ def main(argv: Optional[List[str]] = None) -> None:
     else:
         from .cluster import ClusterRuntime
 
-        cluster = ClusterRuntime()
+        shard_kwargs: Dict[str, Any] = {}
+        if args.shard_index is not None:
+            from .sharding import shard_service_config
+
+            cfg = shard_service_config(get_config(), args.num_shards)
+            shard_kwargs = {
+                "config": cfg, "shard_id": args.shard_index, "n_shards": args.num_shards,
+                "journal_dir": os.path.join(cfg.storage.journal_dir,
+                                            f"shard-{args.shard_index}"),
+            }
+        cluster = ClusterRuntime(shard_id=args.shard_index)
         for _ in range(max(args.local_executors, 0)):
             cluster.add_executor(device=args.device)
-        coord = Coordinator(device=args.device, cluster=cluster, journal=args.journal)
+        coord = Coordinator(device=args.device, cluster=cluster, journal=args.journal,
+                            **shard_kwargs)
+        if args.peers:
+            coord.peer_urls = [u.strip().rstrip("/") for u in args.peers.split(",")
+                               if u.strip()]
         if args.agent_executors > 0:
             from .supervisor import AgentSupervisor, agent_command
 

@@ -1,12 +1,19 @@
 """In-memory, journaled job/session state store.
 
-Port of the JAX package's ``runtime/store.py`` without the sharded
-control plane's ops: plain dicts guarded by one lock, plus an append-only
-JSONL journal in the same format (``jobs.jsonl``, ops ``create_session`` /
-``create_job`` / ``update_subtask`` / ``subtask_attempt`` / ``place`` /
-``curve`` / ``finalize_job``), so a restarted coordinator reads back the
-jobs it ran, their learning curves, and for a scheduled job each
-subtask's attempt budget and placement, and resumes the unfinished ones.
+Port of the JAX package's ``runtime/store.py``: plain dicts guarded by one
+lock, plus an append-only JSONL journal in the same format (``jobs.jsonl``,
+ops ``create_session`` / ``create_job`` / ``update_subtask`` /
+``subtask_attempt`` / ``place`` / ``curve`` / ``finalize_job``), so a
+restarted coordinator reads back the jobs it ran, their learning curves,
+and for a scheduled job each subtask's attempt budget and placement, and
+resumes the unfinished ones.
+
+The sharded control plane's ops ride the same journal: ``mesh_gen`` (the
+placement engine's reshard counter), ``migrate_out`` (the donor's
+forwarding stamp), ``migrate_in`` (the recipient's adopted record, written
+before the donor stamps) and ``steal`` (a donor-side tombstone for a
+queued subtask granted to a thief shard). Replay is total: no truncation
+point raises.
 
 Status semantics: ``status`` is "pending" until the first subtask ends,
 then a percentage string, then "completed"; failed, pruned and diverged
@@ -65,6 +72,19 @@ class JobStore:
         #: or referring to state the journal never created)
         self.replay_ops: Dict[str, int] = {}
         self.replay_skipped = 0
+        self.replay_seconds = 0.0
+        #: highest journaled mesh generation: a recovered coordinator's
+        #: placement engine resumes its counter from it
+        self.mesh_generation = 0
+        #: forwarding stamps: job_id -> destination shard of the jobs this
+        #: store migrated out (their job routes answer 409 moved)
+        self._migrated: Dict[str, int] = {}
+        #: job ids adopted from a donor shard; they keep the donor's stamp
+        self._adopted: set = set()
+        #: donor-side steal tombstones: subtask_id -> grant info. While one
+        #: is live the donor never re-dispatches the subtask; the next
+        #: result clears it, or the steal lease reclaims it
+        self.steal_tombstones: Dict[str, Dict[str, Any]] = {}
         #: ``curve`` entries seen during replay, drained once by the
         #: coordinator into its CurveStore
         self._replayed_curves: List[Dict[str, Any]] = []
@@ -117,13 +137,30 @@ class JobStore:
                         "diverged_subtasks": job.get("diverged_subtasks", 0),
                         "created_at": job.get("created_at"),
                         "completion_time": job.get("completion_time"),
-                        # the sharded control plane's provenance (not
-                        # ported): kept for the JAX wire format
-                        "migrated_to": None,
-                        "migrated_from": None,
+                        # rebalancing provenance: where the job went
+                        # (donor view) / came from (recipient view)
+                        "migrated_to": job.get("migrated_to"),
+                        "migrated_from": job.get("migrated_from"),
                     })
         out.sort(key=lambda j: j.get("created_at") or 0, reverse=True)
         return out
+
+    def hint_shape(self, sid: str, job_id: str) -> Dict[str, Any]:
+        """The prewarm hint's extract of one job: the first subtask's
+        parameters, the payload's scalar train_params and the subtask
+        count, without the whole-job deep copy of ``get_job``. Raises
+        KeyError for unknown ids."""
+        with self._lock:
+            job = self._require_job(sid, job_id)
+            first = next(iter((job.get("subtasks") or {}).values()), None)
+            params = ((first or {}).get("spec") or {}).get("parameters") or {}
+            train_params = (job.get("payload") or {}).get("train_params") or {}
+            return {
+                "parameters": json.loads(json.dumps(params)),
+                "train_params": {k: v for k, v in train_params.items()
+                                 if isinstance(v, (str, int, float, bool, type(None)))},
+                "n_trials": int(job.get("total_subtasks") or 1),
+            }
 
     def session_of(self, job_id: str) -> Optional[str]:
         """The session that holds ``job_id``, or None."""
@@ -179,6 +216,8 @@ class JobStore:
         with self._lock:
             job = self._require_job(sid, job_id)
             self._apply_subtask_update(job, job["subtasks"][subtask_id], status, result)
+            # any delivered result retires a steal tombstone
+            self.steal_tombstones.pop(subtask_id, None)
         self._journal(
             {
                 "op": "update_subtask",
@@ -264,6 +303,98 @@ class JobStore:
             self._replayed_curves = []
         return out
 
+    def record_mesh_generation(self, generation: int, reason: Optional[str] = None) -> None:
+        """Journal a mesh-generation bump (a worker's join, death or
+        eviction) so recovery resumes the counter instead of resetting it."""
+        with self._lock:
+            self.mesh_generation = max(self.mesh_generation, int(generation or 0))
+        self._journal({"op": "mesh_gen", "generation": int(generation or 0), "reason": reason})
+
+    # ---------------- cross-shard rebalancing ----------------
+    # The journal is the migration transport: ``migrate_in`` lands the
+    # whole record on the recipient before the donor stamps
+    # ``migrate_out``, so a crash between the two leaves at most a
+    # duplicated (deduped) owner, never a lost job.
+
+    def migrated_to(self, job_id: str) -> Optional[int]:
+        """Destination shard of a job this store migrated away, or None."""
+        return self._migrated.get(job_id)
+
+    def record_migrate_out(self, sid: str, job_id: str, dest_shard: int) -> None:
+        """Stamp a job as migrated to ``dest_shard``. The record stays (its
+        routes answer 409 moved) but the job leaves ``unfinished_jobs`` and
+        ``unfinished_counts``: a restarted donor never resumes it."""
+        with self._lock:
+            job = self._require_job(sid, job_id)
+            job["migrated_to"] = int(dest_shard)
+            self._migrated[job_id] = int(dest_shard)
+            event = self._done_events.pop((sid, job_id), None)
+        self._journal({"op": "migrate_out", "sid": sid, "jid": job_id, "dest": int(dest_shard)})
+        if event is not None:
+            event.set()
+
+    def import_job(self, sid: str, record: Dict[str, Any],
+                   source_shard: Optional[int] = None) -> None:
+        """Install a whole job record exported by a donor shard; the journal
+        entry carries the record, so a replay restores the same state."""
+        record = json_safe(record)
+        record["migrated_from"] = source_shard
+        record.pop("migrated_to", None)
+        with self._lock:
+            self._require_session(sid)["jobs"][record["job_id"]] = record
+            self._adopted.add(record["job_id"])
+        self._journal({"op": "migrate_in", "sid": sid, "record": record,
+                       "source_shard": source_shard})
+
+    def is_adopted_job(self, job_id: str) -> bool:
+        """True for ids adopted through ``import_job``: they wear the
+        donor's shard stamp and must not be re-stamped."""
+        return job_id in self._adopted
+
+    def record_steal(self, sid: str, job_id: str, subtask_id: str, thief_shard: int,
+                     attempt: int) -> None:
+        """Tombstone a queued subtask granted to a thief shard, with the
+        fenced attempt the thief runs. Replay restores it with a fresh
+        lease clock."""
+        with self._lock:
+            self.steal_tombstones[subtask_id] = {
+                "sid": sid, "jid": job_id, "thief": int(thief_shard),
+                "attempt": int(attempt), "ts": time.time(),
+            }
+        self._journal({"op": "steal", "sid": sid, "jid": job_id, "stid": subtask_id,
+                       "thief": int(thief_shard), "attempt": int(attempt)})
+
+    def clear_steal(self, subtask_id: str) -> None:
+        """Drop a steal tombstone (result arrived, or lease reclaimed). Not
+        journaled: the matching update or attempt entry encodes it."""
+        if not self.steal_tombstones:
+            return
+        with self._lock:
+            self.steal_tombstones.pop(subtask_id, None)
+
+    def lookup_specs(self, subtask_ids) -> Dict[str, Dict[str, Any]]:
+        """Live (non-terminal, not migrated) subtask ids to ``{session_id,
+        job_id, spec, metadata}`` copies, in one lock pass."""
+        wanted = set(subtask_ids)
+        out: Dict[str, Dict[str, Any]] = {}
+        if not wanted:
+            return out
+        with self._lock:
+            for sid, sess in self._sessions.items():
+                for jid, job in sess["jobs"].items():
+                    if job.get("migrated_to") is not None or job["status"] in TERMINAL_STATUSES:
+                        continue
+                    for stid in wanted & set(job["subtasks"]):
+                        sub = job["subtasks"][stid]
+                        if sub["status"] in SUBTASK_TERMINAL_STATUSES:
+                            continue
+                        out[stid] = {
+                            "session_id": sid, "job_id": jid,
+                            "spec": json.loads(json.dumps(sub["spec"])),
+                            "metadata": json.loads(json.dumps(job.get("metadata") or {})),
+                        }
+        return out
+
     def set_search_state(self, sid: str, job_id: str, summary: Dict[str, Any]) -> None:
         """Attach the live rung-state summary (AshaController.summary) to
         the job for progress readers. Derived state, rebuilt from
@@ -329,11 +460,13 @@ class JobStore:
 
     def unfinished_jobs(self) -> List[tuple]:
         """(sid, job_id) of the jobs not yet finalized: after a journal
-        replay, the in-flight jobs a restarted coordinator resumes."""
+        replay, the in-flight jobs a restarted coordinator resumes. A job
+        migrated out is the destination shard's."""
         with self._lock:
             return [(sid, jid) for sid, sess in self._sessions.items()
                     for jid, job in sess["jobs"].items()
-                    if job["status"] not in TERMINAL_STATUSES]
+                    if job["status"] not in TERMINAL_STATUSES
+                    and job.get("migrated_to") is None]
 
     def unfinished_counts(self) -> Dict[str, Any]:
         """Admission control's inputs in one lock hold: unfinished jobs
@@ -343,7 +476,7 @@ class JobStore:
         with self._lock:
             for sid, sess in self._sessions.items():
                 for job in sess["jobs"].values():
-                    if job["status"] in TERMINAL_STATUSES:
+                    if job["status"] in TERMINAL_STATUSES or job.get("migrated_to") is not None:
                         continue
                     jobs += 1
                     per_session[sid] = per_session.get(sid, 0) + 1
@@ -382,6 +515,7 @@ class JobStore:
     def _replay(self) -> None:
         if not os.path.exists(self._journal_path):
             return
+        t0 = time.time()
         ends_with_newline = True
         with open(self._journal_path) as f:
             for line in f:
@@ -407,6 +541,7 @@ class JobStore:
                     f.write("\n")
             except OSError:
                 pass
+        self.replay_seconds = time.time() - t0
 
     def _apply_entry(self, e: Dict[str, Any]) -> bool:
         """Apply one journal entry; False when it is unknown or refers to
@@ -426,6 +561,7 @@ class JobStore:
                 self._apply_subtask_update(
                     job, job["subtasks"][e["stid"]], e["status"], e.get("result")
                 )
+                self.steal_tombstones.pop(e["stid"], None)
             elif op == "subtask_attempt":
                 spec = self._sessions[e["sid"]]["jobs"][e["jid"]]["subtasks"][e["stid"]]["spec"]
                 spec["attempt"] = int(e.get("attempt", 0) or 0)
@@ -437,6 +573,25 @@ class JobStore:
                 spec["placed_attempt"] = int(e.get("attempt", 0) or 0)
                 if e.get("lease_deadline") is not None:
                     spec["lease_deadline"] = float(e["lease_deadline"])
+            elif op == "mesh_gen":
+                self.mesh_generation = max(self.mesh_generation,
+                                           int(e.get("generation", 0) or 0))
+            elif op == "migrate_out":
+                job = self._sessions[e["sid"]]["jobs"][e["jid"]]
+                job["migrated_to"] = int(e.get("dest", 0) or 0)
+                self._migrated[e["jid"]] = int(e.get("dest", 0) or 0)
+            elif op == "migrate_in":
+                self._sessions.setdefault(
+                    e["sid"], {"created_at": time.time(), "jobs": {}, "priority": 0}
+                )["jobs"][e["record"]["job_id"]] = e["record"]
+                self._adopted.add(e["record"]["job_id"])
+            elif op == "steal":
+                # a fresh lease clock: the thief gets a whole lease after a
+                # donor restart
+                self.steal_tombstones[e["stid"]] = {
+                    "sid": e["sid"], "jid": e["jid"], "thief": int(e.get("thief", 0) or 0),
+                    "attempt": int(e.get("attempt", 0) or 0), "ts": time.time(),
+                }
             elif op == "curve":
                 # a truncated journal may hold a curve of a job whose
                 # create_job entry was torn away

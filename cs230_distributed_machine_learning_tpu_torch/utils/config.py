@@ -160,6 +160,26 @@ class ServiceConfig:
     route_p99_slo_s: float = 2.0
     sse_lag_slo_s: float = 5.0
     alert_admission_reject_per_s: float = 0.2
+    # ---- cross-shard rebalancing: job migration and work stealing, driven
+    # by the shard pressure signal (obs/signals.py). Off unless enabled,
+    # even with peers wired (the peer routes still answer)
+    rebalance_enabled: bool = False
+    # floor between rebalance passes (each pass probes its peers)
+    rebalance_interval_s: float = 10.0
+    # at or above this pressure a shard is hot: it offers steal candidates
+    # and looks for a cold peer to migrate a job to
+    rebalance_hot_pressure: float = 2.0
+    # at or below it a peer is a migration destination, and a shard with
+    # idle workers turns thief
+    rebalance_cold_pressure: float = 0.5
+    # hot/cold pressure ratio floor before a migration fires
+    rebalance_imbalance_ratio: float = 3.0
+    # how long the donor relays late results of a migrated job
+    rebalance_forward_s: float = 120.0
+    # queued subtasks one steal grant hands a thief shard at most
+    steal_max_tasks: int = 8
+    # a steal tombstone older than this with no result is reclaimed
+    steal_lease_s: float = 120.0
 
 
 @dataclasses.dataclass

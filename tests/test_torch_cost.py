@@ -100,10 +100,10 @@ def test_model_flops_match_jax(case):
 
 
 def test_trial_run_result_has_the_jax_fields():
-    """All but ``device_best``, the on-device argmax of a multi-device mesh
-    (ROADMAP A item 3)."""
+    """Every field, ``device_best`` (the trial mesh's collective argmax)
+    included since the multi-device slice."""
     port = {f.name for f in dataclasses.fields(ttm.TrialRunResult)}
-    assert {f.name for f in dataclasses.fields(jtm.TrialRunResult)} - port == {"device_best"}
+    assert {f.name for f in dataclasses.fields(jtm.TrialRunResult)} - port == set()
 
 
 def test_phases_tile_the_run():

@@ -166,7 +166,8 @@ def test_port_imports_no_jax(tmp_path):
     """In a fresh interpreter with scikit-learn made unimportable, the port
     runs a small LogReg search, a small forest, a small MLP search and a
     small KNN search from model_details payloads (the form a user without
-    scikit-learn passes) and never loads JAX or the JAX package."""
+    scikit-learn passes), imports the multi-device and sharded-plane
+    modules, and never loads JAX or the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['sklearn'] = None  # any import of it now fails\n"
@@ -200,6 +201,11 @@ def test_port_imports_no_jax(tmp_path):
         "s = MLTaskManager(device='cpu').train(knn, 'synthetic_300x6x3')\n"
         "assert s['job_status'] == 'completed' and not s['job_result']['failed'], s\n"
         "assert len(s['job_result']['results']) == 4, s\n"
+        "import importlib\n"
+        "for mod in ('parallel.distributed', 'parallel.collectives', 'parallel.mesh',\n"
+        "            'runtime.agent', 'runtime.server', 'runtime.frontend', 'runtime.fleet',\n"
+        "            'runtime.sharding', 'runtime.prewarm', 'utils.aot_cache'):\n"
+        "    importlib.import_module('cs230_distributed_machine_learning_tpu_torch.' + mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('jaxlib.') or m == 'cs230_distributed_machine_learning_tpu'\n"
         "       or m.startswith('cs230_distributed_machine_learning_tpu.')]\n"
