@@ -283,11 +283,38 @@ Then the scheduled runtime and the REST routes, the "scheduled" group:
             2e-3 of rest_main's; the respawns and the seconds from the kill
             to completion.
 
+Then several processes on the card, the "multi_device" group
+(dist_nccl1, dist_main, dist_rf, fleet_main, prewarm: see
+``phase_multi_device``), and the 2-D (trials, data) mesh, the "mesh_2d"
+group: the families' searches below on one card in this process, then 4
+child processes on the card (gloo), one trial_mesh(data_parallel=2) of 2
+trial x 2 data ranks, each driving MLTaskManager(coordinator=
+Coordinator(mesh=mesh)) in direct mode:
+
+42. dist2d_main  bench.py's job, uncut (1000 trials, covertype, cv 5):
+            each rank holds its row half; the chunk is 1024 lanes, 512 a
+            trial rank (4 blocks); B1 once a step on each rank's rows (200
+            a rank), its gradient all-reduced over the data group, B2
+            never; every score within MESH2D_TOL of main_auto's,
+            best_params_ equal or both winners' scores within it in both
+            runs; the look-ahead weights of the last B1 launch and the
+            last reduced gradient equal to the bit within each data
+            group; each rank's staged X its row half.
+43. dist2d_scored  scored_main's search (neg_log_loss, 256 trials): the
+            generic driver, B3 on a rank's 768 lanes and row half, 200 a
+            rank; scores within SCORED_MAIN_TOL of scored_main's.
+44. dist2d_families  MESH2D_FAMILIES (MLP, KNN, boosting) on the flat
+            trial axis of the 4 ranks with the whole table: B5, B6 and B4
+            launches a rank; scores within each family's limit of the same
+            search on one card.
+
 The stage_cache line carries the stage cache's stats of the run so far;
 stream_logreg empties the cache first (so that its single-shot run must
 upload), and the done line carries the stats since.
 
-The kernels phase also holds B3 at scored_main's shape (1,536 lanes,
+The kernels phase also holds B1 at dist2d_main's shape (4 blocks on a
+row half, n_pad 59,392) and B3 at dist2d_scored's (768 lanes, n_pad
+58,112), and B3 at scored_main's shape (1,536 lanes,
 n_pad 116,224, dpp 128 of which the 55 real columns are nonzero, cp 16,
 c 7; its R^T scratch past 2^31 elements) against its plain version run
 256 lanes at a time, and B4 (the tree level histogram) against its
@@ -308,7 +335,9 @@ table held for its earlier design, not measured in this run), the
 kernels line (every number measured in this run, but the bound, which it
 computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
 entries for asha_main, asha_refit and hyperband_rf, B4 one for
-stream_rf, B2 and B3 for rest_main and its refit, B2 for obs_main), the nvidia-smi line, and
+stream_rf, B2 and B3 for rest_main and its refit, B2 for obs_main, the
+multi_device group's, and B1 dist2d_main, B3 dist2d_scored, B4, B5 and
+B6 dist2d_families, each with its launches a rank), the nvidia-smi line, and
 the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
@@ -588,26 +617,7 @@ def phase_kernels(dev) -> dict:
         mm = 4.0 * n_pad * dpp * NB * n_wb
         exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
         f32_ops = SOFTMAX_OPS * exps
-        # B1: packed softmax-Gram gradient; two launches equal to the bit
-        Wb = W.to(torch.bfloat16)
-        got = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
-        again = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
-        ref = K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
-        abs1, err1 = errors(got, ref)
-        repeat1 = bool(torch.equal(got, again))
-        digest1 = digest(got)  # kernel_ab.py prints the same for its inputs
-        assert err1 < TOL, f"packed_softmax_grad n_wb={n_wb}: {err1}"
-        assert repeat1, f"packed_softmax_grad n_wb={n_wb}: two launches differ"
-        del got, again, ref
-        ms1 = time_ms(lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
-        plain1 = time_ms(lambda: K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S), reps=3)
-        nbytes1 = Ab.numel() * 2 + Wb.numel() * 2 + y2.numel() * 4 + WSP.numel() * 4 + W.numel() * 4
-        b1, by1, unit1 = bound_ms(nbytes1, mm, f32_ops, exps)
-        rows[("packed_softmax_grad", n_wb)] = dict(
-            max_abs_err=abs1, max_rel_err=err1, ms=ms1, plain_ms=plain1,
-            bound_ms=b1, bound_by=by1, bound_unit=unit1,
-            bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps),
-            repeat_bit_equal=repeat1, digest=digest1)
+        rows[("packed_softmax_grad", n_wb)] = packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb)
 
         # B2: fused Nesterov step, in place; two launches on the same inputs
         # must agree to the bit
@@ -650,8 +660,15 @@ def phase_kernels(dev) -> dict:
             bound_terms_ms=bound_terms(nbytes2, mm, f32_ops + 8 * W.numel(), exps),
             repeat_bit_equal=repeat_equal, b1_bit_equal=b1_equal, digest=step_digest,
             geometry=K.step_geometry(dpp, c))
-        del Ab, W, Wp, Wk, Wpk, Wb
+        del Ab, W, Wp, Wk, Wpk
         torch.cuda.empty_cache()
+    # B1 on a rank's row half in dist2d_main (the 2-D mesh's gradient kernel)
+    Ab, W, _, y2, WSP, *_ = logreg_inputs(gen, dev, MESH2D_N_PAD, dpp, c, S, DIST_BLOCKS)
+    rows[("packed_softmax_grad", "dist2d_main")] = {
+        "shape": dict(n_pad=MESH2D_N_PAD, dpp=dpp, c=c, S=S, n_wb=DIST_BLOCKS),
+        **packed_grad_row(K, Ab, W, y2, WSP, c, S, DIST_BLOCKS)}
+    del Ab, W, y2, WSP
+    torch.cuda.empty_cache()
 
     # B3: the masked lane kernel at the wide phase's and wide_full's shapes,
     # then at dpp 1,152 (above the first design's cap)
@@ -665,10 +682,42 @@ def phase_kernels(dev) -> dict:
     # ~60 GB of [lanes, rows, 16] temporaries)
     rows[("masked_softmax_grad", "scored_main")] = masked_kernel_row(
         K, gen, dev, "scored_main", *MASKED_SCORED_SHAPE, dp=MASKED_SCORED_DP, plain_lanes=256)
+    # dist2d_scored's: a trial rank's 768 lanes on its row half
+    rows[("masked_softmax_grad", "dist2d_scored")] = masked_kernel_row(
+        K, gen, dev, "dist2d_scored", *MESH2D_SCORED_SHAPE, dp=MASKED_SCORED_DP, plain_lanes=256)
     emit({"phase": "kernels", "tolerance": TOL, "sm_clock_hz": SM_CLOCK_HZ[0],
           "rows": [{"kernel": k, "tag": n, **v} for (k, n), v in rows.items()]})
     rows.update(hist_kernel_rows(gen, dev))
     return rows
+
+
+def packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb) -> dict:
+    """B1 (the packed softmax-Gram gradient) against its plain version at
+    one shape: within TOL, two launches equal to the bit; the kernel's and
+    the plain version's median ms and the bound."""
+    n_pad, dpp = Ab.shape
+    NB = W.shape[2]
+    mm = 4.0 * n_pad * dpp * NB * n_wb
+    exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
+    f32_ops = SOFTMAX_OPS * exps
+    Wb = W.to(torch.bfloat16)
+    got = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+    again = K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+    ref = K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+    abs1, err1 = errors(got, ref)
+    repeat1 = bool(torch.equal(got, again))
+    digest1 = digest(got)  # kernel_ab.py prints the same for its inputs
+    assert err1 < TOL, f"packed_softmax_grad n_pad={n_pad} n_wb={n_wb}: {err1}"
+    assert repeat1, f"packed_softmax_grad n_pad={n_pad} n_wb={n_wb}: two launches differ"
+    del got, again, ref
+    ms1 = time_ms(lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
+    plain1 = time_ms(lambda: K.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S), reps=3)
+    nbytes1 = Ab.numel() * 2 + Wb.numel() * 2 + y2.numel() * 4 + WSP.numel() * 4 + W.numel() * 4
+    b1, by1, unit1 = bound_ms(nbytes1, mm, f32_ops, exps)
+    return dict(max_abs_err=abs1, max_rel_err=err1, ms=ms1, plain_ms=plain1,
+                bound_ms=b1, bound_by=by1, bound_unit=unit1,
+                bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps),
+                repeat_bit_equal=repeat1, digest=digest1)
 
 
 def device_ms_by_kernel(fn, calls: int = 3) -> dict:
@@ -2088,6 +2137,8 @@ def phase_scored_main(manager) -> int:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = all_launches()
+            if mode == "auto":
+                JOBS["scored_main"] = manager.job_id
             gc_paused[mode] = gc_since(paused)["gc_pause_s"]
         finally:
             os.environ.pop("CS230_MASKED_GRAD", None)
@@ -3169,7 +3220,7 @@ def phase_rest_main(cfg, srv, main_auto_status) -> dict:
     def start_when_placed():
         deadline = time.time() + 120
         while time.time() < deadline:
-            if len(srv.cluster.engine.queue_snapshot().get(wid, ())) >= 1000:
+            if _published(srv.cluster, wid) >= 1000:
                 placed["s"] = time.perf_counter() - t0
                 agent.start()
                 return
@@ -3605,6 +3656,45 @@ PREWARM_TRIALS = 128
 DIST_RF_TREES = 50
 
 
+#: the mesh_2d group: 4 gloo ranks on the one card as a (2 trials x 2 data)
+#: mesh, trial_mesh(data_parallel=2); NCCL refuses ranks that share a card
+MESH2D_RANKS = 4
+MESH2D_DATA = 2
+#: B1's rows on dist2d_main: a rank's row half of covertype (58,101 of
+#: 116,202 rows) padded to the packed path's 2,048-row chunks
+MESH2D_N_PAD = 59_392
+#: B3 on dist2d_scored: a trial rank's 128 trials x 6 splits, the row half
+#: padded to B3's 256 rows, dpp 128 (55 real), cp 16, c 7
+MESH2D_SCORED_SHAPE = (768, 58_112, 128, 16, 7)
+#: dist2d_main's scores against main_auto's: PERF.md section 2's LogReg
+#: limit (two partial sums of the gradient replace one, so not bit-equal)
+MESH2D_TOL = 2e-3
+#: dist2d_families: one small search a family on the flat trial axis of
+#: the mesh, cut to seconds (the group's budget is 90 s; each search only
+#: has to reach its kernel on 4 ranks): (search, dataset, env, kernel,
+#: limit against the same search on one card). MLP and KNN lanes are
+#: independent of their launch's other lanes: 1e-6. Boosting's float
+#: stats go through B4's f32 atomics, whose add order follows the launch's
+#: lanes, so a close split call can flip (ROADMAP C3, C4; up to 2.7e-3
+#: for this search on an NVIDIA H100): it takes PERF.md section 2's card-vs-CPU
+#: boosting limit, 1e-2, which bounds a search under another add order
+MESH2D_FAMILIES = {
+    "mlp": ({"model_type": "MLPClassifier", "search_type": "GridSearchCV",
+             "base_estimator_params": {"hidden_layer_sizes": [64], "max_iter": 10,
+                                       "batch_size": 256, "random_state": 0},
+             "param_grid": {"learning_rate_init": [1e-3, 3e-3], "alpha": [1e-4, 1e-3]},
+             "cv_params": {"cv": 3}}, "covertype_frac_10", {}, "mlp_epoch", 1e-6),
+    "knn": ({"model_type": "KNeighborsClassifier", "search_type": "GridSearchCV",
+             "base_estimator_params": {}, "param_grid": {"n_neighbors": [5, 15]},
+             "cv_params": {"cv": 3}}, "covertype_frac_10", {"CS230_FORCE_PACKED": "1"},
+            "knn_topk", 1e-6),
+    "gb": ({"model_type": "GradientBoostingClassifier", "search_type": "GridSearchCV",
+            "base_estimator_params": {"n_estimators": 10, "max_depth": 3, "random_state": 0},
+            "param_grid": {"learning_rate": [0.1, 0.3]}, "cv_params": {"cv": 3}},
+           "covertype_rows_3000", {}, "level_histogram", TREE_SEARCH_TOL["float_tree"]),
+}
+
+
 def dist_rank_main(argv=None) -> None:
     """One rank of the smoke's SPMD worker, in a child process: joins the
     group (the backend rule's choice), runs the agent's ``run_distributed``
@@ -3647,6 +3737,93 @@ def dist_rank_main(argv=None) -> None:
     LocalExecutor.run_subtasks = counted
     try:
         run_distributed(args.url, max_batch=args.max_batch, poll_timeout_s=1.0)
+    finally:
+        shutdown()
+
+
+def mesh2d_rank_main(argv=None) -> None:
+    """One rank of the mesh_2d group, in a child process: joins the 4-rank
+    group (gloo: the ranks share the card), builds trial_mesh(
+    data_parallel=2), and drives MLTaskManager(coordinator=Coordinator(
+    mesh=mesh)) in direct mode through dist2d_main, dist2d_scored and
+    dist2d_families, in that order on every rank; each job's launches are
+    counted from 0 at its start. Writes its report (JSON) to ``--out``.
+    ``--device cpu`` runs the rank on the host (a dry run of the harness,
+    with ``torch.cuda.synchronize`` patched out)."""
+    import argparse
+
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
+    from cs230_distributed_machine_learning_tpu_torch.models import logistic as L
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
+    from cs230_distributed_machine_learning_tpu_torch.parallel.distributed import (
+        init_distributed, shutdown)
+    from cs230_distributed_machine_learning_tpu_torch.parallel.mesh import mesh_info, trial_mesh
+    from cs230_distributed_machine_learning_tpu_torch.runtime.coordinator import Coordinator
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    p = argparse.ArgumentParser()
+    for flag in ("--address", "--out", "--storage"):
+        p.add_argument(flag, required=True)
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--device", default=None)
+    args = p.parse_args(argv)
+    cfg = cfg_mod.FrameworkConfig.load()
+    cfg.storage.root = args.storage
+    cfg_mod.set_config(cfg)
+    t0 = time.perf_counter()
+    backend = init_distributed(args.address, MESH2D_RANKS, args.rank, device=args.device,
+                               timeout_s=300)
+    # the bit checks: the look-ahead weights of the last B1 launch and the
+    # last gradient after its all-reduce, kept to be digested after the job
+    last = {}
+    plain_grad, plain_reduce = K.packed_softmax_grad, L.data_all_reduce
+
+    def grad(Ab, W3, *a, **k):
+        last["v"] = W3
+        return plain_grad(Ab, W3, *a, **k)
+
+    def reduce(t, mesh):
+        out = plain_reduce(t, mesh)
+        if out.dim() == 3:  # the packed gradient [blocks, dpp, columns]
+            last["g"] = out
+        return out
+
+    K.packed_softmax_grad, L.data_all_reduce = grad, reduce
+    try:
+        mesh = trial_mesh(device=args.device, data_parallel=MESH2D_DATA)
+        manager = MLTaskManager(coordinator=Coordinator(mesh=mesh))
+        report = {"rank": args.rank, "backend": backend, "device": str(mesh.device),
+                  "coords": [mesh.trial_rank, mesh.data_rank], "mesh_info": mesh_info(mesh),
+                  "device_share": mesh.device_share, "start_s": time.perf_counter() - t0}
+
+        def job(search, dataset, n_trials):
+            reset_all_launches()
+            t = time.perf_counter()
+            status = manager.train(search, dataset, {"random_state": 42}, timeout=600)
+            torch.cuda.synchronize()
+            res = status["job_result"]
+            return {"wall_s": time.perf_counter() - t, "status": status["job_status"],
+                    "n_results": len(res["results"]), "failed": len(res["failed"]),
+                    "launches": {k: v for k, v in all_launches().items() if v},
+                    "scores": _scores(status), "best": res["best_result"]["search_params"],
+                    "best_score": res["best_result"]["mean_cv_score"]}
+
+        report["dist2d_main"] = job(_search(1000, 200, 5), "covertype", 1000)
+        report["dist2d_main"].update(
+            last_v_digest=digest(last["v"].float()), last_g_digest=digest(last["g"]),
+            x_bytes={repr(k[2:]): v for k, v in STAGE_CACHE.nbytes_by_key().items()
+                     if k[2] == "X"},
+            tunnel_bytes=STAGE_CACHE.stats()["tunnel_bytes"])
+        report["dist2d_scored"] = job(
+            _scored(_search(SCORED_MAIN_TRIALS, SCORED_MAIN_STEPS, 5), SCORED_MAIN_SCORER),
+            "covertype", SCORED_MAIN_TRIALS)
+        for name, (search, dataset, env, _kernel, _tol) in MESH2D_FAMILIES.items():
+            with valves(**env):
+                report[name] = job(search, dataset, len(list(_buckets(search))))
+        report["total_s"] = time.perf_counter() - t0
+        with open(args.out, "w") as f:
+            json.dump(report, f)
     finally:
         shutdown()
 
@@ -3795,9 +3972,17 @@ class DistSlice:
         return _stop(self.procs[:1], signal.SIGTERM) + _stop(self.procs[1:])
 
 
+def _published(cluster, worker_id: str) -> int:
+    """Tasks waiting on a remote worker's train queue, the ones its next
+    pull drains. The placement engine books a task for the worker (its
+    ``queue_snapshot``) before it publishes the task, with the journal's
+    write between the two, so the snapshot can run ahead of the queue."""
+    return len(cluster._remote_subs[worker_id])
+
+
 def _hold_pulls(srv, worker_id: str, n: int) -> dict:
-    """Answer the worker's long-polls with nothing until the engine has
-    placed ``n`` tasks on it, so one pull takes the whole job, as
+    """Answer the worker's long-polls with nothing until ``n`` tasks wait
+    on its train queue (``_published``), so one pull takes the whole job, as
     rest_main's agent starts once its trials are placed; then stop
     holding. A held poll waits at most its own long-poll timeout and then
     drains nothing, so no task is ever handed to a client that gave up.
@@ -3810,7 +3995,7 @@ def _hold_pulls(srv, worker_id: str, n: int) -> dict:
     def pull(wid, max_n=64, timeout_s=10.0):
         if wid == worker_id and state["armed"]:
             deadline = time.time() + float(timeout_s)
-            while len(cluster.engine.queue_snapshot().get(wid, ())) < n:
+            while _published(cluster, wid) < n:
                 if time.time() > deadline:
                     return []
                 time.sleep(0.01)
@@ -4272,6 +4457,209 @@ def _multi_device_phases(cfg, manager, main_auto_status) -> dict:
     return out
 
 
+def phase_mesh_2d(cfg, manager, env) -> dict:
+    """The mesh_2d group: the same searches on one card in this process
+    (the families'), then MESH2D_RANKS child processes of
+    ``mesh2d_rank_main`` on the card, one (2 trials x 2 data) mesh, each
+    driving dist2d_main, dist2d_scored and dist2d_families. Rank reports
+    are held against main_auto, scored_main and the one-card runs; each
+    phase prints its wall, its launches a rank and the card's name and
+    power limit."""
+    import shutil
+
+    from cs230_distributed_machine_learning_tpu_torch.runtime.fleet import free_port
+
+    assert "exclusive" not in env["compute_mode"].lower(), (
+        f"compute mode {env['compute_mode']}: several processes cannot share the card")
+    t_group = time.perf_counter()
+    card = nvidia_smi()
+    stage_fraction(cfg, 0.0, rows=3000)  # the boosting search's table
+    solo = {}
+    for name, (search, dataset, kv, kernel, _tol) in MESH2D_FAMILIES.items():
+        with valves(**kv):
+            reset_all_launches()
+            t = time.perf_counter()
+            status = manager.train(search, dataset, {"random_state": 42}, timeout=600)
+            torch.cuda.synchronize()
+        assert status["job_status"] == "completed" and not status["job_result"]["failed"], name
+        solo[name] = {"scores": _scores(status), "launches": all_launches()[kernel],
+                      "wall_s": time.perf_counter() - t}
+    solo_s = time.perf_counter() - t_group
+    logs = os.path.join(cfg.storage.root, "mesh2d")
+    shutil.rmtree(logs, ignore_errors=True)
+    os.makedirs(logs)
+    outs = [os.path.join(logs, f"rank{r}.json") for r in range(MESH2D_RANKS)]
+    address = f"127.0.0.1:{free_port()}"
+    t_ranks = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke, sys; chip_smoke.mesh2d_rank_main(sys.argv[1:])",
+         "--address", address, "--rank", str(r), "--out", outs[r],
+         "--storage", cfg.storage.root],
+        cwd=ROOT, env=_child_env(cfg), stdout=open(os.path.join(logs, f"rank{r}.log"), "w"),
+        stderr=subprocess.STDOUT) for r in range(MESH2D_RANKS)]
+    try:
+        codes = _wait_ranks(procs, timeout=600)
+        assert codes == [0] * MESH2D_RANKS, f"mesh_2d ranks exited {codes}"
+        reps = []
+        for path in outs:
+            with open(path) as f:
+                reps.append(json.load(f))
+        out = _mesh_2d_checks(manager, reps, solo, card)
+    except BaseException:
+        _dump_logs(logs)
+        raise
+    seconds = {"one_card_families": solo_s, "ranks": time.perf_counter() - t_ranks,
+               "rank_start_s": [r["start_s"] for r in reps],
+               "rank_total_s": [r["total_s"] for r in reps]}
+    emit({"phase": "mesh_2d", "seconds": seconds, "total_s": time.perf_counter() - t_group,
+          "card": card})
+    return out
+
+
+def _wait_ranks(procs, timeout: float) -> list:
+    """Wait for every rank; once one fails (or the time is up) the others,
+    which would wait in a collective for it, are killed. Exit codes."""
+    import signal
+
+    deadline = time.time() + timeout
+    while any(p.poll() is None for p in procs):
+        failed = any(p.poll() not in (None, 0) for p in procs)
+        if failed or time.time() > deadline:
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGKILL)
+        time.sleep(0.2)
+    return [p.wait() for p in procs]
+
+
+def _worst(a: dict, b: dict) -> tuple:
+    """(the largest |a - b| over the keys, its key); the keys must agree."""
+    assert a.keys() == b.keys(), (len(a), len(b))
+    k = max(a, key=lambda key: abs(a[key] - b[key]))
+    return abs(a[k] - b[k]), k
+
+
+def _mesh_2d_checks(manager, reps, solo, card) -> dict:
+    """The mesh_2d group's assertions and lines, from the rank reports."""
+    out = {}
+    main = manager.check_status(JOBS["main_auto"])
+    ref, ref_best = _scores(main), main["job_result"]["best_result"]["search_params"]
+    runs = [r["dist2d_main"] for r in reps]
+    for r, run in enumerate(runs):
+        assert run["status"] == "completed" and run["n_results"] == 1000 and not run["failed"], (
+            r, run["status"], run["n_results"], run["failed"])
+        assert run["scores"] == runs[0]["scores"], f"dist2d_main: rank {r}'s scores differ"
+    worst, at = _worst(runs[0]["scores"], ref)
+    best = runs[0]["best"]
+    best_key, ref_key = json.dumps(best, sort_keys=True), json.dumps(ref_best, sort_keys=True)
+    winners = {"2d_best_in_2d": runs[0]["scores"][best_key], "2d_best_in_main": ref[best_key],
+               "main_best_in_2d": runs[0]["scores"][ref_key], "main_best_in_main": ref[ref_key]}
+    x_rows = 116_202 // MESH2D_DATA * 54 * 4
+    per_rank = [run["launches"].get("packed_softmax_grad", 0) for run in runs]
+    line = {"phase": "dist2d_main", "ranks": MESH2D_RANKS, "mesh": reps[0]["mesh_info"],
+            "coords": [r["coords"] for r in reps], "backend": reps[0]["backend"],
+            "devices": [r["device"] for r in reps], "device_share": reps[0]["device_share"],
+            "wall_s": max(run["wall_s"] for run in runs),
+            "rank_walls_s": [run["wall_s"] for run in runs],
+            "main_auto_wall_s": WALLS.get("main_auto"), "dist_main_wall_s": WALLS.get("dist_main"),
+            "launches_per_rank": per_rank, "launches": sum(per_rank), "expected_per_rank": 200,
+            "other_launches": [{k: v for k, v in run["launches"].items()
+                                if k != "packed_softmax_grad"} for run in runs],
+            "blocks_per_rank": DIST_BLOCKS, "n_pad_per_rank": MESH2D_N_PAD,
+            "max_mean_cv_diff": worst, "max_diff_trial": at, "tolerance": MESH2D_TOL,
+            "best_params": best, "main_auto_best_params": ref_best,
+            "best_params_equal": best == ref_best, "winners": winners,
+            "last_v_digest": [run["last_v_digest"] for run in runs],
+            "last_g_digest": [run["last_g_digest"] for run in runs],
+            "x_bytes": [run["x_bytes"] for run in runs], "x_bytes_row_half": x_rows,
+            "tunnel_bytes": [run["tunnel_bytes"] for run in runs], "card": card}
+    emit(line)
+    out["dist2d_main"] = line
+    assert per_rank == [200] * MESH2D_RANKS and not any(line["other_launches"]), line
+    assert worst <= MESH2D_TOL, f"dist2d_main: scores differ from main_auto's by {worst}"
+    assert best == ref_best or (
+        abs(winners["2d_best_in_2d"] - winners["2d_best_in_main"]) <= MESH2D_TOL
+        and abs(winners["main_best_in_2d"] - winners["main_best_in_main"]) <= MESH2D_TOL), winners
+    for g in range(0, MESH2D_RANKS, MESH2D_DATA):  # the ranks of one data group
+        group = range(g, g + MESH2D_DATA)
+        assert len({runs[r]["last_v_digest"] for r in group}) == 1, line["last_v_digest"]
+        assert len({runs[r]["last_g_digest"] for r in group}) == 1, line["last_g_digest"]
+    for r, run in enumerate(runs):
+        rows_key = repr(("X", "rows", MESH2D_DATA, r % MESH2D_DATA))
+        assert run["x_bytes"] == {rows_key: x_rows}, (r, run["x_bytes"])
+    WALLS["dist2d_main"] = line["wall_s"]
+
+    scored = _scores(manager.check_status(JOBS["scored_main"]))
+    runs = [r["dist2d_scored"] for r in reps]
+    for r, run in enumerate(runs):
+        assert run["status"] == "completed" and run["n_results"] == SCORED_MAIN_TRIALS, r
+        assert run["scores"] == runs[0]["scores"], f"dist2d_scored: rank {r}'s scores differ"
+    worst, at = _worst(runs[0]["scores"], scored)
+    per_rank = [run["launches"].get("masked_softmax_grad", 0) for run in runs]
+    line = {"phase": "dist2d_scored", "scoring": SCORED_MAIN_SCORER,
+            "trials": SCORED_MAIN_TRIALS, "wall_s": max(run["wall_s"] for run in runs),
+            "rank_walls_s": [run["wall_s"] for run in runs],
+            "lanes_per_rank": MESH2D_SCORED_SHAPE[0], "launches_per_rank": per_rank,
+            "launches": sum(per_rank), "expected_per_rank": SCORED_MAIN_STEPS,
+            "other_launches": [{k: v for k, v in run["launches"].items()
+                                if k != "masked_softmax_grad"} for run in runs],
+            "max_mean_cv_diff": worst, "max_diff_trial": at, "tolerance": SCORED_MAIN_TOL,
+            "best_params": runs[0]["best"], "card": card}
+    emit(line)
+    out["dist2d_scored"] = line
+    assert per_rank == [SCORED_MAIN_STEPS] * MESH2D_RANKS and not any(line["other_launches"]), line
+    assert worst <= SCORED_MAIN_TOL, f"dist2d_scored: scores differ from scored_main's by {worst}"
+
+    fams = {}
+    for name, (_search, dataset, _kv, kernel, tol) in MESH2D_FAMILIES.items():
+        runs = [r[name] for r in reps]
+        for r, run in enumerate(runs):
+            assert run["status"] == "completed" and not run["failed"], (name, r)
+            assert run["scores"] == runs[0]["scores"], f"{name}: rank {r}'s scores differ"
+        worst, _ = _worst(runs[0]["scores"], solo[name]["scores"])
+        fams[name] = {"dataset": dataset, "kernel": kernel,
+                      "launches_per_rank": [run["launches"].get(kernel, 0) for run in runs],
+                      "one_card_launches": solo[name]["launches"],
+                      "wall_s": max(run["wall_s"] for run in runs),
+                      "one_card_wall_s": solo[name]["wall_s"],
+                      "max_mean_cv_diff": worst, "tolerance": tol}
+    line = {"phase": "dist2d_families", "families": fams, "card": card}
+    emit(line)
+    out["dist2d_families"] = line
+    for name, f in fams.items():
+        assert all(n > 0 for n in f["launches_per_rank"]), (name, f)
+        assert f["max_mean_cv_diff"] <= f["tolerance"], (name, f)
+    return out
+
+
+#: the mesh_2d group's kernel paths: (other_paths key, kernel row or None,
+#: shape, the launches from the group's result)
+MESH2D_PATHS = {
+    "packed_softmax_grad": [
+        ("dist2d_main", "dist2d_main", f"n_pad {MESH2D_N_PAD}, dpp 64, c 7, S 6, {DIST_BLOCKS} "
+         f"blocks a rank (a row half of covertype; 1000 trials padded to 1024 over 2 trial "
+         f"ranks) on {MESH2D_RANKS} gloo ranks of one card", "dist2d_main")],
+    "masked_softmax_grad": [
+        ("dist2d_scored", "dist2d_scored", "n_pad 58112, dpp 128 (55 real), cp 16, c 7, 768 "
+         "lanes a rank (128 trials x 6 splits on a row half)", "dist2d_scored")],
+    "level_histogram": [("dist2d_families", None, "boosting on covertype_rows_3000, the flat "
+                         "trial axis of the mesh, whole table", "gb")],
+    "mlp_epoch": [("dist2d_families", None, "covertype_frac_10, 54-64-7, the flat trial axis",
+                   "mlp")],
+    "knn_topk": [("dist2d_families", None, "covertype_frac_10, the flat trial axis", "knn")],
+}
+
+
+def _mesh2d_path(mesh2d: dict, job: str, kernel: str) -> dict:
+    """An other_paths entry's measured launches a rank."""
+    if job in ("dist2d_main", "dist2d_scored"):
+        per_rank = mesh2d[job]["launches_per_rank"]
+    else:
+        per_rank = mesh2d["dist2d_families"]["families"][job]["launches_per_rank"]
+        job = "dist2d_families"
+    return {"launches": sum(per_rank), "launches_per_rank": per_rank, "job": job}
+
+
 #: the multi_device group's kernel paths: (other_paths key, kernel row,
 #: shape, the launches from the group's result)
 MULTI_DEVICE_PATHS = {
@@ -4439,6 +4827,8 @@ def main() -> int:
     emit({"phase": "scheduled", "seconds": seconds, "total_s": sum(seconds.values())})
     # several processes on the card: an SPMD worker, a shard fleet, prewarm
     multi = phase_multi_device(cfg, manager, env)
+    # the 2-D (trials, data) mesh: 4 ranks on the card, row-sharded LogReg
+    mesh2d = phase_mesh_2d(cfg, manager, env)
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -4525,6 +4915,13 @@ def main() -> int:
                 **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": "n_pad 116224, dpp 128, cp 16, c 7, 1 lane (the winner's refit "
                          "behind GET /download_model, 200 steps)"}
+        # the mesh_2d group: launches a rank; B1's and B3's rows at their shapes
+        for key, row, shape, job in MESH2D_PATHS.get(name, []):
+            kernels[-1].setdefault("other_paths", {})[key] = {
+                **_mesh2d_path(mesh2d, job, name), "shape": shape,
+                **({"row": row, **{k: rows[(name, row)][k] for k in ROW_KEYS
+                                   if k in rows[(name, row)] and k != "shape"}}
+                   if row is not None else {})}
         # the multi_device group: launches on every rank or shard, summed
         for key, row, shape, get in MULTI_DEVICE_PATHS.get(name, []):
             r = (art_rows if row == "refit" else rows)[(name, row)]

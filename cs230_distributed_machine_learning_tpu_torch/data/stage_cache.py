@@ -22,17 +22,25 @@ design matrix and per-split Lipschitz bound, and the streamed row blocks
   LRU order, skips pinned entries, and stops at ``budget_bytes()``.
 - **observability**: ``tpuml_stage_cache_{hits,misses,uploads,evictions,
   tunnel_bytes,overflow}_total`` counters through the port's
-  ``obs.counter_inc``, and ``stage.upload`` / ``stage.evict`` /
-  ``stage.overflow`` flight-recorder events. The byte and entry gauges
-  wait for the port's gauges (ROADMAP A4).
+  ``obs.counter_inc``, the ``tpuml_stage_cache_{bytes,entries}`` gauges
+  (set after each insert and its evictions, and to 0 on ``clear``), and
+  ``stage.upload`` / ``stage.evict`` / ``stage.overflow`` flight-recorder
+  events.
 
 Valves (the JAX package's names): ``CS230_STAGE_CACHE=0`` bypasses the
 module (the engine stages per call, as before the cache),
 ``CS230_STAGE_CACHE_MB`` pins the budget, ``CS230_STAGE_STRICT=1`` turns
-an entry over the budget into :class:`StageBudgetExceeded`. The mesh
-forms (a replicated or row-sharded entry built device to device) come
-with multi-device (ROADMAP A3); ``transport`` keeps only its
-single-device meaning, a host-to-device upload.
+an entry over the budget into :class:`StageBudgetExceeded`.
+
+On a trial mesh every rank is a process with its own device and cache.
+A rank of a 2-D (trials, data) mesh stages its own rows of the row-sharded
+forms, uploaded host to device like any entry, under a subkey carrying
+``("rows", data_size, data_rank)`` (parallel/trial_map.py), so a row shard
+never collides with the whole table's entry. The JAX package's ``"ici"``
+transport (one upload a host, then a device-to-device replicate or
+reshard) has no counterpart: the ranks share no device memory, and each
+uploads only what it holds. ``transport`` keeps its one meaning, a
+host-to-device upload.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..obs import counter_inc, record_event
+from ..obs import counter_inc, gauge_set, record_event
 from ..utils.logging import get_logger
 
 logger = get_logger("tpuml.stagecache")
@@ -128,10 +136,18 @@ def dataset_fingerprint(data) -> str:
 
 
 def host_signature(device=None) -> tuple:
-    """Host identity for the streamed block keys: (device type, rank).
-    The rank stays 0 until multi-device brings ``torch.distributed``
-    (ROADMAP A3)."""
-    return (getattr(device, "type", None) or "cpu", 0)
+    """Host identity for the streamed block keys: (device type, rank), the
+    rank in the default ``torch.distributed`` group once one is joined,
+    else 0."""
+    rank = 0
+    try:
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            rank = int(dist.get_rank())
+    except Exception:  # noqa: BLE001 — no distributed build: one process
+        rank = 0
+    return (getattr(device, "type", None) or "cpu", rank)
 
 
 def _tree_nbytes(value: Any) -> int:
@@ -258,6 +274,10 @@ class StagedDatasetCache:
 
     def _stage(self, key: Any, make: Callable[[], Any], transport: str,
                pin: bool) -> Tuple[Any, str]:
+        if transport == "ici":
+            raise ValueError("transport 'ici' (a device-to-device replicate or reshard) "
+                             "has no counterpart: the ranks of a port mesh share no device "
+                             "memory, and each uploads its own rows ('tunnel')")
         if transport != "tunnel":
             raise ValueError(f"transport {transport!r}: only host-to-device "
                              "uploads ('tunnel') are ported")
@@ -326,6 +346,8 @@ class StagedDatasetCache:
         counter_inc("tpuml_stage_cache_misses_total")
         counter_inc("tpuml_stage_cache_uploads_total")
         counter_inc("tpuml_stage_cache_tunnel_bytes_total", float(nbytes))
+        gauge_set("tpuml_stage_cache_bytes", float(total_bytes))
+        gauge_set("tpuml_stage_cache_entries", float(n_entries))
         record_event("stage.upload", key=repr(key), nbytes=nbytes, wall_s=round(wall_s, 6),
                      cache_bytes=total_bytes, cache_entries=n_entries)
         for ekey, enbytes in evicted:
@@ -384,6 +406,11 @@ class StagedDatasetCache:
         with self._lock:
             return dict(self._uploads_by_key)
 
+    def nbytes_by_key(self) -> Dict[Any, int]:
+        """The bytes of every live entry, by key."""
+        with self._lock:
+            return {k: e.nbytes for k, e in self._entries.items()}
+
     def contains(self, key: Any) -> bool:
         with self._lock:
             return key in self._entries
@@ -400,6 +427,8 @@ class StagedDatasetCache:
             self._bytes = 0
             for k in self._stats:
                 self._stats[k] = 0
+        gauge_set("tpuml_stage_cache_bytes", 0.0)
+        gauge_set("tpuml_stage_cache_entries", 0.0)
 
 
 #: the process-global cache every run shares

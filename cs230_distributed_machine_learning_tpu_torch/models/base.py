@@ -180,11 +180,18 @@ def score_lanes(kernel: ModelKernel, static: Dict[str, Any], y, w, predict,
     The outputs are callables so that only the one the scorer reads is
     computed. ``y`` is ``[n]``; ``w`` the eval masks, broadcast against
     the outputs' lane dims. Returns {"score"} (plus "mse" for regressors)
-    with the lane dims."""
+    with the lane dims.
+
+    On a row shard (``static["_row_shard"]``, a 2-D mesh) the rows are the
+    rank's: see :func:`_score_row_shard`."""
     from ..ops import metrics as M
 
     scoring = static.get("_scoring")
     n_classes = static.get("_n_classes", 2)
+    shard = static.get("_row_shard")
+    if shard is not None:
+        return _score_row_shard(kernel, shard, scoring, n_classes, y, w, predict, margin,
+                                proba)
     if kernel.task == "classification":
         y = y.long()
         if M.scoring_needs_margin(scoring):
@@ -195,6 +202,52 @@ def score_lanes(kernel: ModelKernel, static: Dict[str, Any], y, w, predict,
     pred = predict()
     y = y.to(torch.float32)
     return {"score": M.regression_score(scoring, y, pred, w), "mse": M.weighted_mse(y, pred, w)}
+
+
+#: classification scorers that are a weighted mean of a per-row value: on
+#: a row shard their weighted sums are reduced over the data group. Each
+#: names the output it reads, the value of a row from (that output, y) and
+#: the score's sign
+_ROW_MEAN_SCORERS = {
+    None: ("predict", lambda out, y: (out == y).to(torch.float32), 1.0),
+    "accuracy": ("predict", lambda out, y: (out == y).to(torch.float32), 1.0),
+    "neg_log_loss": ("proba", lambda out, y: _log_loss_rows(out, y), -1.0),
+}
+
+
+def _log_loss_rows(proba, y):
+    """-log p(true class) a row, clipped as ``metrics.weighted_log_loss``."""
+    eps = torch.finfo(torch.float32).eps
+    idx = y.long().expand(proba.shape[:-1])[..., None]
+    p = torch.clamp(torch.gather(proba, -1, idx)[..., 0], eps, 1.0 - eps)
+    return -torch.log(p)
+
+
+def _score_row_shard(kernel, shard, scoring, n_classes, y, w, predict, margin, proba):
+    """``score_lanes`` on a rank's rows of a 2-D mesh's data axis. A
+    classification scorer that is a weighted mean of a per-row value
+    (accuracy, neg_log_loss) reduces its weighted sum and weight sum over
+    the data group; any other scorer (the ranking and the class-count
+    scorers) all-gathers the rows' output, labels and eval masks in row
+    order and scores them as on one device. Every data rank returns the
+    same scores."""
+    from ..parallel.distributed import data_all_gather_rows, data_all_reduce
+
+    if kernel.task == "classification" and scoring in _ROW_MEAN_SCORERS:
+        which, per_row, sign = _ROW_MEAN_SCORERS[scoring]
+        out = predict() if which == "predict" else proba()
+        wf = w.to(torch.float32)
+        val = per_row(out, y.long())
+        num, den = torch.broadcast_tensors(torch.sum(val * wf, dim=-1), torch.sum(wf, dim=-1))
+        sums = data_all_reduce(torch.stack([num, den]), shard)
+        return {"score": sign * (sums[0] / torch.clamp(sums[1], min=1e-12))}
+    y_all = data_all_gather_rows(y, shard, dim=0)
+    w_all = data_all_gather_rows(w, shard, dim=-1)
+    return score_lanes(
+        kernel, {"_scoring": scoring, "_n_classes": n_classes}, y_all, w_all,
+        predict=lambda: data_all_gather_rows(predict(), shard, dim=-1),
+        margin=lambda: data_all_gather_rows(margin(), shard, dim=-1),
+        proba=lambda: data_all_gather_rows(proba(), shard, dim=-2))
 
 
 def add_intercept(X: torch.Tensor, fit_intercept: bool) -> torch.Tensor:

@@ -35,6 +35,21 @@ Valves (names and modes as in the JAX package):
   ``auto`` (the kernels' plain versions on the CPU), for tests.
 
 "pallas" names the kernel route in both packages.
+
+Row sharding (``row_shardable``; a 2-D trial mesh, parallel/mesh.py): the
+trial engine hands each rank its rows of ``X``, ``y`` and the fold weights
+and puts a ``RowShard`` in ``static["_row_shard"]``. Every driver then
+adds one ``data_all_reduce`` (parallel/distributed.py) to each of its row
+sums, and nothing else changes: the Lipschitz power iteration's ``u`` and
+its Rayleigh quotient, the generic nesterov gradient (B3 on the rank's
+rows, or the tensor formulations), Newton's gradient, Hessian and line
+objective, the packed path's gradient and its accuracy sums. The packed
+body on a data axis is the gradient kernel B1 + the all-reduce + the
+update, whatever ``CS230_FUSED_STEP`` says: the fused step B2 has no
+place for the all-reduce between its gradient and its update (the JAX
+package sends any mesh through its generic drivers instead). Routes are
+chosen by the table's row count (``RowShard.n``), so every rank takes the
+same one.
 """
 
 from __future__ import annotations
@@ -45,6 +60,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from ..parallel.distributed import data_all_reduce
 from ..parallel.mesh import pad_to_multiple
 from .base import ModelKernel, add_intercept, to_host
 
@@ -60,6 +76,8 @@ class LogisticRegressionKernel(ModelKernel):
     task = "classification"
     hyper_defaults = {"C": 1.0, "max_iter": 100.0, "tol": 1e-4}
     static_defaults = {"fit_intercept": True, "penalty": "l2"}
+    #: a 2-D trial mesh splits this kernel's rows over its data axis
+    row_shardable = True
 
     def trace_salt(self):
         """The resolved CS230_MASKED_GRAD and CS230_FUSED_STEP modes, the
@@ -179,6 +197,7 @@ class LogisticRegressionKernel(ModelKernel):
         max_iter = hyper["max_iter"].float()
         tol = hyper["tol"].float()
         T, S = C.shape[0], w.shape[0]
+        shard = static.get("_row_shard")
         lam = (1.0 if use_penalty else 0.0) * (2.0 if n_classes == 2 else 1.0)
         # intercept row is unpenalized (sklearn semantics)
         pen_mask = A.new_ones((dp, c))
@@ -191,12 +210,12 @@ class LogisticRegressionKernel(ModelKernel):
         if static["_method"] == "newton":
             steps = int(static.get("_iters", _NEWTON_STEPS))
             W, tr = _newton(A, Y, w, W0, C, lam, pen_mask, max_iter, tol, steps,
-                            fused=(mode != "legacy"), trace=trace)
+                            fused=(mode != "legacy"), trace=trace, shard=shard)
         else:
             steps = int(static.get("_iters", _NESTEROV_STEPS))
-            grad_fn = _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode)
+            grad_fn = _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode, shard=shard)
             W, tr = _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps,
-                              trace=trace)
+                              trace=trace, shard=shard)
         return W, tr, steps
 
     def batched_scores(self, X, y, TW, EW, hyper, static):
@@ -247,7 +266,7 @@ class LogisticRegressionKernel(ModelKernel):
             return False  # no lane tile fits one CTA: the generic drivers
         if _force_packed():
             return True
-        return device.type == "cuda" and n >= 4096
+        return device.type == "cuda" and _table_rows(n, static) >= 4096
 
     def batched_staged_extras(self, static, n, d, n_classes, n_splits,
                               fold_signature=None, *, device: torch.device):
@@ -263,23 +282,28 @@ class LogisticRegressionKernel(ModelKernel):
         ``{"X", "y", "TW", "EW"}`` device tensors. A ``None`` subkey means
         made once a bucket, not cached (no fold signature to key on).
         Empty under ``CS230_FUSED_STEP=legacy``, which derives everything
-        inline, as the JAX package's rollback path does."""
+        inline, as the JAX package's rollback path does. On a row shard
+        ``n`` is the rank's rows (the engine adds the shard to the key of
+        ``_logreg_ab``), and the bound, whose make is a collective of the
+        data group, is made once a bucket and never cached: a hit on one
+        rank and a miss on its peer would leave the peer waiting."""
         if _fused_step_mode() == "legacy" or not self.batched_applicable(static, n, d, device):
             return {}
         geo = _packed_geometry(static, n, d, n_classes, n_splits)
         fit_intercept, dpp, n_pad = geo["fit_intercept"], geo["dpp"], geo["n_pad"]
+        shard = static.get("_row_shard")
 
         def make_ab(ctx):
             return _padded_design(ctx["X"], fit_intercept, dpp, n_pad).to(torch.bfloat16)
 
         def make_lam_max(ctx):
             TWp = torch.nn.functional.pad(ctx["TW"].float(), (0, n_pad - n))
-            return _lam_max(_padded_design(ctx["X"], fit_intercept, dpp, n_pad), TWp)
+            return _lam_max(_padded_design(ctx["X"], fit_intercept, dpp, n_pad), TWp, shard)
 
         return {
             "_logreg_ab": (("ab", fit_intercept, dpp, n_pad), make_ab),
             "_logreg_lam_max": (
-                None if fold_signature is None
+                None if fold_signature is None or shard is not None
                 else ("lam_max", fold_signature, fit_intercept, dpp, n_pad),
                 make_lam_max),
         }
@@ -291,7 +315,9 @@ class LogisticRegressionKernel(ModelKernel):
         apply. One call = the whole fit plus eval for ``chunk`` trials.
         ``hyper`` may carry ``batched_staged_extras``' forms (the engine
         merges them in); when absent — direct calls, ``legacy`` — they are
-        derived inline, to the same bits."""
+        derived inline, to the same bits. On a row shard (``n`` the rank's
+        rows) the body is B1's, with the gradient and the accuracy sums
+        reduced over the data group."""
         if not self.batched_applicable(static, n, d, device):
             return None
         Tw = self.batched_trial_multiple
@@ -313,8 +339,10 @@ class LogisticRegressionKernel(ModelKernel):
         rc = geo["rc"]  # eval row-chunk
         n_pad = geo["n_pad"]  # multiple of rc
         # batched_applicable has passed the fused step's gate; legacy keeps
-        # the gradient kernel + tensor-op body
-        use_fused = _fused_step_mode() != "legacy"
+        # the gradient kernel + tensor-op body, and so does a data axis: the
+        # all-reduce goes between the gradient and the update
+        shard = static.get("_row_shard")
+        use_fused = _fused_step_mode() != "legacy" and shard is None
         capture = curves_enabled()
         tr_stride = trace_stride(steps) if capture else 1
         tr_used = -(-steps // tr_stride) if capture else 0
@@ -345,7 +373,7 @@ class LogisticRegressionKernel(ModelKernel):
                 A = _padded_design(X, fit_intercept, dpp, n_pad)  # [n_pad, dpp] f32
                 Ab = A.to(torch.bfloat16) if Ab is None else Ab
                 # Lipschitz bound per split: L <= 0.5*C*lam_max(A' diag(w) A) + lam
-                lam_max = _lam_max(A, TWp) if lam_max is None else lam_max
+                lam_max = _lam_max(A, TWp, shard) if lam_max is None else lam_max
 
             Cb = hyper["C"].float()[trial_map]  # [n_wb, Bblk]
             maxit_b = hyper["max_iter"].float()[trial_map]
@@ -376,9 +404,9 @@ class LogisticRegressionKernel(ModelKernel):
                 for t in range(steps):  # legacy body
                     mom = float(np.float32(t) / np.float32(t + 3.0))
                     V = W + mom * (W - Wp)
-                    Graw = packed_softmax_grad(
+                    Graw = data_all_reduce(packed_softmax_grad(
                         Ab, V.to(torch.bfloat16), y2, WSP, c=c, S=S, Tw=Tw
-                    )
+                    ), shard)
                     G = Cb_full * Graw + lam * pen_row * V
                     gmax = G.abs().reshape(n_wb, dpp, c, Bblk).amax(dim=(1, 2))
                     active = (float(t) < maxit_b) & ~done
@@ -400,7 +428,11 @@ class LogisticRegressionKernel(ModelKernel):
                 wev = EWp[:, start:start + rc][split_of].T  # [rc, Bblk]
                 hit = (pred == yc[None, :, None]).float()
                 acc += (hit * wev[None]).sum(dim=1)
-            den = torch.clamp(EW.float().sum(dim=1), min=1e-12)  # [S]
+            den = EW.float().sum(dim=1)  # [S]
+            if shard is not None:  # global sums: the rows of every data rank
+                sums = data_all_reduce(torch.cat([acc.reshape(-1), den]), shard)
+                acc, den = sums[:acc.numel()].reshape(acc.shape), sums[acc.numel():]
+            den = torch.clamp(den, min=1e-12)
             score_b = acc / den[split_of][None, :]
             score = score_b.reshape(n_wb, S, Tw).transpose(1, 2).reshape(chunk, S)
             out = {"score": score}
@@ -420,6 +452,13 @@ class LogisticRegressionKernel(ModelKernel):
 
 def _onehot(y: torch.Tensor, c: int) -> torch.Tensor:
     return (y.long()[:, None] == torch.arange(c, device=y.device)).float()
+
+
+def _table_rows(n: int, static: Dict[str, Any]) -> int:
+    """The table's row count behind a rank's ``n`` rows: the routes are
+    chosen by it, so every rank of a data group takes the same one."""
+    shard = static.get("_row_shard")
+    return int(shard.n) if shard is not None else int(n)
 
 
 def _force_packed() -> bool:
@@ -464,12 +503,14 @@ def _padded_design(X, fit_intercept: bool, dpp: int, n_pad: int) -> torch.Tensor
     return torch.nn.functional.pad(A, (0, dpp - A.shape[1], 0, n_pad - A.shape[0]))
 
 
-def _lam_max(A: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _lam_max(A: torch.Tensor, w: torch.Tensor, shard=None) -> torch.Tensor:
     """Per-split Lipschitz bound ``lam_max(A' diag(w_s) A)`` by a 30-step
-    power iteration plus the Rayleigh quotient, f32. w [S, n] -> [S]."""
+    power iteration plus the Rayleigh quotient, f32. w [S, n] -> [S]. On a
+    row shard each application is reduced over the data group (31
+    all-reduces of ``[S, dp]``): the bound is the whole table's."""
 
     def apply(v):  # [S, dp] -> A' diag(w_s) A v_s for every split
-        return (w * (v @ A.T)) @ A
+        return data_all_reduce((w * (v @ A.T)) @ A, shard)
 
     v = A.new_ones((w.shape[0], A.shape[1]))
     for _ in range(30):
@@ -485,26 +526,30 @@ def _mm_bf16(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.einsum(eq, a.to(torch.bfloat16).float(), b.to(torch.bfloat16).float())
 
 
-def _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode):
+def _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode, shard=None):
     """Per-iteration masked gradient of the lane batch ``W [T, S, dp, c]``
-    for the nesterov driver (bf16 operands, f32 accumulation)."""
+    for the nesterov driver (bf16 operands, f32 accumulation). On a row
+    shard the rows' sum is reduced over the data group before C and the
+    penalty."""
     Cl = C[:, None, None, None]
     if mode == "legacy":
         def grad_fn(W):
             P = torch.softmax(_mm_bf16("nd,tsdc->tsnc", A, W), dim=-1)
             R = w[None, :, :, None] * (P - Y)
-            return Cl * _mm_bf16("nd,tsnc->tsdc", A, R) + lam * pen_mask * W
+            return (Cl * data_all_reduce(_mm_bf16("nd,tsnc->tsdc", A, R), shard)
+                    + lam * pen_mask * W)
         return grad_fn
 
     n, dp = A.shape
     c = Y.shape[1]
     dpp = pad_to_multiple(dp, 128)
     cp = pad_to_multiple(c, 16)
+    n_table = int(shard.n) if shard is not None else n
     from ..ops.cuda_logreg import masked_grad_applicable, masked_softmax_grad
 
     use_kernel = mode == "pallas" or (
         mode == "auto"
-        and (_force_packed() or (A.device.type == "cuda" and n >= 4096))
+        and (_force_packed() or (A.device.type == "cuda" and n_table >= 4096))
         and masked_grad_applicable(dpp, cp)
     )
     if use_kernel:
@@ -522,7 +567,7 @@ def _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode):
             Wl = torch.nn.functional.pad(W, (0, cp - c, 0, dpp - dp))
             Wl = Wl.reshape(T * S, dpp, cp).to(torch.bfloat16).contiguous()
             Gk = masked_softmax_grad(Ab, Wl, y2, wm, c=c)
-            Gk = Gk.reshape(T, S, dpp, cp)[:, :, :dp, :c]
+            Gk = data_all_reduce(Gk.reshape(T, S, dpp, cp)[:, :, :dp, :c], shard)
             return Cl * Gk + lam * pen_mask * W
         return grad_fn
 
@@ -533,7 +578,8 @@ def _make_masked_grad_fn(A, Y, y, w, C, lam, pen_mask, mode):
         Z = _mm_bf16("nd,tsdc->tsnc", A, W)
         e = torch.exp(Z - Z.amax(dim=-1, keepdim=True))
         scale = (w[None] / e.sum(dim=-1))[..., None]
-        return Cl * _mm_bf16("nd,tsnc->tsdc", A, e * scale - WY) + lam * pen_mask * W
+        return (Cl * data_all_reduce(_mm_bf16("nd,tsnc->tsdc", A, e * scale - WY), shard)
+                + lam * pen_mask * W)
     return grad_fn
 
 
@@ -550,9 +596,11 @@ def _trace_buf(steps: int, trace: bool, shape, like: torch.Tensor):
 
 
 def _newton(A, Y, w, W0, C, lam, pen_mask, max_iter, tol, steps=_NEWTON_STEPS,
-            fused=True, trace=False):
+            fused=True, trace=False, shard=None):
     """Damped Newton over the lane batch W0 [T, S, dp, c]; w [S, n] fit
-    masks, C / max_iter / tol [T]. Returns (W, trace [P', T, S] or None)."""
+    masks, C / max_iter / tol [T]. Returns (W, trace [P', T, S] or None).
+    On a row shard the gradient, the Hessian and the line objective's
+    log-likelihood are row sums, each reduced over the data group."""
     T, S, dp, c = W0.shape
     n = A.shape[0]
     dim = dp * c
@@ -575,7 +623,7 @@ def _newton(A, Y, w, W0, C, lam, pen_mask, max_iter, tol, steps=_NEWTON_STEPS,
 
     def objective(Wb):  # [..., L, dp, c] -> [..., L]
         logp = torch.log_softmax(torch.einsum("nd,...dc->...nc", A, Wb), dim=-1)
-        nll = -torch.sum(wl * torch.sum(Y * logp, dim=-1), dim=-1)
+        nll = data_all_reduce(-torch.sum(wl * torch.sum(Y * logp, dim=-1), dim=-1), shard)
         return Cl * nll + 0.5 * torch.sum(pen * Wb * Wb, dim=(-2, -1))
 
     stride, tr = _trace_buf(steps, trace, (Lanes,), A)
@@ -584,16 +632,17 @@ def _newton(A, Y, w, W0, C, lam, pen_mask, max_iter, tol, steps=_NEWTON_STEPS,
         P = torch.softmax(torch.einsum("nd,ldc->lnc", A, W), dim=-1)  # [L, n, c]
         WP = wc[:, :, None] * P
         if fused:
-            G = torch.einsum("nd,lnc->ldc", A, WP - WYc) + pen * W
+            G = data_all_reduce(torch.einsum("nd,lnc->ldc", A, WP - WYc), shard) + pen * W
         else:
             R = wl[:, :, None] * (P - Y)
-            G = Cl[:, None, None] * torch.einsum("nd,lnc->ldc", A, R) + pen * W
+            G = (Cl[:, None, None] * data_all_reduce(torch.einsum("nd,lnc->ldc", A, R), shard)
+                 + pen * W)
         # H[(i,a),(j,b)] = sum_n wc_n A_ni A_nj (P_na δab − P_na P_nb)
         blocks = torch.einsum("ni,lna,nj->laij", A, WP, A)  # [L, c, dp, dp]
         H = torch.einsum("laij,ab->liajb", blocks, eye_c).reshape(Lanes, dim, dim)
         U = (A[None, :, :, None] * P[:, :, None, :]).reshape(Lanes, n, dim)
         UW = (A[None, :, :, None] * WP[:, :, None, :]).reshape(Lanes, n, dim)
-        H = H - U.transpose(1, 2) @ UW + pen_diag + 1e-6 * eye
+        H = data_all_reduce(H - U.transpose(1, 2) @ UW, shard) + pen_diag + 1e-6 * eye
         delta, info = torch.linalg.solve_ex(H, G.reshape(Lanes, dim))
         delta = delta.reshape(Lanes, dp, c)
         # ill-conditioned solves can yield non-finite deltas: fall back to a
@@ -619,12 +668,12 @@ def _newton(A, Y, w, W0, C, lam, pen_mask, max_iter, tol, steps=_NEWTON_STEPS,
 
 
 def _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps=_NESTEROV_STEPS,
-              trace=False):
+              trace=False, shard=None):
     """Nesterov accelerated gradient over the lane batch W0 [T, S, dp, c]
     with a per-lane Lipschitz step. Returns (W, trace [P', T, S] or None)."""
     T, S = W0.shape[:2]
     # Lipschitz bound: L <= 0.5 * C * lambda_max(A' diag(w) A) + lam
-    L = 0.5 * C[:, None] * _lam_max(A, w)[None, :] + lam + 1e-6  # [T, S]
+    L = 0.5 * C[:, None] * _lam_max(A, w, shard)[None, :] + lam + 1e-6  # [T, S]
     step = (1.0 / L)[:, :, None, None]
     stride, tr = _trace_buf(steps, trace, (T, S), A)
     W, W_prev = W0, W0

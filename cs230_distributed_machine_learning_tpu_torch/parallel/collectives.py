@@ -16,6 +16,10 @@ collective:
 - :func:`fold_mean_via_psum`: the mean of K fold scores from a sum
   all-reduce over the ranks' fold shards.
 
+On a 2-D (trials, data) mesh each of them runs over the rank's trial
+group: the ranks of one data group hold the same lanes and the same
+scores, so nothing is counted twice.
+
 Each computes on the rank's device (the card, where the ranks have one);
 only the gathered pairs move between ranks.
 """
@@ -27,7 +31,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .distributed import all_gather_tensor
+from .distributed import _lanes, all_gather_tensor
 
 
 def _host_best(mean_scores: Sequence[float]) -> Tuple[int, float]:
@@ -55,6 +59,7 @@ def best_trial(mean_scores, mesh=None, valid_mask=None, offset: int = 0
     is the first lane's index with score -inf. A collective."""
     if mesh is None:
         return _host_best(mean_scores)
+    mesh = _lanes(mesh)
     s = _local(mean_scores, mesh)
     keep = torch.isfinite(s)
     if valid_mask is not None:
@@ -81,6 +86,7 @@ def topk_trials(mean_scores, k: int, mesh=None, offset: int = 0):
         s = torch.as_tensor(np.asarray(mean_scores), dtype=torch.float32)
         order = torch.sort(-s, stable=True).indices[:k]
         return order.numpy().astype(np.int32), s[order].numpy()
+    mesh = _lanes(mesh)
     s = _local(mean_scores, mesh)
     kk = min(int(k), int(s.numel()))
     order = torch.sort(-s, stable=True).indices[:kk]
@@ -103,6 +109,7 @@ def fold_mean_via_psum(fold_scores, mesh) -> float:
 
     from .distributed import _comm_device
 
+    mesh = _lanes(mesh)
     s = np.asarray(fold_scores, np.float32).reshape(-1)
     n = int(mesh.world_size)
     k = s.shape[0]

@@ -17,9 +17,15 @@ a ``torch.distributed`` process group:
   power-of-two buckets of at least ``_MIN_BUCKET`` bytes, its length
   broadcast first, as in JAX.
 - :func:`fetch` assembles trial-sharded outputs on every rank: an
-  all-gather over the ranks' equal shards. Under gloo the shards are
-  gathered as host tensors, after one device-to-host copy
+  all-gather over the ranks' equal shards (over the trial group on a 2-D
+  mesh: the ranks of a data group hold the same lanes). Under gloo the
+  shards are gathered as host tensors, after one device-to-host copy
   (:func:`prefetch_async`); under NCCL on the card.
+- :func:`data_all_reduce` sums a row-sharded fit's row sums over the data
+  group of a 2-D mesh, and :func:`data_all_gather_rows` assembles the
+  rows of a per-row output in row order (the scorers that are not row
+  sums). Under gloo a card tensor goes to pinned host memory and back
+  explicitly, as in :func:`fetch`.
 
 Every call here is a collective where the group has more than one rank:
 every rank must make the same calls in the same order.
@@ -42,6 +48,10 @@ logger = get_logger("tpuml.distributed")
 #: seconds a rendezvous or a collective may wait for the other ranks
 #: before it raises, unless ``init_distributed(timeout_s=)`` says otherwise
 DEFAULT_TIMEOUT_S = 600.0
+
+#: the group's collective timeout, as ``init_distributed`` set it; the
+#: sub-groups of a 2-D mesh take the same
+_TIMEOUT_S = DEFAULT_TIMEOUT_S
 
 #: floor of the broadcast payload bucket: recurring small task batches all
 #: land in one bucket (JAX ``distributed.py``)
@@ -72,8 +82,10 @@ def init_distributed(coordinator_address: str, num_processes: int, process_id: i
     collective that waits past ``timeout_s`` raises instead of hanging."""
     import torch.distributed as dist
 
+    global _TIMEOUT_S
     if dist.is_initialized():
         return str(dist.get_backend())
+    _TIMEOUT_S = float(timeout_s)
     local_world_size = int(os.environ.get("LOCAL_WORLD_SIZE", num_processes))
     device_type = "cpu" if device == "cpu" else "cuda"
     if device_type == "cuda" and not torch.cuda.is_available():
@@ -91,8 +103,21 @@ def init_distributed(coordinator_address: str, num_processes: int, process_id: i
     return chosen
 
 
+def group_timeout() -> datetime.timedelta:
+    """The collective timeout for a sub-group: the default group's."""
+    return datetime.timedelta(seconds=_TIMEOUT_S)
+
+
 def _group_of(mesh):
     return None if mesh is None else mesh.group
+
+
+def _lanes(mesh):
+    """The mesh the trial lanes are sharded over: a 2-D mesh's trial
+    group, else the mesh itself."""
+    if mesh is not None and int(getattr(mesh, "data_size", 1)) > 1:
+        return mesh.trial_view()
+    return mesh
 
 
 def process_index(mesh=None) -> int:
@@ -166,7 +191,9 @@ def fetch(tree: Dict[str, Any], mesh=None) -> Dict[str, np.ndarray]:
     with one rank) each leaf is read directly; over a mesh each leaf is a
     rank's shard of the trial axis and comes back whole on every rank (one
     all-gather a leaf, in sorted key order). A collective: every rank must
-    fetch the same keys in the same order."""
+    fetch the same keys in the same order. On a 2-D mesh the gather runs
+    over the rank's trial group."""
+    mesh = _lanes(mesh)
     if mesh is None or process_count(mesh) <= 1:
         return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
                 for k, v in tree.items()}
@@ -178,6 +205,74 @@ def fetch(tree: Dict[str, Any], mesh=None) -> Dict[str, np.ndarray]:
             torch.cuda.current_stream().synchronize()
         return {k: all_gather_tensor(host[k], mesh).numpy() for k in keys}
     return {k: all_gather_tensor(tree[k], mesh).cpu().numpy() for k in keys}
+
+
+def _data_mesh(mesh):
+    """The 2-D mesh behind ``mesh`` (a TrialMesh or a RowShard), or None
+    without a data axis."""
+    mesh = getattr(mesh, "mesh", mesh)
+    if mesh is None or int(getattr(mesh, "data_size", 1)) <= 1:
+        return None
+    return mesh
+
+
+def _to_comm(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` where the group's collectives take it: on the card under
+    NCCL, else on the host (a card tensor through pinned memory, its
+    stream synchronized before the read)."""
+    dev = _comm_device(group)
+    if dev.type == "cpu" and t.device.type == "cuda":
+        host = prefetch_async({"t": t.contiguous()})["t"]
+        torch.cuda.current_stream().synchronize()
+        return host
+    return t.to(dev).contiguous()
+
+
+def data_all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The SUM of ``t`` over the data group of a 2-D mesh (``mesh`` a
+    TrialMesh or a RowShard), on ``t``'s device; ``t`` itself when there
+    is no data axis. Every rank of a data group ends with the same bits
+    (gloo's ring reduces each chunk once and passes it on). A collective
+    of the data group."""
+    m = _data_mesh(mesh)
+    if m is None:
+        return t
+    import torch.distributed as dist
+
+    buf = _to_comm(t, m.data_group)
+    if buf is t:
+        buf = t.clone()
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=m.data_group)
+    return buf.to(t.device)
+
+
+def data_all_gather_rows(t: torch.Tensor, shard, dim: int = -1) -> torch.Tensor:
+    """The whole table's rows of a per-row output: ``t`` holds this rank's
+    rows ``[shard.lo, shard.hi)`` along ``dim``; every data rank's rows
+    come back concatenated in row order, on ``t``'s device. The shards are
+    padded to the largest for the all-gather and the padding dropped.
+    ``t`` itself when there is no data axis. A collective of the data
+    group."""
+    m = _data_mesh(shard)
+    if m is None:
+        return t
+    import torch.distributed as dist
+
+    dim = dim % t.dim()
+    ranges = shard.ranges()
+    width = max(hi - lo for lo, hi in ranges)
+    pad = width - t.shape[dim]
+    if pad:
+        shape = list(t.shape)
+        shape[dim] = pad
+        t_pad = torch.cat([t, t.new_zeros(shape)], dim=dim)
+    else:
+        t_pad = t
+    buf = _to_comm(t_pad, m.data_group)
+    parts = [torch.empty_like(buf) for _ in ranges]
+    dist.all_gather(parts, buf, group=m.data_group)
+    rows = [p.narrow(dim, 0, hi - lo) for p, (lo, hi) in zip(parts, ranges)]
+    return torch.cat(rows, dim=dim).to(t.device)
 
 
 def all_gather_ints(values, mesh=None) -> np.ndarray:

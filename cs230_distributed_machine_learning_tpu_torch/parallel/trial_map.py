@@ -54,6 +54,18 @@ on every rank. The chunked protocol (``_run_chunked``) shards its trial
 chunks the same way. Streamed buckets run only without a mesh. A mesh
 of one rank is no mesh.
 
+On a 2-D (trials, data) mesh (``trial_mesh(data_parallel=k)``; JAX
+``:1600-1625``) a bucket of a ``row_shardable`` kernel (LogisticRegression)
+without a chunked plan is row-sharded: each rank stages only its rows of
+``X``, ``y`` and the fold weights (``mesh.row_range``, keyed with
+``("rows", k, data_rank)``), its lanes are sharded over its trial group
+(the chunk padded to 128 x the trial axis on the packed path), and the
+kernel reduces its row sums over the data group (``static["_row_shard"]``,
+models/logistic.py); the winner and the outputs are reduced and gathered
+over the trial group. Every other bucket runs on the flat trial axis of
+all ranks with the whole table, as the JAX package's chunked protocol
+runs replicated (``replicate_only``).
+
 ``warm_only=True`` (the prewarm path, runtime/prewarm.py) loads the kernel
 libraries and stages every bucket's tensors, then stops before any
 dispatch: the result carries the compile and staging seconds and no
@@ -85,7 +97,7 @@ from ..models.base import ModelKernel, TrialData
 from ..obs import obs_enabled, observe
 from ..ops.folds import SplitPlan
 from ..ops.metrics import validate_scoring
-from .mesh import effective_mesh, pad_to_multiple
+from .mesh import RowShard, effective_mesh, pad_to_multiple
 
 
 @dataclasses.dataclass
@@ -168,7 +180,7 @@ class _Staging:
         self.seconds = 0.0
         self._sc = stage_cache if stage_cache.enabled() else None
         self._local: Dict[Any, Any] = {}
-        self._folds: Optional[tuple] = None
+        self._folds: Dict[tuple, tuple] = {}
 
     def get(self, key: tuple, make, cache: bool = True):
         """The entry under ``key``, made on a miss. A miss's upload (and a
@@ -197,15 +209,18 @@ class _Staging:
         call alone."""
         return self.get(key[:1] + (signature,) + key[1:], make, cache=signature is not None)
 
-    def folds(self, plan: SplitPlan):
-        """(y [n], TW [S, n], EW [S, n]) on the device."""
-        if self._folds is None:
+    def folds(self, plan: SplitPlan, rows: Optional[RowShard] = None):
+        """(y [n], TW [S, n], EW [S, n]) on the device; with ``rows`` only
+        the rank's rows ``[rows.lo, rows.hi)``."""
+        key = rows.key if rows is not None else ()
+        if key not in self._folds:
             dev = self.device
-            self._folds = self.get_signed(plan.signature, ("folds",), lambda: (
-                torch.as_tensor(np.asarray(self.data.y), device=dev),
-                torch.as_tensor(plan.train_w, device=dev),
-                torch.as_tensor(plan.eval_w, device=dev)))
-        return self._folds
+            sl = slice(rows.lo, rows.hi) if rows is not None else slice(None)
+            self._folds[key] = self.get_signed(plan.signature, ("folds",) + key, lambda: (
+                torch.as_tensor(np.asarray(self.data.y)[sl], device=dev),
+                torch.as_tensor(np.ascontiguousarray(plan.train_w[:, sl]), device=dev),
+                torch.as_tensor(np.ascontiguousarray(plan.eval_w[:, sl]), device=dev)))
+        return self._folds[key]
 
     def X(self, kernel, static, prepared):
         """The bucket's X: its prepared forms (a dict) or the raw f32 matrix."""
@@ -216,6 +231,12 @@ class _Staging:
                                      for k, v in prepared.items()})
         return self.get(("X",), lambda: torch.as_tensor(
             np.asarray(self.data.X, np.float32), device=dev))
+
+    def X_rows(self, rows: RowShard):
+        """The rank's rows ``[rows.lo, rows.hi)`` of the raw f32 matrix (a
+        row-sharded bucket's X)."""
+        return self.get(("X",) + rows.key, lambda: torch.as_tensor(
+            np.asarray(self.data.X[rows.lo:rows.hi], np.float32), device=self.device))
 
 
 def _device_memory_mb(device: torch.device) -> float:
@@ -228,7 +249,8 @@ def _memory_chunk_cap(kernel, n, d, static, n_splits, device, n_dev: int = 1,
                       share: int = 1) -> int:
     """Trials per generic dispatch bounded by device memory: each trial
     holds ~memory_estimate_mb per split at once, on each of ``n_dev``
-    ranks' devices, each rank with its ``share``-th of its device."""
+    ranks' devices, each rank with its ``share``-th of its device. ``n``
+    is the rows a rank holds (its row shard on a data axis)."""
     per_trial_mb = max(kernel.memory_estimate_mb(n, d, static), 0.5) * max(n_splits, 1)
     return max(n_dev, int(0.5 * _device_memory_mb(device) / share * n_dev / per_trial_mb))
 
@@ -250,9 +272,9 @@ def run_trials(
     scorer name rides each bucket's static as ``_scoring`` and keeps the
     bucket off the packed, fused and streamed paths, which score by the
     default metric only (as in the reference). ``mesh`` (a TrialMesh of
-    more than one rank) shards every chunk over the ranks, which must all
-    make this call with the same arguments; the rank's device replaces
-    ``device``. ``warm_only`` stages and loads, and dispatches nothing.
+    more than one rank; 1-D or 2-D) shards every chunk over the ranks,
+    which must all make this call with the same arguments; the rank's
+    device replaces ``device``. ``warm_only`` stages and loads, and dispatches nothing.
     The stage-cache entries the run touches are pinned while it runs."""
     from ..data import stage_cache
 
@@ -269,17 +291,22 @@ def run_trials(
 def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_batch,
                      scoring, mesh=None, warm_only=False) -> TrialRunResult:
     from ..ops.cuda_build import load_seconds, warm_libraries
-    from .distributed import LockstepLostError, agree, fetch
+    from .distributed import LockstepLostError, PeerRankFailed, agree, fetch
 
     mesh = effective_mesh(mesh)
-    n_dev = int(mesh.world_size) if mesh is not None else 1
     share = int(mesh.device_share) if mesh is not None else 1
     if mesh is not None:
         device = mesh.device
     # this rank's part of the run (staging, dispatch) makes no collective;
     # over a mesh the ranks agree on it before the first result collective,
-    # so a part that failed on one rank fails the run on every rank
+    # so a part that failed on one rank fails the run on every rank. A
+    # row-sharded bucket's dispatch does reduce over its data group: those
+    # dispatches are deferred to the end of the rank's part and the ranks
+    # agree once before them too, so a rank that failed before them leaves
+    # no peer waiting in a data collective
     agreeing = mesh is not None and not warm_only
+    deferred: List[Any] = []
+    agreed = False
     try:
         validate_scoring(scoring, kernel.task, data.n_classes, kernel)
         n, d = data.X.shape
@@ -335,6 +362,20 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             if hasattr(kernel, "chunked_plan"):
                 chunk_plan = kernel.chunked_plan(static, n, d, data.n_classes, plan.n_splits,
                                                  prepared=prepared, device=device)
+            # the mesh this bucket's lanes shard over: on a 2-D mesh a
+            # row-sharded bucket's trial group, every other bucket the flat
+            # trial axis of all ranks (whole table)
+            shard = None
+            bmesh = mesh
+            if mesh is not None and mesh.data_size > 1:
+                if getattr(kernel, "row_shardable", False) and not chunk_plan:
+                    shard = mesh.row_shard(n)
+                    static["_row_shard"] = shard
+                    bmesh = mesh.trial_view()
+                else:
+                    bmesh = mesh.flat()
+            n_dev = int(bmesh.world_size) if bmesh is not None else 1
+            n_rows = shard.hi - shard.lo if shard is not None else n
 
             # out-of-core streaming, decided before any X staging so that the
             # oversized single-shot upload never happens
@@ -351,19 +392,25 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                     _dispatching()
                     out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
                                                 plan, staging, max_trials_per_batch)
-                    pending.extend(out)
+                    pending.extend((o, bi, None) for o, bi in out)
                     # the blocking share of the transfer wall is staging time
                     staging.seconds += waited
                     continue
 
-            X = staging.X(kernel, static, prepared)
-            y, TW, EW = staging.folds(plan)
+            if shard is not None:
+                if prepared is not None:
+                    raise ValueError(f"{kernel.name}: prepared forms are never row-sharded")
+                X = staging.X_rows(shard)
+            else:
+                X = staging.X(kernel, static, prepared)
+            y, TW, EW = staging.folds(plan, rows=shard)
             if chunk_plan:
                 if warm_only:
                     continue
                 _dispatching()
-                pending.extend(_run_chunked(kernel, static, X, y, TW, EW, hypers, idxs,
-                                            hyper_names, plan, chunk_plan, d, device, mesh))
+                pending.extend((out, bi, bmesh) for out, bi in _run_chunked(
+                    kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan, chunk_plan,
+                    d, device, bmesh))
                 continue
 
             # kernels with a packed path (the LogReg kernel fit) take over the
@@ -372,31 +419,35 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             extras: Dict[str, Any] = {}
             if hasattr(kernel, "build_batched_fn") and scoring is None:
                 # every rank's shard is whole trial blocks; the cap is the
-                # kernel's per device
+                # kernel's per device. ``n`` is the rows the rank holds
                 Tw = kernel.batched_trial_multiple * n_dev
                 chunk = max(Tw, min(kernel.batched_chunk_cap * n_dev,
                                     pad_to_multiple(len(idxs), Tw)))
                 fn = kernel.build_batched_fn(
-                    static=static, n=n, d=d, n_classes=data.n_classes,
+                    static=static, n=n_rows, d=d, n_classes=data.n_classes,
                     n_splits=plan.n_splits, chunk=chunk // n_dev, device=device,
                 )
+            made: Dict[str, Any] = {}  # made once a bucket, at its dispatch
             if fn is not None and hasattr(kernel, "batched_staged_extras"):
                 # dispatch-invariant forms staged once per (dataset, device,
-                # subkey) and merged into every dispatch's hypers
+                # subkey) and merged into every dispatch's hypers; a row
+                # shard's forms carry its rows in the key
                 specs = kernel.batched_staged_extras(
-                    static=static, n=n, d=d, n_classes=data.n_classes, n_splits=plan.n_splits,
-                    fold_signature=plan.signature, device=device)
+                    static=static, n=n_rows, d=d, n_classes=data.n_classes,
+                    n_splits=plan.n_splits, fold_signature=plan.signature, device=device)
                 ctx = {"X": X, "y": y, "TW": TW, "EW": EW}
+                rows_key = shard.key if shard is not None else ()
                 for name in sorted(specs):
                     subkey, make = specs[name]
                     if subkey is None:  # nothing stable to key on: made once a bucket
-                        extras[name] = make(ctx)
+                        made[name] = lambda m=make, c=ctx: m(c)
                     else:
-                        extras[name] = staging.get(("batched_extra", kernel.name, name) + tuple(subkey),
-                                                   lambda m=make: m(ctx))
+                        extras[name] = staging.get(
+                            ("batched_extra", kernel.name, name) + tuple(subkey) + rows_key,
+                            lambda m=make: m(ctx))
             if fn is None:
-                mem_cap = _memory_chunk_cap(kernel, n, d, static, plan.n_splits, device, n_dev,
-                                        share)
+                mem_cap = _memory_chunk_cap(kernel, n_rows, d, static, plan.n_splits, device,
+                                            n_dev, share)
                 chunk = min(max_trials_per_batch, mem_cap, pad_to_multiple(len(idxs), n_dev))
                 chunk = max(n_dev, pad_to_multiple(chunk, n_dev))
 
@@ -405,33 +456,51 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
 
             if warm_only:
                 continue  # staged and built: the prewarm stops before dispatching
-            lanes = mesh.shard(chunk) if mesh is not None else None
-            for start in range(0, len(idxs), chunk):
-                batch_idx = idxs[start : start + chunk]
-                hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device, lanes)
-                _dispatching()
-                pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx))
-    except Exception:
-        if agreeing:
+
+            def dispatch(fn=fn, X=X, y=y, TW=TW, EW=EW, extras=extras, made=made, idxs=idxs,
+                         hyper_names=hyper_names, chunk=chunk, bmesh=bmesh):
+                extras = {**extras, **{k: make() for k, make in made.items()}}
+                lanes = bmesh.shard(chunk) if bmesh is not None else None
+                for start in range(0, len(idxs), chunk):
+                    batch_idx = idxs[start : start + chunk]
+                    hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device, lanes)
+                    _dispatching()
+                    pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx, bmesh))
+
+            if shard is not None:
+                deferred.append(dispatch)
+            else:
+                dispatch()
+        if deferred and agreeing:
+            agreed = True
+            agree(True, mesh)
+        for dispatch in deferred:
+            dispatch()
+    except Exception as e:
+        if agreeing and not agreed:
             agree(False, mesh)
+        if agreed and not isinstance(e, PeerRankFailed):
+            raise LockstepLostError(f"rank {mesh.rank} failed in a row-sharded dispatch, "
+                                    f"whose data peers wait in its collectives: {e}") from e
         raise
     if agreeing:
         agree(True, mesh)
 
     # one blocking read an output leaf; on the card each waits for the
     # kernels still queued before it. Over a mesh each chunk's winner is
-    # reduced first, then every leaf is all-gathered: the same collectives
-    # in the same order on every rank. A rank that fails between them
-    # leaves its siblings in one it never enters (LockstepLostError)
+    # reduced first, then every leaf is all-gathered, over the bucket's
+    # lane mesh: the same collectives in the same order on every rank. A
+    # rank that fails between them leaves its siblings in one it never
+    # enters (LockstepLostError)
     fetch_s = 0.0
     n_fetches = result_bytes = 0
     device_best: Optional[tuple] = None
     hosts = []
     try:
-        for out, batch_idx in pending:
+        for out, batch_idx, bmesh in pending:
             t_fetch = time.perf_counter()
-            if mesh is not None:
-                bi, bs = _chunk_best(out["score"], len(batch_idx), plan, mesh)
+            if bmesh is not None:
+                bi, bs = _chunk_best(out["score"], len(batch_idx), plan, bmesh)
                 n_fetches += 2
                 if bi < len(batch_idx) and np.isfinite(bs):
                     gi = batch_idx[bi]
@@ -440,7 +509,7 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                     if (device_best is None or bs > device_best[1]
                             or (bs == device_best[1] and gi < device_best[0])):
                         device_best = (gi, bs)
-            host = fetch(out, mesh)
+            host = fetch(out, bmesh)
             dt = time.perf_counter() - t_fetch
             observe("tpuml_executor_fetch_seconds", dt)
             fetch_s += dt

@@ -111,6 +111,7 @@ class Coordinator:
         config: Optional[FrameworkConfig] = None,
         *,
         device: DeviceLike = None,
+        mesh=None,
         executor: Optional[LocalExecutor] = None,
         cluster=None,
         journal: bool = False,
@@ -127,9 +128,17 @@ class Coordinator:
         ones still in flight (``ready`` is False until that is done).
         ``shard_id`` / ``n_shards`` make it one shard of a sharded control
         plane, whose journal is ``journal_dir`` (``<journal>/shard-<k>``:
-        the unit a replacement process takes over)."""
+        the unit a replacement process takes over). ``mesh`` (a
+        ``parallel.mesh.TrialMesh``, 1-D or 2-D) makes the in-process
+        executor one rank of that mesh, as JAX's ``Coordinator(mesh=)``
+        does: every rank runs its own coordinator and submits the same jobs
+        in the same order; the device is the rank's. ``executor=`` brings
+        its own mesh, so the two are refused together."""
+        if mesh is not None and executor is not None:
+            raise ValueError("Coordinator: pass mesh= or executor=, not both (the executor "
+                             "carries its own mesh)")
         self.config = config or get_config()
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None and device is None else resolve_device(device)
         self.cluster = cluster
         self.bus = cluster.bus if cluster is not None else None
         self.store = JobStore(journal_dir=(journal_dir or self.config.storage.journal_dir)
@@ -140,7 +149,7 @@ class Coordinator:
             self.cache = DatasetCache(root=self.config.storage.datasets_dir)
             if cluster is not None:
                 cluster.cache = self.cache
-        self.executor = executor or LocalExecutor(self.device, cache=self.cache)
+        self.executor = executor or LocalExecutor(self.device, cache=self.cache, mesh=mesh)
         self._job_threads: Dict[str, threading.Thread] = {}
         # the winner's subtask spec of each finished job, and its artifact's
         # path once refitted (best_model_path)

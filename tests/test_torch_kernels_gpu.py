@@ -33,7 +33,10 @@ the rows split into ranges whose partial lists are merged. B3 and B6 are
 also held at the winner artifact's shapes (one lane: the covertype refit,
 the KNN prediction on 40,000 holdout rows), and a LogReg refit on the card
 must launch B3 once a solver step and never B1 or B2. A torch.profiler
-capture (obs/devprof.py) around one B2 launch must name B2's kernel.
+capture (obs/devprof.py) around one B2 launch must name B2's kernel. The
+2-D mesh's data-axis collectives (parallel/distributed.py) move card
+tensors between two gloo ranks sharing the card: the sum bit-identical on
+both, the rows gathered in order.
 """
 
 import numpy as np
@@ -855,3 +858,63 @@ def test_profile_capture_names_the_fused_step_kernel_on_card(cuda, tmp_path, mon
                                                       if e.get("cat") == "kernel"})
     stats = device_memory_stats()
     assert stats["peak_bytes_in_use"] > 0 and stats["bytes_limit"] > stats["bytes_in_use"]
+
+
+def _data_axis_rank(rank, address, q):
+    """A rank of a (1 trial x 2 data) mesh on the one card under gloo: one
+    ``data_all_reduce`` and one ``data_all_gather_rows`` of card tensors."""
+    import hashlib
+
+    from cs230_distributed_machine_learning_tpu_torch.parallel import distributed as D
+    from cs230_distributed_machine_learning_tpu_torch.parallel.mesh import trial_mesh
+
+    try:
+        assert D.init_distributed(address, 2, rank, timeout_s=120) == "gloo"
+        mesh = trial_mesh(data_parallel=2)
+        gen = torch.Generator(device=mesh.device).manual_seed(rank)
+        t = torch.randn((4, 64, 5376), generator=gen, device=mesh.device)
+        total = D.data_all_reduce(t, mesh)
+        shard = mesh.row_shard(7)
+        rows = torch.arange(shard.lo, shard.hi, device=mesh.device, dtype=torch.float32)
+        gathered = D.data_all_gather_rows(rows.expand(3, -1), shard, dim=-1)
+        q.put((rank, {"device": total.device.type, "own": t.cpu().numpy(),
+                      "digest": hashlib.sha256(total.cpu().numpy().tobytes()).hexdigest(),
+                      "total": total.cpu().numpy(), "gathered": gathered.cpu().numpy(),
+                      "gathered_device": gathered.device.type}))
+    except BaseException as e:  # noqa: BLE001 — reported to the parent
+        q.put((rank, repr(e)))
+    finally:
+        D.shutdown()
+
+
+@pytest.mark.gpu
+def test_data_axis_collectives_of_card_tensors_under_gloo(cuda):
+    """The 2-D mesh's data-axis collectives on card tensors, two gloo ranks
+    sharing the card (through pinned host copies): the all-reduce of a
+    dist2d_main-sized gradient is the sum, on the card, bit-identical on
+    both ranks; the row gather returns every row once, in order."""
+    import torch.multiprocessing as mp
+
+    from cs230_distributed_machine_learning_tpu_torch.runtime.fleet import free_port
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    address = f"127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=_data_axis_rank, args=(r, address, q), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        got = dict(q.get(timeout=180) for _ in procs)
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    assert all(isinstance(v, dict) for v in got.values()), got
+    a, b = got[0], got[1]
+    assert a["device"] == b["device"] == "cuda" == a["gathered_device"]
+    assert a["digest"] == b["digest"]
+    np.testing.assert_allclose(a["total"], a["own"] + b["own"], rtol=1e-6, atol=1e-6)
+    expected = np.broadcast_to(np.arange(7, dtype=np.float32), (3, 7))
+    assert np.array_equal(a["gathered"], expected) and np.array_equal(b["gathered"], expected)

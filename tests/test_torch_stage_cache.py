@@ -302,3 +302,35 @@ def test_unseeded_plans_never_share_fold_tensors(monkeypatch):
     off = [tm.run_trials(kernel, data, p, [{"C": 1.0}], device=CPU).trial_metrics
            for p in plans]
     assert on == off
+
+
+def test_byte_and_entry_gauges_match_the_jax_cache(monkeypatch):
+    """The ``tpuml_stage_cache_{bytes,entries}`` gauges: after one stage,
+    one hit, one stage that evicts the first entry and ``clear``, the
+    port's Prometheus lines for both equal those of the JAX package's
+    cache fed the same sequence (4 kB entries under a 6 kB budget)."""
+    from cs230_distributed_machine_learning_tpu.data import stage_cache as jax_sc
+    from cs230_distributed_machine_learning_tpu.obs import REGISTRY as JAX_REGISTRY
+
+    monkeypatch.setenv("CS230_STAGE_CACHE_MB", "0.006")
+    names = ("tpuml_stage_cache_bytes", "tpuml_stage_cache_entries")
+
+    def lines(registry):
+        return [ln for ln in registry.render().splitlines() if ln.startswith(names)]
+
+    runs = []
+    for cache, registry, make in (
+            (sc.STAGE_CACHE, REGISTRY, _mk()),
+            (jax_sc.StagedDatasetCache(), JAX_REGISTRY, lambda: np.zeros(1000, np.float32))):
+        seen = []
+        for key in ("A", "A", "B"):
+            cache.get_or_stage(("fp", "dev", key), make)
+            seen.append(lines(registry))
+        assert not cache.contains(("fp", "dev", "A"))  # evicted by B
+        cache.clear()
+        seen.append(lines(registry))
+        runs.append(seen)
+    assert runs[0] == runs[1], runs
+    one = ["tpuml_stage_cache_bytes 4000", "tpuml_stage_cache_entries 1"]
+    assert runs[0] == [one, one, one, ["tpuml_stage_cache_bytes 0",
+                                       "tpuml_stage_cache_entries 0"]]
