@@ -308,6 +308,28 @@ Coordinator(mesh=mesh)) in direct mode:
             launches a rank; scores within each family's limit of the same
             search on one card.
 
+The valves group (the JAX package's last valves; budget 40 s):
+
+45. stage_dtype  bench.py's job, uncut, under CS230_STAGE_DTYPE=bf16 and
+            int8: B2 200 launches each, the staged X's bytes (1/2 of f32;
+            1/4 plus the scale vector) and each form's host compression
+            and upload seconds, every mean_cv_score within 5e-3 / 2e-2 of
+            main_auto's and best_params_ equal unless main_auto's top two
+            are that close; B2 against its plain version on each mode's
+            A (b2_staged_row, for the kernels line); then auto: the
+            probed link MB/s, the mode it resolves to, and that mode's
+            scores against main_auto's.
+46. host_exec  a DecisionTreeClassifier grid on iris (two buckets, each
+            under the JAX package's 2e8-MAC cap): at CS230_HOST_EXEC_MACS
+            =2e8 both buckets run on the host (0 B4 launches); under the
+            port's default (the route off) and at cap 0 on the card (B4
+            once a level a tree); the walls, and the scores within the
+            family's card-vs-CPU limit (1e-6, integer stats).
+47. svc_kmeans  CS230_SVM_KMEANS_ITERS: the k-means landmarks of
+            covertype's table (4,096 of 116,202 rows, 3 Lloyd iterations)
+            on the card against the same on the CPU, and one Nystrom SVC
+            fit at a 32,000-row cut with and without the refinement.
+
 The stage_cache line carries the stage cache's stats of the run so far;
 stream_logreg empties the cache first (so that its single-shot run must
 upload), and the done line carries the stats since.
@@ -613,10 +635,6 @@ def phase_kernels(dev) -> dict:
     for n_wb in sorted({1, REST_BLOCKS, DIST_BLOCKS, LOGREG_SHAPE[4]}):
         Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(
             gen, dev, n_pad, dpp, c, S, n_wb)
-        NB = W.shape[2]
-        mm = 4.0 * n_pad * dpp * NB * n_wb
-        exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
-        f32_ops = SOFTMAX_OPS * exps
         rows[("packed_softmax_grad", n_wb)] = packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb)
 
         # B2: fused Nesterov step, in place; two launches on the same inputs
@@ -651,13 +669,10 @@ def phase_kernels(dev) -> dict:
             Ab, Wk, Wpk, y2, WSP, t, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0))
         plain2 = time_ms(lambda: K.packed_nesterov_step_reference(
             Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, c=c, S=S, lam=1.0), reps=3)
-        nbytes2 = (Ab.numel() * 2 + 4 * W.numel() * 4 + y2.numel() * 4 + WSP.numel() * 4
-                   + 5 * done.numel() * 4 + pen.numel() * 4)
-        b2, by2, unit2 = bound_ms(nbytes2, mm, f32_ops + 8 * W.numel(), exps)
+        b2, by2, unit2, terms2 = b2_bound(Ab, W, y2, WSP, done, pen, n_wb)
         rows[("packed_nesterov_step", n_wb)] = dict(
             max_abs_err=abs2, max_rel_err=err2, ms=ms2, plain_ms=plain2,
-            bound_ms=b2, bound_by=by2, bound_unit=unit2,
-            bound_terms_ms=bound_terms(nbytes2, mm, f32_ops + 8 * W.numel(), exps),
+            bound_ms=b2, bound_by=by2, bound_unit=unit2, bound_terms_ms=terms2,
             repeat_bit_equal=repeat_equal, b1_bit_equal=b1_equal, digest=step_digest,
             geometry=K.step_geometry(dpp, c))
         del Ab, W, Wp, Wk, Wpk
@@ -689,6 +704,22 @@ def phase_kernels(dev) -> dict:
           "rows": [{"kernel": k, "tag": n, **v} for (k, n), v in rows.items()]})
     rows.update(hist_kernel_rows(gen, dev))
     return rows
+
+
+def b2_bound(Ab, W, y2, WSP, done, pen, n_wb) -> tuple:
+    """B2's least time at one shape: its bytes (the rows once, W and Wp
+    read and written, the labels, weights, five lane vectors and the
+    penalty), the bf16 products of its two chains and the softmax's f32
+    operations plus the update's. Returns bound_ms's (ms, bound_by, unit)
+    and the terms."""
+    n_pad, dpp = Ab.shape
+    NB = W.shape[2]
+    mm = 4.0 * n_pad * dpp * NB * n_wb
+    exps = float(n_pad) * NB * n_wb  # one a (row, class, lane)
+    f32_ops = SOFTMAX_OPS * exps + 8 * W.numel()
+    nbytes = (Ab.numel() * 2 + 4 * W.numel() * 4 + y2.numel() * 4 + WSP.numel() * 4
+              + 5 * done.numel() * 4 + pen.numel() * 4)
+    return (*bound_ms(nbytes, mm, f32_ops, exps), bound_terms(nbytes, mm, f32_ops, exps))
 
 
 def packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb) -> dict:
@@ -4695,6 +4726,244 @@ ROW_KEYS = ("shape", "max_abs_err", "max_rel_err", "float_max_rel_err", "ms", "p
             "bound_ms", "bound_by", "bound_unit", "library_ms")
 
 
+# ---------------------------------------------------------------------------
+# the valves group: compressed staging, the host route, k-means landmarks
+# ---------------------------------------------------------------------------
+
+#: stage_dtype's limits against main_auto's scores (the JAX package's
+#: tests/test_packed_parity.py limits against f32 staging)
+STAGE_TOL = {"bf16": 5e-3, "int8": 2e-2}
+#: the JAX package's host-route cap (MACs); the port's default is off
+JAX_HOST_EXEC_MACS = 2e8
+#: host_exec's search: two unchunked iris buckets under the 2e8-MAC cap
+#: that reach B4 on the card (iris LogReg resolves to Newton and launches
+#: no kernel; iris KNN is below B6's 150,000-row gate)
+HOST_EXEC_SEARCH = {"model_type": "DecisionTreeClassifier", "search_type": "GridSearchCV",
+                    "base_estimator_params": {"random_state": 0},
+                    "param_grid": {"max_depth": [3, 4]}, "cv_params": {"cv": 5}}
+#: svc_kmeans: Lloyd iterations, and the Nystrom fit's cut of covertype
+KMEANS_ITERS = 3
+KMEANS_RTOL = 1e-4
+SVC_KMEANS_ROWS = 32_000
+
+
+def _upload_seconds(X, mode: str, dev) -> dict:
+    """Host compression and upload seconds of one staged form of ``X``."""
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_codec as codec
+
+    t0 = time.perf_counter()
+    form = codec.stage_compress(X, mode)
+    t1 = time.perf_counter()
+    staged = codec.to_device(form, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in (staged.values() if isinstance(staged, dict) else (staged,)))
+    return {"compress_s": t1 - t0, "upload_s": t2 - t1, "bytes": nbytes}
+
+
+def b2_staged_row(X, mode: str, dev) -> dict:
+    """B2 against its plain version at the B2 row's shape (8 blocks), its
+    padded bf16 A built as the packed path's staged extras build it: ``X``
+    compressed in ``mode`` on the host, uploaded, decoded on the card and
+    padded. The other operands are a seeded draw (logreg_inputs). Returns
+    the ROW_KEYS of the kernels line and whether this A equals the f32
+    staging's to the bit."""
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_codec as codec
+    from cs230_distributed_machine_learning_tpu_torch.models.logistic import _padded_design
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
+
+    n_pad, dpp, c, S, n_wb = LOGREG_SHAPE
+    t = LOGREG_STEP_T
+
+    def padded(m):
+        Xd = codec.stage_decode(codec.to_device(codec.stage_compress(X, m), dev))
+        return _padded_design(Xd, True, dpp, n_pad).to(torch.bfloat16)
+
+    Ab = padded(mode)
+    ab_equal_f32 = bool(torch.equal(Ab, padded("f32")))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(gen, dev, n_pad, dpp, c, S,
+                                                                   n_wb)
+    args = (t, done, step, Cb, maxit, pen)
+    ref = K.packed_nesterov_step_reference(Ab, W, Wp, y2, WSP, *args, c=c, S=S, lam=1.0)
+    Wk, Wpk = W.clone(), Wp.clone()
+    got = K.packed_nesterov_step(Ab, Wk, Wpk, y2, WSP, *args, c=c, S=S, lam=1.0)
+    torch.cuda.synchronize()
+    errs = [errors(a, b) for a, b in zip(got, ref)]
+    abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+    assert rel_err < TOL, f"packed_nesterov_step on the {mode}-staged A: {rel_err}"
+    del ref, got
+    ms = time_ms(lambda: K.packed_nesterov_step(Ab, Wk, Wpk, y2, WSP, *args, c=c, S=S,
+                                                lam=1.0))
+    plain = time_ms(lambda: K.packed_nesterov_step_reference(Ab, W, Wp, y2, WSP, *args, c=c,
+                                                             S=S, lam=1.0), reps=3)
+    bound, by, unit, _ = b2_bound(Ab, W, y2, WSP, done, pen, n_wb)
+    return {"max_abs_err": abs_err, "max_rel_err": rel_err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "bound_unit": unit, "library_ms": None,
+            "ab_equal_f32": ab_equal_f32}
+
+
+def phase_stage_dtype(manager) -> dict:
+    """bench.py's job, uncut, under CS230_STAGE_DTYPE=bf16 and int8, then
+    auto (see the module docstring, phase 45)."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.data import stage_cache as sc
+    from cs230_distributed_machine_learning_tpu_torch.parallel import trial_map as tm
+
+    main = manager.check_status(JOBS["main_auto"])
+    ref = _scores(main)
+    top = sorted(ref.values(), reverse=True)[:2]
+    data = manager._coordinator.cache.get("covertype", "classification")
+    X = np.asarray(data.X, np.float32)
+    fp = sc.dataset_fingerprint(data)
+    dev = manager.device
+    uploads = {mode: _upload_seconds(X, mode, dev) for mode in ("f32", "bf16", "int8")}
+    modes = {}
+    for mode in ("bf16", "int8"):
+        with valves(CS230_STAGE_DTYPE=mode):
+            status, wall, launches = _train(manager, _search(1000, 200, 5), "covertype",
+                                            "packed_nesterov_step", 1000)
+        got = _scores(status)
+        worst = max(abs(got[k] - ref[k]) for k in ref)
+        same = (status["job_result"]["best_result"]["search_params"]
+                == main["job_result"]["best_result"]["search_params"])
+        nbytes = {repr(k[2:]): v for k, v in sc.STAGE_CACHE.nbytes_by_key().items()
+                  if k[0] == fp and k[2:] == ("X", mode)}
+        modes[mode] = {"wall_s": wall, "b2_launches": launches["packed_nesterov_step"],
+                       "x_bytes": sum(nbytes.values()), "f32_bytes": int(X.nbytes),
+                       "upload_s": uploads[mode]["upload_s"],
+                       "compress_s": uploads[mode]["compress_s"],
+                       "max_mean_cv_diff": worst, "tolerance": STAGE_TOL[mode],
+                       "best_params_equal": same, "best_params": status["job_result"][
+                           "best_result"]["search_params"]}
+        emit({"phase": f"stage_{mode}", **modes[mode], "entries": nbytes})
+        assert launches["packed_nesterov_step"] == 200, launches
+        n, d = X.shape
+        want = n * d * 2 if mode == "bf16" else n * d + 4 * d
+        assert modes[mode]["x_bytes"] == want, (mode, nbytes, want)
+        assert worst <= STAGE_TOL[mode], f"stage_{mode}: {worst} from main_auto"
+        assert same or top[0] - top[1] <= STAGE_TOL[mode], f"stage_{mode}: best_params_ differ"
+        # B2 against its plain version on this mode's A (after the job's
+        # launch count was read: these launches are not the job's)
+        modes[mode]["b2_row"] = b2_staged_row(X, mode, dev)
+        emit({"phase": f"stage_{mode}_b2", **modes[mode]["b2_row"]})
+    with valves(CS230_STAGE_DTYPE="auto"):
+        mbps = tm._measured_link_mbps(dev)
+        resolved = tm._resolve_stage_mode("auto", dev)
+        status, wall, launches = _train(manager, _search(1000, 200, 5), "covertype",
+                                        "packed_nesterov_step", 1000)
+    got = _scores(status)
+    worst = max(abs(got[k] - ref[k]) for k in ref)
+    emit({"phase": "stage_auto", "link_mbps": mbps, "resolved": resolved, "wall_s": wall,
+          "b2_launches": launches["packed_nesterov_step"], "max_mean_cv_diff": worst,
+          "uploads": uploads})
+    assert launches["packed_nesterov_step"] == 200, launches
+    if resolved == "f32":  # main_auto's staged forms: its scores to the bit
+        assert got == ref, worst
+    else:
+        assert worst <= STAGE_TOL[resolved], worst
+    return {"modes": modes, "auto": {"link_mbps": mbps, "resolved": resolved}}
+
+
+def phase_host_exec(manager) -> dict:
+    """HOST_EXEC_SEARCH at the JAX package's cap (the host), under the
+    port's default (the route off) and at cap 0 (the card); see the module
+    docstring, phase 46."""
+    from cs230_distributed_machine_learning_tpu_torch.parallel import trial_map as tm
+
+    data = manager._coordinator.cache.get("iris", "classification")
+    (n, d), c = data.X.shape, data.n_classes
+    expected, macs = 0, []
+    for params in _buckets(HOST_EXEC_SEARCH):
+        kernel, static = _resolved("DecisionTreeClassifier", params, n, d, c)
+        prepared = kernel.prepare_data(data.X, static)
+        macs.append(tm.bucket_macs(kernel, prepared, n, d, static, 6, 1))
+        assert not hasattr(kernel, "chunked_plan")  # a single tree: never chunked
+        expected += static["_depth"]
+    runs = {}
+    for tag, cap in (("jax_cap", JAX_HOST_EXEC_MACS), ("default", None), ("cap_0", 0)):
+        with valves(CS230_HOST_EXEC_MACS=cap):
+            tm.reset_host_route()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            status = manager.train(HOST_EXEC_SEARCH, "iris", {"random_state": 42}, timeout=300)
+            torch.cuda.synchronize()
+            runs[tag] = {"cap": tm._host_exec_cap(), "wall_s": time.perf_counter() - t0,
+                         "scores": _scores(status),
+                         "launches": all_launches()["level_histogram"],
+                         "host_buckets": tm.HOST_ROUTE["buckets"]}
+        assert status["job_status"] == "completed" and not status["job_result"]["failed"]
+    tm.reset_host_route()
+    worst = max(abs(runs[tag]["scores"][k] - runs["jax_cap"]["scores"][k])
+                for tag in ("default", "cap_0") for k in runs["jax_cap"]["scores"])
+    emit({"phase": "host_exec", "model": "DecisionTreeClassifier", "dataset": "iris",
+          "bucket_macs": macs, "expected_launches": expected,
+          "max_mean_cv_diff": worst, "tolerance": TREE_SEARCH_TOL["exact"], **runs})
+    assert all(m <= JAX_HOST_EXEC_MACS for m in macs), macs
+    assert runs["jax_cap"]["launches"] == 0 and runs["jax_cap"]["host_buckets"] == 2
+    for tag in ("default", "cap_0"):
+        assert runs[tag]["launches"] == expected > 0 and runs[tag]["host_buckets"] == 0, tag
+    assert worst <= TREE_SEARCH_TOL["exact"], f"host_exec: host vs card {worst}"
+    return {k: {"wall_s": v["wall_s"], "launches": v["launches"]} for k, v in runs.items()}
+
+
+def phase_svc_kmeans(manager, cfg, dev) -> dict:
+    """CS230_SVM_KMEANS_ITERS on the card (module docstring, phase 47)."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.models import svm
+    from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
+
+    data = manager._coordinator.cache.get("covertype", "classification")
+    X = np.asarray(data.X, np.float32)
+    n = X.shape[0]
+    m = svm._nystrom_m(n)
+    init = X[np.random.RandomState(17).choice(n, m, replace=False)]
+    Xd, initd = torch.as_tensor(X, device=dev), torch.as_tensor(init, device=dev)
+    svm._kmeans_landmarks(Xd[:4096], initd[:256], 1)  # first-use costs out of the timing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = svm._kmeans_landmarks(Xd, initd, KMEANS_ITERS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = svm._kmeans_landmarks(torch.as_tensor(X), torch.as_tensor(init), KMEANS_ITERS)
+    host_s = time.perf_counter() - t0
+    card = card.cpu()
+    rel = float((card - host).abs().max() / host.abs().max())
+    moved = float((host - torch.as_tensor(init)).abs().max())
+    # one Nystrom fit at a cut, with and without the refinement
+    did, rows = stage_fraction(cfg, 0.0, rows=SVC_KMEANS_ROWS)
+    cut = manager._coordinator.cache.get(did, "classification")
+    kernel = get_kernel("SVC")
+    Xc = torch.as_tensor(np.asarray(cut.X, np.float32), device=dev)
+    yc = torch.as_tensor(np.asarray(cut.y), device=dev)
+    w = torch.ones((1, rows), device=dev)
+    fits = {}
+    for iters in (0, KMEANS_ITERS):
+        with valves(CS230_SVM_KMEANS_ITERS=iters):
+            static = kernel.resolve_static({"kernel": "rbf", "gamma": "scale", "degree": 3,
+                                            "coef0": 0.0}, rows, Xc.shape[1], cut.n_classes)
+            static["_n_classes"] = cut.n_classes
+            t0 = time.perf_counter()
+            fitted = kernel.fit(Xc, yc, w, {"C": torch.ones(1, device=dev)}, static)
+            pred = kernel.predict(fitted, Xc, static)[0, 0]
+            torch.cuda.synchronize()
+            fits[f"iters_{iters}"] = {"wall_s": time.perf_counter() - t0,
+                                      "train_accuracy": float((pred == yc).float().mean())}
+        assert static.get("_nystrom"), static
+    emit({"phase": "svc_kmeans", "rows": n, "landmarks": m, "iters": KMEANS_ITERS,
+          "card_s": card_s, "cpu_s": host_s, "max_rel_err": rel, "tolerance": KMEANS_RTOL,
+          "max_center_move": moved, "fit_rows": rows, "fits": fits})
+    assert rel <= KMEANS_RTOL, f"svc_kmeans: card vs CPU landmarks {rel}"
+    assert moved > 0.0
+    assert all(math.isfinite(f["train_accuracy"]) and f["train_accuracy"] > 0.3
+               for f in fits.values()), fits
+    return {"card_s": card_s, "cpu_s": host_s, "fits": fits}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
@@ -4829,6 +5098,18 @@ def main() -> int:
     multi = phase_multi_device(cfg, manager, env)
     # the 2-D (trials, data) mesh: 4 ranks on the card, row-sharded LogReg
     mesh2d = phase_mesh_2d(cfg, manager, env)
+    # the JAX package's last valves: compressed staging, the host route,
+    # k-means landmarks
+    seconds = {}
+    valve_out = {}
+    for name, run in (("stage_dtype", lambda: phase_stage_dtype(manager)),
+                      ("host_exec", lambda: phase_host_exec(manager)),
+                      ("svc_kmeans", lambda: phase_svc_kmeans(manager, cfg, dev))):
+        t_phase = time.perf_counter()
+        valve_out[name] = run()
+        seconds[name] = time.perf_counter() - t_phase
+    emit({"phase": "valves", "seconds": seconds, "total_s": sum(seconds.values()),
+          "card": nvidia_smi()})
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -4902,6 +5183,16 @@ def main() -> int:
                 "trace_calls": obs["b2_trace_calls"], "trace_device_ms": obs["b2_trace_device_ms"],
                 "row": 8, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials)"}
+        if name == "packed_nesterov_step":  # bench.py's job on a compressed staged X
+            for mode, entry in valve_out["stage_dtype"]["modes"].items():
+                kernels[-1].setdefault("other_paths", {})[f"stage_{mode}"] = {
+                    "launches": entry["b2_launches"], "job": f"stage_{mode}",
+                    "x_bytes": entry["x_bytes"], "upload_s": entry["upload_s"],
+                    **{k: entry["b2_row"][k] for k in ROW_KEYS if k in entry["b2_row"]},
+                    "ab_equal_f32": entry["b2_row"]["ab_equal_f32"],
+                    "shape": "n_pad 116736, dpp 64, c 7, S 6, 8 blocks (1024 trials); "
+                             f"Ab padded from the {mode}-staged covertype X, decoded; "
+                             "the other operands a seeded draw"}
         if name == "packed_nesterov_step":  # REST: the agent's pulls of REST_PULL trials
             r = rows[(name, REST_BLOCKS)]
             kernels[-1].setdefault("other_paths", {})["rest_main"] = {

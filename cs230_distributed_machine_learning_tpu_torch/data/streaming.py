@@ -36,7 +36,9 @@ Valves (the JAX package's names; the consuming kernels join the resolved
 mode into ``trace_salt``): ``CS230_STREAM`` = ``auto`` (default: stream
 past the stage budget) | ``0``/``off`` | ``1``/``force``;
 ``CS230_STREAM_BLOCK_ROWS``; ``CS230_STREAM_DOUBLE_BUFFER=1`` (the
-JAX package's default; off here).
+JAX package's default; off here). Under ``CS230_STAGE_DTYPE`` bf16 or
+int8 a raw block is compressed on the host before its upload, and the
+driver widens it with ``decode_block``.
 
 Observability: ``tpuml_stream_*`` counters, one ``stage.stream``
 flight-recorder event per pass, and devprof's ``stream`` phase (the share
@@ -58,6 +60,7 @@ import numpy as np
 
 from ..obs import counter_inc, record_event
 from .stage_cache import STAGE_CACHE, _tree_nbytes, budget_bytes
+from .stage_codec import stage_decode as decode_block  # noqa: F401 — the drivers' block decode
 
 #: floor on the auto block height — below this the per-block dispatch
 #: overhead dominates any transfer overlap
@@ -182,29 +185,40 @@ class _Uploader:
     waits on its own copy's event (never a device-wide sync) before it
     returns, so the wall it takes is the upload and the buffer is free for
     the next block. Returns (tensor, event) on the card, the tensor on the
-    CPU."""
+    CPU. A compressed block (a dict of arrays or tensors: the bf16 form, or
+    the int8 codes and their scale) is uploaded leaf by leaf, one pinned
+    buffer a leaf's shape, and comes back as a dict of tensors; its event
+    is the last leaf's (one side stream orders them)."""
 
     def __init__(self, device):
         import torch
 
         self.device = device
         self._lock = threading.Lock()
-        self._buf = None
+        self._bufs: dict = {}
         self._stream = torch.cuda.Stream(device=device) if device.type == "cuda" else None
 
-    def __call__(self, host: np.ndarray):
+    def __call__(self, host):
         import torch
 
-        src = torch.from_numpy(np.ascontiguousarray(host))
+        if isinstance(host, dict):
+            outs = {k: self(v) for k, v in host.items()}
+            if self._stream is None:
+                return outs
+            return {k: v[0] for k, v in outs.items()}, list(outs.values())[-1][1]
+        src = (host if isinstance(host, torch.Tensor)
+               else torch.from_numpy(np.ascontiguousarray(host)))
         if self._stream is None:
             return src.clone()
         with self._lock:
-            if self._buf is None or self._buf.shape != src.shape or self._buf.dtype != src.dtype:
-                self._buf = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-            self._buf.copy_(src)
+            sig = (tuple(src.shape), src.dtype)
+            buf = self._bufs.get(sig)
+            if buf is None:
+                buf = self._bufs[sig] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            buf.copy_(src)
             # a thread's current stream is its own: the worker sets it here
             with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-                val = self._buf.to(self.device, non_blocking=True)
+                val = buf.to(self.device, non_blocking=True)
                 ev = torch.cuda.Event()
                 ev.record(self._stream)
             ev.synchronize()
@@ -290,7 +304,8 @@ class RowBlockStreamer:
         consumer = torch.cuda.current_stream(self.device)
         if event is not None:
             consumer.wait_event(event)
-        val.record_stream(consumer)
+        for leaf in (val.values() if isinstance(val, dict) else (val,)):
+            leaf.record_stream(consumer)
 
     def iter_blocks(self) -> Iterator[Tuple[int, int, Any]]:
         """One pass over the block set, in ascending order. Re-invoke for

@@ -279,7 +279,9 @@ class LogisticRegressionKernel(ModelKernel):
           keyed by the fold plan's signature.
 
         Returns ``{name: (subkey | None, make)}``; ``make(ctx)`` takes
-        ``{"X", "y", "TW", "EW"}`` device tensors. A ``None`` subkey means
+        ``{"X", "y", "TW", "EW"}`` device tensors and ``"decode"``, which
+        widens a compressed staged X (CS230_STAGE_DTYPE) to f32 first: both
+        forms come from the decoded matrix. A ``None`` subkey means
         made once a bucket, not cached (no fold signature to key on).
         Empty under ``CS230_FUSED_STEP=legacy``, which derives everything
         inline, as the JAX package's rollback path does. On a row shard
@@ -294,11 +296,13 @@ class LogisticRegressionKernel(ModelKernel):
         shard = static.get("_row_shard")
 
         def make_ab(ctx):
-            return _padded_design(ctx["X"], fit_intercept, dpp, n_pad).to(torch.bfloat16)
+            X = ctx["decode"](ctx["X"])
+            return _padded_design(X, fit_intercept, dpp, n_pad).to(torch.bfloat16)
 
         def make_lam_max(ctx):
             TWp = torch.nn.functional.pad(ctx["TW"].float(), (0, n_pad - n))
-            return _lam_max(_padded_design(ctx["X"], fit_intercept, dpp, n_pad), TWp, shard)
+            X = ctx["decode"](ctx["X"])
+            return _lam_max(_padded_design(X, fit_intercept, dpp, n_pad), TWp, shard)
 
         return {
             "_logreg_ab": (("ab", fit_intercept, dpp, n_pad), make_ab),
@@ -463,7 +467,8 @@ def _table_rows(n: int, static: Dict[str, Any]) -> int:
 
 def _force_packed() -> bool:
     """CS230_FORCE_PACKED=1 takes the packed path on any device and n (the
-    CPU runs the kernels' plain versions): test coverage of the path."""
+    CPU runs the kernels' plain versions): test coverage of the path, the
+    port's stand-in for the JAX package's CS230_PALLAS_INTERPRET=1."""
     return os.environ.get("CS230_FORCE_PACKED", "") == "1"
 
 
@@ -711,6 +716,8 @@ def _nesterov(A, w, W0, grad_fn, C, lam, max_iter, tol, steps=_NESTEROV_STEPS,
 
 
 def _stream_nesterov_scores(streamer, y_pad, TW, EW, hyper_batch, static, n):
+    from ..data.stage_codec import stage_decode
+
     dev = TW.device
     n_classes = int(static["_n_classes"])
     c = max(n_classes, 2)
@@ -734,10 +741,10 @@ def _stream_nesterov_scores(streamer, y_pad, TW, EW, hyper_batch, static, n):
 
     def blocks():
         """(A, rows' labels, fit weights, eval weights) of every block of
-        one pass."""
+        one pass; a compressed block is widened as it arrives."""
         for _i, start, blk in streamer.iter_blocks():
             sl = slice(start, start + rows)
-            yield add_intercept(blk, fit_intercept), y_pad[sl], TW[:, sl], EW[:, sl]
+            yield add_intercept(stage_decode(blk), fit_intercept), y_pad[sl], TW[:, sl], EW[:, sl]
 
     # Lipschitz bound: _lam_max's 30-step power iteration plus the
     # Rayleigh quotient, 31 streamed applications of A' diag(w) A

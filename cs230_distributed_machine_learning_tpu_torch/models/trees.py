@@ -25,6 +25,11 @@ builders of ops/trees.py. The semantics are the reference's:
 
 Every function works on an explicit lane axis L = trials x splits (the
 JAX package vmaps instead): weights ``[L, n]``, stats ``[L, n, k]``.
+
+``CS230_TREE_GROUP_MB`` is accepted and changes nothing: the reference
+fits T trees of a chunk in one vmapped group under that memory budget,
+and at every realistic shape its group is one tree, which is what the
+port fits (one tree after another, all lanes at once; ROADMAP C37).
 """
 
 from __future__ import annotations
@@ -111,11 +116,15 @@ class _TreeBase(ModelKernel):
 
     def trace_salt(self):
         """The resolved CS230_STREAM mode (the streamed and single-shot
-        drivers stage different forms) and CS230_HIST_KERNEL mode."""
+        drivers stage different forms), the CS230_HIST_KERNEL mode and the
+        deep arena's sweep hooks, CS230_DEEP_WSCHED and CS230_DEEP_NBSCHED
+        (ops/trees.py::build_tree_deep reads them over the static's
+        schedules)."""
         from ..data.streaming import stream_mode
         from ..ops.trees import _hist_kernel_mode
 
-        return (stream_mode(), _hist_kernel_mode())
+        return (stream_mode(), _hist_kernel_mode(), os.environ.get("CS230_DEEP_WSCHED", ""),
+                os.environ.get("CS230_DEEP_NBSCHED", ""))
 
     def resolve_static(self, static: Dict[str, Any], n: int, d: int, n_classes: int):
         """The reference's resolution (``models/trees.py:209``): depth or

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into
-``csrc/build/lib<name>-<hash>.so``, where the hash covers the source and
+``<build dir>/lib<name>-<hash>.so``, where the hash covers the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
+The build directory is ``csrc/build/``, or ``CS230_AOT_DIR`` when set (the
+JAX package's name for where its persistent artifacts live).
 The libraries are loaded with ``ctypes``; no PyTorch headers are compiled,
 which keeps a build to seconds. Several sources compile in parallel, one
 ``nvcc`` process each.
@@ -30,6 +32,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+#: the default build directory
 BUILD_DIR = CSRC_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -66,10 +69,17 @@ def nvcc_path() -> str:
     )
 
 
+def build_dir() -> Path:
+    """Where the libraries are built and kept: ``CS230_AOT_DIR`` when set,
+    else ``csrc/build/``."""
+    override = os.environ.get("CS230_AOT_DIR")
+    return Path(override) if override else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -82,7 +92,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()

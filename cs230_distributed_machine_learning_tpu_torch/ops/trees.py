@@ -81,7 +81,13 @@ def _hist_kernel_mode() -> str:
 def _level_histogram_multi(local, xbs, SC, n_nodes: int, n_binss,
                            integer_stats: bool = False):
     """Feature-grouped level histograms: a tuple of ``[L, n_nodes, d_g,
-    nb_g, kk]``, one per (xb_g, nb_g) group, one launch per group."""
+    nb_g, kk]``, one per (xb_g, nb_g) group, one launch per group.
+
+    ``CS230_HIST_COMPACT=1`` (with ``CS230_HIST_BLOCK_ROWS`` /
+    ``_NODES``) is accepted and changes nothing here: the reference's
+    compact histogram (JAX ``ops/trees.py:229-380``) is an XLA form of its
+    dense one-hot contraction, equal to it bit for bit on integer stats,
+    and the port has no one-hot contraction to compact (ROADMAP C37)."""
     mode = _hist_kernel_mode()
     if local.is_cuda and mode not in ("auto", "pallas"):
         raise ValueError(f"CS230_HIST_KERNEL={mode}: on the card the level "
@@ -411,7 +417,10 @@ def build_tree_deep(xb, S, C, *, levels: int, width: int, n_bins: int,
     candidate resolution to ``nb_deep`` once the candidate frontier
     reaches ``occ_w`` (coarse bins are sums of adjacent fine bins, split
     records stay in fine units); ``w_schedule`` (hi, split_level, lo)
-    narrows the frontier past ``split_level``.
+    narrows the frontier past ``split_level``. Both come from the kernel's
+    resolved static; the sweep hooks ``CS230_DEEP_WSCHED`` (``hi:split:lo``)
+    and ``CS230_DEEP_NBSCHED`` (``occ_w:nb_deep``) take precedence, as in
+    the reference (the tree kernels key them in ``trace_salt``).
 
     Returns per lane {"feat", "bin", "child" [L, A+1], "leaf_val" [L, A+1,
     k], "leaf_weight" [L, A+1], and the per-level routing tables
@@ -422,6 +431,9 @@ def build_tree_deep(xb, S, C, *, levels: int, width: int, n_bins: int,
     dev = S.device
     S = S.to(torch.float32)
     C = C.to(torch.float32)
+    sched = os.environ.get("CS230_DEEP_WSCHED", "")
+    if sched:
+        w_schedule = tuple(int(x) for x in sched.split(":"))
     if w_schedule is not None:
         w_hi, w_split, w_lo = (int(x) for x in w_schedule)
         width_at = lambda lvl: w_hi if lvl < w_split else w_lo  # noqa: E731
@@ -450,6 +462,9 @@ def build_tree_deep(xb, S, C, *, levels: int, width: int, n_bins: int,
     else:
         gspec = ((xb, None, n_bins),)
 
+    nbsched = os.environ.get("CS230_DEEP_NBSCHED", "")
+    if nbsched:
+        nb_schedule = tuple(int(x) for x in nbsched.split(":"))
     if nb_schedule is not None:
         occ_w, nb_deep = (int(x) for x in nb_schedule)
         if nb_deep <= 0 or n_bins % max(nb_deep, 1) or nb_deep > n_bins:

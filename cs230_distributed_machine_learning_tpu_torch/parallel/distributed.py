@@ -289,6 +289,14 @@ class PeerRankFailed(RuntimeError):
     passed: the batch fails on every rank (:func:`agree`)."""
 
 
+#: what a collective raises when a peer is gone: gloo reports a closed
+#: connection (or its timeout) as a bare ``RuntimeError``, and
+#: torch.distributed's own errors (``DistBackendError``, ``DistNetworkError``)
+#: derive from it. An argument or payload fault (``TypeError``,
+#: ``ValueError``, ...) is none of these and goes up as it is
+LOST_PEER_ERRORS = (RuntimeError,)
+
+
 class LockstepLostError(RuntimeError):
     """A rank failed between a batch's collectives: its siblings may be
     blocked in one it will never enter, so the slice must be relaunched."""
@@ -300,8 +308,14 @@ def agree(ok: bool, mesh=None) -> None:
     failed re-raises its own error after this call; every other rank raises
     :class:`PeerRankFailed` when any rank failed. So a batch that fails on
     one rank fails on all of them, at the same point, and no rank enters a
-    collective its siblings skip. A collective."""
-    flags = all_gather_ints([0 if ok else 1], mesh).reshape(-1)
+    collective its siblings skip. A collective; when it fails itself (a
+    rank was lost: gloo reports the closed connection) it raises
+    :class:`LockstepLostError`, never a failure of the batch's tasks."""
+    try:
+        flags = all_gather_ints([0 if ok else 1], mesh).reshape(-1)
+    except LOST_PEER_ERRORS as e:
+        raise LockstepLostError(f"a rank of the trial mesh was lost at the batch's "
+                                f"agreement: {e}") from e
     if ok and flags.any():
         raise PeerRankFailed(
             f"rank(s) {[int(r) for r in np.flatnonzero(flags)]} of the trial mesh failed "

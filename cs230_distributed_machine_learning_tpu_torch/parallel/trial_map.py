@@ -82,17 +82,42 @@ wait for the kernels still queued). ``model_flops`` sums each bucket's
 buckets priced); ``hbm_peak_bytes`` is the card's allocator high-water. The
 compiler cost figures (``xla_flops``, ``bytes_accessed``) stay None: eager
 PyTorch has no cost analysis. ``CS230_OBS=0`` leaves the cost fields None.
+
+Compressed staging (``CS230_STAGE_DTYPE`` = f32 | bf16 | int8 | auto, with
+``CS230_STAGE_LINK_MBPS`` and ``CS230_STAGE_AUTO_MBPS``; JAX ``:241-346``):
+a one-device, unchunked bucket of a kernel without ``prepare_data``, on
+the card's side of the host route, stages its raw matrix compressed on
+the host (``stage_compress``, data/stage_codec.py) under ``("X", mode)``;
+the dispatch widens it once a bucket (``stage_decode``), the packed
+path's staged extras are made from the decoded matrix and keyed by the
+mode, and a streamed bucket compresses each block. Every other bucket
+stages f32.
+
+The host route (``CS230_HOST_EXEC_MACS``; JAX ``:631-637``, ``:950-966``):
+on a card, a bucket with no mesh and no chunk plan whose ``macs_estimate
+* splits * trials`` is at most the cap runs on the host (``host_exec``),
+staged there, with the kernels' plain versions; decided before streaming
+and before any staging. The default is 0, off: the JAX package's 2e8 is
+its TPU's dispatch trade-off, and on the H100 the one bucket measured
+under it ran faster on the card (ROADMAP C39). Set the cap to route.
+
+Two JAX transfer valves are accepted and change nothing here (ROADMAP
+C37): ``CS230_PACKED_FETCH`` (XLA's one-buffer result fetch; the port
+reads one tensor a leaf) and ``CS230_COST_ANALYSIS`` (XLA's compiler cost
+capture, which eager PyTorch does not have; C19).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.stage_codec import stage_compress, stage_decode, to_device
 from ..models.base import ModelKernel, TrialData
 from ..obs import obs_enabled, observe
 from ..ops.folds import SplitPlan
@@ -160,6 +185,96 @@ def _device_sig(device: torch.device) -> tuple:
     return (device.type, int(index))
 
 
+# ---- compressed staging uploads (JAX trial_map.py:241-346) ----------------
+
+
+def _staging_dtype() -> str:
+    mode = os.environ.get("CS230_STAGE_DTYPE", "f32").lower()
+    return mode if mode in ("bf16", "int8", "auto") else "f32"
+
+
+#: probed host->device upload rate (MB/s), measured once a process
+_LINK_MBPS: Optional[float] = None
+
+
+def _measured_link_mbps(device: torch.device) -> float:
+    """Host->device upload rate in MB/s, the ``auto`` policy's input.
+    ``CS230_STAGE_LINK_MBPS`` pins it; a CPU device is an infinitely fast
+    link; otherwise two 4 MiB uploads to the card, the second timed (the
+    first warms the transfer path), once a process."""
+    global _LINK_MBPS
+    env = os.environ.get("CS230_STAGE_LINK_MBPS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    if device.type != "cuda":
+        return float("inf")
+    if _LINK_MBPS is None:
+        probe = torch.zeros((4 << 20,), dtype=torch.uint8)
+        probe.to(device)
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        probe.to(device)
+        torch.cuda.synchronize(device)
+        _LINK_MBPS = probe.numel() / max(time.perf_counter() - t0, 1e-9) / 1e6
+    return _LINK_MBPS
+
+
+def _resolve_stage_mode(mode: str, device: torch.device) -> str:
+    """The staging dtype, ``auto`` resolved: bf16 when the upload link is
+    slower than ``CS230_STAGE_AUTO_MBPS`` (default 100 MB/s), f32
+    otherwise. int8 stays opt-in (its quantization moves scores ~2e-2)."""
+    if mode == "auto":
+        threshold = float(os.environ.get("CS230_STAGE_AUTO_MBPS", 100.0))
+        return "bf16" if _measured_link_mbps(device) < threshold else "f32"
+    return mode
+
+
+# ---- the host route for tiny buckets (JAX trial_map.py:631-637, 950-966) ---
+
+#: buckets routed to the host since ``reset_host_route``, and their trials
+HOST_ROUTE = {"buckets": 0, "trials": 0}
+
+
+def reset_host_route() -> None:
+    for k in HOST_ROUTE:
+        HOST_ROUTE[k] = 0
+
+
+def _host_exec_cap() -> float:
+    """``CS230_HOST_EXEC_MACS``: a bucket of at most this many analytical
+    MACs runs on the host; unset or 0, the route is off (ROADMAP C39)."""
+    return float(os.environ.get("CS230_HOST_EXEC_MACS") or 0)
+
+
+def bucket_macs(kernel, prepared, n: int, d: int, static, n_splits: int,
+                n_trials: int) -> Optional[float]:
+    """The bucket's analytical MACs, ``macs_estimate * splits * trials`` (the
+    host route's measure; twice it is the bucket's model FLOPs), or None
+    for a kernel that publishes no estimate."""
+    if not hasattr(kernel, "macs_estimate"):
+        return None
+    macs = _call_with_prepared(kernel.macs_estimate, prepared, n, d, static)
+    return float(macs) * max(int(n_splits), 1) * int(n_trials)
+
+
+def host_exec(kernel, prepared, n: int, d: int, static, n_splits: int, n_trials: int, *,
+              device: torch.device, mesh=None, chunk_plan=None) -> bool:
+    """The JAX package's placement rule for tiny buckets: on a card, with no
+    mesh and no chunk plan, a bucket whose analytical MACs are at most
+    ``CS230_HOST_EXEC_MACS`` runs on the host, where one round trip to the
+    card would cost more than its whole work. Off unless the cap is set
+    (ROADMAP C39). A placement, not a fallback: it reads neither whether a
+    kernel builds nor whether a card works."""
+    cap = _host_exec_cap()
+    if cap <= 0 or device.type != "cuda" or mesh is not None or chunk_plan:
+        return False
+    macs = bucket_macs(kernel, prepared, n, d, static, n_splits, n_trials)
+    return macs is not None and macs <= cap
+
+
 class _Staging:
     """Device copies of one run's job-invariant tensors (the dataset, its
     prepared forms, the fold tensors, the packed path's precomputes).
@@ -175,12 +290,24 @@ class _Staging:
 
         self.data = data
         self.device = device
-        #: this run's staging seconds: uploads (and waits for another
-        #: thread's upload of the same entry) and streamed block waits
-        self.seconds = 0.0
+        #: this run's staging seconds on this device: uploads (and waits for
+        #: another thread's upload of the same entry) and streamed block
+        #: waits; ``seconds`` adds the host route's
+        self.own_seconds = 0.0
         self._sc = stage_cache if stage_cache.enabled() else None
         self._local: Dict[Any, Any] = {}
         self._folds: Dict[tuple, tuple] = {}
+        self._host: Optional["_Staging"] = None
+
+    @property
+    def seconds(self) -> float:
+        return self.own_seconds + (self._host.own_seconds if self._host is not None else 0.0)
+
+    def host(self) -> "_Staging":
+        """The run's staging on the host (the host route's buckets)."""
+        if self._host is None:
+            self._host = _Staging(self.data, torch.device("cpu"))
+        return self._host
 
     def get(self, key: tuple, make, cache: bool = True):
         """The entry under ``key``, made on a miss. A miss's upload (and a
@@ -200,7 +327,7 @@ class _Staging:
             dt = time.perf_counter() - t0
             if outcome == "miss":
                 observe("tpuml_executor_stage_seconds", dt)
-            self.seconds += dt
+            self.own_seconds += dt
         return val
 
     def get_signed(self, signature, key: tuple, make):
@@ -231,6 +358,13 @@ class _Staging:
                                      for k, v in prepared.items()})
         return self.get(("X",), lambda: torch.as_tensor(
             np.asarray(self.data.X, np.float32), device=dev))
+
+    def X_compressed(self, mode: str):
+        """The raw matrix's compressed staged form under ``mode`` (bf16 or
+        int8: ``stage_compress``), keyed ``("X", mode)`` so that it never
+        aliases the f32 entry; ``stage_decode`` widens it."""
+        return self.get(("X", mode), lambda: to_device(
+            stage_compress(self.data.X, mode), self.device))
 
     def X_rows(self, rows: RowShard):
         """The rank's rows ``[rows.lo, rows.hi)`` of the raw f32 matrix (a
@@ -353,8 +487,8 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             n_buckets += 1
             if acct and hasattr(kernel, "macs_estimate"):
                 try:
-                    macs = _call_with_prepared(kernel.macs_estimate, prepared, n, d, static)
-                    model_flops += 2.0 * float(macs) * max(plan.n_splits, 1) * len(idxs)
+                    model_flops += 2.0 * bucket_macs(kernel, prepared, n, d, static,
+                                                     plan.n_splits, len(idxs))
                     buckets_priced += 1
                 except Exception:  # noqa: BLE001 — an estimator bug leaves the bucket unpriced
                     pass
@@ -377,9 +511,24 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             n_dev = int(bmesh.world_size) if bmesh is not None else 1
             n_rows = shard.hi - shard.lo if shard is not None else n
 
+            # the host route, decided before streaming and before any staging:
+            # a tiny bucket runs on the host, with the kernels' plain versions
+            on_host = host_exec(kernel, prepared, n, d, static, plan.n_splits, len(idxs),
+                                device=device, mesh=mesh, chunk_plan=chunk_plan)
+            bdev, bstaging = (torch.device("cpu"), staging.host()) if on_host else (device, staging)
+            if on_host and not warm_only:
+                HOST_ROUTE["buckets"] += 1
+                HOST_ROUTE["trials"] += len(idxs)
+            # compressed staging (CS230_STAGE_DTYPE): only the raw matrix of a
+            # one-device, unchunked bucket on the card; every other bucket
+            # stages f32
+            stage_mode = (_resolve_stage_mode(_staging_dtype(), device)
+                          if mesh is None and prepared is None and not chunk_plan and not on_host
+                          else "f32")
+
             # out-of-core streaming, decided before any X staging so that the
             # oversized single-shot upload never happens
-            if (not chunk_plan and scoring is None and mesh is None
+            if (not chunk_plan and scoring is None and mesh is None and not on_host
                     and hasattr(kernel, "stream_scores")):
                 from ..data.stage_cache import _tree_nbytes
                 from ..data.streaming import should_stream, stream_mode
@@ -391,19 +540,21 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                         continue  # nothing worth warming short of a whole block pass
                     _dispatching()
                     out, waited = _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names,
-                                                plan, staging, max_trials_per_batch)
+                                                plan, staging, max_trials_per_batch, stage_mode)
                     pending.extend((o, bi, None) for o, bi in out)
                     # the blocking share of the transfer wall is staging time
-                    staging.seconds += waited
+                    staging.own_seconds += waited
                     continue
 
             if shard is not None:
                 if prepared is not None:
                     raise ValueError(f"{kernel.name}: prepared forms are never row-sharded")
                 X = staging.X_rows(shard)
+            elif stage_mode != "f32":
+                X = staging.X_compressed(stage_mode)
             else:
-                X = staging.X(kernel, static, prepared)
-            y, TW, EW = staging.folds(plan, rows=shard)
+                X = bstaging.X(kernel, static, prepared)
+            y, TW, EW = bstaging.folds(plan, rows=shard)
             if chunk_plan:
                 if warm_only:
                     continue
@@ -417,7 +568,7 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             # whole chunk, with their own (larger) chunk geometry
             fn = None
             extras: Dict[str, Any] = {}
-            if hasattr(kernel, "build_batched_fn") and scoring is None:
+            if hasattr(kernel, "build_batched_fn") and scoring is None and not on_host:
                 # every rank's shard is whole trial blocks; the cap is the
                 # kernel's per device. ``n`` is the rows the rank holds
                 Tw = kernel.batched_trial_multiple * n_dev
@@ -430,12 +581,13 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
             made: Dict[str, Any] = {}  # made once a bucket, at its dispatch
             if fn is not None and hasattr(kernel, "batched_staged_extras"):
                 # dispatch-invariant forms staged once per (dataset, device,
-                # subkey) and merged into every dispatch's hypers; a row
-                # shard's forms carry its rows in the key
+                # staging mode, subkey) and merged into every dispatch's hypers;
+                # a row shard's forms carry its rows in the key. The makers
+                # get the staged X and its decode
                 specs = kernel.batched_staged_extras(
                     static=static, n=n_rows, d=d, n_classes=data.n_classes,
                     n_splits=plan.n_splits, fold_signature=plan.signature, device=device)
-                ctx = {"X": X, "y": y, "TW": TW, "EW": EW}
+                ctx = {"X": X, "y": y, "TW": TW, "EW": EW, "decode": stage_decode}
                 rows_key = shard.key if shard is not None else ()
                 for name in sorted(specs):
                     subkey, make = specs[name]
@@ -443,13 +595,17 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                         made[name] = lambda m=make, c=ctx: m(c)
                     else:
                         extras[name] = staging.get(
-                            ("batched_extra", kernel.name, name) + tuple(subkey) + rows_key,
+                            ("batched_extra", kernel.name, name, stage_mode) + tuple(subkey)
+                            + rows_key,
                             lambda m=make: m(ctx))
             if fn is None:
-                mem_cap = _memory_chunk_cap(kernel, n_rows, d, static, plan.n_splits, device,
-                                            n_dev, share)
-                chunk = min(max_trials_per_batch, mem_cap, pad_to_multiple(len(idxs), n_dev))
-                chunk = max(n_dev, pad_to_multiple(chunk, n_dev))
+                if on_host:  # no device memory to bound
+                    chunk = min(max_trials_per_batch, len(idxs))
+                else:
+                    mem_cap = _memory_chunk_cap(kernel, n_rows, d, static, plan.n_splits,
+                                                device, n_dev, share)
+                    chunk = min(max_trials_per_batch, mem_cap, pad_to_multiple(len(idxs), n_dev))
+                    chunk = max(n_dev, pad_to_multiple(chunk, n_dev))
 
                 def fn(X, y, TW, EW, hyper, static=static):
                     return kernel.batched_scores(X, y, TW, EW, hyper, static)
@@ -458,12 +614,13 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                 continue  # staged and built: the prewarm stops before dispatching
 
             def dispatch(fn=fn, X=X, y=y, TW=TW, EW=EW, extras=extras, made=made, idxs=idxs,
-                         hyper_names=hyper_names, chunk=chunk, bmesh=bmesh):
+                         hyper_names=hyper_names, chunk=chunk, bmesh=bmesh, bdev=bdev):
                 extras = {**extras, **{k: make() for k, make in made.items()}}
+                X = stage_decode(X)  # a compressed staging widens first, once a bucket
                 lanes = bmesh.shard(chunk) if bmesh is not None else None
                 for start in range(0, len(idxs), chunk):
                     batch_idx = idxs[start : start + chunk]
-                    hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, device, lanes)
+                    hyper_arg = _hyper_batch(hypers, batch_idx, hyper_names, chunk, bdev, lanes)
                     _dispatching()
                     pending.append((fn(X, y, TW, EW, {**hyper_arg, **extras}), batch_idx, bmesh))
 
@@ -759,16 +916,19 @@ def _run_chunked(kernel, static, X, y, TW, EW, hypers, idxs, hyper_names, plan,
 
 
 def _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names, plan: SplitPlan,
-                  staging: _Staging, max_trials_per_batch: int):
+                  staging: _Staging, max_trials_per_batch: int, stage_mode: str = "f32"):
     """One bucket through the kernel's out-of-core streaming driver (JAX
     ``trial_map.py:1929``). The full design matrix never stages:
     ``kernel.stream_form`` names the blockable host array,
     data/streaming.py tiles it into row blocks staged through the stage
     cache, and ``kernel.stream_scores`` accumulates
-    across them. The fold tensors are padded to the blocks' ``n_pad``
-    (zero weights) and staged as ordinary entries. Block keys carry the
-    fingerprint, ``host_signature()``, the kernel's name and
-    ``trace_salt()``, the form's salt and the block height. Returns the
+    across them. Under a compressed ``stage_mode`` each raw block is
+    compressed on the host before its upload (``stage_compress``) and the
+    driver decodes it (``stage_decode``, data/stage_codec.py). The fold
+    tensors are padded to the blocks' ``n_pad`` (zero weights) and staged
+    as ordinary entries. Block keys carry the fingerprint,
+    ``host_signature()``, the kernel's name and ``trace_salt()``, the
+    form's salt, the staging mode and the block height. Returns the
     pending (outputs, trial indices) pairs and the seconds the consumer
     waited for blocks."""
     from ..data import stage_cache
@@ -779,8 +939,15 @@ def _run_streamed(kernel, static, X_host, hypers, idxs, hyper_names, plan: Split
     n = int(blockable.shape[0])
     bplan = plan_blocks(n, int(blockable.nbytes // max(n, 1)))
     base_key = (stage_cache.dataset_fingerprint(data), stage_cache.host_signature(device),
-                "block", kernel.name, kernel.trace_salt(), tuple(form_salt), bplan.rows)
-    streamer = RowBlockStreamer(base_key, array_block_source(blockable, bplan), bplan,
+                "block", kernel.name, kernel.trace_salt(), tuple(form_salt), stage_mode,
+                bplan.rows)
+    source = array_block_source(blockable, bplan)
+    if stage_mode != "f32":
+        raw = source
+
+        def source(i):
+            return stage_compress(raw(i), stage_mode)
+    streamer = RowBlockStreamer(base_key, source, bplan,
                                 device=device, row_shape=tuple(blockable.shape[1:]))
     n_pad = bplan.n_pad
 

@@ -459,12 +459,21 @@ def run_distributed(url: str, *, device: DeviceLike = None,
     and every rank returns. A fatal CUDA error on any rank exits that
     process non-zero; its siblings' next collective fails or times out, or
     the slice watchdog ends them, and the whole group must be relaunched:
-    a lone respawned rank cannot rejoin a ``torch.distributed`` group."""
+    a lone respawned rank cannot rejoin a ``torch.distributed`` group. A
+    rendezvous collective that fails (gloo reports a lost peer at once)
+    ends the rank as the watchdog does, with ``DEVICE_LOST_EXIT_CODE`` and
+    without unsubscribing: rank 0's worker heartbeats stop, and the
+    dead-worker sweep requeues the slice's pulled tasks."""
     import signal
     import uuid
 
     from ..data.datasets import FetchingDatasetCache
-    from ..parallel.distributed import broadcast_json, is_primary, process_count
+    from ..parallel.distributed import (
+        LOST_PEER_ERRORS,
+        broadcast_json,
+        is_primary,
+        process_count,
+    )
     from ..parallel.mesh import trial_mesh
 
     mesh = trial_mesh(device=device)
@@ -514,7 +523,10 @@ def run_distributed(url: str, *, device: DeviceLike = None,
                 # filter the same set or the collectives fall out of step
                 msg = {"tasks": [] if stop else agent._poll_tasks(), "stop": stop,
                        "cancel": agent._last_cancels}
-            msg = broadcast_json(msg)  # the lockstep rendezvous, every iteration
+            try:
+                msg = broadcast_json(msg)  # the lockstep rendezvous, every iteration
+            except LOST_PEER_ERRORS:  # a lost rank: the slice is relaunched whole
+                _exit_for_restart(f"SPMD rank {mesh.rank} lost a sibling at the rendezvous")
             if msg["stop"]:
                 break
             if msg.get("cancel") and agent is None:
@@ -522,7 +534,10 @@ def run_distributed(url: str, *, device: DeviceLike = None,
             tasks = msg["tasks"]
             if not tasks:
                 continue
-            bad = _prefetch_agree(executor, tasks, mesh)
+            try:
+                bad = _prefetch_agree(executor, tasks, mesh)
+            except LOST_PEER_ERRORS:  # as at the rendezvous
+                _exit_for_restart(f"SPMD rank {mesh.rank} lost a sibling agreeing on datasets")
             if bad:
                 # the same branch on every rank, outside any collective
                 for st in [t for t in tasks if t["dataset_id"] in bad]:
@@ -542,8 +557,8 @@ def run_distributed(url: str, *, device: DeviceLike = None,
                     agent._ship_spans()
                 else:
                     executor.run_subtasks(tasks, on_result=post_result, on_metrics=post_metrics)
-            except DeviceLostError:
-                _exit_for_restart(f"SPMD rank {mesh.rank} lost its CUDA context")
+            except DeviceLostError as e:  # a poisoned context, or a sibling lost in a batch
+                _exit_for_restart(f"SPMD rank {mesh.rank} left its slice ({e})")
     except KeyboardInterrupt:
         if agent is not None:
             agent._stop.set()

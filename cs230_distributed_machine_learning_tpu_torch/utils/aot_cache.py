@@ -7,7 +7,8 @@ nothing, so the port has no executables to serialize: what a fresh
 process pays before its first launch is the kernel libraries' build
 (``nvcc``) and load, and those libraries already persist under
 ``csrc/build/`` keyed by a hash of their source and flags
-(ops/cuda_build.py). This module keeps the surface the JAX module's
+(ops/cuda_build.py; ``CS230_AOT_DIR`` moves them, as it moves the JAX
+package's). This module keeps the surface the JAX module's
 callers read — ``cache_dir``, ``enabled``, ``generation_inventory`` (the
 prewarm worker's log line, runtime/prewarm.py) — over those libraries.
 
@@ -34,8 +35,9 @@ _PRUNED = False
 
 
 def cache_dir() -> str:
-    """Where the kernel libraries persist: ``csrc/build/``."""
-    return str(cuda_build.BUILD_DIR)
+    """Where the kernel libraries persist: ``CS230_AOT_DIR`` when set (the
+    JAX package's valve), else ``csrc/build/``."""
+    return str(cuda_build.build_dir())
 
 
 def enabled() -> bool:
@@ -77,7 +79,7 @@ def generation_inventory() -> dict:
         out["dir"] = cache_dir()
         out["generation"] = generation()
         for fname in _current_files():
-            path = cuda_build.BUILD_DIR / fname
+            path = cuda_build.build_dir() / fname
             if path.exists():
                 out["n_blobs"] += 1
                 out["bytes"] += path.stat().st_size
@@ -102,7 +104,7 @@ def _prune_stale_generations(max_age_s: Optional[float] = None) -> int:
     removed = 0
     now = time.time()
     try:
-        entries = list(cuda_build.BUILD_DIR.iterdir())
+        entries = list(cuda_build.build_dir().iterdir())
     except OSError:
         return 0
     for path in entries:

@@ -167,7 +167,8 @@ def test_port_imports_no_jax(tmp_path):
     runs a small LogReg search, a small forest, a small MLP search and a
     small KNN search from model_details payloads (the form a user without
     scikit-learn passes), imports the multi-device and sharded-plane
-    modules, and never loads JAX or the JAX package."""
+    modules and the modules that read the staging, host-route, log, SVM
+    and tree valves, and never loads JAX or the JAX package."""
     code = (
         "import sys\n"
         "sys.modules['sklearn'] = None  # any import of it now fails\n"
@@ -204,7 +205,9 @@ def test_port_imports_no_jax(tmp_path):
         "import importlib\n"
         "for mod in ('parallel.distributed', 'parallel.collectives', 'parallel.mesh',\n"
         "            'runtime.agent', 'runtime.server', 'runtime.frontend', 'runtime.fleet',\n"
-        "            'runtime.sharding', 'runtime.prewarm', 'utils.aot_cache'):\n"
+        "            'runtime.sharding', 'runtime.prewarm', 'utils.aot_cache',\n"
+        "            'parallel.trial_map', 'data.streaming', 'data.stage_codec', 'models.logistic',\n"
+        "            'models.svm', 'models.trees', 'ops.trees', 'ops.cuda_build', 'utils.logging'):\n"
         "    importlib.import_module('cs230_distributed_machine_learning_tpu_torch.' + mod)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'jaxlib'\n"
         "       or m.startswith('jaxlib.') or m == 'cs230_distributed_machine_learning_tpu'\n"
