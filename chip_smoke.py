@@ -102,12 +102,14 @@ process each, beside the build; a ``prestage`` line gives each wait:
 
 Then the other tree families (slice 8):
 
-17. kernels_hist (float rows)  B4's f32 mode at the boosting levels
-            (HIST_FLOAT_SHAPES: gb_main's root and last level, 168 lanes x
-            116,202 rows, and config 4's root, 12 lanes x 867 rows): within
-            1e-5 of the max, whether two launches agree to the bit
-            (recorded), ms beside the plain version, one index_add_ and the
-            bound.
+17. kernels_hist (float rows)  B4's f32 mode (the split one-hot
+            contraction) at the boosting levels (HIST_FLOAT_SHAPES: gb_main's
+            root and last level, 168 lanes x 116,202 rows, and config 4's
+            root, 12 lanes x 867 rows) and at trees_reference's deep
+            DecisionTreeRegressor level (HIST_FLOAT_DEEP_SHAPES): within
+            1e-5 of the max, two launches equal to the bit (asserted), ms
+            beside the plain version, one index_add_ and the bound, and the
+            route the shape rule did not pick, timed beside it.
 18. gb_titanic  BASELINE config 4, uncut: the titanic builtin downloaded,
             preprocessed with TITANIC_PREPROCESS, GridSearchCV(
             GradientBoostingRegressor(random_state=0), n_estimators [50,
@@ -116,7 +118,8 @@ Then the other tree families (slice 8):
 19. gb_main  GridSearchCV(GradientBoostingClassifier(n_estimators=50),
             learning_rate [0.05, 0.1, 0.2, 0.5], cv=5) on covertype, twice:
             the reference's plan (3 chunks of 17 stages), 168 lanes, 150
-            launches; whether the second run repeats the scores, recorded.
+            launches each; the second run's scores and best_params_ equal
+            the first's to the bit (asserted).
 20. gb_reference  boosting grids with subsample 0.8 on a 3,000-row
             covertype draw, card vs CPU (the classifier through
             _run_chunked), then one stage of each on both devices split by
@@ -384,11 +387,11 @@ sys.path.insert(0, ROOT)
 # the kernels' check and timing shapes, input builders and timer
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     HIST_FLOAT_REFIT_SHAPES, HIST_FLOAT_SHAPES, HIST_REFIT_SHAPES, HIST_SHAPES, HIST_SKEWED,
-    KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
+    HIST_FLOAT_DEEP_SHAPES, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
     LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
     MASKED_SHAPES,
     MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_LOSS_LIMIT, MLP_SHAPES,
-    digest, gb_hist_inputs, hist_inputs, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
+    deep_hist_inputs, digest, gb_hist_inputs, hist_inputs, hist_library_ms, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
@@ -401,7 +404,7 @@ MLP_SEARCH_TOL = 0.02
 #: from the kernels line, whose numbers this run measures
 EARLIER_MS = {"packed_softmax_grad": 18.35, "packed_nesterov_step": 18.51,
               "masked_softmax_grad": 27.74, "level_histogram": 0.105,
-              "mlp_epoch": 913.5, "knn_topk": 28.41}
+              "level_histogram_f32": 42.9, "mlp_epoch": 913.5, "knn_topk": 28.41}
 EARLIER_MS_SOURCE = ("PERF.md's kernel table before each kernel's current design (B1 and B3: "
                      "their first designs, B1 by chip_smoke.py, B3 at wide_full's shape by "
                      "kernel_ab.py; NVIDIA H100 80GB HBM3, 700.00 W); not measured in this run")
@@ -603,6 +606,18 @@ def phase_build() -> None:
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
     for args in ((6, 116_202, 1536, 767), (6, 11_620, 128, 127), (1, 5, 1, 1)):
         assert cuda_hist._lib().hist_scratch_ints(*args) == cuda_hist.scratch_ints(*args)
+    for fn in (1, 2, 4, 8, 32):
+        assert cuda_hist._lib().hist_f32_smem_bytes(fn) == cuda_hist.f32_smem_bytes(fn), fn
+    for L, n, d, nb, nn, kk in (*HIST_FLOAT_SHAPES.values(), *HIST_FLOAT_REFIT_SHAPES.values(),
+                                *HIST_FLOAT_DEEP_SHAPES.values(), (6, 116_202, 54, 16, 1536, 2),
+                                (2, 513, 5, 256, 130, 16)):
+        for route in ("dense", "page"):
+            lanes = cuda_hist.f32_plan(L, n, d, nb, nn, kk, route).lanes
+            splits = cuda_hist.f32_launch(route, lanes, n, d, nb, nn, kk)[1]
+            want = cuda_hist.f32_scratch_ints(lanes, n, d, nb, kk, nn, route, splits)
+            got = cuda_hist._lib().hist_f32_scratch_ints(lanes, n, d, nb, kk, nn,
+                                                         int(route == "page"), splits)
+            assert got == want, (L, n, d, nb, nn, kk, route, got, want)
     for dims, bs in (((784, 512, 10), 256), ((784, 256, 128, 10), 128), ((5, 3, 7, 1), 40)):
         got = cuda_mlp._lib().mlp_scratch_floats(cuda_mlp._dims_array(dims), len(dims) - 1, bs)
         assert got == cuda_mlp.scratch_floats(dims, bs), (dims, got)
@@ -817,26 +832,6 @@ def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c, dp=None,
                 library_ms=None, bound_ms=bound,
                 bound_by=by, bound_unit=unit,
                 bound_terms_ms=bound_terms(nbytes, mm, SOFTMAX_OPS * exps, exps))
-
-
-def hist_library_ms(local, xb, SC, n_nodes, n_bins) -> tuple:
-    """The level histogram as one index_add_ (the PyTorch call that
-    computes the same function; the port never calls it): flat (lane, node,
-    feature, bin) cell per (row, feature) with its stats, built beforehand.
-    Returns (its median ms, the adds this run's data needs: nonzero stats
-    times features)."""
-    L, d, kk = local.shape[0], xb.shape[1], SC.shape[-1]
-    ok = (local >= 0) & (local < n_nodes)
-    lanes, rws = ok.nonzero(as_tuple=True)
-    cells = (((lanes * n_nodes + local[lanes, rws].long())[:, None] * d
-              + torch.arange(d, device=local.device)) * n_bins + xb[rws].long()).reshape(-1)
-    src = SC[lanes, rws].repeat_interleave(d, dim=0)
-    out = torch.zeros((L * n_nodes * d * n_bins, kk), device=local.device)
-    lib_ms = time_ms(lambda: out.index_add_(0, cells, src), reps=5)
-    adds = int((SC[lanes, rws] != 0).sum()) * d
-    del cells, src, out
-    torch.cuda.empty_cache()
-    return lib_ms, adds
 
 
 def hist_kernel_rows(gen, dev, shapes=HIST_SHAPES) -> dict:
@@ -1825,16 +1820,21 @@ def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
 
 
 def hist_float_rows(gen, dev, shapes=HIST_FLOAT_SHAPES) -> dict:
-    """B4's float mode at the boosting levels (HIST_FLOAT_SHAPES): within
-    HIST_FLOAT_TOL of the plain version; whether two launches on the same
-    inputs agree to the bit (recorded, not asserted: the f32 atomics land in
-    any order); the kernel's, the plain version's and one index_add_'s
-    median ms and the bound (bytes, or the adds at the f32 rate)."""
+    """B4's float mode (the split one-hot contraction) at the boosting
+    levels (HIST_FLOAT_SHAPES) or the deep arena's (HIST_FLOAT_DEEP_SHAPES):
+    within HIST_FLOAT_TOL of the plain version, two launches on the same
+    inputs equal to the bit; the kernel's, the plain version's and one
+    index_add_'s median ms and the bound (bytes, or the adds at the f32
+    rate). At the deep and titanic shapes the route ``f32_route`` did not
+    pick is timed too, and held to the same tolerance (the crossover's
+    measurement)."""
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     rows = {}
     for tag, (L, n, d, n_bins, n_nodes, kk) in shapes.items():
-        local, xb, SC = gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes)
+        deep = tag in HIST_FLOAT_DEEP_SHAPES
+        local, xb, SC = (deep_hist_inputs if deep else gb_hist_inputs)(
+            gen, dev, L, n, d, n_bins, n_nodes)
         got = H.level_histogram(local, xb, SC, n_nodes, n_bins)
         again = H.level_histogram(local, xb, SC, n_nodes, n_bins)
         ref = H.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
@@ -1842,10 +1842,25 @@ def hist_float_rows(gen, dev, shapes=HIST_FLOAT_SHAPES) -> dict:
         fabs, frel = errors(got, ref)
         stable = bool(torch.equal(got, again))
         apart = float((got - again).abs().max())
+        plan = H.f32_plan(L, n, d, n_bins, n_nodes, kk)
+        route, splits, ctas = plan.route, plan.splits, plan.ctas
+        other = {"dense": "page", "page": "dense"}[route]
+        timed_other = deep or n * L < 100_000
+        if timed_other:
+            alt = H.level_histogram_f32_route(local, xb, SC, n_nodes, n_bins, other)
+            torch.cuda.synchronize()
+            _, alt_rel = errors(alt, ref)
+            del alt
         del got, again, ref
         torch.cuda.empty_cache()
         assert frel < HIST_FLOAT_TOL, f"level_histogram {tag}: float stats {frel}"
+        assert stable, f"level_histogram {tag}: two launches differ by {apart}"
         ms = time_ms(lambda: H.level_histogram(local, xb, SC, n_nodes, n_bins))
+        other_ms = None
+        if timed_other:
+            assert alt_rel < HIST_FLOAT_TOL, f"level_histogram {tag} ({other}): {alt_rel}"
+            other_ms = time_ms(lambda: H.level_histogram_f32_route(local, xb, SC, n_nodes,
+                                                                   n_bins, other))
         plain = time_ms(lambda: H.level_histogram_reference(local, xb, SC, n_nodes, n_bins),
                         reps=3)
         lib_ms, adds = hist_library_ms(local, xb, SC, n_nodes, n_bins)
@@ -1855,10 +1870,13 @@ def hist_float_rows(gen, dev, shapes=HIST_FLOAT_SHAPES) -> dict:
         torch.cuda.empty_cache()
         rows[("level_histogram", tag)] = dict(
             shape=dict(lanes=L, rows=n, features=d, bins=n_bins, nodes=n_nodes, stats=kk),
-            ctas=H.grid_ctas(n, n_nodes, d, n_bins, kk, L), float_max_abs_err=fabs,
+            route=route, splits=splits, ctas=ctas, launches=plan.launches,
+            float_max_abs_err=fabs,
             float_max_rel_err=frel, float_bit_stable=stable, two_launches_max_abs_diff=apart,
             ms=ms, plain_ms=plain, library_ms=lib_ms, bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            other_route={"route": other, "ms": other_ms,
+                         "float_max_rel_err": alt_rel if timed_other else None})
     emit({"phase": "kernels_hist", "stats": "float", "float_tolerance": HIST_FLOAT_TOL,
           "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
     return rows
@@ -1911,8 +1929,8 @@ def phase_gb_main(manager) -> int:
     """GB_MAIN on the uncut covertype table, twice: the reference's plan (3
     chunks of 17 stages), one bucket of 4 trials x 6 splits x 7 class trees
     = 168 lanes a launch, B4 launched once a level a stage (50 x 3 = 150).
-    Whether the second run gives the first's per-trial scores is recorded
-    (the f32 atomics may order the adds anew)."""
+    The second run's per-trial scores and best_params_ equal the first's to
+    the bit: B4's f32 mode and the leaf sums add in a fixed order."""
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     data = manager._coordinator.cache.get("covertype", "classification")
@@ -1948,6 +1966,8 @@ def phase_gb_main(manager) -> int:
           "second_run_max_diff": apart, "best_params": runs[0][3],
           "second_run_best_params_equal": runs[0][3] == runs[1][3]})
     assert all(r[1] == expected for r in runs), f"gb_main: {[r[1] for r in runs]} launches"
+    assert runs[0][2] == runs[1][2], f"gb_main: the second run's scores differ by {apart}"
+    assert runs[0][3] == runs[1][3], f"gb_main: best_params_ {runs[0][3]} then {runs[1][3]}"
     return runs[0][1]
 
 
@@ -2353,11 +2373,12 @@ def phase_svc_matrix(manager, cfg) -> None:
 
 #: svc_nystrom's card-vs-CPU cut: rows of the covertype permutation past
 #: _MAX_N (so the Nyström path runs), the uncut fit's 4,096 landmarks (the
-#: default at these rows would be 2,048), cv 2, and 100 of its 1,200 steps:
-#: the CPU side's primal products grow with all three (at 300 steps the
-#: CPU side took 78 s on the 8 host cores of an H100 machine)
+#: width of its feature map; the default at these rows would be 2,048),
+#: cv 2, and 50 of its 1,200 steps: the CPU side's primal products grow
+#: with all three (at 300 steps the CPU side took 78 s on the 8 host cores
+#: of an H100 machine, at 100 steps 49.2 s)
 NYSTROM_CUT = {"rows": 32_768, "cv": 2,
-               "env": {"CS230_SVM_NYSTROM_M": "4096", "CS230_SVM_NYSTROM_STEPS": "100"}}
+               "env": {"CS230_SVM_NYSTROM_M": "4096", "CS230_SVM_NYSTROM_STEPS": "50"}}
 
 
 def phase_svc_nystrom(manager, cfg) -> None:
@@ -2403,7 +2424,8 @@ def phase_svc_nystrom(manager, cfg) -> None:
 #: accuracy on the eval rows is the winner's reported holdout accuracy:
 #: exactly for the integer-stat forest; LogReg's search ran B2 and the
 #: refit runs B3 (2e-3); the MLP's search ran B5 and the refit the generic
-#: path (0.02, the fused-vs-generic bound); boosting's f32 atomics (1e-2);
+#: path (0.02, the fused-vs-generic bound); boosting's f32 sums, ordered by
+#: each launch's shape (1e-2);
 #: KNN and SVC within their card-vs-CPU limits (2e-3)
 ARTIFACT_JOBS = {
     "main_auto": ("covertype", "masked_softmax_grad", 2e-3),
@@ -3705,8 +3727,9 @@ MESH2D_TOL = 2e-3
 #: has to reach its kernel on 4 ranks): (search, dataset, env, kernel,
 #: limit against the same search on one card). MLP and KNN lanes are
 #: independent of their launch's other lanes: 1e-6. Boosting's float
-#: stats go through B4's f32 atomics, whose add order follows the launch's
-#: lanes, so a close split call can flip (ROADMAP C3, C4; up to 2.7e-3
+#: stats go through B4's f32 contraction, whose sum order (its tiles and K
+#: splits) follows the launch's lanes, so a close split call can flip
+#: (ROADMAP C3; up to 2.7e-3
 #: for this search on an NVIDIA H100): it takes PERF.md section 2's card-vs-CPU
 #: boosting limit, 1e-2, which bounds a search under another add order
 MESH2D_FAMILIES = {
@@ -5011,7 +5034,8 @@ def main() -> int:
     # slice 8: the other tree families; B4's float mode on a search path
     seconds = {}
     t_phase = time.perf_counter()
-    float_rows = hist_float_rows(torch.Generator(device=dev).manual_seed(8), dev)
+    float_rows = hist_float_rows(torch.Generator(device=dev).manual_seed(8), dev,
+                                 {**HIST_FLOAT_SHAPES, **HIST_FLOAT_DEEP_SHAPES})
     seconds["kernels_hist_float"] = time.perf_counter() - t_phase
     float_launches = {}
     for name, run in (("gb_titanic", lambda: phase_gb_titanic(manager)),
@@ -5146,12 +5170,12 @@ def main() -> int:
                 "1536 lanes (256 trials x 6 splits)",
                 **{k: r[k] for k in ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "bound_unit", "library_ms")}}}
-        if name == "level_histogram":  # its float mode at the boosting levels
+        if name == "level_histogram":  # its float mode at the boosting and deep levels
             kernels[-1]["float_modes"] = {
                 tag: {k: float_rows[(name, tag)][k] for k in (
-                    "ms", "bound_ms", "bound_by", "plain_ms", "library_ms",
-                    "float_max_rel_err", "float_bit_stable")}
-                for tag in HIST_FLOAT_SHAPES}
+                    "ms", "bound_ms", "bound_by", "plain_ms", "library_ms", "route",
+                    "float_max_rel_err", "float_bit_stable", "other_route")}
+                for tag in (*HIST_FLOAT_SHAPES, *HIST_FLOAT_DEEP_SHAPES)}
             kernels[-1]["float_launches"] = {k: float_launches[k]
                                              for k in ("gb_titanic", "gb_main")}
         for key, tag, job in ARTIFACT_PATHS.get(name, []):  # the winner artifact's path
@@ -5219,6 +5243,36 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **get(multi), "row": row, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
+    # B4's f32 body (the split one-hot contraction) on its own line: gb_main's
+    # launches, its root row; config 4, the refit and the deep level beside
+    f32_keys = ("float_max_abs_err", "float_max_rel_err", "ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "route", "splits", "float_bit_stable", "other_route")
+
+    def f32_row(row):
+        return {k: row[k] for k in f32_keys if k in row}
+
+    r = float_rows[("level_histogram", "gb_main_root")]
+    kernels.append({
+        "name": "level_histogram_f32", "route": "cuda", "source": SOURCES["hist"],
+        "replaces": f"{jax_ops}/pallas_hist.py:106", "launches": float_launches["gb_main"],
+        "max_abs_err": r["float_max_abs_err"], "max_rel_err": r["float_max_rel_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "float_bit_stable": r["float_bit_stable"], "route_taken": r["route"],
+        "splits": r["splits"],
+        "shape": "168 lanes, 116202 rows, 54 features, 128 bins, 1 node, 2 stats "
+                 "(gb_main's root)",
+        "other_paths": {
+            "gb_main_l2": {"launches": None, "job": "gb_main (counted with the root)",
+                           **f32_row(float_rows[("level_histogram", "gb_main_l2")])},
+            "gb_titanic": {"launches": float_launches["gb_titanic"], "job": "gb_titanic",
+                           **f32_row(float_rows[("level_histogram", "gb_titanic")])},
+            "artifact_f32": {"launches": art_launches["gb_main"]["level_histogram"],
+                             "job": "gb_main's refit",
+                             **f32_row(art_rows[("level_histogram", "refit_gb_root")])},
+            **{tag: {"launches": None, "job": "trees_reference (counted with its families)",
+                     **f32_row(float_rows[("level_histogram", tag)])}
+               for tag in HIST_FLOAT_DEEP_SHAPES}}})
     from cs230_distributed_machine_learning_tpu_torch.data.stage_cache import STAGE_CACHE
 
     emit({"phase": "done", "seconds": time.perf_counter() - t_start, "gc_pause_s": GC_PAUSE_S,

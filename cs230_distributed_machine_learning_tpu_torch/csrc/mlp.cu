@@ -87,6 +87,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -199,10 +201,6 @@ __device__ __forceinline__ float act_grad(int act, float a) {
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
@@ -216,40 +214,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The Tensor Memory Accelerator's 1-D bulk copies and their mbarrier.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the barrier's phase `parity` to complete; traps (a launch error,
-// not a hang) if it has not after ~10 s of SM clocks.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
+// The Tensor Memory Accelerator's 1-D bulk stores (loads: hopper.cuh).
 __device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
                "r"(smem_u32(src)), "r"(bytes)
@@ -635,7 +600,10 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_epoch_kernel(const EpochArgs 
     }
   }
   for (long long e = lay.bf16_begin + tid; e < lay.total; e += kThreads) base[e] = 0.0f;
-  if (tid == 0) mbar_init(&state_bar);
+  if (tid == 0) {
+    mbar_init(&state_bar, 1);
+    fence_mbarrier_init();
+  }
   fence_proxy_async();  // the shadows' generic writes, before any bulk store
   __syncthreads();
   int state_phase = 0;

@@ -40,6 +40,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from ..ops.cuda_hist import f32_lane_bytes
 from ..ops.trees import (
     COARSE_BINS,
     _gather_leaf,
@@ -219,8 +220,10 @@ class _TreeBase(ModelKernel):
 
     def memory_estimate_mb(self, n: int, d: int, static: Dict[str, Any]) -> float:
         """Per-lane working set: ~4 histogram-sized buffers of the arena's
-        W nodes (deep) or ~3 of the deepest complete level, plus the codes.
-        Trees are fitted one at a time, so no tree-group factor."""
+        W nodes (deep) or ~3 of the deepest complete level, plus the codes,
+        and with float stats a lane's scratch of B4's f32 mode (its A
+        images and codes, ``f32_lane_bytes``). Trees are fitted one at a
+        time, so no tree-group factor."""
         n_bins = int(static.get("_n_bins", 128))
         kk = _stat_cols(static)
         if static.get("_deep"):
@@ -228,7 +231,13 @@ class _TreeBase(ModelKernel):
         else:
             depth = int(static.get("_depth", 8))
             hist = 3.0 * (2 ** max(depth - 1, 0)) * d * n_bins * kk * 4
+        if self._float_stats():
+            hist += f32_lane_bytes(n, d, n_bins)
         return max(1.0, (hist + 4.0 * n * d * 2) / 1e6)
+
+    def _float_stats(self) -> bool:
+        """Whether the level histograms take B4's f32 mode (regression)."""
+        return self.task == "regression"
 
     @staticmethod
     def _hist_cols(static, d, prepared=None):
@@ -711,6 +720,10 @@ class _GradientBoostingBase(_TreeBase):
         weight = 6.0 if self.task == "classification" else 10.0
         macs = weight * float(max(n_splits, 1)) * self.macs_estimate(n, d, static)
         return _chunk_plan(int(static.get("n_estimators", 100)), macs)
+
+    def _float_stats(self) -> bool:
+        """Gradients and hessians: B4's f32 mode for either task."""
+        return True
 
     def _k_eff(self, static) -> int:
         """Trees a stage: one a class past two classes, else one."""

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` for Hopper (``sm_90a``) into
-``<build dir>/lib<name>-<hash>.so``, where the hash covers the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+``<build dir>/lib<name>-<hash>.so``, where the hash covers the source, the
+headers it may include (``csrc/*.cuh``) and the flags, so an edited source
+or header is rebuilt and an unchanged one is reused.
 The build directory is ``csrc/build/``, or ``CS230_AOT_DIR`` when set (the
 JAX package's name for where its persistent artifacts live).
 The libraries are loaded with ``ctypes``; no PyTorch headers are compiled,
@@ -76,9 +77,14 @@ def build_dir() -> Path:
     return Path(override) if override else BUILD_DIR
 
 
+def headers() -> bytes:
+    """The shared headers ``csrc/*.cuh``, in name order, as one string."""
+    return b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+
+
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + headers() + " ".join(NVCC_FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

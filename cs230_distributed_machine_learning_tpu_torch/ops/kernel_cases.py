@@ -186,6 +186,20 @@ HIST_FLOAT_SHAPES = {
 #: B4's float mode at the winner's refit of gb_main: one trial on the
 #: holdout split, its 7 class trees a stage as lanes, at the root
 HIST_FLOAT_REFIT_SHAPES = {"refit_gb_root": (7, 116_202, 54, 128, 1, 2)}
+#: B4's float mode at a deep arena's level (its page route): the widest
+#: level of trees_reference's DecisionTreeRegressor (max_depth None on the
+#: 3,000 x 8 regression table, 6 splits as lanes): the left children of a
+#: 64-wide frontier, 48 bins, stats y * w and w
+HIST_FLOAT_DEEP_SHAPES = {"trees_dtr_deep": (6, 3000, 8, 48, 64, 2)}
+#: B4's float mode past boosting's shallow levels: gb_main's 168 lanes on
+#: covertype at the 16-, 32- and 64-node levels a max_depth 5-7 grid
+#: reaches (gradient and hessian columns), where f32_plan's two routes
+#: cost about the same (16, 32) or the page route wins (64)
+HIST_FLOAT_CROSSOVER_SHAPES = {
+    "gb_168_l16": (168, 116_202, 54, 128, 16, 2),
+    "gb_168_l32": (168, 116_202, 54, 128, 32, 2),
+    "gb_168_l64": (168, 116_202, 54, 128, 64, 2),
+}
 
 
 def gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes):
@@ -204,6 +218,21 @@ def gb_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes):
         return torch.zeros((L, n), dtype=torch.int32, device=dev), xb, SC
     node = torch.randint(0, 2 * n_nodes, (L, n), generator=gen, device=dev, dtype=torch.int32)
     return node // 2, xb, SC * (node % 2 == 0)[..., None]
+
+
+def deep_hist_inputs(gen, dev, L, n, d, n_bins, n_nodes):
+    """A regression tree's deep level: stats ``y * w`` and ``w`` (w a
+    split's 0/1 training weights, 80 % of the rows), shared codes, and the
+    node ids of a frontier's left children: a row in a split node's left
+    child has its node's slot, every other row the dead id ``n_nodes``, as
+    ``build_tree_deep`` calls the kernel."""
+    y = torch.randn(n, generator=gen, device=dev)
+    w = (torch.rand(L, n, generator=gen, device=dev) < 0.8).float()
+    SC = torch.stack([y * w, w], dim=-1)
+    xb = torch.randint(0, n_bins, (n, d), generator=gen, device=dev, dtype=torch.int32)
+    slot = torch.randint(0, n_nodes, (L, n), generator=gen, device=dev, dtype=torch.int32)
+    left = torch.rand(L, n, generator=gen, device=dev) < 0.5
+    return torch.where(left, slot, n_nodes).int(), xb, SC
 
 
 #: levels whose nodes hold very uneven row counts
@@ -363,3 +392,23 @@ def knn_table(cache, dev) -> tuple:
     X = torch.as_tensor(np.asarray(data.X, np.float32), device=dev)
     W = torch.as_tensor(plan.train_w, device=dev).float().contiguous()
     return data, X, W, staged
+
+
+def hist_library_ms(local, xb, SC, n_nodes, n_bins) -> tuple:
+    """The level histogram as one index_add_ (the PyTorch call that
+    computes the same function; the port never calls it): flat (lane, node,
+    feature, bin) cell per (row, feature) with its stats, built beforehand.
+    Returns (its median ms, the adds this run's data needs: nonzero stats
+    times features)."""
+    L, d, kk = local.shape[0], xb.shape[1], SC.shape[-1]
+    ok = (local >= 0) & (local < n_nodes)
+    lanes, rws = ok.nonzero(as_tuple=True)
+    cells = (((lanes * n_nodes + local[lanes, rws].long())[:, None] * d
+              + torch.arange(d, device=local.device)) * n_bins + xb[rws].long()).reshape(-1)
+    src = SC[lanes, rws].repeat_interleave(d, dim=0)
+    out = torch.zeros((L * n_nodes * d * n_bins, kk), device=local.device)
+    lib_ms = time_ms(lambda: out.index_add_(0, cells, src), reps=5)
+    adds = int((SC[lanes, rws] != 0).sum()) * d
+    del cells, src, out
+    torch.cuda.empty_cache()
+    return lib_ms, adds

@@ -5,15 +5,15 @@ the port against the JAX package (tests/test_torch_boosting.py,
 tests/test_torch_tree_families.py), chip_smoke.py holds the card against
 the CPU. With float stats (regression targets, boosting gradients and
 hessians) the bin prefix sums are added in other orders (XLA's triangular
-contraction against torch's cumsum; B4's atomics on the card against the
-plain version's row order), so a split whose best gain leads the next by a
-few ulps of the node's own S^2/C term may go either way. Candidates that
-cut a node's rows into the same two sets tie exactly, and rounding breaks
-the tie (across empty bins too: the reference may take the later bin).
-Such close calls are found from full level histograms of the rows the
-reference tree routes to each node, and the subtree below each one is not
-compared; every other split must be equal and every compared leaf value
-within LEAF_TOL.
+contraction against torch's cumsum; B4's split contraction on the card
+against the plain version's row order), so a split whose best gain leads
+the next by a few ulps of the node's own S^2/C term may go either way.
+Candidates that cut a node's rows into the same two sets tie exactly, and
+rounding breaks the tie (across empty bins too: the reference may take the
+later bin). Such close calls are found from full level histograms of the
+rows the reference tree routes to each node, and the subtree below each
+one is not compared; every other split must be equal and every compared
+leaf value within LEAF_TOL.
 """
 
 import numpy as np

@@ -207,6 +207,34 @@ def _level_splits(H, key, k: int, n_bins: int, min_samples_leaf: float,
 # complete-tree builder
 # ---------------------------------------------------------------------------
 
+#: leaves up to which float leaf sums are a one-hot contraction (the JAX
+#: package's ``_LOOKUP_M``, ops/trees.py:432)
+_LOOKUP_M = 256
+#: elements of the leaf one-hot one chunk of rows builds (256 MiB in f32)
+_LEAF_ONEHOT_ELEMS = 1 << 26
+
+
+def _leaf_sums(leaf_local, SC, n_leaves: int, exact: bool):
+    """Per-lane leaf sums ``[L, n_leaves, kk]`` of ``SC [L, n, kk]`` by
+    ``leaf_local [L, n]``. Float stats up to ``_LOOKUP_M`` leaves take the
+    JAX package's ``one_hot(leaf).T @ SC`` (ops/trees.py:465), in chunks of
+    rows whose one-hot holds at most ``_LEAF_ONEHOT_ELEMS`` elements,
+    summed in row order: products that sum in a fixed order, so a run on
+    the card repeats its bits (a CUDA ``scatter_add_`` adds in whatever
+    order its atomics land). Integer-valued stats (``exact``: sums exact in
+    any order) and wider trees keep the scatter, as the reference's
+    segment_sum."""
+    L, n, kk = SC.shape
+    out = torch.zeros((L, n_leaves, kk), dtype=torch.float32, device=SC.device)
+    if exact or n_leaves > _LOOKUP_M:
+        return out.scatter_add_(1, leaf_local[..., None].expand(-1, -1, kk), SC)
+    leaves = torch.arange(n_leaves, device=SC.device)
+    rows = max(1, _LEAF_ONEHOT_ELEMS // max(1, L * n_leaves))
+    for r0 in range(0, n, rows):
+        oh = (leaf_local[:, r0:r0 + rows, None] == leaves).to(SC.dtype)
+        out += torch.bmm(oh.transpose(1, 2), SC[:, r0:r0 + rows])
+    return out
+
 
 def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1.0,
                max_features: Optional[int] = None, key=None,
@@ -253,9 +281,7 @@ def build_tree(xb, S, C, *, depth: int, n_bins: int, min_samples_leaf: float = 1
         node = 2 * node + 1 + (~go_left).long()
 
     leaf_local = node - n_internal
-    n_leaves = 2**depth
-    SCl = torch.zeros((L, n_leaves, k + 1), dtype=torch.float32, device=dev)
-    SCl.scatter_add_(1, leaf_local[..., None].expand(-1, -1, k + 1), SC)
+    SCl = _leaf_sums(leaf_local, SC, 2**depth, count_from_stats)
     Sl, Cl = SCl[..., :k], SCl[..., k]
     return {
         "split_feat": split_feat,
@@ -312,9 +338,10 @@ def _stream_tree_level_fn(k: int, n_bins: int, level: int, count_from_stats: boo
     return fn
 
 
-def _stream_tree_leaf_fn(k: int, depth: int):
+def _stream_tree_leaf_fn(k: int, depth: int, exact: bool = False):
     """The final streamed pass: apply the last level's pending routing,
-    then add the block's per-leaf stat sums."""
+    then add the block's per-leaf stat sums (``exact``: integer-valued
+    stats, as ``build_tree``'s ``count_from_stats``)."""
     n_internal = 2**depth - 1
     prev_base = 2 ** (depth - 1) - 1
 
@@ -327,8 +354,7 @@ def _stream_tree_leaf_fn(k: int, depth: int):
         go_left = _lane_codes(xb_b, bf.gather(1, lp)) <= bb.gather(1, lp)
         nb = 2 * nb + 1 + (~go_left).long()
         node[:, start:start + rows] = nb
-        leaf_local = nb - n_internal
-        return node, SCl.scatter_add(1, leaf_local[..., None].expand(-1, -1, k + 1), scb)
+        return node, SCl + _leaf_sums(nb - n_internal, scb, 2**depth, exact)
 
     return fn
 
@@ -379,7 +405,8 @@ def build_tree_streamed(stream_pass, S, C, d: int, *, depth: int, n_bins: int,
         split_bin[:, base : base + n_nodes] = bb
 
     SCl0 = torch.zeros((L, 2**depth, k + 1), dtype=torch.float32, device=dev)
-    node, SCl = stream_pass(_stream_tree_leaf_fn(k, depth), (node, SCl0), SC, bf, bb)
+    node, SCl = stream_pass(_stream_tree_leaf_fn(k, depth, count_from_stats), (node, SCl0),
+                            SC, bf, bb)
     Sl, Cl = SCl[..., :k], SCl[..., k]
     tree = {
         "split_feat": split_feat,

@@ -6,14 +6,14 @@ blobs) that spare a fresh process its tracing. Eager PyTorch traces
 nothing, so the port has no executables to serialize: what a fresh
 process pays before its first launch is the kernel libraries' build
 (``nvcc``) and load, and those libraries already persist under
-``csrc/build/`` keyed by a hash of their source and flags
+``csrc/build/`` keyed by a hash of their source, headers and flags
 (ops/cuda_build.py; ``CS230_AOT_DIR`` moves them, as it moves the JAX
 package's). This module keeps the surface the JAX module's
 callers read — ``cache_dir``, ``enabled``, ``generation_inventory`` (the
 prewarm worker's log line, runtime/prewarm.py) — over those libraries.
 
-A generation is the hash of every ``csrc/*.cu``, ``NVCC_FLAGS`` and the
-torch / CUDA versions; its libraries are those whose file names carry the
+A generation is the hash of every ``csrc/*.cu``, the shared ``csrc/*.cuh``,
+``NVCC_FLAGS`` and the torch / CUDA versions; its libraries are those whose file names carry the
 current per-source hashes. ``_prune_stale_generations`` removes the
 libraries of older hashes from ``csrc/build/``. JAX's ``aot_jit`` has no
 counterpart (nothing to export).
@@ -58,6 +58,7 @@ def generation() -> str:
     for name in cuda_build.source_names():
         h.update(name.encode())
         h.update((cuda_build.CSRC_DIR / f"{name}.cu").read_bytes())
+    h.update(cuda_build.headers())
     h.update(" ".join(cuda_build.NVCC_FLAGS).encode())
     h.update(f"{torch.__version__}|{torch.version.cuda}".encode())
     return h.hexdigest()[:16]

@@ -1,6 +1,6 @@
 """Time kernels B1-B6 of two checkouts of the port on one card, in turns.
 
-    python3 kernel_ab.py --trees OLD NEW NEW OLD [--out FILE]
+    python3 kernel_ab.py --trees OLD NEW NEW OLD [--only hist,knn,mlp,logreg] [--out FILE]
 
 Each entry of ``--trees`` is the root of a checkout (for example the
 parent commit unpacked with ``git archive`` into a directory that
@@ -12,7 +12,13 @@ builders and the timer are this checkout's ``ops/kernel_cases.py``, the
 ones ``chip_smoke.py`` uses, loaded by path so that every tree is timed
 on the same inputs from the same seeds:
 
-- B4 ``level_histogram`` with integer stats at every ``HIST_SHAPES`` entry;
+- B4 ``level_histogram`` with integer stats at every ``HIST_SHAPES`` entry,
+  and with float stats at every ``HIST_FLOAT_SHAPES``,
+  ``HIST_FLOAT_DEEP_SHAPES`` and ``HIST_FLOAT_CROSSOVER_SHAPES`` entry
+  (``hist_f32_*``; ``hist_f32_repeat``: whether a second launch in the
+  process gave the first's digest); at the crossover shapes also each f32
+  route's time and error (``hist_f32_crossover``; a checkout without the
+  route aid: its one kernel's error) and one ``index_add_``'s time;
 - B6 ``knn_topk`` at knn_main's launch shape (the staged KNN table, the
   job's 6 split masks, its first 4,096 rows as queries) at the grid's k
   and at k 300 (null for a checkout whose kernel refuses it);
@@ -25,7 +31,8 @@ on the same inputs from the same seeds:
   feature search's 16 lanes on 4,096 rows, and a full-size search's 192
   lanes on 60,160 rows).
 
-Beside each time, a SHA-256 digest of the kernel's output on fresh inputs
+``--only`` times a subset of the four sources' kernels. Beside each time,
+a SHA-256 digest of the kernel's output on fresh inputs
 (``*_digest``): equal digests across checkouts mean outputs equal to the
 bit. Prints one JSON line per entry and, last, the card's name and power
 limit.
@@ -55,7 +62,7 @@ def _load_cases():
     return mod
 
 
-def worker() -> dict:
+def worker(only) -> dict:
     """Time the kernels of the checkout in the working directory."""
     sys.path.insert(0, os.getcwd())
     import torch
@@ -68,12 +75,14 @@ def worker() -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     C = _load_cases()
-    cuda_build.build(["logreg", "hist", "mlp", "knn"])
+    cuda_build.build(only)
     dev = torch.device("cuda", 0)
     out = {"tree": os.getcwd(), "hist_ms": {}, "knn_ms": {}, "mlp_ms": {}, "logreg_ms": {},
-           "hist_digest": {}, "knn_digest": {}, "mlp_digest": {}, "logreg_digest": {}}
+           "hist_digest": {}, "knn_digest": {}, "mlp_digest": {}, "logreg_digest": {},
+           "hist_f32_ms": {}, "hist_f32_digest": {}, "hist_f32_repeat": {}}
     gen = torch.Generator(device=dev).manual_seed(0)
-    for tag, (L, n, d, n_bins, n_nodes, kk) in C.HIST_SHAPES.items():
+    for tag, (L, n, d, n_bins, n_nodes, kk) in (C.HIST_SHAPES.items() if "hist" in only
+                                                 else ()):
         local, xb, SC = C.hist_inputs(gen, dev, L, n, d, n_bins, n_nodes, kk, False,
                                       tag in C.HIST_SKEWED)
         out["hist_digest"][tag] = C.digest(H.level_histogram(
@@ -81,6 +90,24 @@ def worker() -> dict:
         out["hist_ms"][tag] = C.time_ms(lambda: H.level_histogram(
             local, xb, SC, n_nodes, n_bins, integer_stats=True))
         del local, xb, SC
+    gen = torch.Generator(device=dev).manual_seed(8)
+    f32 = {**C.HIST_FLOAT_SHAPES, **C.HIST_FLOAT_DEEP_SHAPES, **C.HIST_FLOAT_CROSSOVER_SHAPES}
+    for tag, (L, n, d, n_bins, n_nodes, kk) in (f32.items() if "hist" in only else ()):
+        deep = tag in C.HIST_FLOAT_DEEP_SHAPES
+        local, xb, SC = (C.deep_hist_inputs if deep else C.gb_hist_inputs)(
+            gen, dev, L, n, d, n_bins, n_nodes)
+        first = C.digest(H.level_histogram(local, xb, SC, n_nodes, n_bins))
+        out["hist_f32_digest"][tag] = first
+        out["hist_f32_repeat"][tag] = first == C.digest(
+            H.level_histogram(local, xb, SC, n_nodes, n_bins))
+        out["hist_f32_ms"][tag] = C.time_ms(lambda: H.level_histogram(
+            local, xb, SC, n_nodes, n_bins))
+        if tag in C.HIST_FLOAT_CROSSOVER_SHAPES:
+            _crossover(out, tag, H, C, local, xb, SC, n_nodes, n_bins)
+        del local, xb, SC
+        torch.cuda.empty_cache()
+    if "knn" not in only:
+        return _worker_rest(out, only, C, dev, torch, M, R)
     _, X, W, _ = C.knn_table(DatasetCache(root=DATASETS), dev)
     Q = X[:C.KNN_QUERIES].contiguous()
     for k in C.KNN_GRID_KS + [C.KNN_DEVICE_LISTS_K]:
@@ -94,6 +121,43 @@ def worker() -> dict:
         out["knn_ms"][f"k{k}"] = C.time_ms(lambda: K.knn_topk(Q, X, W, k), reps=5, warmup=1)
     del X, Q, W
     torch.cuda.empty_cache()
+    return _worker_rest(out, only, C, dev, torch, M, R)
+
+
+def _crossover(out, tag, H, C, local, xb, SC, n_nodes, n_bins) -> None:
+    """At a crossover shape: each f32 route's ms and launches and its
+    error against the plain version (a checkout with the route aid), and
+    one index_add_'s ms (``hist_library_ms``, the smoke's library time)."""
+    import torch
+
+    row = out.setdefault("hist_f32_crossover", {})[tag] = {}
+    ref = H.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    scale = float(ref.abs().max())
+    if hasattr(H, "level_histogram_f32_route"):
+        L, d, kk = local.shape[0], xb.shape[1], SC.shape[-1]
+        row["picked"] = H.f32_plan(L, local.shape[1], d, n_bins, n_nodes, kk).route
+        for route in ("dense", "page"):
+            got = H.level_histogram_f32_route(local, xb, SC, n_nodes, n_bins, route)
+            row[route] = {
+                "ms": C.time_ms(lambda: H.level_histogram_f32_route(
+                    local, xb, SC, n_nodes, n_bins, route), reps=5, warmup=1),
+                "max_rel_err": float((got - ref).abs().max()) / scale,
+                "launches": H.f32_plan(L, local.shape[1], d, n_bins, n_nodes, kk,
+                                       route).launches}
+            del got
+    else:
+        got = H.level_histogram(local, xb, SC, n_nodes, n_bins)
+        row["max_rel_err"] = float((got - ref).abs().max()) / scale
+        del got
+    del ref
+    torch.cuda.empty_cache()
+    row["library_ms"] = C.hist_library_ms(local, xb, SC, n_nodes, n_bins)[0]
+
+
+def _worker_rest(out, only, C, dev, torch, M, R) -> dict:
+    """B5, then B1-B3, where ``only`` names them."""
+    if "mlp" not in only:
+        return _worker_logreg(out, only, C, dev, torch, R)
     gen = torch.Generator(device=dev).manual_seed(5)
     runs = [(tag, C.MLP_LANES, shape) for tag, shape in C.MLP_SHAPES.items()]
     runs.append(("784-512-10_one_lane", 1, C.MLP_SHAPES["784-512-10"]))
@@ -107,6 +171,12 @@ def worker() -> dict:
             Xs, Ys, Wl, lr, alpha, 0, state, **kw), reps=3, warmup=1)
         del Xs, Ys, Wl, state
         torch.cuda.empty_cache()
+    return _worker_logreg(out, only, C, dev, torch, R)
+
+
+def _worker_logreg(out, only, C, dev, torch, R) -> dict:
+    if "logreg" not in only:
+        return out
     gen = torch.Generator(device=dev).manual_seed(0)
     n_pad, dpp, c, S, n_wb = C.LOGREG_SHAPE
     t = C.LOGREG_STEP_T
@@ -140,11 +210,14 @@ def worker() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trees", nargs="+", help="checkout roots, timed in this order")
+    ap.add_argument("--only", default="hist,knn,mlp,logreg",
+                    help="the sources whose kernels to time (comma-separated)")
     ap.add_argument("--out", help="also write the JSON lines here")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = [x for x in args.only.split(",") if x]
     if args.worker:
-        print(json.dumps(worker()), flush=True)
+        print(json.dumps(worker(only)), flush=True)
         return 0
     import torch
 
@@ -154,7 +227,8 @@ def main() -> int:
     here = os.path.abspath(__file__)
     lines = []
     for tree in args.trees:
-        proc = subprocess.run([sys.executable, here, "--worker"], cwd=os.path.abspath(tree),
+        proc = subprocess.run([sys.executable, here, "--worker", "--only", ",".join(only)],
+                              cwd=os.path.abspath(tree),
                               capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             print(proc.stdout, proc.stderr, file=sys.stderr)

@@ -13,9 +13,14 @@ kernels against their references (the kernels round the residual to bf16,
 the plain versions keep it in f32); the fused step's frozen columns must be
 exact, and every LogReg kernel gives the same bits on two launches (fixed
 sum orders, no atomics). The level histogram (B4) must be bit-exact for integer stats (int32
-accumulation) and within 1e-5 of the max for float stats (f32 atomics in
-no fixed order), also at the boosting levels' shapes (168 lanes of
-gradient and hessian columns on 116,202 rows). The MLP epoch (B5) and its plain version round the same
+accumulation) and within 1e-5 of the max for float stats (f32 sums of
+exact split products in another order than the plain version's), also at
+the boosting levels' shapes (168 lanes of gradient and hessian columns on
+116,202 rows) and at a deep arena's level (the page route); float stats
+give the same bits on two launches (a fixed order, no atomics), equal the
+plain version exactly where every histogram cell gets one row (the
+three-term split reconstructs each stat), and the page route's stable row
+list equals the plain bucketing's. The MLP epoch (B5) and its plain version round the same
 operands to bf16 and sum in different orders. Under SGD every state tensor
 stays within 5e-3 of its max. Adam divides by the gradient's root mean
 square, so a gradient within f32 rounding of zero can take either sign and
@@ -402,18 +407,102 @@ def test_level_histogram_matches_plain_on_card(cuda, L, n, d, n_bins, n_nodes, k
 def test_level_histogram_float_stats_at_boosting_shapes_on_card(cuda, tag):
     """B4's float mode at the boosting levels (gradient and hessian
     columns, every live row at the root or the left children of a level):
-    within 1e-5 of the plain version's max, one launch a call. Two launches
-    may differ in the last bits (f32 atomics in any order)."""
+    within 1e-5 of the plain version's max, one launch a call, and two
+    launches equal to the bit (the split contraction sums in a fixed
+    order)."""
     L, n, d, n_bins, n_nodes, kk = kc.HIST_FLOAT_SHAPES[tag]
     gen = torch.Generator(device=cuda).manual_seed(0)
     local, xb, SC = kc.gb_hist_inputs(gen, cuda, L, n, d, n_bins, n_nodes)
     th.reset_launches()
     got = th.level_histogram(local, xb, SC, n_nodes, n_bins)
+    again = th.level_histogram(local, xb, SC, n_nodes, n_bins)
     want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
     torch.cuda.synchronize()
     assert got.shape == (L, n_nodes, d, n_bins, kk)
     assert _rel(got, want) < 1e-5
+    assert torch.equal(got, again)
+    assert th.LAUNCHES["level_histogram"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(kc.HIST_FLOAT_DEEP_SHAPES))
+def test_level_histogram_float_stats_at_a_deep_level_on_card(cuda, tag):
+    """B4's float mode at a deep arena's widest level, by both routes (the
+    dense one the shape rule picks, and the page route over each lane's
+    stable row list): each within 1e-5 of the plain version's max and the
+    same bits on two launches."""
+    L, n, d, n_bins, n_nodes, kk = kc.HIST_FLOAT_DEEP_SHAPES[tag]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    local, xb, SC = kc.deep_hist_inputs(gen, cuda, L, n, d, n_bins, n_nodes)
+    th.reset_launches()
+    got = th.level_histogram(local, xb, SC, n_nodes, n_bins)
+    again = th.level_histogram(local, xb, SC, n_nodes, n_bins)
+    page = th.level_histogram_f32_route(local, xb, SC, n_nodes, n_bins, "page")
+    page2 = th.level_histogram_f32_route(local, xb, SC, n_nodes, n_bins, "page")
+    want = th.level_histogram_reference(local, xb, SC, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5 and _rel(page, want) < 1e-5
+    assert torch.equal(got, again) and torch.equal(page, page2)
+    assert th.LAUNCHES["level_histogram"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_nodes", [1, 4, 64])
+def test_level_histogram_float_stats_are_exact_where_a_cell_has_one_row_on_card(cuda, n_nodes):
+    """Each feature's codes are a permutation of the 128 rows over its 128
+    bins, so every (lane, node, feature, bin) cell gets at most one live
+    row and every product but that row's three adds 0: hi + mid + lo must
+    give the stat to the bit, and the kernel's output must equal the plain
+    version's exactly, by both routes and by the route picked. The stats
+    are gradients, hessians at the 1e-12 floor, values near 1e-30 and
+    normal draws; a kernel that dropped the lo term would miss by up to
+    ~8e-6 relative."""
+    rng = np.random.RandomState(11 + n_nodes)
+    L, n, d, n_bins = 3, 128, 6, 128
+    xb = np.stack([(np.arange(n) * 7 + 13 * f) % n_bins for f in range(d)], axis=1)
+    local = rng.randint(-1, n_nodes + 1, (L, n))  # -1 and n_nodes are dead rows
+    g = (rng.randn(L, n) * 37.0).astype(np.float32)
+    g[:, ::7] = ((0.5 + rng.rand(L, len(range(0, n, 7)))) * 1e-30).astype(np.float32)
+    h = np.maximum(rng.rand(L, n) * 0.25, 1e-12).astype(np.float32)
+    h[:, ::5] = np.float32(1e-12)
+    SC = np.stack([g, h], axis=-1)
+    args = [torch.as_tensor(a.astype(t)) for a, t in ((local, np.int32), (xb, np.int32),
+                                                       (SC, np.float32))]
+    want = th.level_histogram_reference(*args, n_nodes, n_bins)
+    hi, mid, lo = th.split_stats_reference(args[2])
+    assert torch.equal((hi.float() + mid.float()) + lo.float(), args[2])
+    on_card = [a.to(cuda) for a in args]
+    th.reset_launches()
+    got = {route: th.level_histogram_f32_route(*on_card, n_nodes, n_bins, route)
+           for route in ("dense", "page")}
+    got["picked"] = th.level_histogram(*on_card, n_nodes, n_bins)
+    torch.cuda.synchronize()
+    for route, h_out in got.items():
+        assert torch.equal(h_out.cpu(), want), (route, float((h_out.cpu() - want).abs().max()))
     assert th.LAUNCHES["level_histogram"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", kc.SKEWED_LEVELS)
+def test_stable_row_list_matches_the_plain_bucketing_on_card(cuda, kind):
+    """The page route's bucketing on the card (count per 1024-row block,
+    scan, one warp placing a block's rows in order) gives the plain
+    version's offsets and row list to the int: ascending rows within each
+    node, dead and zero-stat rows dropped, -1 past the live rows."""
+    rng = np.random.RandomState(SKEWED_SEEDS[kind])
+    L, n, n_nodes, kk = 3, 5000, 97, 2
+    local = kc.skewed_node_ids(kind, L, n, n_nodes, rng).astype(np.int32)
+    SC = (rng.randn(L, n, kk) * (rng.rand(L, n, 1) < 0.7)).astype(np.float32)
+    local, SC = torch.as_tensor(local).to(cuda), torch.as_tensor(SC).to(cuda)
+    th.reset_launches()
+    off, rows = th.bucket_rows_stable(local, n_nodes, SC)
+    want_off, want_rows = th.bucket_rows_reference(local, n_nodes, SC)
+    torch.cuda.synchronize()
+    assert torch.equal(off, want_off) and torch.equal(rows, want_rows)
+    assert th.LAUNCHES["level_histogram"] == 0
+
+
+SKEWED_SEEDS = {k: i for i, k in enumerate(kc.SKEWED_LEVELS)}
 
 
 @pytest.mark.gpu
