@@ -5,7 +5,12 @@
 Phases, one JSON line each; the first that fails ends the run with a
 non-zero exit and no result line. The three largest tables (covertype,
 config 5's and the KNN table) are staged from the start in a child
-process each, beside the build; a ``prestage`` line gives each wait:
+process each, beside the build; a ``prestage`` line gives each wait.
+The CPU sides of the card-vs-CPU checks up to the observability group run
+in one more child process (``CPU_SIDE``) while the card path goes on; their
+lines, and their failures, come at the ``cpu_side`` line before the
+scheduled group. Every phase line carries ``t_s``, its seconds since the
+start:
 
 1. env      torch / CUDA versions and the card (name, power limit).
 2. build    nvcc builds csrc/*.cu for sm_90a (seconds, ptxas report).
@@ -46,8 +51,9 @@ process each, beside the build; a ``prestage`` line gives each wait:
             rows, drawn and staged as benchmarks/scaling_curve.py does):
             deep arena, 4 chunks of 25 trees; kernel B4 must launch
             22 levels x 100 trees = 2,200 times.
-9. rf_full  the same estimator on the uncut covertype table (116,202
-            rows): 100 chunks of 1 tree, 2,400 launches of B4.
+9. rf_full  the same estimator cut to 25 trees (RF_FULL_TREES) on the
+            uncut covertype table (116,202 rows): 25 chunks of 1 tree, 600
+            launches of B4.
    rf_profile after each: one tree of the job under torch.profiler (wall,
             device-busy share, device time by kernel).
 10. rf_reference  two small RF searches, on the card and on the CPU (plain
@@ -65,11 +71,12 @@ process each, beside the build; a ``prestage`` line gives each wait:
             the params bit-equal to the kernel's without the loss; then a
             full Adam epoch (234 / 468 steps) with the loss timed beside
             the plain version and the bound, and without it.
-12. mlp_main  MLTaskManager() on the card trains BASELINE config 5, uncut:
-            RandomizedSearchCV(MLPClassifier(max_iter=30, random_state=0),
+12. mlp_main  MLTaskManager() on the card trains BASELINE config 5, its
+            30 epochs cut to 10 (MLP_MAIN_EPOCHS), widths uncut:
+            RandomizedSearchCV(MLPClassifier(max_iter=10, random_state=0),
             hidden_layer_sizes x learning_rate_init x alpha x batch_size,
             n_iter=100, cv=5, random_state=0) on synthetic_60000x784x10;
-            every trial finite, B5 launched 30 times per bucket chunk.
+            every trial finite, B5 launched 10 times per bucket chunk.
 13. mlp_reference  a small MLP search (4,096 rows) on the card and on the
             CPU (the plain version in f32): every mean_cv_score within 0.02,
             best_params_ equality reported.
@@ -95,7 +102,7 @@ process each, beside the build; a ``prestage`` line gives each wait:
             [uniform, distance]}, cv=5) on that table: 4 buckets, each
             49 query chunks of 4,096 rows; B6 must launch chunked_plan's
             count (196), all 4 trials finite.
-16. knn_reference  5,000-row classifier and regressor KNN grids on the
+16. knn_reference  2,000-row classifier and regressor KNN grids on the
             card and on the CPU, with CS230_FORCE_PACKED=1 (B6 on the
             card, its plain version on the CPU) and without (the generic
             path on both): mean_cv_score within 2e-3 (r2: 1e-4).
@@ -133,10 +140,10 @@ Then every scorer and the last families (slice 9):
 22. scored_main  bench.py's search cut to 256 trials with scoring=
             "neg_log_loss" on covertype: a scored job leaves the packed path
             (as in the reference), so one generic nesterov dispatch of 256 x
-            6 lanes launches B3 200 times and B1 / B2 never; then the same
-            job under CS230_MASKED_GRAD=xla: every mean_cv_score within
-            SCORED_MAIN_TOL, best_params_ equal unless the top two are that
-            close.
+            6 lanes launches B3 200 times and B1 / B2 never; then its first
+            64 trials under CS230_MASKED_GRAD=xla: every mean_cv_score
+            within SCORED_MAIN_TOL, best_params_ the best of those trials
+            in the kernel's run unless the top two are that close.
 23. scoring_reference  a scored GridSearchCV of every family (label,
             margin and probability scorers where the family has them; the
             transformers unscored) on the card and on the CPU, each within
@@ -150,15 +157,15 @@ Then every scorer and the last families (slice 9):
             benchmarks/model_matrix.py's row): the exact dual, 21 OvO
             machines x 6 lanes in one ascent; wall, the slowest lane's stop
             step, mean_cv_score beside the reference's recorded one; then
-            SVC card vs CPU on 3,000 rows.
+            SVC card vs CPU on 2,000 rows.
 25. svc_nystrom  SVC() on the uncut covertype table (benchmarks/
             svc_quality.py's point): the Nyström primal, 4,096 landmarks,
-            1,200 steps; wall and mean_cv_score; then the Nyström path
+            its 1,200 steps cut to 400; wall and mean_cv_score; then the Nyström path
             card vs CPU on 32,768 rows at 4,096 landmarks (NYSTROM_CUT).
 
 Then the winner artifact:
 
-26. artifacts  the winners of main_auto (LogReg), rf_full (RF-100 uncut),
+26. artifacts  the winners of main_auto (LogReg), rf_full (RF-25 uncut),
             gb_main, knn_main, mlp_main (config 5) and svc_matrix, each
             through manager.download_best_model (refitted once on the card
             on its holdout split's training rows, written as
@@ -202,9 +209,9 @@ Then adaptive search, the learning curves and the event stream, the
 30. asha_refit  download_best_model on asha_main: the winner refits at its
             final rung's 200 steps, B3 launched 200 times, never B1, B2, B5.
 31. hyperband_rf  RandomForestClassifier (random_state 42) over a 2 x 2
-            grid as a Hyperband search (eta 3, max_resource 9, n_iter 9) on
-            the uncut table: brackets of 5, 3 and 2 trials at 1, 3 and 9
-            trees; B4's int32 mode launched; every dispatch of more than one
+            grid as a Hyperband search (eta 3, max_resource 3, n_iter 9) on
+            the uncut table: two brackets, rungs of 1 and 3 trees; B4's
+            int32 mode launched; every dispatch of more than one
             tree (one tree a chunk there) carries a score-vs-chunk curve of
             one point a tree. Prints the brackets, the waves and the wall.
 32. asha_diverged  tests/test_telemetry_curves.py's diverging MLP job on
@@ -218,7 +225,7 @@ line (the group restores every env valve it sets):
 
 33. native_csv  the native CSV loader (native/, built with g++ at first
             use under the storage root; asserted built) parses covertype's
-            CSV and config 5's bit-equal to pandas; both parse times.
+            CSV bit-equal to pandas; both parse times.
 34. stage_cache  tools/job_ab.py's main_10 (bench.py's job at max_iter 10)
             twice: the second run uploads nothing (uploads_by_key
             unchanged) and scores to the bit as the first; covertype's X,
@@ -234,7 +241,7 @@ line (the group restores every env valve it sets):
             trial, best_params_ equal unless the top two are that close.
             Prints blocks, passes, uploads, bytes, the upload and wait
             seconds and the hidden fraction.
-36. stream_rf  RandomForestClassifier(n_estimators=8, max_depth=8,
+36. stream_rf  RandomForestClassifier(n_estimators=4, max_depth=8,
             random_state=42), cv 3 (complete trees, no chunked plan) on the
             uncut table under the same budget: strict single-shot raises;
             auto streams the bin codes, B4 launched splits x trees x depth
@@ -333,6 +340,22 @@ The valves group (the JAX package's last valves; budget 40 s):
             on the card against the same on the CPU, and one Nystrom SVC
             fit at a 32,000-row cut with and without the refinement.
 
+Then LogReg's packed path past the register-resident geometries, the
+"probes" group (slice 19; its tables staged from the start in one child
+process; see ``phase_probes``):
+
+48. probe_main  bench.py's search at 256 trials, max_iter 100, cv 5, on
+            synthetic_20000x384x10 (dpp 448, 10 classes): B1's wide form
+            launched 100 times, B2, the register-resident B1 and B3 never.
+49. probe_c100  128 trials, max_iter 50 on synthetic_20000x256x100: the
+            wide form's scratch split, 2 launches a call, 100 in all.
+50. probe_scored  16 trials, neg_log_loss, cv 3 on synthetic_8192x64x300:
+            B3 past 256 classes (the class-tiled pass (a)), 30 launches.
+51. probe_reference  128 trials, max_iter 20 on synthetic_4096x384x10, the
+            card (the wide form) against the CPU: within 2e-3.
+52. kernels_probe  the wide form at both probe shapes and B3 at
+            probe_scored's against their plain versions, timed.
+
 The stage_cache line carries the stage cache's stats of the run so far;
 stream_logreg empties the cache first (so that its single-shot run must
 upload), and the done line carries the stats since.
@@ -362,7 +385,8 @@ computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
 entries for asha_main, asha_refit and hyperband_rf, B4 one for
 stream_rf, B2 and B3 for rest_main and its refit, B2 for obs_main, the
 multi_device group's, and B1 dist2d_main, B3 dist2d_scored, B4, B5 and
-B6 dist2d_families, each with its launches a rank), the nvidia-smi line, and
+B6 dist2d_families, each with its launches a rank; B1's wide form and B3's
+class-tiled pass (a) on entries of their own), the nvidia-smi line, and
 the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
@@ -390,6 +414,7 @@ from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # n
     HIST_FLOAT_DEEP_SHAPES, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
     LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
     MASKED_SHAPES,
+    WIDE_SHAPES,
     MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_LOSS_LIMIT, MLP_SHAPES,
     deep_hist_inputs, digest, gb_hist_inputs, hist_inputs, hist_library_ms, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
@@ -464,7 +489,14 @@ def gc_since(before: list) -> dict:
     return {"gc_pause_s": [b - a for a, b in zip(before, GC_PAUSE_S)]}
 
 
+#: perf_counter at main()'s start: each phase line carries its seconds
+#: since then (``t_s``), the run's timeline
+T_START = []
+
+
 def emit(obj) -> None:
+    if T_START and "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T_START[0]}
     print(json.dumps(obj), flush=True)
 
 
@@ -501,11 +533,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+#: the packed-path probes' tables (slice 19), staged in one child process
+PROBE_TABLES = ("synthetic_20000x384x10,synthetic_20000x256x100,synthetic_8192x64x300,"
+                "synthetic_4096x384x10")
 #: the tables whose staging (a synthetic draw, a CSV write, the parse)
-#: runs from the start of the run in a child process each, beside the
-#: kernels' build; each phase that first reads one waits for its child and
-#: then loads the parsed sidecar the child wrote
-PRESTAGED = ("covertype", "synthetic_60000x784x10", KNN_DATASET)
+#: runs from the start of the run in a child process each (an entry may
+#: name several, comma-separated, staged in turn), beside the kernels'
+#: build; each phase that first reads one waits for its child and then
+#: loads the parsed sidecar the child wrote
+PRESTAGED = ("covertype", "synthetic_60000x784x10", KNN_DATASET, PROBE_TABLES)
 
 
 def prestage_start(storage: str) -> dict:
@@ -536,7 +572,8 @@ def prestage_child(storage: str, name: str) -> None:
     cfg = cfg_mod.FrameworkConfig.load()
     cfg.storage.root = storage
     cfg_mod.set_config(cfg)
-    DatasetCache(root=cfg.storage.datasets_dir).get(name, "classification")
+    for table in name.split(","):
+        DatasetCache(root=cfg.storage.datasets_dir).get(table, "classification")
 
 
 def prestage_wait(procs: dict, name: str) -> None:
@@ -544,6 +581,108 @@ def prestage_wait(procs: dict, name: str) -> None:
     rc = procs[name].wait()
     assert rc == 0, f"staging {name} in a child process failed (rc {rc})"
     emit({"phase": "prestage", "dataset": name, "waited_s": time.perf_counter() - t0})
+
+
+# ------------------------------------- the CPU sides of card-vs-CPU checks
+
+def _cpu_side_init(storage_root: str) -> None:
+    """In the CPU-side process: no card, the smoke's storage root. Torch
+    keeps its default threads: at 4 of 8, the packed LogReg search of
+    ``reference`` ran over 40x slower on the CPU (past 900 s on an H100
+    machine's host, 20 s in line)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    cfg = cfg_mod.FrameworkConfig.load()
+    cfg.storage.root = storage_root
+    cfg_mod.set_config(cfg)
+
+
+def _cpu_side_train(search: dict, dataset: str, env: dict) -> tuple:
+    """One search through MLTaskManager(device="cpu") under ``env`` (the
+    kernels' plain versions): (its status, seconds)."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        status = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                   timeout=900)
+        return status, time.perf_counter() - t0
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+class CpuSide:
+    """The CPU sides of the card-vs-CPU searches in one child process, run
+    while the card path goes on: a phase runs its card side, hands the CPU
+    side here (``train``) with the check that compares the two (``then``),
+    and every check runs, and fails the run, at ``drain``, before the groups
+    that start processes of their own. In line, the CPU sides took 157 s of
+    an 819 s run on an H100 machine's host, and a slower host
+    stretches them most. Each search's dataset is staged by its card side
+    first, so the two processes never write one file. Not started (a phase
+    run alone), the CPU sides run in line."""
+
+    def __init__(self):
+        self.pool = None
+        self.pending = []
+        self.cpu_s = 0.0
+
+    def start(self, storage_root: str) -> None:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"), initializer=_cpu_side_init,
+            initargs=(storage_root,))
+        atexit.register(self.stop)
+
+    def submit(self, fn, *args):
+        """A future of ``fn(*args)``: (a result, seconds)."""
+        from concurrent.futures import Future
+
+        if self.pool is not None:
+            return self.pool.submit(fn, *args)
+        done = Future()
+        done.set_result(fn(*args))
+        return done
+
+    def train(self, search: dict, dataset: str, env=None):
+        """A future of _cpu_side_train's (status, seconds)."""
+        return self.submit(_cpu_side_train, search, dataset, dict(env or {}))
+
+    def then(self, future, check) -> None:
+        """Run ``check(result, seconds)`` on the future's result at drain."""
+        self.pending.append((future, check))
+
+    def drain(self) -> None:
+        t0 = time.perf_counter()
+        n = len(self.pending)
+        try:
+            while self.pending:
+                future, check = self.pending.pop(0)
+                result, seconds = future.result()
+                self.cpu_s += seconds
+                check(result, seconds)
+        finally:
+            self.stop()
+        emit({"phase": "cpu_side", "checks": n, "cpu_s": self.cpu_s, "waited_s": time.perf_counter() - t0})
+
+    def stop(self) -> None:
+        if self.pool is None:
+            return
+        procs = list((getattr(self.pool, "_processes", None) or {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        self.pool = None
+
+
+CPU_SIDE = CpuSide()
 
 
 # ---------------------------------------------------------------- phases
@@ -602,6 +741,17 @@ def phase_build() -> None:
         assert lib.logreg_step_smem_bytes(64 * mt, n1) == lay["total"], (n1, mt)
         assert lib.logreg_step_stages(64 * mt, n1) == lay["stages"], (n1, mt)
     assert not lib.logreg_step_geometry_ok(112, 16, 1)
+    # B1's wide form and B3 past 256 classes: the plans mirrored
+    assert lib.logreg_masked_plan(8192, 128, 304, 64, plan) == 1
+    assert list(plan) == [cuda_logreg.masked_plan(8192, 128, 304, 64)[k]
+                          for k in cuda_logreg.MASKED_PLAN_FIELDS]
+    wide = (ctypes.c_longlong * len(cuda_logreg.WIDE_PLAN_FIELDS))()
+    for shape in (*WIDE_SHAPES.values(), PROBE_REFERENCE_SHAPE, (116_736, 64, 7, 6, 8),
+                  (16_384, 64, 1000, 1, 1)):
+        assert lib.logreg_wide_plan(*shape, cuda_logreg.TRIAL_BLOCK, wide) == 1, shape
+        mirror = cuda_logreg.wide_plan(*shape)
+        assert list(wide) == [mirror[k] for k in cuda_logreg.WIDE_PLAN_FIELDS], shape
+    assert lib.logreg_wide_plan(2048, 576, 10, 6, 1, cuda_logreg.TRIAL_BLOCK, wide) == 0
     for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
     for args in ((6, 116_202, 1536, 767), (6, 11_620, 128, 127), (1, 5, 1, 1)):
@@ -644,10 +794,9 @@ def phase_kernels(dev) -> dict:
     n_pad, dpp, c, S, _ = LOGREG_SHAPE
     t = LOGREG_STEP_T
     rows = {}
-    # 1 block (asha_main's final wave), 2 (rest_main's 256-trial pulls), 8
-    # 1 block (asha_main's final wave), 2 (rest_main's 256-trial pulls), 4
-    # (a rank's shard in dist_main), 8
-    for n_wb in sorted({1, REST_BLOCKS, DIST_BLOCKS, LOGREG_SHAPE[4]}):
+    # 1 block (asha_main's final wave, a rank's shard in dist_main), 2
+    # (rest_main's 256-trial pulls), 8
+    for n_wb in sorted({1, REST_BLOCKS, DIST_MAIN_BLOCKS, LOGREG_SHAPE[4]}):
         Ab, W, Wp, y2, WSP, done, step, Cb, maxit, pen = logreg_inputs(
             gen, dev, n_pad, dpp, c, S, n_wb)
         rows[("packed_softmax_grad", n_wb)] = packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb)
@@ -1033,23 +1182,22 @@ def phase_wide(manager) -> None:
 
 def phase_reference(manager) -> None:
     """A small search on the card vs the same search on the CPU through
-    the kernels' plain versions."""
-    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
-
+    the kernels' plain versions (in CPU_SIDE)."""
     search = _search(16, 50, 5)
     gpu = manager.train(search, "synthetic_5000x54x7", {"random_state": 42}, timeout=900)
-    os.environ["CS230_FORCE_PACKED"] = "1"  # the CPU takes the packed path too
-    try:
-        cpu = MLTaskManager(device="cpu").train(
-            search, "synthetic_5000x54x7", {"random_state": 42}, timeout=900)
-    finally:
-        del os.environ["CS230_FORCE_PACKED"]
-    g, c = _scores(gpu), _scores(cpu)
-    worst = max(abs(g[k] - c[k]) for k in g)
-    assert g.keys() == c.keys() and worst <= 2e-3, f"card vs CPU differ by {worst}"
-    emit({"phase": "reference", "trials": len(g), "max_mean_cv_diff": worst,
-          "best_params_equal": gpu["job_result"]["best_result"]["search_params"]
-          == cpu["job_result"]["best_result"]["search_params"]})
+
+    def check(cpu, t_cpu):
+        g, c = _scores(gpu), _scores(cpu)
+        worst = max(abs(g[k] - c[k]) for k in g)
+        assert g.keys() == c.keys() and worst <= 2e-3, f"card vs CPU differ by {worst}"
+        emit({"phase": "reference", "trials": len(g), "max_mean_cv_diff": worst,
+              "cpu_wall_s": t_cpu,
+              "best_params_equal": gpu["job_result"]["best_result"]["search_params"]
+              == cpu["job_result"]["best_result"]["search_params"]})
+
+    # the CPU takes the packed path too
+    CPU_SIDE.then(CPU_SIDE.train(search, "synthetic_5000x54x7", {"CS230_FORCE_PACKED": "1"}),
+                  check)
 
 
 def _forest(n_estimators: int, random_state: int = 42) -> dict:
@@ -1190,17 +1338,22 @@ def phase_rf_profile(manager, dataset: str) -> None:
                   for e in top]})
 
 
+#: rf_full's trees: RF-100 cut to 25 for the smoke's time (the forest's
+#: host work a level is the same at every tree; its refit, 26.6 s at 100
+#: trees on a slow host, is cut with it)
+RF_FULL_TREES = 25
+
+
 def phase_rf_full(manager) -> None:
-    """The same job on the uncut covertype table."""
-    _, plan = _rf_train(manager, "rf_full", "covertype", 100)
-    assert plan and plan["n_chunks"] == 100, plan
+    """The same forest at RF_FULL_TREES on the uncut covertype table."""
+    _, plan = _rf_train(manager, "rf_full", "covertype", RF_FULL_TREES)
+    assert plan and plan["n_chunks"] == RF_FULL_TREES, plan
 
 
 def phase_rf_reference(manager) -> None:
     """Two small RF searches on the card and on the CPU (plain versions):
     the complete builder on iris and the chunked deep arena on 3,000
     synthetic rows. best_params_ equal, every mean_cv_score within 1e-6."""
-    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_hist as H
 
     def grid(n_estimators, random_state):
@@ -1211,33 +1364,36 @@ def phase_rf_reference(manager) -> None:
     cases = (("iris", grid([10, 20], 0), None),
              ("synthetic_3000x20x3", grid([3, 5], 1), "5e10"))
     for dataset, search, chunk_macs in cases:
-        if chunk_macs:
-            os.environ["CS230_TREE_CHUNK_MACS"] = chunk_macs
+        env = {"CS230_TREE_CHUNK_MACS": chunk_macs} if chunk_macs else {}
+        os.environ.update(env)
         try:
             H.reset_launches()
             t0 = time.perf_counter()
             gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
             t_gpu = time.perf_counter() - t0
             launches = H.LAUNCHES["level_histogram"]
-            cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
-                                                    timeout=900)
         finally:
             os.environ.pop("CS230_TREE_CHUNK_MACS", None)
-        g, c = _scores(gpu), _scores(cpu)
-        assert g.keys() == c.keys() and len(g) == 2, (g, c)
-        worst = max(abs(g[k] - c[k]) for k in g)
-        same = (gpu["job_result"]["best_result"]["search_params"]
-                == cpu["job_result"]["best_result"]["search_params"])
         # one launch per tree level (all lanes at once), one feature group here
         trees = sum(search["param_grid"]["n_estimators"])
         _, _, static = _forest_bucket(manager, dataset, trees)
         per_tree = static["_levels"] if static.get("_deep") else static["_depth"]
-        emit({"phase": "rf_reference", "dataset": dataset, "trials": len(g),
-              "card_wall_s": t_gpu, "launches": launches, "launches_per_tree": launches / trees,
-              "levels_per_tree": per_tree, "max_mean_cv_diff": worst,
-              "best_params_equal": same, "scores": g})
-        assert worst <= 1e-6 and same, f"rf_reference {dataset}: card vs CPU {worst}"
         assert launches == per_tree * trees, f"rf_reference {dataset}: {launches} launches"
+
+        def check(cpu, t_cpu, gpu=gpu, dataset=dataset, t_gpu=t_gpu, launches=launches,
+                  trees=trees, per_tree=per_tree):
+            g, c = _scores(gpu), _scores(cpu)
+            assert g.keys() == c.keys() and len(g) == 2, (g, c)
+            worst = max(abs(g[k] - c[k]) for k in g)
+            same = (gpu["job_result"]["best_result"]["search_params"]
+                    == cpu["job_result"]["best_result"]["search_params"])
+            emit({"phase": "rf_reference", "dataset": dataset, "trials": len(g),
+                  "card_wall_s": t_gpu, "cpu_wall_s": t_cpu, "launches": launches,
+                  "launches_per_tree": launches / trees, "levels_per_tree": per_tree,
+                  "max_mean_cv_diff": worst, "best_params_equal": same, "scores": g})
+            assert worst <= 1e-6 and same, f"rf_reference {dataset}: card vs CPU {worst}"
+
+        CPU_SIDE.then(CPU_SIDE.train(search, dataset, env), check)
 
 
 def phase_kernels_mlp(dev) -> dict:
@@ -1346,9 +1502,14 @@ def _mlp_expected_launches(space, n_iter, epochs) -> tuple:
     return epochs * chunks, {f"{k[0]}/{k[1]}": v for k, v in sorted(buckets.items())}
 
 
+#: mlp_main's epochs: BASELINE config 5's 30 cut to 10 for the smoke's
+#: time (its 100 trials, widths and batch sizes uncut)
+MLP_MAIN_EPOCHS = 10
+
+
 def phase_mlp_main(manager) -> int:
-    """BASELINE config 5 through the manager, uncut: 100 trials, B5's
-    launches zeroed before and read after."""
+    """BASELINE config 5 through the manager at MLP_MAIN_EPOCHS: 100 trials,
+    B5's launches zeroed before and read after."""
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     dataset = "synthetic_60000x784x10"
@@ -1356,10 +1517,10 @@ def phase_mlp_main(manager) -> int:
     data = manager._coordinator.cache.get(dataset, "classification")
     assert data.X.shape == (60_000, 784) and data.n_classes == 10, data.X.shape
     emit({"phase": "mlp_data", "dataset": dataset, "seconds": time.perf_counter() - t0})
-    expected, buckets = _mlp_expected_launches(CONFIG5_SPACE, 100, 30)
+    expected, buckets = _mlp_expected_launches(CONFIG5_SPACE, 100, MLP_MAIN_EPOCHS)
     M.reset_launches()
     t0 = time.perf_counter()
-    status = manager.train(_mlp_search(CONFIG5_SPACE, 100, 30), dataset,
+    status = manager.train(_mlp_search(CONFIG5_SPACE, 100, MLP_MAIN_EPOCHS), dataset,
                            {"random_state": 42}, timeout=1200)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1384,7 +1545,6 @@ def phase_mlp_reference(manager) -> None:
     """A small MLP search on the card (B5, bf16) and on the CPU (the plain
     version, f32, forced onto the fused path): every mean_cv_score within
     MLP_SEARCH_TOL."""
-    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     space = {"hidden_layer_sizes": [[32], [64, 32]], "learning_rate_init": [1e-3, 1e-2],
@@ -1396,22 +1556,21 @@ def phase_mlp_reference(manager) -> None:
     gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
     t_gpu = time.perf_counter() - t0
     launches = M.LAUNCHES["mlp_epoch"]
-    os.environ["CS230_FORCE_PACKED"] = "1"
-    try:
-        cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
-                                                timeout=900)
-    finally:
-        del os.environ["CS230_FORCE_PACKED"]
-    g, c = _scores(gpu), _scores(cpu)
-    assert g.keys() == c.keys() and len(g) == 4, (g, c)
-    worst = max(abs(g[k] - c[k]) for k in g)
-    same = (gpu["job_result"]["best_result"]["search_params"]
-            == cpu["job_result"]["best_result"]["search_params"])
-    emit({"phase": "mlp_reference", "dataset": dataset, "trials": len(g),
-          "card_wall_s": t_gpu, "launches": launches, "max_mean_cv_diff": worst,
-          "best_params_equal": same, "scores": g, "cpu_scores": c})
     assert launches == 2 * 3, f"mlp_reference: {launches} B5 launches, expected 6"
-    assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
+
+    def check(cpu, t_cpu):
+        g, c = _scores(gpu), _scores(cpu)
+        assert g.keys() == c.keys() and len(g) == 4, (g, c)
+        worst = max(abs(g[k] - c[k]) for k in g)
+        same = (gpu["job_result"]["best_result"]["search_params"]
+                == cpu["job_result"]["best_result"]["search_params"])
+        emit({"phase": "mlp_reference", "dataset": dataset, "trials": len(g),
+              "card_wall_s": t_gpu, "cpu_wall_s": t_cpu, "launches": launches,
+              "max_mean_cv_diff": worst, "best_params_equal": same, "scores": g,
+              "cpu_scores": c})
+        assert worst <= MLP_SEARCH_TOL, f"mlp_reference: card vs CPU {worst}"
+
+    CPU_SIDE.then(CPU_SIDE.train(search, dataset, {"CS230_FORCE_PACKED": "1"}), check)
 
 #: wide_full: a full-size 784-feature LogReg search on config 5's table
 WIDE_FULL_DATASET = "synthetic_60000x784x10"
@@ -1672,16 +1831,16 @@ def phase_knn_main(manager) -> int:
 
 
 def phase_knn_reference(manager) -> None:
-    """Small KNN searches (5,000 rows) on the card and on the CPU: a
+    """Small KNN searches (2,000 rows: the CPU side's distances grow with
+    the square of the rows, 35 s at 5,000) on the card and on the CPU: a
     classifier grid (k 1, 5, 25 x both weights) and a regressor grid, once
     under CS230_FORCE_PACKED=1 (the card launches B6, the CPU runs its
     plain version) and once without (both take the generic path). Every
     mean_cv_score within KNN_SEARCH_TOL; best_params_ equal unless the
     CPU's top two trials are within the tolerance (then reported)."""
-    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_knn as K
 
-    dataset = "synthetic_5000x54x7"
+    dataset = "synthetic_2000x54x7"
     cases = (("KNeighborsClassifier", "classification",
               {"n_neighbors": [1, 5, 25], "weights": ["uniform", "distance"]}),
              ("KNeighborsRegressor", "regression",
@@ -1689,39 +1848,41 @@ def phase_knn_reference(manager) -> None:
     for forced in (True, False):
         for model_type, task, grid in cases:
             search = _knn_search(model_type, grid)
-            if forced:
-                os.environ["CS230_FORCE_PACKED"] = "1"
+            env = {"CS230_FORCE_PACKED": "1"} if forced else {}
+            os.environ.update(env)
             try:
                 K.reset_launches()
                 t0 = time.perf_counter()
                 gpu = manager.train(search, dataset, {"random_state": 42}, timeout=900)
                 t_gpu = time.perf_counter() - t0
                 launches = K.LAUNCHES["knn_topk"]
-                t0 = time.perf_counter()
-                cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
-                                                        timeout=900)
-                t_cpu = time.perf_counter() - t0
             finally:
                 os.environ.pop("CS230_FORCE_PACKED", None)
-            assert not gpu["job_result"]["failed"] and not cpu["job_result"]["failed"]
-            g, c = _scores(gpu), _scores(cpu)
+            assert not gpu["job_result"]["failed"], gpu["job_result"]["failed"][:1]
             n_trials = len(grid["n_neighbors"]) * len(grid["weights"])
-            assert g.keys() == c.keys() and len(g) == n_trials, (g, c)
-            worst = max(abs(g[k] - c[k]) for k in g)
-            tol = KNN_SEARCH_TOL[task]
-            same = (gpu["job_result"]["best_result"]["search_params"]
-                    == cpu["job_result"]["best_result"]["search_params"])
-            top = sorted(c.values(), reverse=True)[:2]
-            emit({"phase": "knn_reference", "model": model_type, "forced_kernel": forced,
-                  "dataset": dataset, "trials": len(g), "card_wall_s": t_gpu,
-                  "cpu_wall_s": t_cpu, "launches": launches, "max_mean_cv_diff": worst,
-                  "tolerance": tol, "best_params_equal": same,
-                  "cpu_top_two_within_tolerance": top[0] - top[1] <= tol, "scores": g,
-                  "cpu_scores": c})
-            assert worst <= tol, f"knn_reference {model_type}: card vs CPU {worst}"
-            assert same or top[0] - top[1] <= tol, f"knn_reference {model_type}: best differs"
             # one launch a bucket when forced (no bucket is chunked at this size)
             assert launches == (n_trials if forced else 0), f"knn_reference: {launches}"
+
+            def check(cpu, t_cpu, gpu=gpu, model_type=model_type, task=task, forced=forced,
+                      t_gpu=t_gpu, launches=launches, n_trials=n_trials):
+                assert not cpu["job_result"]["failed"], cpu["job_result"]["failed"][:1]
+                g, c = _scores(gpu), _scores(cpu)
+                assert g.keys() == c.keys() and len(g) == n_trials, (g, c)
+                worst = max(abs(g[k] - c[k]) for k in g)
+                tol = KNN_SEARCH_TOL[task]
+                same = (gpu["job_result"]["best_result"]["search_params"]
+                        == cpu["job_result"]["best_result"]["search_params"])
+                top = sorted(c.values(), reverse=True)[:2]
+                emit({"phase": "knn_reference", "model": model_type, "forced_kernel": forced,
+                      "dataset": dataset, "trials": len(g), "card_wall_s": t_gpu,
+                      "cpu_wall_s": t_cpu, "launches": launches, "max_mean_cv_diff": worst,
+                      "tolerance": tol, "best_params_equal": same,
+                      "cpu_top_two_within_tolerance": top[0] - top[1] <= tol, "scores": g,
+                      "cpu_scores": c})
+                assert worst <= tol, f"knn_reference {model_type}: card vs CPU {worst}"
+                assert same or top[0] - top[1] <= tol, f"knn_reference {model_type}: best differs"
+
+            CPU_SIDE.then(CPU_SIDE.train(search, dataset, env), check)
 
 
 # ------------------------------------------------ tree families (slice 8)
@@ -1777,12 +1938,10 @@ def _buckets(search: dict):
 def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
                  env=None, **extra) -> tuple:
     """One search on the card, every launch count zeroed just before and read
-    just after, then on the CPU (plain versions). Every mean_cv_score within
-    ``tol`` and best_params_ equal unless the CPU's top two trials are that
-    close. Returns (the card's scores, every kernel's launches in the card's
-    run)."""
-    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
-
+    just after; the same search on the CPU (plain versions) in CPU_SIDE.
+    Checked there: every mean_cv_score within ``tol`` and best_params_ equal
+    unless the CPU's top two trials are that close. Returns (the card's
+    scores, every kernel's launches in the card's run)."""
     os.environ.update(env or {})
     try:
         reset_all_launches()
@@ -1791,31 +1950,35 @@ def _card_vs_cpu(manager, phase: str, search: dict, dataset: str, tol: float,
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         kernel_launches = all_launches()
-        t0 = time.perf_counter()
-        cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
-                                                timeout=900)
-        t_cpu = time.perf_counter() - t0
     finally:
         for k in env or {}:
             os.environ.pop(k, None)
-    for status in (gpu, cpu):
-        assert status["job_status"] == "completed", status
-        assert not status["job_result"]["failed"], status["job_result"]["failed"][:1]
-    g, c = _scores(gpu), _scores(cpu)
-    assert g.keys() == c.keys() and len(g) == len(list(_buckets(search))), (g, c)
+    assert gpu["job_status"] == "completed", gpu
+    assert not gpu["job_result"]["failed"], gpu["job_result"]["failed"][:1]
+    g = _scores(gpu)
+    assert len(g) == len(list(_buckets(search))), g
     assert all(math.isfinite(v) for v in g.values()), g
-    worst = max(abs(g[k] - c[k]) for k in g)
-    same = (gpu["job_result"]["best_result"]["search_params"]
-            == cpu["job_result"]["best_result"]["search_params"])
-    top = sorted(c.values(), reverse=True)[:2]
-    close = len(top) == 2 and top[0] - top[1] <= tol
-    emit({"phase": phase, "model": search["model_type"], "dataset": dataset, "trials": len(g),
-          "card_wall_s": t_gpu, "cpu_wall_s": t_cpu,
-          "launches": kernel_launches["level_histogram"], "kernel_launches": kernel_launches,
-          "max_mean_cv_diff": worst, "tolerance": tol, "best_params_equal": same,
-          "cpu_top_two_within_tolerance": close, "scores": g, "cpu_scores": c, **extra})
-    assert worst <= tol, f"{phase} {search['model_type']}: card vs CPU {worst}"
-    assert same or close, f"{phase} {search['model_type']}: best_params_ differ"
+
+    def check(cpu, t_cpu):
+        assert cpu["job_status"] == "completed", cpu
+        assert not cpu["job_result"]["failed"], cpu["job_result"]["failed"][:1]
+        c = _scores(cpu)
+        assert g.keys() == c.keys(), (g, c)
+        worst = max(abs(g[k] - c[k]) for k in g)
+        same = (gpu["job_result"]["best_result"]["search_params"]
+                == cpu["job_result"]["best_result"]["search_params"])
+        top = sorted(c.values(), reverse=True)[:2]
+        close = len(top) == 2 and top[0] - top[1] <= tol
+        emit({"phase": phase, "model": search["model_type"], "dataset": dataset,
+              "trials": len(g), "card_wall_s": t_gpu, "cpu_wall_s": t_cpu,
+              "launches": kernel_launches["level_histogram"],
+              "kernel_launches": kernel_launches, "max_mean_cv_diff": worst, "tolerance": tol,
+              "best_params_equal": same, "cpu_top_two_within_tolerance": close, "scores": g,
+              "cpu_scores": c, **extra})
+        assert worst <= tol, f"{phase} {search['model_type']}: card vs CPU {worst}"
+        assert same or close, f"{phase} {search['model_type']}: best_params_ differ"
+
+    CPU_SIDE.then(CPU_SIDE.train(search, dataset, env), check)
     return g, kernel_launches
 
 
@@ -1974,13 +2137,15 @@ def phase_gb_main(manager) -> int:
 def phase_gb_reference(manager, cfg) -> None:
     """Boosting on the card and on the CPU on a 3,000-row covertype draw:
     a classifier grid through _run_chunked (CS230_TREE_CHUNK_MACS lowered
-    to 1e11: 3 chunks of 2 stages) and a regressor grid unchunked, both
-    with subsample 0.8 among the trials; then one stage of each family on
-    both devices from the same raw scores (``gb_stage_check``)."""
+    to 1e11: 3 chunks of 2 stages) and a regressor grid unchunked at 10
+    stages (its CPU side, 23 s at 20 stages on a slow host, is the
+    smoke's margin to its time limit), both with subsample 0.8 among the
+    trials; then one stage of each family on both devices from the same
+    raw scores (``gb_stage_check``)."""
     did, n = stage_fraction(cfg, 0.0, rows=3000)
     grid = {"learning_rate": [0.1, 0.3], "subsample": [1.0, 0.8]}
     cases = (("GradientBoostingClassifier", "classification", 6, "1e11"),
-             ("GradientBoostingRegressor", "regression", 20, None))
+             ("GradientBoostingRegressor", "regression", 10, None))
     for model_type, task, stages, chunk_macs in cases:
         search = _grid_search(model_type, grid, {"n_estimators": stages, "random_state": 0})
         data = manager._coordinator.cache.get(did, task)
@@ -2125,6 +2290,10 @@ SCORED_MAIN_STEPS = 200
 SCORED_MAIN_SCORER = "neg_log_loss"
 #: kernel vs xla on scored_main: the bf16 residual bound of wide_full
 SCORED_MAIN_TOL = 2e-3
+#: scored_main's xla check runs the sampler's first 64 of its 256 trials
+#: (the same draws: the sampler draws in order, and a lane's fit is its
+#: own), 10.2 s of torch ops at 256 on a slow host
+SCORED_XLA_TRIALS = 64
 #: card vs CPU limits of the scored searches (PERF.md section 2)
 SCORED_TOL = {"LogisticRegression": 2e-3, "RandomForestClassifier": 1e-6,
               "DecisionTreeClassifier": 1e-6, "GaussianNB": 2e-3,
@@ -2134,7 +2303,8 @@ SCORED_TOL = {"LogisticRegression": 2e-3, "RandomForestClassifier": 1e-6,
               "transform": 1e-5}
 #: the kernels a scored job must never launch: the packed and fused paths
 #: score by the default metric only (B1, B2, B5)
-DEFAULT_ONLY_KERNELS = ("packed_softmax_grad", "packed_nesterov_step", "mlp_epoch")
+DEFAULT_ONLY_KERNELS = ("packed_softmax_grad", "packed_softmax_grad_wide", "packed_nesterov_step",
+                        "mlp_epoch")
 
 
 def _kernel_modules():
@@ -2170,15 +2340,16 @@ def phase_scored_main(manager) -> int:
     random_state=0, scoring="neg_log_loss") on covertype. A scored job
     leaves the packed path (as in the reference), so it runs the generic
     nesterov driver: one dispatch of 256 x 6 lanes, B3 launched once a
-    solver step (200) at 1,536 lanes, and B1 / B2 never. Then the same job
-    under CS230_MASKED_GRAD=xla (torch ops on the card): every
-    mean_cv_score within SCORED_MAIN_TOL, best_params_ equal unless the
-    top two are that close."""
+    solver step (200) at 1,536 lanes, and B1 / B2 never. Then its first
+    SCORED_XLA_TRIALS trials under CS230_MASKED_GRAD=xla (torch ops on the
+    card): every mean_cv_score within SCORED_MAIN_TOL of the same trial's,
+    best_params_ equal to the best of those trials in the kernel's run
+    unless the top two are that close."""
     torch.cuda.empty_cache()
-    search = _scored(_search(SCORED_MAIN_TRIALS, SCORED_MAIN_STEPS, 5), SCORED_MAIN_SCORER)
     runs = {}
     gc_paused = {}
-    for mode in ("auto", "xla"):
+    for mode, trials in (("auto", SCORED_MAIN_TRIALS), ("xla", SCORED_XLA_TRIALS)):
+        search = _scored(_search(trials, SCORED_MAIN_STEPS, 5), SCORED_MAIN_SCORER)
         os.environ["CS230_MASKED_GRAD"] = mode
         try:
             reset_all_launches()
@@ -2196,20 +2367,22 @@ def phase_scored_main(manager) -> int:
         assert status["job_status"] == "completed", status
         res = status["job_result"]
         assert not res["failed"], res["failed"][:1]
-        assert len(res["results"]) == SCORED_MAIN_TRIALS, len(res["results"])
+        assert len(res["results"]) == trials, len(res["results"])
         assert all(r["scoring"] == SCORED_MAIN_SCORER for r in res["results"])
         scores = [r["mean_cv_score"] for r in res["results"]]
         assert all(math.isfinite(v) and v <= 0.0 for v in scores), scores[:5]
         runs[mode] = (status, wall, launches)
         torch.cuda.empty_cache()
     a, b = _scores(runs["auto"][0]), _scores(runs["xla"][0])
-    assert a.keys() == b.keys()
-    worst = max(abs(a[k] - b[k]) for k in a)
+    assert set(b) <= set(a), "the xla run's trials are not the first of the kernel's"
+    worst = max(abs(a[k] - b[k]) for k in b)
     best = {m: runs[m][0]["job_result"]["best_result"] for m in runs}
-    same = best["auto"]["search_params"] == best["xla"]["search_params"]
+    same = (json.dumps(best["xla"]["search_params"], sort_keys=True)
+            == max(b, key=lambda k: a[k]))
     top = sorted(b.values(), reverse=True)[:2]
     close = top[0] - top[1] <= SCORED_MAIN_TOL
     emit({"phase": "scored_main", "scoring": SCORED_MAIN_SCORER, "trials": len(a),
+          "xla_trials": len(b),
           "wall_s": runs["auto"][1], "gc_pause_s": gc_paused["auto"],
           "launches": runs["auto"][2], "xla_wall_s": runs["xla"][1],
           "xla_gc_pause_s": gc_paused["xla"], "xla_launches": runs["xla"][2],
@@ -2237,12 +2410,13 @@ FORCE_B6 = {"CS230_FORCE_PACKED": "1"}
 B4 = "level_histogram"
 
 
-def _scoring_cases(cls, binary, reg):
+def _scoring_cases(cls, binary, reg, reg_svr):
     """(model, dataset, grid, base, scorers, the kernel the card's run must
     launch (None: none), env) of scoring_reference: a label, a margin and a
     probability scorer for each family with that output; KNN has labels
     only, SVC no probabilities, the regressors the regression scorers; the
-    transformers take no scorer."""
+    transformers take no scorer. SVR fits the 1,000-row regression table
+    (``reg_svr``): its CPU side's dual took 16-27 s at 3,000 rows."""
     lr = {"C": [0.1, 1.0]}
     rf = ({"min_samples_leaf": [1, 5]}, {"n_estimators": 10, "max_depth": 6, "random_state": 0})
     dt = ({"max_depth": [4, 8]}, {"random_state": 0})
@@ -2275,7 +2449,7 @@ def _scoring_cases(cls, binary, reg):
         ("Ridge", reg, {"alpha": [0.1, 10.0]}, {}, ("explained_variance",), None, {}),
         ("SVC", "iris", {"C": [0.5, 2.0]}, {}, ("balanced_accuracy",), None, {}),
         ("SVC", binary, {"C": [0.5, 2.0]}, {}, ("roc_auc",), None, {}),
-        ("SVR", reg, {"epsilon": [0.05, 0.2]}, {}, ("neg_root_mean_squared_error",), None, {}),
+        ("SVR", reg_svr, {"epsilon": [0.05, 0.2]}, {}, ("neg_root_mean_squared_error",), None, {}),
         ("PCA", cls, {"n_components": [2, 5]}, {}, (None,), None, {}),
         ("StandardScaler", cls, {"with_mean": [True, False]}, {}, (None,), None, {}),
         ("MinMaxScaler", cls, {"clip": [True, False]}, {}, (None,), None, {}),
@@ -2299,7 +2473,8 @@ def phase_scoring_reference(manager, cfg) -> None:
 
     cls, binary, reg = "synthetic_5000x54x7", "synthetic_2000x20x2", stage_regression(cfg)
     searches = 0
-    for model, dataset, grid, base, scorers, kernel, env in _scoring_cases(cls, binary, reg):
+    cases = _scoring_cases(cls, binary, reg, stage_regression(cfg, n=1000))
+    for model, dataset, grid, base, scorers, kernel, env in cases:
         task = get_kernel(model).task
         tol = SCORED_TOL["transform" if task == "transform" else model]
         for scoring in scorers:
@@ -2342,8 +2517,8 @@ def phase_svc_matrix(manager, cfg) -> None:
     staged it; benchmarks/model_matrix.py's draw): the exact dual, 21 OvO
     machines x 6 lanes in one ascent. Wall, the step at which the slowest
     lane stopped and mean_cv_score beside the reference's recorded one;
-    then SVC card vs CPU on 3,000 rows of the same permutation, also on the
-    exact path."""
+    then SVC card vs CPU on 2,000 rows of the same permutation, also on the
+    exact path (the CPU side's dual took 13 s at 3,000 rows)."""
     from cs230_distributed_machine_learning_tpu_torch.models import svm
 
     torch.cuda.empty_cache()
@@ -2366,7 +2541,7 @@ def phase_svc_matrix(manager, cfg) -> None:
           "reference_mean_cv_score": reference_cv("SVC"),
           "cv_scores": best["cv_scores"], "accuracy": best["accuracy"]})
     assert stops["ascents"] == 1  # one ascent: every machine of the 6 lanes
-    cut, rows = stage_fraction(cfg, 0.0, rows=3000)
+    cut, rows = stage_fraction(cfg, 0.0, rows=2000)
     _card_vs_cpu(manager, "svc_matrix", _grid_search("SVC", {"C": [1.0]}, {}), cut,
                  SCORED_TOL["SVC"], rows=rows)
 
@@ -2374,33 +2549,43 @@ def phase_svc_matrix(manager, cfg) -> None:
 #: svc_nystrom's card-vs-CPU cut: rows of the covertype permutation past
 #: _MAX_N (so the Nyström path runs), the uncut fit's 4,096 landmarks (the
 #: width of its feature map; the default at these rows would be 2,048),
-#: cv 2, and 50 of its 1,200 steps: the CPU side's primal products grow
+#: cv 2, and 20 of its 1,200 steps: the CPU side's primal products grow
 #: with all three (at 300 steps the CPU side took 78 s on the 8 host cores
-#: of an H100 machine, at 100 steps 49.2 s)
+#: of an H100 machine, at 100 steps 49.2 s, at 50 18.7 s on a faster host)
 NYSTROM_CUT = {"rows": 32_768, "cv": 2,
-               "env": {"CS230_SVM_NYSTROM_M": "4096", "CS230_SVM_NYSTROM_STEPS": "50"}}
+               "env": {"CS230_SVM_NYSTROM_M": "4096", "CS230_SVM_NYSTROM_STEPS": "20"}}
+
+
+#: svc_nystrom's uncut fit: benchmarks/svc_quality.py's 1,200 Nesterov
+#: steps cut to 400 for the smoke's time
+NYSTROM_UNCUT_STEPS = "400"
 
 
 def phase_svc_nystrom(manager, cfg) -> None:
     """SVC() on the uncut covertype table as benchmarks/svc_quality.py runs
-    it: past _MAX_N, the Nyström primal with 4,096 landmarks and 1,200
-    Nesterov steps, one trial x 6 lanes. Then the same path card vs CPU
-    (eigh of K_LL, K_LL^-1/2, the primal steps) at NYSTROM_CUT, within
+    it: past _MAX_N, the Nyström primal with 4,096 landmarks, its steps cut
+    to NYSTROM_UNCUT_STEPS, one trial x 6 lanes. Then the same path card vs
+    CPU (eigh of K_LL, K_LL^-1/2, the primal steps) at NYSTROM_CUT, within
     SCORED_TOL["SVC"]."""
     from cs230_distributed_machine_learning_tpu_torch.models import svm
 
     torch.cuda.empty_cache()
     payload = {"model_type": "SVC", "search_type": None, "base_estimator_params": {}}
-    t0 = time.perf_counter()
-    status = manager.train(payload, "covertype", {"random_state": 42}, timeout=1200)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    os.environ["CS230_SVM_NYSTROM_STEPS"] = NYSTROM_UNCUT_STEPS
+    try:
+        t0 = time.perf_counter()
+        status = manager.train(payload, "covertype", {"random_state": 42}, timeout=1200)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = svm._nystrom_steps()
+    finally:
+        os.environ.pop("CS230_SVM_NYSTROM_STEPS", None)
     res = status["job_result"]
     assert status["job_status"] == "completed" and not res["failed"], res.get("failed", [])[:1]
     best = res["best_result"]
     assert all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in best["cv_scores"]), best
     emit({"phase": "svc_nystrom", "rows": 116_202, "landmarks": svm._nystrom_m(116_202),
-          "steps": svm._nystrom_steps(), "wall_s": wall, "mean_cv_score": best["mean_cv_score"],
+          "steps": steps, "wall_s": wall, "mean_cv_score": best["mean_cv_score"],
           "cv_scores": best["cv_scores"], "accuracy": best["accuracy"],
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     torch.cuda.empty_cache()
@@ -2514,9 +2699,10 @@ def phase_artifacts(manager) -> dict:
                     "gb_main": static.get("n_estimators", 100) * static.get("_depth", 0),
                     "knn_main": 1}.get(tag)
         if tag == "rf_full":
-            kernel, _, rstatic = _forest_bucket(manager, dataset, 100)
+            kernel, _, rstatic = _forest_bucket(manager, dataset, RF_FULL_TREES)
             prepared = _prepared(kernel, data, rstatic)
-            expected = rstatic["_levels"] * 100 * (2 if "xb_coarse" in prepared else 1)
+            expected = rstatic["_levels"] * RF_FULL_TREES * (2 if "xb_coarse" in prepared
+                                                             else 1)
         emit({"phase": "artifacts", "job": tag, "model": artifact["model_type"],
               "dataset": dataset, "parameters": best["search_params"], "refit_s": refit_s,
               "predict_s": predict_s, "cached_s": cached_s, "cached": cached,
@@ -2536,62 +2722,103 @@ def phase_artifacts(manager) -> dict:
     return out
 
 
-def phase_artifact_reference(manager, cfg) -> None:
-    """The same refits at ARTIFACT_CUTS' cut, on the card and on the CPU
-    (plain versions), each predicting its scored rows on its own device:
-    the accuracies within the card-vs-CPU limits (SCORED_TOL)."""
-    import numpy as np
-
-    from cs230_distributed_machine_learning_tpu_torch.models.base import TrialData
+def _refit_predict(model: str, data, plan, params: dict, Xq, dev):
+    """fit_single on ``dev`` (split 0's rows), the artifact dict, its
+    predictions of ``Xq`` as numpy."""
     from cs230_distributed_machine_learning_tpu_torch.models.registry import get_kernel
-    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
     from cs230_distributed_machine_learning_tpu_torch.parallel.trial_map import fit_single
     from cs230_distributed_machine_learning_tpu_torch.runtime.artifacts import (
         predict_with_artifact,
     )
 
+    fitted, static = fit_single(get_kernel(model), data, plan, params, device=dev)
+    artifact = {"model_type": model, "parameters": params, "static": static,
+                "fitted_params": fitted}
+    return predict_with_artifact(artifact, Xq, device=dev).cpu().numpy()
+
+
+def _artifact_cut(cache, table: str, did: str, rows: int) -> tuple:
+    """(TrialData, n_folds=0 plan, query rows, their labels) of an
+    ARTIFACT_CUTS entry: a staged covertype cut scored on its holdout's eval
+    rows, or another table's first rows scored on all of its rows."""
+    import numpy as np
+
+    from cs230_distributed_machine_learning_tpu_torch.models.base import TrialData
+    from cs230_distributed_machine_learning_tpu_torch.ops.folds import build_split_plan
+
+    if table == "covertype":
+        data = cache.get(did, "classification")
+        plan = build_split_plan(np.asarray(data.y), task="classification", n_folds=0,
+                                random_state=42)
+        ev = plan.eval_w[0] > 0
+        return data, plan, np.asarray(data.X)[ev], np.asarray(data.y)[ev]
+    full = cache.get(table, "classification")
+    Xq, y = np.asarray(full.X), np.asarray(full.y)
+    data = TrialData(Xq[:rows], y[:rows], full.n_classes)
+    plan = build_split_plan(data.y, task="classification", n_folds=0, random_state=42)
+    return data, plan, Xq, y
+
+
+def _cpu_side_refit(model: str, table: str, did: str, rows: int, params: dict,
+                    env: dict) -> tuple:
+    """artifact_reference's CPU side in CPU_SIDE: (predictions, seconds)."""
+    from cs230_distributed_machine_learning_tpu_torch.data.datasets import DatasetCache
+    from cs230_distributed_machine_learning_tpu_torch.utils import config as cfg_mod
+
+    cache = DatasetCache(root=cfg_mod.get_config().storage.datasets_dir)
+    data, plan, Xq, _ = _artifact_cut(cache, table, did, rows)
+    os.environ.update(env)
+    try:
+        t0 = time.perf_counter()
+        pred = _refit_predict(model, data, plan, params, Xq, torch.device("cpu"))
+        return pred, time.perf_counter() - t0
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def phase_artifact_reference(manager, cfg) -> None:
+    """The same refits at ARTIFACT_CUTS' cut, on the card and on the CPU
+    (plain versions, in CPU_SIDE), each predicting its scored rows on its
+    own device: the accuracies within the card-vs-CPU limits (SCORED_TOL)."""
+    import numpy as np
+
     for tag, (table, rows, overrides) in ARTIFACT_CUTS.items():
         best = manager.best_result(JOBS[tag])
         model = best["model_type"]
         params = {**best["parameters"], **overrides}
-        if table == "covertype":
-            did = stage_fraction(cfg, 0.0, rows=rows)[0]
-            data, plan, ev = _holdout(manager, did)
-            Xq, y = np.asarray(data.X)[ev], np.asarray(data.y)[ev]
-        else:  # the table's first rows; scored on all of its rows
-            did = f"{table}[:{rows}]"
-            full = manager._coordinator.cache.get(table, "classification")
-            Xq, y = np.asarray(full.X), np.asarray(full.y)
-            data = TrialData(Xq[:rows], y[:rows], full.n_classes)
-            plan = build_split_plan(data.y, task="classification", n_folds=0, random_state=42)
+        # a covertype cut is staged here, before the CPU side reads it
+        did = (stage_fraction(cfg, 0.0, rows=rows)[0] if table == "covertype"
+               else f"{table}[:{rows}]")
+        data, plan, Xq, y = _artifact_cut(manager._coordinator.cache, table, did, rows)
         env = {"CS230_FORCE_PACKED": "1"} if tag == "knn_main" else {}
         os.environ.update(env)
         try:
-            res = {}
-            for side, dev in (("card", manager.device), ("cpu", torch.device("cpu"))):
-                reset_all_launches()
-                t0 = time.perf_counter()
-                fitted, static = fit_single(get_kernel(model), data, plan, params, device=dev)
-                artifact = {"model_type": model, "parameters": params, "static": static,
-                            "fitted_params": fitted}
-                pred = predict_with_artifact(artifact, Xq, device=dev)
-                pred = pred.cpu().numpy()
-                res[side] = (pred, time.perf_counter() - t0, all_launches())
+            reset_all_launches()
+            t0 = time.perf_counter()
+            pred = _refit_predict(model, data, plan, params, Xq, manager.device)
+            card = (pred, time.perf_counter() - t0, all_launches())
         finally:
             for k in env:
                 os.environ.pop(k, None)
-        acc = {k: float(np.mean(v[0] == y)) for k, v in res.items()}
-        diff = abs(acc["card"] - acc["cpu"])
-        emit({"phase": "artifact_reference", "job": tag, "model": model, "dataset": did,
-              "overrides": overrides, "env": env, "scored_rows": len(y),
-              "card_s": res["card"][1], "cpu_s": res["cpu"][1],
-              "card_launches": {k: v for k, v in res["card"][2].items() if v},
-              "accuracy": acc, "diff": diff, "labels_agree": float(
-                  np.mean(res["card"][0] == res["cpu"][0])), "tolerance": SCORED_TOL[model]})
-        assert diff <= SCORED_TOL[model], f"artifact_reference {tag}: {acc}"
         kernel_name = ARTIFACT_JOBS[tag][1]
-        assert kernel_name is None or res["card"][2][kernel_name] > 0, (tag, res["card"][2])
-        assert not any(res["card"][2][k] for k in DEFAULT_ONLY_KERNELS), (tag, res["card"][2])
+        assert kernel_name is None or card[2][kernel_name] > 0, (tag, card[2])
+        assert not any(card[2][k] for k in DEFAULT_ONLY_KERNELS), (tag, card[2])
+
+        def check(cpu_pred, cpu_s, tag=tag, model=model, did=did, overrides=overrides,
+                  env=env, y=y, card=card):
+            acc = {"card": float(np.mean(card[0] == y)), "cpu": float(np.mean(cpu_pred == y))}
+            diff = abs(acc["card"] - acc["cpu"])
+            emit({"phase": "artifact_reference", "job": tag, "model": model, "dataset": did,
+                  "overrides": overrides, "env": env, "scored_rows": len(y),
+                  "card_s": card[1], "cpu_s": cpu_s,
+                  "card_launches": {k: v for k, v in card[2].items() if v},
+                  "accuracy": acc, "diff": diff, "labels_agree": float(
+                      np.mean(card[0] == cpu_pred)), "tolerance": SCORED_TOL[model]})
+            assert diff <= SCORED_TOL[model], f"artifact_reference {tag}: {acc}"
+
+        CPU_SIDE.then(CPU_SIDE.submit(_cpu_side_refit, model, table, did, rows, params, env),
+                      check)
 
 
 def knn_predict_row(manager, k: int) -> dict:
@@ -2659,11 +2886,12 @@ def artifact_kernel_rows(manager, dev, knn_k: int) -> dict:
 #: asha_main: bench.py's job as an ASHA search; plan_trials gives
 #: min_resource 200 // 3**2 = 22 and the ladder [22, 66, 200]
 ASHA_MAIN = {"type": "asha", "eta": 3}
-#: hyperband_rf: brackets of 1, 3 and 9 trees over a 2 x 2 grid of the
+#: hyperband_rf: brackets of 1 and 3 trees over a 2 x 2 grid of the
 #: forest's hyperparameters, as rf_main's estimator (random_state 42) sets
 #: them, on the uncut table (one tree a chunk there, so every fit of more
-#: than one tree draws its score-vs-chunk curve)
-HYPERBAND_RF = {"type": "hyperband", "eta": 3, "max_resource": 9, "n_iter": 9}
+#: than one tree draws its score-vs-chunk curve); max_resource 9 cut to 3
+#: for the smoke's time (53 trees fitted, 13.6 s on a slow host)
+HYPERBAND_RF = {"type": "hyperband", "eta": 3, "max_resource": 3, "n_iter": 9}
 HYPERBAND_RF_GRID = {"max_depth": [None, 12], "max_features": ["sqrt", 0.3]}
 #: asha_diverged: tests/test_telemetry_curves.py's job (its third learning
 #: rate explodes inside rung 0), on covertype
@@ -2907,8 +3135,10 @@ STREAM_BUDGET_MB = 20
 #: stream_logreg: bench.py's job at the first 16 trials of its sampler
 STREAM_LOGREG_TRIALS = 16
 STREAM_LOGREG_TOL = 2e-3
-#: stream_rf: a complete-tree forest one dispatch holds (no chunked plan)
-STREAM_RF = {"n_estimators": 8, "max_depth": 8, "random_state": 42}
+#: stream_rf: a complete-tree forest one dispatch holds (no chunked plan),
+#: cut from 8 trees to 4 for the smoke's time (each tree streams every
+#: block once a level)
+STREAM_RF = {"n_estimators": 4, "max_depth": 8, "random_state": 42}
 STREAM_RF_CV = 3
 STREAM_COUNTERS = ("passes", "blocks", "bytes", "upload_seconds", "wait_seconds")
 
@@ -2957,10 +3187,11 @@ def stream_delta(before: dict) -> dict:
     return d
 
 
-def phase_native_csv(cfg, datasets=("covertype", WIDE_FULL_DATASET)) -> dict:
+def phase_native_csv(cfg, datasets=("covertype",)) -> dict:
     """The native loader is built (g++ at first use under the storage
-    root) and parses covertype's CSV and config 5's bit-equal to pandas;
-    both parse times."""
+    root) and parses covertype's CSV bit-equal to pandas; both parse
+    times. Config 5's 500 MB CSV (``datasets`` may name it) is left out for
+    the smoke's time: pandas took 9.5 s on it."""
     import numpy as np
     import pandas as pd
 
@@ -3693,9 +3924,14 @@ ADAPTIVE_PATHS = {
 # fleet of two coordinator shards behind a front end, fresh agents.
 # ---------------------------------------------------------------------------
 
-#: B2's blocks on each rank of dist_main: 1000 trials in one chunk of 1024
-#: lanes (a multiple of 2 ranks x 128), 512 lanes a rank
+#: dist_main's search: main_auto's first 256 of its 1000 trials (a cut for
+#: the smoke's time: rank 0 posts its pull's results one by one), one
+#: chunk of 256 lanes (2 ranks x 128), one B2 block a rank
 DIST_RANKS = 2
+DIST_TRIALS = 256
+DIST_MAIN_BLOCKS = DIST_TRIALS // (128 * DIST_RANKS)
+#: B1's blocks a rank of dist2d_main (main_auto's 1000 trials padded to
+#: 1024 lanes, 512 a trial rank)
 DIST_BLOCKS = 4
 #: fleet_main's search: the first trials of main_auto's grid (a cut for the
 #: smoke's time; printed), and the queued job that is migrated
@@ -4065,18 +4301,18 @@ def _hold_pulls(srv, worker_id: str, n: int) -> dict:
 
 
 def phase_dist_main(cfg, srv, dist: DistSlice, main_auto_status) -> dict:
-    """bench.py's job (main_auto's 1000 trials, full covertype, cv 5) through
-    the port server to an SPMD worker of two gloo ranks on the one card,
-    ``run_distributed``: one pull of 1000 trials, padded to 1024 lanes,
-    512 (4 blocks) a rank; each rank launches B2 once a step for its shard
-    (200 a rank, 400 in all, the prediction in PERF.md §6). Every
-    mean_cv_score equal to main_auto's to the bit, best_params_ equal, and
-    the winner journaled with ``winner_via`` (the collective's)."""
+    """bench.py's job (main_auto's first DIST_TRIALS trials, full covertype,
+    cv 5) through the port server to an SPMD worker of two gloo ranks on
+    the one card, ``run_distributed``: one pull of DIST_TRIALS trials, 128
+    lanes (DIST_MAIN_BLOCKS) a rank; each rank launches B2 once a step for
+    its shard (200 a rank, 400 in all). Every mean_cv_score equal to
+    main_auto's to the bit, the winner the best of those trials in
+    main_auto, and journaled with ``winner_via`` (the collective's)."""
     from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
 
-    main = _trial_order(main_auto_status)
-    assert len(main) == 1000
-    hold = _hold_pulls(srv, dist.worker_id, 1000)
+    main = _trial_order(main_auto_status)[:DIST_TRIALS]
+    assert len(main) == DIST_TRIALS
+    hold = _hold_pulls(srv, dist.worker_id, DIST_TRIALS)
     t0 = time.perf_counter()
     try:
         manager = MLTaskManager(url=srv.url)
@@ -4087,14 +4323,14 @@ def phase_dist_main(cfg, srv, dist: DistSlice, main_auto_status) -> dict:
     wall = time.perf_counter() - t0
     assert status["job_status"] == "completed", status.get("job_status")
     res = status["job_result"]
-    assert not res["failed"] and len(res["results"]) == 1000, res["failed"][:1]
+    assert not res["failed"] and len(res["results"]) == DIST_TRIALS, res["failed"][:1]
     scores, ref = _scores(status), _scores(main_auto_status)
-    assert scores.keys() == ref.keys()
-    diff = [k for k in ref if scores[k] != ref[k]]
+    assert len(scores) == DIST_TRIALS and set(scores) <= set(ref)
+    diff = [k for k in scores if scores[k] != ref[k]]
     assert not diff, (f"dist_main: {len(diff)} scores differ from main_auto's, e.g. "
                       f"{scores[diff[0]]} vs {ref[diff[0]]}")
     best = res["best_result"]
-    assert best["search_params"] == main_auto_status["job_result"]["best_result"]["search_params"]
+    assert scores[json.dumps(best["search_params"], sort_keys=True)] == max(scores.values())
     assert best.get("winner_via") == "ici_argmax", best.get("winner_via")
     journaled = _journaled_result(srv.coord.store._journal_path, manager.job_id)
     assert journaled["best_result"]["winner_via"] == "ici_argmax", journaled["best_result"]
@@ -4111,7 +4347,8 @@ def phase_dist_main(cfg, srv, dist: DistSlice, main_auto_status) -> dict:
            "pulls": [len(rows) for rows in batches],
            "batch_seconds": [[b["seconds"] for b in rows] for rows in batches],
            "launches_per_rank": per_rank, "launches": sum(per_rank),
-           "expected_per_rank": 200, "blocks_per_rank": DIST_BLOCKS,
+           "expected_per_rank": 200, "blocks_per_rank": DIST_MAIN_BLOCKS,
+           "trials": DIST_TRIALS,
            "winner_via": best["winner_via"], "best_params": best["search_params"],
            "card": nvidia_smi()}
     emit(out)
@@ -4718,8 +4955,8 @@ def _mesh2d_path(mesh2d: dict, job: str, kernel: str) -> dict:
 #: shape, the launches from the group's result)
 MULTI_DEVICE_PATHS = {
     "packed_nesterov_step": [
-        ("dist_main", DIST_BLOCKS, f"n_pad 116736, dpp 64, c 7, S 6, {DIST_BLOCKS} blocks a rank "
-         f"(1000 trials padded to 1024 over {DIST_RANKS} gloo ranks on one card)",
+        ("dist_main", DIST_MAIN_BLOCKS, f"n_pad 116736, dpp 64, c 7, S 6, {DIST_MAIN_BLOCKS} "
+         f"block a rank ({DIST_TRIALS} trials over {DIST_RANKS} gloo ranks on one card)",
          lambda m: {"launches": m["dist_main"]["launches"],
                     "launches_per_rank": m["dist_main"]["launches_per_rank"],
                     "job": "dist_main"}),
@@ -4987,6 +5224,159 @@ def phase_svc_kmeans(manager, cfg, dev) -> dict:
     return {"card_s": card_s, "cpu_s": host_s, "fits": fits}
 
 
+#: slice 19's probes of LogReg's packed path past the register-resident
+#: geometries: (dataset, trials, max_iter, cv). probe_main and probe_c100
+#: take B1's wide form (their kernel shapes are WIDE_SHAPES'), probe_scored
+#: B3 past 256 classes, probe_reference the wide form card vs CPU
+PROBE_MAIN = ("synthetic_20000x384x10", 256, 100, 5)
+PROBE_C100 = ("synthetic_20000x256x100", 128, 50, 5)
+PROBE_SCORED = ("synthetic_8192x64x300", 16, 30, 3)
+PROBE_REFERENCE = ("synthetic_4096x384x10", 128, 20, 5)
+#: probe_reference's packed shape: (n_pad, dpp, classes, splits, blocks)
+PROBE_REFERENCE_SHAPE = (4096, 448, 10, 6, 1)
+#: B3's shape in probe_scored: (lanes, n_pad, dpp, cp, classes), 65 real
+#: columns (64 features and the intercept) of 128
+PROBE_SCORED_SHAPE = (64, 8192, 128, 304, 300)
+PROBE_SCORED_DP = 65
+PROBE_TOL = 2e-3
+
+
+def _probe_job(manager, phase: str, search: dict, dataset: str, n_trials: int) -> dict:
+    """One probe search through the manager, every launch count zeroed
+    just before and read just after; completed, no failed trial, every
+    score finite. Returns (status, wall, launches)."""
+    reset_all_launches()
+    t0 = time.perf_counter()
+    status = manager.train(search, dataset, {"random_state": 42}, timeout=900)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    assert status["job_status"] == "completed", (phase, status)
+    res = status["job_result"]
+    assert not res["failed"], (phase, res["failed"][:1])
+    assert len(res["results"]) == n_trials, (phase, len(res["results"]))
+    assert all(math.isfinite(r["mean_cv_score"]) for r in res["results"]), phase
+    return status, wall, launches
+
+
+def phase_probes(manager, dev) -> dict:
+    """LogReg's packed path at shapes the register-resident B1 / B2 do not
+    take, and B3 past 256 classes (slice 19), each job with every launch
+    count zeroed before and read after:
+
+    - probe_main: bench.py's search at 256 trials, max_iter 100, cv 5, on
+      synthetic_20000x384x10 (dpp 448, 10 classes): one packed dispatch of
+      2 blocks whose body is B1's wide form and the tensor-op update, 100
+      wide launches (one a step: its scratch fits one launch), B2, the
+      register-resident B1 and B3 never;
+    - probe_c100: 128 trials, max_iter 50 on synthetic_20000x256x100 (dpp
+      320, 100 classes): the wide form's 4.0 GB padded residual passes the
+      2 GiB cap, so 50 calls make 100 launches;
+    - probe_scored: 16 trials, neg_log_loss, max_iter 30, cv 3 on
+      synthetic_8192x64x300: the generic driver, B3 (classes padded to
+      304, the class-tiled pass (a)) 30 launches, the packed kernels never;
+    - probe_reference: 128 trials, max_iter 20 on synthetic_4096x384x10 on
+      the card (the wide form, 20 launches) and on the CPU (its plain
+      version): every mean_cv_score within PROBE_TOL;
+    - kernels_probe: the wide form at WIDE_SHAPES and B3 at
+      PROBE_SCORED_SHAPE against their plain versions (TOL, two launches
+      equal to the bit), timed beside the bound.
+    Returns each job's launches and the kernel rows."""
+    from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
+    from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
+
+    out, seconds = {}, {}
+    for phase, (dataset, trials, steps, cv), shape in (
+            ("probe_main", PROBE_MAIN, WIDE_SHAPES["probe_main"]),
+            ("probe_c100", PROBE_C100, WIDE_SHAPES["probe_c100"])):
+        t_phase = time.perf_counter()
+        status, wall, launches = _probe_job(manager, phase, _search(trials, steps, cv), dataset,
+                                            trials)
+        per_call = K.wide_plan(*shape)["launches"]
+        emit({"phase": phase, "dataset": dataset, "shape": shape, "wall_s": wall,
+              "launches": launches, "wide_launches_per_call": per_call,
+              "best_params": status["job_result"]["best_result"]["search_params"],
+              "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
+        assert launches["packed_softmax_grad_wide"] == steps * per_call, (phase, launches)
+        assert all(launches[k] == 0 for k in ("packed_softmax_grad", "packed_nesterov_step",
+                                              "masked_softmax_grad")), (phase, launches)
+        if phase == "probe_c100":
+            assert per_call > 1, "probe_c100: the scratch cap did not split the call"
+        out[phase] = launches["packed_softmax_grad_wide"]
+        seconds[phase] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    dataset, trials, steps, cv = PROBE_SCORED
+    status, wall, launches = _probe_job(
+        manager, "probe_scored", _scored(_search(trials, steps, cv), "neg_log_loss"), dataset,
+        trials)
+    emit({"phase": "probe_scored", "dataset": dataset, "wall_s": wall, "launches": launches,
+          "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
+    assert all(r["mean_cv_score"] <= 0.0 for r in status["job_result"]["results"])
+    assert launches["masked_softmax_grad"] == steps, launches
+    assert all(launches[k] == 0 for k in DEFAULT_ONLY_KERNELS), launches
+    out["probe_scored"] = launches["masked_softmax_grad"]
+    seconds["probe_scored"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    dataset, trials, steps, cv = PROBE_REFERENCE
+    search = _search(trials, steps, cv)
+    gpu, wall, launches = _probe_job(manager, "probe_reference", search, dataset, trials)
+    per_call = K.wide_plan(*PROBE_REFERENCE_SHAPE)["launches"]
+    assert launches["packed_softmax_grad_wide"] == steps * per_call, launches
+    t_cpu = time.perf_counter()
+    os.environ["CS230_FORCE_PACKED"] = "1"  # the CPU takes the packed path too
+    try:
+        cpu = MLTaskManager(device="cpu").train(search, dataset, {"random_state": 42},
+                                                timeout=900)
+    finally:
+        del os.environ["CS230_FORCE_PACKED"]
+    cpu_wall = time.perf_counter() - t_cpu
+    g, c = _scores(gpu), _scores(cpu)
+    worst = max(abs(g[k] - c[k]) for k in g)
+    same = (gpu["job_result"]["best_result"]["search_params"]
+            == cpu["job_result"]["best_result"]["search_params"])
+    emit({"phase": "probe_reference", "dataset": dataset, "trials": len(g), "wall_s": wall,
+          "cpu_wall_s": cpu_wall, "launches": launches, "max_mean_cv_diff": worst,
+          "tolerance": PROBE_TOL, "best_params_equal": same})
+    assert g.keys() == c.keys() and worst <= PROBE_TOL, f"probe_reference: {worst}"
+    out["probe_reference"] = launches["packed_softmax_grad_wide"]
+    seconds["probe_reference"] = time.perf_counter() - t_phase
+
+    t_phase = time.perf_counter()
+    out["rows"] = probe_kernel_rows(K, dev)
+    seconds["kernels_probe"] = time.perf_counter() - t_phase
+    emit({"phase": "probes", "seconds": seconds, "total_s": sum(seconds.values())})
+    return out
+
+
+def probe_kernel_rows(K, dev) -> dict:
+    """B1's wide form at WIDE_SHAPES (packed_grad_row: within TOL, two
+    launches equal to the bit, the kernel's and the plain version's median
+    ms, the bound with both products counted over the real classes, 4
+    n_pad dpp NB a block) with each call's launches and its device ms by
+    kernel, and B3 past 256 classes at probe_scored's shape."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = {}
+    for tag, (n_pad, dpp, c, S, n_wb) in WIDE_SHAPES.items():
+        assert K.step_geometry(dpp, c) is None, tag
+        Ab, W, _, y2, WSP, *_ = logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb)
+        row = packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb)
+        Wb = W.to(torch.bfloat16)
+        row["device_ms_by_kernel"] = device_ms_by_kernel(
+            lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
+        rows[("packed_softmax_grad_wide", tag)] = {
+            "shape": dict(n_pad=n_pad, dpp=dpp, c=c, S=S, n_wb=n_wb),
+            "plan": K.wide_plan(n_pad, dpp, c, S, n_wb), **row, "library_ms": None}
+        del Ab, W, Wb, y2, WSP
+        torch.cuda.empty_cache()
+    rows[("masked_softmax_grad", "probe_scored")] = masked_kernel_row(
+        K, gen, dev, "probe_scored", *PROBE_SCORED_SHAPE, dp=PROBE_SCORED_DP)
+    emit({"phase": "kernels_probe", "tolerance": TOL,
+          "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke test needs an NVIDIA GPU",
@@ -5003,7 +5393,9 @@ def main() -> int:
     cfg_mod.set_config(cfg)
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    T_START.append(t_start)
     staging = prestage_start(cfg.storage.root)
+    CPU_SIDE.start(cfg.storage.root)
     watch_gc()
 
     env = phase_env()
@@ -5102,6 +5494,8 @@ def main() -> int:
     phase_obs_overhead(manager)
     seconds["obs_overhead"] = time.perf_counter() - t_phase
     emit({"phase": "observability", "seconds": seconds, "total_s": sum(seconds.values())})
+    # every card-vs-CPU check so far, before the groups that start processes
+    CPU_SIDE.drain()
     # the scheduled runtime and the REST routes: server, agents, supervisor
     seconds = {}
     t_phase = time.perf_counter()
@@ -5134,6 +5528,10 @@ def main() -> int:
         seconds[name] = time.perf_counter() - t_phase
     emit({"phase": "valves", "seconds": seconds, "total_s": sum(seconds.values()),
           "card": nvidia_smi()})
+    # LogReg's packed path past the register-resident geometries, B3 past
+    # 256 classes
+    prestage_wait(staging, PROBE_TABLES)
+    probes = phase_probes(manager, dev)
 
     jax_ops = "cs230_distributed_machine_learning_tpu/ops"
     table = {  # name: (row key, source, TPU kernel, shape note)
@@ -5243,6 +5641,34 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **get(multi), "row": row, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
+    # B1's wide form and B3's class-tiled pass (a) on lines of their own:
+    # the probes' launches and their rows
+    keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    r = probes["rows"][("packed_softmax_grad_wide", "probe_main")]
+    c100 = probes["rows"][("packed_softmax_grad_wide", "probe_c100")]
+    kernels.append({
+        "name": "packed_softmax_grad_wide", "route": "cuda", "source": SOURCES["logreg"],
+        "replaces": f"{jax_ops}/pallas_logreg.py:109", "launches": probes["probe_main"],
+        **{k: r[k] for k in keys}, "bound_unit": r["bound_unit"],
+        "launches_per_call": r["plan"]["launches"],
+        "shape": "n_pad 20480, dpp 448, c 10, S 6, 2 blocks (probe_main: 256 trials on "
+                 "synthetic_20000x384x10)",
+        "other_paths": {
+            "probe_c100": {"launches": probes["probe_c100"], "job": "probe_c100",
+                           "launches_per_call": c100["plan"]["launches"],
+                           **{k: c100[k] for k in keys}, "bound_unit": c100["bound_unit"],
+                           "shape": "n_pad 20480, dpp 320, c 100, S 6, 1 block"},
+            "probe_reference": {"launches": probes["probe_reference"],
+                                "job": "probe_reference",
+                                "shape": "n_pad 4096, dpp 448, c 10, S 6, 1 block"}}})
+    r = probes["rows"][("masked_softmax_grad", "probe_scored")]
+    kernels.append({
+        "name": "masked_softmax_grad_class_tiled", "route": "cuda", "source": SOURCES["logreg"],
+        "replaces": f"{jax_ops}/pallas_logreg.py:372", "launches": probes["probe_scored"],
+        **{k: r[k] for k in keys}, "bound_unit": r["bound_unit"],
+        "shape": "n_pad 8192, dpp 128 (65 real), cp 304, c 300, 64 lanes (probe_scored: 16 "
+                 "trials x 4 splits, neg_log_loss)"})
     # B4's f32 body (the split one-hot contraction) on its own line: gb_main's
     # launches, its root row; config 4, the refit and the deep level beside
     f32_keys = ("float_max_abs_err", "float_max_rel_err", "ms", "plain_ms", "bound_ms",

@@ -16,15 +16,19 @@ doubled. Two solvers, chosen per bucket from the data shape
 The generic drivers take the lane batch explicitly: weights are
 ``[T, S, dp, c]`` for T trials x S splits. Large nesterov buckets on the
 card take the packed path instead (``build_batched_fn``): every trial's
-weights packed class-major into 128-trial blocks, the whole fit driven by
-one CUDA kernel launch per solver step (``ops/cuda_logreg.py``).
+weights packed class-major into 128-trial blocks, each solver step one
+fused-step launch (B2) where it has a register-resident geometry, else
+the gradient kernel B1's wide form and the update in tensor ops
+(``ops/cuda_logreg.py``).
 
 Valves (names and modes as in the JAX package):
 
 - ``CS230_FUSED_STEP`` = ``auto`` | ``pallas`` | ``legacy``: the packed
-  scan body. ``auto`` and ``pallas`` run the fused step kernel (the packed
-  path is taken only where its gate passes, else the generic drivers
-  run); ``legacy`` runs the gradient kernel plus separate tensor ops.
+  scan body. ``auto`` and ``pallas`` run the fused step kernel B2 where it
+  has a register-resident geometry (``fused_step_applicable``) and
+  elsewhere the gradient kernel B1 (its wide form) plus the update in
+  tensor ops, as the JAX package runs B1 plus XLA's update past its VMEM
+  gate; ``legacy`` runs B1 plus the tensor ops at every shape.
 - ``CS230_MASKED_GRAD`` = ``auto`` | ``xla`` | ``pallas`` | ``legacy``: the
   generic nesterov driver's gradient. ``auto`` runs the masked lane kernel
   on the card for n >= 4096 when its gate passes and the fused-mask tensor
@@ -134,11 +138,13 @@ class LogisticRegressionKernel(ModelKernel):
         """Per-(trial, split) working set of the generic drivers: newton
         holds the [n, dp*c] Hessian factors, nesterov a few [n, c] tensors
         plus its lane's bf16 residual columns in the masked lane kernel's
-        scratch (R^T, classes padded to 16)."""
+        scratch (R^T, ``class_pitch`` columns of the classes padded to 16)."""
+        from ..ops.cuda_logreg import class_pitch
+
         c = max(int(static.get("_n_classes", 2)), 2)
         if static.get("_method") == "newton":
             return max(1.0, 4.0 * 4.0 * n * (d + 1) * c / 1e6)
-        return max(1.0, (6.0 * 4.0 * n * c + 2.0 * n * pad_to_multiple(c, 16)) / 1e6)
+        return max(1.0, (6.0 * 4.0 * n * c + 2.0 * n * class_pitch(pad_to_multiple(c, 16))) / 1e6)
 
     def macs_estimate(self, n, d, static):
         """Model-analytical multiply-accumulates of one (trial, split) fit,
@@ -245,8 +251,9 @@ class LogisticRegressionKernel(ModelKernel):
     #
     # Large-n nesterov buckets on the card bypass the generic drivers: all
     # trials' weights are packed class-major into one tensor per 128-trial
-    # block and each solver step is one kernel launch over every trial and
-    # split; the probabilities never reach device memory.
+    # block and each solver step is one kernel call over every trial and
+    # split (B2, or B1 and the update); B2 keeps the probabilities out of
+    # device memory, B1's wide form writes only their bf16 residual.
 
     #: trials per packed weight block; the engine rounds chunks to it
     batched_trial_multiple = 128
@@ -254,19 +261,33 @@ class LogisticRegressionKernel(ModelKernel):
 
     def batched_applicable(self, static: Dict[str, Any], n: int, d: int,
                            device: torch.device) -> bool:
+        """The JAX package's rule: nesterov buckets of at most 512 padded
+        features on n >= 4096 rows of the table, whatever the classes."""
         if static.get("_method") != "nesterov":
             return False
         dpp = pad_to_multiple(d + 2, 64)  # + intercept, rounded
         if dpp > 512:
             return False
-        from ..ops.cuda_logreg import fused_step_applicable
-
-        geo = _packed_geometry(static, n, d, static.get("_n_classes", 2), 1)
-        if not fused_step_applicable(geo["dpp"], geo["c"]):
-            return False  # no lane tile fits one CTA: the generic drivers
         if _force_packed():
             return True
         return device.type == "cuda" and _table_rows(n, static) >= 4096
+
+    def batched_memory_bytes(self, static, n, d, n_classes, n_splits, n_wb) -> int:
+        """Device bytes a packed dispatch of ``n_wb`` 128-trial blocks holds
+        at once: W, Wp, the look-ahead V and the gradient G (f32, ``[n_wb,
+        dpp, NB]`` each), the eval's logits of one row chunk, and where the
+        body is B1's wide form its scratch (``wide_plan``: at most 2 GiB a
+        call). The trial engine bounds the packed chunk by it."""
+        from ..ops.cuda_logreg import fused_step_applicable, wide_plan
+
+        geo = _packed_geometry(static, n, d, n_classes, n_splits)
+        c, S, dpp = geo["c"], geo["S"], geo["dpp"]
+        NB = c * S * self.batched_trial_multiple
+        total = 16 * n_wb * dpp * NB + 4 * n_wb * geo["rc"] * NB
+        if not fused_step_applicable(dpp, c):
+            plan = wide_plan(geo["n_pad"], dpp, c, S, n_wb)
+            total += plan["scratch"] if plan is not None else 0
+        return total
 
     def batched_staged_extras(self, static, n, d, n_classes, n_splits,
                               fold_signature=None, *, device: torch.device):
@@ -329,7 +350,11 @@ class LogisticRegressionKernel(ModelKernel):
             return None
 
         from ..obs.curves import curves_enabled, trace_stride
-        from ..ops.cuda_logreg import packed_nesterov_step, packed_softmax_grad
+        from ..ops.cuda_logreg import (
+            fused_step_applicable,
+            packed_nesterov_step,
+            packed_softmax_grad,
+        )
 
         geo = _packed_geometry(static, n, d, n_classes, n_splits)
         c, S = geo["c"], geo["S"]
@@ -342,11 +367,12 @@ class LogisticRegressionKernel(ModelKernel):
         dp, dpp = geo["dp"], geo["dpp"]
         rc = geo["rc"]  # eval row-chunk
         n_pad = geo["n_pad"]  # multiple of rc
-        # batched_applicable has passed the fused step's gate; legacy keeps
-        # the gradient kernel + tensor-op body, and so does a data axis: the
-        # all-reduce goes between the gradient and the update
+        # the fused step B2 where it has a register-resident geometry;
+        # elsewhere, under legacy, and on a data axis (the all-reduce goes
+        # between the gradient and the update) B1 + the tensor-op update
         shard = static.get("_row_shard")
-        use_fused = _fused_step_mode() != "legacy" and shard is None
+        use_fused = (_fused_step_mode() != "legacy" and shard is None
+                     and fused_step_applicable(dpp, c))
         capture = curves_enabled()
         tr_stride = trace_stride(steps) if capture else 1
         tr_used = -(-steps // tr_stride) if capture else 0

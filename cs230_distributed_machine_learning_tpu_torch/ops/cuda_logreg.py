@@ -10,10 +10,16 @@ in ``csrc/logreg.cu``, each beside its plain PyTorch version:
 - ``masked_softmax_grad`` (replaces ``pallas_logreg.py:372``)
       G[l] = A^T (wm[:, l] * (softmax(A W[l]) - Y)) for a batch of lanes.
 
-The first two are one kernel body with two epilogues (``step_geometry``
-picks its tile) and compute the same gradient to the bit. The masked kernel
-runs in two passes, logits and bf16 residual, then the Gram product over P
-row ranges (``masked_plan``), with no cap on the features.
+The first two are one register-resident kernel body with two epilogues
+(``step_geometry`` picks its tile) and compute the same gradient to the
+bit. The masked kernel runs in two passes, logits and bf16 residual, then
+the Gram product over P row ranges (``masked_plan``), with no cap on the
+features or the classes: a lane's classes past ``CLASS_TILE`` are tiled in
+two sweeps (the max and the denominator, then the residuals). Where no
+register-resident geometry exists (dpp past it or more than 16 classes),
+``packed_softmax_grad`` runs its wide form: the masked kernel's two passes
+on the packed layout (``wide_plan``), its lanes and rows split into
+launches of at most ``WIDE_SCRATCH_BYTES`` of scratch.
 
 Packing (the JAX package's): all trials' weight columns live in one
 ``[n_wb, dpp, NB]`` tensor per 128-trial block, class-major,
@@ -34,7 +40,10 @@ bf16 A (15 MB) plus the f32 W / Wp (44 MB at 1024 trials), is ~18 us per
 step: they are compute-bound. The masked kernel at the 784-feature
 search's 16 lanes (n 4,096, dpp 896, 10 classes) is bound by its bytes;
 at a full-size search's 192 lanes (n_pad 60,160) by its products over the
-real classes, 0.42 ms.
+real classes, 0.42 ms. B1's wide form at 256 trials of a 384-feature,
+10-class table (n_pad 20,480, dpp 448, S 6) does 0.56 TFLOP of products
+over the real classes, 0.57 ms; at 100 classes on 256 features (dpp 320,
+one block) 2.0 TFLOP, 2.0 ms, and its bf16 residual alone is 3.1 GB.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ SMEM_LIMIT = 232_448
 #: kernel launches per wrapper, for showing which kernels a run used
 LAUNCHES = {
     "packed_softmax_grad": 0,
+    "packed_softmax_grad_wide": 0,
     "packed_nesterov_step": 0,
     "masked_softmax_grad": 0,
 }
@@ -76,41 +86,6 @@ def _align(x: int, a: int = 128) -> int:
 
 def _ld_f32(cols: int) -> int:
     return cols + (40 - cols % 32) % 32
-
-
-# The packed path's routing rule. The first (mma.sync) packed kernels held
-# L = 16 or 32 lanes of c classes a CTA, at most 16 classes, 128 m16n8
-# gradient tiles of 8 warps in registers, and this much shared memory;
-# the packed path keeps exactly the shapes they took, so that no search
-# moves between it and the generic drivers (the kernels no longer use it).
-LANE_TILES = (32, 16)
-_MAX_PACKED_CLASSES = 16
-
-
-def packed_smem_bytes(dpp: int, c: int, L: int) -> int:
-    """Shared memory of one CTA of the first packed kernels (of the
-    routing rule)."""
-    CL = c * L
-    off = _align(CL * (dpp + 8) * 2)                     # bf16 V^T
-    for _ in range(2):
-        off = _align(off + PACKED_ROWS * (dpp + 8) * 2)  # bf16 A tiles
-    off = _align(off + CL * (PACKED_ROWS + 8) * 2)       # bf16 residual
-    for _ in range(4):
-        off = _align(off + PACKED_ROWS * 4)              # labels, split weights
-    off = max(off, _align(dpp * _ld_f32(CL) * 4))        # gradient staging overlay
-    return _align(off + 256 * 4)                         # max|G| partials
-
-
-def packed_lane_tile(dpp: int, c: int) -> Optional[int]:
-    """The routing rule's lane tile at (dpp, c): the largest of
-    ``LANE_TILES`` whose gradient tiles and shared memory fit the first
-    packed kernels' CTA, or None."""
-    for L in LANE_TILES:
-        if (dpp % 16 == 0 and c <= _MAX_PACKED_CLASSES
-                and (dpp // 8) * (c * L // 16) <= 8 * 16
-                and packed_smem_bytes(dpp, c, L) <= SMEM_LIMIT):
-            return L
-    return None
 
 
 # B1 and B2 (one body) on Hopper: rows of A per tile (64 a consumer
@@ -153,12 +128,13 @@ def step_layout(dpp: int, n1: int) -> dict:
 
 
 def step_geometry(dpp: int, c: int) -> Optional[dict]:
-    """B1's and B2's geometry at (dpp, c), or None: the lane tile L (16,
-    else 8), N1 = L * (c rounded up to a power of two) columns (at most
-    128: one wgmma N), MT feature atoms, so that the logits and a whole
-    gradient (N1 / 2 * (MT + 1) floats a thread) would fit the registers and
-    a ring stage fits shared memory."""
-    if dpp <= 0 or dpp % 16 or not 2 <= c <= _MAX_PACKED_CLASSES:
+    """B1's and B2's register-resident geometry at (dpp, c), or None: the
+    lane tile L (16, else 8), N1 = L * (c rounded up to a power of two)
+    columns (at most 128: one wgmma N, so at most 16 classes), MT feature
+    atoms, so that the logits and a whole gradient (N1 / 2 * (MT + 1)
+    floats a thread) would fit the registers and a ring stage fits shared
+    memory."""
+    if dpp <= 0 or dpp % 16 or c < 2:
         return None
     maxc = 1 << (c - 1).bit_length()
     mt = -(-dpp // _STEP_ATOM)
@@ -175,44 +151,96 @@ def step_geometry(dpp: int, c: int) -> Optional[dict]:
 
 
 def fused_step_applicable(dpp: int, c: int) -> bool:
-    """Gate of the packed kernels (the TPU's VMEM gate,
-    ``pallas_logreg.py:151``, has no meaning here): the routing rule
-    (``packed_lane_tile``) takes the shape, and B1 / B2 have a geometry."""
-    return packed_lane_tile(dpp, c) is not None and step_geometry(dpp, c) is not None
+    """Gate of the fused step B2 (the TPU's VMEM gate,
+    ``pallas_logreg.py:151``, has no meaning here): B1 / B2 have a
+    register-resident geometry. Elsewhere the packed path's body is B1's
+    wide form and the update in tensor ops."""
+    return step_geometry(dpp, c) is not None
 
 
-# B3 on Hopper (csrc/logreg.cu, ``masked_plan``): 128-row tiles, pass (b)'s
-# 128 columns a CTA, at most 16 row ranges, classes padded to at most 256,
-# the H100's SMs, pass (a)'s ring budget (two CTAs an SM) and the bytes of
-# an R^T staging row and of a pass (b) stage
+# B3 and B1's wide form on Hopper (csrc/logreg.cu, ``masked_plan``,
+# ``wide_plan``): 128-row tiles, pass (b)'s 128 columns a CTA, at most 16
+# row ranges, the H100's SMs, pass (a)'s ring budget (two CTAs an SM) and
+# the bytes of an R^T staging row and of a pass (b) stage
 MASKED_ROWS = 128
 _MASKED_COLS = 128
 _MASKED_MAX_RANGES = 16
-MASKED_MAX_CP = 256
 _SMS = 132
 _MASKED_BUDGET_A = SMEM_LIMIT // 2 - 2048
 _MASKED_LDR = MASKED_ROWS + 8
 _MASKED_STAGE_B = 2 * STEP_ROWS * 128 + 2 * 64 * _MASKED_COLS * 2
-#: the (NA, CPP) instantiations of B3's pass (a) (``LOGREG_MASKED_GEOMETRIES``)
+#: classes a pass (a) CTA holds (one wgmma N); a lane's classes past it
+#: are tiled in two sweeps (the class-tiled pass (a))
+CLASS_TILE = 256
+#: the (NA, CPP) instantiations of B3's pass (a) (``LOGREG_MASKED_GEOMETRIES``);
+#: past ``CLASS_TILE`` classes the class-tiled pass (a) at NA = 256
 MASKED_GEOMETRIES = frozenset([
     (64, 16), (64, 32), (64, 64), (128, 16), (128, 32), (128, 64), (128, 128), (256, 256),
 ])
+#: B1's wide form: the packed path's features (``models/logistic.py``'s
+#: cap, the JAX package's), and the scratch a launch may hold (as B4's f32
+#: mode caps it; lanes and rows past it go into further launches)
+WIDE_MAX_DPP = 512
+WIDE_SCRATCH_BYTES = 1 << 31
+#: the (NA, CPP) instantiations of the wide form's pass (a)
+#: (``LOGREG_WIDE_GEOMETRIES``); past ``CLASS_TILE`` the class-tiled one
+WIDE_GEOMETRIES = frozenset([(128, 16), (128, 32), (128, 64), (128, 128), (256, 256)])
+
+
+def class_pitch(cp: int) -> int:
+    """The columns a lane takes in the lane-major layout of B3 and of B1's
+    wide form: ``cp`` rounded up to a power of two (at least 16) up to
+    ``CLASS_TILE``, past it to a multiple of ``CLASS_TILE``."""
+    if cp > CLASS_TILE:
+        return -(-cp // CLASS_TILE) * CLASS_TILE
+    cpp = 16
+    while cpp < cp:
+        cpp *= 2
+    return cpp
+
+
+def _best_ranges(units: int, tiles: int) -> int:
+    """Pass (b)'s row ranges P: the fewest among those whose waves of
+    ``units`` CTAs a range take the least time (a wave's time being a
+    range's share of ``tiles`` row tiles), at most 16 and ``tiles``."""
+    best, best_waves = 1, -(-units // _SMS)
+    for P in range(2, min(_MASKED_MAX_RANGES, tiles) + 1):
+        waves = -(-units * P // _SMS)
+        if waves * best < best_waves * P:
+            best, best_waves = P, waves
+    return best
+
+
+def _pass_a_smem(na: int, tiled: bool) -> tuple:
+    """Pass (a)'s ring stages and shared memory at ``na`` columns a CTA:
+    two CTAs an SM with R^T staged over the ring at the end; the
+    class-tiled pass, one CTA an SM, stages each class tile's R^T beside
+    the ring (the producer is loading the next tile)."""
+    stage = STEP_ROWS * 128 + na * 128
+    staging = na * _MASKED_LDR * 2
+    if tiled:
+        stages = min(_STEP_MAX_STAGES, (SMEM_LIMIT - 2048 - staging) // stage)
+        return stages, 1024 + stages * stage + staging + 1024
+    stages = min(_STEP_MAX_STAGES, _MASKED_BUDGET_A // stage)
+    return stages, 1024 + max(stages * stage, staging) + 1024
+
+
+def _pass_b_smem() -> tuple:
+    stages = min(_STEP_MAX_STAGES, (SMEM_LIMIT - 2048) // _MASKED_STAGE_B)
+    return stages, 1024 + stages * _MASKED_STAGE_B + 1024
 
 
 def masked_plan(n_pad: int, dpp: int, cp: int, n_lanes: int) -> Optional[dict]:
     """B3's plan (``masked_plan`` in csrc/logreg.cu, field for field), or
     None where the kernels refuse the shape. Columns of R are lane-major
-    (lane * cpp + class, cpp = cp rounded up to a power of two); pass (a)
-    takes ``na`` columns a CTA (64 when 128 would leave SMs idle), pass (b)
-    128 features x 128 columns over one of ``ranges`` row ranges, the
-    fewest whose waves of CTAs take the least time. ``scratch`` is the
-    bytes of W^T, R^T and the range partials."""
-    if (n_pad <= 0 or dpp <= 0 or dpp % 16 or cp <= 0 or cp % 16 or cp > MASKED_MAX_CP
-            or n_lanes <= 0):
+    (lane * cpp + class, cpp = ``class_pitch(cp)``); pass (a) takes ``na``
+    columns a CTA (64 when 128 would leave SMs idle; 256 of one lane past
+    ``CLASS_TILE`` classes, tiled), pass (b) 128 features x 128 columns
+    over one of ``ranges`` row ranges (``_best_ranges``). ``scratch`` is
+    the bytes of W^T, R^T and the range partials."""
+    if n_pad <= 0 or dpp <= 0 or dpp % 16 or cp <= 0 or cp % 16 or n_lanes <= 0:
         return None
-    cpp = 16
-    while cpp < cp:
-        cpp *= 2
+    cpp = class_pitch(cp)
     row_tiles = -(-n_pad // MASKED_ROWS)
     cols = _align(n_lanes * cpp, _MASKED_COLS)
     na = 2 * _MASKED_COLS if cpp > _MASKED_COLS else _MASKED_COLS
@@ -220,17 +248,9 @@ def masked_plan(n_pad: int, dpp: int, cp: int, n_lanes: int) -> Optional[dict]:
         na = 64
     mt = -(-dpp // _STEP_ATOM)
     fb = (mt + 1) // 2
-    units = fb * (cols // _MASKED_COLS)
-    best, best_waves = 1, -(-units // _SMS)
-    for P in range(2, min(_MASKED_MAX_RANGES, row_tiles) + 1):
-        waves = -(-units * P // _SMS)
-        if waves * best < best_waves * P:
-            best, best_waves = P, waves
-    stage_a = STEP_ROWS * 128 + na * 128
-    stages_a = min(_STEP_MAX_STAGES, _MASKED_BUDGET_A // stage_a)
-    smem_a = 1024 + max(stages_a * stage_a, na * _MASKED_LDR * 2) + 1024
-    stages_b = min(_STEP_MAX_STAGES, (SMEM_LIMIT - 2048) // _MASKED_STAGE_B)
-    smem_b = 1024 + stages_b * _MASKED_STAGE_B + 1024
+    best = _best_ranges(fb * (cols // _MASKED_COLS), row_tiles)
+    stages_a, smem_a = _pass_a_smem(na, cpp > CLASS_TILE)
+    stages_b, smem_b = _pass_b_smem()
     rows_pad = row_tiles * MASKED_ROWS
     r_off = _align(cols * dpp * 2, 1024)
     part_off = r_off + _align(cols * rows_pad * 2, 1024)
@@ -255,8 +275,83 @@ def masked_ranges(plan: dict, n_pad: int) -> list:
 
 def masked_grad_applicable(dpp: int, cp: int) -> bool:
     """Gate of the masked lane kernel: features tiled in both passes, so
-    any dpp in 16s; classes padded to 16s, at most ``MASKED_MAX_CP``."""
-    return dpp > 0 and dpp % 16 == 0 and cp > 0 and cp % 16 == 0 and cp <= MASKED_MAX_CP
+    any dpp in 16s; classes padded to 16s, any number of them."""
+    return dpp > 0 and dpp % 16 == 0 and cp > 0 and cp % 16 == 0
+
+
+def _wide_bytes(dpp: int, cols: int, tiles: int, P: int) -> tuple:
+    """(R^T's offset, the partials' offset, bytes in all) of a wide-form
+    launch's scratch: W^T [cols][dpp] bf16, R^T [cols][128 tiles] bf16,
+    the partials [P][dpp][cols] f32."""
+    r_off = _align(cols * dpp * 2, 1024)
+    part_off = r_off + _align(cols * tiles * MASKED_ROWS * 2, 1024)
+    return r_off, part_off, part_off + P * dpp * cols * 4
+
+
+def wide_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
+              Tw: int = TRIAL_BLOCK) -> Optional[dict]:
+    """B1's wide form's plan (``wide_plan`` in csrc/logreg.cu, field for
+    field), or None where the kernels refuse the shape. The packed columns
+    of a lane block (one split s of weight block wb: ``Tw`` trials, block
+    index ``wb * S + s``) become ``Tw`` lanes of ``cpp = class_pitch(c)``
+    lane-major columns, as in B3. A launch takes ``lb`` lane blocks over
+    ``tiles`` row tiles, the fewest launches whose scratch (at one row
+    range) fits ``WIDE_SCRATCH_BYTES``: rows are split only where one lane
+    block over all rows does not fit, then lanes; the row chunks of a lane
+    group add into the gradient in order. ``lb`` and ``tiles`` are a
+    launch's most (``wide_launch`` gives each launch's own); ``ranges`` is
+    pass (b)'s P in every launch (``_best_ranges`` over the smallest
+    chunk's tiles, fewer where its partials would pass the cap)."""
+    if (n_pad <= 0 or dpp <= 0 or dpp % 16 or dpp > WIDE_MAX_DPP or c < 2 or S <= 0
+            or n_wb <= 0 or Tw <= 0 or Tw % 16 or Tw > TRIAL_BLOCK):
+        return None
+    cpp = class_pitch(c)
+    n_lb = n_wb * S
+    row_tiles = -(-n_pad // MASKED_ROWS)
+    mt = -(-dpp // _STEP_ATOM)
+    fb = (mt + 1) // 2
+
+    def launch_bytes(lb, R, P=1):
+        return _wide_bytes(dpp, lb * Tw * cpp, -(-row_tiles // R), P)[2]
+
+    R = 1  # row chunks
+    while -(-row_tiles // R) > 65_535 or launch_bytes(1, R) > WIDE_SCRATCH_BYTES:
+        if R == row_tiles:
+            return None
+        R += 1
+    G = 1  # lane groups
+    while launch_bytes(-(-n_lb // G), R) > WIDE_SCRATCH_BYTES:
+        G += 1
+    lb, tiles = -(-n_lb // G), -(-row_tiles // R)
+    # P ranges: _best_ranges' count, fewer where its partials would not fit
+    P = _best_ranges(fb * (lb * Tw * cpp // _MASKED_COLS), row_tiles // R)
+    while P > 1 and launch_bytes(lb, R, P) > WIDE_SCRATCH_BYTES:
+        P -= 1
+    na = 2 * _MASKED_COLS if cpp > _MASKED_COLS else _MASKED_COLS
+    stages_a, smem_a = _pass_a_smem(na, cpp > CLASS_TILE)
+    stages_b, smem_b = _pass_b_smem()
+    r_off, part_off, total = _wide_bytes(dpp, lb * Tw * cpp, tiles, P)
+    return {"cpp": cpp, "na": na, "row_tiles": row_tiles, "n_lb": n_lb, "lb": lb,
+            "lane_launches": G, "row_launches": R, "launches": G * R, "tiles": tiles,
+            "mt": mt, "fb": fb, "ranges": P, "stages_a": stages_a, "stages_b": stages_b,
+            "smem_a": smem_a, "smem_b": smem_b, "scratch": total, "r_offset": r_off,
+            "part_offset": part_off}
+
+
+#: the fields of ``logreg_wide_plan``'s output, in order
+WIDE_PLAN_FIELDS = ("cpp", "na", "row_tiles", "n_lb", "lb", "lane_launches", "row_launches",
+                    "launches", "tiles", "mt", "fb", "ranges", "stages_a", "stages_b",
+                    "smem_a", "smem_b", "scratch")
+
+
+def wide_launch(plan: dict, i: int) -> tuple:
+    """Launch ``i``'s lane blocks ``[lb0, lb1)`` and row tiles ``[t0, t1)``
+    (``wide_launch`` in csrc/logreg.cu): lane group i // R, row chunk
+    i % R, each cut as evenly as floor division cuts."""
+    G, R = plan["lane_launches"], plan["row_launches"]
+    g, r = divmod(i, R)
+    n_lb, T = plan["n_lb"], plan["row_tiles"]
+    return g * n_lb // G, (g + 1) * n_lb // G, r * T // R, (r + 1) * T // R
 
 
 # ---------------------------------------------------------------------------
@@ -390,6 +485,12 @@ def _lib() -> ctypes.CDLL:
             [P] * 6 + [ctypes.c_longlong] + [I] * 6 + [P]
         )
         lib.logreg_masked_softmax_grad.restype = I
+        lib.logreg_wide_plan.argtypes = [I] * 6 + [P]
+        lib.logreg_wide_plan.restype = I
+        lib.logreg_wide_softmax_grad.argtypes = (
+            [P] * 6 + [ctypes.c_longlong] + [I] * 7 + [P]
+        )
+        lib.logreg_wide_softmax_grad.restype = I
         _lib_handle = lib
     return _lib_handle
 
@@ -436,6 +537,11 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     y2  [n_pad, 1]       i32
     WSP [n_pad, S]       f32
     returns G3 [n_wb, dpp, NB] f32
+
+    On the card: the register-resident body where ``step_geometry`` has a
+    geometry (one launch, counted in ``LAUNCHES["packed_softmax_grad"]``),
+    else the wide form, ``wide_plan``'s launches on one scratch buffer
+    (each counted in ``LAUNCHES["packed_softmax_grad_wide"]``).
     """
     if not _on_card(Ab, W3, y2, WSP):
         return packed_softmax_grad_reference(Ab, W3, y2, WSP, c=c, S=S, Tw=Tw)
@@ -446,7 +552,9 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     _check("y2", y2, torch.int32, (n_pad, 1))
     _check("WSP", WSP, torch.float32, (n_pad, S))
     geo = step_geometry(dpp, c)
-    if geo is None or n_pad % PACKED_ROWS or Tw % geo["L"]:
+    if geo is None:
+        return _packed_softmax_grad_wide(Ab, W3, y2, WSP, c=c, S=S, Tw=Tw)
+    if n_pad % PACKED_ROWS or Tw % geo["L"]:
         raise ValueError(
             f"packed_softmax_grad: no kernel geometry for n_pad={n_pad}, "
             f"dpp={dpp}, c={c}"
@@ -457,6 +565,29 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
                 _ptr(WSP), _ptr(G3), n_pad, dpp, n_wb, S, Tw, c, geo["L"], geo["n1"],
                 device=Ab.device)
     LAUNCHES["packed_softmax_grad"] += 1
+    return G3
+
+
+def _packed_softmax_grad_wide(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int):
+    """B1's wide form on the card: ``wide_plan``'s launches in order, each
+    one C call (W^T of its lane blocks, pass (a), pass (b), the range sum
+    into G3, added to it after a lane group's first row chunk)."""
+    n_pad, dpp = Ab.shape
+    n_wb = W3.shape[0]
+    plan = wide_plan(n_pad, dpp, c, S, n_wb, Tw)
+    if plan is None:
+        raise ValueError(
+            f"packed_softmax_grad: no wide-form plan for n_pad={n_pad}, dpp={dpp}, "
+            f"c={c}, S={S}, n_wb={n_wb}, Tw={Tw}"
+        )
+    G3 = torch.empty((n_wb, dpp, c * S * Tw), dtype=torch.float32, device=Ab.device)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=Ab.device)
+    with torch.cuda.device(Ab.device):
+        for i in range(plan["launches"]):
+            _launch(_lib().logreg_wide_softmax_grad, _ptr(Ab), _ptr(W3), _ptr(y2),
+                    _ptr(WSP), _ptr(G3), _ptr(scratch), plan["scratch"], n_pad, dpp, c, S,
+                    n_wb, Tw, i, device=Ab.device)
+            LAUNCHES["packed_softmax_grad_wide"] += 1
     return G3
 
 

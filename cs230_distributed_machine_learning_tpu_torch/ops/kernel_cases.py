@@ -95,6 +95,13 @@ def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c
             torch.where(act, W, Wp), gmax)
 
 
+#: B1's wide form (past the register-resident geometries) on chip_smoke.py's
+#: probe jobs: (n_pad, dpp, classes, splits, 128-trial blocks). probe_main:
+#: 256 trials, cv 5, on synthetic_20000x384x10; probe_c100: 128 trials,
+#: cv 5, on synthetic_20000x256x100 (its scratch split over launches)
+WIDE_SHAPES = {"probe_main": (20_480, 448, 10, 6, 2), "probe_c100": (20_480, 320, 100, 6, 1)}
+
+
 # ------------------------------------------------------- B3 (masked logreg)
 
 #: B3 shapes: (lanes, n_pad, dpp, cp, classes). ``wide``: chip_smoke.py's

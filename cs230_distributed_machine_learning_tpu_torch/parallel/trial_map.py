@@ -389,6 +389,20 @@ def _memory_chunk_cap(kernel, n, d, static, n_splits, device, n_dev: int = 1,
     return max(n_dev, int(0.5 * _device_memory_mb(device) / share * n_dev / per_trial_mb))
 
 
+def _packed_block_cap(kernel, static, n, d, n_classes, n_splits, device, share: int,
+                      blocks: int) -> int:
+    """The most trial blocks (at most ``blocks``, at least one) of a packed
+    dispatch whose device bytes (``kernel.batched_memory_bytes``, a rank's
+    share of the chunk) fit half of a rank's ``share``-th of its device, as
+    ``_memory_chunk_cap`` bounds the generic path. Lanes are independent, so
+    no score depends on it."""
+    budget = 0.5 * _device_memory_mb(device) * 1e6 / share
+    while blocks > 1 and kernel.batched_memory_bytes(static, n, d, n_classes, n_splits,
+                                                     blocks) > budget:
+        blocks -= 1
+    return blocks
+
+
 def run_trials(
     kernel: ModelKernel,
     data: TrialData,
@@ -574,6 +588,9 @@ def _run_trials_impl(kernel, data, plan, param_dicts, *, device, max_trials_per_
                 Tw = kernel.batched_trial_multiple * n_dev
                 chunk = max(Tw, min(kernel.batched_chunk_cap * n_dev,
                                     pad_to_multiple(len(idxs), Tw)))
+                if hasattr(kernel, "batched_memory_bytes"):
+                    chunk = Tw * _packed_block_cap(kernel, static, n_rows, d, data.n_classes,
+                                                   plan.n_splits, device, share, chunk // Tw)
                 fn = kernel.build_batched_fn(
                     static=static, n=n_rows, d=d, n_classes=data.n_classes,
                     n_splits=plan.n_splits, chunk=chunk // n_dev, device=device,

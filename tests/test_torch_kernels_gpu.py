@@ -34,7 +34,13 @@ distances are further apart than that; on integer data every distance is
 exact and the outputs must be equal, ties (lowest index first) and empty
 slots (3.4e38, -1) included, with the lists in shared memory (k <= 256)
 and in device memory (k 300), at lane groups of 1, 6 and 9 lanes and with
-the rows split into ranges whose partial lists are merged. B3 and B6 are
+the rows split into ranges whose partial lists are merged. B1's wide form
+(past the register-resident geometries: the masked kernel's two passes on
+the packed layout, its lanes and rows split into launches of at most
+2 GiB of scratch) is held to the same 5e-3 at chip_smoke.py's probe
+shapes, ragged ones, a class-tiled one and one whose rows split into
+launches, and to the register-resident B1 at covertype's shape; B3 past
+256 classes (the class-tiled pass (a)) likewise. B3 and B6 are
 also held at the winner artifact's shapes (one lane: the covertype refit,
 the KNN prediction on 40,000 holdout rows), and a LogReg refit on the card
 must launch B3 once a solver step and never B1 or B2. A torch.profiler
@@ -323,12 +329,13 @@ def test_masked_plan_matches_the_library(cuda):
     lib = tk._lib()
     out = (ctypes.c_longlong * len(tk.MASKED_PLAN_FIELDS))()
     for shape in ((4096, 896, 16, 16), (60_160, 896, 16, 192), (2000, 1152, 32, 1),
-                  (512, 128, 128, 3), (4096, 896, 160, 16), (256, 16, 256, 2)):
+                  (512, 128, 128, 3), (4096, 896, 160, 16), (256, 16, 256, 2),
+                  (4096, 896, 272, 16), (8192, 128, 304, 64), (2000, 80, 528, 3)):
         assert lib.logreg_masked_plan(*shape, out) == 1, shape
         plan = tk.masked_plan(*shape)
         assert list(out) == [plan[k] for k in tk.MASKED_PLAN_FIELDS], shape
-    assert lib.logreg_masked_plan(4096, 896, 272, 16, out) == 0
-    assert tk.masked_plan(4096, 896, 272, 16) is None
+    assert lib.logreg_masked_plan(4096, 896, 24, 16, out) == 0
+    assert tk.masked_plan(4096, 896, 24, 16) is None
 
 
 @pytest.mark.gpu
@@ -337,9 +344,9 @@ def test_masked_kernel_raises_instead_of_falling_back(cuda):
     never the plain version."""
     Ab, W, y2, wm = _masked_inputs(cuda, 512, 128, 16, 10, 4, seed=3)
     tk.reset_launches()
-    with pytest.raises(ValueError):  # 272 classes: past the kernel's 256
-        Wwide = torch.zeros(4, 128, 272, dtype=torch.bfloat16, device=cuda)
-        tk.masked_softmax_grad(Ab, Wwide, y2, wm, c=10)
+    with pytest.raises(ValueError):  # 24 padded classes: not a multiple of 16
+        Wodd = torch.zeros(4, 128, 24, dtype=torch.bfloat16, device=cuda)
+        tk.masked_softmax_grad(Ab, Wodd, y2, wm, c=10)
     with pytest.raises(TypeError):
         tk.masked_softmax_grad(Ab.float(), W, y2, wm, c=10)
     with pytest.raises(ValueError):
@@ -353,6 +360,114 @@ def test_masked_kernel_raises_instead_of_falling_back(cuda):
         tk._launch(tk._lib().logreg_masked_softmax_grad, tk._ptr(Ab), tk._ptr(W), tk._ptr(y2),
                    tk._ptr(wm), tk._ptr(G), tk._ptr(scratch), plan["scratch"], 512, 128, 16,
                    10, 4, plan["ranges"] + 1, device=Ab.device)
+
+
+def _wide_inputs(dev, n_pad, dpp, c, S, n_wb, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ab, W, _, y2, WSP, *_ = kc.logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb)
+    return Ab, W.to(torch.bfloat16), y2, WSP
+
+
+def _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed):
+    """B1 on the card (its wide form: no register-resident geometry) twice
+    and its plain version: within TOL, equal to the bit, one launch a
+    plan's launch. Returns the plan."""
+    assert tk.step_geometry(dpp, c) is None
+    Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, n_wb, seed)
+    plan = tk.wide_plan(n_pad, dpp, c, S, n_wb)
+    tk.reset_launches()
+    runs = [tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+    assert tk.LAUNCHES["packed_softmax_grad_wide"] == 2 * plan["launches"]
+    assert tk.LAUNCHES["packed_softmax_grad"] == 0
+    got = runs[0]
+    del runs
+    ref = tk.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+    assert _rel(got, ref) < TOL
+    return plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tag", sorted(kc.WIDE_SHAPES))
+def test_wide_form_matches_plain_and_repeats_bit_for_bit_on_card(cuda, tag):
+    """B1's wide form at chip_smoke.py's probe shapes: 2 blocks of 10
+    classes at dpp 448, and 100 classes at dpp 320, whose 3.1 GB residual
+    splits over launches."""
+    plan = _wide_check(cuda, *kc.WIDE_SHAPES[tag], seed=19)
+    assert plan["launches"] == {"probe_main": 1, "probe_c100": 2}[tag]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,dpp,c,S,n_wb", [
+    (2000, 64, 20, 3, 1),      # past 16 classes, a partial row tile
+    (1000, 512, 3, 2, 2),      # eight feature atoms, no register-resident instantiation
+    (700, 320, 300, 1, 1),     # the class-tiled pass (a): two tiles of 256
+    (16_384, 64, 1000, 1, 1),  # four class tiles; rows split into 3 launches, added in order
+])
+def test_wide_form_ragged_shapes_on_card(cuda, n_pad, dpp, c, S, n_wb):
+    plan = _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed=n_pad + c)
+    assert plan["row_launches"] == (3 if c == 1000 else 1)
+
+
+@pytest.mark.gpu
+def test_wide_form_matches_the_register_resident_body_at_covertype_on_card(cuda):
+    """At covertype's main-path shape (8 blocks, dpp 64, 7 classes) B1's two
+    bodies round the residual at the same points and sum in other orders:
+    within TOL of each other."""
+    n_pad, dpp, c, S, n_wb = kc.LOGREG_SHAPE
+    Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, n_wb, seed=7)
+    tk.reset_launches()
+    resident = tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+    wide = tk._packed_softmax_grad_wide(Ab, Wb, y2, WSP, c=c, S=S, Tw=tk.TRIAL_BLOCK)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["packed_softmax_grad"] == 1
+    assert tk.LAUNCHES["packed_softmax_grad_wide"] == tk.wide_plan(n_pad, dpp, c, S, n_wb)["launches"]
+    assert _rel(wide, resident) < TOL
+
+
+@pytest.mark.gpu
+def test_wide_plan_matches_the_library(cuda):
+    """The Python plan of B1's wide form is the C entry's, field for field."""
+    import ctypes
+
+    lib = tk._lib()
+    out = (ctypes.c_longlong * len(tk.WIDE_PLAN_FIELDS))()
+    for shape in (*kc.WIDE_SHAPES.values(), (116_736, 64, 7, 6, 8), (2000, 64, 20, 3, 1),
+                  (700, 320, 300, 1, 1), (16_384, 64, 1000, 1, 1), (20_480, 512, 1000, 6, 6)):
+        assert lib.logreg_wide_plan(*shape, tk.TRIAL_BLOCK, out) == 1, shape
+        plan = tk.wide_plan(*shape)
+        assert list(out) == [plan[k] for k in tk.WIDE_PLAN_FIELDS], shape
+    assert lib.logreg_wide_plan(2048, 576, 10, 6, 1, tk.TRIAL_BLOCK, out) == 0
+    assert tk.wide_plan(2048, 576, 10, 6, 1) is None
+
+
+@pytest.mark.gpu
+def test_wide_form_raises_past_its_plan_on_card(cuda):
+    """dpp 576, past the packed path's 512: the wrapper raises on the card,
+    and launches nothing."""
+    Ab, Wb, y2, WSP = _wide_inputs(cuda, 512, 576, 10, 2, 1, seed=5)
+    tk.reset_launches()
+    with pytest.raises(ValueError):
+        tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=10, S=2)
+    assert tk.LAUNCHES == {k: 0 for k in tk.LAUNCHES}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,dpp,cp,c,lanes", [
+    (8192, 128, 304, 300, 16),  # chip_smoke.py's probe_scored_c300: two class tiles
+    (2000, 80, 528, 520, 3),    # three class tiles, a partial atom and row tile
+])
+def test_masked_kernel_past_256_classes_on_card(cuda, n_pad, dpp, cp, c, lanes):
+    """B3 past 256 classes (the class-tiled pass (a)) within TOL of its
+    plain version, two launches equal to the bit, padded classes 0."""
+    Ab, W, y2, wm = _masked_inputs(cuda, n_pad, dpp, cp, c, lanes, seed=cp)
+    runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
+    ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
+    torch.cuda.synchronize()
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    assert float(runs[0][:, :, c:].abs().max()) == 0.0
 
 
 @pytest.mark.gpu

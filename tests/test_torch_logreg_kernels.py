@@ -213,15 +213,18 @@ def test_gates_and_shared_memory_plan():
     # binary: 16 lanes of 2 classes, 32 columns a CTA
     geo = tk.step_geometry(64, 2)
     assert (geo["L"], geo["n1"]) == (16, 32)
-    assert tk.packed_smem_bytes(64, 7, 16) <= tk.SMEM_LIMIT
-    # outside the routing rule (too many gradient tiles for the first
-    # packed kernels' registers) -> generic drivers
+    assert _packed_smem_bytes(64, 7, 16) <= tk.SMEM_LIMIT
+    # no register-resident geometry (too many gradient floats a thread) ->
+    # the packed path's body is B1's wide form
     assert not tk.fused_step_applicable(512, 7)
+    assert tk.wide_plan(2048, 512, 7, 6, 1) is not None
     # 784-feature LogReg lane kernel: dpp 896, 10 classes padded to 16;
-    # features are tiled, so 2,048 of them pass too; at most 256 classes
+    # features are tiled, so 2,048 of them pass too; and classes past 256
+    # (the class-tiled pass (a))
     assert tk.masked_grad_applicable(896, 16)
     assert tk.masked_grad_applicable(2048, 16)
-    assert not tk.masked_grad_applicable(896, 272)
+    assert tk.masked_grad_applicable(896, 272)
+    assert not tk.masked_grad_applicable(896, 24)
     assert not tk.masked_grad_applicable(904, 16)
 
 
@@ -259,18 +262,24 @@ def test_masked_gate_still_accepts_every_shape_it_accepted():
 
 @pytest.mark.parametrize("n_pad,lanes", [(256, 1), (4096, 16), (60_160, 192), (1000, 7)])
 def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
-    """B3's plan at every shape the gate accepts (dpp to 2,048, every cp):
-    both passes' shared memory within a CTA's, an instantiated pass (a),
-    whole lanes in its column tile, the P row ranges covering [0, n_pad)
-    once in order, and the scratch the sum of W^T, R^T and the partials."""
+    """B3's plan at every shape the gate accepts (dpp to 2,048, cp to 544):
+    both passes' shared memory within a CTA's, an instantiated pass (a)
+    (past 256 classes the class-tiled one: 256 columns of one lane's
+    class tile), whole lanes in its column tile, the P row ranges covering
+    [0, n_pad) once in order, and the scratch the sum of W^T, R^T and the
+    partials."""
     for dpp in range(16, 2049, 16):
-        for cp in range(16, tk.MASKED_MAX_CP + 1, 16):
+        for cp in range(16, 545, 16):
             assert tk.masked_grad_applicable(dpp, cp)
             plan = tk.masked_plan(n_pad, dpp, cp, lanes)
             assert plan["smem_a"] <= tk.SMEM_LIMIT and plan["smem_b"] <= tk.SMEM_LIMIT
             assert plan["stages_a"] >= 1 and plan["stages_b"] >= 1
-            assert (plan["na"], plan["cpp"]) in tk.MASKED_GEOMETRIES
-            assert plan["cpp"] >= cp and plan["na"] % plan["cpp"] == 0
+            assert plan["cpp"] == tk.class_pitch(cp) >= cp
+            if plan["cpp"] <= tk.CLASS_TILE:
+                assert (plan["na"], plan["cpp"]) in tk.MASKED_GEOMETRIES
+                assert plan["na"] % plan["cpp"] == 0
+            else:
+                assert plan["na"] == tk.CLASS_TILE and plan["cpp"] % tk.CLASS_TILE == 0
             assert plan["cols"] % plan["na"] == 0 and plan["cols"] >= lanes * plan["cpp"]
             assert plan["mt"] * 64 >= dpp and 2 * plan["fb"] >= plan["mt"]
             ranges = tk.masked_ranges(plan, n_pad)
@@ -285,8 +294,26 @@ def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
             assert plan["r_offset"] >= wt and plan["part_offset"] - plan["r_offset"] >= r
             assert plan["scratch"] == plan["part_offset"] + part
             assert plan["r_offset"] % 1024 == 0 and plan["part_offset"] % 1024 == 0
-    assert tk.masked_plan(n_pad, 896, 272, lanes) is None
+    wide = tk.masked_plan(n_pad, 896, 272, lanes)  # two class tiles of 256
+    assert (wide["cpp"], wide["na"]) == (512, 256) and wide["smem_a"] <= tk.SMEM_LIMIT
     assert tk.masked_plan(n_pad, 904, 16, lanes) is None
+
+
+def _packed_smem_bytes(dpp, c, L):
+    """Shared memory of one CTA of the first (mma.sync) packed kernels at
+    a lane tile of L lanes, restated from their layout."""
+    def align(x):
+        return (x + 127) // 128 * 128
+
+    CL, ld = c * L, c * L + (40 - c * L % 32) % 32
+    off = align(CL * (dpp + 8) * 2)                 # bf16 V^T
+    for _ in range(2):
+        off = align(off + 64 * (dpp + 8) * 2)       # bf16 A tiles
+    off = align(off + CL * (64 + 8) * 2)            # bf16 residual
+    for _ in range(4):
+        off = align(off + 64 * 4)                   # labels, split weights
+    off = max(off, align(dpp * ld * 4))             # gradient staging overlay
+    return align(off + 256 * 4)                     # max|G| partials
 
 
 def _mma_sync_gate(dpp, c):
@@ -295,21 +322,28 @@ def _mma_sync_gate(dpp, c):
     restated from its rule."""
     return any(
         dpp % 16 == 0 and c <= 16 and (dpp // 8) * (c * L // 16) <= 128
-        and tk.packed_smem_bytes(dpp, c, L) <= tk.SMEM_LIMIT
+        and _packed_smem_bytes(dpp, c, L) <= tk.SMEM_LIMIT
         for L in (32, 16))
 
 
 def test_packed_gate_still_accepts_every_shape_it_accepted():
-    """No search leaves the packed path: every (dpp, c) the mma.sync kernels
-    took still passes fused_step_applicable (B1's lane tile and a B2
-    geometry both exist), and nothing else does."""
+    """No search that took the fused step leaves it: every (dpp, c) the
+    mma.sync kernels took still passes fused_step_applicable (a B1 / B2
+    register-resident geometry exists). The rule now: the fused step
+    wherever step_geometry has a geometry, and every other shape of the
+    packed path (dpp <= 512, any classes) has a plan for B1's wide form."""
     grid = [(dpp, c) for dpp in range(16, 1025, 16) for c in range(2, 40)]
     before = [sh for sh in grid if _mma_sync_gate(*sh)]
     assert len(before) == 147 and (64, 7) in before and (512, 2) in before
-    assert [sh for sh in grid if tk.fused_step_applicable(*sh)] == before
-    for dpp, c in before:
-        assert tk.packed_lane_tile(dpp, c) is not None
-        assert tk.step_geometry(dpp, c) is not None, (dpp, c)
+    fused = [sh for sh in grid if tk.fused_step_applicable(*sh)]
+    assert set(before) <= set(fused)
+    assert fused == [sh for sh in grid if tk.step_geometry(*sh) is not None]
+    # the C5 cells B2 now takes: (128, 9-16), (192, 6-8), (320, 4), (384, 3-4)
+    assert {(128, 9), (128, 16), (192, 6), (192, 8), (320, 4), (384, 3), (384, 4)} <= set(fused)
+    assert all(max(c for d, c in fused if d == dpp) <= 16 for dpp, _ in fused)
+    for dpp, c in grid:
+        if dpp <= tk.WIDE_MAX_DPP and (dpp, c) not in fused:
+            assert tk.wide_plan(2048, dpp, c, 6, 1) is not None, (dpp, c)
 
 
 def test_fused_step_geometry_fits_registers_and_shared_memory():
