@@ -346,14 +346,22 @@ process; see ``phase_probes``):
 
 48. probe_main  bench.py's search at 256 trials, max_iter 100, cv 5, on
             synthetic_20000x384x10 (dpp 448, 10 classes): B1's wide form
-            launched 100 times, B2, the register-resident B1 and B3 never.
+            (its fused kernel since slice 20) launched 100 times, B2, the
+            register-resident B1, the two passes and B3 never.
 49. probe_c100  128 trials, max_iter 50 on synthetic_20000x256x100: the
-            wide form's scratch split, 2 launches a call, 100 in all.
-50. probe_scored  16 trials, neg_log_loss, cv 3 on synthetic_8192x64x300:
+            fused kernel, one launch a call (the two passes took two), 50.
+50. probe_c200  128 trials, max_iter 30 on synthetic_10000x256x200: the
+            fused kernel in clusters of two CTAs a lane, one launch a
+            call, 30.
+51. probe_c300  16 trials, max_iter 20, cv 3 on synthetic_8192x64x300: past
+            256 classes B1's wide form runs its two passes, 4 launches a
+            call (the residual's scratch split by lane groups), 80.
+52. probe_scored  16 trials, neg_log_loss, cv 3 on synthetic_8192x64x300:
             B3 past 256 classes (the class-tiled pass (a)), 30 launches.
-51. probe_reference  128 trials, max_iter 20 on synthetic_4096x384x10, the
-            card (the wide form) against the CPU: within 2e-3.
-52. kernels_probe  the wide form at both probe shapes and B3 at
+53. probe_reference  128 trials, max_iter 20 on synthetic_4096x384x10, the
+            card (the fused wide form) against the CPU: within 2e-3.
+54. kernels_probe  the wide form at the four probe shapes (the fused
+            kernel at three, the two passes at probe_c300's) and B3 at
             probe_scored's against their plain versions, timed.
 
 The stage_cache line carries the stage cache's stats of the run so far;
@@ -413,13 +421,14 @@ from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # n
     HIST_FLOAT_REFIT_SHAPES, HIST_FLOAT_SHAPES, HIST_REFIT_SHAPES, HIST_SHAPES, HIST_SKEWED,
     HIST_FLOAT_DEEP_SHAPES, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
     LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
-    MASKED_SHAPES,
+    MASKED_SHAPES, PROBE_SCORED_DP, PROBE_SCORED_SHAPE,
     WIDE_SHAPES,
     MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_LOSS_LIMIT, MLP_SHAPES,
     deep_hist_inputs, digest, gb_hist_inputs, hist_inputs, hist_library_ms, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
-SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "hist": f"{PKG}/csrc/hist.cu",
+SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "logreg_fused": f"{PKG}/csrc/logreg_fused.cu",
+           "hist": f"{PKG}/csrc/hist.cu",
            "mlp": f"{PKG}/csrc/mlp.cu", "knn": f"{PKG}/csrc/knn.cu"}
 TOL = 5e-3
 HIST_FLOAT_TOL = 1e-5
@@ -429,9 +438,11 @@ MLP_SEARCH_TOL = 0.02
 #: from the kernels line, whose numbers this run measures
 EARLIER_MS = {"packed_softmax_grad": 18.35, "packed_nesterov_step": 18.51,
               "masked_softmax_grad": 27.74, "level_histogram": 0.105,
-              "level_histogram_f32": 42.9, "mlp_epoch": 913.5, "knn_topk": 28.41}
+              "level_histogram_f32": 42.9, "mlp_epoch": 913.5, "knn_topk": 28.41,
+              "packed_softmax_grad_fused": 4.363}
 EARLIER_MS_SOURCE = ("PERF.md's kernel table before each kernel's current design (B1 and B3: "
                      "their first designs, B1 by chip_smoke.py, B3 at wide_full's shape by "
+                     "kernel_ab.py; B1's fused wide form: the two passes it replaced at probe_main's shape by "
                      "kernel_ab.py; NVIDIA H100 80GB HBM3, 700.00 W); not measured in this run")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
@@ -534,8 +545,8 @@ def nvidia_smi() -> str:
 
 
 #: the packed-path probes' tables (slice 19), staged in one child process
-PROBE_TABLES = ("synthetic_20000x384x10,synthetic_20000x256x100,synthetic_8192x64x300,"
-                "synthetic_4096x384x10")
+PROBE_TABLES = ("synthetic_20000x384x10,synthetic_20000x256x100,synthetic_10000x256x200,"
+                "synthetic_8192x64x300,synthetic_4096x384x10")
 #: the tables whose staging (a synthetic draw, a CSV write, the parse)
 #: runs from the start of the run in a child process each (an entry may
 #: name several, comma-separated, staged in turn), beside the kernels'
@@ -752,6 +763,18 @@ def phase_build() -> None:
         mirror = cuda_logreg.wide_plan(*shape)
         assert list(wide) == [mirror[k] for k in cuda_logreg.WIDE_PLAN_FIELDS], shape
     assert lib.logreg_wide_plan(2048, 576, 10, 6, 1, cuda_logreg.TRIAL_BLOCK, wide) == 0
+    # B1's fused wide form: its plan mirrored, and refused where the two passes run
+    fused = (ctypes.c_longlong * len(cuda_logreg.FUSED_PLAN_FIELDS))()
+    flib = cuda_logreg._fused_lib()
+    for shape in (WIDE_SHAPES["probe_main"], WIDE_SHAPES["probe_c100"], WIDE_SHAPES["probe_c200"],
+                  PROBE_REFERENCE_SHAPE, (1000, 448, 10, 1, 1), (600, 256, 128, 1, 1),
+                  (2000, 64, 20, 3, 1), (700, 512, 256, 1, 1)):
+        assert flib.logreg_fused_plan(*shape, cuda_logreg.TRIAL_BLOCK, fused) == 1, shape
+        mirror = cuda_logreg.fused_plan(*shape)
+        assert list(fused) == [mirror[k] for k in cuda_logreg.FUSED_PLAN_FIELDS], shape
+    for shape in ((2048, 576, 10, 6, 1), WIDE_SHAPES["probe_c300"], (16_384, 64, 1000, 1, 1)):
+        assert flib.logreg_fused_plan(*shape, cuda_logreg.TRIAL_BLOCK, fused) == 0, shape
+        assert cuda_logreg.fused_plan(*shape) is None, shape
     for args in ((4, 54, 16, 7), (1, 2, 48, 7), (1, 5, 256, 16)):
         assert cuda_hist._lib().hist_page_bytes(*args) == cuda_hist.page_bytes(*args)
     for args in ((6, 116_202, 1536, 767), (6, 11_620, 128, 127), (1, 5, 1, 1)):
@@ -2303,8 +2326,8 @@ SCORED_TOL = {"LogisticRegression": 2e-3, "RandomForestClassifier": 1e-6,
               "transform": 1e-5}
 #: the kernels a scored job must never launch: the packed and fused paths
 #: score by the default metric only (B1, B2, B5)
-DEFAULT_ONLY_KERNELS = ("packed_softmax_grad", "packed_softmax_grad_wide", "packed_nesterov_step",
-                        "mlp_epoch")
+DEFAULT_ONLY_KERNELS = ("packed_softmax_grad", "packed_softmax_grad_fused",
+                        "packed_softmax_grad_wide", "packed_nesterov_step", "mlp_epoch")
 
 
 def _kernel_modules():
@@ -3937,8 +3960,10 @@ DIST_BLOCKS = 4
 #: smoke's time; printed), and the queued job that is migrated
 FLEET_TRIALS = 256
 FLEET_MIGRATED_TRIALS = 8
-#: prewarm: the first trials of main_auto's grid, one pull
-PREWARM_TRIALS = 128
+#: prewarm: the first trials of main_auto's grid, one pull (32 of them, one
+#: 128-trial block as 128 make, for the smoke's time: the cold agent's job
+#: took 11.3 s of the phase's 55.4 on a slow host)
+PREWARM_TRIALS = 32
 #: dist_rf's forest: rf_main's cut from 100 to 50 trees (2 chunks of the
 #: chunked protocol) for the smoke's time, which passed 900 s with the
 #: multi_device group at 100
@@ -5225,19 +5250,18 @@ def phase_svc_kmeans(manager, cfg, dev) -> dict:
 
 
 #: slice 19's probes of LogReg's packed path past the register-resident
-#: geometries: (dataset, trials, max_iter, cv). probe_main and probe_c100
-#: take B1's wide form (their kernel shapes are WIDE_SHAPES'), probe_scored
-#: B3 past 256 classes, probe_reference the wide form card vs CPU
+#: geometries: (dataset, trials, max_iter, cv). probe_main, probe_c100,
+#: probe_c200 and probe_c300 take B1's wide form (their kernel shapes are
+#: WIDE_SHAPES'), probe_scored B3 past 256 classes, probe_reference the wide
+#: form card vs CPU
 PROBE_MAIN = ("synthetic_20000x384x10", 256, 100, 5)
 PROBE_C100 = ("synthetic_20000x256x100", 128, 50, 5)
+PROBE_C200 = ("synthetic_10000x256x200", 128, 30, 5)
+PROBE_C300 = ("synthetic_8192x64x300", 16, 20, 3)
 PROBE_SCORED = ("synthetic_8192x64x300", 16, 30, 3)
 PROBE_REFERENCE = ("synthetic_4096x384x10", 128, 20, 5)
 #: probe_reference's packed shape: (n_pad, dpp, classes, splits, blocks)
 PROBE_REFERENCE_SHAPE = (4096, 448, 10, 6, 1)
-#: B3's shape in probe_scored: (lanes, n_pad, dpp, cp, classes), 65 real
-#: columns (64 features and the intercept) of 128
-PROBE_SCORED_SHAPE = (64, 8192, 128, 304, 300)
-PROBE_SCORED_DP = 65
 PROBE_TOL = 2e-3
 
 
@@ -5259,6 +5283,19 @@ def _probe_job(manager, phase: str, search: dict, dataset: str, n_trials: int) -
     return status, wall, launches
 
 
+#: the launch count of each route of B1's wide form
+WIDE_KEYS = {"fused": "packed_softmax_grad_fused", "two_pass": "packed_softmax_grad_wide"}
+
+
+def _wide_calls(K, shape) -> tuple:
+    """The launch count B1's wide form takes a call at a packed shape (by
+    ``route_plan``): its route, its key in the launch counts and the
+    launches a call (the fused kernel one, the two passes their plan's)."""
+    route, plan = K.route_plan(*shape)
+    assert route in WIDE_KEYS, (shape, route)
+    return route, WIDE_KEYS[route], 1 if route == "fused" else plan["launches"]
+
+
 def phase_probes(manager, dev) -> dict:
     """LogReg's packed path at shapes the register-resident B1 / B2 do not
     take, and B3 past 256 classes (slice 19), each job with every launch
@@ -5266,43 +5303,55 @@ def phase_probes(manager, dev) -> dict:
 
     - probe_main: bench.py's search at 256 trials, max_iter 100, cv 5, on
       synthetic_20000x384x10 (dpp 448, 10 classes): one packed dispatch of
-      2 blocks whose body is B1's wide form and the tensor-op update, 100
-      wide launches (one a step: its scratch fits one launch), B2, the
-      register-resident B1 and B3 never;
+      2 blocks whose body is B1's wide form (its fused kernel since slice
+      20: one launch a step, the rows in two ranges) and the tensor-op
+      update: 100 fused launches; B2, the register-resident B1, the two
+      passes and B3 never;
     - probe_c100: 128 trials, max_iter 50 on synthetic_20000x256x100 (dpp
-      320, 100 classes): the wide form's 4.0 GB padded residual passes the
-      2 GiB cap, so 50 calls make 100 launches;
+      320, 100 classes): the fused kernel at one call a step and no scratch
+      (the two passes needed two launches for their 4.0 GB residual): 50;
+    - probe_c200: 128 trials, max_iter 30 on synthetic_10000x256x200 (dpp
+      320, 200 classes): the fused kernel in clusters of two CTAs a lane,
+      one call a step: 30;
+    - probe_c300: 16 trials, max_iter 20, cv 3 on synthetic_8192x64x300 (dpp
+      128, 300 classes): past 256 classes the two passes, their plan's 4
+      launches a step (lane groups: the residual passes the scratch cap):
+      80;
     - probe_scored: 16 trials, neg_log_loss, max_iter 30, cv 3 on
       synthetic_8192x64x300: the generic driver, B3 (classes padded to
       304, the class-tiled pass (a)) 30 launches, the packed kernels never;
     - probe_reference: 128 trials, max_iter 20 on synthetic_4096x384x10 on
-      the card (the wide form, 20 launches) and on the CPU (its plain
+      the card (the fused wide form, 20 launches) and on the CPU (its plain
       version): every mean_cv_score within PROBE_TOL;
-    - kernels_probe: the wide form at WIDE_SHAPES and B3 at
-      PROBE_SCORED_SHAPE against their plain versions (TOL, two launches
-      equal to the bit), timed beside the bound.
+    - kernels_probe: the wide form at WIDE_SHAPES (by the route each
+      takes) and B3 at PROBE_SCORED_SHAPE against their plain versions
+      (TOL, two launches equal to the bit), timed beside the bound.
     Returns each job's launches and the kernel rows."""
     from cs230_distributed_machine_learning_tpu_torch import MLTaskManager
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
 
     out, seconds = {}, {}
-    for phase, (dataset, trials, steps, cv), shape in (
-            ("probe_main", PROBE_MAIN, WIDE_SHAPES["probe_main"]),
-            ("probe_c100", PROBE_C100, WIDE_SHAPES["probe_c100"])):
+    for phase, (dataset, trials, steps, cv), expect in (
+            ("probe_main", PROBE_MAIN, "fused"), ("probe_c100", PROBE_C100, "fused"),
+            ("probe_c200", PROBE_C200, "fused"), ("probe_c300", PROBE_C300, "two_pass")):
         t_phase = time.perf_counter()
         status, wall, launches = _probe_job(manager, phase, _search(trials, steps, cv), dataset,
                                             trials)
-        per_call = K.wide_plan(*shape)["launches"]
+        shape = WIDE_SHAPES[phase]
+        route, key, per_call = _wide_calls(K, shape)
+        plan = K.route_plan(*shape)[1]
         emit({"phase": phase, "dataset": dataset, "shape": shape, "wall_s": wall,
-              "launches": launches, "wide_launches_per_call": per_call,
+              "launches": launches, "route": route, "wide_launches_per_call": per_call,
+              "cluster": plan.get("cl"),
               "best_params": status["job_result"]["best_result"]["search_params"],
               "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
-        assert launches["packed_softmax_grad_wide"] == steps * per_call, (phase, launches)
-        assert all(launches[k] == 0 for k in ("packed_softmax_grad", "packed_nesterov_step",
-                                              "masked_softmax_grad")), (phase, launches)
-        if phase == "probe_c100":
-            assert per_call > 1, "probe_c100: the scratch cap did not split the call"
-        out[phase] = launches["packed_softmax_grad_wide"]
+        assert route == expect, (phase, route)
+        assert (plan.get("cl", 1) > 1) == (phase == "probe_c200"), (phase, plan)
+        assert launches[key] == steps * per_call, (phase, launches)
+        assert all(launches[k] == 0 for k in ("packed_softmax_grad", *WIDE_KEYS.values(),
+                                              "packed_nesterov_step", "masked_softmax_grad")
+                   if k != key), (phase, launches)
+        out[phase] = launches[key]
         seconds[phase] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
@@ -5322,8 +5371,8 @@ def phase_probes(manager, dev) -> dict:
     dataset, trials, steps, cv = PROBE_REFERENCE
     search = _search(trials, steps, cv)
     gpu, wall, launches = _probe_job(manager, "probe_reference", search, dataset, trials)
-    per_call = K.wide_plan(*PROBE_REFERENCE_SHAPE)["launches"]
-    assert launches["packed_softmax_grad_wide"] == steps * per_call, launches
+    _, key, per_call = _wide_calls(K, PROBE_REFERENCE_SHAPE)
+    assert launches[key] == steps * per_call, launches
     t_cpu = time.perf_counter()
     os.environ["CS230_FORCE_PACKED"] = "1"  # the CPU takes the packed path too
     try:
@@ -5340,7 +5389,7 @@ def phase_probes(manager, dev) -> dict:
           "cpu_wall_s": cpu_wall, "launches": launches, "max_mean_cv_diff": worst,
           "tolerance": PROBE_TOL, "best_params_equal": same})
     assert g.keys() == c.keys() and worst <= PROBE_TOL, f"probe_reference: {worst}"
-    out["probe_reference"] = launches["packed_softmax_grad_wide"]
+    out["probe_reference"] = launches[key]
     seconds["probe_reference"] = time.perf_counter() - t_phase
 
     t_phase = time.perf_counter()
@@ -5354,20 +5403,28 @@ def probe_kernel_rows(K, dev) -> dict:
     """B1's wide form at WIDE_SHAPES (packed_grad_row: within TOL, two
     launches equal to the bit, the kernel's and the plain version's median
     ms, the bound with both products counted over the real classes, 4
-    n_pad dpp NB a block) with each call's launches and its device ms by
-    kernel, and B3 past 256 classes at probe_scored's shape."""
+    n_pad dpp NB a block), each by the route the wrapper takes there (the
+    fused kernel, the two passes at probe_c300's shape): its plan, its
+    launches a call (the launch count's change over one call) and its
+    device ms by kernel; and B3 past 256 classes at probe_scored's shape."""
     gen = torch.Generator(device=dev).manual_seed(19)
     rows = {}
     for tag, (n_pad, dpp, c, S, n_wb) in WIDE_SHAPES.items():
         assert K.step_geometry(dpp, c) is None, tag
+        route, key, _ = _wide_calls(K, (n_pad, dpp, c, S, n_wb))
         Ab, W, _, y2, WSP, *_ = logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb)
         row = packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb)
         Wb = W.to(torch.bfloat16)
+        before = K.LAUNCHES[key]
+        K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+        torch.cuda.synchronize()
+        per_call = K.LAUNCHES[key] - before
         row["device_ms_by_kernel"] = device_ms_by_kernel(
             lambda: K.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
-        rows[("packed_softmax_grad_wide", tag)] = {
-            "shape": dict(n_pad=n_pad, dpp=dpp, c=c, S=S, n_wb=n_wb),
-            "plan": K.wide_plan(n_pad, dpp, c, S, n_wb), **row, "library_ms": None}
+        rows[(key, tag)] = {
+            "shape": dict(n_pad=n_pad, dpp=dpp, c=c, S=S, n_wb=n_wb), "route": route,
+            "plan": K.route_plan(n_pad, dpp, c, S, n_wb)[1], "launches_per_call": per_call,
+            **row, "library_ms": None}
         del Ab, W, Wb, y2, WSP
         torch.cuda.empty_cache()
     rows[("masked_softmax_grad", "probe_scored")] = masked_kernel_row(
@@ -5645,23 +5702,30 @@ def main() -> int:
     # the probes' launches and their rows
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    r = probes["rows"][("packed_softmax_grad_wide", "probe_main")]
-    c100 = probes["rows"][("packed_softmax_grad_wide", "probe_c100")]
+    def wide_path(key, tag):
+        row = probes["rows"][(key, tag)]
+        return {"launches": probes[tag], "job": tag, "launches_per_call": row["launches_per_call"],
+                **{k: row[k] for k in keys}, "bound_unit": row["bound_unit"],
+                "shape": "n_pad {n_pad}, dpp {dpp}, c {c}, S {S}, {n_wb} block(s)".format(
+                    **row["shape"])}
+
+    fused_key, wide_key = WIDE_KEYS["fused"], WIDE_KEYS["two_pass"]
+    main = wide_path(fused_key, "probe_main")
     kernels.append({
-        "name": "packed_softmax_grad_wide", "route": "cuda", "source": SOURCES["logreg"],
-        "replaces": f"{jax_ops}/pallas_logreg.py:109", "launches": probes["probe_main"],
-        **{k: r[k] for k in keys}, "bound_unit": r["bound_unit"],
-        "launches_per_call": r["plan"]["launches"],
-        "shape": "n_pad 20480, dpp 448, c 10, S 6, 2 blocks (probe_main: 256 trials on "
-                 "synthetic_20000x384x10)",
+        "name": fused_key, "route": "cuda", "source": SOURCES["logreg_fused"],
+        "replaces": f"{jax_ops}/pallas_logreg.py:109", **main,
+        "shape": main["shape"] + " (probe_main: 256 trials on synthetic_20000x384x10)",
         "other_paths": {
-            "probe_c100": {"launches": probes["probe_c100"], "job": "probe_c100",
-                           "launches_per_call": c100["plan"]["launches"],
-                           **{k: c100[k] for k in keys}, "bound_unit": c100["bound_unit"],
-                           "shape": "n_pad 20480, dpp 320, c 100, S 6, 1 block"},
+            "probe_c100": wide_path(fused_key, "probe_c100"),
+            "probe_c200": wide_path(fused_key, "probe_c200"),
             "probe_reference": {"launches": probes["probe_reference"],
                                 "job": "probe_reference",
                                 "shape": "n_pad 4096, dpp 448, c 10, S 6, 1 block"}}})
+    two = wide_path(wide_key, "probe_c300")
+    kernels.append({
+        "name": wide_key, "route": "cuda", "source": SOURCES["logreg"],
+        "replaces": f"{jax_ops}/pallas_logreg.py:109", **two,
+        "shape": two["shape"] + " (probe_c300: 16 trials, cv 3, on synthetic_8192x64x300)"})
     r = probes["rows"][("masked_softmax_grad", "probe_scored")]
     kernels.append({
         "name": "masked_softmax_grad_class_tiled", "route": "cuda", "source": SOURCES["logreg"],

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels (csrc/
-// logreg.cu, csrc/mlp.cu, csrc/hist.cu): wgmma from 128-byte-swizzled
-// shared memory, its fences, and the mbarrier-tracked bulk copies of the
-// Tensor Memory Accelerator. Each source includes it into its own
-// anonymous namespace, so every library keeps its own copy.
+// Hopper (sm_90a) building blocks shared by the port's kernels
+// (csrc/logreg.cu, csrc/logreg_fused.cu, csrc/mlp.cu, csrc/hist.cu): wgmma
+// from 128-byte-swizzled shared memory, its fences, and the
+// mbarrier-tracked bulk copies of the Tensor Memory Accelerator. Each
+// source includes it into its own anonymous namespace, so every library
+// keeps its own copy.
 #pragma once
 
 #include <stdint.h>
@@ -95,6 +96,46 @@ struct Wgmma<64> {
   }
 };
 
+// m64n40 and m64n56 (B1's fused wide form: a CTA's half of 8 lanes of 10
+// classes, of one lane of up to 112): the accumulating product only.
+template <>
+struct Wgmma<40> {
+  // d += A B
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[20], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %22, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(da), "l"(db), "n"(kTransA));
+  }
+};
+
+template <>
+struct Wgmma<56> {
+  // d += A B
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[28], uint64_t da, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+        "}, %28, %29, p, 1, 1, %30, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "l"(da), "l"(db), "n"(kTransA));
+  }
+};
+
+
 template <>
 struct Wgmma<128> {
   // d += A B
@@ -178,6 +219,81 @@ struct Wgmma<256> {
   }
 };
 
+// d = A B + (acc ? d : 0), acc a run-time value: the first product of a
+// chain whose length is known at run time writes d without reading it, so
+// no other instruction has to zero the accumulator (which would make ptxas
+// serialize the chain). The widths of B1's fused wide form.
+template <int N>
+struct WgmmaAcc;
+
+template <>
+struct WgmmaAcc<32> {
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %19, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %18, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "n"(kTransA), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaAcc<40> {
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[20], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %23, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19"
+        "}, %20, %21, p, 1, 1, %22, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+        : "l"(da), "l"(db), "n"(kTransA), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaAcc<56> {
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[28], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %31, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27"
+        "}, %28, %29, p, 1, 1, %30, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+        : "l"(da), "l"(db), "n"(kTransA), "r"(acc));
+  }
+};
+
+template <>
+struct WgmmaAcc<64> {
+  template <int kTransA>
+  __device__ __forceinline__ static void mma(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %35, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %34, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "n"(kTransA), "r"(acc));
+  }
+};
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -200,6 +316,29 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
 }
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Thread-block clusters: this CTA's rank in its cluster; a barrier of every
+// thread of the cluster (its shared-memory writes before it are visible to
+// the others' reads after it); and a float2 read from the shared memory of
+// cluster CTA `rank` at the offset `local` has in this CTA's.
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::
+                   : "memory");
+}
+__device__ __forceinline__ float2 ld_cluster_f2(const void* local, int rank) {
+  uint32_t addr;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_u32(local)),
+               "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr)
+               : "memory");
+  return v;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

@@ -276,18 +276,16 @@ class LogisticRegressionKernel(ModelKernel):
         """Device bytes a packed dispatch of ``n_wb`` 128-trial blocks holds
         at once: W, Wp, the look-ahead V and the gradient G (f32, ``[n_wb,
         dpp, NB]`` each), the eval's logits of one row chunk, and where the
-        body is B1's wide form its scratch (``wide_plan``: at most 2 GiB a
-        call). The trial engine bounds the packed chunk by it."""
-        from ..ops.cuda_logreg import fused_step_applicable, wide_plan
+        body is B1's wide form its scratch (``wide_scratch_bytes``: the
+        fused form's row-range partials, or the two passes' buffer, at most
+        2 GiB a call). The trial engine bounds the packed chunk by it."""
+        from ..ops.cuda_logreg import wide_scratch_bytes
 
         geo = _packed_geometry(static, n, d, n_classes, n_splits)
         c, S, dpp = geo["c"], geo["S"], geo["dpp"]
         NB = c * S * self.batched_trial_multiple
         total = 16 * n_wb * dpp * NB + 4 * n_wb * geo["rc"] * NB
-        if not fused_step_applicable(dpp, c):
-            plan = wide_plan(geo["n_pad"], dpp, c, S, n_wb)
-            total += plan["scratch"] if plan is not None else 0
-        return total
+        return total + wide_scratch_bytes(geo["n_pad"], dpp, c, S, n_wb)
 
     def batched_staged_extras(self, static, n, d, n_classes, n_splits,
                               fold_signature=None, *, device: torch.device):

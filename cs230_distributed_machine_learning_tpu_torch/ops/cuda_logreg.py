@@ -1,7 +1,8 @@
 """Fused softmax-regression gradients: hand-written CUDA kernels for Hopper.
 
 Counterpart of the JAX package's ``ops/pallas_logreg.py``. Three kernels,
-in ``csrc/logreg.cu``, each beside its plain PyTorch version:
+in ``csrc/logreg.cu`` (B1's fused wide form in ``csrc/logreg_fused.cu``),
+each beside its plain PyTorch version:
 
 - ``packed_softmax_grad`` (replaces ``pallas_logreg.py:109``)
       G3[wb] = A^T (w * (softmax_c(A W3[wb]) - Y)) for every packed column;
@@ -17,9 +18,16 @@ the Gram product over P row ranges (``masked_plan``), with no cap on the
 features or the classes: a lane's classes past ``CLASS_TILE`` are tiled in
 two sweeps (the max and the denominator, then the residuals). Where no
 register-resident geometry exists (dpp past it or more than 16 classes),
-``packed_softmax_grad`` runs its wide form: the masked kernel's two passes
-on the packed layout (``wide_plan``), its lanes and rows split into
-launches of at most ``WIDE_SCRATCH_BYTES`` of scratch.
+``packed_softmax_grad`` runs its wide form, by shape alone
+(``route_plan``): to 256 classes the fused kernel (``fused_plan``): one
+pass over 64-row tiles that keeps the bf16 residual in shared memory and
+the gradient in registers, as the TPU kernel keeps them in VMEM, each A
+tile read once for all of a CTA's lanes and classes; one CTA holds a
+lane's classes to 64 at dpp 512, 80 at 448, 112 at 320 and 128 at 256,
+and past that a cluster of 2 or 4 CTAs shares them, the softmax's max and
+sum read across the cluster. Past 256 classes the masked kernel's two
+passes on the packed layout (``wide_plan``), their lanes and rows split
+into launches of at most ``WIDE_SCRATCH_BYTES`` of scratch.
 
 Packing (the JAX package's): all trials' weight columns live in one
 ``[n_wb, dpp, NB]`` tensor per 128-trial block, class-major,
@@ -43,7 +51,10 @@ at a full-size search's 192 lanes (n_pad 60,160) by its products over the
 real classes, 0.42 ms. B1's wide form at 256 trials of a 384-feature,
 10-class table (n_pad 20,480, dpp 448, S 6) does 0.56 TFLOP of products
 over the real classes, 0.57 ms; at 100 classes on 256 features (dpp 320,
-one block) 2.0 TFLOP, 2.0 ms, and its bf16 residual alone is 3.1 GB.
+one block) 2.0 TFLOP, 2.0 ms. Its fused kernel takes each at one call
+with no residual in device memory (the first in two row ranges, whose
+55 MB of partials are summed in order); the two passes wrote 1.0 and
+4.0 GB of bf16 residual there.
 """
 
 from __future__ import annotations
@@ -64,6 +75,7 @@ SMEM_LIMIT = 232_448
 #: kernel launches per wrapper, for showing which kernels a run used
 LAUNCHES = {
     "packed_softmax_grad": 0,
+    "packed_softmax_grad_fused": 0,
     "packed_softmax_grad_wide": 0,
     "packed_nesterov_step": 0,
     "masked_softmax_grad": 0,
@@ -344,6 +356,126 @@ WIDE_PLAN_FIELDS = ("cpp", "na", "row_tiles", "n_lb", "lb", "lane_launches", "ro
                     "smem_a", "smem_b", "scratch")
 
 
+#: B1's fused wide form (``fused_wide_kernel``, csrc/logreg_fused.cu): the
+#: ring's most row-tile sets, a CTA's threads, its row tile, its most row
+#: ranges, and the (NC, L, KU, CL) instantiations in the plan's order of
+#: preference (``LOGREG_FUSED_GEOMETRIES``): NC columns a warpgroup of L
+#: lanes, KU feature atoms at most (a warpgroup's share of the gradient
+#: holds every atom), CL CTAs a cluster, a pitch of 2 NC CL / L classes a lane
+_FUSED_MAX_SETS = 4
+_FUSED_THREADS = 256
+FUSED_ROWS = 64
+_FUSED_MAX_RANGES = 4
+FUSED_GEOMETRIES = ((32, 8, 8, 1), (40, 8, 7, 1), (32, 4, 8, 1), (32, 2, 8, 1), (32, 1, 8, 1),
+                    (40, 1, 7, 1), (56, 1, 5, 1), (64, 1, 4, 1), (32, 1, 8, 2), (40, 1, 7, 2),
+                    (56, 1, 5, 2), (64, 1, 4, 2), (32, 1, 8, 4))
+
+
+def fused_layout(nc: int, mt: int, stages: int) -> int:
+    """A fused CTA's shared memory (``fused_layout`` in
+    csrc/logreg_fused.cu, byte for byte): 1 KB of mbarriers, V^T of both warpgroups' classes,
+    each one's residual of a tile, two tiles' softmax partials, ``stages``
+    64-row tiles of ``mt`` atoms, and 1 KB to align the base."""
+    return (1024 + 2 * mt * nc * 128 + nc * 256 + 2 * _FUSED_THREADS * 32
+            + stages * mt * FUSED_ROWS * 128 + 1024)
+
+
+def fused_stages(nc: int, mt: int) -> int:
+    """The ring's row-tile sets: as many as fit beside the rest, up to four
+    (the plan takes two at least)."""
+    base = fused_layout(nc, mt, 0)
+    return min(_FUSED_MAX_SETS, max(0, SMEM_LIMIT - base) // (mt * FUSED_ROWS * 128))
+
+
+def fused_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
+               Tw: int = TRIAL_BLOCK) -> Optional[dict]:
+    """B1's fused wide form's plan (``fused_plan`` in csrc/logreg_fused.cu,
+    field for field), or None where it has no geometry: the shape then takes the
+    two passes (``wide_plan``). A cluster of ``cl`` CTAs owns ``L`` lanes
+    (trials of one split of one weight block) at a pitch of ``2 nc cl / L``
+    classes, the least pitch of ``FUSED_GEOMETRIES`` that holds c; each
+    warpgroup owns a part of the classes (``nc`` columns) over every feature
+    atom, in 64-row tiles. One CTA (cl 1) fits dpp <= 512 to 64 classes,
+    dpp <= 448 to 80, dpp <= 320 to 112 and dpp <= 256 to 128 (a
+    warpgroup's share of the gradient over every atom); clusters of 2 and
+    4 CTAs take the lanes to 256 classes at every dpp. ``blocks`` is the
+    CTAs, ``cl`` a column block. ``ranges`` row ranges (P <= 4): from P =
+    1, each Q = 2, 3, 4 whose partials fit ``WIDE_SCRATCH_BYTES`` is taken
+    where its waves of ``blocks * Q`` CTAs, a wave's time being a range's
+    share of the rows, take under 0.9 of the time of the P taken so far (a
+    range more costs each CTA its prologue and the partials their sum).
+    The scratch: ``vt`` bytes of W3 transposed (each lane's classes in rows
+    of the padded features, bf16, which the CTAs read whole), then at P > 1
+    P partials of G3's size, added in range order: no per-row residual
+    leaves the chip."""
+    if (n_pad <= 0 or dpp <= 0 or dpp % 16 or dpp > WIDE_MAX_DPP or c < 2 or S <= 0
+            or n_wb <= 0 or Tw <= 0 or Tw % 16 or Tw > TRIAL_BLOCK):
+        return None
+    mt = -(-dpp // _STEP_ATOM)
+    pick = None
+    for nc, L, ku, cl in FUSED_GEOMETRIES:
+        if 2 * nc * cl // L < c or Tw % L or mt > ku or fused_stages(nc, mt) < 2:
+            continue
+        if pick is None or nc * cl * pick[1] < pick[0] * pick[3] * L:
+            pick = (nc, L, ku, cl)
+    if pick is None:
+        return None
+    nc, L, ku, cl = pick
+    row_tiles = -(-n_pad // FUSED_ROWS)
+    blocks = n_wb * S * Tw // L * cl
+    g3 = n_wb * dpp * c * S * Tw * 4
+    P, best_waves = 1, -(-blocks // _SMS)
+    for Q in range(2, min(_FUSED_MAX_RANGES, row_tiles) + 1):
+        waves = -(-blocks * Q // _SMS)
+        if Q * g3 <= WIDE_SCRATCH_BYTES and 10 * waves * P < 9 * best_waves * Q:
+            P, best_waves = Q, waves
+    stages = fused_stages(nc, mt)
+    pitch = 2 * nc * cl // L
+    vt = _align(n_wb * S * Tw * pitch * mt * _STEP_ATOM * 2, 1024)
+    return {"nc": nc, "L": L, "ku": ku, "cl": cl, "pitch": pitch, "mt": mt,
+            "row_tiles": row_tiles, "blocks": blocks, "ranges": P, "stages": stages,
+            "smem": fused_layout(nc, mt, stages), "vt": vt,
+            "scratch": vt + (P * g3 if P > 1 else 0)}
+
+
+#: the fields of ``logreg_fused_plan``'s output, in order
+FUSED_PLAN_FIELDS = ("nc", "L", "ku", "cl", "pitch", "mt", "row_tiles", "blocks", "ranges",
+                     "stages", "smem", "vt", "scratch")
+
+
+def route_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
+               Tw: int = TRIAL_BLOCK) -> tuple:
+    """The body ``packed_softmax_grad`` runs on the card, by shape alone,
+    and its plan: ``("resident", step_geometry)`` where B1 / B2 have a
+    register-resident geometry, else ``("fused", fused_plan)`` where the
+    fused form has one, else ``("two_pass", wide_plan)`` where the two
+    passes have one (``fused_plan`` says where: past 256 classes), else
+    ``(None, None)`` (the card refuses the shape)."""
+    geo = step_geometry(dpp, c)
+    if geo is not None:
+        return "resident", geo
+    plan = fused_plan(n_pad, dpp, c, S, n_wb, Tw)
+    if plan is not None:
+        return "fused", plan
+    plan = wide_plan(n_pad, dpp, c, S, n_wb, Tw)
+    return ("two_pass", plan) if plan is not None else (None, None)
+
+
+def wide_route(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
+               Tw: int = TRIAL_BLOCK) -> Optional[str]:
+    """``route_plan``'s route alone."""
+    return route_plan(n_pad, dpp, c, S, n_wb, Tw)[0]
+
+
+def wide_scratch_bytes(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
+                       Tw: int = TRIAL_BLOCK) -> int:
+    """Device scratch of one ``packed_softmax_grad`` call on the card: the
+    fused form's transposed weights and row-range partials, the two passes' buffer,
+    none for the register-resident body or a refused shape."""
+    route, plan = route_plan(n_pad, dpp, c, S, n_wb, Tw)
+    return plan["scratch"] if route in ("fused", "two_pass") else 0
+
+
 def wide_launch(plan: dict, i: int) -> tuple:
     """Launch ``i``'s lane blocks ``[lb0, lb1)`` and row tiles ``[t0, t1)``
     (``wide_launch`` in csrc/logreg.cu): lane group i // R, row chunk
@@ -495,6 +627,29 @@ def _lib() -> ctypes.CDLL:
     return _lib_handle
 
 
+_fused_lib_handle: Optional[ctypes.CDLL] = None
+
+
+def _fused_lib() -> ctypes.CDLL:
+    """The built csrc/logreg_fused.cu (B1's fused wide form; a source of
+    its own, so that its build runs beside logreg.cu's) with its C
+    signatures declared."""
+    global _fused_lib_handle
+    if _fused_lib_handle is None:
+        from .cuda_build import load
+
+        lib = load("logreg_fused")
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.logreg_fused_plan.argtypes = [I] * 6 + [P]
+        lib.logreg_fused_plan.restype = I
+        lib.logreg_fused_softmax_grad.argtypes = (
+            [P] * 6 + [ctypes.c_longlong] + [I] * 6 + [P]
+        )
+        lib.logreg_fused_softmax_grad.restype = I
+        _fused_lib_handle = lib
+    return _fused_lib_handle
+
+
 def _on_card(*tensors) -> bool:
     """True when every tensor lies on one CUDA device, False when all lie
     on the CPU; anything else is a caller error."""
@@ -538,10 +693,13 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     WSP [n_pad, S]       f32
     returns G3 [n_wb, dpp, NB] f32
 
-    On the card: the register-resident body where ``step_geometry`` has a
-    geometry (one launch, counted in ``LAUNCHES["packed_softmax_grad"]``),
-    else the wide form, ``wide_plan``'s launches on one scratch buffer
-    (each counted in ``LAUNCHES["packed_softmax_grad_wide"]``).
+    On the card, by shape alone (``route_plan``): the register-resident
+    body where ``step_geometry`` has a geometry (one launch, counted in
+    ``LAUNCHES["packed_softmax_grad"]``), else the fused wide form where
+    ``fused_plan`` has one (one C call, counted in
+    ``LAUNCHES["packed_softmax_grad_fused"]``), else the two passes,
+    ``wide_plan``'s launches on one scratch buffer (each counted in
+    ``LAUNCHES["packed_softmax_grad_wide"]``).
     """
     if not _on_card(Ab, W3, y2, WSP):
         return packed_softmax_grad_reference(Ab, W3, y2, WSP, c=c, S=S, Tw=Tw)
@@ -551,10 +709,13 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     _check("W3", W3, torch.bfloat16, (n_wb, dpp, NB))
     _check("y2", y2, torch.int32, (n_pad, 1))
     _check("WSP", WSP, torch.float32, (n_pad, S))
-    geo = step_geometry(dpp, c)
-    if geo is None:
-        return _packed_softmax_grad_wide(Ab, W3, y2, WSP, c=c, S=S, Tw=Tw)
-    if n_pad % PACKED_ROWS or Tw % geo["L"]:
+    route, plan = route_plan(n_pad, dpp, c, S, n_wb, Tw)
+    if route == "fused":
+        return _packed_softmax_grad_fused(Ab, W3, y2, WSP, plan, c=c, S=S, Tw=Tw)
+    if route == "two_pass":
+        return _packed_softmax_grad_wide(Ab, W3, y2, WSP, plan, c=c, S=S, Tw=Tw)
+    geo = plan
+    if geo is None or n_pad % PACKED_ROWS or Tw % geo["L"]:
         raise ValueError(
             f"packed_softmax_grad: no kernel geometry for n_pad={n_pad}, "
             f"dpp={dpp}, c={c}"
@@ -568,18 +729,27 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     return G3
 
 
-def _packed_softmax_grad_wide(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int):
+def _packed_softmax_grad_fused(Ab, W3, y2, WSP, plan, *, c: int, S: int, Tw: int):
+    """B1's fused wide form on the card: one C call (W3 transposed, the
+    fused kernel, and at P > 1 the in-order sum of the ranges' partials)."""
+    n_pad, dpp = Ab.shape
+    n_wb = W3.shape[0]
+    G3 = torch.empty((n_wb, dpp, c * S * Tw), dtype=torch.float32, device=Ab.device)
+    scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=Ab.device)
+    with torch.cuda.device(Ab.device):
+        _launch(_fused_lib().logreg_fused_softmax_grad, _ptr(Ab), _ptr(W3), _ptr(y2), _ptr(WSP),
+                _ptr(G3), _ptr(scratch), plan["scratch"], n_pad, dpp, c, S, n_wb, Tw,
+                device=Ab.device)
+    LAUNCHES["packed_softmax_grad_fused"] += 1
+    return G3
+
+
+def _packed_softmax_grad_wide(Ab, W3, y2, WSP, plan, *, c: int, S: int, Tw: int):
     """B1's wide form on the card: ``wide_plan``'s launches in order, each
     one C call (W^T of its lane blocks, pass (a), pass (b), the range sum
     into G3, added to it after a lane group's first row chunk)."""
     n_pad, dpp = Ab.shape
     n_wb = W3.shape[0]
-    plan = wide_plan(n_pad, dpp, c, S, n_wb, Tw)
-    if plan is None:
-        raise ValueError(
-            f"packed_softmax_grad: no wide-form plan for n_pad={n_pad}, dpp={dpp}, "
-            f"c={c}, S={S}, n_wb={n_wb}, Tw={Tw}"
-        )
     G3 = torch.empty((n_wb, dpp, c * S * Tw), dtype=torch.float32, device=Ab.device)
     scratch = torch.empty(plan["scratch"], dtype=torch.uint8, device=Ab.device)
     with torch.cuda.device(Ab.device):

@@ -98,8 +98,12 @@ def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c
 #: B1's wide form (past the register-resident geometries) on chip_smoke.py's
 #: probe jobs: (n_pad, dpp, classes, splits, 128-trial blocks). probe_main:
 #: 256 trials, cv 5, on synthetic_20000x384x10; probe_c100: 128 trials,
-#: cv 5, on synthetic_20000x256x100 (its scratch split over launches)
-WIDE_SHAPES = {"probe_main": (20_480, 448, 10, 6, 2), "probe_c100": (20_480, 320, 100, 6, 1)}
+#: cv 5, on synthetic_20000x256x100 (both the fused kernel, one CTA a
+#: lane block); probe_c200: 128 trials, cv 5, on synthetic_10000x256x200
+#: (the fused kernel, two CTAs a lane); probe_c300: 16 trials, cv 3, on
+#: synthetic_8192x64x300 (past 256 classes: the two passes, four launches)
+WIDE_SHAPES = {"probe_main": (20_480, 448, 10, 6, 2), "probe_c100": (20_480, 320, 100, 6, 1),
+               "probe_c200": (10_240, 320, 200, 6, 1), "probe_c300": (8192, 128, 300, 4, 1)}
 
 
 # ------------------------------------------------------- B3 (masked logreg)
@@ -116,6 +120,11 @@ MASKED_SHAPES = {"wide": (16, 4096, 896, 16, 10), "wide_full": (192, 60_160, 896
 MASKED_SCORED_SHAPE = (1536, 116_224, 128, 16, 7)
 #: the real columns of that shape: 54 features and the intercept
 MASKED_SCORED_DP = 55
+#: B3 past 256 classes (its class-tiled pass (a)) in chip_smoke.py's
+#: probe_scored: (lanes, n_pad, dpp, cp, classes), 16 trials x 4 splits on
+#: synthetic_8192x64x300, 65 real columns (64 features and the intercept)
+PROBE_SCORED_SHAPE = (64, 8192, 128, 304, 300)
+PROBE_SCORED_DP = 65
 #: B3 at the winner's refit on covertype (runtime/executor.py::fit_artifact):
 #: one lane (one trial, the holdout split), the same padded rows and columns
 MASKED_REFIT_SHAPE = (1, 116_224, 128, 16, 7)

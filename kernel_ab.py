@@ -6,7 +6,8 @@ Each entry of ``--trees`` is the root of a checkout (for example the
 parent commit unpacked with ``git archive`` into a directory that
 ``.gitignore`` lists, and ``.``). For each entry in order, a fresh process
 imports that checkout's package, builds its ``csrc/logreg.cu``,
-``csrc/hist.cu``, ``csrc/mlp.cu`` and ``csrc/knn.cu`` and times the kernels
+``csrc/hist.cu``, ``csrc/mlp.cu`` and ``csrc/knn.cu`` (and ``csrc/logreg_fused.cu``
+where the checkout has it) and times the kernels
 through their wrappers, whose signatures every checkout shares. The shapes, the input
 builders and the timer are this checkout's ``ops/kernel_cases.py``, the
 ones ``chip_smoke.py`` uses, loaded by path so that every tree is timed
@@ -29,7 +30,13 @@ on the same inputs from the same seeds:
   ``LOGREG_SHAPE`` (bench.py's 1,024-trial dispatch on covertype);
 - B3 ``masked_softmax_grad`` at every ``MASKED_SHAPES`` entry (the 784-
   feature search's 16 lanes on 4,096 rows, and a full-size search's 192
-  lanes on 60,160 rows).
+  lanes on 60,160 rows), and past 256 classes at ``PROBE_SCORED_SHAPE``
+  (64 lanes, cp 304: the class-tiled pass (a));
+- B1's wide form, ``packed_softmax_grad`` past the register-resident
+  geometries, at every ``WIDE_SHAPES`` entry (``packed_softmax_grad_wide_*``:
+  the route the checkout's wrapper takes there, its fused kernel or its two
+  passes, with its largest error relative to the plain version's largest
+  value in ``logreg_rel_err``).
 
 ``--only`` times a subset of the four sources' kernels. Beside each time,
 a SHA-256 digest of the kernel's output on fresh inputs
@@ -75,7 +82,7 @@ def worker(only) -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_mlp as M
 
     C = _load_cases()
-    cuda_build.build(only)
+    cuda_build.build([n for n in cuda_build.source_names() if n.split("_")[0] in only])
     dev = torch.device("cuda", 0)
     out = {"tree": os.getcwd(), "hist_ms": {}, "knn_ms": {}, "mlp_ms": {}, "logreg_ms": {},
            "hist_digest": {}, "knn_digest": {}, "mlp_digest": {}, "logreg_digest": {},
@@ -197,12 +204,29 @@ def _worker_logreg(out, only, C, dev, torch, R) -> dict:
     del Ab, Wt, Wp, Wb, rest
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(3)
-    for tag, (lanes, n3, dpp3, cp, c3) in C.MASKED_SHAPES.items():
-        Ab, Wl, y2, wm = C.masked_inputs(gen, dev, lanes, n3, dpp3, cp, c3)
+    masked = {**C.MASKED_SHAPES, "probe_scored": C.PROBE_SCORED_SHAPE}
+    for tag, (lanes, n3, dpp3, cp, c3) in masked.items():
+        dp = C.PROBE_SCORED_DP if tag == "probe_scored" else None
+        Ab, Wl, y2, wm = C.masked_inputs(gen, dev, lanes, n3, dpp3, cp, c3, dp=dp)
         key = f"masked_softmax_grad_{tag}"
         out["logreg_digest"][key] = C.digest(R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
         out["logreg_ms"][key] = C.time_ms(lambda: R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
         del Ab, Wl, y2, wm
+        torch.cuda.empty_cache()
+    out["logreg_rel_err"] = {}
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for tag, (n_pad, dpp, c, S, n_wb) in C.WIDE_SHAPES.items():
+        Ab, W, _, y2, WSP, *_ = C.logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb)
+        Wb = W.to(torch.bfloat16)
+        del W
+        key = f"packed_softmax_grad_wide_{tag}"
+        got = R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
+        out["logreg_digest"][key] = C.digest(got)
+        ref = R.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+        out["logreg_rel_err"][key] = float((got - ref).abs().max() / ref.abs().max())
+        del got, ref
+        out["logreg_ms"][key] = C.time_ms(lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
+        del Ab, Wb, y2, WSP
         torch.cuda.empty_cache()
     return out
 

@@ -35,11 +35,14 @@ exact and the outputs must be equal, ties (lowest index first) and empty
 slots (3.4e38, -1) included, with the lists in shared memory (k <= 256)
 and in device memory (k 300), at lane groups of 1, 6 and 9 lanes and with
 the rows split into ranges whose partial lists are merged. B1's wide form
-(past the register-resident geometries: the masked kernel's two passes on
-the packed layout, its lanes and rows split into launches of at most
-2 GiB of scratch) is held to the same 5e-3 at chip_smoke.py's probe
-shapes, ragged ones, a class-tiled one and one whose rows split into
-launches, and to the register-resident B1 at covertype's shape; B3 past
+(past the register-resident geometries) is held to the same 5e-3 by the
+route its shape takes: the fused kernel (csrc/logreg_fused.cu: one pass,
+the residual on chip, the rows in ranges where few lanes leave SMs idle,
+clusters of 2 or 4 CTAs a lane past 64-128 classes) at chip_smoke.py's
+probe shapes and ragged ones, and against the register-resident B1 at
+covertype's shape; past 256 classes the masked kernel's two passes on the
+packed layout (a class-tiled shape, one whose rows split into launches);
+each plan against its library's. B3 past
 256 classes (the class-tiled pass (a)) likewise. B3 and B6 are
 also held at the winner artifact's shapes (one lane: the covertype refit,
 the KNN prediction on 40,000 holdout rows), and a LogReg refit on the card
@@ -370,16 +373,22 @@ def _wide_inputs(dev, n_pad, dpp, c, S, n_wb, seed):
 
 def _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed):
     """B1 on the card (its wide form: no register-resident geometry) twice
-    and its plain version: within TOL, equal to the bit, one launch a
-    plan's launch. Returns the plan."""
-    assert tk.step_geometry(dpp, c) is None
+    and its plain version: within TOL, equal to the bit, the route the
+    shape takes (``wide_route``: the fused form, one C call, else the two
+    passes, one launch a plan's launch) and no other. Returns the route's
+    plan."""
+    route = tk.wide_route(n_pad, dpp, c, S, n_wb)
+    assert route in ("fused", "two_pass")
     Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, n_wb, seed)
-    plan = tk.wide_plan(n_pad, dpp, c, S, n_wb)
+    plan = (tk.fused_plan if route == "fused" else tk.wide_plan)(n_pad, dpp, c, S, n_wb)
     tk.reset_launches()
     runs = [tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S) for _ in range(2)]
     torch.cuda.synchronize()
     assert torch.equal(runs[0], runs[1])
-    assert tk.LAUNCHES["packed_softmax_grad_wide"] == 2 * plan["launches"]
+    calls = {"fused": 2, "two_pass": 2 * plan.get("launches", 1)}
+    assert tk.LAUNCHES["packed_softmax_grad_fused"] == (calls["fused"] if route == "fused" else 0)
+    assert tk.LAUNCHES["packed_softmax_grad_wide"] == (
+        calls["two_pass"] if route == "two_pass" else 0)
     assert tk.LAUNCHES["packed_softmax_grad"] == 0
     got = runs[0]
     del runs
@@ -392,37 +401,66 @@ def _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed):
 @pytest.mark.parametrize("tag", sorted(kc.WIDE_SHAPES))
 def test_wide_form_matches_plain_and_repeats_bit_for_bit_on_card(cuda, tag):
     """B1's wide form at chip_smoke.py's probe shapes: 2 blocks of 10
-    classes at dpp 448, and 100 classes at dpp 320, whose 3.1 GB residual
-    splits over launches."""
-    plan = _wide_check(cuda, *kc.WIDE_SHAPES[tag], seed=19)
-    assert plan["launches"] == {"probe_main": 1, "probe_c100": 2}[tag]
+    classes at dpp 448 (192 CTAs: the rows in two ranges), 100 classes at
+    dpp 320 (768 CTAs, no scratch) and 200 classes at dpp 320 (clusters of
+    two CTAs a lane, one row range) take the fused form, one
+    call; 300 classes the two passes, four launches (lane groups: the
+    residual passes the scratch cap)."""
+    n_pad, dpp, c, S, n_wb = kc.WIDE_SHAPES[tag]
+    plan = _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed=19)
+    if tag == "probe_c300":
+        assert (plan["lane_launches"], plan["row_launches"]) == (4, 1)
+        return
+    assert (plan["nc"], plan["L"], plan["cl"], plan["ranges"]) == {
+        "probe_main": (40, 8, 1, 2), "probe_c100": (56, 1, 1, 1),
+        "probe_c200": (56, 1, 2, 1)}[tag]
+    g3 = n_wb * dpp * c * S * tk.TRIAL_BLOCK * 4
+    assert plan["scratch"] == plan["vt"] + (plan["ranges"] * g3 if plan["ranges"] > 1 else 0)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_pad,dpp,c,S,n_wb", [
-    (2000, 64, 20, 3, 1),      # past 16 classes, a partial row tile
+    (2000, 64, 20, 3, 1),      # past 16 classes, a partial row tile; one atom (a CTA idle)
     (1000, 512, 3, 2, 2),      # eight feature atoms, no register-resident instantiation
-    (700, 320, 300, 1, 1),     # the class-tiled pass (a): two tiles of 256
+    (700, 320, 300, 1, 1),     # the two passes: the class-tiled pass (a), two tiles of 256
     (16_384, 64, 1000, 1, 1),  # four class tiles; rows split into 3 launches, added in order
+    (1000, 448, 10, 1, 1),     # the fused form's rows split into ranges (few blocks)
+    (3000, 320, 100, 1, 1),    # one lane a block, a partial row tile
+    (700, 496, 16, 2, 1),      # 4 lanes a block; dpp 496, a partial atom
+    (900, 192, 50, 2, 1),      # pitch 64
+    (800, 384, 70, 1, 1),      # pitch 80
+    (600, 256, 128, 1, 1),     # pitch 128, two atoms a warpgroup
+    (600, 320, 105, 1, 1),     # pitch 112 at five atoms
+    (600, 448, 105, 1, 1),     # 105 classes at seven atoms: two CTAs a lane, pitch 128
+    (600, 512, 10, 1, 1),      # 4 lanes a block at eight atoms, rows in two ranges
+    (600, 256, 129, 1, 1),     # past 128 classes: two CTAs a lane, pitch 160
+    (900, 320, 200, 2, 1),     # pitch 224, two CTAs a lane, a partial row tile
+    (700, 512, 256, 1, 1),     # 256 classes at eight atoms: four CTAs a lane
+    (1000, 448, 161, 1, 1),    # four CTAs a lane at a partial class quarter
+    (600, 512, 257, 1, 1),     # past 256 classes: the two passes
 ])
 def test_wide_form_ragged_shapes_on_card(cuda, n_pad, dpp, c, S, n_wb):
     plan = _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed=n_pad + c)
-    assert plan["row_launches"] == (3 if c == 1000 else 1)
+    if c == 1000:
+        assert plan["row_launches"] == 3
+    if (n_pad, c) == (1000, 10):
+        assert plan["ranges"] > 1 and plan["scratch"] > plan["vt"]
 
 
 @pytest.mark.gpu
 def test_wide_form_matches_the_register_resident_body_at_covertype_on_card(cuda):
-    """At covertype's main-path shape (8 blocks, dpp 64, 7 classes) B1's two
-    bodies round the residual at the same points and sum in other orders:
-    within TOL of each other."""
+    """At covertype's main-path shape (8 blocks, dpp 64, 7 classes) B1's
+    register-resident body and its fused wide form round the residual at
+    the same points and sum in other orders: within TOL of each other."""
     n_pad, dpp, c, S, n_wb = kc.LOGREG_SHAPE
     Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, n_wb, seed=7)
     tk.reset_launches()
     resident = tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S)
-    wide = tk._packed_softmax_grad_wide(Ab, Wb, y2, WSP, c=c, S=S, Tw=tk.TRIAL_BLOCK)
+    wide = tk._packed_softmax_grad_fused(Ab, Wb, y2, WSP, tk.fused_plan(n_pad, dpp, c, S, n_wb),
+                                         c=c, S=S, Tw=tk.TRIAL_BLOCK)
     torch.cuda.synchronize()
     assert tk.LAUNCHES["packed_softmax_grad"] == 1
-    assert tk.LAUNCHES["packed_softmax_grad_wide"] == tk.wide_plan(n_pad, dpp, c, S, n_wb)["launches"]
+    assert tk.LAUNCHES["packed_softmax_grad_fused"] == 1
     assert _rel(wide, resident) < TOL
 
 
@@ -440,6 +478,30 @@ def test_wide_plan_matches_the_library(cuda):
         assert list(out) == [plan[k] for k in tk.WIDE_PLAN_FIELDS], shape
     assert lib.logreg_wide_plan(2048, 576, 10, 6, 1, tk.TRIAL_BLOCK, out) == 0
     assert tk.wide_plan(2048, 576, 10, 6, 1) is None
+
+
+@pytest.mark.gpu
+def test_fused_plan_matches_the_library(cuda):
+    """The Python plan of B1's fused wide form is the C entry's, field for
+    field, and both refuse the same shapes: past 256 classes, past dpp
+    512."""
+    import ctypes
+
+    lib = tk._fused_lib()
+    out = (ctypes.c_longlong * len(tk.FUSED_PLAN_FIELDS))()
+    fused = [kc.WIDE_SHAPES[t] for t in ("probe_main", "probe_c100", "probe_c200")]
+    for shape in (*fused, (116_736, 64, 7, 6, 8), (2000, 64, 20, 3, 1),
+                  (1000, 448, 10, 1, 1), (700, 496, 16, 2, 1), (600, 256, 128, 1, 1),
+                  (4096, 448, 10, 6, 1), (20_480, 320, 104, 6, 8), (64, 16, 2, 1, 1),
+                  (600, 256, 129, 1, 1), (600, 448, 105, 1, 1), (700, 512, 256, 1, 1),
+                  (900, 320, 200, 2, 1), (1000, 448, 161, 1, 1)):
+        assert lib.logreg_fused_plan(*shape, tk.TRIAL_BLOCK, out) == 1, shape
+        plan = tk.fused_plan(*shape)
+        assert list(out) == [plan[k] for k in tk.FUSED_PLAN_FIELDS], shape
+    for shape in ((2048, 576, 10, 6, 1), (600, 512, 257, 1, 1), (700, 320, 300, 1, 1),
+                  kc.WIDE_SHAPES["probe_c300"]):
+        assert lib.logreg_fused_plan(*shape, tk.TRIAL_BLOCK, out) == 0, shape
+        assert tk.fused_plan(*shape) is None, shape
 
 
 @pytest.mark.gpu

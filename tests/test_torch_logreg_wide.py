@@ -244,7 +244,8 @@ def test_wide_plan_splits_the_c100_probe_over_launches():
 def test_packed_chunk_is_bounded_by_device_memory(monkeypatch, d, c, blocks):
     """On an 80 GB card the packed chunk keeps its 8 blocks (1024 trials)
     while W, Wp, V, G, the eval's logits of a row chunk and the wide form's
-    scratch fit half the card; at 1000 classes on 500 features (dpp 512, S
+    scratch (the fused form's row-range partials or the two passes' buffer)
+    fit half the card; at 1000 classes on 500 features (dpp 512, S
     6: 12.6 GB a tensor at 8 blocks) it drops to the blocks that fit. Half
     the card's share on a rank that shares it halves the budget."""
     monkeypatch.setattr(trial_map, "_device_memory_mb", lambda device: 80_000.0)
@@ -260,6 +261,10 @@ def test_packed_chunk_is_bounded_by_device_memory(monkeypatch, d, c, blocks):
         assert trial_map._packed_block_cap(kernel, static, n, d, c, S, CPU, 2, 8) < got
     dpp, NB = -(-(d + 2) // 64) * 64, c * S * 128
     want = 16 * got * dpp * NB + 4 * got * 2048 * NB
-    if tk.step_geometry(dpp, c) is None:
-        want += tk.wide_plan(-(-n // 2048) * 2048, dpp, c, S, got)["scratch"]
+    n_pad = -(-n // 2048) * 2048
+    route = tk.wide_route(n_pad, dpp, c, S, got)
+    if route == "fused":
+        want += tk.fused_plan(n_pad, dpp, c, S, got)["scratch"]
+    elif route == "two_pass":
+        want += tk.wide_plan(n_pad, dpp, c, S, got)["scratch"]
     assert kernel.batched_memory_bytes(static, n, d, c, S, got) == want
