@@ -354,15 +354,22 @@ process; see ``phase_probes``):
             fused kernel in clusters of two CTAs a lane, one launch a
             call, 30.
 51. probe_c300  16 trials, max_iter 20, cv 3 on synthetic_8192x64x300: past
-            256 classes B1's wide form runs its two passes, 4 launches a
-            call (the residual's scratch split by lane groups), 80.
+            256 classes B1's wide form runs its two passes, their pass (a)
+            in clusters of two CTAs a lane (slice 21) at a pitch of 320, 2
+            launches a call (the residual's scratch split by lane groups;
+            4 at slice 20's pitch of 512), 40.
 52. probe_scored  16 trials, neg_log_loss, cv 3 on synthetic_8192x64x300:
-            B3 past 256 classes (the class-tiled pass (a)), 30 launches.
+            B3 past 256 classes (pass (a) in clusters), 30 launches.
 53. probe_reference  128 trials, max_iter 20 on synthetic_4096x384x10, the
             card (the fused wide form) against the CPU: within 2e-3.
 54. kernels_probe  the wide form at the four probe shapes (the fused
             kernel at three, the two passes at probe_c300's) and B3 at
-            probe_scored's against their plain versions, timed.
+            probe_scored's against their plain versions, timed, with their
+            plans, launches a call and device ms by kernel; and B3 past
+            2,048 classes (pass (a)'s two sweeps) and at 1,000 classes on
+            768 features (its clusters with W^T streamed) on small shapes.
+            The probes' launches by pass (a)'s route are read after each
+            job (probe_routes).
 
 The stage_cache line carries the stage cache's stats of the run so far;
 stream_logreg empties the cache first (so that its single-shot run must
@@ -393,8 +400,9 @@ computes from this run's inputs; B2, B3 and B4 carry ``other_paths``
 entries for asha_main, asha_refit and hyperband_rf, B4 one for
 stream_rf, B2 and B3 for rest_main and its refit, B2 for obs_main, the
 multi_device group's, and B1 dist2d_main, B3 dist2d_scored, B4, B5 and
-B6 dist2d_families, each with its launches a rank; B1's wide form and B3's
-class-tiled pass (a) on entries of their own), the nvidia-smi line, and
+B6 dist2d_families, each with its launches a rank; B1's wide form and B3
+past 256 classes, pass (a) in clusters, on entries of their own, B3's
+streamed clusters and sweeps beside it), the nvidia-smi line, and
 the result line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
 when CUDA is unavailable. Needs one card.
@@ -421,10 +429,10 @@ from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # n
     HIST_FLOAT_REFIT_SHAPES, HIST_FLOAT_SHAPES, HIST_REFIT_SHAPES, HIST_SHAPES, HIST_SKEWED,
     HIST_FLOAT_DEEP_SHAPES, KNN_DATASET, KNN_DEVICE_LISTS_K, KNN_GRID_KS, KNN_PREDICT_QUERIES, KNN_QUERIES,
     LOGREG_SHAPE, LOGREG_STEP_T, MASKED_REFIT_SHAPE, MASKED_SCORED_DP, MASKED_SCORED_SHAPE,
-    MASKED_SHAPES, PROBE_SCORED_DP, PROBE_SCORED_SHAPE,
+    MASKED_SHAPES, PROBE_SCORED_DP, PROBE_SCORED_SHAPE, CLASS_BOUNDARIES,
     WIDE_SHAPES,
     MLP_CHECK_STEPS, MLP_EPOCH_LR, MLP_LANES, MLP_LIMITS, MLP_LOSS_LIMIT, MLP_SHAPES,
-    deep_hist_inputs, digest, gb_hist_inputs, hist_inputs, hist_library_ms, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
+    deep_hist_inputs, device_ms_by_kernel, digest, gb_hist_inputs, hist_inputs, hist_library_ms, logreg_inputs, masked_inputs, mlp_check, mlp_inputs, step_via_gradient, time_ms)
 from cs230_distributed_machine_learning_tpu_torch.ops.kernel_cases import (  # noqa: E402
     knn_table as _knn_table)
 SOURCES = {"logreg": f"{PKG}/csrc/logreg.cu", "logreg_fused": f"{PKG}/csrc/logreg_fused.cu",
@@ -439,11 +447,16 @@ MLP_SEARCH_TOL = 0.02
 EARLIER_MS = {"packed_softmax_grad": 18.35, "packed_nesterov_step": 18.51,
               "masked_softmax_grad": 27.74, "level_histogram": 0.105,
               "level_histogram_f32": 42.9, "mlp_epoch": 913.5, "knn_topk": 28.41,
-              "packed_softmax_grad_fused": 4.363}
+              "packed_softmax_grad_fused": 4.363,
+              "packed_softmax_grad_wide": [14.726, 15.007],
+              "masked_softmax_grad_class_tiled": [1.744, 1.821]}
 EARLIER_MS_SOURCE = ("PERF.md's kernel table before each kernel's current design (B1 and B3: "
                      "their first designs, B1 by chip_smoke.py, B3 at wide_full's shape by "
                      "kernel_ab.py; B1's fused wide form: the two passes it replaced at probe_main's shape by "
-                     "kernel_ab.py; NVIDIA H100 80GB HBM3, 700.00 W); not measured in this run")
+                     "kernel_ab.py; the two passes at probe_c300's shape and B3 at probe_scored's "
+                     "on the two-sweep pass (a) (masked_softmax_grad_class_tiled, the shape "
+                     "masked_softmax_grad_cluster now takes), by kernel_ab.py and chip_smoke.py; "
+                     "NVIDIA H100 80GB HBM3, 700.00 W); not measured in this run")
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 outside
 # them, HBM3 bandwidth
 PEAK_BF16 = 989e12
@@ -752,13 +765,19 @@ def phase_build() -> None:
         assert lib.logreg_step_smem_bytes(64 * mt, n1) == lay["total"], (n1, mt)
         assert lib.logreg_step_stages(64 * mt, n1) == lay["stages"], (n1, mt)
     assert not lib.logreg_step_geometry_ok(112, 16, 1)
-    # B1's wide form and B3 past 256 classes: the plans mirrored
-    assert lib.logreg_masked_plan(8192, 128, 304, 64, plan) == 1
-    assert list(plan) == [cuda_logreg.masked_plan(8192, 128, 304, 64)[k]
-                          for k in cuda_logreg.MASKED_PLAN_FIELDS]
+    # B1's wide form and B3 past 256 classes: the plans mirrored, at every
+    # class count where pass (a)'s cluster changes (CLASS_BOUNDARIES) and
+    # where its slice no longer stays in shared memory (W^T streamed)
+    for shape in ((8192, 128, 304, 64), *[(1000, 128, cp, 3) for cp in CLASS_BOUNDARIES],
+                  (8192, 512, 304, 64), (8192, 256, 1008, 8), (8192, 320, 1008, 8),
+                  RING_SHAPE[1:4] + RING_SHAPE[:1], (600, 1024, 2048, 1)):
+        assert lib.logreg_masked_plan(*shape, plan) == 1, shape
+        assert list(plan) == [cuda_logreg.masked_plan(*shape)[k]
+                              for k in cuda_logreg.MASKED_PLAN_FIELDS], shape
     wide = (ctypes.c_longlong * len(cuda_logreg.WIDE_PLAN_FIELDS))()
     for shape in (*WIDE_SHAPES.values(), PROBE_REFERENCE_SHAPE, (116_736, 64, 7, 6, 8),
-                  (16_384, 64, 1000, 1, 1)):
+                  (16_384, 64, 1000, 1, 1), *[(1000, 128, c, 2, 1) for c in CLASS_BOUNDARIES],
+                  (8192, 512, 300, 4, 1), (4096, 512, 1000, 1, 1)):
         assert lib.logreg_wide_plan(*shape, cuda_logreg.TRIAL_BLOCK, wide) == 1, shape
         mirror = cuda_logreg.wide_plan(*shape)
         assert list(wide) == [mirror[k] for k in cuda_logreg.WIDE_PLAN_FIELDS], shape
@@ -936,22 +955,6 @@ def packed_grad_row(K, Ab, W, y2, WSP, c, S, n_wb) -> dict:
                 bound_ms=b1, bound_by=by1, bound_unit=unit1,
                 bound_terms_ms=bound_terms(nbytes1, mm, f32_ops, exps),
                 repeat_bit_equal=repeat1, digest=digest1)
-
-
-def device_ms_by_kernel(fn, calls: int = 3) -> dict:
-    """Device ms a call of ``fn`` spends in each kernel (torch.profiler over
-    ``calls`` calls after one warm-up); their sum beside the call's CUDA-
-    event time shows how long the card waited on the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:60]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-            if e.self_device_time_total > 0}
 
 
 def masked_kernel_row(K, gen, dev, tag, lanes, n_pad, dpp, cp, c, dp=None,
@@ -5263,6 +5266,12 @@ PROBE_REFERENCE = ("synthetic_4096x384x10", 128, 20, 5)
 #: probe_reference's packed shape: (n_pad, dpp, classes, splits, blocks)
 PROBE_REFERENCE_SHAPE = (4096, 448, 10, 6, 1)
 PROBE_TOL = 2e-3
+#: B3 past 2,048 classes (pass (a)'s two sweeps) and past a slice of W^T
+#: that shared memory holds (its clusters with W^T streamed, at 1,000
+#: classes on 768 features): (lanes, n_pad, dpp, cp, classes), held in
+#: kernels_probe against their plain version
+SWEEPS_SHAPE = (2, 1024, 64, 2064, 2050)
+RING_SHAPE = (2, 1024, 768, 1008, 1000)
 
 
 def _probe_job(manager, phase: str, search: dict, dataset: str, n_trials: int) -> dict:
@@ -5314,12 +5323,13 @@ def phase_probes(manager, dev) -> dict:
       320, 200 classes): the fused kernel in clusters of two CTAs a lane,
       one call a step: 30;
     - probe_c300: 16 trials, max_iter 20, cv 3 on synthetic_8192x64x300 (dpp
-      128, 300 classes): past 256 classes the two passes, their plan's 4
+      128, 300 classes): past 256 classes the two passes, pass (a) in
+      clusters of two CTAs a lane at a pitch of 320, their plan's 2
       launches a step (lane groups: the residual passes the scratch cap):
-      80;
+      40;
     - probe_scored: 16 trials, neg_log_loss, max_iter 30, cv 3 on
       synthetic_8192x64x300: the generic driver, B3 (classes padded to
-      304, the class-tiled pass (a)) 30 launches, the packed kernels never;
+      304, pass (a) in clusters) 30 launches, the packed kernels never;
     - probe_reference: 128 trials, max_iter 20 on synthetic_4096x384x10 on
       the card (the fused wide form, 20 launches) and on the CPU (its plain
       version): every mean_cv_score within PROBE_TOL;
@@ -5331,12 +5341,21 @@ def phase_probes(manager, dev) -> dict:
     from cs230_distributed_machine_learning_tpu_torch.ops import cuda_logreg as K
 
     out, seconds = {}, {}
+    # the two-pass wrappers' launches by pass (a)'s route, over every job
+    # here (each job's, read just after it as its other counts are)
+    routes = dict.fromkeys(K.PASS_A_LAUNCHES, 0)
+
+    def add_routes():
+        for k, v in K.PASS_A_LAUNCHES.items():
+            routes[k] += v
+
     for phase, (dataset, trials, steps, cv), expect in (
             ("probe_main", PROBE_MAIN, "fused"), ("probe_c100", PROBE_C100, "fused"),
             ("probe_c200", PROBE_C200, "fused"), ("probe_c300", PROBE_C300, "two_pass")):
         t_phase = time.perf_counter()
         status, wall, launches = _probe_job(manager, phase, _search(trials, steps, cv), dataset,
                                             trials)
+        add_routes()
         shape = WIDE_SHAPES[phase]
         route, key, per_call = _wide_calls(K, shape)
         plan = K.route_plan(*shape)[1]
@@ -5346,7 +5365,11 @@ def phase_probes(manager, dev) -> dict:
               "best_params": status["job_result"]["best_result"]["search_params"],
               "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
         assert route == expect, (phase, route)
-        assert (plan.get("cl", 1) > 1) == (phase == "probe_c200"), (phase, plan)
+        assert (plan.get("cl", 1) > 1) == (phase in ("probe_c200", "probe_c300")), (phase, plan)
+        if phase == "probe_c300":  # two launches a call at the pitch of 320 (4 at 512)
+            assert (per_call, plan["pass_a"], plan["cpp"]) == (2, "cluster", 320), plan
+            assert K.PASS_A_LAUNCHES["packed_softmax_grad_wide_cluster"] == launches[key], (
+                K.PASS_A_LAUNCHES)
         assert launches[key] == steps * per_call, (phase, launches)
         assert all(launches[k] == 0 for k in ("packed_softmax_grad", *WIDE_KEYS.values(),
                                               "packed_nesterov_step", "masked_softmax_grad")
@@ -5362,7 +5385,9 @@ def phase_probes(manager, dev) -> dict:
     emit({"phase": "probe_scored", "dataset": dataset, "wall_s": wall, "launches": launches,
           "best_mean_cv_score": status["job_result"]["best_result"]["mean_cv_score"]})
     assert all(r["mean_cv_score"] <= 0.0 for r in status["job_result"]["results"])
-    assert launches["masked_softmax_grad"] == steps, launches
+    add_routes()
+    assert launches["masked_softmax_grad"] == K.PASS_A_LAUNCHES["masked_softmax_grad_cluster"] == (
+        steps), (launches, K.PASS_A_LAUNCHES)
     assert all(launches[k] == 0 for k in DEFAULT_ONLY_KERNELS), launches
     out["probe_scored"] = launches["masked_softmax_grad"]
     seconds["probe_scored"] = time.perf_counter() - t_phase
@@ -5371,6 +5396,7 @@ def phase_probes(manager, dev) -> dict:
     dataset, trials, steps, cv = PROBE_REFERENCE
     search = _search(trials, steps, cv)
     gpu, wall, launches = _probe_job(manager, "probe_reference", search, dataset, trials)
+    add_routes()
     _, key, per_call = _wide_calls(K, PROBE_REFERENCE_SHAPE)
     assert launches[key] == steps * per_call, launches
     t_cpu = time.perf_counter()
@@ -5392,6 +5418,8 @@ def phase_probes(manager, dev) -> dict:
     out["probe_reference"] = launches[key]
     seconds["probe_reference"] = time.perf_counter() - t_phase
 
+    out["routes"] = routes
+    emit({"phase": "probe_routes", "launches": routes})
     t_phase = time.perf_counter()
     out["rows"] = probe_kernel_rows(K, dev)
     seconds["kernels_probe"] = time.perf_counter() - t_phase
@@ -5406,7 +5434,10 @@ def probe_kernel_rows(K, dev) -> dict:
     n_pad dpp NB a block), each by the route the wrapper takes there (the
     fused kernel, the two passes at probe_c300's shape): its plan, its
     launches a call (the launch count's change over one call) and its
-    device ms by kernel; and B3 past 256 classes at probe_scored's shape."""
+    device ms by kernel; B3 past 256 classes at probe_scored's shape (pass
+    (a) in clusters); B3 past 2,048 classes at SWEEPS_SHAPE (pass (a)'s
+    two sweeps); and B3 at RING_SHAPE (pass (a) in clusters with W^T
+    streamed)."""
     gen = torch.Generator(device=dev).manual_seed(19)
     rows = {}
     for tag, (n_pad, dpp, c, S, n_wb) in WIDE_SHAPES.items():
@@ -5429,6 +5460,10 @@ def probe_kernel_rows(K, dev) -> dict:
         torch.cuda.empty_cache()
     rows[("masked_softmax_grad", "probe_scored")] = masked_kernel_row(
         K, gen, dev, "probe_scored", *PROBE_SCORED_SHAPE, dp=PROBE_SCORED_DP)
+    assert rows[("masked_softmax_grad", "probe_scored")]["plan"]["pass_a"] == "cluster"
+    for tag, shape in (("sweeps", SWEEPS_SHAPE), ("cluster_ring", RING_SHAPE)):
+        rows[("masked_softmax_grad", tag)] = masked_kernel_row(K, gen, dev, tag, *shape)
+        assert rows[("masked_softmax_grad", tag)]["plan"]["pass_a"] == tag
     emit({"phase": "kernels_probe", "tolerance": TOL,
           "rows": [{"kernel": k, "tag": t, **v} for (k, t), v in rows.items()]})
     return rows
@@ -5698,8 +5733,8 @@ def main() -> int:
             kernels[-1].setdefault("other_paths", {})[key] = {
                 **get(multi), "row": row, **{k: r[k] for k in ROW_KEYS if k in r},
                 "shape": shape}
-    # B1's wide form and B3's class-tiled pass (a) on lines of their own:
-    # the probes' launches and their rows
+    # B1's wide form and B3 past 256 classes (pass (a) in clusters) on
+    # lines of their own: the probes' launches and their rows
     keys = ("max_abs_err", "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     def wide_path(key, tag):
@@ -5727,12 +5762,28 @@ def main() -> int:
         "replaces": f"{jax_ops}/pallas_logreg.py:109", **two,
         "shape": two["shape"] + " (probe_c300: 16 trials, cv 3, on synthetic_8192x64x300)"})
     r = probes["rows"][("masked_softmax_grad", "probe_scored")]
+
+    def route_path(tag, kernel, what):
+        row = probes["rows"][("masked_softmax_grad", tag)]
+        return {"kernel": kernel, "launches": probes["routes"][f"masked_softmax_grad_{tag}"],
+                "job": "the probes group's jobs (B3 by pass (a)'s route)",
+                **{k: row[k] for k in keys}, "bound_unit": row["bound_unit"],
+                "shape": "n_pad {n_pad}, dpp {dpp}, cp {cp}, c {c}, {lanes} lanes".format(
+                    **row["shape"]) + f" ({what})"}
+
     kernels.append({
-        "name": "masked_softmax_grad_class_tiled", "route": "cuda", "source": SOURCES["logreg"],
-        "replaces": f"{jax_ops}/pallas_logreg.py:372", "launches": probes["probe_scored"],
+        "name": "masked_softmax_grad_cluster", "route": "cuda", "source": SOURCES["logreg"],
+        "replaces": f"{jax_ops}/pallas_logreg.py:372",
+        "launches": probes["routes"]["masked_softmax_grad_cluster"],
         **{k: r[k] for k in keys}, "bound_unit": r["bound_unit"],
         "shape": "n_pad 8192, dpp 128 (65 real), cp 304, c 300, 64 lanes (probe_scored: 16 "
-                 "trials x 4 splits, neg_log_loss)"})
+                 "trials x 4 splits, neg_log_loss; pass (a) in clusters of two CTAs a lane, "
+                 "W^T resident)",
+        "other_paths": {
+            "cluster_ring": route_path("cluster_ring", "masked_softmax_grad_cluster_ring",
+                                       "pass (a) in clusters of four, W^T streamed"),
+            "sweeps": route_path("sweeps", "masked_softmax_grad_class_tiled",
+                                 "past 2,048 classes: pass (a)'s two sweeps")}})
     # B4's f32 body (the split one-hot contraction) on its own line: gb_main's
     # launches, its root row; config 4, the refit and the deep level beside
     f32_keys = ("float_max_abs_err", "float_max_rel_err", "ms", "plain_ms", "bound_ms",

@@ -39,8 +39,10 @@
 // past that a cluster of 2 or 4 CTAs shares the lanes' classes, a quarter
 // a warpgroup, the softmax's pairs read from every CTA's shared memory
 // across the cluster (a barrier of the cluster a tile): to 256 classes at
-// every dpp. Past 256 classes csrc/logreg.cu's two passes run. What the
-// design had to get right, each seen on the H100 (PERF.md's findings):
+// every dpp. Past 256 classes csrc/logreg.cu's two passes run, their pass
+// (a) in clusters of CTAs that together hold a lane's class row (to 2,048
+// classes at every dpp; two sweeps of 256-class tiles past that). What the design had to
+// get right, each seen on the H100 (PERF.md's findings):
 // - ptxas serializes the wgmma chain when an instruction other than wgmma
 //   defines an accumulator inside it: zeroing z before a chain of run-time
 //   length did (C7515); WgmmaAcc's first product writes z instead.
@@ -82,21 +84,6 @@ constexpr int kFusedRows = 64;
 constexpr int kFusedBox = kFusedRows * 128;  // one TMA box: 64 rows x 64 features
 constexpr int kFusedMaxRanges = 4;
 static_assert(kFusedMaxSets * kFusedMaxAtoms * 8 <= 1024, "the full mbarriers fit their 1 KB");
-
-// One TMA box load of a 2-D map on `bar` (its expected bytes first) where
-// `pred` is set: predicated inside the PTX, so the C++ around the wgmma
-// pipeline has no divergent branch.
-__device__ __forceinline__ void tma_load_2d_if(bool pred, void* dst, const CUtensorMap* map,
-                                               int c0, int c1, uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %0, 0;\n"
-      " @p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%1], %2;\n"
-      " @p cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%3], [%4, {%5, %6}], [%1];\n}\n" ::"r"((int)pred),
-      "r"(smem_u32(bar)), "r"(bytes), "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1)
-      : "memory");
-}
 
 // Shared memory of a fused CTA at NC columns a warpgroup and mt feature
 // atoms (byte offsets from a 1024-aligned base; 1 KB more aligns the base):

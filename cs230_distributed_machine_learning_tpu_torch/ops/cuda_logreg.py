@@ -15,8 +15,12 @@ The first two are one register-resident kernel body with two epilogues
 (``step_geometry`` picks its tile) and compute the same gradient to the
 bit. The masked kernel runs in two passes, logits and bf16 residual, then
 the Gram product over P row ranges (``masked_plan``), with no cap on the
-features or the classes: a lane's classes past ``CLASS_TILE`` are tiled in
-two sweeps (the max and the denominator, then the residuals). Where no
+features or the classes: past ``CLASS_TILE`` classes a cluster of up to
+eight CTAs holds a lane's class row, each a slice of it (the pitch k x N,
+320 at 300 classes), and computes its logits once, each CTA's slice of the
+weights resident in shared memory or, where it does not fit (many
+features), streamed with the rows; past 2,048 classes a lane's classes are
+tiled in two sweeps (the max and the denominator, then the residuals). Where no
 register-resident geometry exists (dpp past it or more than 16 classes),
 ``packed_softmax_grad`` runs its wide form, by shape alone
 (``route_plan``): to 256 classes the fused kernel (``fused_plan``): one
@@ -72,6 +76,9 @@ PACKED_ROWS = 64
 #: dynamic shared memory one CTA may use on Hopper
 SMEM_LIMIT = 232_448
 
+#: pass (a)'s routes in B3 and in B1's wide form (``_pass_a_plan``)
+PASS_A_ROUTES = ("lanes", "cluster", "cluster_ring", "sweeps")
+
 #: kernel launches per wrapper, for showing which kernels a run used
 LAUNCHES = {
     "packed_softmax_grad": 0,
@@ -80,11 +87,16 @@ LAUNCHES = {
     "packed_nesterov_step": 0,
     "masked_softmax_grad": 0,
 }
+#: the two-pass wrappers' launches (``LAUNCHES``'s) again, by pass (a)'s
+#: route: ``<wrapper>_<route>``
+PASS_A_LAUNCHES = {f"{k}_{r}": 0 for k in ("packed_softmax_grad_wide", "masked_softmax_grad")
+                   for r in PASS_A_ROUTES}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, PASS_A_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +194,11 @@ _MASKED_BUDGET_A = SMEM_LIMIT // 2 - 2048
 _MASKED_LDR = MASKED_ROWS + 8
 _MASKED_STAGE_B = 2 * STEP_ROWS * 128 + 2 * 64 * _MASKED_COLS * 2
 #: classes a pass (a) CTA holds (one wgmma N); a lane's classes past it
-#: are tiled in two sweeps (the class-tiled pass (a))
+#: take a cluster of CTAs, or past ``CLUSTER_MAX_CTAS`` of them two sweeps of
+#: tiles of this width
 CLASS_TILE = 256
-#: the (NA, CPP) instantiations of B3's pass (a) (``LOGREG_MASKED_GEOMETRIES``);
-#: past ``CLASS_TILE`` classes the class-tiled pass (a) at NA = 256
+#: the (NA, CPP) instantiations of B3's pass (a) to ``CLASS_TILE`` classes
+#: (``LOGREG_MASKED_GEOMETRIES``)
 MASKED_GEOMETRIES = frozenset([
     (64, 16), (64, 32), (64, 64), (128, 16), (128, 32), (128, 64), (128, 128), (256, 256),
 ])
@@ -194,17 +207,37 @@ MASKED_GEOMETRIES = frozenset([
 #: mode caps it; lanes and rows past it go into further launches)
 WIDE_MAX_DPP = 512
 WIDE_SCRATCH_BYTES = 1 << 31
-#: the (NA, CPP) instantiations of the wide form's pass (a)
-#: (``LOGREG_WIDE_GEOMETRIES``); past ``CLASS_TILE`` the class-tiled one
+#: the (NA, CPP) instantiations of the wide form's pass (a) to
+#: ``CLASS_TILE`` classes (``LOGREG_WIDE_GEOMETRIES``)
 WIDE_GEOMETRIES = frozenset([(128, 16), (128, 32), (128, 64), (128, 128), (256, 256)])
+#: pass (a) past ``CLASS_TILE`` classes in clusters
+#: (``masked_logits_cluster_kernel``): rows of A a tile, a CTA's threads,
+#: the most CTAs a cluster (the portable size), a TMA box of A, the ring's
+#: most sets (W^T resident) and most atoms (W^T streamed), and the class
+#: slices N a CTA takes (``LOGREG_CLUSTER_WIDTHS``: N / 2 columns a
+#: warpgroup)
+CLUSTER_ROWS = 64
+_CLUSTER_THREADS = 256
+CLUSTER_MAX_CTAS = 8
+_CLUSTER_BOX = CLUSTER_ROWS * 128
+_CLUSTER_MAX_STAGES = 4
+_CLUSTER_MAX_RING_W = 8
+CLUSTER_SLICES = (160, 192, 224, 256)
 
 
 def class_pitch(cp: int) -> int:
     """The columns a lane takes in the lane-major layout of B3 and of B1's
     wide form: ``cp`` rounded up to a power of two (at least 16) up to
-    ``CLASS_TILE``, past it to a multiple of ``CLASS_TILE``."""
-    if cp > CLASS_TILE:
+    ``CLASS_TILE``; past it, to ``CLUSTER_MAX_CTAS`` x ``CLASS_TILE``, k x N
+    for a cluster of k = ceil(cp / ``CLASS_TILE``) CTAs, each a slice of N
+    columns (ceil(cp / k) rounded up to 32: in (128, 256]); past that a
+    multiple of ``CLASS_TILE`` (the two sweeps)."""
+    if cp > CLUSTER_MAX_CTAS * CLASS_TILE:
         return -(-cp // CLASS_TILE) * CLASS_TILE
+    if cp > CLASS_TILE:
+        k = -(-cp // CLASS_TILE)
+        n = -(-cp // k)
+        return k * (-(-n // 32) * 32)
     cpp = 16
     while cpp < cp:
         cpp *= 2
@@ -237,6 +270,71 @@ def _pass_a_smem(na: int, tiled: bool) -> tuple:
     return stages, 1024 + max(stages * stage, staging) + 1024
 
 
+def _cluster_set(n: int, mt: int, ring_w: int) -> int:
+    """A cluster ring stage's bytes: ``mt`` 64-row boxes of A with W^T
+    resident; one box of A and one of the W^T slice (``n`` rows x 64
+    features) with W^T streamed."""
+    return _CLUSTER_BOX + n * 128 if ring_w else mt * _CLUSTER_BOX
+
+
+def cluster_layout(n: int, mt: int, stages: int, ring_w: int = 0) -> int:
+    """A pass (a) cluster CTA's shared memory (``cluster_layout`` in
+    csrc/logreg.cu, byte for byte): 1 KB of mbarriers, the W^T slice (``mt``
+    boxes of ``n`` rows x 64 features, bf16; none where it streams), the
+    residual's staging tile ([n][64] bf16), two tiles' (max, sum) pairs of
+    256 threads, ``stages`` ring stages (``_cluster_set``), and 1 KB to
+    align the base."""
+    return (1024 + (0 if ring_w else mt * n * 128) + n * 128 + 2 * _CLUSTER_THREADS * 16
+            + stages * _cluster_set(n, mt, ring_w) + 1024)
+
+
+def cluster_stages(n: int, mt: int, ring_w: int = 0) -> int:
+    """The cluster ring's stages: as many as fit beside the rest, up to
+    four sets with W^T resident (0 where none fits: it streams then) or
+    eight atoms with it streamed."""
+    most = _CLUSTER_MAX_RING_W if ring_w else _CLUSTER_MAX_STAGES
+    free = max(0, SMEM_LIMIT - cluster_layout(n, mt, 0, ring_w))
+    return min(most, free // _cluster_set(n, mt, ring_w))
+
+
+def _pass_a_plan(cpp: int, na: int, mt: int, lanes: int, tiles: int) -> dict:
+    """Pass (a)'s route (``pass_a_plan`` in csrc/logreg.cu): to
+    ``CLASS_TILE`` classes ``na`` columns of lanes that share each A tile
+    (``"lanes"``); past it, to ``CLUSTER_MAX_CTAS`` x ``CLASS_TILE``, a
+    cluster of cl = ceil(cpp / ``CLASS_TILE``) CTAs a lane, each na = cpp /
+    cl columns, its W^T slice resident where it, a ring set, the staging
+    tile and the pairs fit a CTA (``"cluster"``), else streamed through the
+    ring with A (``"cluster_ring"``, ``ring_w`` 1); its rows in
+    ``ranges_a`` ranges: from one, each count whose waves of lanes x cl x
+    ranges CTAs (one an SM), a wave's time being a range's share of the
+    ``tiles`` 64-row tiles (a launch's fewest), take under 0.9 of the time
+    of the count taken so far. Past that the two sweeps of 256-column class
+    tiles (``"sweeps"``)."""
+    if cpp <= CLASS_TILE:
+        stages, smem = _pass_a_smem(na, False)
+        return {"pass_a": "lanes", "na": na, "cl": 1, "ring_w": 0, "ranges_a": 1,
+                "stages_a": stages, "smem_a": smem}
+    if cpp <= CLUSTER_MAX_CTAS * CLASS_TILE:
+        cl = -(-cpp // CLASS_TILE)
+        n = cpp // cl
+        ring_w, stages = 0, cluster_stages(n, mt)
+        if stages < 1 or stages * mt >= 128:
+            ring_w, stages = 1, cluster_stages(n, mt, 1)
+        if stages >= 1 + ring_w:
+            units = lanes * cl
+            P, best = 1, -(-units // _SMS)
+            for Q in range(2, min(_MASKED_MAX_RANGES, tiles) + 1):
+                waves = -(-units * Q // _SMS)
+                if 10 * waves * P < 9 * best * Q:
+                    P, best = Q, waves
+            return {"pass_a": "cluster_ring" if ring_w else "cluster", "na": n, "cl": cl,
+                    "ring_w": ring_w, "ranges_a": P, "stages_a": stages,
+                    "smem_a": cluster_layout(n, mt, stages, ring_w)}
+    stages, smem = _pass_a_smem(CLASS_TILE, True)
+    return {"pass_a": "sweeps", "na": CLASS_TILE, "cl": 1, "ring_w": 0, "ranges_a": 1,
+            "stages_a": stages, "smem_a": smem}
+
+
 def _pass_b_smem() -> tuple:
     stages = min(_STEP_MAX_STAGES, (SMEM_LIMIT - 2048) // _MASKED_STAGE_B)
     return stages, 1024 + stages * _MASKED_STAGE_B + 1024
@@ -245,9 +343,11 @@ def _pass_b_smem() -> tuple:
 def masked_plan(n_pad: int, dpp: int, cp: int, n_lanes: int) -> Optional[dict]:
     """B3's plan (``masked_plan`` in csrc/logreg.cu, field for field), or
     None where the kernels refuse the shape. Columns of R are lane-major
-    (lane * cpp + class, cpp = ``class_pitch(cp)``); pass (a) takes ``na``
-    columns a CTA (64 when 128 would leave SMs idle; 256 of one lane past
-    ``CLASS_TILE`` classes, tiled), pass (b) 128 features x 128 columns
+    (lane * cpp + class, cpp = ``class_pitch(cp)``); pass (a) by the route
+    ``_pass_a_plan`` names (``pass_a``): ``na`` columns of lanes a CTA (64
+    when 128 would leave SMs idle), past ``CLASS_TILE`` classes clusters of
+    ``cl`` CTAs a lane, each a slice of ``na`` columns, over ``ranges_a``
+    row ranges, or the two sweeps; pass (b) 128 features x 128 columns
     over one of ``ranges`` row ranges (``_best_ranges``). ``scratch`` is
     the bytes of W^T, R^T and the range partials."""
     if n_pad <= 0 or dpp <= 0 or dpp % 16 or cp <= 0 or cp % 16 or n_lanes <= 0:
@@ -261,20 +361,20 @@ def masked_plan(n_pad: int, dpp: int, cp: int, n_lanes: int) -> Optional[dict]:
     mt = -(-dpp // _STEP_ATOM)
     fb = (mt + 1) // 2
     best = _best_ranges(fb * (cols // _MASKED_COLS), row_tiles)
-    stages_a, smem_a = _pass_a_smem(na, cpp > CLASS_TILE)
+    pass_a = _pass_a_plan(cpp, na, mt, n_lanes, 2 * row_tiles)
     stages_b, smem_b = _pass_b_smem()
     rows_pad = row_tiles * MASKED_ROWS
     r_off = _align(cols * dpp * 2, 1024)
     part_off = r_off + _align(cols * rows_pad * 2, 1024)
-    return {"cpp": cpp, "na": na, "row_tiles": row_tiles, "cols": cols, "mt": mt, "fb": fb,
-            "ranges": best, "stages_a": stages_a, "stages_b": stages_b, "smem_a": smem_a,
-            "smem_b": smem_b, "scratch": part_off + best * dpp * cols * 4,
-            "r_offset": r_off, "part_offset": part_off}
+    return {"cpp": cpp, **pass_a, "row_tiles": row_tiles, "cols": cols, "mt": mt, "fb": fb,
+            "ranges": best, "stages_b": stages_b, "smem_b": smem_b,
+            "scratch": part_off + best * dpp * cols * 4, "r_offset": r_off,
+            "part_offset": part_off}
 
 
 #: the fields of ``logreg_masked_plan``'s output, in order
-MASKED_PLAN_FIELDS = ("cpp", "na", "row_tiles", "cols", "mt", "fb", "ranges", "stages_a",
-                      "stages_b", "smem_a", "smem_b", "scratch")
+MASKED_PLAN_FIELDS = ("cpp", "na", "cl", "ring_w", "row_tiles", "cols", "mt", "fb", "ranges",
+                      "ranges_a", "stages_a", "stages_b", "smem_a", "smem_b", "scratch")
 
 
 def masked_ranges(plan: dict, n_pad: int) -> list:
@@ -313,7 +413,9 @@ def wide_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
     group add into the gradient in order. ``lb`` and ``tiles`` are a
     launch's most (``wide_launch`` gives each launch's own); ``ranges`` is
     pass (b)'s P in every launch (``_best_ranges`` over the smallest
-    chunk's tiles, fewer where its partials would pass the cap)."""
+    chunk's tiles, fewer where its partials would pass the cap); pass (a)
+    takes ``_pass_a_plan``'s route at the most lanes and the smallest
+    chunk's tiles."""
     if (n_pad <= 0 or dpp <= 0 or dpp % 16 or dpp > WIDE_MAX_DPP or c < 2 or S <= 0
             or n_wb <= 0 or Tw <= 0 or Tw % 16 or Tw > TRIAL_BLOCK):
         return None
@@ -340,20 +442,19 @@ def wide_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
     while P > 1 and launch_bytes(lb, R, P) > WIDE_SCRATCH_BYTES:
         P -= 1
     na = 2 * _MASKED_COLS if cpp > _MASKED_COLS else _MASKED_COLS
-    stages_a, smem_a = _pass_a_smem(na, cpp > CLASS_TILE)
+    pass_a = _pass_a_plan(cpp, na, mt, lb * Tw, 2 * (row_tiles // R))
     stages_b, smem_b = _pass_b_smem()
     r_off, part_off, total = _wide_bytes(dpp, lb * Tw * cpp, tiles, P)
-    return {"cpp": cpp, "na": na, "row_tiles": row_tiles, "n_lb": n_lb, "lb": lb,
+    return {"cpp": cpp, **pass_a, "row_tiles": row_tiles, "n_lb": n_lb, "lb": lb,
             "lane_launches": G, "row_launches": R, "launches": G * R, "tiles": tiles,
-            "mt": mt, "fb": fb, "ranges": P, "stages_a": stages_a, "stages_b": stages_b,
-            "smem_a": smem_a, "smem_b": smem_b, "scratch": total, "r_offset": r_off,
-            "part_offset": part_off}
+            "mt": mt, "fb": fb, "ranges": P, "stages_b": stages_b, "smem_b": smem_b,
+            "scratch": total, "r_offset": r_off, "part_offset": part_off}
 
 
 #: the fields of ``logreg_wide_plan``'s output, in order
-WIDE_PLAN_FIELDS = ("cpp", "na", "row_tiles", "n_lb", "lb", "lane_launches", "row_launches",
-                    "launches", "tiles", "mt", "fb", "ranges", "stages_a", "stages_b",
-                    "smem_a", "smem_b", "scratch")
+WIDE_PLAN_FIELDS = ("cpp", "na", "cl", "ring_w", "row_tiles", "n_lb", "lb", "lane_launches",
+                    "row_launches", "launches", "tiles", "mt", "fb", "ranges", "ranges_a",
+                    "stages_a", "stages_b", "smem_a", "smem_b", "scratch")
 
 
 #: B1's fused wide form (``fused_wide_kernel``, csrc/logreg_fused.cu): the
@@ -461,12 +562,6 @@ def route_plan(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
     return ("two_pass", plan) if plan is not None else (None, None)
 
 
-def wide_route(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
-               Tw: int = TRIAL_BLOCK) -> Optional[str]:
-    """``route_plan``'s route alone."""
-    return route_plan(n_pad, dpp, c, S, n_wb, Tw)[0]
-
-
 def wide_scratch_bytes(n_pad: int, dpp: int, c: int, S: int, n_wb: int,
                        Tw: int = TRIAL_BLOCK) -> int:
     """Device scratch of one ``packed_softmax_grad`` call on the card: the
@@ -551,37 +646,6 @@ def masked_softmax_grad_reference(Ab, W, y2, wm, *, c: int):
     Pw = e * (wl / e.sum(dim=-1, keepdim=True))
     WY = torch.where(y2.reshape(1, -1, 1) == col, wl, torch.zeros_like(wl))
     return torch.einsum("nd,lnc->ldc", A, Pw - WY)
-
-
-def masked_softmax_grad_two_pass(Ab, W, y2, wm, *, c: int):
-    """The masked kernel's two passes in plain PyTorch, at its rounding
-    points and in its sum order over the row ranges: f32 logits of the
-    lane-major columns (classes padded to ``cpp``, past c at -inf), the
-    softmax's weighted residual rounded to bf16 (pass a), then the Gram
-    product of each of ``masked_plan``'s row ranges in f32, the partials
-    added in range order (pass b; the order of the sums inside a range is
-    the einsum's). Returns G [L, dpp, cp], columns >= c exactly zero."""
-    n_pad, dpp = Ab.shape
-    n_lanes, _, cp = W.shape
-    plan = masked_plan(n_pad, dpp, cp, n_lanes)
-    if plan is None or not 2 <= c <= cp:
-        raise ValueError(f"masked_softmax_grad: no plan for dpp={dpp}, cp={cp}, c={c}")
-    cpp = plan["cpp"]
-    A = Ab.float()
-    Wp = torch.nn.functional.pad(W.float(), (0, cpp - cp))
-    Z = torch.einsum("nd,ldc->nlc", A, Wp)  # [n, L, cpp]
-    col = torch.arange(cpp, device=A.device)
-    Z = torch.where(col < c, Z, torch.full_like(Z, float("-inf")))
-    e = torch.exp(Z - Z.amax(dim=-1, keepdim=True))
-    onehot = (y2.reshape(-1, 1, 1) == col).float()
-    R = ((e * (1.0 / e.sum(dim=-1, keepdim=True)) - onehot) * wm.float()[:, :, None])
-    R = R.to(torch.bfloat16).float()
-    G = None
-    for r0, r1 in masked_ranges(plan, n_pad):
-        part = torch.einsum("nd,nlc->ldc", A[r0:r1], R[r0:r1])
-        G = part if G is None else G + part
-    G[:, :, c:] = 0.0
-    return G[:, :, :cp].contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -699,7 +763,8 @@ def packed_softmax_grad(Ab, W3, y2, WSP, *, c: int, S: int, Tw: int = TRIAL_BLOC
     ``fused_plan`` has one (one C call, counted in
     ``LAUNCHES["packed_softmax_grad_fused"]``), else the two passes,
     ``wide_plan``'s launches on one scratch buffer (each counted in
-    ``LAUNCHES["packed_softmax_grad_wide"]``).
+    ``LAUNCHES["packed_softmax_grad_wide"]``, and in ``PASS_A_LAUNCHES``
+    under its pass (a) route).
     """
     if not _on_card(Ab, W3, y2, WSP):
         return packed_softmax_grad_reference(Ab, W3, y2, WSP, c=c, S=S, Tw=Tw)
@@ -758,6 +823,7 @@ def _packed_softmax_grad_wide(Ab, W3, y2, WSP, plan, *, c: int, S: int, Tw: int)
                     _ptr(WSP), _ptr(G3), _ptr(scratch), plan["scratch"], n_pad, dpp, c, S,
                     n_wb, Tw, i, device=Ab.device)
             LAUNCHES["packed_softmax_grad_wide"] += 1
+            PASS_A_LAUNCHES["packed_softmax_grad_wide_" + plan["pass_a"]] += 1
     return G3
 
 
@@ -820,7 +886,9 @@ def masked_softmax_grad(Ab, W, y2, wm, *, c: int):
     [n_pad, 1] i32; wm [n_pad, L] f32 per-lane sample weights. Returns
     G [L, dpp, cp] f32 with columns >= c exactly zero. On the card: the
     two passes of ``masked_plan`` in one C call, on a scratch buffer of the
-    plan's size (W^T, the bf16 residual R^T, the row ranges' partials).
+    plan's size (W^T, the bf16 residual R^T, the row ranges' partials),
+    counted in ``LAUNCHES["masked_softmax_grad"]``, and in
+    ``PASS_A_LAUNCHES`` under its pass (a) route.
     """
     if not _on_card(Ab, W, y2, wm):
         return masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
@@ -843,6 +911,7 @@ def masked_softmax_grad(Ab, W, y2, wm, *, c: int):
                 _ptr(wm), _ptr(G), _ptr(scratch), plan["scratch"], n_pad, dpp, cp, c,
                 n_lanes, plan["ranges"], device=Ab.device)
     LAUNCHES["masked_softmax_grad"] += 1
+    PASS_A_LAUNCHES["masked_softmax_grad_" + plan["pass_a"]] += 1
     return G
 
 

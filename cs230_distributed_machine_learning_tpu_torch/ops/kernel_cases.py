@@ -36,6 +36,22 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms_by_kernel(fn, calls: int = 3) -> dict:
+    """Device ms a call of ``fn`` spends in each kernel (torch.profiler over
+    ``calls`` calls after one warm-up); their sum beside the call's CUDA-
+    event time shows how long the card waited on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
 def digest(*tensors) -> str:
     """SHA-256 of the tensors' bytes, in order (on the host): equal digests
     mean equal outputs to the bit."""
@@ -101,7 +117,7 @@ def step_via_gradient(R, Ab, W, Wp, y2, WSP, t, done, step, Cb, maxit, pen, *, c
 #: cv 5, on synthetic_20000x256x100 (both the fused kernel, one CTA a
 #: lane block); probe_c200: 128 trials, cv 5, on synthetic_10000x256x200
 #: (the fused kernel, two CTAs a lane); probe_c300: 16 trials, cv 3, on
-#: synthetic_8192x64x300 (past 256 classes: the two passes, four launches)
+#: synthetic_8192x64x300 (past 256 classes: the two passes, two launches a call)
 WIDE_SHAPES = {"probe_main": (20_480, 448, 10, 6, 2), "probe_c100": (20_480, 320, 100, 6, 1),
                "probe_c200": (10_240, 320, 200, 6, 1), "probe_c300": (8192, 128, 300, 4, 1)}
 
@@ -125,6 +141,18 @@ MASKED_SCORED_DP = 55
 #: synthetic_8192x64x300, 65 real columns (64 features and the intercept)
 PROBE_SCORED_SHAPE = (64, 8192, 128, 304, 300)
 PROBE_SCORED_DP = 65
+#: the padded classes at which pass (a)'s cluster past 256 classes
+#: changes: two CTAs of 160 columns (272-320), of 192 (336), of 256 (512),
+#: three (528), four of 256 (1008), eight (2048); past 2,048 the two sweeps
+CLASS_BOUNDARIES = (272, 304, 320, 336, 512, 528, 1008, 2048, 2064)
+#: B3 past 256 classes where a cluster CTA's slice of W^T does not stay in
+#: shared memory, so it streams with A (pass (a)'s ``cluster_ring``): a
+#: 1,000-class linear probe over 768-wide image embeddings (ViT-B/16's),
+#: 16 trials on 16,384 rows: (lanes, n_pad, dpp, cp, classes)
+MASKED_RING_SHAPE = (16, 16_384, 768, 1008, 1000)
+#: B1's wide form there, at the packed path's 512 features: 128 trials of
+#: one split on 4,096 rows, 1,000 classes: (n_pad, dpp, c, S, n_wb)
+WIDE_RING_SHAPE = (4096, 512, 1000, 1, 1)
 #: B3 at the winner's refit on covertype (runtime/executor.py::fit_artifact):
 #: one lane (one trial, the holdout split), the same padded rows and columns
 MASKED_REFIT_SHAPE = (1, 116_224, 128, 16, 7)

@@ -31,12 +31,22 @@ on the same inputs from the same seeds:
 - B3 ``masked_softmax_grad`` at every ``MASKED_SHAPES`` entry (the 784-
   feature search's 16 lanes on 4,096 rows, and a full-size search's 192
   lanes on 60,160 rows), and past 256 classes at ``PROBE_SCORED_SHAPE``
-  (64 lanes, cp 304: the class-tiled pass (a));
+  (64 lanes, cp 304) and ``MASKED_RING_SHAPE`` (``masked_softmax_grad_ring``:
+  1,000 classes on 768 features, where pass (a)'s clusters stream W^T);
 - B1's wide form, ``packed_softmax_grad`` past the register-resident
-  geometries, at every ``WIDE_SHAPES`` entry (``packed_softmax_grad_wide_*``:
+  geometries, at every ``WIDE_SHAPES`` entry and ``WIDE_RING_SHAPE``
+  (``packed_softmax_grad_wide_ring``) (``packed_softmax_grad_wide_*``:
   the route the checkout's wrapper takes there, its fused kernel or its two
   passes, with its largest error relative to the plain version's largest
   value in ``logreg_rel_err``).
+
+Past 256 classes (B3 at ``probe_scored`` and ``ring``, the wide form's two
+passes at ``probe_c300`` and ``ring``) each output is also held against its plain version
+(``logreg_rel_err``) and a second launch (``logreg_repeat``: equal to the
+bit), the launches a call are counted (``logreg_launches_per_call``), and a
+``torch.profiler`` capture of three calls in the worker's own process gives
+the device ms a call of each kernel (``logreg_device_ms_by_kernel``: the
+W^T transpose, pass (a), pass (b), the range sum).
 
 ``--only`` times a subset of the four sources' kernels. Beside each time,
 a SHA-256 digest of the kernel's output on fresh inputs
@@ -181,6 +191,21 @@ def _worker_rest(out, only, C, dev, torch, M, R) -> dict:
     return _worker_logreg(out, only, C, dev, torch, R)
 
 
+def _past_256(out, key, fn, ref, counter, R, C, torch) -> None:
+    """At a shape past 256 classes: the output against its plain version
+    ``ref`` and a second launch, the launches of one call (``counter`` in
+    the checkout's launch counts) and the device ms by kernel."""
+    before = R.LAUNCHES[counter]
+    got = fn()
+    torch.cuda.synchronize()
+    out.setdefault("logreg_launches_per_call", {})[key] = R.LAUNCHES[counter] - before
+    again = fn()
+    out.setdefault("logreg_repeat", {})[key] = bool(torch.equal(got, again))
+    out["logreg_rel_err"][key] = float((got - ref).abs().max() / ref.abs().max())
+    del got, again
+    out.setdefault("logreg_device_ms_by_kernel", {})[key] = C.device_ms_by_kernel(fn)
+
+
 def _worker_logreg(out, only, C, dev, torch, R) -> dict:
     if "logreg" not in only:
         return out
@@ -203,19 +228,24 @@ def _worker_logreg(out, only, C, dev, torch, R) -> dict:
         lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
     del Ab, Wt, Wp, Wb, rest
     torch.cuda.empty_cache()
+    out["logreg_rel_err"] = {}
     gen = torch.Generator(device=dev).manual_seed(3)
-    masked = {**C.MASKED_SHAPES, "probe_scored": C.PROBE_SCORED_SHAPE}
+    masked = {**C.MASKED_SHAPES, "probe_scored": C.PROBE_SCORED_SHAPE,
+              "ring": C.MASKED_RING_SHAPE}
     for tag, (lanes, n3, dpp3, cp, c3) in masked.items():
         dp = C.PROBE_SCORED_DP if tag == "probe_scored" else None
         Ab, Wl, y2, wm = C.masked_inputs(gen, dev, lanes, n3, dpp3, cp, c3, dp=dp)
         key = f"masked_softmax_grad_{tag}"
         out["logreg_digest"][key] = C.digest(R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
         out["logreg_ms"][key] = C.time_ms(lambda: R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3))
+        if c3 > 256:
+            _past_256(out, key, lambda: R.masked_softmax_grad(Ab, Wl, y2, wm, c=c3),
+                      R.masked_softmax_grad_reference(Ab, Wl, y2, wm, c=c3),
+                      "masked_softmax_grad", R, C, torch)
         del Ab, Wl, y2, wm
         torch.cuda.empty_cache()
-    out["logreg_rel_err"] = {}
     gen = torch.Generator(device=dev).manual_seed(19)
-    for tag, (n_pad, dpp, c, S, n_wb) in C.WIDE_SHAPES.items():
+    for tag, (n_pad, dpp, c, S, n_wb) in {**C.WIDE_SHAPES, "ring": C.WIDE_RING_SHAPE}.items():
         Ab, W, _, y2, WSP, *_ = C.logreg_inputs(gen, dev, n_pad, dpp, c, S, n_wb)
         Wb = W.to(torch.bfloat16)
         del W
@@ -224,9 +254,12 @@ def _worker_logreg(out, only, C, dev, torch, R) -> dict:
         out["logreg_digest"][key] = C.digest(got)
         ref = R.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
         out["logreg_rel_err"][key] = float((got - ref).abs().max() / ref.abs().max())
-        del got, ref
+        del got
         out["logreg_ms"][key] = C.time_ms(lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S))
-        del Ab, Wb, y2, WSP
+        if c > 256:
+            _past_256(out, key, lambda: R.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S), ref,
+                      "packed_softmax_grad_wide", R, C, torch)
+        del Ab, Wb, y2, WSP, ref
         torch.cuda.empty_cache()
     return out
 

@@ -333,7 +333,10 @@ def test_masked_plan_matches_the_library(cuda):
     out = (ctypes.c_longlong * len(tk.MASKED_PLAN_FIELDS))()
     for shape in ((4096, 896, 16, 16), (60_160, 896, 16, 192), (2000, 1152, 32, 1),
                   (512, 128, 128, 3), (4096, 896, 160, 16), (256, 16, 256, 2),
-                  (4096, 896, 272, 16), (8192, 128, 304, 64), (2000, 80, 528, 3)):
+                  (4096, 896, 272, 16), (8192, 128, 304, 64), (2000, 80, 528, 3),
+                  *[(1000, 128, cp, 3) for cp in kc.CLASS_BOUNDARIES], (8192, 448, 304, 64),
+                  (8192, 512, 304, 64), (8192, 256, 1008, 8), (8192, 320, 1008, 8),
+                  (16_384, 768, 1008, 16), (600, 1024, 2048, 1), (4096, 2048, 528, 5)):
         assert lib.logreg_masked_plan(*shape, out) == 1, shape
         plan = tk.masked_plan(*shape)
         assert list(out) == [plan[k] for k in tk.MASKED_PLAN_FIELDS], shape
@@ -374,10 +377,10 @@ def _wide_inputs(dev, n_pad, dpp, c, S, n_wb, seed):
 def _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed):
     """B1 on the card (its wide form: no register-resident geometry) twice
     and its plain version: within TOL, equal to the bit, the route the
-    shape takes (``wide_route``: the fused form, one C call, else the two
+    shape takes (``route_plan``: the fused form, one C call, else the two
     passes, one launch a plan's launch) and no other. Returns the route's
     plan."""
-    route = tk.wide_route(n_pad, dpp, c, S, n_wb)
+    route = tk.route_plan(n_pad, dpp, c, S, n_wb)[0]
     assert route in ("fused", "two_pass")
     Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, n_wb, seed)
     plan = (tk.fused_plan if route == "fused" else tk.wide_plan)(n_pad, dpp, c, S, n_wb)
@@ -404,12 +407,14 @@ def test_wide_form_matches_plain_and_repeats_bit_for_bit_on_card(cuda, tag):
     classes at dpp 448 (192 CTAs: the rows in two ranges), 100 classes at
     dpp 320 (768 CTAs, no scratch) and 200 classes at dpp 320 (clusters of
     two CTAs a lane, one row range) take the fused form, one
-    call; 300 classes the two passes, four launches (lane groups: the
-    residual passes the scratch cap)."""
+    call; 300 classes the two passes, their pass (a) in clusters of two
+    CTAs a lane at a pitch of 320, two launches (lane groups: the residual
+    passes the scratch cap)."""
     n_pad, dpp, c, S, n_wb = kc.WIDE_SHAPES[tag]
     plan = _wide_check(cuda, n_pad, dpp, c, S, n_wb, seed=19)
     if tag == "probe_c300":
-        assert (plan["lane_launches"], plan["row_launches"]) == (4, 1)
+        assert (plan["lane_launches"], plan["row_launches"]) == (2, 1)
+        assert (plan["pass_a"], plan["cl"], plan["cpp"]) == ("cluster", 2, 320)
         return
     assert (plan["nc"], plan["L"], plan["cl"], plan["ranges"]) == {
         "probe_main": (40, 8, 1, 2), "probe_c100": (56, 1, 1, 1),
@@ -422,8 +427,8 @@ def test_wide_form_matches_plain_and_repeats_bit_for_bit_on_card(cuda, tag):
 @pytest.mark.parametrize("n_pad,dpp,c,S,n_wb", [
     (2000, 64, 20, 3, 1),      # past 16 classes, a partial row tile; one atom (a CTA idle)
     (1000, 512, 3, 2, 2),      # eight feature atoms, no register-resident instantiation
-    (700, 320, 300, 1, 1),     # the two passes: the class-tiled pass (a), two tiles of 256
-    (16_384, 64, 1000, 1, 1),  # four class tiles; rows split into 3 launches, added in order
+    (700, 320, 300, 1, 1),     # the two passes: pass (a) in clusters of two CTAs
+    (16_384, 64, 1000, 1, 1),  # clusters of four CTAs; rows split into 3 launches, in order
     (1000, 448, 10, 1, 1),     # the fused form's rows split into ranges (few blocks)
     (3000, 320, 100, 1, 1),    # one lane a block, a partial row tile
     (700, 496, 16, 2, 1),      # 4 lanes a block; dpp 496, a partial atom
@@ -472,7 +477,9 @@ def test_wide_plan_matches_the_library(cuda):
     lib = tk._lib()
     out = (ctypes.c_longlong * len(tk.WIDE_PLAN_FIELDS))()
     for shape in (*kc.WIDE_SHAPES.values(), (116_736, 64, 7, 6, 8), (2000, 64, 20, 3, 1),
-                  (700, 320, 300, 1, 1), (16_384, 64, 1000, 1, 1), (20_480, 512, 1000, 6, 6)):
+                  (700, 320, 300, 1, 1), (16_384, 64, 1000, 1, 1), (20_480, 512, 1000, 6, 6),
+                  *[(1000, 128, c, 2, 1) for c in kc.CLASS_BOUNDARIES], (8192, 512, 300, 4, 1),
+                  kc.WIDE_RING_SHAPE, (600, 384, 600, 2, 1)):
         assert lib.logreg_wide_plan(*shape, tk.TRIAL_BLOCK, out) == 1, shape
         plan = tk.wide_plan(*shape)
         assert list(out) == [plan[k] for k in tk.WIDE_PLAN_FIELDS], shape
@@ -516,20 +523,80 @@ def test_wide_form_raises_past_its_plan_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_pad,dpp,cp,c,lanes", [
-    (8192, 128, 304, 300, 16),  # chip_smoke.py's probe_scored_c300: two class tiles
-    (2000, 80, 528, 520, 3),    # three class tiles, a partial atom and row tile
+@pytest.mark.parametrize("n_pad,dpp,cp,c,lanes,pass_a", [
+    (8192, 128, 304, 300, 16, "cluster"),  # chip_smoke.py's probe_scored: 2 CTAs of 160
+    (2000, 80, 528, 520, 3, "cluster"),    # 3 CTAs of 192, a partial atom and row tile
+    (1000, 64, 272, 260, 4, "cluster"),    # 2 CTAs of 160, a ragged last tile
+    (1000, 128, 320, 320, 3, "cluster"),   # no padded class
+    (700, 64, 336, 330, 2, "cluster"),     # 2 CTAs of 192
+    (1000, 128, 512, 500, 2, "cluster"),   # 2 CTAs of 256
+    (900, 256, 1008, 1000, 2, "cluster"),  # 4 CTAs of 256, 4 atoms, one ring set
+    (600, 64, 2048, 2048, 1, "cluster"),   # 8 CTAs, the portable cluster's most
+    (600, 64, 2064, 2050, 2, "sweeps"),    # past 2,048: the two sweeps at a pitch of 2,304
+    (1000, 512, 304, 300, 2, "cluster_ring"),   # a slice's weights past a CTA: streamed
+    (2000, 768, 1008, 1000, 3, "cluster_ring"),  # 4 CTAs of 256, 12 atoms in 4 stages
+    (700, 320, 1008, 1000, 2, "cluster_ring"),  # 5 atoms, a ragged last tile
+    (600, 1024, 2048, 2040, 1, "cluster_ring"),  # 8 CTAs, 16 atoms
 ])
-def test_masked_kernel_past_256_classes_on_card(cuda, n_pad, dpp, cp, c, lanes):
-    """B3 past 256 classes (the class-tiled pass (a)) within TOL of its
-    plain version, two launches equal to the bit, padded classes 0."""
+@pytest.mark.parametrize("zero_lane", [False, True])
+def test_masked_kernel_past_256_classes_on_card(cuda, n_pad, dpp, cp, c, lanes, pass_a,
+                                                zero_lane):
+    """B3 past 256 classes by the route its plan names (a cluster of CTAs
+    a lane, its weights resident or streamed, or the two sweeps) within TOL
+    of its plain version, two launches equal to the bit, each counted under
+    that route, padded classes 0, a lane whose fold mask is all zero
+    exactly 0."""
+    assert tk.masked_plan(n_pad, dpp, cp, lanes)["pass_a"] == pass_a
     Ab, W, y2, wm = _masked_inputs(cuda, n_pad, dpp, cp, c, lanes, seed=cp)
+    if zero_lane:
+        wm[:, 0] = 0.0
+    tk.reset_launches()
     runs = [tk.masked_softmax_grad(Ab, W, y2, wm, c=c) for _ in range(2)]
     ref = tk.masked_softmax_grad_reference(Ab, W, y2, wm, c=c)
     torch.cuda.synchronize()
+    assert tk.LAUNCHES["masked_softmax_grad"] == tk.PASS_A_LAUNCHES[
+        "masked_softmax_grad_" + pass_a] == 2
     assert _rel(runs[0], ref) < TOL
     assert torch.equal(runs[0], runs[1])
-    assert float(runs[0][:, :, c:].abs().max()) == 0.0
+    assert not runs[0][:, :, c:].any()  # (empty where c == cp)
+    if zero_lane:
+        assert not runs[0][0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_pad,dpp,c,S,pass_a", [
+    (1000, 64, 272, 2, "cluster"),   # two splits, a ragged last tile
+    (700, 128, 304, 1, "cluster"),   # chip_smoke.py's probe_c300 pitch, 320
+    (1000, 64, 320, 1, "cluster"),
+    (900, 64, 336, 1, "cluster"),
+    (600, 128, 512, 1, "cluster"),
+    (700, 64, 528, 1, "cluster"),
+    (600, 128, 1008, 1, "cluster"),
+    (500, 64, 2048, 1, "cluster"),
+    (500, 64, 2064, 1, "sweeps"),    # past 2,048 classes
+    (600, 512, 300, 1, "cluster_ring"),   # the packed path's 512 features: W^T streamed
+    (800, 448, 1000, 1, "cluster_ring"),  # 4 CTAs of 256, 7 atoms
+    (600, 384, 600, 2, "cluster_ring"),   # 3 CTAs of 224, two splits
+])
+def test_wide_form_past_256_classes_on_card(cuda, n_pad, dpp, c, S, pass_a):
+    """B1's wide form past 256 classes (the two passes) at the class
+    boundaries of pass (a)'s clusters: within TOL, two launches equal to the
+    bit, each launch counted under pass (a)'s route, and a split whose
+    weights are all zero (its lanes' residual 0) gets exact zeros."""
+    assert tk.wide_plan(n_pad, dpp, c, S, 1)["pass_a"] == pass_a
+    Ab, Wb, y2, WSP = _wide_inputs(cuda, n_pad, dpp, c, S, 1, seed=n_pad + c)
+    WSP[:, 0] = 0.0
+    tk.reset_launches()
+    runs = [tk.packed_softmax_grad(Ab, Wb, y2, WSP, c=c, S=S) for _ in range(2)]
+    ref = tk.packed_softmax_grad_reference(Ab, Wb, y2, WSP, c=c, S=S)
+    torch.cuda.synchronize()
+    launches = 2 * tk.wide_plan(n_pad, dpp, c, S, 1)["launches"]
+    assert tk.LAUNCHES["packed_softmax_grad_wide"] == launches
+    assert tk.PASS_A_LAUNCHES["packed_softmax_grad_wide_" + pass_a] == launches
+    assert _rel(runs[0], ref) < TOL
+    assert torch.equal(runs[0], runs[1])
+    split0 = runs[0].reshape(1, dpp, c, S, tk.TRIAL_BLOCK)[:, :, :, 0]
+    assert float(split0.abs().max()) == 0.0
 
 
 @pytest.mark.gpu

@@ -76,7 +76,7 @@ def test_fused_shapes_match_the_jax_kernel(tag):
     packed kernel (interpret mode, at the narrow shapes) and its reference
     on the same inputs."""
     n_pad, dpp, c, S, n_wb = _SHAPES[tag]
-    assert tk.wide_route(n_pad, dpp, c, S, n_wb) == "fused"
+    assert tk.route_plan(n_pad, dpp, c, S, n_wb)[0] == "fused"
     j_in, t_in = _inputs(n_pad, dpp, c, S, n_wb, seed=n_pad + c)
     got = tk.packed_softmax_grad(*t_in, c=c, S=S).numpy()
     ref = np.asarray(_packed_grad_ref(*j_in, c=c, S=S))
@@ -150,7 +150,6 @@ def test_wide_route_at_its_boundaries(shape, route, pitch):
     512."""
     n_pad, dpp, c = shape
     S, n_wb = 6, 1
-    assert tk.wide_route(n_pad, dpp, c, S, n_wb) == route
     assert tk.route_plan(n_pad, dpp, c, S, n_wb)[0] == route
     plan = tk.fused_plan(n_pad, dpp, c, S, n_wb)
     if route == "fused":
@@ -204,7 +203,7 @@ def test_fused_plan_fits_the_card(shape):
                            // 1024) * 1024
     assert plan["scratch"] == plan["vt"] + (P * g3 if P > 1 else 0)
     assert plan["scratch"] - plan["vt"] <= tk.WIDE_SCRATCH_BYTES
-    if tk.wide_route(*shape) == "fused":  # (a register-resident shape holds no scratch)
+    if tk.route_plan(*shape)[0] == "fused":  # (a register-resident shape holds no scratch)
         assert tk.wide_scratch_bytes(*shape) == plan["scratch"]
 
 

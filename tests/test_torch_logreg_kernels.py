@@ -139,26 +139,19 @@ _MASKED_SHAPES = [
     (512, 128, 7, 128, 256),
     (256, 128, 2, 128, 128),
 ]
-# The wrapper (its plain version on the CPU) at each shape, then the plain
-# counterpart of the card kernel's two passes (bf16 residual, row ranges
-# added in order): at the same shapes, at a 10-class one with cp 16 and 4
-# row ranges, and with a lane whose fold mask is all zero.
-_MASKED_CASES = [pytest.param(s, "wrapper", False, id=str(s)) for s in _MASKED_SHAPES] + [
-    pytest.param(s, "two_pass", False, id=f"{s}-two_pass") for s in _MASKED_SHAPES
-] + [
-    pytest.param((512, 96, 10, 16, 256), "two_pass", False, id="(512, 96, 10, 16, 256)-two_pass"),
-    pytest.param((512, 128, 7, 128, 256), "two_pass", True,
-                 id="(512, 128, 7, 128, 256)-two_pass-zero_lane"),
+# The wrapper (its plain version on the CPU) at each shape, and with a lane
+# whose fold mask is all zero.
+_MASKED_CASES = [pytest.param(s, False, id=str(s)) for s in _MASKED_SHAPES] + [
+    pytest.param((512, 128, 7, 128, 256), True, id="(512, 128, 7, 128, 256)-zero_lane"),
 ]
 
 
-@pytest.mark.parametrize("shape,impl,zero_lane", _MASKED_CASES)
-def test_masked_softmax_grad_plain_matches_pallas(shape, impl, zero_lane):
+@pytest.mark.parametrize("shape,zero_lane", _MASKED_CASES)
+def test_masked_softmax_grad_plain_matches_pallas(shape, zero_lane):
     """A lane batch of 3 through the port vs the JAX lane kernel lane by
-    lane, each lane with its own fold mask over the shared A. ``impl``:
-    the wrapper, or the plain counterpart of the kernel's two passes, also
-    held against the wrapper's plain version; a lane whose mask is all
-    zero gets a gradient of exact zeros."""
+    lane, each lane with its own fold mask over the shared A; a lane whose
+    mask is all zero gets a gradient of exact zeros. The card kernel's pass
+    (b) adds the plan's row ranges in order: they cover the rows once."""
     n_pad, dpp, c, cp, bm = shape
     lanes = 3
     rng = np.random.RandomState(0)
@@ -171,12 +164,10 @@ def test_masked_softmax_grad_plain_matches_pallas(shape, impl, zero_lane):
     if zero_lane:
         wm[:, 1] = 0.0
     args = (Ab_t, W_t, torch.as_tensor(y2), torch.as_tensor(wm))
-    if impl == "wrapper":
-        got = tk.masked_softmax_grad(*args, c=c)
-    else:
-        got = tk.masked_softmax_grad_two_pass(*args, c=c)
-        assert _rel(got.numpy(), tk.masked_softmax_grad_reference(*args, c=c).numpy()) < TOL
-        assert tk.masked_plan(n_pad, dpp, cp, lanes)["ranges"] > 1  # the split sum runs
+    got = tk.masked_softmax_grad(*args, c=c)
+    ranges = tk.masked_ranges(tk.masked_plan(n_pad, dpp, cp, lanes), n_pad)
+    assert len(ranges) > 1  # the split sum runs
+    assert [r for rg in ranges for r in range(*rg)] == list(range(n_pad))
     assert got.shape == (lanes, dpp, cp)
     for lane in range(lanes):
         if zero_lane and lane == 1:
@@ -186,7 +177,7 @@ def test_masked_softmax_grad_plain_matches_pallas(shape, impl, zero_lane):
         kern = jx.masked_softmax_grad(*args, c=c, bm=bm, interpret=True)
         ref = _masked_ref(*args, c=c)
         assert _rel(got[lane].numpy(), kern) < TOL
-        assert _rel(got[lane].numpy(), ref) < (1e-4 if impl == "wrapper" else TOL)
+        assert _rel(got[lane].numpy(), ref) < 1e-4
     np.testing.assert_array_equal(got[:, :, c:].numpy(), 0.0)
 
 
@@ -264,9 +255,10 @@ def test_masked_gate_still_accepts_every_shape_it_accepted():
 def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
     """B3's plan at every shape the gate accepts (dpp to 2,048, cp to 544):
     both passes' shared memory within a CTA's, an instantiated pass (a)
-    (past 256 classes the class-tiled one: 256 columns of one lane's
-    class tile), whole lanes in its column tile, the P row ranges covering
-    [0, n_pad) once in order, and the scratch the sum of W^T, R^T and the
+    (past 256 classes a cluster's class slices, their weights resident or,
+    where a slice's weights do not fit, streamed with A),
+    whole lanes in its column tile, the P row ranges covering [0, n_pad)
+    once in order, and the scratch the sum of W^T, R^T and the
     partials."""
     for dpp in range(16, 2049, 16):
         for cp in range(16, 545, 16):
@@ -277,10 +269,12 @@ def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
             assert plan["cpp"] == tk.class_pitch(cp) >= cp
             if plan["cpp"] <= tk.CLASS_TILE:
                 assert (plan["na"], plan["cpp"]) in tk.MASKED_GEOMETRIES
-                assert plan["na"] % plan["cpp"] == 0
+                assert plan["na"] % plan["cpp"] == 0 and plan["cols"] % plan["na"] == 0
             else:
-                assert plan["na"] == tk.CLASS_TILE and plan["cpp"] % tk.CLASS_TILE == 0
-            assert plan["cols"] % plan["na"] == 0 and plan["cols"] >= lanes * plan["cpp"]
+                assert plan["pass_a"] == ("cluster_ring" if plan["ring_w"] else "cluster")
+                assert plan["na"] in tk.CLUSTER_SLICES and plan["na"] * plan["cl"] == plan["cpp"]
+                assert 1 <= plan["ranges_a"] <= 2 * plan["row_tiles"]
+            assert plan["cols"] >= lanes * plan["cpp"]
             assert plan["mt"] * 64 >= dpp and 2 * plan["fb"] >= plan["mt"]
             ranges = tk.masked_ranges(plan, n_pad)
             assert len(ranges) == plan["ranges"] <= min(16, plan["row_tiles"])
@@ -294,8 +288,9 @@ def test_masked_plan_fits_and_covers_the_rows(n_pad, lanes):
             assert plan["r_offset"] >= wt and plan["part_offset"] - plan["r_offset"] >= r
             assert plan["scratch"] == plan["part_offset"] + part
             assert plan["r_offset"] % 1024 == 0 and plan["part_offset"] % 1024 == 0
-    wide = tk.masked_plan(n_pad, 896, 272, lanes)  # two class tiles of 256
-    assert (wide["cpp"], wide["na"]) == (512, 256) and wide["smem_a"] <= tk.SMEM_LIMIT
+    wide = tk.masked_plan(n_pad, 896, 272, lanes)  # two CTAs of 160, W^T streamed
+    assert (wide["cpp"], wide["na"], wide["pass_a"]) == (320, 160, "cluster_ring")
+    assert wide["smem_a"] <= tk.SMEM_LIMIT
     assert tk.masked_plan(n_pad, 904, 16, lanes) is None
 
 

@@ -262,7 +262,7 @@ def test_packed_chunk_is_bounded_by_device_memory(monkeypatch, d, c, blocks):
     dpp, NB = -(-(d + 2) // 64) * 64, c * S * 128
     want = 16 * got * dpp * NB + 4 * got * 2048 * NB
     n_pad = -(-n // 2048) * 2048
-    route = tk.wide_route(n_pad, dpp, c, S, got)
+    route = tk.route_plan(n_pad, dpp, c, S, got)[0]
     if route == "fused":
         want += tk.fused_plan(n_pad, dpp, c, S, got)["scratch"]
     elif route == "two_pass":
